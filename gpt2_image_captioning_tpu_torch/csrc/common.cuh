@@ -1,0 +1,263 @@
+// Shared pieces of the port's CUDA kernels: element types, warp reductions,
+// and the tiled row-block x weight-tile product that fused_linear.cu and
+// logits_argmax.cu both run.
+//
+// Element type codes match ops/_build.py::DTYPE_CODE: 0 = float, 1 = bf16.
+// Inputs are read in the element type, products accumulate in float32, and
+// LayerNorm statistics are float32, as in the TPU kernel
+// (gpt2_image_captioning_tpu/ops/decode_step.py::_step_kernel).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <type_traits>
+
+namespace gic {
+
+constexpr int kF32 = 0;
+constexpr int kBF16 = 1;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+// round to nearest even, as jnp.astype(bfloat16) and torch's .to(bfloat16)
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// Tiled product: one block computes a BM x BN tile of
+//   Y = prologue(X) @ W^T,   X (M, K) row-major,  W (N, K) row-major,
+// walking K in BK steps through shared memory.  W is stored output-major
+// ((N, K): each output column's weights are contiguous in K), which is the
+// natural layout of the tied embedding (V, D) and what pack_decode_weights
+// gives the four GPT-2 projections.
+//
+// prologue: either a plain load of X in the element type, or the LayerNorm of
+// each float32 row of the residual stream, cast to the element type, from
+// per-row statistics (mean, rstd) that a pre-pass computed once.
+//
+// bf16 runs on the tensor cores through WMMA 16x16x16 fragments (float
+// accumulators); float runs as plain FMA, so the float build reproduces the
+// reference in full float32.
+// ---------------------------------------------------------------------------
+
+constexpr int BM = 64;       // rows of X (batch rows) per block
+constexpr int BN = 32;       // output columns per block
+constexpr int BK = 64;       // depth of one shared-memory stage
+constexpr int THREADS = 128; // 4 warps
+constexpr int LDS = BK + 8;  // shared pitch of the X/W stages (WMMA wants a multiple of 8)
+constexpr int LDC = BN + 4;  // shared pitch of the float result tile
+
+template <typename T>
+struct __align__(32) TileSmem {
+  __align__(32) T xs[BM][LDS];
+  __align__(32) T ws[BN][LDS];
+  __align__(32) float cs[BM][LDC];
+  float mean[BM];
+  float rstd[BM];
+};
+
+// LayerNorm statistics of one float32 row, two-pass (mean, then the mean of
+// squared deviations), by one warp; every lane gets the result.
+__device__ __forceinline__ void row_mean_rstd(const float* row, int K, float eps, float& mean,
+                                              float& rstd) {
+  const int lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (int k = lane; k < K; k += 32) s += row[k];
+  mean = warp_sum(s) / (float)K;
+  float v = 0.f;
+  for (int k = lane; k < K; k += 32) {
+    const float d = row[k] - mean;
+    v += d * d;
+  }
+  rstd = 1.f / sqrtf(warp_sum(v) / (float)K + eps);
+}
+
+// The LN prologue's value of one element, rounded to the compute dtype where
+// _step_kernel rounds it (decode_step.py:531, :553).
+template <typename T>
+__device__ __forceinline__ T ln_value(float x, float mean, float rstd, float s, float b) {
+  return from_f32<T>((x - mean) * rstd * s + b);
+}
+
+// Copy the (mean, rstd) pairs of rows m0 .. m0+BM-1 into shared memory.
+template <typename T>
+__device__ void load_row_stats(TileSmem<T>& sm, const float* stats, int M, int m0) {
+  for (int r = threadIdx.x; r < BM; r += THREADS) {
+    const int m = m0 + r;
+    sm.mean[r] = m < M ? stats[2 * (size_t)m] : 0.f;
+    sm.rstd[r] = m < M ? stats[2 * (size_t)m + 1] : 0.f;
+  }
+}
+
+// One 64-deep stage travels global -> registers -> shared.  Every load of a
+// stage is a 16-byte vector and all of a thread's loads are issued before
+// any of them is stored, so each thread keeps several loads in flight; the
+// caller issues stage k+1's loads before stage k's MMAs (tile_product).
+// Needs K to be a multiple of the vector width (8 bf16 / 4 float) and
+// 16-byte-aligned rows, which the wrappers check.
+template <typename T, bool LN>
+struct StageRegs {
+  using XT = typename std::conditional<LN, float, T>::type;  // element type of X in memory
+  static constexpr int XE = 16 / sizeof(XT);                // X elements per vector
+  static constexpr int WE = 16 / sizeof(T);                 // W elements per vector
+  static constexpr int NX = BM * BK / XE / THREADS;
+  static constexpr int NW = BN * BK / WE / THREADS;
+  static_assert(NX * XE * THREADS == BM * BK && NW * WE * THREADS == BN * BK, "stage split");
+  uint4 x[NX];
+  uint4 w[NW];
+
+  __device__ void load(const void* xp, const T* wp, int M, int K, int N, int m0, int n0, int k0) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      const int v = threadIdx.x + i * THREADS;
+      const int r = v / (BK / XE), c = (v % (BK / XE)) * XE;
+      const int m = m0 + r, k = k0 + c;
+      x[i] = (m < M && k < K)
+                 ? *reinterpret_cast<const uint4*>(static_cast<const XT*>(xp) + (size_t)m * K + k)
+                 : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int v = threadIdx.x + i * THREADS;
+      const int r = v / (BK / WE), c = (v % (BK / WE)) * WE;
+      const int n = n0 + r, k = k0 + c;
+      w[i] = (n < N && k < K) ? *reinterpret_cast<const uint4*>(wp + (size_t)n * K + k)
+                              : make_uint4(0, 0, 0, 0);
+    }
+  }
+
+  // LN prologue applied here, on the way into shared memory
+  __device__ void store(TileSmem<T>& sm, const float* ln_s, const float* ln_b, int K,
+                        int k0) const {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      const int v = threadIdx.x + i * THREADS;
+      const int r = v / (BK / XE), c = (v % (BK / XE)) * XE;
+      if (LN) {
+        const float* xv = reinterpret_cast<const float*>(&x[i]);
+#pragma unroll
+        for (int e = 0; e < XE; ++e) {
+          const int k = k0 + c + e;
+          // zero-filled columns past K stay zero (their products are padding)
+          sm.xs[r][c + e] = k < K ? ln_value<T>(xv[e], sm.mean[r], sm.rstd[r], ln_s[k], ln_b[k])
+                                  : from_f32<T>(0.f);
+        }
+      } else {
+        *reinterpret_cast<uint4*>(&sm.xs[r][c]) = x[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+      const int v = threadIdx.x + i * THREADS;
+      const int r = v / (BK / WE), c = (v % (BK / WE)) * WE;
+      *reinterpret_cast<uint4*>(&sm.ws[r][c]) = w[i];
+    }
+  }
+};
+
+template <typename T> struct TileMma;
+
+// bf16: warp w owns rows 16w .. 16w+15 of the tile and all BN columns.
+template <> struct TileMma<__nv_bfloat16> {
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) nvcuda::wmma::fill_fragment(acc[j], 0.f);
+  }
+  __device__ void step(TileSmem<__nv_bfloat16>& sm) {
+    using namespace nvcuda;
+    const int warp = threadIdx.x / 32;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+      wmma::load_matrix_sync(a, &sm.xs[warp * 16][kk], LDS);
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) {
+        // B = W^T: element (k, n) sits at ws[n][k], i.e. column-major with pitch LDS
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
+        wmma::load_matrix_sync(b, &sm.ws[j * 16][kk], LDS);
+        wmma::mma_sync(acc[j], a, b, acc[j]);
+      }
+    }
+  }
+  __device__ void store(TileSmem<__nv_bfloat16>& sm) {
+    const int warp = threadIdx.x / 32;
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+      nvcuda::wmma::store_matrix_sync(&sm.cs[warp * 16][j * 16], acc[j], LDC,
+                                      nvcuda::wmma::mem_row_major);
+  }
+};
+
+// float: thread (ty, tx) of a 16 x 8 grid owns a 4 x 4 block of the tile.
+template <> struct TileMma<float> {
+  float acc[4][4];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  __device__ void step(TileSmem<float>& sm) {
+    const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+    for (int k = 0; k < BK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = sm.xs[ty * 4 + i][k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = sm.ws[tx * 4 + j][k];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  __device__ void store(TileSmem<float>& sm) {
+    const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sm.cs[ty * 4 + i][tx * 4 + j] = acc[i][j];
+  }
+};
+
+// Computes this block's tile (rows m0.., columns n0..) into sm.cs; rows >= M
+// and columns >= N hold zeros.  Ends with a barrier, so sm.cs is readable.
+// With LN, ``stats`` holds each row's (mean, rstd) and ln_s/ln_b the scale and
+// bias; without, all three are unused.
+template <typename T, bool LN>
+__device__ void tile_product(TileSmem<T>& sm, const void* x, const float* stats,
+                             const float* ln_s, const float* ln_b, const T* w, int M, int K, int N,
+                             int m0, int n0) {
+  StageRegs<T, LN> regs;
+  regs.load(x, w, M, K, N, m0, n0, 0);
+  if (LN) load_row_stats(sm, stats, M, m0);
+  TileMma<T> mma;
+  mma.zero();
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    if (LN && k0 == 0) __syncthreads();  // the first store reads the row statistics
+    regs.store(sm, ln_s, ln_b, K, k0);
+    __syncthreads();
+    if (k0 + BK < K) regs.load(x, w, M, K, N, m0, n0, k0 + BK);  // in flight during the MMAs
+    mma.step(sm);
+    __syncthreads();
+  }
+  mma.store(sm);
+  __syncthreads();
+}
+
+}  // namespace gic

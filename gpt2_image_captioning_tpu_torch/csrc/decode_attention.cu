@@ -1,0 +1,147 @@
+// Single-token decode attention over the valid prefix of one layer's KV cache,
+// fused with the cache append.
+//
+// Replaces: gpt2_image_captioning_tpu/ops/decode_attention.py::_decode_kernel
+// (:68) and the attention() of ops/decode_step.py::_step_kernel (:292-517).
+// Each (batch row, head) attends cache rows [0, idx) walked in 16-row chunks
+// with an online float32 softmax, then folds in this step's own K/V row
+// straight from its inputs (decode_attention.py:157-172); the new K/V row is
+// written into row idx of the (T, B, D) caches in place.  idx = 0 attends the
+// new row alone.
+//
+// Bound on the H100: reading the cache, 2 * idx * B * D elements per layer
+// (25 MB in bf16 at idx 64, B 128, D 768 — more than the layer's weights).
+//
+// Design: one warp per (batch row, head), the head's hd <= 128 elements
+// spread over the lanes (lane + 32 e).  A chunk's 16 rows are loaded before
+// any of them is reduced, so each lane keeps 16 independent loads in flight;
+// a row of one head is hd contiguous elements (128 bytes in bf16 at hd 64).
+// Rows >= idx inside the last chunk are never loaded.  The TPU kernel's
+// head-sum matrices and DMA double-buffering are not carried over: the lanes
+// hold the head dimension, so the per-head sum is a warp shuffle reduction.
+#include "common.cuh"
+
+namespace gic {
+
+constexpr int kChunk = 16;        // cache rows per step of the walk (ops/decode_attention.CHUNK_T)
+constexpr int kMaxPerLane = 4;    // head dim up to 4 * 32 = 128
+constexpr int kWarpsPerBlock = 4;
+constexpr float kNegInf = -3.4028234663852886e38f;  // float32 minimum, the mask value
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarpsPerBlock)
+decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* kc, T* vc, T* out,
+                        int B, int D, int H, int idx, float scale) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pair = blockIdx.x * kWarpsPerBlock + warp;
+  if (pair >= B * H) return;
+  const int b = pair / H, h = pair % H;
+  const int hd = D / H;
+  const size_t trow = (size_t)B * D;  // elements between consecutive time rows of a cache
+  const size_t off = (size_t)b * D + (size_t)h * hd;
+  const size_t in_off = (size_t)b * in_stride + (size_t)h * hd;
+
+  float qv[kMaxPerLane], knv[kMaxPerLane], vnv[kMaxPerLane], acc[kMaxPerLane];
+#pragma unroll
+  for (int e = 0; e < kMaxPerLane; ++e) {
+    const int j = lane + 32 * e;
+    const bool in = j < hd;
+    qv[e] = in ? to_f32(q[in_off + j]) : 0.f;
+    knv[e] = in ? to_f32(kn[in_off + j]) : 0.f;
+    vnv[e] = in ? to_f32(vn[in_off + j]) : 0.f;
+    acc[e] = 0.f;
+    if (in) {  // the append: only rows < idx are read below, so no warp races it
+      kc[(size_t)idx * trow + off + j] = kn[in_off + j];
+      vc[(size_t)idx * trow + off + j] = vn[in_off + j];
+    }
+  }
+
+  float m = kNegInf, l = 0.f;
+  for (int t0 = 0; t0 < idx; t0 += kChunk) {
+    float s[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const int t = t0 + c;
+      float d = 0.f;
+      if (t < idx) {
+        const T* krow = kc + (size_t)t * trow + off;
+#pragma unroll
+        for (int e = 0; e < kMaxPerLane; ++e) {
+          const int j = lane + 32 * e;
+          if (j < hd) d = fmaf(qv[e], to_f32(krow[j]), d);
+        }
+      }
+      s[c] = d;
+    }
+    float cmax = kNegInf;
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      s[c] = warp_sum(s[c]) * scale;
+      if (t0 + c < idx) cmax = fmaxf(cmax, s[c]);
+    }
+    const float m_new = fmaxf(m, cmax);
+    const float alpha = expf(m - m_new);
+    l *= alpha;
+#pragma unroll
+    for (int e = 0; e < kMaxPerLane; ++e) acc[e] *= alpha;
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const int t = t0 + c;
+      if (t < idx) {
+        const float p = expf(s[c] - m_new);
+        l += p;
+        const T* vrow = vc + (size_t)t * trow + off;
+#pragma unroll
+        for (int e = 0; e < kMaxPerLane; ++e) {
+          const int j = lane + 32 * e;
+          if (j < hd) acc[e] = fmaf(p, to_f32(vrow[j]), acc[e]);
+        }
+      }
+    }
+    m = m_new;
+  }
+
+  // epilogue: this step's own row, from registers
+  float d = 0.f;
+#pragma unroll
+  for (int e = 0; e < kMaxPerLane; ++e) d = fmaf(qv[e], knv[e], d);
+  const float s_new = warp_sum(d) * scale;
+  const float m_f = fmaxf(m, s_new);
+  const float p_new = expf(s_new - m_f);
+  const float alpha = expf(m - m_f);
+  l = l * alpha + p_new;
+#pragma unroll
+  for (int e = 0; e < kMaxPerLane; ++e) {
+    const int j = lane + 32 * e;
+    if (j < hd) out[(size_t)b * D + (size_t)h * hd + j] = from_f32<T>((acc[e] * alpha + p_new * vnv[e]) / l);
+  }
+}
+
+}  // namespace gic
+
+// q/k_new/v_new: (B, D) rows with row stride in_stride (elements), unit
+// column stride; k_cache/v_cache: (T, B, D) contiguous, row idx < T is
+// written; out: (B, D).  All in the element type.  Returns cudaGetLastError().
+extern "C" int gic_decode_attention(int dtype, const void* q, const void* kn, const void* vn,
+                                    int in_stride, void* kc, void* vc, void* out, int B, int D,
+                                    int H, int idx, void* stream) {
+  using namespace gic;
+  if (B <= 0 || H <= 0 || D % H != 0 || D / H > 32 * kMaxPerLane || idx < 0)
+    return (int)cudaErrorInvalidValue;
+  const float scale = 1.f / sqrtf((float)(D / H));
+  const int blocks = (B * H + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kBF16)
+    decode_attention_kernel<__nv_bfloat16><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kn),
+        static_cast<const __nv_bfloat16*>(vn), in_stride, static_cast<__nv_bfloat16*>(kc),
+        static_cast<__nv_bfloat16*>(vc), static_cast<__nv_bfloat16*>(out), B, D, H, idx, scale);
+  else if (dtype == kF32)
+    decode_attention_kernel<float><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(kn),
+        static_cast<const float*>(vn), in_stride, static_cast<float*>(kc),
+        static_cast<float*>(vc), static_cast<float*>(out), B, D, H, idx, scale);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}

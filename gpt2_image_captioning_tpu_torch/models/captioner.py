@@ -1,0 +1,229 @@
+"""The image-captioning model: mapping network + GPT-2 decoder — the
+counterpart of ``gpt2_image_captioning_tpu/models/captioner.py`` on its
+serving path, greedy decoding.
+
+Parameters split into a trainable and a frozen tree as in the JAX package.
+``generate`` runs eagerly: the mapper and the prefill are plain PyTorch ops,
+then each decode step is :func:`ops.decode_step.fused_decode_step` — the
+hand-written CUDA kernels for CUDA tensors, their plain twins on the CPU.
+The early exit reads one flag from the device per step.
+
+Not ported yet, and refused rather than run another way: sampling
+(``temperature > 0``), beam search, meshes and the int8 weight mode (see
+ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from gpt2_image_captioning_tpu_torch.core.precision import BF16, F32, Policy, cast_floating
+from gpt2_image_captioning_tpu_torch.core.tree import tree_map
+from gpt2_image_captioning_tpu_torch.models import gpt2 as G
+from gpt2_image_captioning_tpu_torch.models import mapping as M
+from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+
+@dataclasses.dataclass(frozen=True)
+class CaptionerConfig:
+    gpt2: G.GPT2Config
+    mapping: M.MappingConfig
+    # token ids of the optional task prompt; its embeddings become trainable
+    # parameters initialized from wte
+    task_prompt_ids: tuple[int, ...] | None = None
+    freeze_gpt_weights: bool = True
+    eos_token_id: int = 50256
+
+    @property
+    def image_prefix_length(self) -> int:
+        return self.mapping.prefix_length
+
+    @property
+    def total_prefix_length(self) -> int:
+        extra = len(self.task_prompt_ids) if self.task_prompt_ids else 0
+        return self.mapping.prefix_length + extra
+
+
+def init_params(
+    generator: torch.Generator, cfg: CaptionerConfig, device="cpu",
+) -> tuple[dict, dict]:
+    """Returns (trainable, frozen) trees of float32 tensors on ``device``, drawn
+    from ``generator`` with the distributions of the JAX package's init (the
+    draws themselves differ from ``jax.random``)."""
+    mapping_params = M.init_mapping(generator, cfg.mapping)
+    gpt_params = G.init(generator, cfg.gpt2)
+    trainable: dict[str, Any] = {"mapping": mapping_params}
+    if cfg.task_prompt_ids:
+        ids = torch.tensor(cfg.task_prompt_ids, dtype=torch.long, device=gpt_params["wte"].device)
+        trainable["task_prefix"] = gpt_params["wte"][ids]
+    frozen: dict[str, Any] = {}
+    if cfg.freeze_gpt_weights:
+        frozen["gpt"] = gpt_params
+    else:
+        trainable["gpt"] = gpt_params
+    return tree_map(lambda t: t.to(device), trainable), tree_map(lambda t: t.to(device), frozen)
+
+
+def _gpt(trainable: dict, frozen: dict) -> dict:
+    return frozen["gpt"] if "gpt" in frozen else trainable["gpt"]
+
+
+def build_prefix(trainable: dict, cfg: CaptionerConfig, image_embeddings: torch.Tensor,
+                 policy: Policy = F32) -> torch.Tensor:
+    """Image embeddings → (B, total_prefix_length, gpt_dim) prefix tokens
+    (mapping output ⧺ broadcast task prefix)."""
+    prefix = M.apply_mapping(trainable["mapping"], cfg.mapping, image_embeddings, policy)
+    if "task_prefix" in trainable:
+        b = image_embeddings.shape[0]
+        task = trainable["task_prefix"].to(prefix.dtype).expand(b, *trainable["task_prefix"].shape)
+        prefix = torch.cat([prefix, task], dim=1)
+    return prefix
+
+
+def prepare_decode_weights(trainable: dict, frozen: dict, cfg: CaptionerConfig,
+                           policy: Policy = F32) -> dict:
+    """The step kernels' weight layout (:func:`ops.decode_step.pack_decode_weights`);
+    compute it once per weight set and pass it to :func:`generate`."""
+    return DS.pack_decode_weights(_gpt(trainable, frozen), policy.compute_dtype)
+
+
+@torch.no_grad()
+def generate(
+    trainable: dict,
+    frozen: dict,
+    cfg: CaptionerConfig,
+    image_embeddings: torch.Tensor,
+    *,
+    max_length: int = 50,
+    temperature: float = 1.0,
+    policy: Policy = F32,
+    use_kernels: bool | None = None,
+    packed: dict | None = None,
+    mesh=None,
+) -> torch.Tensor:
+    """Greedy caption generation → token ids (B, max_length) int32, padded
+    with EOS after each row's first EOS.
+
+    ``use_kernels``: None runs the CUDA kernels for CUDA inputs and their
+    plain twins on the CPU; False runs the twins; True on the CPU raises.
+    ``packed``: weights from :func:`prepare_decode_weights`, reused across
+    calls.
+    """
+    if temperature != 0.0:
+        raise NotImplementedError(
+            "sampled decoding (temperature > 0) is not ported yet (ROADMAP.md, queue 1, "
+            "item 7: sampling); pass temperature=0.0 for greedy decoding"
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded decode is not ported yet (ROADMAP.md, queue 1, item 13: parallelism)"
+        )
+    gpt_params = _gpt(trainable, frozen)
+    eos = cfg.eos_token_id
+    cdt = policy.compute_dtype
+    use = DS.fused_greedy_enabled(use_kernels, image_embeddings.device)
+    if packed is None:
+        packed = DS.pack_decode_weights(gpt_params, cdt)
+
+    prefix = build_prefix(trainable, cfg, image_embeddings, policy)
+    b, p_len, _ = prefix.shape
+    cache = G.init_cache(cfg.gpt2, b, p_len + max_length, dtype=cdt, device=prefix.device)
+    logits, cache = G.forward_cached(gpt_params, cfg.gpt2, prefix, cache, policy)
+
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    finished = nxt == eos
+    tokens = torch.full((b, max_length), eos, dtype=torch.int32, device=prefix.device)
+    tokens[:, 0] = nxt
+    wte, wpe = gpt_params["wte"], gpt_params["wpe"]
+    index = cache["index"]
+    step = 1
+    while step < max_length and not bool(finished.all()):
+        x0 = (wte[nxt.long()] + wpe[index]).to(cdt)
+        nxt, _, _ = DS.fused_decode_step(
+            packed, x0, cache["k"], cache["v"], index, n_head=cfg.gpt2.n_head,
+            eps=cfg.gpt2.layer_norm_epsilon, use_kernels=use,
+        )
+        finished = finished | (nxt == eos)
+        nxt = torch.where(finished, eos, nxt).to(torch.int32)
+        tokens[:, step] = nxt
+        step += 1
+        index += 1
+    return tokens
+
+
+def beam_generate(*args, **kwargs):
+    raise NotImplementedError(
+        "beam search is not ported yet (ROADMAP.md, queue 1, item 8: beam search)"
+    )
+
+
+class ImageCaptioningModel:
+    """Stateful façade with the JAX package's surface: generate,
+    generate_captions, decode_params.  ``generator`` seeds the random init;
+    ``device`` holds the parameters and runs the model."""
+
+    def __init__(
+        self,
+        cfg: CaptionerConfig,
+        tokenizer=None,
+        generator: torch.Generator | None = None,
+        policy: Policy = F32,
+        device="cpu",
+    ):
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.policy = policy
+        self.device = torch.device(device)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        self.trainable, self.frozen = init_params(generator, cfg, self.device)
+
+    def generate(
+        self,
+        image_embeddings,
+        max_length: int = 50,
+        temperature: float = 1.0,
+        decode_precision: str | None = None,
+        mesh=None,
+        use_kernels: bool | None = None,
+    ) -> torch.Tensor:
+        """``decode_precision="bf16"`` decodes from a cached bfloat16 copy of
+        the weights (half the bytes each step reads); None/"f32" keeps the
+        float32 parameters.  "int8" is not ported and raises."""
+        if decode_precision == "int8":
+            raise NotImplementedError(
+                "int8 decode is not ported yet (ROADMAP.md, queue 2, item 2, mode 3: int8 W8A8)"
+            )
+        tr, fz, pol = self.decode_params(decode_precision)
+        cache = getattr(self, "_packed_cache", None)
+        if cache is None or cache[0] is not tr or cache[1] is not fz or cache[2] is not pol:
+            cache = (tr, fz, pol, prepare_decode_weights(tr, fz, self.cfg, pol))
+            self._packed_cache = cache
+        emb = torch.as_tensor(image_embeddings, dtype=torch.float32, device=self.device)
+        return generate(
+            tr, fz, self.cfg, emb, max_length=max_length, temperature=temperature, policy=pol,
+            use_kernels=use_kernels, packed=cache[3], mesh=mesh,
+        )
+
+    def decode_params(self, decode_precision: str | None = None):
+        """(trainable, frozen, policy) for inference at the given precision.
+        ``"bf16"`` returns a cached bfloat16 copy, rebuilt when the live
+        parameter trees are replaced."""
+        if decode_precision in (None, "f32"):
+            return self.trainable, self.frozen, self.policy
+        if decode_precision != "bf16":
+            raise ValueError(f"decode_precision must be 'f32' or 'bf16', got {decode_precision!r}")
+        cache = getattr(self, "_bf16_cache", None)
+        if cache is None or cache[0] is not self.trainable or cache[1] is not self.frozen:
+            self._bf16_cache = (
+                self.trainable, self.frozen,
+                cast_floating(self.trainable), cast_floating(self.frozen),
+            )
+        return self._bf16_cache[2], self._bf16_cache[3], BF16
+
+    def generate_captions(self, image_embeddings, **kw) -> list[str]:
+        ids = self.generate(image_embeddings, **kw)
+        return self.tokenizer.batch_decode(ids.cpu().numpy(), skip_special_tokens=True)

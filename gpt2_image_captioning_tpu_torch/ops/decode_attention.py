@@ -1,0 +1,110 @@
+"""Single-token decode attention over the valid KV-cache prefix, fused with
+the cache append — the counterpart of ``gpt2_image_captioning_tpu/ops/decode_attention.py``.
+
+The cache layout is the JAX package's (T, B, D): D = n_head·head_dim, so the
+QKV projection's rows append with no head split.  :func:`decode_attention`
+writes this step's K/V rows at ``idx`` (in place: PyTorch tensors are
+mutable, which saves a cache copy per layer and step) and attends rows
+``[0, idx]``.
+
+Kernel: ``csrc/decode_attention.cu`` (hand-written CUDA for sm_90a; its
+header comment gives the design and the bound), wrapped by
+:func:`decode_attention_cuda`.  Plain twin: :func:`_decode_attention_plain`,
+the JAX package's ``_decode_attention_xla`` formula, which the CPU runs and
+the card holds the kernel to.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from gpt2_image_captioning_tpu_torch.ops import _build
+from gpt2_image_captioning_tpu_torch.ops.nn import NEG_INF
+
+# init_cache rounds the cache length up to a multiple of this (the kernel's
+# walk step and the JAX package's chunk).
+CHUNK_T = 16
+
+
+def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int):
+    """Append at ``idx``, then float32 attention of each row's query over cache
+    rows ``[0, idx]``; rows past ``idx`` are masked."""
+    k_cache[idx] = k_new.to(k_cache.dtype)
+    v_cache[idx] = v_new.to(v_cache.dtype)
+    tk, b, d = k_cache.shape
+    hd = d // n_head
+    scale = 1.0 / math.sqrt(hd)
+    qh = q.reshape(b, n_head, hd).float()
+    kh = k_cache.reshape(tk, b, n_head, hd).float()
+    vh = v_cache.reshape(tk, b, n_head, hd).float()
+    s = torch.einsum("bhd,kbhd->bhk", qh, kh) * scale
+    live = (torch.arange(tk, device=q.device) <= idx)[None, None, :]
+    p = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
+    out = torch.einsum("bhk,kbhd->bhd", p, vh)
+    return out.reshape(b, d).to(q.dtype)
+
+
+def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int):
+    """Launch ``csrc/decode_attention.cu``.  q/k_new/v_new (B, D) may be
+    column slices of one (B, 3D) QKV tensor (equal row strides, unit column
+    stride); caches (T, B, D) contiguous, same dtype; returns (B, D)."""
+    name = "decode_attention"
+    _build.require(q.is_cuda, name, "q must be a CUDA tensor")
+    _build.require(q.dtype in _build.DTYPE_CODE, name, f"unsupported dtype {q.dtype}")
+    b, d = q.shape
+    tk = k_cache.shape[0]
+    for t in (k_new, v_new):
+        _build.require(t.shape == (b, d), name, "q, k_new and v_new must share their (B, D) shape")
+    for t in (q, k_new, v_new):
+        _build.require(t.stride(1) == 1 and t.stride(0) == q.stride(0), name,
+                       "q, k_new, v_new need unit column stride and one row stride")
+    for t in (k_new, v_new, k_cache, v_cache):
+        _build.require(t.dtype == q.dtype and t.device == q.device, name,
+                       "inputs and caches must share dtype and device")
+    for t in (k_cache, v_cache):
+        _build.require(t.shape == (tk, b, d) and t.is_contiguous(), name,
+                       "caches must be contiguous (T, B, D)")
+    _build.require(d % n_head == 0 and d // n_head <= 128, name,
+                   "head_dim must divide D and be <= 128")
+    _build.require(0 <= idx < tk, name, f"idx {idx} outside the cache of {tk} rows")
+    out = torch.empty((b, d), dtype=q.dtype, device=q.device)
+    err = _build.library().gic_decode_attention(
+        _build.DTYPE_CODE[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        q.stride(0), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        b, d, n_head, idx, _build.stream_of(q),
+    )
+    _build.check(err, name)
+    decode_attention_cuda.launches += 1
+    return out
+
+
+decode_attention_cuda.launches = 0
+
+
+def decode_attention(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    idx: int,
+    *,
+    n_head: int,
+    use_kernel: bool | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step of attention, fused with the cache append.
+
+    q/k_new/v_new: (B, D) this step's projections; k_cache/v_cache: (T, B, D)
+    with rows ``[0, idx)`` valid; ``idx``: host int, the write position.
+    Returns ``(attn_out (B, D), k_cache, v_cache)``; the caches are the
+    argument tensors, updated in place.  ``use_kernel`` as in
+    :func:`ops._build.kernels_enabled`.
+    """
+    idx = int(idx)
+    if _build.kernels_enabled(use_kernel, q.device):
+        out = decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx, n_head)
+    else:
+        out = _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx, n_head)
+    return out, k_cache, v_cache
