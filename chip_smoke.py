@@ -4,18 +4,31 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``,
-holds each against its plain PyTorch twin at the main path's shapes, checks
-that the kernels and the twins give the same greedy tokens on a tiny float32
-model, then serves three requests of 128 image embeddings through
-``ImageCaptioningModel.generate`` at GPT-2 124M width (random weights from a
-seed, bf16, greedy, 50 tokens), showing through the kernels' launch counters
-that the main path ran on them, and traces one more request with
-``torch.profiler`` to read the decode loop's device idle share.  Each phase prints one JSON line; the last
-three lines are the kernel table, the card's name and power limit, and
-``{"ok": true, ...}``.  Any failed check raises, so the script exits non-zero
-without the ``ok`` line.  Without a CUDA device it exits non-zero at once.
-Longer output (nvcc's log, every phase's record) goes to ``chiprun_out/``.
+It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
+(one ``nvcc`` per source, in parallel) and holds each against its plain
+PyTorch twin at the main paths' shapes, with its time beside its bound (the
+least time the card could take for the same work) and, where one PyTorch
+call computes the same function, that call's time.  Then it drives the two
+paths the port has, each with the kernels' launch counters set to 0 just
+before and read just after:
+
+- serving: exact greedy tokens against the plain path on a tiny float32
+  model, then three requests of 128 image embeddings through
+  ``ImageCaptioningModel.generate`` at GPT-2 124M width (random weights from
+  a seed, bf16, greedy, 50 tokens), and one more traced with
+  ``torch.profiler`` for the decode loop's device idle share;
+- training: the train step (``make_train_step``) at full width — GPT-2 124M
+  frozen, the transformer mapper trainable, bf16 compute, AdamW, b 128,
+  captions padded to 50 — fed by the ``Batcher``: step-1 loss and gradients
+  against the plain path, captions/s over timed steps, peak memory, a
+  float32 check at a tiny config, and ten steps on one batch that must
+  lower the loss.
+
+Each phase prints one JSON line; the last three lines are the kernel table,
+the card's name and power limit, and ``{"ok": true, ...}``.  Any failed
+check raises, so the script exits non-zero without the ``ok`` line.
+Without a CUDA device it exits non-zero at once.  Longer output (nvcc's
+log, every phase's record) goes to ``chiprun_out/``.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 
@@ -54,6 +68,42 @@ TOL = {
 # inputs.  0.05 is ~9 % of the logit std and several times the drift, yet far
 # below the gap to a wrong token picked by a broken kernel (~1 logit std).
 TF_TOL = 0.05
+
+# The card's peaks (NVIDIA's H100 SXM data sheet, dense): HBM bytes/s and
+# operations/s by the element type of the products.
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# Flash attention on the paths: (name, B, H, T, hd, causal, padding mask) —
+# the GPT-2 blocks in training (15 prefix + 50 caption positions), the
+# transformer mapper (10 + 15 tokens, 768 / 8 heads), the GPT-2 prefill.
+FLASH_SHAPES = (
+    ("gpt2_train", B, 12, 65, 64, True, True),
+    ("mapper", B, 8, 25, 96, False, False),
+    ("gpt2_prefill", B, 12, 15, 64, True, False),
+)
+# Flash kernel against its twin, |kernel - plain| <= atol + rtol * |plain|.
+# bf16: the kernel rounds p to bf16 before P V (the twin keeps it float32),
+# an error of at most 2^-9 relative per term, and both round the output to
+# bf16, which can differ by one ulp (2^-8 relative): 1e-2 / 1e-2.  float32:
+# summation order and online against plain softmax only, so 1e-5 / 1e-5.
+FLASH_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
+# Training, bf16, kernel path against use_kernels=False on the same weights
+# and batch.  The two paths differ only in attention: the kernel rounds
+# unnormalised p to bf16 and divides in float32, the plain path rounds the
+# normalised probabilities to bf16; each is within a bf16 ulp of the exact
+# value, and the difference passes through 20 layers in each direction.
+# Loss: ~0.4 % noise per element averages over 6,400 caption positions, so
+# |d loss| <= 1e-2 on a loss of ~10.8 (0.1 %).  Mapper gradients:
+# ||g_kernel - g_plain|| / ||g_plain|| <= 5e-2, several bf16 ulps compounded
+# over the backward, yet far below the O(1) error of a wrong gradient.
+# float32 at the tiny config: the loss to 1e-5 relative and each gradient
+# leaf to 1e-4 of its largest element (summation order only).
+TRAIN_TOL = {"loss_bf16": 1e-2, "grad_bf16": 5e-2, "loss_f32": 1e-5, "grad_f32": 1e-4}
+# Flash backward (the torch recompute of FlashAttention) fed by the kernel's
+# forward against the twin's: the outputs, and so the incoming gradient of
+# the test loss, differ by a bf16 ulp, so 1e-2 relative in norm.
+FLASH_BWD_TOL = 1e-2
 
 RESULTS: list[dict] = []
 
@@ -93,6 +143,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
+    """Least time in ms for work that must move ``nbytes`` and do ``ops``
+    operations of ``dtype`` products, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS_S[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def nvidia_smi() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -123,7 +180,17 @@ def check_attention(dtype, g) -> dict:
     idx = max(ATTN_IDX)
     ms = time_ms(lambda: DA.decode_attention_cuda(q, kn, vn, kc, vc, idx, H))
     plain_ms = time_ms(lambda: DA._decode_attention_plain(q, kn, vn, kp, vp, idx, H))
+    # the library call: SDPA of the query over cache rows [0, idx] (the append excluded)
+    hd, el = D // H, q.element_size()
+    q4 = q.view(B, H, 1, hd)
+    k4, v4 = (c[: idx + 1].view(idx + 1, B, H, hd).permute(1, 2, 0, 3) for c in (kc, vc))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    # cache rows read, q / k_new / v_new read, the output and the appended rows written
+    nbytes = el * B * D * (2 * idx + 3 + 1 + 2)
+    bound_ms, bound_by = bound(nbytes, 4 * B * D * (idx + 1), dtype)
     return {"kernel": "decode_attention", "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "library_ms": library_ms, "library": "scaled_dot_product_attention over the cache",
             "at": f"B {B}, D {D}, H {H}, T {T}, idx {idx}"}
 
 
@@ -134,12 +201,23 @@ def check_dot_f32(g) -> dict:
     float32, so they may differ only by summation order: ~1e-6 relative."""
     from gpt2_image_captioning_tpu_torch.ops import nn
 
-    a = torch.randn(B, D, generator=g, device="cuda").to(torch.bfloat16)
+    a = torch.randn(B, D, generator=g, device="cuda").to(torch.bfloat16).requires_grad_()
     w = (0.02 * torch.randn(D, 3 * D, generator=g, device="cuda")).to(torch.bfloat16)
+    w.requires_grad_()
     got = nn.dot_f32(a, w)
     want = torch.matmul(a.float(), w.float())
+    err = close(got.detach(), want.detach(), TOL[torch.float32]["f32"])
+    # its gradient: the incoming float32 gradient rounded to bf16, the
+    # products summed in float32, the result rounded to bf16 — against the
+    # same arithmetic upcast; bf16 outputs, so one ulp apart at most
+    gy = torch.randn(B, 3 * D, generator=g, device="cuda")
+    da, dw = torch.autograd.grad(got, (a, w), gy)
+    g16 = gy.to(torch.bfloat16).float()
+    a32, w32 = a.detach().float(), w.detach().float()
+    grad_err = max(close(da, (g16 @ w32.t()).to(torch.bfloat16), TOL[torch.bfloat16]["out"]),
+                   close(dw, (a32.t() @ g16).to(torch.bfloat16), TOL[torch.bfloat16]["out"]))
     return {"phase": "dot_f32_branches", "at": f"({B}, {D}) @ ({D}, {3 * D}) bf16",
-            "max_abs_err": close(got, want, TOL[torch.float32]["f32"])}
+            "max_abs_err": err, "grad_max_abs_err": grad_err}
 
 
 LINEAR_ROLES = (  # name, K, N, LayerNorm prologue, epilogue
@@ -153,7 +231,8 @@ LINEAR_ROLES = (  # name, K, N, LayerNorm prologue, epilogue
 def check_linear(dtype, g) -> dict:
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 
-    worst, roles, ms_sum, plain_sum = 0.0, {}, 0.0, 0.0
+    worst, roles, ms_sum, plain_sum, cublas_sum, nbytes, ops = 0.0, {}, 0.0, 0.0, 0.0, 0, 0
+    el = torch.tensor([], dtype=dtype).element_size()
     for name, k, n, ln, epi in LINEAR_ROLES:
         w = (0.02 * torch.randn(n, k, generator=g, device="cuda")).to(dtype)
         bias = 0.02 * torch.randn(n, generator=g, device="cuda")
@@ -174,10 +253,26 @@ def check_linear(dtype, g) -> dict:
         worst = max(worst, err)
         ms = time_ms(lambda: DS.fused_linear_cuda(x, w, bias, residual=r_kernel, **kw))
         plain_ms = time_ms(lambda: DS.fused_linear_plain(x, w, bias, residual=r_plain, **kw))
-        roles[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        # no single library call fuses the prologue and epilogue: cuBLAS's bare
+        # product plus bias at the role's shape, for scale
+        xc, wt = x.to(dtype), w.t()
+        cublas_ms = time_ms(lambda: torch.addmm(bias.to(dtype), xc, wt))
+        # x, W, bias (and LN params) read; the output written, or the float32
+        # residual stream read and written
+        role_bytes = (B * k * x.element_size() + n * k * el + 4 * n + (8 * k if ln else 0)
+                      + (8 * B * n if epi == "residual" else el * B * n))
+        role_bound, role_by = bound(role_bytes, 2 * B * k * n, dtype)
+        roles[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "cublas_addmm_ms":
+                       cublas_ms, "bound_ms": role_bound, "bound_by": role_by, "bytes": role_bytes}
         ms_sum += ms
         plain_sum += plain_ms
+        cublas_sum += cublas_ms
+        nbytes += role_bytes
+        ops += 2 * B * k * n
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
     return {"kernel": "fused_linear", "max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
+            "cublas_addmm_ms": cublas_sum,
             "at": f"B {B}: the four projections of one layer, summed", "roles": roles}
 
 
@@ -212,8 +307,91 @@ def check_logits_argmax(dtype, g) -> dict:
         ties[f"{low}={win}"] = {"kernel": int(tok[0]), "plain": int(plain[0])}
     ms = time_ms(lambda: DS.logits_argmax_cuda(x32, lnf, wte))
     plain_ms = time_ms(lambda: DS.logits_argmax_plain(x32, lnf, wte))
+    # no single library call: cuBLAS's bare (B, D) x (D, V) product, for scale
+    xf, wt = x32.to(dtype), wte.t()
+    cublas_ms = time_ms(lambda: torch.mm(xf, wt))
+    # wte, the residual rows and LN_f read; the tokens written
+    nbytes = V * D * wte.element_size() + 4 * B * D + 8 * D + 4 * B
+    bound_ms, bound_by = bound(nbytes, 2 * B * D * V, dtype)
     return {"kernel": "logits_argmax", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
+            "cublas_mm_ms": cublas_ms,
             "at": f"B {B}, D {D}, V {V}", "rows_with_clear_gap": int(clear.sum()), "ties": ties}
+
+
+def flash_inputs(b, h, t, hd, masked, dtype, g):
+    """q, k, v as the path has them — permuted views of one (B, T, 3 H hd)
+    projection — and, with ``masked``, the padding mask of 15 prefix tokens
+    and a caption of 9-21 tokens (8-20 + EOS)."""
+    from gpt2_image_captioning_tpu_torch.ops import nn
+
+    x = torch.randn(b, t, 3 * h * hd, generator=g, device="cuda").to(dtype)
+    q, k, v = (nn.split_heads(p, h) for p in torch.split(x, h * hd, dim=-1))
+    mask = None
+    if masked:
+        lens = 15 + torch.randint(9, 22, (b,), generator=g, device="cuda")
+        mask = (torch.arange(t, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    return q, k, v, mask
+
+
+def check_flash(dtype, g) -> dict:
+    from gpt2_image_captioning_tpu_torch.ops import attention as A
+
+    shapes = {}
+    for name, b, h, t, hd, causal, masked in FLASH_SHAPES:
+        q, k, v, mask = flash_inputs(b, h, t, hd, masked, dtype, g)
+        want = A._flash_attention_plain(q, k, v, mask, causal)
+        got = A.flash_attention_cuda(q, k, v, mask, causal)
+        torch.cuda.synchronize()
+        err = close(got, want, FLASH_TOL[dtype])
+        ms = time_ms(lambda: A.flash_attention_cuda(q, k, v, mask, causal))
+        plain_ms = time_ms(lambda: A._flash_attention_plain(q, k, v, mask, causal))
+        if masked:
+            valid = A._valid(q, k, mask, causal, 0)
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=valid))
+        else:
+            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+        # q, k, v read and the output written once (and the mask); 4 hd
+        # operations per (query, key) pair the masks leave to compute
+        pairs = t * (t + 1) // 2 if causal else t * t
+        nbytes = 4 * b * h * t * hd * q.element_size() + (4 * b * t if masked else 0)
+        bound_ms, bound_by = bound(nbytes, 4 * hd * pairs * b * h, dtype)
+        shapes[name] = {"at": [b, h, t, hd], "causal": causal, "padding_mask": masked,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bytes": nbytes}
+    main = shapes["gpt2_train"]
+    return {"kernel": "flash_attention", "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "library": "scaled_dot_product_attention, same boolean mask",
+            "tolerance": FLASH_TOL[dtype], "shapes": shapes}
+
+
+def check_flash_backward(g) -> dict:
+    """Gradients of one scalar loss through ``FlashAttention`` with the
+    kernel's forward against the twin's, at the GPT-2 training shape, bf16."""
+    from gpt2_image_captioning_tpu_torch.ops import attention as A
+
+    _, b, h, t, hd, causal, masked = FLASH_SHAPES[0]
+    q, k, v, mask = flash_inputs(b, h, t, hd, masked, torch.bfloat16, g)
+    w = torch.randn(b, h, t, hd, generator=g, device="cuda")
+    grads = []
+    for use in (True, False):
+        qkv = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+        out = A.flash_attention(*qkv, causal=causal, key_mask=mask, use_kernel=use).float()
+        ((out * w).sum() + 0.5 * (out * out).sum()).backward()
+        grads.append([x.grad.float() for x in qkv])
+    rel = max(float((a - b_).norm() / b_.norm()) for a, b_ in zip(*grads))
+    worst = max(float((a - b_).abs().max()) for a, b_ in zip(*grads))
+    check(rel <= FLASH_BWD_TOL, f"flash backward: relative gradient error {rel} > {FLASH_BWD_TOL}")
+    qkv = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+
+    def fwd_bwd():
+        A.flash_attention(*qkv, causal=causal, key_mask=mask).sum().backward()
+
+    return {"phase": "flash_backward", "at": [b, h, t, hd], "dtype": "bfloat16",
+            "max_rel_norm_err": rel, "max_abs_err": worst, "tolerance": FLASH_BWD_TOL,
+            "fwd_bwd_ms": time_ms(fwd_bwd, iters=10)}
 
 
 # ---------------------------------------------------------------------------
@@ -243,14 +421,25 @@ def check_padding(tokens: torch.Tensor, eos: int, vocab: int) -> int:
     return finished
 
 
-def tiny_exact_tokens() -> dict:
+def tiny_config():
+    """A tiny float32 model with the flash kernel's two head dims: GPT-2 with
+    2 layers of 192 = 3 heads x 64, vocab 293; the transformer mapper with 2
+    layers of 2 heads x 96 (16-d embeddings, 3 image + 4 prefix tokens)."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
     from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config
-    from gpt2_image_captioning_tpu_torch.models.mapping import MLPMappingConfig
+    from gpt2_image_captioning_tpu_torch.models.mapping import TransformerMappingConfig
 
-    gcfg = GPT2Config.tiny()  # n_embd 32, 2 layers, 2 heads, vocab 293
-    cfg = C.CaptionerConfig(gpt2=gcfg, mapping=MLPMappingConfig(prefix_length=4, embed_dim=16,
-                                                                 gpt_dim=32))
+    gcfg = GPT2Config(vocab_size=293, n_positions=128, n_embd=192, n_layer=2, n_head=3)
+    return C.CaptionerConfig(gpt2=gcfg, mapping=TransformerMappingConfig(
+        16, 192, prefix_length=4, hidden_length=3, num_layers=2, num_heads=2),
+        eos_token_id=292)
+
+
+def tiny_exact_tokens() -> dict:
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    cfg = tiny_config()
+    gcfg = cfg.gpt2
     tr, fz = C.init_params(torch.Generator().manual_seed(7), cfg, device="cuda")
     emb = torch.from_numpy(np.random.default_rng(5).normal(size=(5, 16)).astype(np.float32))
     emb = emb.cuda()
@@ -283,11 +472,11 @@ def teacher_forced(model, emb: torch.Tensor, tokens: torch.Tensor) -> tuple[floa
     gpt = C._gpt(tr, fz)
     packed = C.prepare_decode_weights(tr, fz, cfg, pol)
     eos, eps = cfg.eos_token_id, cfg.gpt2.layer_norm_epsilon
-    prefix = C.build_prefix(tr, cfg, emb, pol)
+    prefix = C.build_prefix(tr, cfg, emb, pol, use_kernels=False)
     b, p_len, _ = prefix.shape
     cache = G.init_cache(cfg.gpt2, b, p_len + tokens.shape[1], dtype=pol.compute_dtype,
                          device="cuda")
-    logits, cache = G.forward_cached(gpt, cfg.gpt2, prefix, cache, pol)
+    logits, cache = G.forward_cached(gpt, cfg.gpt2, prefix, cache, pol, use_kernels=False)
     alive = torch.ones(b, dtype=torch.bool, device="cuda")
     worst, n, agree, idx = 0.0, 0, 0, cache["index"]
     for s in range(tokens.shape[1]):
@@ -319,10 +508,10 @@ def one_step_drift(model, emb: torch.Tensor) -> float:
     tr, fz, pol = model.decode_params("bf16")
     gpt = C._gpt(tr, fz)
     packed = C.prepare_decode_weights(tr, fz, cfg, pol)
-    prefix = C.build_prefix(tr, cfg, emb, pol)
+    prefix = C.build_prefix(tr, cfg, emb, pol, use_kernels=False)
     cache = G.init_cache(cfg.gpt2, prefix.shape[0], prefix.shape[1] + 50,
                          dtype=pol.compute_dtype, device="cuda")
-    logits, cache = G.forward_cached(gpt, cfg.gpt2, prefix, cache, pol)
+    logits, cache = G.forward_cached(gpt, cfg.gpt2, prefix, cache, pol, use_kernels=False)
     idx = cache["index"]
     x0 = (gpt["wte"][logits.argmax(-1)] + gpt["wpe"][idx]).to(pol.compute_dtype)
     out = []
@@ -334,40 +523,32 @@ def one_step_drift(model, emb: torch.Tensor) -> float:
     return float((out[0] - out[1]).abs().max())
 
 
-# the port's kernels by their CUDA function names (csrc/*.cu)
-PORT_KERNELS = ("fused_linear_kernel", "ln_stats_kernel", "decode_attention_kernel",
+# the decode step's kernels by their CUDA function names (csrc/*.cu)
+DECODE_KERNELS = ("fused_linear_kernel", "ln_stats_kernel", "decode_attention_kernel",
                 "ln_rows_kernel", "logits_tile_kernel", "argmax_reduce_kernel")
 
 
-def profile_request(model, req: np.ndarray, kw: dict, steps: int) -> dict:
-    """Trace one request with ``torch.profiler`` (CUDA activity only) and read
-    the decode loop from that one trace: its window on the device runs from
-    the first launch of the port's kernels to the end of the last, and its
-    busy time is the union of every kernel, copy and memset in the window
-    (the port's kernels and the torch ops between them)."""
+def traced(fn, trace_name: str) -> tuple[float, list[dict]]:
+    """Run ``fn`` under ``torch.profiler`` (CUDA activity only, so the host is
+    slowed less than with CPU tracing); returns its wall seconds and the
+    trace's device events (kernels, copies, memsets), the trace itself
+    written to ``chiprun_out/``."""
     from torch.profiler import ProfilerActivity, profile
 
-    trace = OUT_DIR / "decode_trace.json"
+    trace = OUT_DIR / trace_name
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.generate(req, **kw)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(str(trace))
-    events = [e for e in json.loads(trace.read_text())["traceEvents"]
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+    return wall, [e for e in json.loads(trace.read_text())["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
 
-    def is_port(e):
-        return e["cat"] == "kernel" and any(k in e["name"] for k in PORT_KERNELS)
 
-    ours = [e for e in events if is_port(e)]
-    record = {"phase": "decode_profile", "profiled_request_s": wall, "trace": trace.name,
-              "device_events": len(events)}
-    if not ours:  # CUPTI gave no device activity: nothing to read
-        return {**record, "idle_share": "not measured"}
-    lo = min(e["ts"] for e in ours)
-    hi = max(e["ts"] + e["dur"] for e in ours)
+def busy_us(events: list[dict], lo: float, hi: float) -> float:
+    """Microseconds of [lo, hi) covered by at least one device event."""
     spans = sorted((max(e["ts"], lo), min(e["ts"] + e["dur"], hi)) for e in events
                    if e["ts"] < hi and e["ts"] + e["dur"] > lo)
     busy, end = 0.0, lo
@@ -375,8 +556,29 @@ def profile_request(model, req: np.ndarray, kw: dict, steps: int) -> dict:
         if b > end:
             busy += b - max(a, end)
             end = b
+    return busy
+
+
+def profile_request(model, req: np.ndarray, kw: dict, steps: int) -> dict:
+    """Trace one request and read the decode loop from that one trace: its
+    window on the device runs from the first launch of the decode step's
+    kernels to the end of the last, and its busy time is the union of every
+    kernel, copy and memset in the window (the port's kernels and the torch
+    ops between them)."""
+    wall, events = traced(lambda: model.generate(req, **kw), "decode_trace.json")
+
+    def is_port(e):
+        return e["cat"] == "kernel" and any(k in e["name"] for k in DECODE_KERNELS)
+
+    ours = [e for e in events if is_port(e)]
+    record = {"phase": "decode_profile", "profiled_request_s": wall, "trace": "decode_trace.json",
+              "device_events": len(events)}
+    if not ours:  # CUPTI gave no device activity: nothing to read
+        return {**record, "idle_share": "not measured"}
+    lo = min(e["ts"] for e in ours)
+    hi = max(e["ts"] + e["dur"] for e in ours)
     in_window = [e for e in events if lo <= e["ts"] < hi]
-    window_s, busy_s = (hi - lo) * 1e-6, busy * 1e-6
+    window_s, busy_s = (hi - lo) * 1e-6, busy_us(events, lo, hi) * 1e-6
     return {**record, "decode_steps": steps, "decode_window_s": window_s,
             "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / window_s,
             "port_kernels_s": sum(e["dur"] for e in ours) * 1e-6,
@@ -384,6 +586,43 @@ def profile_request(model, req: np.ndarray, kw: dict, steps: int) -> dict:
                                    if e["cat"] == "kernel" and not is_port(e)) * 1e-6,
             "copies_s": sum(e["dur"] for e in in_window if e["cat"] != "kernel") * 1e-6,
             "events_in_window": len(in_window), "card": nvidia_smi()}
+
+
+def profile_train_step(run_step) -> dict:
+    """Trace one train step: its device window (first to last device event),
+    busy time (their union), idle share, kernel launches, and device time by
+    kind — the flash kernel, matrix products (cuBLAS/CUTLASS kernels), the
+    other kernels (elementwise, reductions, softmax), copies — and the
+    kernels that take the most of it."""
+    wall, events = traced(run_step, "train_trace.json")
+    record = {"phase": "train_profile", "profiled_step_s": wall, "trace": "train_trace.json",
+              "device_events": len(events)}
+    if not events:
+        return {**record, "idle_share": "not measured"}
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    busy = busy_us(events, lo, hi)
+
+    def kind(e):
+        name = e["name"].lower()
+        if e["cat"] != "kernel":
+            return "copies"
+        if "flash_attention_kernel" in name:
+            return "flash_attention"
+        if any(k in name for k in ("gemm", "xmma", "cutlass", "nvjet", "sm90_")):
+            return "matmul"
+        return "other_kernels"
+
+    by_kind, by_name = {}, {}
+    for e in events:
+        by_kind[kind(e)] = by_kind.get(kind(e), 0.0) + e["dur"] * 1e-6
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] * 1e-6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:20]
+    return {**record, "device_window_s": (hi - lo) * 1e-6, "device_busy_s": busy * 1e-6,
+            "idle_share": 1.0 - busy / (hi - lo),
+            "kernel_launches": sum(e["cat"] == "kernel" for e in events),
+            "device_s_by_kind": by_kind, "top_kernels_s": [[n[:120], t] for n, t in top],
+            "card": nvidia_smi()}
 
 
 def decode_window(model, req: np.ndarray, kw: dict) -> float:
@@ -411,13 +650,29 @@ def decode_window(model, req: np.ndarray, kw: dict) -> float:
     return marks[0][0].elapsed_time(marks[-1][1]) * 1e-3
 
 
+def wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from gpt2_image_captioning_tpu_torch.ops import attention as A
+    from gpt2_image_captioning_tpu_torch.ops import decode_attention as DA
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+    return {"decode_attention": DA.decode_attention_cuda, "fused_linear": DS.fused_linear_cuda,
+            "logits_argmax": DS.logits_argmax_cuda, "flash_attention": A.flash_attention_cuda}
+
+
+def reset_launches() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
 def main_path() -> tuple[dict, dict, dict]:
     from gpt2_image_captioning_tpu_torch import (
         CaptionerConfig, GPT2Config, ImageCaptioningModel, TransformerMappingConfig,
     )
-    from gpt2_image_captioning_tpu_torch.ops import decode_attention as DA
-    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
-
     cfg = CaptionerConfig(gpt2=GPT2Config.gpt2_124m(),
                           mapping=TransformerMappingConfig(512, 768, 15, 10))
     model = ImageCaptioningModel(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
@@ -427,20 +682,19 @@ def main_path() -> tuple[dict, dict, dict]:
     model.generate(reqs[0], **kw)  # warm-up: bf16 weight copy, packing, first launches
     torch.cuda.synchronize()
 
-    wrappers = {"decode_attention": DA.decode_attention_cuda,
-                "fused_linear": DS.fused_linear_cuda,
-                "logits_argmax": DS.logits_argmax_cuda}
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     outs = [model.generate(r, **kw) for r in reqs]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in wrappers.items()}
+    launches = read_launches()
 
     steps = sum(decode_steps(o, cfg.eos_token_id) for o in outs)
     n_layer = cfg.gpt2.n_layer
     check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
+    flash_per_request = cfg.mapping.num_layers + n_layer  # the mapper, the prefill
+    check(launches["flash_attention"] == flash_per_request * len(reqs),
+          f"flash launches {launches['flash_attention']} != {flash_per_request} x {len(reqs)}")
     check(launches["decode_attention"] == n_layer * steps,
           f"attention launches {launches['decode_attention']} != {n_layer} x {steps} steps")
     check(launches["fused_linear"] == 4 * n_layer * steps, "fused_linear launches != 4 L steps")
@@ -485,6 +739,133 @@ def main_path() -> tuple[dict, dict, dict]:
     return record, launches, profiled
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the train step
+# ---------------------------------------------------------------------------
+
+class Captions:
+    """An in-memory caption set as ``CocoDataset._materialize`` builds one:
+    captions of 8-20 random tokens + EOS, padded to ``length`` with EOS ids,
+    -100 labels and mask 0 on the padding; one N(0, 1) image embedding per
+    caption."""
+
+    def __init__(self, n: int, length: int, eos: int, embed_dim: int, seed: int):
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(8, 21, size=n) + 1
+        pos = np.arange(length)[None, :]
+        tokens = rng.integers(0, eos, size=(n, length)).astype(np.int32)
+        tokens[pos >= lens[:, None] - 1] = eos
+        self.data = {
+            "token_ids": tokens,
+            "attention_mask": (pos < lens[:, None]).astype(np.int32),
+            "labels": np.where(pos < lens[:, None], tokens, -100).astype(np.int32),
+            "image_embedding": rng.normal(size=(n, embed_dim)).astype(np.float32),
+        }
+
+    def __len__(self) -> int:
+        return len(self.data["token_ids"])
+
+    def gather_batch(self, idx: np.ndarray) -> dict:
+        return {k: v[idx] for k, v in self.data.items()}
+
+
+def loss_and_grads(trainable, frozen, cfg, batch, policy):
+    """Mean loss and gradients of one batch with the kernels and with
+    ``use_kernels=False``, on the same weights; leaves no gradient behind."""
+    from gpt2_image_captioning_tpu_torch.core.tree import tree_leaves
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    params = tree_leaves(trainable)
+    out = []
+    for use in (None, False):
+        loss = C.mean_loss(trainable, frozen, cfg, batch, policy, use_kernels=use)
+        loss.backward()
+        out.append((float(loss.detach()), [p.grad.float() for p in params]))
+        for p in params:
+            p.grad = None
+    return out
+
+
+def tiny_f32_training() -> dict:
+    """Loss and mapper gradients of the kernel path against the plain path in
+    float32 at :func:`tiny_config`."""
+    from gpt2_image_captioning_tpu_torch import F32
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.train import optim
+
+    cfg = tiny_config()
+    tr, fz = C.init_params(torch.Generator().manual_seed(3), cfg, device="cuda")
+    optim.make_optimizer(tr, optim.AdamWConfig())  # the trainable leaves require grad
+    batch = Captions(8, 24, cfg.eos_token_id, 16, seed=4).gather_batch(np.arange(8))
+    (lk, gk), (lp, gp) = loss_and_grads(tr, fz, cfg, batch, F32)
+    loss_err = abs(lk - lp) / abs(lp)
+    grad_err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(gk, gp))
+    check(loss_err <= TRAIN_TOL["loss_f32"], f"tiny f32 loss: relative error {loss_err}")
+    check(grad_err <= TRAIN_TOL["grad_f32"], f"tiny f32 grads: relative error {grad_err}")
+    return {"loss_kernels": lk, "loss_plain": lp, "loss_rel_err": loss_err,
+            "grad_rel_err": grad_err, "tolerance": [TRAIN_TOL["loss_f32"], TRAIN_TOL["grad_f32"]]}
+
+
+def train_path() -> tuple[dict, dict, dict]:
+    """The train step at full width: GPT-2 124M frozen, the transformer
+    mapper trainable, bf16, AdamW lr 1e-4, b 128 captions padded to 50."""
+    from gpt2_image_captioning_tpu_torch import BF16
+    from gpt2_image_captioning_tpu_torch.data.dataset import Batcher
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config
+    from gpt2_image_captioning_tpu_torch.models.mapping import TransformerMappingConfig
+    from gpt2_image_captioning_tpu_torch.train import loop, optim
+
+    cfg = C.CaptionerConfig(gpt2=GPT2Config.gpt2_124m(),
+                            mapping=TransformerMappingConfig(512, 768, 15, 10))
+    tr, fz = C.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    ds = Captions(6 * B + 40, 50, cfg.eos_token_id, 512, seed=1)  # 7 batches, the last padded
+    batches = list(Batcher(ds, B, seed=0).epoch(0))
+    opt_cfg = optim.AdamWConfig(learning_rate=1e-4, num_training_steps=100)
+    optimizer, scheduler = optim.make_optimizer(tr, opt_cfg)
+    step = loop.make_train_step(cfg, opt_cfg, BF16, device="cuda")
+
+    (lk, gk), (lp, gp) = loss_and_grads(tr, fz, cfg, batches[0], BF16)
+    gk_all, gp_all = torch.cat([g.flatten() for g in gk]), torch.cat([g.flatten() for g in gp])
+    grad_err = float((gk_all - gp_all).norm() / gp_all.norm())
+    check(abs(lk - lp) <= TRAIN_TOL["loss_bf16"], f"step-1 loss {lk} against plain {lp}")
+    check(grad_err <= TRAIN_TOL["grad_bf16"], f"step-1 grads: relative error {grad_err}")
+
+    step(tr, optimizer, scheduler, fz, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = [step(tr, optimizer, scheduler, fz, b) for b in batches[1:]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(out)
+    losses, norms = [float(l) for l, _ in out], [float(n) for _, n in out]
+    per_step = cfg.mapping.num_layers + cfg.gpt2.n_layer
+    check(launches["flash_attention"] == per_step * steps,
+          f"flash launches {launches['flash_attention']} != {per_step} x {steps} steps")
+    check(all(np.isfinite(losses + norms)), f"non-finite loss or norm: {losses} {norms}")
+
+    profiled = profile_train_step(lambda: step(tr, optimizer, scheduler, fz, batches[1]))
+    fixed = [float(step(tr, optimizer, scheduler, fz, batches[0])[0]) for _ in range(10)]
+    check(fixed[-1] < fixed[0], f"ten steps on one batch did not lower the loss: {fixed}")
+    record = {
+        "phase": "train", "model": "GPT-2 124M frozen + transformer mapper (512->768, 15+10)",
+        "dtype": "bf16 compute, float32 params", "batch": B, "caption_length": 50,
+        "positions": 15 + 50, "timed_steps": steps, "seconds": seconds,
+        "captions_per_s": B * steps / seconds, "ms_per_step": 1e3 * seconds / steps,
+        "losses": losses, "grad_norms": norms, "launches": launches,
+        "peak_memory_gb": peak / 1e9,
+        "step1": {"loss_kernels": lk, "loss_plain": lp, "grad_rel_err": grad_err,
+                  "tolerance": [TRAIN_TOL["loss_bf16"], TRAIN_TOL["grad_bf16"]]},
+        "fixed_batch_losses": fixed, "tiny_f32": tiny_f32_training(), "card": nvidia_smi(),
+    }
+    return record, profiled, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU", file=sys.stderr)
@@ -510,33 +891,43 @@ def main() -> int:
     emit(check_dot_f32(g))
     kernel_rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        for fn in (check_attention, check_linear, check_logits_argmax):
+        for fn in (check_attention, check_linear, check_logits_argmax, check_flash):
             rec = fn(dtype, g)
             rec = {"phase": "kernel_vs_plain", "dtype": str(dtype).replace("torch.", ""), **rec}
             emit(rec)
             if dtype == torch.bfloat16:
                 kernel_rows[rec["kernel"]] = rec
+    emit(check_flash_backward(g))
 
     emit(tiny_exact_tokens())
     record, launches, profiled = main_path()
     emit(record)
     emit(profiled)
+    train_record, train_profiled, train_launches = train_path()
+    emit(train_record)
+    emit(train_profiled)
 
     source = "gpt2_image_captioning_tpu_torch/csrc/"
     replaces = {"decode_attention": "gpt2_image_captioning_tpu/ops/decode_attention.py:68",
                 "fused_linear": "gpt2_image_captioning_tpu/ops/decode_step.py:112",
-                "logits_argmax": "gpt2_image_captioning_tpu/ops/decode_step.py:112"}
+                "logits_argmax": "gpt2_image_captioning_tpu/ops/decode_step.py:112",
+                "flash_attention": "gpt2_image_captioning_tpu/ops/attention.py:40"}
     # what one "ms" covers, and what one count of "launches" is: a wrapper call
     per = {"decode_attention": "call (1 CUDA launch), idx 64",
            "fused_linear": "layer: 4 calls (qkv, attn_proj, mlp_fc, mlp_proj; 6 CUDA launches)",
-           "logits_argmax": "call (3 CUDA launches)"}
+           "logits_argmax": "call (3 CUDA launches)",
+           "flash_attention": "call (1 CUDA launch) at (128, 12, 65, 64), causal + padding mask"}
+    # each kernel's launches on its own path: serving for the decode kernels,
+    # the timed train steps for flash attention (it also ran in serving)
+    path_launches = {**launches, "flash_attention": train_launches["flash_attention"]}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{source}{name}.cu", "replaces": replaces[name],
-         "launches": launches[name], "max_abs_err": kernel_rows[name]["max_abs_err"],
-         "ms": kernel_rows[name]["ms"], "plain_ms": kernel_rows[name]["plain_ms"],
+         "launches": path_launches[name], **{k: kernel_rows[name][k] for k in keys},
          "per": per[name]}
-        for name in ("decode_attention", "fused_linear", "logits_argmax")
+        for name in ("decode_attention", "fused_linear", "logits_argmax", "flash_attention")
     ]}
+    table["kernels"][3]["launches_serving"] = launches["flash_attention"]
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RESULTS + [table], indent=1))
     print(json.dumps(table), flush=True)
     print(nvidia_smi(), flush=True)

@@ -2,10 +2,10 @@
 ``gpt2_image_captioning_tpu`` for an NVIDIA H100.
 
 It mirrors the JAX package's module paths and public names.  Greedy caption
-decoding runs on hand-written CUDA kernels for Hopper
-(``csrc/*.cu``, built by ``nvcc`` at first use — see ``ops/_build.py``); on
-the CPU the same code runs their plain PyTorch twins.  The package imports
-torch and never jax.
+decoding and the train step (``train/loop.py::make_train_step``) run on
+hand-written CUDA kernels for Hopper (``csrc/*.cu``, built by ``nvcc`` at
+first use — see ``ops/_build.py``); on the CPU the same code runs their plain
+PyTorch twins.  The package imports torch and never jax.
 """
 
 __version__ = "0.1.0"

@@ -1,12 +1,14 @@
 """The image-captioning model: mapping network + GPT-2 decoder — the
 counterpart of ``gpt2_image_captioning_tpu/models/captioner.py`` on its
-serving path, greedy decoding.
+training path (``loss_fn``, ``mean_loss``) and its serving path, greedy
+decoding.
 
 Parameters split into a trainable and a frozen tree as in the JAX package.
-``generate`` runs eagerly: the mapper and the prefill are plain PyTorch ops,
-then each decode step is :func:`ops.decode_step.fused_decode_step` — the
-hand-written CUDA kernels for CUDA tensors, their plain twins on the CPU.
-The early exit reads one flag from the device per step.
+Everything runs eagerly.  ``generate``: the mapper and the prefill are torch
+ops around the flash-attention kernel, then each decode step is
+:func:`ops.decode_step.fused_decode_step` — the hand-written CUDA kernels for
+CUDA tensors, their plain twins on the CPU; ``use_kernels=False`` switches
+every kernel off.  The early exit reads one flag from the device per step.
 
 Not ported yet, and refused rather than run another way: sampling
 (``temperature > 0``), beam search, meshes and the int8 weight mode (see
@@ -20,11 +22,13 @@ from typing import Any
 
 import torch
 
+from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from gpt2_image_captioning_tpu_torch.core.precision import BF16, F32, Policy, cast_floating
 from gpt2_image_captioning_tpu_torch.core.tree import tree_map
 from gpt2_image_captioning_tpu_torch.models import gpt2 as G
 from gpt2_image_captioning_tpu_torch.models import mapping as M
 from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+from gpt2_image_captioning_tpu_torch.ops.xent import IGNORE_INDEX, xent_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +40,10 @@ class CaptionerConfig:
     task_prompt_ids: tuple[int, ...] | None = None
     freeze_gpt_weights: bool = True
     eos_token_id: int = 50256
+    # checkpoint each GPT-2 block in the training forward: one more block
+    # forward in the backward for activation memory O(1) in depth, with
+    # identical loss and gradients
+    remat: bool = False
 
     @property
     def image_prefix_length(self) -> int:
@@ -48,11 +56,13 @@ class CaptionerConfig:
 
 
 def init_params(
-    generator: torch.Generator, cfg: CaptionerConfig, device="cpu",
+    generator: torch.Generator, cfg: CaptionerConfig, device=DEFAULT_DEVICE,
 ) -> tuple[dict, dict]:
-    """Returns (trainable, frozen) trees of float32 tensors on ``device``, drawn
-    from ``generator`` with the distributions of the JAX package's init (the
-    draws themselves differ from ``jax.random``)."""
+    """Returns (trainable, frozen) trees of float32 tensors on ``device`` (the
+    card unless the caller asks for the CPU), drawn from ``generator`` with
+    the distributions of the JAX package's init (the draws themselves differ
+    from ``jax.random``)."""
+    device = resolve_device(device)
     mapping_params = M.init_mapping(generator, cfg.mapping)
     gpt_params = G.init(generator, cfg.gpt2)
     trainable: dict[str, Any] = {"mapping": mapping_params}
@@ -72,15 +82,59 @@ def _gpt(trainable: dict, frozen: dict) -> dict:
 
 
 def build_prefix(trainable: dict, cfg: CaptionerConfig, image_embeddings: torch.Tensor,
-                 policy: Policy = F32) -> torch.Tensor:
+                 policy: Policy = F32, use_kernels: bool | None = None) -> torch.Tensor:
     """Image embeddings → (B, total_prefix_length, gpt_dim) prefix tokens
     (mapping output ⧺ broadcast task prefix)."""
-    prefix = M.apply_mapping(trainable["mapping"], cfg.mapping, image_embeddings, policy)
+    prefix = M.apply_mapping(trainable["mapping"], cfg.mapping, image_embeddings, policy,
+                             use_kernels)
     if "task_prefix" in trainable:
         b = image_embeddings.shape[0]
         task = trainable["task_prefix"].to(prefix.dtype).expand(b, *trainable["task_prefix"].shape)
         prefix = torch.cat([prefix, task], dim=1)
     return prefix
+
+
+def loss_fn(
+    trainable: dict,
+    frozen: dict,
+    cfg: CaptionerConfig,
+    batch: dict,
+    policy: Policy = F32,
+    use_kernels: bool | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced caption loss → (nll_sum, token_count).
+
+    batch: token_ids (B, L) int, labels (B, L) int with -100 on padding,
+    attention_mask (B, L), image_embedding (B, E).  The prefix gets -100
+    labels and mask 1; the first p_len - 1 shifted positions predict prefix
+    tokens, so ``hidden[:, p_len-1:-1]`` is sliced statically before the
+    vocab-chunked :func:`ops.xent.xent_sum` (ignored rows add nothing to the
+    loss or the gradients).  ``use_kernels=False`` switches the flash kernel
+    off in the mapper and GPT-2.
+    """
+    gpt_params = _gpt(trainable, frozen)
+    caption_embeds = G.embed_tokens(gpt_params, batch["token_ids"].long())
+    prefix = build_prefix(trainable, cfg, batch["image_embedding"], policy, use_kernels)
+    b, p_len = prefix.shape[:2]
+    inputs = torch.cat([prefix.to(caption_embeds.dtype), caption_embeds], dim=1)
+    labels = torch.cat([
+        torch.full((b, p_len), IGNORE_INDEX, dtype=batch["labels"].dtype, device=prefix.device),
+        batch["labels"],
+    ], dim=1)
+    mask = batch["attention_mask"]
+    mask = torch.cat([torch.ones((b, p_len), dtype=mask.dtype, device=mask.device), mask], dim=1)
+    hidden = G.forward_hidden(gpt_params, cfg.gpt2, inputs, mask, policy, remat=cfg.remat,
+                              use_kernels=use_kernels)
+    h2 = policy.cast(hidden[:, p_len - 1 : -1, :]).reshape(-1, hidden.shape[-1])
+    lab2 = labels[:, p_len:].reshape(-1)
+    nll = xent_sum(h2, gpt_params["wte"].to(policy.compute_dtype), lab2)
+    return nll, (lab2 != IGNORE_INDEX).sum()
+
+
+def mean_loss(trainable: dict, frozen: dict, cfg: CaptionerConfig, batch: dict,
+              policy: Policy = F32, use_kernels: bool | None = None) -> torch.Tensor:
+    s, c = loss_fn(trainable, frozen, cfg, batch, policy, use_kernels)
+    return s / torch.clamp(c, min=1)
 
 
 def prepare_decode_weights(trainable: dict, frozen: dict, cfg: CaptionerConfig,
@@ -108,7 +162,8 @@ def generate(
     with EOS after each row's first EOS.
 
     ``use_kernels``: None runs the CUDA kernels for CUDA inputs and their
-    plain twins on the CPU; False runs the twins; True on the CPU raises.
+    plain twins on the CPU; False runs the plain path (every kernel off, the
+    mapper's and the prefill's attention included); True on the CPU raises.
     ``packed``: weights from :func:`prepare_decode_weights`, reused across
     calls.
     """
@@ -128,10 +183,10 @@ def generate(
     if packed is None:
         packed = DS.pack_decode_weights(gpt_params, cdt)
 
-    prefix = build_prefix(trainable, cfg, image_embeddings, policy)
+    prefix = build_prefix(trainable, cfg, image_embeddings, policy, use)
     b, p_len, _ = prefix.shape
     cache = G.init_cache(cfg.gpt2, b, p_len + max_length, dtype=cdt, device=prefix.device)
-    logits, cache = G.forward_cached(gpt_params, cfg.gpt2, prefix, cache, policy)
+    logits, cache = G.forward_cached(gpt_params, cfg.gpt2, prefix, cache, policy, use)
 
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
     finished = nxt == eos
@@ -163,7 +218,8 @@ def beam_generate(*args, **kwargs):
 class ImageCaptioningModel:
     """Stateful façade with the JAX package's surface: generate,
     generate_captions, decode_params.  ``generator`` seeds the random init;
-    ``device`` holds the parameters and runs the model."""
+    ``device`` holds the parameters and runs the model: the card unless the
+    caller asks for the CPU."""
 
     def __init__(
         self,
@@ -171,12 +227,12 @@ class ImageCaptioningModel:
         tokenizer=None,
         generator: torch.Generator | None = None,
         policy: Policy = F32,
-        device="cpu",
+        device=DEFAULT_DEVICE,
     ):
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.policy = policy
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.trainable, self.frozen = init_params(generator, cfg, self.device)

@@ -3,9 +3,12 @@
 
 Parameters keep the JAX package's layout: ``wte`` (V, D), ``wpe`` (P, D),
 ``ln_f``, and ``blocks`` stacked on a leading layer dim with ``Conv1D``
-``(in, out)`` weights.  The KV cache is (L, T, B, D) with T rounded up to
-:data:`ops.decode_attention.CHUNK_T`; ``forward_cached`` updates it in place
-and the cache's ``index`` is a host int.
+``(in, out)`` weights.  ``forward_hidden`` / ``forward`` are the
+full-sequence causal forward of training; the KV cache of decoding is
+(L, T, B, D) with T rounded up to :data:`ops.decode_attention.CHUNK_T`;
+``forward_cached`` updates it in place and the cache's ``index`` is a host
+int.  Attention goes through :func:`ops.attention.mha`: the flash kernel for
+CUDA tensors unless ``use_kernels=False``.
 """
 
 from __future__ import annotations
@@ -13,11 +16,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from gpt2_image_captioning_tpu_torch.core.precision import F32, Policy
 from gpt2_image_captioning_tpu_torch.ops import decode_attention as DA
 from gpt2_image_captioning_tpu_torch.ops import nn
 from gpt2_image_captioning_tpu_torch.ops.attention import mha
+from gpt2_image_captioning_tpu_torch.ops.xent import IGNORE_INDEX
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,12 +86,90 @@ def embed_tokens(params: dict, token_ids: torch.Tensor) -> torch.Tensor:
     return params["wte"][token_ids]
 
 
+# ---------------------------------------------------------------------------
+# Full-sequence forward (teacher forcing)
+# ---------------------------------------------------------------------------
+
+def _block(bp: dict, cfg: GPT2Config, x: torch.Tensor, key_mask: torch.Tensor | None,
+           policy: Policy, use_kernels: bool | None) -> torch.Tensor:
+    d = x.shape[-1]
+    h = nn.layer_norm(bp["ln_1"], x, cfg.layer_norm_epsilon)
+    qkv = nn.dense(bp["attn"]["c_attn"], h, policy)
+    q, k, v = (nn.split_heads(t, cfg.n_head) for t in torch.split(qkv, d, dim=-1))
+    a = mha(q, k, v, causal=True, key_mask=key_mask, policy=policy, use_kernel=use_kernels)
+    x = x + nn.dense(bp["attn"]["c_proj"], nn.merge_heads(a), policy)
+    h = nn.layer_norm(bp["ln_2"], x, cfg.layer_norm_epsilon)
+    h = nn.gelu_new(nn.dense(bp["mlp"]["c_fc"], h, policy))
+    return x + nn.dense(bp["mlp"]["c_proj"], h, policy)
+
+
+def forward_hidden(
+    params: dict,
+    cfg: GPT2Config,
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor | None = None,
+    policy: Policy = F32,
+    remat: bool = False,
+    use_kernels: bool | None = None,
+) -> torch.Tensor:
+    """Full-sequence causal forward → final-LayerNorm hidden states (B, T, D)
+    in the compute dtype.  ``attention_mask``: (B, T) key padding mask,
+    1 = attend; positions are absolute from 0.
+
+    ``remat=True`` checkpoints each block (``torch.utils.checkpoint``,
+    non-reentrant): the backward recomputes the block instead of keeping its
+    activations, for identical loss and gradients.  Frozen weights need no
+    unrolled loop as in the JAX package: tensors with ``requires_grad=False``
+    get no weight gradients."""
+    t = inputs_embeds.shape[1]
+    pos = params["wpe"][:t].float()
+    x = (inputs_embeds.float() + pos[None]).to(policy.compute_dtype)
+    for i in range(cfg.n_layer):
+        bp = _layer(params["blocks"], i)
+        if remat:
+            x = checkpoint(_block, bp, cfg, x, attention_mask, policy, use_kernels,
+                           use_reentrant=False)
+        else:
+            x = _block(bp, cfg, x, attention_mask, policy, use_kernels)
+    return nn.layer_norm(params["ln_f"], x, cfg.layer_norm_epsilon)
+
+
+def forward(
+    params: dict,
+    cfg: GPT2Config,
+    inputs_embeds: torch.Tensor,
+    attention_mask: torch.Tensor | None = None,
+    policy: Policy = F32,
+) -> torch.Tensor:
+    """Full-sequence causal LM forward over embeddings → float32 logits (B, T, V)."""
+    x = forward_hidden(params, cfg, inputs_embeds, attention_mask, policy)
+    return nn.dot_f32(policy.cast(x), params["wte"].t().to(policy.compute_dtype))
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shifted next-token CE with -100 ignored → (sum, count), so callers can
+    combine micro-batches before dividing.  The oracle of ``ops.xent.xent_sum``."""
+    shift_logits = logits[:, :-1, :].float()
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != IGNORE_INDEX
+    safe = torch.where(valid, shift_labels, 0).long()
+    logz = torch.logsumexp(shift_logits, dim=-1)
+    gold = torch.gather(shift_logits, -1, safe[..., None])[..., 0]
+    return ((logz - gold) * valid).sum(), valid.sum()
+
+
+# ---------------------------------------------------------------------------
+# KV-cached decode
+# ---------------------------------------------------------------------------
+
 def init_cache(cfg: GPT2Config, batch: int, max_len: int, dtype=torch.float32,
-               device="cpu") -> dict:
+               device=DEFAULT_DEVICE) -> dict:
     """KV cache laid out (L, T, B, D), T rounded up to ``CHUNK_T``; rows past
     ``index`` are masked everywhere."""
     max_len = -(-max_len // DA.CHUNK_T) * DA.CHUNK_T
     shape = (cfg.n_layer, max_len, batch, cfg.n_embd)
+    device = resolve_device(device)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -99,15 +183,17 @@ def forward_cached(
     inputs_embeds: torch.Tensor,
     cache: dict,
     policy: Policy = F32,
+    use_kernels: bool | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Forward ``inputs_embeds`` (B, T, D) from position ``cache['index']``;
     returns (last-position float32 logits (B, V), cache with index + T).
 
-    T > 1 is the prefill of an empty cache (plain ops; the prefix attends
-    itself causally, as the JAX package's ``fresh_prefill``); T == 1 is a
-    decode step whose attention goes through
-    :func:`ops.decode_attention.decode_attention`, on the kernel for CUDA
-    tensors.  The cache tensors are written in place.
+    T > 1 is the prefill of an empty cache (the prefix attends itself
+    causally through :func:`ops.attention.mha`, as the JAX package's
+    ``fresh_prefill``); T == 1 is a decode step whose attention goes through
+    :func:`ops.decode_attention.decode_attention`.  Both run their kernels
+    for CUDA tensors unless ``use_kernels=False``.  The cache tensors are
+    written in place.
     """
     _, t, d = inputs_embeds.shape
     idx = int(cache["index"])
@@ -129,6 +215,7 @@ def forward_cached(
         if t == 1:
             a_flat, _, _ = DA.decode_attention(
                 q3[:, 0], k3[:, 0], v3[:, 0], k_all[i], v_all[i], idx, n_head=cfg.n_head,
+                use_kernel=use_kernels,
             )
             a = a_flat[:, None, :].to(policy.compute_dtype)
         else:
@@ -137,6 +224,7 @@ def forward_cached(
             a = nn.merge_heads(mha(
                 nn.split_heads(q3, cfg.n_head), nn.split_heads(k3, cfg.n_head),
                 nn.split_heads(v3, cfg.n_head), causal=True, policy=policy,
+                use_kernel=use_kernels,
             ))
         x = x + nn.dense(bp["attn"]["c_proj"], a, policy)
         h = nn.layer_norm(bp["ln_2"], x, cfg.layer_norm_epsilon)

@@ -7,7 +7,10 @@ layouts and numerics:
 - :func:`transformer` — a linear map to ``hidden_length`` image tokens ⧺ a
   learned constant prefix, through a pre-norm Transformer encoder (ReLU FFN,
   bidirectional attention, no final norm), keeping the last
-  ``prefix_length`` tokens.
+  ``prefix_length`` tokens.  Its attention goes through
+  :func:`ops.attention.mha`: the flash kernel for CUDA tensors unless
+  ``use_kernels=False``.  Every parameter, ``prefix_const`` and the linear map
+  included, stays a leaf tensor, so gradients reach all of them.
 """
 
 from __future__ import annotations
@@ -114,12 +117,12 @@ def init_transformer(generator: torch.Generator, cfg: TransformerMappingConfig) 
 
 
 def _encoder_layer(lp: dict, cfg: TransformerMappingConfig, x: torch.Tensor,
-                   policy: Policy) -> torch.Tensor:
+                   policy: Policy, use_kernels: bool | None) -> torch.Tensor:
     """Pre-norm encoder layer: x += MHA(LN(x)); x += FFN(LN(x))."""
     h = nn.layer_norm(lp["ln1"], x, cfg.layer_norm_eps)
     qkv = nn.dense(lp["attn"]["in_proj"], h, policy)
     q, k, v = (nn.split_heads(t, cfg.num_heads) for t in torch.split(qkv, cfg.gpt_dim, dim=-1))
-    a = mha(q, k, v, causal=False, policy=policy)
+    a = mha(q, k, v, causal=False, policy=policy, use_kernel=use_kernels)
     x = x + nn.dense(lp["attn"]["out_proj"], nn.merge_heads(a), policy)
     h = nn.layer_norm(lp["ln2"], x, cfg.layer_norm_eps)
     h = torch.relu(nn.dense(lp["fc1"], h, policy))
@@ -127,7 +130,7 @@ def _encoder_layer(lp: dict, cfg: TransformerMappingConfig, x: torch.Tensor,
 
 
 def transformer(params: dict, cfg: TransformerMappingConfig, x: torch.Tensor,
-                policy: Policy = F32) -> torch.Tensor:
+                policy: Policy = F32, use_kernels: bool | None = None) -> torch.Tensor:
     """(B, embed_dim) → (B, prefix_length, gpt_dim)"""
     b = x.shape[0]
     img_tokens = nn.dense(params["linear"], x, policy).reshape(b, cfg.hidden_length, cfg.gpt_dim)
@@ -136,7 +139,7 @@ def transformer(params: dict, cfg: TransformerMappingConfig, x: torch.Tensor,
     )
     h = torch.cat([img_tokens, prefix], dim=1)
     for lp in params["layers"]:
-        h = _encoder_layer(lp, cfg, h, policy)
+        h = _encoder_layer(lp, cfg, h, policy, use_kernels)
     return h[:, cfg.hidden_length :, :]
 
 
@@ -151,7 +154,7 @@ def init_mapping(generator: torch.Generator, cfg: MappingConfig) -> dict:
 
 
 def apply_mapping(params: dict, cfg: MappingConfig, x: torch.Tensor,
-                  policy: Policy = F32) -> torch.Tensor:
+                  policy: Policy = F32, use_kernels: bool | None = None) -> torch.Tensor:
     if isinstance(cfg, MLPMappingConfig):
         return mlp(params, cfg, x, policy)
-    return transformer(params, cfg, x, policy)
+    return transformer(params, cfg, x, policy, use_kernels)

@@ -1,4 +1,5 @@
-"""The weight bridge between the JAX package and the port.
+"""The weight bridges: between the JAX package and the port, and between
+the port and the reference's PyTorch state-dict names.
 
 The port keeps the JAX package's parameter trees as they are (nested dicts,
 a list for the transformer mapper's layers, GPT-2 blocks stacked on a
@@ -9,16 +10,30 @@ leaf-by-leaf copy.  The caller turns the JAX trees into numpy first
 A bfloat16 leaf arrives as an ``ml_dtypes`` bfloat16 numpy array and becomes
 a torch bfloat16 tensor bit for bit; :func:`to_numpy` returns bfloat16
 tensors as float32 arrays, which hold the same values exactly.
+
+The ``export_*`` / ``port_*`` pairs are the JAX package's
+``models/porting.py`` maps for the reference's names (HF GPT-2, the
+reference's ``MLPMappingNetwork`` and ``TransformerMappingNetwork``): torch
+``nn.Linear`` weights are ``(out, in)`` and transposed, HF ``Conv1D``
+weights are ``(in, out)`` and copied, LayerNorm ``weight``/``bias`` become
+``scale``/``bias``.  The export side returns float32 CPU tensors.
 """
 
 from __future__ import annotations
 
+from typing import Mapping
+
 import numpy as np
 import torch
 
+from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from gpt2_image_captioning_tpu_torch.core.tree import tree_map
 from gpt2_image_captioning_tpu_torch.models.captioner import CaptionerConfig
-from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config
+from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config, stack_blocks
+from gpt2_image_captioning_tpu_torch.models.mapping import (
+    MLPMappingConfig,
+    TransformerMappingConfig,
+)
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -49,11 +64,13 @@ def _check_gpt2(gpt: dict, cfg: GPT2Config) -> None:
         raise ValueError(f"GPT-2 params do not match {cfg}: shapes {got}, expected {want}")
 
 
-def from_jax_numpy(trainable: dict, frozen: dict, cfg: CaptionerConfig, device="cpu",
+def from_jax_numpy(trainable: dict, frozen: dict, cfg: CaptionerConfig, device=DEFAULT_DEVICE,
                    dtype: torch.dtype | None = None) -> tuple[dict, dict]:
     """The JAX package's ``(trainable, frozen)`` trees, as numpy arrays, →
-    the port's trees of tensors on ``device``.  ``dtype`` casts the floating
-    leaves (None keeps each leaf's dtype)."""
+    the port's trees of tensors on ``device`` (the card unless the caller
+    asks for the CPU).  ``dtype`` casts the floating leaves (None keeps each
+    leaf's dtype)."""
+    device = resolve_device(device)
     tr = tree_map(lambda a: _tensor(a, device, dtype), trainable)
     fz = tree_map(lambda a: _tensor(a, device, dtype), frozen)
     _check_gpt2(fz["gpt"] if "gpt" in fz else tr["gpt"], cfg.gpt2)
@@ -71,3 +88,138 @@ def to_numpy(trainable: dict, frozen: dict) -> tuple[dict, dict]:
         return t.numpy().copy()
 
     return tree_map(arr, trainable), tree_map(arr, frozen)
+
+
+# ---------------------------------------------------------------------------
+# Reference state-dict names
+# ---------------------------------------------------------------------------
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """A float32 CPU copy (or view) of a parameter or state-dict tensor."""
+    return t.detach().to("cpu", torch.float32).contiguous()
+
+
+def _strip_prefix(sd: Mapping, prefix: str) -> dict:
+    if any(k.startswith(prefix) for k in sd):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    return dict(sd)
+
+
+def _ln(sd: Mapping, name: str) -> dict:
+    return {"scale": _f32(sd[f"{name}.weight"]), "bias": _f32(sd[f"{name}.bias"])}
+
+
+def _linear(sd: Mapping, name: str, transpose: bool) -> dict:
+    w = _f32(sd[f"{name}.weight"])
+    p = {"w": (w.t() if transpose else w).contiguous()}
+    if sd.get(f"{name}.bias") is not None:
+        p["b"] = _f32(sd[f"{name}.bias"])
+    return p
+
+
+def port_gpt2(state_dict: Mapping, cfg: GPT2Config) -> dict:
+    """HF ``GPT2LMHeadModel``/``GPT2Model`` state dict → the port's GPT-2
+    params (keys with or without ``transformer.``; the tied ``lm_head`` and
+    the causal-mask buffers are dropped)."""
+    sd = _strip_prefix(dict(state_dict), "transformer.")
+    blocks = []
+    for i in range(cfg.n_layer):
+        h = f"h.{i}"
+        blocks.append({
+            "ln_1": _ln(sd, f"{h}.ln_1"),
+            "attn": {"c_attn": _linear(sd, f"{h}.attn.c_attn", transpose=False),
+                     "c_proj": _linear(sd, f"{h}.attn.c_proj", transpose=False)},
+            "ln_2": _ln(sd, f"{h}.ln_2"),
+            "mlp": {"c_fc": _linear(sd, f"{h}.mlp.c_fc", transpose=False),
+                    "c_proj": _linear(sd, f"{h}.mlp.c_proj", transpose=False)},
+        })
+    return {"wte": _f32(sd["wte.weight"]), "wpe": _f32(sd["wpe.weight"]),
+            "ln_f": _ln(sd, "ln_f"), "blocks": stack_blocks(blocks)}
+
+
+def export_gpt2(params: dict) -> dict[str, torch.Tensor]:
+    """Inverse of :func:`port_gpt2`: HF names with ``transformer.`` and the
+    tied ``lm_head.weight``."""
+    out = {
+        "transformer.wte.weight": _f32(params["wte"]),
+        "transformer.wpe.weight": _f32(params["wpe"]),
+        "transformer.ln_f.weight": _f32(params["ln_f"]["scale"]),
+        "transformer.ln_f.bias": _f32(params["ln_f"]["bias"]),
+        "lm_head.weight": _f32(params["wte"]),
+    }
+    b = params["blocks"]
+    for i in range(b["ln_1"]["scale"].shape[0]):
+        h = f"transformer.h.{i}"
+        for ln in ("ln_1", "ln_2"):
+            out[f"{h}.{ln}.weight"] = _f32(b[ln]["scale"][i])
+            out[f"{h}.{ln}.bias"] = _f32(b[ln]["bias"][i])
+        for group, name in (("attn", "c_attn"), ("attn", "c_proj"), ("mlp", "c_fc"),
+                            ("mlp", "c_proj")):
+            out[f"{h}.{group}.{name}.weight"] = _f32(b[group][name]["w"][i])
+            out[f"{h}.{group}.{name}.bias"] = _f32(b[group][name]["b"][i])
+    return out
+
+
+def port_mlp_mapping(state_dict: Mapping, cfg: MLPMappingConfig) -> dict:
+    """Reference ``MLPMappingNetwork`` state dict (``model.0`` / ``model.2``
+    Linear layers) → the MLP mapper's params."""
+    sd = _strip_prefix(dict(state_dict), "mapping_network.")
+    return {"fc1": _linear(sd, "model.0", transpose=True),
+            "fc2": _linear(sd, "model.2", transpose=True)}
+
+
+def export_mlp_mapping(params: dict) -> dict[str, torch.Tensor]:
+    prefix = "mapping_network."
+    return {
+        f"{prefix}model.0.weight": _f32(params["fc1"]["w"].t()),
+        f"{prefix}model.0.bias": _f32(params["fc1"]["b"]),
+        f"{prefix}model.2.weight": _f32(params["fc2"]["w"].t()),
+        f"{prefix}model.2.bias": _f32(params["fc2"]["b"]),
+    }
+
+
+def port_transformer_mapping(state_dict: Mapping, cfg: TransformerMappingConfig) -> dict:
+    """Reference ``TransformerMappingNetwork`` state dict (``linear``,
+    ``prefix_const``, ``transformer.layers.{i}.self_attn.in_proj_*``,
+    ``out_proj``, ``linear1/2``, ``norm1/2``) → the transformer mapper's params."""
+    sd = _strip_prefix(dict(state_dict), "mapping_network.")
+    params: dict = {"linear": _linear(sd, "linear", transpose=True),
+                    "prefix_const": _f32(sd["prefix_const"]), "layers": []}
+    for i in range(cfg.num_layers):
+        t = f"transformer.layers.{i}"
+        params["layers"].append({
+            "ln1": _ln(sd, f"{t}.norm1"),
+            "attn": {
+                "in_proj": {"w": _f32(sd[f"{t}.self_attn.in_proj_weight"]).t().contiguous(),
+                            "b": _f32(sd[f"{t}.self_attn.in_proj_bias"])},
+                "out_proj": _linear(sd, f"{t}.self_attn.out_proj", transpose=True),
+            },
+            "ln2": _ln(sd, f"{t}.norm2"),
+            "fc1": _linear(sd, f"{t}.linear1", transpose=True),
+            "fc2": _linear(sd, f"{t}.linear2", transpose=True),
+        })
+    return params
+
+
+def export_transformer_mapping(params: dict) -> dict[str, torch.Tensor]:
+    prefix = "mapping_network."
+    out = {
+        f"{prefix}linear.weight": _f32(params["linear"]["w"].t()),
+        f"{prefix}linear.bias": _f32(params["linear"]["b"]),
+        f"{prefix}prefix_const": _f32(params["prefix_const"]),
+    }
+    for i, lp in enumerate(params["layers"]):
+        t = f"{prefix}transformer.layers.{i}"
+        out[f"{t}.self_attn.in_proj_weight"] = _f32(lp["attn"]["in_proj"]["w"].t())
+        out[f"{t}.self_attn.in_proj_bias"] = _f32(lp["attn"]["in_proj"]["b"])
+        out[f"{t}.self_attn.out_proj.weight"] = _f32(lp["attn"]["out_proj"]["w"].t())
+        out[f"{t}.self_attn.out_proj.bias"] = _f32(lp["attn"]["out_proj"]["b"])
+        out[f"{t}.norm1.weight"] = _f32(lp["ln1"]["scale"])
+        out[f"{t}.norm1.bias"] = _f32(lp["ln1"]["bias"])
+        out[f"{t}.norm2.weight"] = _f32(lp["ln2"]["scale"])
+        out[f"{t}.norm2.bias"] = _f32(lp["ln2"]["bias"])
+        out[f"{t}.linear1.weight"] = _f32(lp["fc1"]["w"].t())
+        out[f"{t}.linear1.bias"] = _f32(lp["fc1"]["b"])
+        out[f"{t}.linear2.weight"] = _f32(lp["fc2"]["w"].t())
+        out[f"{t}.linear2.bias"] = _f32(lp["fc2"]["b"])
+    return out

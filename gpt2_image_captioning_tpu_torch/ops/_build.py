@@ -2,8 +2,9 @@
 
 The sources are ``gpt2_image_captioning_tpu_torch/csrc/*.cu`` (plus their
 ``*.cuh`` headers).  At first use they are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
-loaded with ``ctypes``.  The library lands in ``_build/<hash>/`` beside the
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+linked into one shared library with a plain C interface, which is loaded
+with ``ctypes``.  The library lands in ``_build/<hash>/`` beside the
 package (listed in ``.gitignore``), keyed by a hash of the sources and the
 flags, so an edited kernel is rebuilt and an unchanged one is loaded as is.
 No PyTorch header is compiled, which keeps a build to seconds.
@@ -32,7 +33,7 @@ BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libgic_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / shared memory / spills → nvcc.log
 )
 
@@ -41,6 +42,9 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
+    # dtype, q, k, v, out, key_mask, B, H, Tq, Tk, hd, strides (12 int64), causal, q_offset,
+    # stream
+    "gic_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P],
     # dtype, q, k_new, v_new, in_stride, k_cache, v_cache, out, B, D, H, idx, stream
     "gic_decode_attention": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # dtype, ln, epilogue, x, ln_scale, ln_bias, eps, w, bias, out, stats, M, K, N, stream
@@ -95,22 +99,42 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the shared library unless this exact source
-    set is already built; return the library's path."""
+    set is already built; return the library's path.  Each source compiles in
+    its own ``nvcc`` process, all at once; one more links the objects."""
     out_dir = BUILD_DIR / source_hash()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cus = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "nvcc.log").write_text(
-        " ".join(cmd) + "\n--- stdout ---\n" + proc.stdout + "\n--- stderr ---\n" + proc.stderr
-    )
-    if proc.returncode != 0:
+    tag = os.getpid()
+    nvcc = _nvcc()
+    jobs = []
+    for cu in sorted(CSRC_DIR.glob("*.cu")):
+        obj = out_dir / f"{cu.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(cu)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((cmd, obj, proc))
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+            *(str(obj) for _, obj, _ in jobs)]
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n--- stdout ---\n" + out + "\n--- stderr ---\n" + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit code {proc.returncode}):\n{err}")
+    if not failed:
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log.append(" ".join(link) + "\n--- stdout ---\n" + proc.stdout
+                   + "\n--- stderr ---\n" + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit code {proc.returncode}):\n{proc.stderr}")
+    (out_dir / "nvcc.log").write_text("\n".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}")
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent loader sees the whole file or none
     return lib
 

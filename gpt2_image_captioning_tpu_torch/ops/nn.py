@@ -57,15 +57,40 @@ def layer_norm_init(dim: int) -> dict:
 # Dense / LayerNorm / activations
 # ---------------------------------------------------------------------------
 
+class _MatmulF32(torch.autograd.Function):
+    """2-D ``a @ b`` of bf16 operands on the tensor cores with a float32
+    result.  ``torch.mm(..., out_dtype=...)`` has no gradient, so the
+    backward is written out: the incoming float32 gradient is rounded to the
+    operands' dtype and each product accumulates in float32 again; a
+    gradient is computed only for an operand that needs one (a frozen
+    weight's is skipped)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.mm(g, b.t(), out_dtype=torch.float32).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.mm(a.t(), g, out_dtype=torch.float32).to(b.dtype)
+        return da, db
+
+
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (b 2-D) with float32 accumulation and a float32 result.
 
     On CUDA, bf16 operands go to the tensor cores with a float32 output
-    (``torch.mm(..., out_dtype=torch.float32)``); elsewhere both operands are
-    upcast, which gives the same products (a bf16 product is exact in
-    float32) in another summation order."""
+    (:class:`_MatmulF32`); elsewhere both operands are upcast, which gives
+    the same products (a bf16 product is exact in float32) in another
+    summation order."""
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
-        out = torch.mm(a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32)
+        out = _MatmulF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     return torch.matmul(a.float(), b.float())
 

@@ -81,7 +81,7 @@ def test_greedy_tokens_match_jax(case, jax_path):
     # a near-tie could flip a token by rounding alone, so the case must have none
     assert _min_top2_gap(tr, fz, jcfg, emb, want) > 1e-4
 
-    ttr, tfz = porting.from_jax_numpy(*jax.tree.map(np.asarray, (tr, fz)), tcfg)
+    ttr, tfz = porting.from_jax_numpy(*jax.tree.map(np.asarray, (tr, fz)), tcfg, device="cpu")
     got = TC.generate(ttr, tfz, tcfg, torch.from_numpy(emb), **kw)
     assert got.dtype == torch.int32 and tuple(got.shape) == (5, MAX_LEN)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -101,12 +101,12 @@ def test_build_prefix_with_task_prompt_matches_jax():
     tr, fz = JC.init_params(jax.random.PRNGKey(4), jcfg)
     assert tcfg.total_prefix_length == 6
     want = JC.build_prefix(tr, jcfg, jnp.asarray(emb))
-    ttr, _ = porting.from_jax_numpy(*jax.tree.map(np.asarray, (tr, fz)), tcfg)
+    ttr, _ = porting.from_jax_numpy(*jax.tree.map(np.asarray, (tr, fz)), tcfg, device="cpu")
     got = TC.build_prefix(ttr, tcfg, torch.from_numpy(emb))
     assert tuple(got.shape) == (5, 6, 32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
     # the port's own init takes the task prefix from its wte
-    ttr2, tfz2 = TC.init_params(torch.Generator().manual_seed(0), tcfg)
+    ttr2, tfz2 = TC.init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
     torch.testing.assert_close(ttr2["task_prefix"], tfz2["gpt"]["wte"][[5, 17, 200]])
 
 
@@ -124,7 +124,7 @@ def test_model_facade_bf16_and_refusals():
             return [" ".join(str(i) for i in row if i != 5) for row in ids]
 
     model = TC.ImageCaptioningModel(cfg, tokenizer=Tok(),
-                                    generator=torch.Generator().manual_seed(1))
+                                    generator=torch.Generator().manual_seed(1), device="cpu")
     emb = np.random.default_rng(1).normal(size=(3, 8)).astype(np.float32)
     tr, fz, pol = model.decode_params("bf16")
     assert fz["gpt"]["wte"].dtype == torch.bfloat16 and pol.compute_dtype == torch.bfloat16

@@ -1,0 +1,123 @@
+"""The port's flash attention against the JAX package's Pallas kernel (run in
+interpret mode): the plain twin's forward and ``FlashAttention``'s gradients,
+in float32, over causal and bidirectional attention, ragged lengths with a
+key mask, a static q_offset, several blocks (T 200) and head dims 8 and 24;
+then ``mha`` on the CPU against the JAX package's ``mha``.
+
+Tolerances: the forward to 1e-5 and the gradients to 1e-4 (both sides are
+float32; they differ in summation order and in the online against the plain
+softmax).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpt2_image_captioning_tpu.ops import attention as JA
+from gpt2_image_captioning_tpu_torch.ops import attention as TA
+
+# B, H, Tq, Tk, hd, causal, key mask, q_offset
+CASES = {
+    "causal": (2, 3, 16, 16, 8, True, False, 0),
+    "bidirectional": (2, 3, 16, 16, 8, False, False, 0),
+    "odd_masked_causal": (3, 2, 13, 13, 24, True, True, 0),
+    "odd_masked_bidirectional": (3, 2, 11, 11, 8, False, True, 0),
+    "q_offset": (2, 2, 5, 12, 8, True, True, 7),
+    "multi_block_t200": (1, 2, 200, 200, 24, True, True, 0),
+}
+
+
+def _inputs(b, h, tq, tk, hd, masked, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, tq, hd)).astype(np.float32)
+    k = rng.normal(size=(b, h, tk, hd)).astype(np.float32)
+    v = rng.normal(size=(b, h, tk, hd)).astype(np.float32)
+    w = rng.normal(size=(b, h, tq, hd)).astype(np.float32)  # weights of the scalar loss
+    mask = None
+    if masked:  # ragged key lengths; key 0 stays valid, so every row sees a key
+        lens = rng.integers(1, tk + 1, size=b)
+        mask = (np.arange(tk)[None, :] < lens[:, None]).astype(np.int32)
+    return q, k, v, w, mask
+
+
+def _jax(q, k, v, w, mask, causal, q_offset):
+    jm = None if mask is None else jnp.asarray(mask)
+
+    def loss(q, k, v):
+        out = JA.flash_attention(q, k, v, causal=causal, key_mask=jm, q_offset=q_offset,
+                                 interpret=True)
+        return jnp.sum(out * w), out
+
+    (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _torch(q, k, v, w, mask, causal, q_offset):
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tm = None if mask is None else torch.from_numpy(mask)
+    out = TA.flash_attention(tq, tk, tv, causal=causal, key_mask=tm, q_offset=q_offset)
+    (out * torch.from_numpy(w)).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in (tq, tk, tv)]
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_flash_attention_matches_jax(case):
+    b, h, tq, tk, hd, causal, masked, q_offset = CASES[case]
+    q, k, v, w, mask = _inputs(b, h, tq, tk, hd, masked)
+    want, want_grads = _jax(q, k, v, w, mask, causal, q_offset)
+    got, got_grads = _torch(q, k, v, w, mask, causal, q_offset)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    tm = None if mask is None else torch.from_numpy(mask)
+    twin = TA._flash_attention_plain(*(torch.from_numpy(a) for a in (q, k, v)), tm, causal, q_offset)
+    np.testing.assert_allclose(twin.numpy(), want, atol=1e-5, rtol=1e-5)
+    for name, g, gw in zip("qkv", got_grads, want_grads):
+        np.testing.assert_allclose(g, gw, atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
+
+
+def test_fully_masked_row():
+    """A batch row whose keys are all masked: the port's forward gives zeros
+    there, the contract the reference's kernel states (:90-91); the
+    reference's kernel gives the mean of v over its key block instead
+    (exp(NEG_INF - NEG_INF) = 1 for every masked key), pinned here.  The
+    backward is the reference's uniform softmax over the keys, so the
+    gradients match the JAX package's everywhere."""
+    q, k, v, w, _ = _inputs(2, 2, 12, 12, 8, False, seed=3)
+    mask = np.ones((2, 12), np.int32)
+    mask[0] = 0
+    want, want_grads = _jax(q, k, v, w, mask, False, 0)
+    got, got_grads = _torch(q, k, v, w, mask, False, 0)
+    assert np.all(got[0] == 0.0)
+    np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(want[0], np.broadcast_to(v[0].mean(axis=1, keepdims=True),
+                                                        want[0].shape), atol=1e-5)
+    for name, g, gw in zip("qkv", got_grads, want_grads):
+        np.testing.assert_allclose(g, gw, atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
+    assert np.abs(got_grads[2][0]).max() > 0  # the uniform softmax sends v a gradient
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_mha_on_cpu_matches_jax(causal):
+    """On the CPU the port's ``mha`` runs ``attention_xla``, as the JAX
+    package's ``mha`` does off the TPU."""
+    q, k, v, _, mask = _inputs(2, 4, 9, 9, 8, True, seed=1)
+    want = JA.mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                  key_mask=jnp.asarray(mask))
+    got = TA.mha(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                 key_mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        TA.mha(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal, use_kernel=True)
+
+
+def test_flash_attention_cuda_refuses_what_it_does_not_take():
+    """The CUDA wrapper refuses CPU tensors before it touches the build; the
+    dispatcher never hands them to it."""
+    x = torch.zeros(1, 2, 4, 64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        TA.flash_attention_cuda(x, x, x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        TA.flash_attention(x, x, x, use_kernel=True)
+    assert TA.HEAD_DIMS == (64, 96)

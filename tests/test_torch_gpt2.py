@@ -31,7 +31,7 @@ def test_config_and_cache_layout():
     fields = lambda c: {f.name: getattr(c, f.name) for f in dataclasses.fields(c)}  # noqa: E731
     assert fields(CFG_T) == fields(CFG_J)
     assert TG.GPT2Config.gpt2_124m() == TG.GPT2Config()
-    cache = TG.init_cache(CFG_T, 5, 15 + 50, dtype=torch.bfloat16)
+    cache = TG.init_cache(CFG_T, 5, 15 + 50, dtype=torch.bfloat16, device="cpu")
     assert cache["k"].shape == (2, 80, 5, 32) and cache["k"].dtype == torch.bfloat16
     assert cache["index"] == 0
     j = JG.init_cache(CFG_J, 5, 65)
@@ -47,7 +47,7 @@ def test_prefill_matches_jax(fresh_prefill):
         params, CFG_J, jnp.asarray(prefix), JG.init_cache(CFG_J, 3, t), fresh_prefill=fresh_prefill
     )
     got, tcache = TG.forward_cached(
-        tparams, CFG_T, torch.from_numpy(prefix), TG.init_cache(CFG_T, 3, t),
+        tparams, CFG_T, torch.from_numpy(prefix), TG.init_cache(CFG_T, 3, t, device="cpu"),
     )
     _close(got, want)
     _close(tcache["k"], jcache["k"])
@@ -60,7 +60,7 @@ def test_one_token_steps_match_jax():
     params, tparams, prefix, t = _setup(b=4)
     _, jcache = JG.forward_cached(params, CFG_J, jnp.asarray(prefix), JG.init_cache(CFG_J, 4, t))
     _, tcache = TG.forward_cached(tparams, CFG_T, torch.from_numpy(prefix),
-                                  TG.init_cache(CFG_T, 4, t))
+                                  TG.init_cache(CFG_T, 4, t, device="cpu"))
     rng = np.random.default_rng(9)
     for _ in range(3):
         tok = rng.normal(size=(4, 1, CFG_J.n_embd)).astype(np.float32)
@@ -77,7 +77,7 @@ def test_multi_token_forward_needs_an_empty_cache():
     chunk raises instead of attending the cache some other way."""
     _, tparams, prefix, t = _setup(b=2, p_len=4, extra=8)
     _, tcache = TG.forward_cached(tparams, CFG_T, torch.from_numpy(prefix),
-                                  TG.init_cache(CFG_T, 2, t))
+                                  TG.init_cache(CFG_T, 2, t, device="cpu"))
     more = np.random.default_rng(3).normal(size=(2, 3, CFG_J.n_embd)).astype(np.float32)
     with pytest.raises(ValueError, match="empty cache"):
         TG.forward_cached(tparams, CFG_T, torch.from_numpy(more), tcache)

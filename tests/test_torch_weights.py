@@ -57,7 +57,7 @@ def test_bf16_leaves_cross_bit_for_bit():
     jcfg, tcfg = _configs("mlp")
     tr, fz = JC.init_params(jax.random.PRNGKey(1), jcfg)
     tr_np, fz_np = jax.tree.map(np.asarray, (j_cast(tr), j_cast(fz)))
-    ttr, tfz = porting.from_jax_numpy(tr_np, fz_np, tcfg)
+    ttr, tfz = porting.from_jax_numpy(tr_np, fz_np, tcfg, device="cpu")
     a = fz_np["gpt"]["blocks"]["attn"]["c_attn"]["w"]
     t = tfz["gpt"]["blocks"]["attn"]["c_attn"]["w"]
     assert t.dtype == torch.bfloat16
@@ -69,11 +69,11 @@ def test_bf16_leaves_cross_bit_for_bit():
 def test_dtype_cast_and_shape_check():
     jcfg, tcfg = _configs("mlp")
     tr, fz = jax.tree.map(np.asarray, JC.init_params(jax.random.PRNGKey(0), jcfg))
-    _, tfz = porting.from_jax_numpy(tr, fz, tcfg, dtype=torch.bfloat16)
+    _, tfz = porting.from_jax_numpy(tr, fz, tcfg, device="cpu", dtype=torch.bfloat16)
     assert tfz["gpt"]["wte"].dtype == torch.bfloat16
     wrong = TC.CaptionerConfig(gpt2=TG.GPT2Config.tiny(vocab_size=300), mapping=tcfg.mapping)
     with pytest.raises(ValueError, match="do not match"):
-        porting.from_jax_numpy(tr, fz, wrong)
+        porting.from_jax_numpy(tr, fz, wrong, device="cpu")
 
 
 @pytest.mark.parametrize("kind", list(MAPPINGS))
@@ -81,7 +81,7 @@ def test_torch_init_params_has_the_jax_tree(kind):
     """The torch-native init builds the same trees, shapes and dtypes."""
     jcfg, tcfg = _configs(kind)
     jtr, jfz = JC.init_params(jax.random.PRNGKey(0), jcfg)
-    ttr, tfz = TC.init_params(torch.Generator().manual_seed(0), tcfg)
+    ttr, tfz = TC.init_params(torch.Generator().manual_seed(0), tcfg, device="cpu")
     shape = lambda a: (tuple(a.shape), str(a.dtype).replace("torch.", ""))  # noqa: E731
     assert jax.tree.map(shape, (ttr, tfz)) == jax.tree.map(shape, (jtr, jfz))
     assert jnp.float32 == jfz["gpt"]["wte"].dtype
