@@ -8,15 +8,26 @@ It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
 PyTorch twin at the main paths' shapes, with its time beside its bound (the
 least time the card could take for the same work) and, where one PyTorch
-call computes the same function, that call's time.  Then it drives the two
+call computes the same function, that call's time.  Then it drives the four
 paths the port has, each with the kernels' launch counters set to 0 just
 before and read just after:
 
-- serving: exact greedy tokens against the plain path on a tiny float32
-  model, then three requests of 128 image embeddings through
+- greedy serving: exact greedy tokens against the plain path on a tiny
+  float32 model, then three requests of 128 image embeddings through
   ``ImageCaptioningModel.generate`` at GPT-2 124M width (random weights from
   a seed, bf16, greedy, 50 tokens), and one more traced with
   ``torch.profiler`` for the decode loop's device idle share;
+- sampled serving: the same model and requests through
+  ``ImageCaptioningModel.generate`` at temperature 1.0, top_p 0.9 (the
+  façade's defaults): exact tokens against the plain path on the tiny model
+  with one generator seed, then at full width every drawn token must lie in
+  the plain path's nucleus, teacher-forced along the kernels' tokens;
+- beam search: ``beam_generate`` with 4 beams on 128 images (512 decode
+  rows), 50 tokens: exact beams against the plain path on the tiny model;
+  at full width the score the kernels' search gave each chosen caption
+  must be within 0.05 of the plain path's score of it, the kernels'
+  captions must score no worse than the plain path's on average, and in
+  float32 the captions must be the plain path's;
 - training: the train step (``make_train_step``) at full width — GPT-2 124M
   frozen, the transformer mapper trainable, bf16 compute, AdamW, b 128,
   captions padded to 50 — fed by the ``Batcher``: step-1 loss and gradients
@@ -49,6 +60,13 @@ OUT_DIR = Path(__file__).resolve().parent / "chiprun_out"
 # Main-path shapes: GPT-2 124M, batch 128, 15 prefix + 50 tokens → Tpad 80.
 B, D, H, T, V = 128, 768, 12, 80, 50257
 ATTN_IDX = (0, 1, 15, 16, 17, 64)
+# Beam search: 4 beams per image, 512 decode rows; the image prefix (15
+# positions) is read directly, the rest through the ancestry map.  The
+# kernel rows are timed at idx 40, the middle of the 49-step walk.
+BEAM_K, P_LEN = 4, 15
+B_BEAM = B * BEAM_K
+ORIGIN_IDX = (15, 16, 17, 40, 64)
+TOP_P = 0.9
 
 # Tolerances, |kernel - plain| <= atol + rtol * |plain|.
 # bf16 outputs: the kernel and the twin accumulate in float32 in different
@@ -68,6 +86,39 @@ TOL = {
 # inputs.  0.05 is ~9 % of the logit std and several times the drift, yet far
 # below the gap to a wrong token picked by a broken kernel (~1 logit std).
 TF_TOL = 0.05
+# Sampled path, bf16, teacher-forced along the kernels' tokens: the plain
+# path's probability mass strictly above each drawn token's logit must be
+# <= top_p + NUCLEUS_SLACK.  The two paths' logits differ by the drift above
+# (at most ~1e-2 of a logit); a token whose logit crosses the drawn token's
+# moves that mass by its own probability (~2e-5 among 50,257 flat random
+# logits), and a few hundred lie within the drift, so the mass moves by
+# ~1e-3.  A token drawn outside the nucleus (a wrong mask, or a draw from the
+# raw softmax) lies above 0.9 + 0.01 about one time in ten and shows within
+# a few draws.
+NUCLEUS_SLACK = 0.01
+# Beam path, bf16.  The score the kernels' search gives each image's chosen
+# caption (sum log-prob / length, accumulated along the ancestry map) must be
+# within BEAM_SCORE_TOL of the plain path's score of the same tokens,
+# teacher-forced: a token's log-prob moves by at most its logit's drift plus
+# the logsumexp's, twice the drift above (~3e-2), and a caption's score is a
+# mean of those; wrong ancestry or a wrong top-k/logsumexp scores tokens
+# under another history and moves it by whole log-prob gaps.  The kernels'
+# captions are not held to the plain path's captions image by image: the
+# two searches part at near-ties (at the first token for some images) and
+# then end on different beams, whose scores may lie a tenth or more apart
+# either way (beam_path reports the spread).  Parting at random, neither
+# search is better on average, so the mean shortfall over images, plain
+# best minus the kernels' caption, both plain-scored, must stay <=
+# BEAM_MEAN_TOL: about a quarter of the 384 images part, with shortfalls of
+# ~0.1 either way, so the mean's own spread is ~0.003, and a systematic loss
+# of a tenth of a log-prob on the parted images moves it by ~0.025.
+BEAM_SCORE_TOL = 0.05
+BEAM_MEAN_TOL = 0.02
+# Beam path, float32 at full width on BEAM_F32_IMAGES images: the kernels
+# and the twins differ by summation order only (~1e-6), far below the gaps
+# between candidates at these seeds, so every caption must be the plain
+# path's (BEAM_F32_PARTED may part; every run has shown none).
+BEAM_F32_IMAGES, BEAM_F32_PARTED = 32, 0
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense): HBM bytes/s and
 # operations/s by the element type of the products.
@@ -194,6 +245,65 @@ def check_attention(dtype, g) -> dict:
             "at": f"B {B}, D {D}, H {H}, T {T}, idx {idx}"}
 
 
+def beam_origin(tpad: int, rows: int, g) -> torch.Tensor:
+    """A random ancestry map inside each group of BEAM_K rows, as beam
+    search builds one: (T, rows) int32."""
+    base = (torch.arange(rows, device="cuda") // BEAM_K * BEAM_K)[None, :]
+    pick = torch.randint(0, BEAM_K, (tpad, rows), generator=g, device="cuda")
+    return (base + pick).to(torch.int32).contiguous()
+
+
+def check_attention_origin(dtype, g) -> dict:
+    """``csrc/decode_attention.cu`` in beam mode: 512 rows, a random in-group
+    ancestry map read from position 15 (the image prefix) on."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_attention as DA
+
+    b = B_BEAM
+    origin = beam_origin(T, b, g)
+    worst = 0.0
+    for idx in ORIGIN_IDX:
+        q, kn, vn = (torch.randn(b, D, generator=g, device="cuda").to(dtype) for _ in range(3))
+        kc = torch.randn(T, b, D, generator=g, device="cuda").to(dtype)
+        vc = torch.randn(T, b, D, generator=g, device="cuda").to(dtype)
+        kc[idx:], vc[idx:] = 1e4, -1e4  # rows >= idx must never be attended
+        kp, vp = kc.clone(), vc.clone()
+        want = DA._decode_attention_plain(q, kn, vn, kp, vp, idx, H, origin, P_LEN)
+        got = DA.decode_attention_cuda(q, kn, vn, kc, vc, idx, H, origin, P_LEN)
+        torch.cuda.synchronize()
+        worst = max(worst, close(got, want, TOL[dtype]["out"]))
+        check(torch.equal(kc, kp) and torch.equal(vc, vp), f"cache rows differ at idx {idx}")
+    idx = 40
+    q, kn, vn = (torch.randn(b, D, generator=g, device="cuda").to(dtype) for _ in range(3))
+    ms = time_ms(lambda: DA.decode_attention_cuda(q, kn, vn, kc, vc, idx, H, origin, P_LEN))
+    plain_ms = time_ms(
+        lambda: DA._decode_attention_plain(q, kn, vn, kp, vp, idx, H, origin, P_LEN))
+    # the library's way: gather the rows the map names, then SDPA over them
+    src = torch.arange(b, device="cuda").expand(idx + 1, b).clone()
+    src[P_LEN:idx] = origin[P_LEN:idx].long()
+    gidx = src[:, :, None].expand(idx + 1, b, D)
+    hd, el = D // H, q.element_size()
+
+    def library():
+        k4, v4 = (c[: idx + 1].gather(1, gidx).view(idx + 1, b, H, hd).permute(1, 2, 0, 3)
+                  for c in (kc, vc))
+        return F.scaled_dot_product_attention(q.view(b, H, 1, hd), k4, v4)
+
+    library_ms = time_ms(library)
+    # the cache rows that must be read, K and V each: every row's own below
+    # gather_start, and from there each distinct (position, source row) the
+    # map names, once (beams of one image share ancestors); q / k_new / v_new
+    # read, the output and the appended rows written, and the map's entries
+    # for the gathered positions
+    rows_read = b * P_LEN + sum(int(torch.unique(origin[t]).numel()) for t in range(P_LEN, idx))
+    nbytes = el * D * (2 * rows_read + b * (3 + 1 + 2)) + 4 * (idx - P_LEN) * b
+    bound_ms, bound_by = bound(nbytes, 4 * b * D * (idx + 1), dtype)
+    return {"kernel": "decode_attention", "mode": "origin", "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "cache_rows_read": rows_read, "cache_rows_named": idx * b,
+            "library_ms": library_ms, "library": "gather of the cache by origin + SDPA",
+            "at": f"B {b}, D {D}, H {H}, T {T}, idx {idx}, gather_start {P_LEN}"}
+
+
 def check_dot_f32(g) -> dict:
     """The bf16 plain twins on the card multiply through ``ops/nn.py::dot_f32``'s
     CUDA branch (cuBLAS with a float32 output), while the CPU tests hold the
@@ -276,13 +386,108 @@ def check_linear(dtype, g) -> dict:
             "at": f"B {B}: the four projections of one layer, summed", "roles": roles}
 
 
-def check_logits_argmax(dtype, g) -> dict:
-    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
-
-    x32 = 3.0 * torch.randn(B, D, generator=g, device="cuda")
+def vocab_inputs(b: int, dtype, g):
+    """The vocabulary kernels' inputs as the step gives them: the float32
+    residual stream, LN_f's (2, D) scale and bias, and wte (V, D)."""
+    x32 = 3.0 * torch.randn(b, D, generator=g, device="cuda")
     lnf = torch.stack([1 + 0.1 * torch.randn(D, generator=g, device="cuda"),
                        0.1 * torch.randn(D, generator=g, device="cuda")]).contiguous()
     wte = (0.02 * torch.randn(V, D, generator=g, device="cuda")).to(dtype)
+    return x32, lnf, wte
+
+
+def library_logits(x32, lnf, wte):
+    """One PyTorch LayerNorm and one product with a float32 result: the
+    library's way to the step's logits (timed only here)."""
+    xf = F.layer_norm(x32, (D,), lnf[0], lnf[1], 1e-5).to(wte.dtype)
+    if wte.dtype == torch.bfloat16:
+        return torch.mm(xf, wte.t(), out_dtype=torch.float32)
+    return torch.mm(xf, wte.t())
+
+
+def vocab_bytes(b: int, wte, out_bytes: int) -> int:
+    """wte, the residual rows and LN_f read, ``out_bytes`` written."""
+    return V * D * wte.element_size() + 4 * b * D + 8 * D + out_bytes
+
+
+def check_logits(dtype, g) -> dict:
+    """``csrc/logits.cu`` (emit_logits) at the sampled path's B 128.  The
+    kernel and the twin both round LN_f's output to the compute dtype; their
+    float32 statistics differ in summation order, which can flip a bf16
+    rounding of that output, moving a logit by |w| x one bf16 ulp of the
+    LN output (< 1e-2): the "out" tolerance."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+    x32, lnf, wte = vocab_inputs(B, dtype, g)
+    want = DS.logits_plain(x32, lnf, wte)
+    got = DS.logits_cuda(x32, lnf, wte)
+    torch.cuda.synchronize()
+    check(got.shape == (B, V) and got.dtype == torch.float32, f"logits shape {got.shape}")
+    err = close(got, want, TOL[dtype]["out"])
+    ms = time_ms(lambda: DS.logits_cuda(x32, lnf, wte))
+    plain_ms = time_ms(lambda: DS.logits_plain(x32, lnf, wte))
+    library_ms = time_ms(lambda: library_logits(x32, lnf, wte))
+    nbytes = vocab_bytes(B, wte, 4 * B * V)
+    bound_ms, bound_by = bound(nbytes, 2 * B * D * V, dtype)
+    return {"kernel": "logits", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "library_ms": library_ms, "library": "layer_norm + mm with a float32 result",
+            "at": f"B {B}, D {D}, V {V}"}
+
+
+def check_logits_topk(dtype, g) -> dict:
+    """``csrc/logits_topk.cu`` at the beam path's 512 rows, k 4.  Values and
+    the logsumexp to the logits' tolerance; ids equal wherever the twin's
+    top-(k+1) values are apart by more than that tolerance, and every chosen
+    id's twin logit within it of the twin's value at its rank; forced ties
+    (row 0's top logit copied to lower ids) come out lowest id first."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+    from gpt2_image_captioning_tpu_torch.ops.sampling import topk_small
+
+    k = BEAM_K
+    x32, lnf, wte = vocab_inputs(B_BEAM, dtype, g)
+    want_v, want_i, want_l = DS.logits_topk_plain(x32, lnf, wte, k)
+    got_v, got_i, got_l = DS.logits_topk_cuda(x32, lnf, wte, k)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]["out"]
+    err = max(close(got_v, want_v, tol), close(got_l, want_l, tol))
+    logits = DS.logits_plain(x32, lnf, wte)
+    top, _ = topk_small(logits, k + 1)
+    clear = ((top[:, :-1] - top[:, 1:]) > TOL[dtype]["gap"]).all(dim=1)
+    check(bool((got_i == want_i)[clear].all()), "top-k ids differ on a row with clear gaps")
+    chosen = logits.gather(1, got_i.long())
+    check(bool(((want_v - chosen) <= TOL[dtype]["gap"]).all()),
+          "a chosen id's logit is below the twin's value at its rank")
+    check(all(len(set(r)) == k for r in got_i.tolist()), "repeated ids in a row's top-k")
+    win = int(want_i[0, 0])
+    check(win > 1, "row 0's winner is id 0 or 1; change the seed")
+    w2 = wte.clone()
+    w2[0] = wte[win]
+    w2[win - 1] = wte[win]
+    _, tie_i, _ = DS.logits_topk_cuda(x32, lnf, w2, k)
+    _, tie_plain, _ = DS.logits_topk_plain(x32, lnf, w2, k)
+    check(tie_i[0, :3].tolist() == [0, win - 1, win], f"forced ties gave {tie_i[0].tolist()}")
+    ms = time_ms(lambda: DS.logits_topk_cuda(x32, lnf, wte, k))
+    plain_ms = time_ms(lambda: DS.logits_topk_plain(x32, lnf, wte, k))
+
+    def library():
+        lg = library_logits(x32, lnf, wte)
+        return torch.topk(lg, k), torch.logsumexp(lg, dim=-1)
+
+    library_ms = time_ms(library)
+    nbytes = vocab_bytes(B_BEAM, wte, 8 * B_BEAM * k + 4 * B_BEAM)
+    bound_ms, bound_by = bound(nbytes, 2 * B_BEAM * D * V, dtype)
+    return {"kernel": "logits_topk", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "library_ms": library_ms, "library": "layer_norm + mm + topk + logsumexp",
+            "at": f"B {B_BEAM}, D {D}, V {V}, k {k}", "rows_with_clear_gaps": int(clear.sum()),
+            "forced_ties": {"kernel": tie_i[0].tolist(), "plain": tie_plain[0].tolist()}}
+
+
+def check_logits_argmax(dtype, g) -> dict:
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+    x32, lnf, wte = vocab_inputs(B, dtype, g)
     logits = DS.logits_plain(x32, lnf, wte)
     want = torch.argmax(logits, dim=-1).to(torch.int32)
     got = DS.logits_argmax_cuda(x32, lnf, wte)
@@ -310,8 +515,7 @@ def check_logits_argmax(dtype, g) -> dict:
     # no single library call: cuBLAS's bare (B, D) x (D, V) product, for scale
     xf, wt = x32.to(dtype), wte.t()
     cublas_ms = time_ms(lambda: torch.mm(xf, wt))
-    # wte, the residual rows and LN_f read; the tokens written
-    nbytes = V * D * wte.element_size() + 4 * B * D + 8 * D + 4 * B
+    nbytes = vocab_bytes(B, wte, 4 * B)  # the tokens written
     bound_ms, bound_by = bound(nbytes, 2 * B * D * V, dtype)
     return {"kernel": "logits_argmax", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
@@ -360,11 +564,30 @@ def check_flash(dtype, g) -> dict:
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "bytes": nbytes}
+    shapes["fully_masked_row"] = check_flash_masked_row(dtype, g)
     main = shapes["gpt2_train"]
     return {"kernel": "flash_attention", "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "library": "scaled_dot_product_attention, same boolean mask",
             "tolerance": FLASH_TOL[dtype], "shapes": shapes}
+
+
+def check_flash_masked_row(dtype, g) -> dict:
+    """A batch row whose keys are all masked, at the shape of the CPU test
+    (B 2, H 2, T 12) with the kernel's head dim 64: the JAX package gives the
+    uniform softmax there, the mean of v over the keys; so must the kernel."""
+    from gpt2_image_captioning_tpu_torch.ops import attention as A
+
+    q, k, v = (torch.randn(2, 2, 12, 64, generator=g, device="cuda").to(dtype) for _ in range(3))
+    mask = torch.ones(2, 12, dtype=torch.int32, device="cuda")
+    mask[0] = 0
+    got = A.flash_attention_cuda(q, k, v, mask)
+    want = A._flash_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = close(got, want, FLASH_TOL[dtype])
+    mean_v = v.float().mean(dim=2, keepdim=True).expand(2, 2, 12, 64)
+    err = max(err, close(got[0], mean_v[0], FLASH_TOL[dtype]))
+    return {"at": [2, 2, 12, 64], "masked_batch_row": 0, "max_abs_err": err}
 
 
 def check_flash_backward(g) -> dict:
@@ -395,7 +618,7 @@ def check_flash_backward(g) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phases 4 and 5: generate
+# Phases 4 and 5: generate — greedy, sampled (top-p) and beam search
 # ---------------------------------------------------------------------------
 
 def decode_steps(tokens: torch.Tensor, eos: int) -> int:
@@ -435,34 +658,43 @@ def tiny_config():
         eos_token_id=292)
 
 
-def tiny_exact_tokens() -> dict:
+def tiny_exact(mode: str) -> dict:
+    """Kernels against the plain path on the tiny float32 model, exactly:
+    greedy tokens, sampled tokens from one generator seed, or beams.  EOS :=
+    a token row 0 emits after its first, absent from the first column, so
+    some rows stop early and get padded while others run on."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
 
     cfg = tiny_config()
-    gcfg = cfg.gpt2
     tr, fz = C.init_params(torch.Generator().manual_seed(7), cfg, device="cuda")
     emb = torch.from_numpy(np.random.default_rng(5).normal(size=(5, 16)).astype(np.float32))
     emb = emb.cuda()
-    kw = dict(max_length=12, temperature=0.0)
-    probe = C.generate(tr, fz, cfg, emb, use_kernels=False, **kw).cpu().numpy()
-    # EOS := a token row 0 emits after its first, absent from the first
-    # column, so some rows stop early and get padded while others run on
+    probe = C.generate(tr, fz, cfg, emb, max_length=12, temperature=0.0,
+                       use_kernels=False).cpu().numpy()
     firsts = set(probe[:, 0].tolist())
     eos = next((int(t) for t in probe[0, 1:] if int(t) not in firsts), int(probe[0, 1]))
     cfg = dataclasses.replace(cfg, eos_token_id=eos)
-    want = C.generate(tr, fz, cfg, emb, use_kernels=False, **kw)
-    got = C.generate(tr, fz, cfg, emb, use_kernels=True, **kw)
+
+    def run(use):
+        if mode == "beam":
+            return C.beam_generate(tr, fz, cfg, emb, max_length=12, beam_size=BEAM_K,
+                                   use_kernels=use)
+        kw = dict(temperature=0.0) if mode == "greedy" else dict(
+            temperature=1.0, top_p=TOP_P, generator=torch.Generator(device="cuda").manual_seed(3))
+        return C.generate(tr, fz, cfg, emb, max_length=12, use_kernels=use, **kw)
+
+    want, got = run(False), run(True)
     torch.cuda.synchronize()
-    check(torch.equal(got, want), f"tiny f32 tokens differ:\n{got.cpu()}\n{want.cpu()}")
-    return {"phase": "tiny_f32_exact_tokens", "eos": eos, "tokens_equal": True,
-            "rows_finished_early": check_padding(got, eos, gcfg.vocab_size),
+    check(torch.equal(got, want), f"tiny f32 {mode} tokens differ:\n{got.cpu()}\n{want.cpu()}")
+    return {"phase": f"tiny_f32_exact_{mode}", "eos": eos, "tokens_equal": True,
+            "rows_finished_early": check_padding(got, eos, cfg.gpt2.vocab_size),
             "decode_steps": decode_steps(got, eos), "batch": 5, "max_length": 12}
 
 
-def teacher_forced(model, emb: torch.Tensor, tokens: torch.Tensor) -> tuple[float, int, float]:
-    """Feed the kernel path's tokens through the plain path step by step.
-    Returns (worst deficit of a chosen token's plain logit below the plain max,
-    tokens checked, share of them that are the plain argmax)."""
+def plain_logits_along(model, emb: torch.Tensor, tokens: torch.Tensor):
+    """Feed ``tokens`` (B, L) through the plain path step by step, from the
+    bf16 weights: yields (step s, the plain float32 logits (B, V) that
+    predict token s, the rows that had not emitted EOS before s)."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
     from gpt2_image_captioning_tpu_torch.models import gpt2 as G
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
@@ -478,7 +710,7 @@ def teacher_forced(model, emb: torch.Tensor, tokens: torch.Tensor) -> tuple[floa
                          device="cuda")
     logits, cache = G.forward_cached(gpt, cfg.gpt2, prefix, cache, pol, use_kernels=False)
     alive = torch.ones(b, dtype=torch.bool, device="cuda")
-    worst, n, agree, idx = 0.0, 0, 0, cache["index"]
+    idx = cache["index"]
     for s in range(tokens.shape[1]):
         if s > 0:
             x0 = (gpt["wte"][tokens[:, s - 1].long()] + gpt["wpe"][idx]).to(pol.compute_dtype)
@@ -486,15 +718,53 @@ def teacher_forced(model, emb: torch.Tensor, tokens: torch.Tensor) -> tuple[floa
                                    n_head=cfg.gpt2.n_head, eps=eps, use_kernels=False)
             logits = DS.logits_plain(x32, packed["lnf"], packed["wte"], eps)
             idx += 1
+        yield s, logits, alive
+        alive = alive & (tokens[:, s] != eos)
+        if not bool(alive.any()):
+            return
+
+
+def teacher_forced(model, emb: torch.Tensor, tokens: torch.Tensor) -> tuple[float, int, float]:
+    """Greedy: (worst deficit of a chosen token's plain logit below the plain
+    max, tokens checked, share of them that are the plain argmax)."""
+    worst, n, agree = 0.0, 0, 0
+    for s, logits, alive in plain_logits_along(model, emb, tokens):
         chosen = logits.gather(1, tokens[:, s].long()[:, None])[:, 0]
         deficit = (logits.max(dim=-1).values - chosen)[alive]
         worst = max(worst, float(deficit.max()))
         agree += int((deficit == 0).sum())
         n += int(alive.sum())
-        alive &= tokens[:, s] != eos
-        if not bool(alive.any()):
-            break
     return worst, n, agree / n
+
+
+def nucleus_mass(model, emb: torch.Tensor, tokens: torch.Tensor,
+                 temperature: float) -> tuple[float, int, float]:
+    """Sampled: (the largest plain-path probability mass strictly above a
+    drawn token's logit, tokens checked, share of them that are the plain
+    argmax)."""
+    worst, n, top1 = 0.0, 0, 0
+    for s, logits, alive in plain_logits_along(model, emb, tokens):
+        lg = logits / temperature
+        chosen = lg.gather(1, tokens[:, s].long()[:, None])
+        above = torch.where(lg > chosen, torch.softmax(lg, dim=-1), 0.0).sum(dim=-1)[alive]
+        worst = max(worst, float(above.max()))
+        top1 += int((lg.argmax(dim=-1) == tokens[:, s])[alive].sum())
+        n += int(alive.sum())
+    return worst, n, top1 / n
+
+
+def plain_scores(model, emb: torch.Tensor, tokens: torch.Tensor,
+                 length_penalty: float) -> torch.Tensor:
+    """Beam: each caption's length-normalised score under the plain path,
+    sum log-prob / length ** length_penalty, the length counting tokens up to
+    and including EOS (beam_generate's own score)."""
+    total = torch.zeros(tokens.shape[0], dtype=torch.float32, device="cuda")
+    for s, logits, alive in plain_logits_along(model, emb, tokens):
+        lp = torch.log_softmax(logits, dim=-1).gather(1, tokens[:, s].long()[:, None])[:, 0]
+        total += torch.where(alive, lp, 0.0)
+    is_eos = tokens == model.cfg.eos_token_id
+    length = torch.where(is_eos.any(dim=1), is_eos.int().argmax(dim=1) + 1, tokens.shape[1])
+    return total / length.float() ** length_penalty
 
 
 def one_step_drift(model, emb: torch.Tensor) -> float:
@@ -523,9 +793,13 @@ def one_step_drift(model, emb: torch.Tensor) -> float:
     return float((out[0] - out[1]).abs().max())
 
 
-# the decode step's kernels by their CUDA function names (csrc/*.cu)
-DECODE_KERNELS = ("fused_linear_kernel", "ln_stats_kernel", "decode_attention_kernel",
-                "ln_rows_kernel", "logits_tile_kernel", "argmax_reduce_kernel")
+# the decode step's kernels by their CUDA function names (csrc/*.cu): the
+# layers' and, by path, the vocabulary's
+LAYER_KERNELS = ("fused_linear_kernel", "ln_stats_kernel", "decode_attention_kernel",
+                 "ln_rows_kernel")
+VOCAB_KERNELS = {"greedy": ("logits_tile_kernel", "argmax_reduce_kernel"),
+                 "sampled": ("logits_store_kernel",),
+                 "beam": ("topk_tile_kernel", "topk_merge_kernel")}
 
 
 def traced(fn, trace_name: str) -> tuple[float, list[dict]]:
@@ -559,19 +833,21 @@ def busy_us(events: list[dict], lo: float, hi: float) -> float:
     return busy
 
 
-def profile_request(model, req: np.ndarray, kw: dict, steps: int) -> dict:
+def profile_request(run, path: str, steps: int) -> dict:
     """Trace one request and read the decode loop from that one trace: its
     window on the device runs from the first launch of the decode step's
     kernels to the end of the last, and its busy time is the union of every
     kernel, copy and memset in the window (the port's kernels and the torch
-    ops between them)."""
-    wall, events = traced(lambda: model.generate(req, **kw), "decode_trace.json")
+    ops between them: the sampling tail, the beam bookkeeping)."""
+    trace_name = f"{path}_decode_trace.json"
+    wall, events = traced(run, trace_name)
+    names = LAYER_KERNELS + VOCAB_KERNELS[path]
 
     def is_port(e):
-        return e["cat"] == "kernel" and any(k in e["name"] for k in DECODE_KERNELS)
+        return e["cat"] == "kernel" and any(k in e["name"] for k in names)
 
     ours = [e for e in events if is_port(e)]
-    record = {"phase": "decode_profile", "profiled_request_s": wall, "trace": "decode_trace.json",
+    record = {"phase": f"{path}_decode_profile", "profiled_request_s": wall, "trace": trace_name,
               "device_events": len(events)}
     if not ours:  # CUPTI gave no device activity: nothing to read
         return {**record, "idle_share": "not measured"}
@@ -579,11 +855,18 @@ def profile_request(model, req: np.ndarray, kw: dict, steps: int) -> dict:
     hi = max(e["ts"] + e["dur"] for e in ours)
     in_window = [e for e in events if lo <= e["ts"] < hi]
     window_s, busy_s = (hi - lo) * 1e-6, busy_us(events, lo, hi) * 1e-6
+    by_name = {n: sum(e["dur"] for e in ours if n in e["name"]) * 1e-6 for n in names}
+    others: dict[str, float] = {}
+    for e in in_window:
+        if e["cat"] == "kernel" and not is_port(e):
+            others[e["name"][:100]] = others.get(e["name"][:100], 0.0) + e["dur"] * 1e-6
     return {**record, "decode_steps": steps, "decode_window_s": window_s,
             "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / window_s,
-            "port_kernels_s": sum(e["dur"] for e in ours) * 1e-6,
-            "other_kernels_s": sum(e["dur"] for e in in_window
-                                   if e["cat"] == "kernel" and not is_port(e)) * 1e-6,
+            "port_kernels_s": sum(e["dur"] for e in ours) * 1e-6, "port_kernels_s_by_name": by_name,
+            "other_kernels_s": sum(others.values()),
+            "other_kernel_launches": sum(e["cat"] == "kernel" and not is_port(e)
+                                         for e in in_window),
+            "top_other_kernels_s": sorted(others.items(), key=lambda kv: -kv[1])[:8],
             "copies_s": sum(e["dur"] for e in in_window if e["cat"] != "kernel") * 1e-6,
             "events_in_window": len(in_window), "card": nvidia_smi()}
 
@@ -625,7 +908,7 @@ def profile_train_step(run_step) -> dict:
             "card": nvidia_smi()}
 
 
-def decode_window(model, req: np.ndarray, kw: dict) -> float:
+def decode_window(run) -> float:
     """Seconds on the device from the start of the first decode step to the end
     of the last, in one request run without the profiler: CUDA events recorded
     around each ``fused_decode_step`` call (two event records per step)."""
@@ -643,11 +926,24 @@ def decode_window(model, req: np.ndarray, kw: dict) -> float:
 
     DS.fused_decode_step = timed
     try:
-        model.generate(req, **kw)
+        run()
     finally:
         DS.fused_decode_step = step
     torch.cuda.synchronize()
     return marks[0][0].elapsed_time(marks[-1][1]) * 1e-3
+
+
+def profile_path(run, path: str, steps: int, seconds_per_request: float) -> dict:
+    """One traced request's record, with the idle share estimated against an
+    unprofiled request's window too (the tracer slows the host, which
+    stretches the window but not the kernels)."""
+    profiled = profile_request(run, path, steps)
+    profiled["unprofiled_request_s"] = seconds_per_request
+    if "device_busy_s" in profiled:
+        window = decode_window(run)
+        profiled["unprofiled_decode_window_s"] = window
+        profiled["idle_share_est_unprofiled"] = 1.0 - profiled["device_busy_s"] / window
+    return profiled
 
 
 def wrappers() -> dict:
@@ -657,7 +953,8 @@ def wrappers() -> dict:
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 
     return {"decode_attention": DA.decode_attention_cuda, "fused_linear": DS.fused_linear_cuda,
-            "logits_argmax": DS.logits_argmax_cuda, "flash_attention": A.flash_attention_cuda}
+            "logits_argmax": DS.logits_argmax_cuda, "flash_attention": A.flash_attention_cuda,
+            "logits": DS.logits_cuda, "logits_topk": DS.logits_topk_cuda}
 
 
 def reset_launches() -> None:
@@ -669,7 +966,31 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in wrappers().items()}
 
 
-def main_path() -> tuple[dict, dict, dict]:
+def run_counted(fn, reqs) -> tuple[list, float, dict]:
+    """``fn`` over the requests with every launch counter set to 0 just
+    before and read just after: (outputs, host seconds, launches)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = [fn(r) for r in reqs]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return outs, seconds, read_launches()
+
+
+def check_decode_launches(launches: dict, vocab_kernel: str, steps: int, requests: int,
+                          n_layer: int, flash_per_request: int) -> None:
+    """Each decode step launched the layers' kernels once a layer and this
+    path's vocabulary kernel once; the other vocabulary kernels never ran."""
+    want = {"flash_attention": flash_per_request * requests, "decode_attention": n_layer * steps,
+            "fused_linear": 4 * n_layer * steps, "logits_argmax": 0, "logits": 0,
+            "logits_topk": 0}
+    want[vocab_kernel] = steps
+    check(launches == want, f"launches {launches} != {want} ({steps} decode steps)")
+
+
+def serving_model():
+    """GPT-2 124M + the transformer mapper of config.yml, random weights from
+    a seed, and three requests of 128 image embeddings."""
     from gpt2_image_captioning_tpu_torch import (
         CaptionerConfig, GPT2Config, ImageCaptioningModel, TransformerMappingConfig,
     )
@@ -677,28 +998,22 @@ def main_path() -> tuple[dict, dict, dict]:
                           mapping=TransformerMappingConfig(512, 768, 15, 10))
     model = ImageCaptioningModel(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
     rng = np.random.default_rng(0)
-    reqs = [rng.normal(size=(B, 512)).astype(np.float32) for _ in range(3)]
+    return model, [rng.normal(size=(B, 512)).astype(np.float32) for _ in range(3)]
+
+
+MODEL_NAME = "GPT-2 124M + transformer mapper (512->768, 15+10)"
+
+
+def greedy_path(model, reqs) -> tuple[dict, dict, dict]:
+    cfg = model.cfg
     kw = dict(max_length=50, temperature=0.0, decode_precision="bf16")
     model.generate(reqs[0], **kw)  # warm-up: bf16 weight copy, packing, first launches
     torch.cuda.synchronize()
-
-    reset_launches()
-    t0 = time.perf_counter()
-    outs = [model.generate(r, **kw) for r in reqs]
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = read_launches()
-
+    outs, seconds, launches = run_counted(lambda r: model.generate(r, **kw), reqs)
     steps = sum(decode_steps(o, cfg.eos_token_id) for o in outs)
-    n_layer = cfg.gpt2.n_layer
-    check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
-    flash_per_request = cfg.mapping.num_layers + n_layer  # the mapper, the prefill
-    check(launches["flash_attention"] == flash_per_request * len(reqs),
-          f"flash launches {launches['flash_attention']} != {flash_per_request} x {len(reqs)}")
-    check(launches["decode_attention"] == n_layer * steps,
-          f"attention launches {launches['decode_attention']} != {n_layer} x {steps} steps")
-    check(launches["fused_linear"] == 4 * n_layer * steps, "fused_linear launches != 4 L steps")
-    check(launches["logits_argmax"] == steps, "logits_argmax launches != steps")
+    flash_per_request = cfg.mapping.num_layers + cfg.gpt2.n_layer  # the mapper, the prefill
+    check_decode_launches(launches, "logits_argmax", steps, len(reqs), cfg.gpt2.n_layer,
+                          flash_per_request)
     for o in outs:
         check(tuple(o.shape) == (B, 50) and o.dtype == torch.int32, f"bad output {o.shape}")
         check_padding(o, cfg.eos_token_id, cfg.gpt2.vocab_size)
@@ -717,7 +1032,7 @@ def main_path() -> tuple[dict, dict, dict]:
     check(worst <= TF_TOL, f"teacher-forced: a chosen token is {worst} below the plain max "
                            f"(tolerance {TF_TOL})")
     record = {
-        "phase": "main_path", "model": "GPT-2 124M + transformer mapper (512->768, 15+10)",
+        "phase": "main_path", "model": MODEL_NAME,
         "dtype": "bf16", "requests": len(reqs), "batch": B, "max_length": 50,
         "decode_steps": steps, "launches": launches,
         "img_per_s_kernels": len(reqs) * B / seconds, "seconds_kernels": seconds,
@@ -728,14 +1043,136 @@ def main_path() -> tuple[dict, dict, dict]:
                            "share_plain_argmax": agree / checked},
         "card": nvidia_smi(),
     }
-    profiled = profile_request(model, reqs[0], kw, decode_steps(outs[0], cfg.eos_token_id))
-    profiled["unprofiled_request_s"] = seconds / len(reqs)
-    if "device_busy_s" in profiled:
-        # the traced request's busy time against another request's window: the
-        # tracer slows the host, which stretches the window but not the kernels
-        window = decode_window(model, reqs[0], kw)
-        profiled["unprofiled_decode_window_s"] = window
-        profiled["idle_share_est_unprofiled"] = 1.0 - profiled["device_busy_s"] / window
+    profiled = profile_path(lambda: model.generate(reqs[0], **kw), "greedy",
+                            decode_steps(outs[0], cfg.eos_token_id), seconds / len(reqs))
+    return record, launches, profiled
+
+
+def sampled_path(model, reqs) -> tuple[dict, dict, dict]:
+    """Top-p sampling through the façade at its defaults (temperature 1.0,
+    top_p 0.9, a generator seeded with 0 per call), bf16, 50 tokens."""
+    cfg = model.cfg
+    kw = dict(max_length=50, decode_precision="bf16")
+    model.generate(reqs[0], **kw)  # warm-up
+    torch.cuda.synchronize()
+    outs, seconds, launches = run_counted(lambda r: model.generate(r, **kw), reqs)
+    steps = sum(decode_steps(o, cfg.eos_token_id) for o in outs)
+    check_decode_launches(launches, "logits", steps, len(reqs), cfg.gpt2.n_layer,
+                          cfg.mapping.num_layers + cfg.gpt2.n_layer)
+    for o in outs:
+        check(tuple(o.shape) == (B, 50) and o.dtype == torch.int32, f"bad output {o.shape}")
+        check_padding(o, cfg.eos_token_id, cfg.gpt2.vocab_size)
+
+    t0 = time.perf_counter()
+    plain = [model.generate(r, use_kernels=False, **kw) for r in reqs]
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - t0
+
+    worst, checked, top1 = 0.0, 0, 0.0
+    for r, o in zip(reqs, outs):
+        w, n, t1 = nucleus_mass(model, torch.from_numpy(r).cuda(), o, 1.0)
+        worst, checked, top1 = max(worst, w), checked + n, top1 + t1 * n
+    check(worst <= TOP_P + NUCLEUS_SLACK,
+          f"a drawn token has plain mass {worst} above it (top_p {TOP_P} + {NUCLEUS_SLACK})")
+    record = {
+        "phase": "sampled_path", "model": MODEL_NAME, "dtype": "bf16",
+        "temperature": 1.0, "top_p": TOP_P, "requests": len(reqs), "batch": B, "max_length": 50,
+        "decode_steps": steps, "launches": launches,
+        "img_per_s_kernels": len(reqs) * B / seconds, "seconds_kernels": seconds,
+        "img_per_s_plain": len(reqs) * B / plain_seconds, "seconds_plain": plain_seconds,
+        "rows_identical_to_plain": sum(int((a == b).all(dim=1).sum()) for a, b in zip(outs, plain)),
+        "rows": len(reqs) * B,
+        "nucleus": {"worst_mass_above": worst, "limit": TOP_P + NUCLEUS_SLACK,
+                    "tokens_checked": checked, "share_plain_argmax": top1 / checked},
+        "card": nvidia_smi(),
+    }
+    profiled = profile_path(lambda: model.generate(reqs[0], **kw), "sampled",
+                            decode_steps(outs[0], cfg.eos_token_id), seconds / len(reqs))
+    return record, launches, profiled
+
+
+def beam_f32(model, emb: torch.Tensor, length_penalty: float) -> dict:
+    """Beam search in float32 at full width: the kernels' captions against
+    the plain path's, of which BEAM_F32_PARTED may part at near-ties."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    tr, fz, pol = model.decode_params("f32")
+    packed = C.prepare_decode_weights(tr, fz, model.cfg, pol)
+    got, want = (C.beam_generate(tr, fz, model.cfg, emb, max_length=50, beam_size=BEAM_K,
+                                 length_penalty=length_penalty, policy=pol, packed=packed,
+                                 use_kernels=use) for use in (None, False))
+    n = emb.shape[0]
+    same = int((got == want).all(dim=1).sum())
+    check(n - same <= BEAM_F32_PARTED, f"float32 beams: {same} of {n} captions equal the plain path's")
+    return {"images": n, "captions_identical": same, "parted_allowed": BEAM_F32_PARTED}
+
+
+def beam_path(model, reqs, length_penalty: float = 1.0) -> tuple[dict, dict, dict]:
+    """Beam search, 4 beams on each request's 128 images (512 decode rows),
+    bf16, 50 tokens, through ``beam_generate`` on the façade's bf16 weights."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    cfg = model.cfg
+    tr, fz, pol = model.decode_params("bf16")
+    packed = C.prepare_decode_weights(tr, fz, cfg, pol)
+    embs = [torch.from_numpy(r).cuda() for r in reqs]
+
+    def run(emb, use=None):
+        return C.beam_generate(tr, fz, cfg, emb, max_length=50, beam_size=BEAM_K,
+                               length_penalty=length_penalty, policy=pol, packed=packed,
+                               use_kernels=use)
+
+    run(embs[0])  # warm-up
+    torch.cuda.synchronize()
+    outs, seconds, launches = run_counted(run, embs)
+    steps = 49 * len(reqs)  # a fixed 50 selections; the last one's forward is skipped
+    check_decode_launches(launches, "logits_topk", steps, len(reqs), cfg.gpt2.n_layer,
+                          cfg.mapping.num_layers + cfg.gpt2.n_layer)
+    for o in outs:
+        check(tuple(o.shape) == (B, 50) and o.dtype == torch.int32, f"bad output {o.shape}")
+        check_padding(o, cfg.eos_token_id, cfg.gpt2.vocab_size)
+
+    t0 = time.perf_counter()
+    plain = [run(e, use=False) for e in embs]
+    torch.cuda.synchronize()
+    plain_seconds = time.perf_counter() - t0
+
+    score_err, shortfall, same, parted_at = 0.0, [], 0, {}
+    for e, o, p in zip(embs, outs, plain):
+        beams = C._beam_search(tr, fz, cfg, e, max_length=50, beam_size=BEAM_K, policy=pol,
+                               use_kernels=None, packed=packed)
+        best, searched = C._best_beam(*beams, length_penalty=length_penalty)
+        check(torch.equal(best, o), "the kernels' search is not deterministic")
+        sk = plain_scores(model, e, o, length_penalty)
+        score_err = max(score_err, float((searched - sk).abs().max()))
+        shortfall.append(plain_scores(model, e, p, length_penalty) - sk)
+        same += int((o == p).all(dim=1).sum())
+        # where the two searches' chosen captions first differ, by position
+        differs = o != p
+        for pos in differs.int().argmax(dim=1)[differs.any(dim=1)].tolist():
+            parted_at[pos] = parted_at.get(pos, 0) + 1
+    shortfall = torch.cat(shortfall)
+    check(score_err <= BEAM_SCORE_TOL, f"the kernels' search scored a caption {score_err} away "
+                                       f"from the plain path's score (tolerance {BEAM_SCORE_TOL})")
+    mean_short = float(shortfall.mean())
+    check(mean_short <= BEAM_MEAN_TOL, f"the kernels' captions score {mean_short} below the plain "
+                                       f"path's on average (tolerance {BEAM_MEAN_TOL})")
+    f32 = beam_f32(model, embs[0][:BEAM_F32_IMAGES], length_penalty)
+    record = {
+        "phase": "beam_path", "model": MODEL_NAME, "dtype": "bf16", "beam_size": BEAM_K,
+        "length_penalty": length_penalty, "requests": len(reqs), "images": B,
+        "decode_rows": B_BEAM, "max_length": 50, "decode_steps": steps, "launches": launches,
+        "img_per_s_kernels": len(reqs) * B / seconds, "seconds_kernels": seconds,
+        "img_per_s_plain": len(reqs) * B / plain_seconds, "seconds_plain": plain_seconds,
+        "captions_identical_to_plain": same, "captions": len(reqs) * B,
+        "first_differing_position": dict(sorted(parted_at.items())),
+        "search_score_vs_plain": {"max_abs_err": score_err, "tolerance": BEAM_SCORE_TOL},
+        "shortfall_vs_plain_best": {"mean": mean_short, "tolerance_mean": BEAM_MEAN_TOL,
+                                    "max": float(shortfall.max()), "min": float(shortfall.min()),
+                                    "images_over_0.05": int((shortfall > 0.05).sum())},
+        "float32": f32, "card": nvidia_smi(),
+    }
+    profiled = profile_path(lambda: run(embs[0]), "beam", 49, seconds / len(reqs))
     return record, launches, profiled
 
 
@@ -890,44 +1327,64 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     emit(check_dot_f32(g))
     kernel_rows = {}
+    checks = (check_attention, check_attention_origin, check_linear, check_logits_argmax,
+              check_logits, check_logits_topk, check_flash)
     for dtype in (torch.bfloat16, torch.float32):
-        for fn in (check_attention, check_linear, check_logits_argmax, check_flash):
+        for fn in checks:
             rec = fn(dtype, g)
             rec = {"phase": "kernel_vs_plain", "dtype": str(dtype).replace("torch.", ""), **rec}
             emit(rec)
             if dtype == torch.bfloat16:
-                kernel_rows[rec["kernel"]] = rec
+                kernel_rows[rec["kernel"] + ("_" + rec["mode"] if "mode" in rec else "")] = rec
     emit(check_flash_backward(g))
 
-    emit(tiny_exact_tokens())
-    record, launches, profiled = main_path()
-    emit(record)
-    emit(profiled)
-    train_record, train_profiled, train_launches = train_path()
+    for mode in ("greedy", "sampled", "beam"):
+        emit(tiny_exact(mode))
+    model, reqs = serving_model()
+    launches = {}
+    for path, fn in (("greedy", greedy_path), ("sampled", sampled_path), ("beam", beam_path)):
+        record, launches[path], profiled = fn(model, reqs)
+        emit(record)
+        emit(profiled)
+    del model
+    torch.cuda.empty_cache()
+    train_record, train_profiled, launches["train"] = train_path()
     emit(train_record)
     emit(train_profiled)
 
     source = "gpt2_image_captioning_tpu_torch/csrc/"
+    step_kernel = "gpt2_image_captioning_tpu/ops/decode_step.py"
     replaces = {"decode_attention": "gpt2_image_captioning_tpu/ops/decode_attention.py:68",
-                "fused_linear": "gpt2_image_captioning_tpu/ops/decode_step.py:112",
-                "logits_argmax": "gpt2_image_captioning_tpu/ops/decode_step.py:112",
-                "flash_attention": "gpt2_image_captioning_tpu/ops/attention.py:40"}
+                "fused_linear": f"{step_kernel}:112",
+                "logits_argmax": f"{step_kernel}:112",
+                "flash_attention": "gpt2_image_captioning_tpu/ops/attention.py:40",
+                "logits": f"{step_kernel}:617",
+                "logits_topk": f"{step_kernel}:569"}
     # what one "ms" covers, and what one count of "launches" is: a wrapper call
-    per = {"decode_attention": "call (1 CUDA launch), idx 64",
+    per = {"decode_attention": "call (1 CUDA launch), idx 64, B 128",
            "fused_linear": "layer: 4 calls (qkv, attn_proj, mlp_fc, mlp_proj; 6 CUDA launches)",
-           "logits_argmax": "call (3 CUDA launches)",
-           "flash_attention": "call (1 CUDA launch) at (128, 12, 65, 64), causal + padding mask"}
-    # each kernel's launches on its own path: serving for the decode kernels,
-    # the timed train steps for flash attention (it also ran in serving)
-    path_launches = {**launches, "flash_attention": train_launches["flash_attention"]}
+           "logits_argmax": "call (3 CUDA launches), B 128",
+           "flash_attention": "call (1 CUDA launch) at (128, 12, 65, 64), causal + padding mask",
+           "logits": "call (2 CUDA launches), B 128",
+           "logits_topk": "call (3 CUDA launches), B 512, k 4"}
+    # each kernel's launches on its own path: greedy serving for the layers'
+    # kernels and the argmax, the timed train steps for flash attention, the
+    # sampled path for the stored logits, beam search for the top-k
+    home = {"decode_attention": "greedy", "fused_linear": "greedy", "logits_argmax": "greedy",
+            "flash_attention": "train", "logits": "sampled", "logits_topk": "beam"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{source}{name}.cu", "replaces": replaces[name],
-         "launches": path_launches[name], **{k: kernel_rows[name][k] for k in keys},
-         "per": per[name]}
-        for name in ("decode_attention", "fused_linear", "logits_argmax", "flash_attention")
+         "launches": launches[home[name]][name], **{k: kernel_rows[name][k] for k in keys},
+         "per": per[name],
+         "launches_by_path": {path: counts[name] for path, counts in launches.items()}}
+        for name in home
     ]}
-    table["kernels"][3]["launches_serving"] = launches["flash_attention"]
+    origin = kernel_rows["decode_attention_origin"]
+    table["kernels"][0]["beam_origin"] = {
+        "replaces": f"{step_kernel}:371", "launches": launches["beam"]["decode_attention"],
+        "per": "call (1 CUDA launch), idx 40, B 512, gather_start 15",
+        **{k: origin[k] for k in keys}}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RESULTS + [table], indent=1))
     print(json.dumps(table), flush=True)
     print(nvidia_smi(), flush=True)

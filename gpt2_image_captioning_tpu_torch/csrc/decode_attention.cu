@@ -1,16 +1,22 @@
 // Single-token decode attention over the valid prefix of one layer's KV cache,
-// fused with the cache append.
+// fused with the cache append, optionally reading each position's row
+// through a beam-ancestry map.
 //
 // Replaces: gpt2_image_captioning_tpu/ops/decode_attention.py::_decode_kernel
-// (:68) and the attention() of ops/decode_step.py::_step_kernel (:292-517).
+// (:68) and the attention() of ops/decode_step.py::_step_kernel (:292-517),
+// with its beam mode (origin + gather_start, :134-138, :371-456, :488-503).
 // Each (batch row, head) attends cache rows [0, idx) walked in 16-row chunks
 // with an online float32 softmax, then folds in this step's own K/V row
 // straight from its inputs (decode_attention.py:157-172); the new K/V row is
 // written into row idx of the (T, B, D) caches in place.  idx = 0 attends the
-// new row alone.
+// new row alone.  With an origin map (T, B) int32, row r reads position t
+// from cache row origin[t, r] for gather_start <= t < idx (beam search: the
+// history a beam inherited from its ancestors), and from row r below
+// gather_start (the image prefix every beam of a group shares).
 //
 // Bound on the H100: reading the cache, 2 * idx * B * D elements per layer
-// (25 MB in bf16 at idx 64, B 128, D 768 — more than the layer's weights).
+// (25 MB in bf16 at idx 64, B 128, D 768 — more than the layer's weights;
+// 63 MB at idx 40, B 512 in beam search).
 //
 // Design: one warp per (batch row, head), the head's hd <= 128 elements
 // spread over the lanes (lane + 32 e).  A chunk's 16 rows are loaded before
@@ -19,6 +25,11 @@
 // Rows >= idx inside the last chunk are never loaded.  The TPU kernel's
 // head-sum matrices and DMA double-buffering are not carried over: the lanes
 // hold the head dimension, so the per-head sum is a warp shuffle reduction.
+// The ancestry map is one indexed load per (position, row): the TPU's
+// one-hot permutation matmul and shifted selects existed because a TPU
+// kernel cannot gather rows; a warp can read any row.  The kernel is a
+// template on whether a map is given, so greedy decoding carries no map
+// lookups.
 #include "common.cuh"
 
 namespace gic {
@@ -28,10 +39,11 @@ constexpr int kMaxPerLane = 4;    // head dim up to 4 * 32 = 128
 constexpr int kWarpsPerBlock = 4;
 constexpr float kNegInf = -3.4028234663852886e38f;  // float32 minimum, the mask value
 
-template <typename T>
+template <typename T, bool kOrigin>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* kc, T* vc, T* out,
-                        int B, int D, int H, int idx, float scale) {
+                        int B, int D, int H, int idx, float scale, const int* origin,
+                        int gather_start) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int pair = blockIdx.x * kWarpsPerBlock + warp;
   if (pair >= B * H) return;
@@ -39,6 +51,7 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
   const int hd = D / H;
   const size_t trow = (size_t)B * D;  // elements between consecutive time rows of a cache
   const size_t off = (size_t)b * D + (size_t)h * hd;
+  const size_t hoff = (size_t)h * hd;
   const size_t in_off = (size_t)b * in_stride + (size_t)h * hd;
 
   float qv[kMaxPerLane], knv[kMaxPerLane], vnv[kMaxPerLane], acc[kMaxPerLane];
@@ -59,12 +72,20 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
   float m = kNegInf, l = 0.f;
   for (int t0 = 0; t0 < idx; t0 += kChunk) {
     float s[kChunk];
+    size_t roff[kChunk];  // offset of the cache row position t0 + c is read from
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const int t = t0 + c;
+      roff[c] = off;
+      if (kOrigin && t >= gather_start && t < idx)
+        roff[c] = (size_t)origin[(size_t)t * B + b] * D + hoff;
+    }
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
       const int t = t0 + c;
       float d = 0.f;
       if (t < idx) {
-        const T* krow = kc + (size_t)t * trow + off;
+        const T* krow = kc + (size_t)t * trow + roff[c];
 #pragma unroll
         for (int e = 0; e < kMaxPerLane; ++e) {
           const int j = lane + 32 * e;
@@ -90,7 +111,7 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
       if (t < idx) {
         const float p = expf(s[c] - m_new);
         l += p;
-        const T* vrow = vc + (size_t)t * trow + off;
+        const T* vrow = vc + (size_t)t * trow + roff[c];
 #pragma unroll
         for (int e = 0; e < kMaxPerLane; ++e) {
           const int j = lane + 32 * e;
@@ -119,28 +140,50 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
 
 }  // namespace gic
 
-// q/k_new/v_new: (B, D) rows with row stride in_stride (elements), unit
-// column stride; k_cache/v_cache: (T, B, D) contiguous, row idx < T is
-// written; out: (B, D).  All in the element type.  Returns cudaGetLastError().
-extern "C" int gic_decode_attention(int dtype, const void* q, const void* kn, const void* vn,
-                                    int in_stride, void* kc, void* vc, void* out, int B, int D,
-                                    int H, int idx, void* stream) {
-  using namespace gic;
-  if (B <= 0 || H <= 0 || D % H != 0 || D / H > 32 * kMaxPerLane || idx < 0)
-    return (int)cudaErrorInvalidValue;
+namespace gic {
+
+template <typename T, bool kOrigin>
+static void launch(const void* q, const void* kn, const void* vn, int in_stride, void* kc,
+                   void* vc, void* out, int B, int D, int H, int idx, const int* origin,
+                   int gather_start, cudaStream_t s) {
   const float scale = 1.f / sqrtf((float)(D / H));
   const int blocks = (B * H + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  decode_attention_kernel<T, kOrigin><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kn), static_cast<const T*>(vn), in_stride,
+      static_cast<T*>(kc), static_cast<T*>(vc), static_cast<T*>(out), B, D, H, idx, scale, origin,
+      gather_start);
+}
+
+template <typename T>
+static void dispatch(const void* q, const void* kn, const void* vn, int in_stride, void* kc,
+                     void* vc, void* out, int B, int D, int H, int idx, const int* origin,
+                     int gather_start, cudaStream_t s) {
+  if (origin)
+    launch<T, true>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, origin, gather_start, s);
+  else
+    launch<T, false>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, nullptr, 0, s);
+}
+
+}  // namespace gic
+
+// q/k_new/v_new: (B, D) rows with row stride in_stride (elements), unit
+// column stride; k_cache/v_cache: (T, B, D) contiguous, row idx < T is
+// written; out: (B, D).  All in the element type.  origin: (T, B) int32
+// contiguous with entries in [0, B), or null; gather_start: the first
+// position read through it.  Returns cudaGetLastError().
+extern "C" int gic_decode_attention(int dtype, const void* q, const void* kn, const void* vn,
+                                    int in_stride, void* kc, void* vc, void* out, int B, int D,
+                                    int H, int idx, const void* origin, int gather_start,
+                                    void* stream) {
+  using namespace gic;
+  if (B <= 0 || H <= 0 || D % H != 0 || D / H > 32 * kMaxPerLane || idx < 0 || gather_start < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* o = static_cast<const int*>(origin);
   if (dtype == kBF16)
-    decode_attention_kernel<__nv_bfloat16><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kn),
-        static_cast<const __nv_bfloat16*>(vn), in_stride, static_cast<__nv_bfloat16*>(kc),
-        static_cast<__nv_bfloat16*>(vc), static_cast<__nv_bfloat16*>(out), B, D, H, idx, scale);
+    dispatch<__nv_bfloat16>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, o, gather_start, s);
   else if (dtype == kF32)
-    decode_attention_kernel<float><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(kn),
-        static_cast<const float*>(vn), in_stride, static_cast<float*>(kc),
-        static_cast<float*>(vc), static_cast<float*>(out), B, D, H, idx, scale);
+    dispatch<float>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, o, gather_start, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -5,9 +5,12 @@
 // reached through flash_attention (:156) and the dispatcher mha (:195).  It
 // computes what that kernel computes: float32 scores of the rows, scaled by
 // 1/sqrt(hd); causal masking with a static q_offset (query i sees keys
-// <= q_offset + i); a (B, Tk) key mask; an online float32 softmax; and a row
-// with no valid key gives zeros.  The backward stays torch ops
-// (ops/attention.py::FlashAttention), as the reference's stays XLA.
+// <= q_offset + i); a (B, Tk) key mask; an online float32 softmax.  A row
+// with no valid key takes the uniform softmax over the Tk keys, the mean of
+// v, as the JAX package's attention_xla does (its masked scores are all the
+// float32 minimum) and its Pallas kernel does wherever Tk fills a key block.
+// The backward stays torch ops (ops/attention.py::FlashAttention), as the
+// reference's stays XLA.
 //
 // Bound on the H100: reading q, k, v and writing the output once, 4 B H T hd
 // elements (51 MB in bf16 at the GPT-2 training shape B 128, H 12, T 65,
@@ -26,6 +29,9 @@
 //      twin; the TPU kernel keeps p in float32);
 //   3. O = O * alpha + P V (bf16: WMMA on a float32 accumulator tile in
 //      shared memory; float: FMA into registers).
+// A row that saw no valid key (l = 0) reads the mean of v over [0, Tk) from
+// device memory when it stores its output: no row of the captioner's paths
+// is one, so the slow loop never runs there.
 // q, k, v and the output are taken with their own strides (unit stride on
 // hd), so the permuted views that split_heads gives are read in place and
 // the output can be written straight into merge_heads' layout.  Ragged
@@ -75,7 +81,7 @@ struct Smem {
   T p[BQ][LDP];
   float o[BQ][LDO];
   float alpha[BQ];  // this tile's rescale of each row's accumulator
-  float l[BQ];      // each row's final softmax sum (1 where it is 0)
+  float l[BQ];      // each row's final softmax sum
   int kval[BKV];    // 1 where this tile's key is inside Tk and unmasked
 };
 
@@ -92,6 +98,15 @@ __device__ void load_rows(T (*dst)[LDX], const T* src, long long st, int t0, int
     if (t < tlim) val = *reinterpret_cast<const uint4*>(src + (long long)t * st + c);
     *reinterpret_cast<uint4*>(&dst[r][c]) = val;
   }
+}
+
+// Column c of the mean of v over the Tk keys of one head: the output of a
+// row with no valid key.
+template <typename T>
+__device__ float mean_v(const T* vp, long long st, int Tk, int c) {
+  float s = 0.f;
+  for (int t = 0; t < Tk; ++t) s += to_f32(vp[(long long)t * st + c]);
+  return Tk > 0 ? s / (float)Tk : 0.f;
 }
 
 template <typename T, int HD>
@@ -230,21 +245,26 @@ __global__ void __launch_bounds__(NT) flash_attention_kernel(Args<T> a) {
     __syncwarp();
   }
 
-  // a row with no valid key has l == 0 and a zero accumulator: it stores zeros
-  const float lden = l == 0.f ? 1.f : l;
+  // a row with no valid key has l == 0: it stores the mean of v instead
   if constexpr (!kF32Path) {
-    if (half == 0) sm.l[r] = lden;
+    if (half == 0) sm.l[r] = l;
     __syncwarp();
     for (int i = lane; i < 16 * HD; i += 32) {
       const int rr = warp * 16 + i / HD, c = i % HD;
       const int t = q0 + rr;
-      if (t < a.Tq) op[(long long)t * a.os.t + c] = from_f32<T>(sm.o[rr][c] / sm.l[rr]);
+      if (t < a.Tq) {
+        const float o = sm.l[rr] == 0.f ? mean_v(vp, a.vs.t, a.Tk, c) : sm.o[rr][c] / sm.l[rr];
+        op[(long long)t * a.os.t + c] = from_f32<T>(o);
+      }
     }
   } else {
     const int t = q0 + r;
     if (t < a.Tq) {
 #pragma unroll
-      for (int c = 0; c < OPT; ++c) op[(long long)t * a.os.t + half * OPT + c] = acc[c] / lden;
+      for (int c = 0; c < OPT; ++c) {
+        const int col = half * OPT + c;
+        op[(long long)t * a.os.t + col] = l == 0.f ? mean_v(vp, a.vs.t, a.Tk, col) : acc[c] / l;
+      }
     }
   }
 }
@@ -292,7 +312,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, const int* 
 // stride on hd, 16-byte aligned rows; out: (B, H, Tq, hd), likewise.
 // strides: 12 host int64s, (batch, head, position) for q, k, v and out, in
 // elements.  key_mask: (B, Tk) int32 contiguous, or null.  hd must be 64 or
-// 96.  Tk == 0 or a causal tile with no key writes zeros.  Returns
+// 96.  A row with no valid key writes the mean of v (zeros if Tk == 0).  Returns
 // cudaGetLastError() of the launch.
 extern "C" int gic_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                    void* out, const int* key_mask, int B, int H, int Tq, int Tk,

@@ -22,43 +22,9 @@
 // never depends on which block finished first.  Normalising once matters:
 // with the LN inside the tile, each of the 3,142 blocks recomputed its rows'
 // statistics, ~1.8 GB of L2 reads per call against 77 MB of wte.
-#include "common.cuh"
-
-#include <climits>
-#include <math_constants.h>
+#include "vocab.cuh"
 
 namespace gic {
-
-// (v, i) beats (bv, bi): larger value, or equal value and smaller index
-__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-}
-
-static_assert(BN == 32, "one warp lane per tile column");
-
-template <typename T>
-__global__ void ln_rows_kernel(const float* x, const float* ln_s, const float* ln_b, float eps,
-                               int M, int K, T* xf) {
-  const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (m >= M) return;
-  const float* row = x + (size_t)m * K;
-  float mean, rstd;
-  row_mean_rstd(row, K, eps, mean, rstd);
-  for (int k = threadIdx.x % 32; k < K; k += 32)
-    xf[(size_t)m * K + k] = ln_value<T>(row[k], mean, rstd, ln_s[k], ln_b[k]);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -106,9 +72,7 @@ template <typename T>
 static void launch_passes(cudaStream_t s, const float* x, const float* lns, const float* lnb,
                           float eps, const void* wte, int M, int K, int V, void* xf, float* pv,
                           int* pi) {
-  constexpr int kRowsPerBlock = 4;  // one warp per row
-  ln_rows_kernel<T><<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, s>>>(
-      x, lns, lnb, eps, M, K, static_cast<T*>(xf));
+  launch_ln_rows<T>(s, x, lns, lnb, eps, M, K, xf);
   const dim3 grid((V + BN - 1) / BN, (M + BM - 1) / BM);
   logits_tile_kernel<T><<<grid, THREADS, 0, s>>>(static_cast<const T*>(xf),
                                                  static_cast<const T*>(wte), M, K, V, pv, pi);

@@ -1,0 +1,77 @@
+// Shared pieces of the three vocabulary kernels (logits_argmax.cu, logits.cu,
+// logits_topk.cu): the LN_f pre-pass and the (value, index) order.
+//
+// Each of them ends the decode step of gpt2_image_captioning_tpu/ops/
+// decode_step.py::_step_kernel: LN_f of the float32 residual stream, then
+// logits = LN_f(x) @ wte^T over the (V, D) tied embedding, walked in the
+// 64 x 32 tiles of common.cuh.  They differ only in what each tile's logits
+// become: a (max, argmax) pair, a float32 store, or a partial top-k with a
+// partial logsumexp.
+#pragma once
+
+#include "common.cuh"
+
+#include <climits>
+#include <math_constants.h>
+
+namespace gic {
+
+static_assert(BN == 32, "the vocabulary kernels give one warp lane to each tile column");
+
+// (v, i) beats (bv, bi): larger value, or equal value and smaller index
+// (jnp.argmax / torch.argmax / lax.top_k order)
+__device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// The best (value, index) pair of the warp, in every lane.
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
+    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
+    if (better(ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// Internal linkage: each .cu that includes this header gets its own copy of
+// the pre-pass kernel, so no two translation units register one kernel.
+namespace {
+
+// Pass 0: LN_f of each float32 row, one warp per row, into (M, K) rows of
+// the compute dtype — the operand the vocabulary walk reads.  Normalising
+// once matters: with the LN inside the tile, each of the 1,571 column
+// blocks would recompute its rows' statistics.
+template <typename T>
+__global__ void ln_rows_kernel(const float* x, const float* ln_s, const float* ln_b, float eps,
+                               int M, int K, T* xf) {
+  const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  if (m >= M) return;
+  const float* row = x + (size_t)m * K;
+  float mean, rstd;
+  row_mean_rstd(row, K, eps, mean, rstd);
+  for (int k = threadIdx.x % 32; k < K; k += 32)
+    xf[(size_t)m * K + k] = ln_value<T>(row[k], mean, rstd, ln_s[k], ln_b[k]);
+}
+
+constexpr int kLnRowsPerBlock = 4;  // one warp per row
+
+template <typename T>
+void launch_ln_rows(cudaStream_t s, const float* x, const float* lns, const float* lnb, float eps,
+                    int M, int K, void* xf) {
+  ln_rows_kernel<T><<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock, 32 * kLnRowsPerBlock, 0, s>>>(
+      x, lns, lnb, eps, M, K, static_cast<T*>(xf));
+}
+
+}  // namespace
+
+}  // namespace gic

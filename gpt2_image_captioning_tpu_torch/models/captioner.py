@@ -1,17 +1,20 @@
 """The image-captioning model: mapping network + GPT-2 decoder — the
 counterpart of ``gpt2_image_captioning_tpu/models/captioner.py`` on its
-training path (``loss_fn``, ``mean_loss``) and its serving path, greedy
-decoding.
+training path (``loss_fn``, ``mean_loss``) and its serving paths: greedy and
+sampled (top-p) ``generate`` and ``beam_generate``.
 
 Parameters split into a trainable and a frozen tree as in the JAX package.
-Everything runs eagerly.  ``generate``: the mapper and the prefill are torch
-ops around the flash-attention kernel, then each decode step is
+Everything runs eagerly.  The mapper and the prefill are torch ops around the
+flash-attention kernel, then each decode step is
 :func:`ops.decode_step.fused_decode_step` — the hand-written CUDA kernels for
 CUDA tensors, their plain twins on the CPU; ``use_kernels=False`` switches
-every kernel off.  The early exit reads one flag from the device per step.
+every kernel off.  Greedy steps end in the argmax kernel, sampled steps emit
+the float32 logits for :func:`ops.sampling.sample_token`, beam steps emit
+each row's top-k and logsumexp and read the cache through an ancestry map.
+``generate``'s early exit reads one flag from the device per step.
 
-Not ported yet, and refused rather than run another way: sampling
-(``temperature > 0``), beam search, meshes and the int8 weight mode (see
+Not ported yet, and refused rather than run another way: the in-kernel
+sampler (``sample_in_kernel``), meshes and the int8 weight mode (see
 ROADMAP.md).
 """
 
@@ -28,6 +31,7 @@ from gpt2_image_captioning_tpu_torch.core.tree import tree_map
 from gpt2_image_captioning_tpu_torch.models import gpt2 as G
 from gpt2_image_captioning_tpu_torch.models import mapping as M
 from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+from gpt2_image_captioning_tpu_torch.ops.sampling import NEG_INF, sample_token, topk_small
 from gpt2_image_captioning_tpu_torch.ops.xent import IGNORE_INDEX, xent_sum
 
 
@@ -144,6 +148,13 @@ def prepare_decode_weights(trainable: dict, frozen: dict, cfg: CaptionerConfig,
     return DS.pack_decode_weights(_gpt(trainable, frozen), policy.compute_dtype)
 
 
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded decode is not ported yet (ROADMAP.md, queue 1, item 13: parallelism)"
+        )
+
+
 @torch.no_grad()
 def generate(
     trainable: dict,
@@ -153,13 +164,24 @@ def generate(
     *,
     max_length: int = 50,
     temperature: float = 1.0,
+    top_p: float = 0.9,
+    generator: torch.Generator | None = None,
     policy: Policy = F32,
     use_kernels: bool | None = None,
     packed: dict | None = None,
     mesh=None,
+    sample_in_kernel: bool = False,
 ) -> torch.Tensor:
-    """Greedy caption generation → token ids (B, max_length) int32, padded
-    with EOS after each row's first EOS.
+    """Caption generation → token ids (B, max_length) int32, padded with EOS
+    after each row's first EOS; the loop stops once every row has emitted EOS.
+
+    ``temperature == 0`` decodes greedily (the argmax kernel ends each step).
+    Otherwise every token is drawn by :func:`ops.sampling.sample_token` at
+    ``temperature`` and ``top_p``: the first from the prefill's logits, each
+    later one from the logits its step emits.  ``generator`` is the source of
+    the draws and must live on the embeddings' device; None seeds one with 0
+    there, as the JAX package defaults to ``PRNGKey(0)`` (the draws differ
+    from ``jax.random``'s; the nucleus does not).
 
     ``use_kernels``: None runs the CUDA kernels for CUDA inputs and their
     plain twins on the CPU; False runs the plain path (every kernel off, the
@@ -167,28 +189,33 @@ def generate(
     ``packed``: weights from :func:`prepare_decode_weights`, reused across
     calls.
     """
-    if temperature != 0.0:
+    if sample_in_kernel:
         raise NotImplementedError(
-            "sampled decoding (temperature > 0) is not ported yet (ROADMAP.md, queue 1, "
-            "item 7: sampling); pass temperature=0.0 for greedy decoding"
+            "the in-kernel sampler is not ported yet (ROADMAP.md, queue 2, item 2, mode 6: "
+            "sample, with continuous serving in queue 1, item 9); the default "
+            "sample_in_kernel=False samples from the emitted logits"
         )
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded decode is not ported yet (ROADMAP.md, queue 1, item 13: parallelism)"
-        )
+    _refuse_mesh(mesh)
     gpt_params = _gpt(trainable, frozen)
     eos = cfg.eos_token_id
     cdt = policy.compute_dtype
-    use = DS.fused_greedy_enabled(use_kernels, image_embeddings.device)
+    device = image_embeddings.device
+    use = DS.fused_greedy_enabled(use_kernels, device)
     if packed is None:
         packed = DS.pack_decode_weights(gpt_params, cdt)
+    greedy = temperature == 0.0
+    if not greedy and generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+
+    def select(logits):
+        return sample_token(logits, temperature=temperature, top_p=top_p, generator=generator)
 
     prefix = build_prefix(trainable, cfg, image_embeddings, policy, use)
     b, p_len, _ = prefix.shape
     cache = G.init_cache(cfg.gpt2, b, p_len + max_length, dtype=cdt, device=prefix.device)
     logits, cache = G.forward_cached(gpt_params, cfg.gpt2, prefix, cache, policy, use)
 
-    nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+    nxt = select(logits)
     finished = nxt == eos
     tokens = torch.full((b, max_length), eos, dtype=torch.int32, device=prefix.device)
     tokens[:, 0] = nxt
@@ -197,10 +224,11 @@ def generate(
     step = 1
     while step < max_length and not bool(finished.all()):
         x0 = (wte[nxt.long()] + wpe[index]).to(cdt)
-        nxt, _, _ = DS.fused_decode_step(
+        out, _, _ = DS.fused_decode_step(
             packed, x0, cache["k"], cache["v"], index, n_head=cfg.gpt2.n_head,
-            eps=cfg.gpt2.layer_norm_epsilon, use_kernels=use,
+            eps=cfg.gpt2.layer_norm_epsilon, emit_logits=not greedy, use_kernels=use,
         )
+        nxt = out if greedy else select(out)
         finished = finished | (nxt == eos)
         nxt = torch.where(finished, eos, nxt).to(torch.int32)
         tokens[:, step] = nxt
@@ -209,10 +237,131 @@ def generate(
     return tokens
 
 
-def beam_generate(*args, **kwargs):
-    raise NotImplementedError(
-        "beam search is not ported yet (ROADMAP.md, queue 1, item 8: beam search)"
-    )
+def _beam_select(scores, finished, vals, tok_k, lse, k: int, eos: int):
+    """The union of each beam's top-k (the JAX package's ``select``): every
+    global top-k candidate is in its own beam's top-k, so the K·K survivors
+    replace the (B, K·V) candidate tensor.  Candidates are beam-major and
+    both top-k stages take the lowest index on ties, which is the flat
+    (beam, token) order.  Returns (new scores, parent beam, token), each
+    (B, K)."""
+    b = scores.shape[0]
+    logp = (vals - lse).reshape(b, k, k)
+    tok_k = tok_k.reshape(b, k, k).clone()
+    # a finished beam may only continue with EOS, at no change of score
+    logp = torch.where(finished[:, :, None], NEG_INF, logp)
+    logp[:, :, 0] = torch.where(finished, 0.0, logp[:, :, 0])
+    tok_k[:, :, 0] = torch.where(finished, eos, tok_k[:, :, 0])
+    new_scores, ci = topk_small((scores[..., None] + logp).reshape(b, k * k), k)
+    ci = ci.long()
+    return new_scores, ci // k, tok_k.reshape(b, k * k).gather(1, ci)
+
+
+@torch.no_grad()
+def beam_generate(
+    trainable: dict,
+    frozen: dict,
+    cfg: CaptionerConfig,
+    image_embeddings: torch.Tensor,
+    *,
+    max_length: int = 50,
+    beam_size: int = 4,
+    length_penalty: float = 1.0,
+    policy: Policy = F32,
+    use_kernels: bool | None = None,
+    packed: dict | None = None,
+    mesh=None,
+    decode_quant: bool = False,
+) -> torch.Tensor:
+    """Length-normalised beam search → the best beam's token ids
+    (B, max_length) int32, EOS-padded after its EOS.
+
+    The B·K beams are rows of one batch, beam-major.  The expanded prefix is
+    prefilled once; each step then selects the union of the beams' top-k,
+    carries the beam state along the chosen parents and decodes the chosen
+    tokens, whose attention reads the history through an ancestry map
+    (``origin``) instead of a gathered cache; the image prefix, shared by
+    every beam of an image, is read directly (``gather_start = p_len``).
+    The search runs a fixed ``max_length`` steps, as the JAX scan does (the
+    last step's forward, whose outputs nothing reads, is skipped).  Score =
+    sum log-prob / length ** ``length_penalty``, lengths counting tokens up
+    to and including EOS.  Any batch and ``beam_size`` <= 16 run on the
+    kernels.  ``use_kernels`` and ``packed`` as in :func:`generate`.
+    """
+    _refuse_mesh(mesh)
+    if decode_quant:
+        raise NotImplementedError(
+            "int8 decode is not ported yet (ROADMAP.md, queue 2, item 2, mode 3: int8 W8A8)"
+        )
+    beams = _beam_search(trainable, frozen, cfg, image_embeddings, max_length=max_length,
+                         beam_size=beam_size, policy=policy, use_kernels=use_kernels,
+                         packed=packed)
+    return _best_beam(*beams, length_penalty=length_penalty)[0]
+
+
+def _best_beam(tokens, scores, lengths, *, length_penalty: float):
+    """The length-normalised pick: (B, K, L) beams, (B, K) summed log-probs
+    and lengths → (the best beam's tokens (B, L), its score (B,))."""
+    norm = torch.pow(torch.clamp(lengths, min=1).float(), length_penalty)
+    normalised = scores / norm
+    best = torch.argmax(normalised, dim=1)
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    return tokens[rows, best], normalised[rows, best]
+
+
+@torch.no_grad()
+def _beam_search(trainable, frozen, cfg, image_embeddings, *, max_length: int, beam_size: int,
+                 policy: Policy, use_kernels: bool | None, packed: dict | None):
+    """The search of :func:`beam_generate`: every beam's tokens (B, K, L)
+    int32, summed log-probs (B, K) float32 and lengths (B, K) int32 (tokens
+    up to and including EOS; ``max_length`` for a beam that never ended)."""
+    gpt_params = _gpt(trainable, frozen)
+    eos, k = cfg.eos_token_id, beam_size
+    cdt = policy.compute_dtype
+    use = DS.fused_greedy_enabled(use_kernels, image_embeddings.device)
+    if packed is None:
+        packed = DS.pack_decode_weights(gpt_params, cdt)
+
+    prefix = build_prefix(trainable, cfg, image_embeddings, policy, use)
+    b, p_len, _ = prefix.shape
+    dev = prefix.device
+    cache = G.init_cache(cfg.gpt2, b * k, p_len + max_length, dtype=cdt, device=dev)
+    logits, cache = G.forward_cached(gpt_params, cfg.gpt2, prefix.repeat_interleave(k, dim=0),
+                                     cache, policy, use)
+    lf = logits.float()
+    vals, tok_k = topk_small(lf, k)
+    lse = torch.logsumexp(lf, dim=-1, keepdim=True)
+
+    # only beam 0 is live at first, so the first step does not duplicate beams
+    scores = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0
+    tokens = torch.full((b, k, max_length), eos, dtype=torch.int32, device=dev)
+    finished = torch.zeros((b, k), dtype=torch.bool, device=dev)
+    lengths = torch.zeros((b, k), dtype=torch.int32, device=dev)
+    rows = torch.arange(b * k, dtype=torch.int32, device=dev)
+    origin = rows.expand(cache["k"].shape[1], b * k).contiguous()
+    group = torch.arange(b, device=dev)[:, None]
+    wte, wpe = gpt_params["wte"], gpt_params["wpe"]
+    for step in range(max_length):
+        scores, parent, tok = _beam_select(scores, finished, vals, tok_k, lse, k, eos)
+        tokens = tokens[group, parent]
+        tokens[:, :, step] = tok
+        was_finished = finished[group, parent]
+        lengths = torch.where(was_finished, lengths[group, parent], step + 1)
+        finished = was_finished | (tok == eos)
+        if step == max_length - 1:
+            break
+        # new row r descends from row (image, parent): it inherits that row's
+        # history through the map and appends its own K/V row at idx
+        idx = p_len + step
+        origin = origin[:, (group * k + parent).reshape(-1)]
+        origin[idx] = rows
+        x0 = (wte[tok.reshape(-1).long()] + wpe[idx]).to(cdt)
+        vals, tok_k, lse, _, _ = DS.fused_decode_step(
+            packed, x0, cache["k"], cache["v"], idx, n_head=cfg.gpt2.n_head,
+            eps=cfg.gpt2.layer_norm_epsilon, topk=k, origin=origin, beam_k=k,
+            gather_start=p_len, use_kernels=use,
+        )
+    return tokens, scores, torch.where(finished, lengths, max_length)
 
 
 class ImageCaptioningModel:
@@ -242,13 +391,18 @@ class ImageCaptioningModel:
         image_embeddings,
         max_length: int = 50,
         temperature: float = 1.0,
+        top_p: float = 0.9,
+        generator: torch.Generator | None = None,
         decode_precision: str | None = None,
         mesh=None,
         use_kernels: bool | None = None,
     ) -> torch.Tensor:
-        """``decode_precision="bf16"`` decodes from a cached bfloat16 copy of
-        the weights (half the bytes each step reads); None/"f32" keeps the
-        float32 parameters.  "int8" is not ported and raises."""
+        """Top-p sampling at ``temperature`` by default, greedy at
+        ``temperature=0.0`` (the module-level :func:`generate`; ``generator``
+        on the model's device draws the tokens, seeded with 0 when None).
+        ``decode_precision="bf16"`` decodes from a cached bfloat16 copy of the
+        weights (half the bytes each step reads); None/"f32" keeps the float32
+        parameters.  "int8" is not ported and raises."""
         if decode_precision == "int8":
             raise NotImplementedError(
                 "int8 decode is not ported yet (ROADMAP.md, queue 2, item 2, mode 3: int8 W8A8)"
@@ -260,8 +414,8 @@ class ImageCaptioningModel:
             self._packed_cache = cache
         emb = torch.as_tensor(image_embeddings, dtype=torch.float32, device=self.device)
         return generate(
-            tr, fz, self.cfg, emb, max_length=max_length, temperature=temperature, policy=pol,
-            use_kernels=use_kernels, packed=cache[3], mesh=mesh,
+            tr, fz, self.cfg, emb, max_length=max_length, temperature=temperature, top_p=top_p,
+            generator=generator, policy=pol, use_kernels=use_kernels, packed=cache[3], mesh=mesh,
         )
 
     def decode_params(self, decode_precision: str | None = None):

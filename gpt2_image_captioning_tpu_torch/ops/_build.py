@@ -45,12 +45,19 @@ _SIGNATURES = {
     # dtype, q, k, v, out, key_mask, B, H, Tq, Tk, hd, strides (12 int64), causal, q_offset,
     # stream
     "gic_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P],
-    # dtype, q, k_new, v_new, in_stride, k_cache, v_cache, out, B, D, H, idx, stream
-    "gic_decode_attention": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, q, k_new, v_new, in_stride, k_cache, v_cache, out, B, D, H, idx, origin,
+    # gather_start, stream
+    "gic_decode_attention": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
     # dtype, ln, epilogue, x, ln_scale, ln_bias, eps, w, bias, out, stats, M, K, N, stream
     "gic_fused_linear": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, x32, ln_scale, ln_bias, eps, wte, M, K, V, xf, part_val, part_idx, tok, stream
     "gic_logits_argmax": [_I, _P, _P, _P, _F, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    # dtype, x32, ln_scale, ln_bias, eps, wte, M, K, V, xf, logits, stream
+    "gic_logits": [_I, _P, _P, _P, _F, _P, _I, _I, _I, _P, _P, _P],
+    # dtype, x32, ln_scale, ln_bias, eps, wte, M, K, V, k, xf, part_val, part_idx, part_m,
+    # part_s, vals, ids, lse, stream
+    "gic_logits_topk": [_I, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P],
 }
 
 

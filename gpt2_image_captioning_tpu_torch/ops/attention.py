@@ -5,8 +5,10 @@ Kernel: ``csrc/flash_attention.cu`` (hand-written CUDA for sm_90a; its
 header comment gives the design and the bound), the port of the JAX
 package's Pallas ``_flash_kernel``, wrapped by :func:`flash_attention_cuda`.
 Plain twin: :func:`_flash_attention_plain`, which follows the kernel's own
-math (float32 scores and softmax, p·v in float32, a row with no valid key
-gives zeros) rather than :func:`ops.nn.attention_xla`'s.
+math (float32 scores and softmax, p·v in float32) rather than
+:func:`ops.nn.attention_xla`'s.  A row with no valid key takes the uniform
+softmax over the Tk keys, the mean of v, as ``attention_xla`` and the JAX
+package give there.
 
 :class:`FlashAttention` carries the gradient: its forward is the kernel (or
 the twin, for CPU tensors), its backward the recompute formula of the JAX
@@ -45,7 +47,8 @@ def _valid(q, k, key_mask, causal: bool, q_offset: int) -> torch.Tensor:
 def _flash_attention_plain(q, k, v, key_mask=None, causal: bool = False, q_offset: int = 0):
     """Plain twin of ``csrc/flash_attention.cu``: float32 scores scaled by
     1/sqrt(hd), the masks, a float32 softmax, p·v in float32, the output cast
-    to q's dtype; a row with no valid key gives zeros."""
+    to q's dtype; a row with no valid key gives the mean of v over the Tk
+    keys (zeros when Tk is 0)."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     valid = _valid(q, k, key_mask, causal, q_offset)
@@ -53,7 +56,8 @@ def _flash_attention_plain(q, k, v, key_mask=None, causal: bool = False, q_offse
     p = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / torch.where(l == 0.0, 1.0, l)
-    return out.to(q.dtype)
+    mean_v = v.float().sum(dim=2, keepdim=True) / max(k.shape[2], 1)
+    return torch.where(l == 0.0, mean_v, out).to(q.dtype)
 
 
 def _flash_backward(q, k, v, key_mask, causal: bool, q_offset: int, g):

@@ -5,7 +5,10 @@ The cache layout is the JAX package's (T, B, D): D = n_head·head_dim, so the
 QKV projection's rows append with no head split.  :func:`decode_attention`
 writes this step's K/V rows at ``idx`` (in place: PyTorch tensors are
 mutable, which saves a cache copy per layer and step) and attends rows
-``[0, idx]``.
+``[0, idx]``.  Beam search passes an ancestry map ``origin`` (T, B) int32:
+row r then reads position t in ``[gather_start, idx)`` from cache row
+``origin[t, r]`` (the JAX step kernel's beam mode), so the caches are never
+gathered or rewritten between steps.
 
 Kernel: ``csrc/decode_attention.cu`` (hand-written CUDA for sm_90a; its
 header comment gives the design and the bound), wrapped by
@@ -28,17 +31,25 @@ from gpt2_image_captioning_tpu_torch.ops.nn import NEG_INF
 CHUNK_T = 16
 
 
-def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int):
+def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int,
+                            origin=None, gather_start: int = 0):
     """Append at ``idx``, then float32 attention of each row's query over cache
-    rows ``[0, idx]``; rows past ``idx`` are masked."""
+    rows ``[0, idx]``; rows past ``idx`` are masked.  With ``origin``, the
+    positions ``[gather_start, idx)`` are first gathered from the rows it
+    names; position ``idx`` is each row's own new row."""
     k_cache[idx] = k_new.to(k_cache.dtype)
     v_cache[idx] = v_new.to(v_cache.dtype)
     tk, b, d = k_cache.shape
+    kc, vc = k_cache, v_cache
+    if origin is not None:
+        src = torch.arange(b, device=q.device).expand(tk, b).clone()
+        src[gather_start:idx] = origin[gather_start:idx].long()
+        kc, vc = (c.gather(1, src[:, :, None].expand(tk, b, d)) for c in (k_cache, v_cache))
     hd = d // n_head
     scale = 1.0 / math.sqrt(hd)
     qh = q.reshape(b, n_head, hd).float()
-    kh = k_cache.reshape(tk, b, n_head, hd).float()
-    vh = v_cache.reshape(tk, b, n_head, hd).float()
+    kh = kc.reshape(tk, b, n_head, hd).float()
+    vh = vc.reshape(tk, b, n_head, hd).float()
     s = torch.einsum("bhd,kbhd->bhk", qh, kh) * scale
     live = (torch.arange(tk, device=q.device) <= idx)[None, None, :]
     p = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
@@ -46,10 +57,12 @@ def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head:
     return out.reshape(b, d).to(q.dtype)
 
 
-def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int):
+def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int,
+                          origin=None, gather_start: int = 0):
     """Launch ``csrc/decode_attention.cu``.  q/k_new/v_new (B, D) may be
     column slices of one (B, 3D) QKV tensor (equal row strides, unit column
-    stride); caches (T, B, D) contiguous, same dtype; returns (B, D)."""
+    stride); caches (T, B, D) contiguous, same dtype; origin (T, B) int32
+    contiguous with entries in [0, B), or None; returns (B, D)."""
     name = "decode_attention"
     _build.require(q.is_cuda, name, "q must be a CUDA tensor")
     _build.require(q.dtype in _build.DTYPE_CODE, name, f"unsupported dtype {q.dtype}")
@@ -69,11 +82,18 @@ def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: i
     _build.require(d % n_head == 0 and d // n_head <= 128, name,
                    "head_dim must divide D and be <= 128")
     _build.require(0 <= idx < tk, name, f"idx {idx} outside the cache of {tk} rows")
+    origin_ptr = None
+    if origin is not None:
+        _build.require(origin.shape == (tk, b) and origin.dtype == torch.int32
+                       and origin.is_contiguous() and origin.device == q.device, name,
+                       "origin must be a contiguous int32 (T, B) tensor on q's device")
+        _build.require(gather_start >= 0, name, "gather_start must be >= 0")
+        origin_ptr = origin.data_ptr()
     out = torch.empty((b, d), dtype=q.dtype, device=q.device)
     err = _build.library().gic_decode_attention(
         _build.DTYPE_CODE[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         q.stride(0), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        b, d, n_head, idx, _build.stream_of(q),
+        b, d, n_head, idx, origin_ptr, int(gather_start), _build.stream_of(q),
     )
     _build.check(err, name)
     decode_attention_cuda.launches += 1
@@ -92,19 +112,21 @@ def decode_attention(
     idx: int,
     *,
     n_head: int,
+    origin: torch.Tensor | None = None,
+    gather_start: int = 0,
     use_kernel: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step of attention, fused with the cache append.
 
     q/k_new/v_new: (B, D) this step's projections; k_cache/v_cache: (T, B, D)
-    with rows ``[0, idx)`` valid; ``idx``: host int, the write position.
-    Returns ``(attn_out (B, D), k_cache, v_cache)``; the caches are the
-    argument tensors, updated in place.  ``use_kernel`` as in
-    :func:`ops._build.kernels_enabled`.
+    with rows ``[0, idx)`` valid; ``idx``: host int, the write position;
+    ``origin``: the (T, B) int32 ancestry map read for positions
+    ``[gather_start, idx)``, or None.  Returns ``(attn_out (B, D), k_cache,
+    v_cache)``; the caches are the argument tensors, updated in place.
+    ``use_kernel`` as in :func:`ops._build.kernels_enabled`.
     """
     idx = int(idx)
-    if _build.kernels_enabled(use_kernel, q.device):
-        out = decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx, n_head)
-    else:
-        out = _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx, n_head)
+    fn = (decode_attention_cuda if _build.kernels_enabled(use_kernel, q.device)
+          else _decode_attention_plain)
+    out = fn(q, k_new, v_new, k_cache, v_cache, idx, n_head, origin, int(gather_start))
     return out, k_cache, v_cache

@@ -1,5 +1,6 @@
-"""The greedy GPT-2 decode step — the counterpart of
-``gpt2_image_captioning_tpu/ops/decode_step.py`` in greedy mode.
+"""The GPT-2 decode step — the counterpart of
+``gpt2_image_captioning_tpu/ops/decode_step.py`` in its greedy,
+``emit_logits``, ``topk`` and beam-ancestry modes.
 
 On the TPU the whole step is one Pallas kernel (``_step_kernel``), because
 each kernel call there carries a large fixed cost.  Blocks on Hopper cannot
@@ -12,20 +13,23 @@ for the vocabulary:
   epilogue), the MLP up-projection (LN2 prologue, gelu_new epilogue) and its
   down-projection (residual add);
 - ``csrc/decode_attention.cu`` (via :mod:`ops.decode_attention`) — the cache
-  append and the valid-prefix attention;
-- ``csrc/logits_argmax.cu`` — the final LN, the tied-embedding logits and the
-  greedy argmax, without storing the (B, V) logits.
+  append and the valid-prefix attention, optionally through the beam
+  ancestry map ``origin``;
+- the vocabulary, by mode: ``csrc/logits_argmax.cu`` (greedy: the final LN,
+  the tied-embedding logits and the argmax, without storing the (B, V)
+  logits), ``csrc/logits.cu`` (``emit_logits``: the float32 logits stored,
+  for the sampling tail) or ``csrc/logits_topk.cu`` (``topk``: each row's
+  top-k and logsumexp, for beam search).
 
 Numerics follow ``_step_kernel``: inputs in the compute dtype, float32
 accumulation, float32 LayerNorm and softmax statistics, a float32 residual
-stream to which the projections are added unrounded, and argmax ties to the
+stream to which the projections are added unrounded, and ties to the
 smallest token id.  Every kernel has a plain PyTorch twin in this module (or
 in ``ops/decode_attention.py``) with the same arithmetic; the CPU runs the
 twins, and ``use_kernels=False`` runs them on the card for comparison.
 
-Only greedy mode is ported.  ``emit_logits``, ``topk``, ``sample``, beam
-``origin``, per-row ``start``, int8 weights and the int8 KV cache are queued
-in ROADMAP.md (queue 2, item 2).
+Not ported: the in-kernel ``sample`` mode, per-row ``start`` windows, int8
+weights and the int8 KV cache (ROADMAP.md, queue 2, item 2).
 """
 
 from __future__ import annotations
@@ -35,15 +39,17 @@ import torch
 from gpt2_image_captioning_tpu_torch.ops import _build
 from gpt2_image_captioning_tpu_torch.ops import nn
 from gpt2_image_captioning_tpu_torch.ops.decode_attention import decode_attention
+from gpt2_image_captioning_tpu_torch.ops.sampling import topk_small
 
 # epilogue codes of csrc/fused_linear.cu
 EPILOGUES = {"cast": 0, "gelu": 1, "residual": 2}
 
 
 def fused_greedy_enabled(use_kernels: bool | None, device) -> bool:
-    """Whether greedy decode on ``device`` runs the CUDA kernels (True) or
-    their plain twins (False).  Unlike the JAX package there is no width or
-    dtype gate: on CUDA the kernels run in bf16 and float32 at any width."""
+    """Whether decoding on ``device`` runs the CUDA kernels (True) or their
+    plain twins (False), in every mode of the step.  Unlike the JAX package
+    there is no width, dtype or beam-block gate: on CUDA the kernels run in
+    bf16 and float32 at any width, batch and beam size."""
     return _build.kernels_enabled(use_kernels, device)
 
 
@@ -191,21 +197,9 @@ def logits_argmax_cuda(x32, lnf, wte, eps: float = 1e-5) -> torch.Tensor:
     lnf: (2, D) float32 LN_f scale and bias; wte: (V, D) compute dtype.
     Returns (B,) int32."""
     name = "logits_argmax"
-    _build.require(x32.is_cuda, name, "x32 must be a CUDA tensor")
-    _build.require(wte.dtype in _build.DTYPE_CODE, name, f"unsupported wte dtype {wte.dtype}")
+    _check_vocab_args(name, x32, lnf, wte)
     b, d = x32.shape
     v = wte.shape[0]
-    _build.require(x32.dtype == torch.float32 and x32.is_contiguous(), name,
-                   "x32 must be contiguous float32")
-    _build.require(wte.shape == (v, d) and wte.is_contiguous(), name,
-                   "wte must be contiguous (V, D)")
-    _build.require(d % (16 // wte.element_size()) == 0 and x32.data_ptr() % 16 == 0
-                   and wte.data_ptr() % 16 == 0, name,
-                   "D must be a multiple of 8 (bf16) or 4 (float32), x32 and wte 16-byte aligned")
-    _build.require(lnf.shape == (2, d) and lnf.dtype == torch.float32 and lnf.is_contiguous(), name,
-                   "lnf must be contiguous float32 (2, D)")
-    for t in (lnf, wte):
-        _build.require(t.device == x32.device, name, "all tensors must be on one device")
     nblk = -(-v // 32)  # csrc/common.cuh BN
     xf = torch.empty((b, d), dtype=wte.dtype, device=x32.device)
     part_val = torch.empty((b, nblk), dtype=torch.float32, device=x32.device)
@@ -230,14 +224,120 @@ def logits_argmax(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None =
     return logits_argmax_plain(x32, lnf, wte, eps)
 
 
+def _check_vocab_args(name, x32, lnf, wte) -> None:
+    """The argument checks the three vocabulary kernels share."""
+    _build.require(x32.is_cuda, name, "x32 must be a CUDA tensor")
+    _build.require(wte.dtype in _build.DTYPE_CODE, name, f"unsupported wte dtype {wte.dtype}")
+    d = x32.shape[1]
+    _build.require(x32.dtype == torch.float32 and x32.is_contiguous(), name,
+                   "x32 must be contiguous float32")
+    _build.require(wte.shape[1] == d and wte.is_contiguous(), name,
+                   "wte must be contiguous (V, D)")
+    _build.require(d % (16 // wte.element_size()) == 0 and x32.data_ptr() % 16 == 0
+                   and wte.data_ptr() % 16 == 0, name,
+                   "D must be a multiple of 8 (bf16) or 4 (float32), x32 and wte 16-byte aligned")
+    _build.require(lnf.shape == (2, d) and lnf.dtype == torch.float32 and lnf.is_contiguous(), name,
+                   "lnf must be contiguous float32 (2, D)")
+    for t in (lnf, wte):
+        _build.require(t.device == x32.device, name, "all tensors must be on one device")
+
+
+# ---------------------------------------------------------------------------
+# Final LN + logits stored (emit_logits): kernel, dispatcher (twin: logits_plain)
+# ---------------------------------------------------------------------------
+
+def logits_cuda(x32, lnf, wte, eps: float = 1e-5) -> torch.Tensor:
+    """Launch ``csrc/logits.cu``: the (B, V) float32 logits of
+    :func:`logits_plain`.  Arguments as :func:`logits_argmax_cuda`."""
+    name = "logits"
+    _check_vocab_args(name, x32, lnf, wte)
+    b, d = x32.shape
+    v = wte.shape[0]
+    xf = torch.empty((b, d), dtype=wte.dtype, device=x32.device)
+    out = torch.empty((b, v), dtype=torch.float32, device=x32.device)
+    err = _build.library().gic_logits(
+        _build.DTYPE_CODE[wte.dtype], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
+        wte.data_ptr(), b, d, v, xf.data_ptr(), out.data_ptr(), _build.stream_of(x32),
+    )
+    _build.check(err, name)
+    logits_cuda.launches += 1
+    return out
+
+
+logits_cuda.launches = 0
+
+
+def logits(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None = None):
+    if _build.kernels_enabled(use_kernel, x32.device):
+        return logits_cuda(x32, lnf, wte, eps)
+    return logits_plain(x32, lnf, wte, eps)
+
+
+# ---------------------------------------------------------------------------
+# Final LN + logits → per-row top-k and logsumexp: kernel, plain twin, dispatcher
+# ---------------------------------------------------------------------------
+
+TOPK_MAX = 16  # csrc/logits_topk.cu kMaxK
+
+
+def logits_topk_plain(x32, lnf, wte, k: int, eps: float = 1e-5):
+    """Plain twin of ``csrc/logits_topk.cu``: :func:`logits_plain`, then
+    :func:`ops.sampling.topk_small` and the logsumexp.  Returns (values (B, k)
+    float32, ids (B, k) int32, lse (B, 1) float32)."""
+    lg = logits_plain(x32, lnf, wte, eps)
+    vals, ids = topk_small(lg, k)
+    return vals, ids, torch.logsumexp(lg, dim=-1, keepdim=True)
+
+
+def logits_topk_cuda(x32, lnf, wte, k: int, eps: float = 1e-5):
+    """Launch ``csrc/logits_topk.cu``: :func:`logits_topk_plain`'s outputs,
+    the (B, V) logits never stored.  Arguments as :func:`logits_argmax_cuda`;
+    1 <= k <= min(16, V)."""
+    name = "logits_topk"
+    _check_vocab_args(name, x32, lnf, wte)
+    b, d = x32.shape
+    v = wte.shape[0]
+    _build.require(1 <= k <= min(TOPK_MAX, v), name, f"k must be in [1, {min(TOPK_MAX, v)}]")
+    nblk = -(-v // 32)  # csrc/common.cuh BN
+    dev = x32.device
+    xf = torch.empty((b, d), dtype=wte.dtype, device=dev)
+    part_val = torch.empty((b, nblk, k), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((b, nblk, k), dtype=torch.int32, device=dev)
+    part_m = torch.empty((b, nblk), dtype=torch.float32, device=dev)
+    part_s = torch.empty((b, nblk), dtype=torch.float32, device=dev)
+    vals = torch.empty((b, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((b, k), dtype=torch.int32, device=dev)
+    lse = torch.empty((b, 1), dtype=torch.float32, device=dev)
+    err = _build.library().gic_logits_topk(
+        _build.DTYPE_CODE[wte.dtype], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
+        wte.data_ptr(), b, d, v, k, xf.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
+        part_m.data_ptr(), part_s.data_ptr(), vals.data_ptr(), ids.data_ptr(), lse.data_ptr(),
+        _build.stream_of(x32),
+    )
+    _build.check(err, name)
+    logits_topk_cuda.launches += 1
+    return vals, ids, lse
+
+
+logits_topk_cuda.launches = 0
+
+
+def logits_topk(x32, lnf, wte, k: int, eps: float = 1e-5, *, use_kernel: bool | None = None):
+    if _build.kernels_enabled(use_kernel, x32.device):
+        return logits_topk_cuda(x32, lnf, wte, k, eps)
+    return logits_topk_plain(x32, lnf, wte, k, eps)
+
+
 # ---------------------------------------------------------------------------
 # The step
 # ---------------------------------------------------------------------------
 
 def decode_layers(packed, x0, k_cache, v_cache, idx: int, *, n_head: int, eps: float = 1e-5,
+                  origin=None, gather_start: int = 0,
                   use_kernels: bool | None = None) -> torch.Tensor:
     """All layers of one step: returns the (B, D) float32 residual stream
-    before the final LN.  Appends each layer's K/V at ``idx`` in place."""
+    before the final LN.  Appends each layer's K/V at ``idx`` in place;
+    ``origin``/``gather_start`` as in :func:`ops.decode_attention.decode_attention`."""
     d = x0.shape[1]
     x32 = x0.to(torch.float32, copy=True)
     for l in range(k_cache.shape[0]):
@@ -247,7 +347,7 @@ def decode_layers(packed, x0, k_cache, v_cache, idx: int, *, n_head: int, eps: f
         )
         a, _, _ = decode_attention(
             qkv[:, :d], qkv[:, d : 2 * d], qkv[:, 2 * d :], k_cache[l], v_cache[l], idx,
-            n_head=n_head, use_kernel=use_kernels,
+            n_head=n_head, origin=origin, gather_start=gather_start, use_kernel=use_kernels,
         )
         fused_linear(a, packed["projw"][l], packed["projb"][l], epilogue="residual",
                      residual=x32, use_kernel=use_kernels)
@@ -269,16 +369,57 @@ def fused_decode_step(
     *,
     n_head: int,
     eps: float = 1e-5,
+    emit_logits: bool = False,
+    topk: int = 0,
+    origin: torch.Tensor | None = None,
+    beam_k: int = 0,
+    gather_start: int = 0,
+    sample: dict | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
     use_kernels: bool | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One greedy decode step.
+) -> tuple[torch.Tensor, ...]:
+    """One decode step.
 
     x0: (B, D) input embeddings (token + position) in the compute dtype;
-    caches (L, Tpad, B, D) with rows ``[0, idx)`` valid.  Returns
-    ``(next_token (B,) int32, k_cache, v_cache)``; the caches are updated in
-    place at row ``idx``.  ``use_kernels=False`` is the step's plain twin.
+    caches (L, Tpad, B, D) with rows ``[0, idx)`` valid, updated in place at
+    row ``idx``.  Returns, by mode:
+
+    - greedy (default): ``(next_token (B,) int32, k_cache, v_cache)``;
+    - ``emit_logits=True``: ``(logits (B, V) float32, k_cache, v_cache)``;
+    - ``topk=k``: ``(values (B, k) float32, token_ids (B, k) int32,
+      logsumexp (B, 1) float32, k_cache, v_cache)``, values descending, ties
+      to the smallest id.
+
+    Beam mode (``origin`` and ``beam_k``, with any vocabulary mode): row r's
+    attention reads position t in ``[gather_start, idx)`` from cache row
+    ``origin[t, r]`` of the (Tpad, B) int32 map; rows are beam-major, B a
+    multiple of ``beam_k``.  ``use_kernels=False`` is the step's plain twin.
+    ``sample`` and the int8 cache (``k_scale``/``v_scale``) are not ported
+    and raise.
     """
+    if sample is not None:
+        raise NotImplementedError(
+            "the in-kernel sample mode is not ported yet (ROADMAP.md, queue 2, item 2, mode 6: "
+            "sample, with continuous serving); decode with emit_logits=True and "
+            "ops.sampling.sample_token"
+        )
+    if k_scale is not None or v_scale is not None or k_cache.dtype == torch.int8:
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet (ROADMAP.md, queue 2, item 2, mode 7: int8 KV)"
+        )
+    if (origin is None) != (beam_k == 0):
+        raise ValueError("beam mode needs origin and beam_k together")
+    if topk and emit_logits:
+        raise ValueError("topk and emit_logits are exclusive")
+    if beam_k and x0.shape[0] % beam_k:
+        raise ValueError(f"batch {x0.shape[0]} is not a whole number of beam groups of {beam_k}")
     use = fused_greedy_enabled(use_kernels, x0.device)
     x32 = decode_layers(packed, x0, k_cache, v_cache, int(idx), n_head=n_head, eps=eps,
-                        use_kernels=use)
-    return logits_argmax(x32, packed["lnf"], packed["wte"], eps, use_kernel=use), k_cache, v_cache
+                        origin=origin, gather_start=gather_start, use_kernels=use)
+    lnf, wte = packed["lnf"], packed["wte"]
+    if topk:
+        return (*logits_topk(x32, lnf, wte, topk, eps, use_kernel=use), k_cache, v_cache)
+    if emit_logits:
+        return logits(x32, lnf, wte, eps, use_kernel=use), k_cache, v_cache
+    return logits_argmax(x32, lnf, wte, eps, use_kernel=use), k_cache, v_cache

@@ -1,6 +1,8 @@
-"""The port's greedy ``generate`` against the JAX package's, token for token in
-float32 at a tiny config, through both JAX decode paths: the layerwise XLA
-loop and the whole-step Pallas kernel in interpret mode."""
+"""The port's ``generate`` against the JAX package's in float32 at a tiny
+config: greedy token for token through both JAX decode paths (the layerwise
+XLA loop and the whole-step Pallas kernel in interpret mode); sampled
+decoding by its nucleus, since torch's generator draws other numbers than
+jax.random."""
 
 import dataclasses
 
@@ -14,6 +16,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gpt2_image_captioning_tpu.models import captioner as JC
 from gpt2_image_captioning_tpu.models import gpt2 as JG
 from gpt2_image_captioning_tpu.models import mapping as JM
+from gpt2_image_captioning_tpu.ops import sampling as JS
 from gpt2_image_captioning_tpu_torch.models import captioner as TC
 from gpt2_image_captioning_tpu_torch.models import gpt2 as TG
 from gpt2_image_captioning_tpu_torch.models import mapping as TM
@@ -133,14 +136,97 @@ def test_model_facade_bf16_and_refusals():
     assert ids.shape == (3, 6) and ids.dtype == torch.int32
     caps = model.generate_captions(emb, max_length=6, temperature=0.0)
     assert len(caps) == 3 and all(isinstance(c, str) for c in caps)
-    with pytest.raises(NotImplementedError, match="sampling"):
-        model.generate(emb, temperature=1.0)
+    with pytest.raises(NotImplementedError, match="sample, with continuous serving"):
+        TC.generate(tr, fz, cfg, torch.from_numpy(emb), temperature=1.0, sample_in_kernel=True)
     with pytest.raises(NotImplementedError, match="int8"):
         model.generate(emb, temperature=0.0, decode_precision="int8")
     with pytest.raises(NotImplementedError, match="parallelism"):
         model.generate(emb, temperature=0.0, mesh=object())
-    with pytest.raises(NotImplementedError, match="beam search"):
-        TC.beam_generate(tr, fz, cfg, emb, beam_size=4)
+    beams = TC.beam_generate(tr, fz, cfg, torch.from_numpy(emb), max_length=6, beam_size=4,
+                             policy=pol)
+    assert beams.shape == (3, 6) and beams.dtype == torch.int32
     with pytest.raises(ValueError, match="CUDA"):
         model.generate(emb, temperature=0.0, use_kernels=True)
     assert dataclasses.replace(cfg, eos_token_id=1).total_prefix_length == 2
+
+
+def _teacher_forced_logits(tr, fz, cfg, emb, tokens):
+    """The JAX model's float32 logits at every step, fed ``tokens``:
+    (steps, B, V), step s predicting token s."""
+    gp, gcfg = fz["gpt"], cfg.gpt2
+    prefix = JC.build_prefix(tr, cfg, jnp.asarray(emb))
+    cache = JG.init_cache(gcfg, prefix.shape[0], prefix.shape[1] + tokens.shape[1])
+    logits, cache = JG.forward_cached(gp, gcfg, prefix, cache, fresh_prefill=True)
+    out = [np.asarray(logits)]
+    for s in range(1, tokens.shape[1]):
+        emb_t = JG.embed_tokens(gp, jnp.asarray(tokens[:, s - 1 : s]))
+        logits, cache = JG.forward_cached(gp, gcfg, emb_t, cache, use_pallas_decode=False)
+        out.append(np.asarray(logits))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("case", ["one_row_stops", "early_exit"])
+def test_sampled_with_a_one_token_nucleus_is_greedy_and_matches_jax(case):
+    """top_p = 1e-6 keeps each row's top-1 alone, so sampled decoding is
+    greedy decoding whatever the draws: the port's sampled tokens equal its
+    greedy tokens and the JAX package's sampled tokens."""
+    jcfg, tcfg, tr, fz, emb = _models(case)
+    kw = dict(max_length=MAX_LEN, temperature=1.0, top_p=1e-6)
+    want = np.asarray(JC.generate(tr, fz, jcfg, jnp.asarray(emb), rng=jax.random.PRNGKey(5),
+                                  use_pallas_decode=False, **kw))
+    ttr, tfz = porting.from_jax_numpy(*jax.tree.map(np.asarray, (tr, fz)), tcfg, device="cpu")
+    got = TC.generate(ttr, tfz, tcfg, torch.from_numpy(emb),
+                      generator=torch.Generator().manual_seed(5), **kw)
+    greedy = TC.generate(ttr, tfz, tcfg, torch.from_numpy(emb), max_length=MAX_LEN,
+                         temperature=0.0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    torch.testing.assert_close(got, greedy, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.7])
+def test_sampled_tokens_lie_in_the_jax_nucleus(temperature):
+    """At top_p = 0.9 every token the port draws (until its row's EOS) lies in
+    the nucleus the JAX package computes on the port's own prefix, teacher
+    forced; and the draws are not all the argmax."""
+    jcfg, tcfg, tr, fz, emb = _models("one_row_stops")
+    jcfg = dataclasses.replace(jcfg, eos_token_id=292)
+    tcfg = dataclasses.replace(tcfg, eos_token_id=292)
+    emb = np.random.default_rng(3).normal(size=(16, 16)).astype(np.float32)
+    ttr, tfz = porting.from_jax_numpy(*jax.tree.map(np.asarray, (tr, fz)), tcfg, device="cpu")
+    got = TC.generate(ttr, tfz, tcfg, torch.from_numpy(emb), max_length=MAX_LEN,
+                      temperature=temperature, top_p=0.9,
+                      generator=torch.Generator().manual_seed(11)).numpy()
+    logits = _teacher_forced_logits(tr, fz, jcfg, emb, got)
+    alive = np.ones(len(got), bool)
+    argmax_hits = checked = 0
+    for s in range(MAX_LEN):
+        lg = logits[s] / temperature
+        kept = np.asarray(JS.top_p_filter_bisect(jnp.asarray(lg), 0.9)) != float(JS.NEG_INF)
+        tok = got[:, s]
+        assert kept[np.arange(len(got)), tok][alive].all(), f"step {s}"
+        argmax_hits += int((tok == lg.argmax(axis=1))[alive].sum())
+        checked += int(alive.sum())
+        alive &= tok != jcfg.eos_token_id
+    assert argmax_hits < checked
+
+
+def test_facade_generate_runs_with_its_defaults():
+    """``ImageCaptioningModel.generate(emb)`` samples at the JAX façade's
+    defaults (temperature 1.0, top_p 0.9, 50 tokens) with a generator seeded
+    with 0; the same seed gives the same tokens, another seed others."""
+    cfg = TC.CaptionerConfig(
+        gpt2=TG.GPT2Config.tiny(),
+        mapping=TM.MLPMappingConfig(prefix_length=2, embed_dim=8, gpt_dim=32),
+        eos_token_id=292,
+    )
+    model = TC.ImageCaptioningModel(cfg, generator=torch.Generator().manual_seed(1), device="cpu")
+    emb = np.random.default_rng(1).normal(size=(3, 8)).astype(np.float32)
+    ids = model.generate(emb)
+    assert ids.shape == (3, 50) and ids.dtype == torch.int32
+    torch.testing.assert_close(model.generate(emb), ids, rtol=0, atol=0)
+    same = model.generate(emb, generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(same, ids, rtol=0, atol=0)
+    other = model.generate(emb, generator=torch.Generator().manual_seed(1))
+    assert not torch.equal(other, ids)
+    greedy = model.generate(emb, temperature=0.0)
+    assert not torch.equal(greedy, ids)

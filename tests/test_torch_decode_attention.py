@@ -55,3 +55,31 @@ def test_decode_attention_accepts_qkv_column_slices():
         torch.from_numpy(vc.copy()), 9, n_head=N_HEAD,
     )
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("gather_start", [0, 5, 20])
+def test_origin_reads_the_rows_it_names(gather_start):
+    """With an ancestry map, position t in [gather_start, idx) of row r is
+    cache row origin[t, r]: the same as attending an explicitly gathered
+    cache; positions below gather_start and the appended row are the row's
+    own, whatever the map holds there."""
+    idx = 17
+    q, kn, vn, kc, vc = _inputs(idx, seed=4)
+    origin = np.random.default_rng(5).integers(0, B, size=(TK, B)).astype(np.int32)
+    kg, vg = kc.copy(), vc.copy()
+    t = np.arange(gather_start, idx)
+    kg[t], vg[t] = kc[t[:, None], origin[t]], vc[t[:, None], origin[t]]
+    want, _, _ = TDA.decode_attention(
+        *(torch.from_numpy(a) for a in (q, kn, vn, kg, vg)), idx, n_head=N_HEAD)
+    tkc, tvc = torch.from_numpy(kc.copy()), torch.from_numpy(vc.copy())
+    got, _, _ = TDA.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(kn), torch.from_numpy(vn), tkc, tvc, idx,
+        n_head=N_HEAD, origin=torch.from_numpy(origin), gather_start=gather_start)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    # the cache itself is not gathered: only row idx changed
+    np.testing.assert_array_equal(np.delete(tkc.numpy(), idx, axis=0), np.delete(kc, idx, axis=0))
+    np.testing.assert_array_equal(tkc.numpy()[idx], kn)
+    if gather_start < idx:
+        plain, _, _ = TDA.decode_attention(
+            *(torch.from_numpy(a.copy()) for a in (q, kn, vn, kc, vc)), idx, n_head=N_HEAD)
+        assert not torch.allclose(plain, got, atol=1e-3)

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from gpt2_image_captioning_tpu.ops import attention as JA
+from gpt2_image_captioning_tpu.ops import nn as JNN
 from gpt2_image_captioning_tpu_torch.ops import attention as TA
 
 # B, H, Tq, Tk, hd, causal, key mask, q_offset
@@ -78,21 +79,21 @@ def test_flash_attention_matches_jax(case):
 
 
 def test_fully_masked_row():
-    """A batch row whose keys are all masked: the port's forward gives zeros
-    there, the contract the reference's kernel states (:90-91); the
-    reference's kernel gives the mean of v over its key block instead
-    (exp(NEG_INF - NEG_INF) = 1 for every masked key), pinned here.  The
-    backward is the reference's uniform softmax over the keys, so the
-    gradients match the JAX package's everywhere."""
+    """A batch row whose keys are all masked: the port's forward gives what
+    the JAX package gives there, the uniform softmax over the Tk keys (the
+    mean of v), which ``attention_xla`` computes and the Pallas kernel too
+    where Tk fills its key block (8 <= Tk <= 128).  The backward is the
+    reference's uniform softmax as well, so the gradients match everywhere."""
     q, k, v, w, _ = _inputs(2, 2, 12, 12, 8, False, seed=3)
     mask = np.ones((2, 12), np.int32)
     mask[0] = 0
     want, want_grads = _jax(q, k, v, w, mask, False, 0)
     got, got_grads = _torch(q, k, v, w, mask, False, 0)
-    assert np.all(got[0] == 0.0)
-    np.testing.assert_allclose(got[1], want[1], atol=1e-5, rtol=1e-5)
-    np.testing.assert_allclose(want[0], np.broadcast_to(v[0].mean(axis=1, keepdims=True),
-                                                        want[0].shape), atol=1e-5)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got[0], np.broadcast_to(v[0].mean(axis=1, keepdims=True),
+                                                       got[0].shape), atol=1e-5)
+    xla = JNN.attention_xla(*(jnp.asarray(a) for a in (q, k, v)), key_mask=jnp.asarray(mask))
+    np.testing.assert_allclose(got, np.asarray(xla), atol=1e-5, rtol=1e-5)
     for name, g, gw in zip("qkv", got_grads, want_grads):
         np.testing.assert_allclose(g, gw, atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
     assert np.abs(got_grads[2][0]).max() > 0  # the uniform softmax sends v a gradient
