@@ -8,7 +8,7 @@ It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
 PyTorch twin at the main paths' shapes, with its time beside its bound (the
 least time the card could take for the same work) and, where one PyTorch
-call computes the same function, that call's time.  Then it drives the four
+call computes the same function, that call's time.  Then it drives the five
 paths the port has, each with the kernels' launch counters set to 0 just
 before and read just after:
 
@@ -28,6 +28,12 @@ before and read just after:
   must be within 0.05 of the plain path's score of it, the kernels'
   captions must score no worse than the plain path's on average, and in
   float32 the captions must be the plain path's;
+- continuous serving: ``ContinuousCaptionService`` fed by image embeddings,
+  greedy, sampled on the logits tail and sampled in the kernel: exact
+  captions against one-shot ``generate`` on the tiny float32 model, kernels
+  on and off; then at full width, 512 slots, 2,048 requests with caps in
+  [8, 50], every greedy token teacher-forced against the plain path and
+  every sampled token inside the plain path's nucleus;
 - training: the train step (``make_train_step``) at full width — GPT-2 124M
   frozen, the transformer mapper trainable, bf16 compute, AdamW, b 128,
   captions padded to 50 — fed by the ``Batcher``: step-1 loss and gradients
@@ -45,6 +51,7 @@ log, every phase's record) goes to ``chiprun_out/``.
 from __future__ import annotations
 
 import dataclasses
+import gzip
 import json
 import subprocess
 import sys
@@ -67,6 +74,13 @@ BEAM_K, P_LEN = 4, 15
 B_BEAM = B * BEAM_K
 ORIGIN_IDX = (15, 16, 17, 40, 64)
 TOP_P = 0.9
+# Continuous serving: the pool of 512 rows; the kernel rows of the start
+# window and the sampler are timed at its width, attention at idx 64.
+B_SERVE = 512
+CONTINUOUS = dict(slots=B_SERVE, segment=4, bursts=8, admit=32, max_length=50)
+CONTINUOUS_REQUESTS = 2048  # >= recommended_inflight() = 1,823 at these settings
+CONTINUOUS_MODES = {"greedy": {}, "sampled": dict(temperature=1.0, top_p=TOP_P),
+                    "in_kernel": dict(temperature=1.0, top_p=TOP_P, sample_in_kernel=True)}
 
 # Tolerances, |kernel - plain| <= atol + rtol * |plain|.
 # bf16 outputs: the kernel and the twin accumulate in float32 in different
@@ -119,11 +133,36 @@ BEAM_MEAN_TOL = 0.02
 # between candidates at these seeds, so every caption must be the plain
 # path's (BEAM_F32_PARTED may part; every run has shown none).
 BEAM_F32_IMAGES, BEAM_F32_PARTED = 32, 0
+# In-kernel sampler (csrc/logits_sample.cu) against its twin fed the same
+# Philox words.  float32: the logits differ by summation order only (~1e-6),
+# far below the gaps that decide a Gumbel-max draw or an acceptance, so
+# tokens and rounds must be identical.  bf16: a flipped bf16 rounding of an
+# LN output moves a logit by ~1e-4, which flips a draw whose two best
+# perturbed values lie that close, or an acceptance whose mass lies that
+# close to top_p: rare, so >= 99 % of tokens identical, and every drawn token
+# inside the twin's nucleus up to NUCLEUS_SLACK.  The logsumexp takes the
+# "out" tolerance of the logits.  Temperatures and top_p mix per row; top_p
+# 0.5 sends (1 - 0.5)^3 = 1/8 of its rows to a second round.
+SAMPLE_TEMPS, SAMPLE_TOPPS = (0.0, 0.7, 1.0, 1.5), (0.5, 0.9, 1.0)
+SAMPLE_K, SAMPLE_ROUNDS = 3, 6
+SAMPLE_BF16_AGREE = 0.99
+# The draws' distribution at fixed logits: SAMPLE_TV_DRAWS rows of one
+# logit vector, at a temperature whose top-0.9 nucleus holds 2-32 tokens; the
+# TV distance of N exact draws over k outcomes concentrates near
+# sqrt(k / (2 pi N)) <= 0.035, so 0.06 (as scripts/kernel_sample_ab.py).
+SAMPLE_TV_DRAWS, SAMPLE_TV_TOL = 4096, 0.06
+# Vector work of the sampler's bound, per (row, column): a Philox call (10
+# rounds of ~10 integer operations) and per candidate two logs and ~5
+# operations for each set of draws; ~5 for the scaled logit and its running
+# statistics; a compare and an add per candidate for each verification of a
+# row; at the float32 rate outside the tensor cores.
+PHILOX_OPS, DRAW_OPS, LOGIT_OPS, VERIFY_OPS = 100, 7, 5, 2
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense): HBM bytes/s and
 # operations/s by the element type of the products.
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+VECTOR_OPS_S = 67e12  # float32 outside the tensor cores
 
 # Flash attention on the paths: (name, B, H, T, hd, causal, padding mask) —
 # the GPT-2 blocks in training (15 prefix + 50 caption positions), the
@@ -157,9 +196,11 @@ TRAIN_TOL = {"loss_bf16": 1e-2, "grad_bf16": 5e-2, "loss_f32": 1e-5, "grad_f32":
 FLASH_BWD_TOL = 1e-2
 
 RESULTS: list[dict] = []
+T0 = time.perf_counter()
 
 
 def emit(record: dict) -> None:
+    record = {**record, "elapsed_s": time.perf_counter() - T0}
     RESULTS.append(record)
     print(json.dumps(record), flush=True)
 
@@ -302,6 +343,176 @@ def check_attention_origin(dtype, g) -> dict:
             "cache_rows_read": rows_read, "cache_rows_named": idx * b,
             "library_ms": library_ms, "library": "gather of the cache by origin + SDPA",
             "at": f"B {b}, D {D}, H {H}, T {T}, idx {idx}, gather_start {P_LEN}"}
+
+
+def check_attention_start(dtype, g) -> dict:
+    """``csrc/decode_attention.cu`` with per-row windows, as continuous
+    serving runs it: 512 rows at idx 64, random starts in [0, idx] — some
+    not chunk-aligned, some equal to idx (dead rows) — with garbage below
+    each row's start."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_attention as DA
+
+    b, idx = B_SERVE, 64
+    start = torch.randint(0, idx + 1, (b,), generator=g, device="cuda").to(torch.int32)
+    start[:8] = torch.tensor([0, 1, 15, 16, 17, 33, idx, idx], dtype=torch.int32, device="cuda")
+    q, kn, vn = (torch.randn(b, D, generator=g, device="cuda").to(dtype) for _ in range(3))
+    kc = torch.randn(T, b, D, generator=g, device="cuda").to(dtype)
+    vc = torch.randn(T, b, D, generator=g, device="cuda").to(dtype)
+    dead = (torch.arange(T, device="cuda")[:, None] < start[None, :].long()) | (
+        torch.arange(T, device="cuda")[:, None] >= idx)
+    kc[dead], vc[dead] = 1e4, -1e4  # outside [start_r, idx): never attended
+    kp, vp = kc.clone(), vc.clone()
+    want = DA._decode_attention_plain(q, kn, vn, kp, vp, idx, H, start=start)
+    got = DA.decode_attention_cuda(q, kn, vn, kc, vc, idx, H, start=start)
+    torch.cuda.synchronize()
+    worst = close(got, want, TOL[dtype]["out"])
+    check(torch.equal(kc, kp) and torch.equal(vc, vp), "cache rows differ")
+    ms = time_ms(lambda: DA.decode_attention_cuda(q, kn, vn, kc, vc, idx, H, start=start))
+    plain_ms = time_ms(lambda: DA._decode_attention_plain(q, kn, vn, kp, vp, idx, H, start=start))
+    # the library call: SDPA over cache rows [0, idx] with each row's window as a mask
+    hd, el = D // H, q.element_size()
+    pos = torch.arange(idx + 1, device="cuda")
+    mask = (pos[None, :] >= start[:, None].long())[:, None, None, :]
+    q4 = q.view(b, H, 1, hd)
+    k4, v4 = (c[: idx + 1].view(idx + 1, b, H, hd).permute(1, 2, 0, 3) for c in (kc, vc))
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask))
+    # each row's window read (K and V), q / k_new / v_new / start read, the
+    # output and the appended rows written
+    window = int((idx - start.long()).sum())
+    nbytes = el * D * (2 * window + b * (3 + 1 + 2)) + 4 * b
+    bound_ms, bound_by = bound(nbytes, 4 * D * (window + b), dtype)
+    return {"kernel": "decode_attention", "mode": "start", "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "window_rows": window, "dead_rows": int((start == idx).sum()),
+            "library_ms": library_ms, "library": "scaled_dot_product_attention, window mask",
+            "at": f"B {b}, D {D}, H {H}, T {T}, idx {idx}, random starts"}
+
+
+def sampler_bound(b: int, wte, temp, rnd) -> tuple[float, str, dict]:
+    """Least time of the draw over B rows that resolved in rounds ``rnd``
+    (B,): the larger of wte's bytes (read once) and the rows' (temp, top_p,
+    x) read and (token, round, lse) written at the memory rate, one product
+    of the B rows at the tensor-core rate, and the vector work at its rate:
+    the logits' statistics for every row, one set of k draws per (sampled
+    row, column), fresh sets only for the rows a round leaves unresolved,
+    and the check of each candidate in every round a row reaches.  The
+    kernel keeps no logits, so each round walks wte again: that second walk
+    is a cost of its design, not of the work, and is not counted."""
+    sampled = int((temp > 0).sum())
+    verify = sum(int((rnd >= r).sum()) for r in range(1, SAMPLE_ROUNDS + 1))
+    fresh = sum(int((rnd > r).sum()) for r in range(1, SAMPLE_ROUNDS + 1))
+    nbytes = V * D * wte.element_size() + b * (4 * D + 8 + 12) + 8 * D
+    products = 2 * D * V * b
+    draw = PHILOX_OPS + SAMPLE_K * DRAW_OPS
+    vector = V * (b * LOGIT_OPS + (sampled + fresh) * draw + verify * SAMPLE_K * VERIFY_OPS)
+    times = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+             "operations": max(products / PEAK_OPS_S[wte.dtype], vector / VECTOR_OPS_S) * 1e3}
+    by = max(times, key=times.get)
+    return times[by], by, {"bytes": nbytes, "product_flop": products, "vector_ops": vector,
+                           "draw_rows": sampled + fresh, "verify_rows": verify}
+
+
+def nucleus_excess(lq: torch.Tensor, tokens: torch.Tensor, top_p: torch.Tensor) -> float:
+    """Largest (probability mass strictly above a drawn token's scaled logit)
+    minus its row's top_p; lq (B, V) float32 scaled logits."""
+    prob = torch.softmax(lq.double(), dim=-1)
+    chosen = lq.gather(1, tokens.long()[:, None])
+    above = torch.where(lq > chosen, prob, 0.0).sum(dim=-1)
+    return float((above - top_p.double()).max())
+
+
+def check_sampler(dtype, g) -> dict:
+    """``csrc/logits_sample.cu`` against ``sample_step_plain`` fed the same
+    Philox words, at B 128 and 512 with temperatures and top_p mixed per
+    row, and with top_p < 0 and 3 rounds (every round runs, then the
+    fallback); then 4,096 draws at fixed logits against the exact
+    renormalised nucleus."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+    from gpt2_image_captioning_tpu_torch.ops import sampling as S
+
+    cases, lse_err, worst_excess = {}, 0.0, -1.0
+    for b in (B, B_SERVE):
+        x32, lnf, wte = vocab_inputs(b, dtype, g)
+        rows = torch.arange(b, device="cuda")
+        temp = torch.tensor(SAMPLE_TEMPS, device="cuda")[rows % len(SAMPLE_TEMPS)].contiguous()
+        top_p = torch.tensor(SAMPLE_TOPPS, device="cuda")[(rows // 4) % len(SAMPLE_TOPPS)]
+        lq = DS.logits_plain(x32, lnf, wte) / torch.where(temp > 0, temp, 1.0)[:, None]
+        for case, tp, rounds in (("mixed", top_p.contiguous(), SAMPLE_ROUNDS),
+                                 ("forced", torch.full_like(top_p, -1.0), 3)):
+            seed = 1000 + b + rounds
+            tok, rnd, lse = DS.logits_sample_cuda(x32, lnf, wte, temp, tp, seed, SAMPLE_K, rounds)
+            wtok, wrnd, wlse = S.sample_step_plain(x32, lnf, wte, temp, tp, seed, SAMPLE_K, rounds)
+            torch.cuda.synchronize()
+            same_tok = float((tok == wtok).float().mean())
+            same_rnd = float((rnd == wrnd).float().mean())
+            lse_err = max(lse_err, close(lse, wlse, TOL[dtype]["out"]))
+            if dtype == torch.float32:
+                check(same_tok == 1.0 and same_rnd == 1.0,
+                      f"sampler {case} B {b}: tokens {same_tok}, rounds {same_rnd} identical")
+            else:
+                check(same_tok >= SAMPLE_BF16_AGREE, f"sampler {case} B {b}: {same_tok} identical")
+            greedy = temp == 0
+            check(bool((rnd[greedy] == 0).all()), "a temperature-0 row did not resolve in round 0")
+            if case == "forced":
+                check(bool((rnd[~greedy] == rounds + 1).all()), "top_p < 0: a row did not fall back")
+            else:
+                excess = nucleus_excess(lq[~greedy], tok[~greedy], tp[~greedy])
+                worst_excess = max(worst_excess, excess)
+                check(excess <= NUCLEUS_SLACK, f"a drawn token lies {excess} outside its nucleus")
+            cases[f"{case}_B{b}"] = {"tokens_identical": same_tok, "rounds_identical": same_rnd,
+                                     "rounds_histogram": torch.bincount(rnd).tolist()}
+
+    # the draws' distribution at fixed logits: SAMPLE_TV_DRAWS copies of one
+    # row, at the highest temperature (from 1, by factors of 0.8) whose
+    # nucleus holds at most 32 tokens
+    x32, lnf, wte = vocab_inputs(1, dtype, g)
+    lg = DS.logits_plain(x32, lnf, wte)[0].double()
+    order = torch.argsort(lg, descending=True)
+
+    def mass_above(t):
+        prob = torch.softmax(lg / t, dim=0)
+        above = torch.empty_like(prob)
+        above[order] = torch.cumsum(prob[order], 0) - prob[order]
+        return prob, above
+
+    t = 1.0
+    while int((mass_above(t)[1] <= TOP_P).sum()) > 32:
+        t *= 0.8
+    prob, above = mass_above(t)
+    n = SAMPLE_TV_DRAWS
+    tok, rnd, _ = DS.logits_sample_cuda(
+        x32.expand(n, D).contiguous(), lnf, wte, torch.full((n,), t, device="cuda"),
+        torch.full((n,), TOP_P, device="cuda"), 77, SAMPLE_K, SAMPLE_ROUNDS)
+    nucleus = above <= TOP_P
+    want = torch.where(nucleus, prob, 0.0)
+    want /= want.sum()
+    got = torch.bincount(tok.long(), minlength=V).double() / n
+    tv = 0.5 * float((got - want).abs().sum())
+    outside = float((above[tok.long()] > TOP_P + NUCLEUS_SLACK).double().mean())
+    check(outside == 0.0, f"{outside} of the fixed-logit draws lie outside the nucleus")
+    check(tv <= SAMPLE_TV_TOL, f"fixed-logit draws: TV {tv} > {SAMPLE_TV_TOL}")
+
+    # time at the continuous path's width and draw: temperature 1.0, top_p 0.9
+    x32, lnf, wte = vocab_inputs(B_SERVE, dtype, g)
+    temp = torch.full((B_SERVE,), 1.0, device="cuda")
+    top_p = torch.full((B_SERVE,), TOP_P, device="cuda")
+    ms = time_ms(lambda: DS.logits_sample_cuda(x32, lnf, wte, temp, top_p, 5, SAMPLE_K,
+                                                SAMPLE_ROUNDS))
+    plain_ms = time_ms(lambda: S.sample_step_plain(x32, lnf, wte, temp, top_p, 5, SAMPLE_K,
+                                                   SAMPLE_ROUNDS), iters=3, warmup=1)
+    _, wrnd, _ = S.sample_step_plain(x32, lnf, wte, temp, top_p, 5, SAMPLE_K, SAMPLE_ROUNDS)
+    bound_ms, bound_by, work = sampler_bound(B_SERVE, wte, temp, wrnd)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    eager_ms = time_ms(lambda: S.sample_rows(library_logits(x32, lnf, wte), temp, top_p, gen))
+    return {"kernel": "logits_sample", "max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "work": work, "library_ms": None,
+            "eager_tail_ms": eager_ms, "eager_tail": "layer_norm + mm + ops.sampling.sample_rows",
+            "at": f"B {B_SERVE}, D {D}, V {V}, k {SAMPLE_K}, rounds {SAMPLE_ROUNDS}, "
+                  f"temperature 1.0, top_p {TOP_P}",
+            "cases": cases, "worst_nucleus_excess": worst_excess,
+            "fixed_logits": {"draws": n, "temperature": t, "nucleus": int(nucleus.sum()),
+                             "tv": tv, "tolerance": SAMPLE_TV_TOL,
+                             "rounds_histogram": torch.bincount(rnd).tolist()}}
 
 
 def check_dot_f32(g) -> dict:
@@ -674,6 +885,8 @@ def tiny_exact(mode: str) -> dict:
     firsts = set(probe[:, 0].tolist())
     eos = next((int(t) for t in probe[0, 1:] if int(t) not in firsts), int(probe[0, 1]))
     cfg = dataclasses.replace(cfg, eos_token_id=eos)
+    if mode == "continuous":
+        return tiny_continuous(tr, fz, cfg)
 
     def run(use):
         if mode == "beam":
@@ -689,6 +902,72 @@ def tiny_exact(mode: str) -> dict:
     return {"phase": f"tiny_f32_exact_{mode}", "eos": eos, "tokens_equal": True,
             "rows_finished_early": check_padding(got, eos, cfg.gpt2.vocab_size),
             "decode_steps": decode_steps(got, eos), "batch": 5, "max_length": 12}
+
+
+def synthetic_tokenizer(vocab: int):
+    """A tokenizer for random weights, whose GPT-2 assets the repository lacks:
+    token i is the byte string " i" (Ġ is the byte-level symbol of the
+    space), the last id is EOS, so a caption decodes to its ids and
+    :func:`caption_ids` parses it back exactly."""
+    from gpt2_image_captioning_tpu_torch.data.tokenizer import GPT2BPETokenizer
+
+    return GPT2BPETokenizer({f"\u0120{i}": i for i in range(vocab - 1)}, [])
+
+
+def caption_ids(caption: str) -> list[int]:
+    return [int(w) for w in caption.split()]
+
+
+def served_ids(svc, embs, caps) -> list[list[int]]:
+    """Submit every embedding with its cap, drain, and return each request's
+    caption as ids (EOS stripped, as the service returns it)."""
+    rids = [svc.submit_embedding(e, max_length=int(c)) for e, c in zip(embs, caps)]
+    svc.drain()
+    return [caption_ids(svc.pop_result(r)) for r in rids]
+
+
+def one_shot_ids(tokens: torch.Tensor, caps, eos: int) -> list[list[int]]:
+    """One-shot generate's rows cut at each request's cap and first EOS."""
+    out = []
+    for row, c in zip(tokens.cpu().tolist(), caps):
+        row = row[: int(c)]
+        out.append(row[: row.index(eos)] if eos in row else row)
+    return out
+
+
+def tiny_continuous(tr, fz, cfg) -> dict:
+    """Greedy continuous serving on the tiny float32 model, with the kernels
+    and without: every caption equals one-shot ``generate``'s, across
+    staggered admission (10 requests, 3 slots), compaction at every macro
+    (the minimal t_max), per-request caps and pool reuse after a drain."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.serving import ContinuousCaptionService
+
+    model = C.ImageCaptioningModel(cfg, tokenizer=synthetic_tokenizer(cfg.gpt2.vocab_size),
+                                   device="cuda")
+    model.trainable, model.frozen = tr, fz
+    embs = np.random.default_rng(6).normal(size=(12, 16)).astype(np.float32)
+    caps = [12, 5, 1, 12, 8, 12, 3, 12, 12, 7, 12, 12]
+    tokens = C.generate(tr, fz, cfg, torch.from_numpy(embs).cuda(), max_length=12,
+                        temperature=0.0, use_kernels=False)
+    want = one_shot_ids(tokens, caps, cfg.eos_token_id)
+    kernels = C.generate(tr, fz, cfg, torch.from_numpy(embs).cuda(), max_length=12,
+                         temperature=0.0)
+    check(torch.equal(kernels, tokens), "tiny f32 one-shot generate: kernels differ from plain")
+    out = {}
+    for use in (None, False):
+        svc = ContinuousCaptionService(model, slots=3, segment=2, bursts=2, admit=2,
+                                       max_length=12, use_kernels=use)
+        check(svc.t_max == -(-(cfg.total_prefix_length + 12 + 4) // 8) * 8, "t_max not minimal")
+        got = served_ids(svc, embs[:10], caps[:10])
+        check(svc.step() == {}, "the drained pool still emitted")
+        got += served_ids(svc, embs[10:], caps[10:])  # pool reuse
+        torch.cuda.synchronize()
+        check(got == want, f"tiny f32 continuous captions (kernels {use is None}) differ from "
+                           f"one-shot generate:\n{got}\n{want}")
+        out["kernels" if use is None else "plain"] = svc.stats["macros"]
+    return {"phase": "tiny_f32_exact_continuous", "eos": cfg.eos_token_id, "requests": 12,
+            "captions_equal_one_shot": True, "macros": out, "slots": 3}
 
 
 def plain_logits_along(model, emb: torch.Tensor, tokens: torch.Tensor):
@@ -800,13 +1079,18 @@ LAYER_KERNELS = ("fused_linear_kernel", "ln_stats_kernel", "decode_attention_ker
 VOCAB_KERNELS = {"greedy": ("logits_tile_kernel", "argmax_reduce_kernel"),
                  "sampled": ("logits_store_kernel",),
                  "beam": ("topk_tile_kernel", "topk_merge_kernel")}
+# continuous serving also runs the admission prefill's flash attention
+VOCAB_KERNELS.update({
+    "continuous_greedy": VOCAB_KERNELS["greedy"] + ("flash_attention_kernel",),
+    "continuous_sampled": VOCAB_KERNELS["sampled"] + ("flash_attention_kernel",),
+    "continuous_in_kernel": ("sample_tile_kernel", "flash_attention_kernel")})
 
 
 def traced(fn, trace_name: str) -> tuple[float, list[dict]]:
     """Run ``fn`` under ``torch.profiler`` (CUDA activity only, so the host is
     slowed less than with CPU tracing); returns its wall seconds and the
     trace's device events (kernels, copies, memsets), the trace itself
-    written to ``chiprun_out/``."""
+    written gzipped to ``chiprun_out/``."""
     from torch.profiler import ProfilerActivity, profile
 
     trace = OUT_DIR / trace_name
@@ -817,7 +1101,11 @@ def traced(fn, trace_name: str) -> tuple[float, list[dict]]:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(str(trace))
-    return wall, [e for e in json.loads(trace.read_text())["traceEvents"]
+    text = trace.read_text()
+    with gzip.open(f"{trace}.gz", "wt") as f:  # keeps the output directory small
+        f.write(text)
+    trace.unlink()
+    return wall, [e for e in json.loads(text)["traceEvents"]
                   if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
 
 
@@ -847,7 +1135,8 @@ def profile_request(run, path: str, steps: int) -> dict:
         return e["cat"] == "kernel" and any(k in e["name"] for k in names)
 
     ours = [e for e in events if is_port(e)]
-    record = {"phase": f"{path}_decode_profile", "profiled_request_s": wall, "trace": trace_name,
+    record = {"phase": f"{path}_decode_profile", "profiled_request_s": wall,
+              "trace": f"{trace_name}.gz",
               "device_events": len(events)}
     if not ours:  # CUPTI gave no device activity: nothing to read
         return {**record, "idle_share": "not measured"}
@@ -878,7 +1167,7 @@ def profile_train_step(run_step) -> dict:
     other kernels (elementwise, reductions, softmax), copies — and the
     kernels that take the most of it."""
     wall, events = traced(run_step, "train_trace.json")
-    record = {"phase": "train_profile", "profiled_step_s": wall, "trace": "train_trace.json",
+    record = {"phase": "train_profile", "profiled_step_s": wall, "trace": "train_trace.json.gz",
               "device_events": len(events)}
     if not events:
         return {**record, "idle_share": "not measured"}
@@ -954,16 +1243,22 @@ def wrappers() -> dict:
 
     return {"decode_attention": DA.decode_attention_cuda, "fused_linear": DS.fused_linear_cuda,
             "logits_argmax": DS.logits_argmax_cuda, "flash_attention": A.flash_attention_cuda,
-            "logits": DS.logits_cuda, "logits_topk": DS.logits_topk_cuda}
+            "logits": DS.logits_cuda, "logits_topk": DS.logits_topk_cuda,
+            "logits_sample": DS.logits_sample_cuda}
 
 
 def reset_launches() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+    wrappers()["decode_attention"].start_launches = 0
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Each wrapper's launches, and decode attention's start-window launches
+    (a subset of its launches) as ``decode_attention_start``."""
+    counts = {name: fn.launches for name, fn in wrappers().items()}
+    counts["decode_attention_start"] = wrappers()["decode_attention"].start_launches
+    return counts
 
 
 def run_counted(fn, reqs) -> tuple[list, float, dict]:
@@ -983,7 +1278,7 @@ def check_decode_launches(launches: dict, vocab_kernel: str, steps: int, request
     path's vocabulary kernel once; the other vocabulary kernels never ran."""
     want = {"flash_attention": flash_per_request * requests, "decode_attention": n_layer * steps,
             "fused_linear": 4 * n_layer * steps, "logits_argmax": 0, "logits": 0,
-            "logits_topk": 0}
+            "logits_topk": 0, "logits_sample": 0, "decode_attention_start": 0}
     want[vocab_kernel] = steps
     check(launches == want, f"launches {launches} != {want} ({steps} decode steps)")
 
@@ -1177,6 +1472,136 @@ def beam_path(model, reqs, length_penalty: float = 1.0) -> tuple[dict, dict, dic
 
 
 # ---------------------------------------------------------------------------
+# Continuous serving at full width
+# ---------------------------------------------------------------------------
+
+def counting_macros(fn):
+    """Run ``fn()`` with ``macro_step`` recording each call's staged count;
+    returns (fn's result, the counts)."""
+    from gpt2_image_captioning_tpu_torch.models import continuous as CE
+
+    macro, staged = CE.macro_step, []
+
+    def counted(*args, **kwargs):
+        staged.append(args[7])  # n_q
+        return macro(*args, **kwargs)
+
+    CE.macro_step = counted
+    try:
+        return fn(), staged
+    finally:
+        CE.macro_step = macro
+
+
+def served_matrix(ids, caps, eos: int):
+    """Each request's generated tokens (its caption's ids, then the EOS that
+    ended it unless its cap did) as an EOS-padded (N, 50) matrix, and their
+    counts."""
+    n_gen = [len(r) + (len(r) < int(c)) for r, c in zip(ids, caps)]
+    tokens = torch.full((len(ids), CONTINUOUS["max_length"]), eos, dtype=torch.int32)
+    for i, r in enumerate(ids):
+        tokens[i, : len(r)] = torch.tensor(r, dtype=torch.int32)
+    return tokens.cuda(), torch.tensor(n_gen, device="cuda")
+
+
+def check_served_tokens(model, embs, tokens, n_gen, sampled: bool) -> dict:
+    """Teacher-forced along each request's generated tokens on the plain
+    path, in blocks of 256 requests: greedy, each token's plain logit within
+    TF_TOL of the plain max; sampled (temperature 1.0), the plain mass
+    strictly above each token <= TOP_P + NUCLEUS_SLACK."""
+    worst, checked, hits = (-1.0 if sampled else 0.0), 0, 0
+    for c0 in range(0, len(embs), 256):
+        emb = torch.from_numpy(embs[c0 : c0 + 256]).cuda()
+        tok, ng = tokens[c0 : c0 + 256], n_gen[c0 : c0 + 256]
+        for s, logits, alive in plain_logits_along(model, emb, tok):
+            live = alive & (s < ng)
+            if not bool(live.any()):
+                continue
+            chosen = logits.gather(1, tok[:, s].long()[:, None])
+            if sampled:
+                above = torch.where(logits > chosen, torch.softmax(logits, dim=-1), 0.0).sum(-1)
+                worst = max(worst, float(above[live].max()))
+            else:
+                worst = max(worst, float((logits.max(dim=-1).values - chosen[:, 0])[live].max()))
+            hits += int((logits.argmax(dim=-1) == tok[:, s])[live].sum())
+            checked += int(live.sum())
+    if sampled:
+        check(worst <= TOP_P + NUCLEUS_SLACK, f"a served token has plain mass {worst} above it")
+        return {"worst_mass_above": worst, "limit": TOP_P + NUCLEUS_SLACK,
+                "tokens_checked": checked, "share_plain_argmax": hits / checked}
+    check(worst <= TF_TOL, f"a served greedy token is {worst} below the plain max")
+    return {"worst_deficit": worst, "tolerance": TF_TOL, "tokens_checked": checked,
+            "share_plain_argmax": hits / checked}
+
+
+def continuous_path(model, mode: str, embs: np.ndarray, caps: np.ndarray):
+    """``ContinuousCaptionService`` at full width: 512 slots, segment 4, 8
+    bursts, 32 admissions, 50 tokens, bf16, all requests submitted up front;
+    ``mode`` greedy, sampled on the logits tail or sampled in the kernel
+    (temperature 1.0, top_p 0.9)."""
+    from gpt2_image_captioning_tpu_torch.serving import ContinuousCaptionService
+
+    cfg, eos = model.cfg, model.cfg.eos_token_id
+    kw = dict(CONTINUOUS, decode_precision="bf16", seed=0, **CONTINUOUS_MODES[mode])
+    served_ids(ContinuousCaptionService(model, **kw), embs[:64], np.full(64, 8))  # warm-up
+    svc = ContinuousCaptionService(model, **kw)
+    check(len(embs) >= svc.recommended_inflight(), "fewer requests than recommended_inflight()")
+    reset_launches()
+    t0 = time.perf_counter()
+    ids, staged = counting_macros(lambda: served_ids(svc, embs, caps))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    per_macro = CONTINUOUS["bursts"] * CONTINUOUS["segment"]
+    steps = per_macro * len(staged)
+    prefills = CONTINUOUS["bursts"] * sum(n > 0 for n in staged)
+    n_layer = cfg.gpt2.n_layer
+    vocab = {"greedy": "logits_argmax", "sampled": "logits", "in_kernel": "logits_sample"}[mode]
+    want = {"flash_attention": (cfg.mapping.num_layers + n_layer) * prefills,
+            "decode_attention": n_layer * steps, "decode_attention_start": n_layer * steps,
+            "fused_linear": 4 * n_layer * steps, "logits_argmax": 0, "logits": 0,
+            "logits_topk": 0, "logits_sample": 0}
+    want[vocab] = steps
+    check(launches == want, f"continuous {mode}: launches {launches} != {want}")
+    for r, c in zip(ids, caps):
+        check(len(r) <= c and all(0 <= t < eos for t in r), "a served caption breaks its cap")
+    tokens, n_gen = served_matrix(ids, caps, eos)
+    checked = check_served_tokens(model, embs, tokens, n_gen, sampled=mode != "greedy")
+    stats = svc.stats
+    record = {
+        "phase": f"continuous_{mode}", "model": MODEL_NAME, "dtype": "bf16", **CONTINUOUS,
+        **CONTINUOUS_MODES[mode], "requests": len(embs), "caps": [int(caps.min()), int(caps.max())],
+        "recommended_inflight": svc.recommended_inflight(), "seconds": seconds,
+        "requests_per_s": len(embs) / seconds, "tokens_per_s": int(n_gen.sum()) / seconds,
+        "tokens": int(n_gen.sum()), "occupancy": stats["occupancy"],
+        "latency_p50_s": stats["latency_p50_s"], "latency_p95_s": stats["latency_p95_s"],
+        "macros": stats["macros"], "decode_steps": steps, "admission_prefills": prefills,
+        # admission caps the pool: at most admit / segment requests join a
+        # step, each staying for its caption's length
+        "admission_bound_occupancy": min(1.0, CONTINUOUS["admit"] / CONTINUOUS["segment"]
+                                         * float(n_gen.float().mean()) / B_SERVE),
+        "host_reads_per_macro": stats["host_reads"] / stats["macros"],
+        "output_fetches_per_macro": 1,
+        "dispatch_s": stats["dispatch_s"], "sync_s": stats["sync_s"], "host_s": stats["host_s"],
+        "launches": launches, "checked": checked, "card": nvidia_smi(),
+    }
+    if mode == "greedy":  # against one-shot generate on the same embeddings
+        one_shot = []
+        for c0 in range(0, len(embs), B_SERVE):
+            out = model.generate(embs[c0 : c0 + B_SERVE], max_length=50, temperature=0.0,
+                                 decode_precision="bf16")
+            one_shot += one_shot_ids(out, caps[c0 : c0 + B_SERVE], eos)
+        record["identical_to_one_shot_generate"] = sum(a == b for a, b in zip(ids, one_shot)) / len(ids)
+    # one more run of a pool's worth of requests, traced, for the device's idle share
+    traced_svc = ContinuousCaptionService(model, **kw)
+    profiled, traced_staged = counting_macros(
+        lambda: profile_request(lambda: served_ids(traced_svc, embs[:B_SERVE], caps[:B_SERVE]),
+                                f"continuous_{mode}", 0))
+    profiled.update(decode_steps=per_macro * len(traced_staged), requests=B_SERVE)
+    return record, launches, profiled
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: the train step
 # ---------------------------------------------------------------------------
 
@@ -1327,8 +1752,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(0)
     emit(check_dot_f32(g))
     kernel_rows = {}
-    checks = (check_attention, check_attention_origin, check_linear, check_logits_argmax,
-              check_logits, check_logits_topk, check_flash)
+    checks = (check_attention, check_attention_origin, check_attention_start, check_linear,
+              check_logits_argmax, check_logits, check_logits_topk, check_sampler, check_flash)
     for dtype in (torch.bfloat16, torch.float32):
         for fn in checks:
             rec = fn(dtype, g)
@@ -1338,12 +1763,20 @@ def main() -> int:
                 kernel_rows[rec["kernel"] + ("_" + rec["mode"] if "mode" in rec else "")] = rec
     emit(check_flash_backward(g))
 
-    for mode in ("greedy", "sampled", "beam"):
+    for mode in ("greedy", "sampled", "beam", "continuous"):
         emit(tiny_exact(mode))
     model, reqs = serving_model()
     launches = {}
     for path, fn in (("greedy", greedy_path), ("sampled", sampled_path), ("beam", beam_path)):
         record, launches[path], profiled = fn(model, reqs)
+        emit(record)
+        emit(profiled)
+    model.tokenizer = synthetic_tokenizer(V)
+    rng = np.random.default_rng(1)
+    embs = rng.normal(size=(CONTINUOUS_REQUESTS, 512)).astype(np.float32)
+    caps = rng.integers(8, CONTINUOUS["max_length"] + 1, size=CONTINUOUS_REQUESTS)
+    for mode in CONTINUOUS_MODES:
+        record, launches[f"continuous_{mode}"], profiled = continuous_path(model, mode, embs, caps)
         emit(record)
         emit(profiled)
     del model
@@ -1354,31 +1787,38 @@ def main() -> int:
 
     source = "gpt2_image_captioning_tpu_torch/csrc/"
     step_kernel = "gpt2_image_captioning_tpu/ops/decode_step.py"
-    replaces = {"decode_attention": "gpt2_image_captioning_tpu/ops/decode_attention.py:68",
-                "fused_linear": f"{step_kernel}:112",
-                "logits_argmax": f"{step_kernel}:112",
-                "flash_attention": "gpt2_image_captioning_tpu/ops/attention.py:40",
-                "logits": f"{step_kernel}:617",
-                "logits_topk": f"{step_kernel}:569"}
-    # what one "ms" covers, and what one count of "launches" is: a wrapper call
-    per = {"decode_attention": "call (1 CUDA launch), idx 64, B 128",
-           "fused_linear": "layer: 4 calls (qkv, attn_proj, mlp_fc, mlp_proj; 6 CUDA launches)",
-           "logits_argmax": "call (3 CUDA launches), B 128",
-           "flash_attention": "call (1 CUDA launch) at (128, 12, 65, 64), causal + padding mask",
-           "logits": "call (2 CUDA launches), B 128",
-           "logits_topk": "call (3 CUDA launches), B 512, k 4"}
-    # each kernel's launches on its own path: greedy serving for the layers'
-    # kernels and the argmax, the timed train steps for flash attention, the
-    # sampled path for the stored logits, beam search for the top-k
-    home = {"decode_attention": "greedy", "fused_linear": "greedy", "logits_argmax": "greedy",
-            "flash_attention": "train", "logits": "sampled", "logits_topk": "beam"}
+    # each kernel row: (its source, the TPU kernel it replaces, the path whose
+    # launches it reports, what one "ms" covers and one count of "launches"
+    # is: a wrapper call); the layers' kernels and the argmax count greedy
+    # serving, flash attention the timed train steps, the stored logits the
+    # sampled path, the top-k beam search, the start window greedy
+    # continuous serving, the sampler in-kernel continuous serving
+    rows = {
+        "decode_attention": ("decode_attention.cu",
+                             "gpt2_image_captioning_tpu/ops/decode_attention.py:68", "greedy",
+                             "call (1 CUDA launch), idx 64, B 128"),
+        "fused_linear": ("fused_linear.cu", f"{step_kernel}:112", "greedy",
+                         "layer: 4 calls (qkv, attn_proj, mlp_fc, mlp_proj; 6 CUDA launches)"),
+        "logits_argmax": ("logits_argmax.cu", f"{step_kernel}:112", "greedy",
+                          "call (3 CUDA launches), B 128"),
+        "flash_attention": ("flash_attention.cu", "gpt2_image_captioning_tpu/ops/attention.py:40",
+                            "train", "call (1 CUDA launch) at (128, 12, 65, 64), causal + mask"),
+        "logits": ("logits.cu", f"{step_kernel}:617", "sampled", "call (2 CUDA launches), B 128"),
+        "logits_topk": ("logits_topk.cu", f"{step_kernel}:569", "beam",
+                        "call (3 CUDA launches), B 512, k 4"),
+        "decode_attention_start": ("decode_attention.cu", f"{step_kernel}:113",
+                                   "continuous_greedy",
+                                   "call (1 CUDA launch), idx 64, B 512, random starts"),
+        "logits_sample": ("logits_sample.cu", f"{step_kernel}:641", "continuous_in_kernel",
+                          f"call (2 + {SAMPLE_ROUNDS} CUDA launches), B 512, temperature 1.0, "
+                          f"top_p {TOP_P}"),
+    }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = {"kernels": [
-        {"name": name, "route": "cuda", "source": f"{source}{name}.cu", "replaces": replaces[name],
-         "launches": launches[home[name]][name], **{k: kernel_rows[name][k] for k in keys},
-         "per": per[name],
+        {"name": name, "route": "cuda", "source": f"{source}{src}", "replaces": replaces,
+         "launches": launches[home][name], **{k: kernel_rows[name][k] for k in keys}, "per": per,
          "launches_by_path": {path: counts[name] for path, counts in launches.items()}}
-        for name in home
+        for name, (src, replaces, home, per) in rows.items()
     ]}
     origin = kernel_rows["decode_attention_origin"]
     table["kernels"][0]["beam_origin"] = {

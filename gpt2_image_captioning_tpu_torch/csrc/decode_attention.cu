@@ -1,6 +1,6 @@
 // Single-token decode attention over the valid prefix of one layer's KV cache,
 // fused with the cache append, optionally reading each position's row
-// through a beam-ancestry map.
+// through a beam-ancestry map, or over a per-row window [start_r, idx).
 //
 // Replaces: gpt2_image_captioning_tpu/ops/decode_attention.py::_decode_kernel
 // (:68) and the attention() of ops/decode_step.py::_step_kernel (:292-517),
@@ -12,11 +12,16 @@
 // new row alone.  With an origin map (T, B) int32, row r reads position t
 // from cache row origin[t, r] for gather_start <= t < idx (beam search: the
 // history a beam inherited from its ancestors), and from row r below
-// gather_start (the image prefix every beam of a group shares).
+// gather_start (the image prefix every beam of a group shares).  With a
+// (B,) int32 start vector (continuous batching: the step kernel's start and
+// blk_c0, :113-119, :226-229, :462-465), row r attends only [start_r, idx)
+// and its own new row; start_r == idx is a dead row that attends its new row
+// alone.
 //
 // Bound on the H100: reading the cache, 2 * idx * B * D elements per layer
 // (25 MB in bf16 at idx 64, B 128, D 768 — more than the layer's weights;
-// 63 MB at idx 40, B 512 in beam search).
+// 63 MB at idx 40, B 512 in beam search); with start, 2 * (idx - start_r) * D
+// per row (continuous serving reads only the live windows).
 //
 // Design: one warp per (batch row, head), the head's hd <= 128 elements
 // spread over the lanes (lane + 32 e).  A chunk's 16 rows are loaded before
@@ -29,7 +34,11 @@
 // one-hot permutation matmul and shifted selects existed because a TPU
 // kernel cannot gather rows; a warp can read any row.  The kernel is a
 // template on whether a map is given, so greedy decoding carries no map
-// lookups.
+// lookups.  The start window is the Hopper form of both start and blk_c0:
+// each warp begins its walk at the chunk holding its own row's start_r and
+// masks the positions below it, so every (row, head) skips its own dead
+// history; the TPU's per-batch-block first live chunk has no separate
+// counterpart.
 #include "common.cuh"
 
 namespace gic {
@@ -43,7 +52,7 @@ template <typename T, bool kOrigin>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* kc, T* vc, T* out,
                         int B, int D, int H, int idx, float scale, const int* origin,
-                        int gather_start) {
+                        int gather_start, const int* start) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int pair = blockIdx.x * kWarpsPerBlock + warp;
   if (pair >= B * H) return;
@@ -69,8 +78,12 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
     }
   }
 
+  // this row's window [lo, idx); the walk starts at the chunk holding lo, so
+  // every chunk it visits holds at least one live position
+  const int lo = start ? min(max(start[b], 0), idx) : 0;
+  const int first = lo < idx ? lo / kChunk * kChunk : idx;
   float m = kNegInf, l = 0.f;
-  for (int t0 = 0; t0 < idx; t0 += kChunk) {
+  for (int t0 = first; t0 < idx; t0 += kChunk) {
     float s[kChunk];
     size_t roff[kChunk];  // offset of the cache row position t0 + c is read from
 #pragma unroll
@@ -84,7 +97,7 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
     for (int c = 0; c < kChunk; ++c) {
       const int t = t0 + c;
       float d = 0.f;
-      if (t < idx) {
+      if (t >= lo && t < idx) {
         const T* krow = kc + (size_t)t * trow + roff[c];
 #pragma unroll
         for (int e = 0; e < kMaxPerLane; ++e) {
@@ -98,7 +111,7 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
       s[c] = warp_sum(s[c]) * scale;
-      if (t0 + c < idx) cmax = fmaxf(cmax, s[c]);
+      if (t0 + c >= lo && t0 + c < idx) cmax = fmaxf(cmax, s[c]);
     }
     const float m_new = fmaxf(m, cmax);
     const float alpha = expf(m - m_new);
@@ -108,7 +121,7 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
       const int t = t0 + c;
-      if (t < idx) {
+      if (t >= lo && t < idx) {
         const float p = expf(s[c] - m_new);
         l += p;
         const T* vrow = vc + (size_t)t * trow + roff[c];
@@ -145,23 +158,24 @@ namespace gic {
 template <typename T, bool kOrigin>
 static void launch(const void* q, const void* kn, const void* vn, int in_stride, void* kc,
                    void* vc, void* out, int B, int D, int H, int idx, const int* origin,
-                   int gather_start, cudaStream_t s) {
+                   int gather_start, const int* start, cudaStream_t s) {
   const float scale = 1.f / sqrtf((float)(D / H));
   const int blocks = (B * H + kWarpsPerBlock - 1) / kWarpsPerBlock;
   decode_attention_kernel<T, kOrigin><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(kn), static_cast<const T*>(vn), in_stride,
       static_cast<T*>(kc), static_cast<T*>(vc), static_cast<T*>(out), B, D, H, idx, scale, origin,
-      gather_start);
+      gather_start, start);
 }
 
 template <typename T>
 static void dispatch(const void* q, const void* kn, const void* vn, int in_stride, void* kc,
                      void* vc, void* out, int B, int D, int H, int idx, const int* origin,
-                     int gather_start, cudaStream_t s) {
+                     int gather_start, const int* start, cudaStream_t s) {
   if (origin)
-    launch<T, true>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, origin, gather_start, s);
+    launch<T, true>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, origin, gather_start,
+                    nullptr, s);
   else
-    launch<T, false>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, nullptr, 0, s);
+    launch<T, false>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, nullptr, 0, start, s);
 }
 
 }  // namespace gic
@@ -170,20 +184,25 @@ static void dispatch(const void* q, const void* kn, const void* vn, int in_strid
 // column stride; k_cache/v_cache: (T, B, D) contiguous, row idx < T is
 // written; out: (B, D).  All in the element type.  origin: (T, B) int32
 // contiguous with entries in [0, B), or null; gather_start: the first
-// position read through it.  Returns cudaGetLastError().
+// position read through it.  start: (B,) int32 first live position of each
+// row (<= idx), or null for 0; never together with origin.  Returns
+// cudaGetLastError().
 extern "C" int gic_decode_attention(int dtype, const void* q, const void* kn, const void* vn,
                                     int in_stride, void* kc, void* vc, void* out, int B, int D,
                                     int H, int idx, const void* origin, int gather_start,
-                                    void* stream) {
+                                    const void* start, void* stream) {
   using namespace gic;
-  if (B <= 0 || H <= 0 || D % H != 0 || D / H > 32 * kMaxPerLane || idx < 0 || gather_start < 0)
+  if (B <= 0 || H <= 0 || D % H != 0 || D / H > 32 * kMaxPerLane || idx < 0 || gather_start < 0 ||
+      (origin && start))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* o = static_cast<const int*>(origin);
+  const int* st = static_cast<const int*>(start);
   if (dtype == kBF16)
-    dispatch<__nv_bfloat16>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, o, gather_start, s);
+    dispatch<__nv_bfloat16>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, o, gather_start, st,
+                            s);
   else if (dtype == kF32)
-    dispatch<float>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, o, gather_start, s);
+    dispatch<float>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, o, gather_start, st, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1,7 +1,8 @@
 """The image-captioning model: mapping network + GPT-2 decoder — the
 counterpart of ``gpt2_image_captioning_tpu/models/captioner.py`` on its
 training path (``loss_fn``, ``mean_loss``) and its serving paths: greedy and
-sampled (top-p) ``generate`` and ``beam_generate``.
+sampled (top-p) ``generate``, ``beam_generate``, and the host-driven
+continuous-batching primitives ``decode_segment`` and ``admit_prefill``.
 
 Parameters split into a trainable and a frozen tree as in the JAX package.
 Everything runs eagerly.  The mapper and the prefill are torch ops around the
@@ -11,16 +12,18 @@ CUDA tensors, their plain twins on the CPU; ``use_kernels=False`` switches
 every kernel off.  Greedy steps end in the argmax kernel, sampled steps emit
 the float32 logits for :func:`ops.sampling.sample_token`, beam steps emit
 each row's top-k and logsumexp and read the cache through an ancestry map.
-``generate``'s early exit reads one flag from the device per step.
+With ``sample_in_kernel=True`` a sampled step draws its token inside the
+step (``csrc/logits_sample.cu``).  ``generate``'s early exit reads one flag
+from the device per step.
 
-Not ported yet, and refused rather than run another way: the in-kernel
-sampler (``sample_in_kernel``), meshes and the int8 weight mode (see
-ROADMAP.md).
+Not ported yet, and refused rather than run another way: meshes and the int8
+weight mode (see ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Any
 
 import torch
@@ -171,6 +174,7 @@ def generate(
     packed: dict | None = None,
     mesh=None,
     sample_in_kernel: bool = False,
+    sample_k: int = 3,
 ) -> torch.Tensor:
     """Caption generation → token ids (B, max_length) int32, padded with EOS
     after each row's first EOS; the loop stops once every row has emitted EOS.
@@ -183,18 +187,21 @@ def generate(
     there, as the JAX package defaults to ``PRNGKey(0)`` (the draws differ
     from ``jax.random``'s; the nucleus does not).
 
+    ``sample_in_kernel=True`` (sampled decoding, ``top_p >= 0.5``) draws every
+    token after the first inside the step by speculative accept
+    (:func:`ops.sampling.sample_step_plain`, ``sample_k`` candidates): the
+    (B, V) logits are never stored.  Its per-step seeds are drawn from
+    ``generator`` once, after the first token (one host read); the first
+    token is drawn from the prefill's logits by ``sample_token`` as without
+    it.  At ``top_p < 0.5`` it warns and samples from the emitted logits, as
+    the JAX package does: small nuclei make speculative accept retry often.
+
     ``use_kernels``: None runs the CUDA kernels for CUDA inputs and their
     plain twins on the CPU; False runs the plain path (every kernel off, the
     mapper's and the prefill's attention included); True on the CPU raises.
     ``packed``: weights from :func:`prepare_decode_weights`, reused across
     calls.
     """
-    if sample_in_kernel:
-        raise NotImplementedError(
-            "the in-kernel sampler is not ported yet (ROADMAP.md, queue 2, item 2, mode 6: "
-            "sample, with continuous serving in queue 1, item 9); the default "
-            "sample_in_kernel=False samples from the emitted logits"
-        )
     _refuse_mesh(mesh)
     gpt_params = _gpt(trainable, frozen)
     eos = cfg.eos_token_id
@@ -206,6 +213,12 @@ def generate(
     greedy = temperature == 0.0
     if not greedy and generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
+    in_kernel = sample_in_kernel and not greedy
+    if in_kernel and top_p < 0.5:
+        warnings.warn(
+            f"sample_in_kernel needs top_p >= 0.5 (got {top_p}): smaller nuclei reject most "
+            "speculative candidates; sampling from the emitted logits instead", stacklevel=2)
+        in_kernel = False
 
     def select(logits):
         return sample_token(logits, temperature=temperature, top_p=top_p, generator=generator)
@@ -221,20 +234,100 @@ def generate(
     tokens[:, 0] = nxt
     wte, wpe = gpt_params["wte"], gpt_params["wpe"]
     index = cache["index"]
+    if in_kernel:
+        seeds = torch.randint(0, 2 ** 62, (max_length,), generator=generator,
+                              device=generator.device).tolist()
+        temps = torch.full((b,), temperature, device=device)
+        topps = torch.full((b,), top_p, device=device)
+    mode = {}
     step = 1
     while step < max_length and not bool(finished.all()):
         x0 = (wte[nxt.long()] + wpe[index]).to(cdt)
-        out, _, _ = DS.fused_decode_step(
+        if in_kernel:
+            mode = {"sample": {"temp": temps, "top_p": topps, "seed": seeds[step]},
+                    "sample_k": sample_k}
+        out = DS.fused_decode_step(
             packed, x0, cache["k"], cache["v"], index, n_head=cfg.gpt2.n_head,
-            eps=cfg.gpt2.layer_norm_epsilon, emit_logits=not greedy, use_kernels=use,
-        )
-        nxt = out if greedy else select(out)
+            eps=cfg.gpt2.layer_norm_epsilon, emit_logits=not greedy and not in_kernel,
+            use_kernels=use, **mode,
+        )[0]
+        nxt = out if greedy or in_kernel else select(out)
         finished = finished | (nxt == eos)
         nxt = torch.where(finished, eos, nxt).to(torch.int32)
         tokens[:, step] = nxt
         step += 1
         index += 1
     return tokens
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching (rolling admission): segment decode + admission prefill.
+# The host-driven reference primitives; the on-device engine is
+# models/continuous.py::macro_step.
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def decode_segment(packed: dict, wte: torch.Tensor, wpe: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, idx: int, start: torch.Tensor, prev: torch.Tensor,
+                   finished: torch.Tensor, *, cfg: CaptionerConfig, steps: int,
+                   policy: Policy = F32, use_kernels: bool | None = None):
+    """Run ``steps`` decode steps on a live continuous-serving batch.
+
+    Caches ``k``/``v`` (L, Tmax, S, D) are updated in place; every row
+    appends at the shared position ``idx`` (a host int) and attends only its
+    window ``[start_r, idx)`` (``start`` (S,) int32), at the LOCAL position
+    ``idx - start_r``; ``prev`` (S,) int32 are the previous tokens and
+    ``finished`` (S,) bool the rows past EOS, which keep stepping on EOS
+    padding.  Returns ``(tokens (S, steps) int32, k, v, idx + steps, prev',
+    finished')``.
+    """
+    eos = cfg.eos_token_id
+    toks = []
+    for _ in range(steps):
+        local = (idx - start).long()
+        x0 = (wte[prev.long()] + wpe[local]).to(policy.compute_dtype)
+        nxt, _, _ = DS.fused_decode_step(
+            packed, x0, k, v, idx, n_head=cfg.gpt2.n_head, eps=cfg.gpt2.layer_norm_epsilon,
+            start=start, use_kernels=use_kernels,
+        )
+        finished = finished | (nxt == eos)
+        prev = torch.where(finished, eos, nxt).to(torch.int32)
+        toks.append(prev)
+        idx += 1
+    return torch.stack(toks, dim=1), k, v, idx, prev, finished
+
+
+@torch.no_grad()
+def admit_prefill(trainable: dict, frozen: dict, cfg: CaptionerConfig, emb: torch.Tensor,
+                  k: torch.Tensor, v: torch.Tensor, idx: int, rows: torch.Tensor,
+                  valid: torch.Tensor, *, policy: Policy = F32,
+                  use_kernels: bool | None = None):
+    """Admit up to n requests into freed rows of a live decode batch — the
+    admission :func:`models.continuous.macro_step` runs at every burst.
+
+    ``emb`` (n, E) → mapper prefix (n, P, D) → prefill with LOCAL positions;
+    the K/V rows land in cache positions ``[idx - P, idx)`` of rows ``rows``
+    (n,) distinct (an indexed write in place), so the admitted rows join the
+    shared append position ``idx``; their start is ``idx - P``.  ``valid``
+    (n,) bool masks padding entries, whose rows keep their values: padding
+    may name any rows the valid entries do not, live ones included, and may
+    be every entry, so a caller that counts its admissions on the device
+    never reads that count.  (The JAX function's padding instead repeats
+    ``rows[0]``.)  Returns ``(logits (n, V) float32, k, v)``: each request's
+    prefill logits, whose argmax is its first greedy token.
+    """
+    gpt_params = _gpt(trainable, frozen)
+    use = DS.fused_greedy_enabled(use_kernels, emb.device)
+    prefix = build_prefix(trainable, cfg, emb, policy, use)
+    n, p, _ = prefix.shape
+    cache_n = G.init_cache(cfg.gpt2, n, p, dtype=policy.compute_dtype, device=emb.device)
+    logits, cache_n = G.forward_cached(gpt_params, cfg.gpt2, prefix, cache_n, policy, use)
+    rows = rows.long()
+    keep = valid[None, None, :, None]
+    for cache, new in ((k, cache_n["k"]), (v, cache_n["v"])):
+        win = cache[:, idx - p : idx]  # (L, P, S, D), a view
+        win[:, :, rows] = torch.where(keep, new[:, :p].to(cache.dtype), win[:, :, rows])
+    return logits, k, v
 
 
 def _beam_select(scores, finished, vals, tok_k, lse, k: int, eos: int):

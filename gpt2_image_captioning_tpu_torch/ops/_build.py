@@ -40,14 +40,14 @@ NVCC_FLAGS = (
 # element-type codes of the C interface (csrc/common.cuh)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     # dtype, q, k, v, out, key_mask, B, H, Tq, Tk, hd, strides (12 int64), causal, q_offset,
     # stream
     "gic_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P],
     # dtype, q, k_new, v_new, in_stride, k_cache, v_cache, out, B, D, H, idx, origin,
-    # gather_start, stream
-    "gic_decode_attention": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P],
+    # gather_start, start, stream
+    "gic_decode_attention": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
     # dtype, ln, epilogue, x, ln_scale, ln_bias, eps, w, bias, out, stats, M, K, N, stream
     "gic_fused_linear": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _P],
     # dtype, x32, ln_scale, ln_bias, eps, wte, M, K, V, xf, part_val, part_idx, tok, stream
@@ -58,6 +58,10 @@ _SIGNATURES = {
     # part_s, vals, ids, lse, stream
     "gic_logits_topk": [_I, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P],
+    # dtype, x32, ln_scale, ln_bias, eps, wte, M, K, V, temp, top_p, key0, key1, k, rounds, xf,
+    # part_f, part_i, state_i, state_f, counters, tok, rnd, lse, stream
+    "gic_logits_sample": [_I, _P, _P, _P, _F, _P, _I, _I, _I, _P, _P, _U, _U, _I, _I, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 

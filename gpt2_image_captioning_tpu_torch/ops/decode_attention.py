@@ -8,7 +8,10 @@ mutable, which saves a cache copy per layer and step) and attends rows
 ``[0, idx]``.  Beam search passes an ancestry map ``origin`` (T, B) int32:
 row r then reads position t in ``[gather_start, idx)`` from cache row
 ``origin[t, r]`` (the JAX step kernel's beam mode), so the caches are never
-gathered or rewritten between steps.
+gathered or rewritten between steps.  Continuous batching passes a (B,)
+int32 ``start`` instead: row r then attends only ``[start_r, idx]`` (the JAX
+step kernel's ``start``; a row with ``start_r == idx`` is dead and attends
+its own new row alone).
 
 Kernel: ``csrc/decode_attention.cu`` (hand-written CUDA for sm_90a; its
 header comment gives the design and the bound), wrapped by
@@ -32,11 +35,12 @@ CHUNK_T = 16
 
 
 def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int,
-                            origin=None, gather_start: int = 0):
+                            origin=None, gather_start: int = 0, start=None):
     """Append at ``idx``, then float32 attention of each row's query over cache
     rows ``[0, idx]``; rows past ``idx`` are masked.  With ``origin``, the
     positions ``[gather_start, idx)`` are first gathered from the rows it
-    names; position ``idx`` is each row's own new row."""
+    names; position ``idx`` is each row's own new row.  With ``start``,
+    row r's positions below ``start[r]`` are masked too."""
     k_cache[idx] = k_new.to(k_cache.dtype)
     v_cache[idx] = v_new.to(v_cache.dtype)
     tk, b, d = k_cache.shape
@@ -51,18 +55,23 @@ def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head:
     kh = kc.reshape(tk, b, n_head, hd).float()
     vh = vc.reshape(tk, b, n_head, hd).float()
     s = torch.einsum("bhd,kbhd->bhk", qh, kh) * scale
-    live = (torch.arange(tk, device=q.device) <= idx)[None, None, :]
+    pos = torch.arange(tk, device=q.device)
+    live = (pos <= idx)[None, None, :]
+    if start is not None:
+        live = live & (pos[None, :] >= start.to(pos.dtype)[:, None])[:, None, :]
     p = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
     out = torch.einsum("bhk,kbhd->bhd", p, vh)
     return out.reshape(b, d).to(q.dtype)
 
 
 def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int,
-                          origin=None, gather_start: int = 0):
+                          origin=None, gather_start: int = 0, start=None):
     """Launch ``csrc/decode_attention.cu``.  q/k_new/v_new (B, D) may be
     column slices of one (B, 3D) QKV tensor (equal row strides, unit column
     stride); caches (T, B, D) contiguous, same dtype; origin (T, B) int32
-    contiguous with entries in [0, B), or None; returns (B, D)."""
+    contiguous with entries in [0, B), or None; start (B,) int32 contiguous
+    with entries in [0, idx], or None; returns (B, D).  ``launches`` counts
+    every launch, ``start_launches`` those with a start window."""
     name = "decode_attention"
     _build.require(q.is_cuda, name, "q must be a CUDA tensor")
     _build.require(q.dtype in _build.DTYPE_CODE, name, f"unsupported dtype {q.dtype}")
@@ -89,18 +98,28 @@ def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: i
                        "origin must be a contiguous int32 (T, B) tensor on q's device")
         _build.require(gather_start >= 0, name, "gather_start must be >= 0")
         origin_ptr = origin.data_ptr()
+    start_ptr = None
+    if start is not None:
+        _build.require(origin is None, name, "start and origin are exclusive")
+        _build.require(start.shape == (b,) and start.dtype == torch.int32
+                       and start.is_contiguous() and start.device == q.device, name,
+                       "start must be a contiguous int32 (B,) tensor on q's device")
+        start_ptr = start.data_ptr()
     out = torch.empty((b, d), dtype=q.dtype, device=q.device)
     err = _build.library().gic_decode_attention(
         _build.DTYPE_CODE[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         q.stride(0), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        b, d, n_head, idx, origin_ptr, int(gather_start), _build.stream_of(q),
+        b, d, n_head, idx, origin_ptr, int(gather_start), start_ptr, _build.stream_of(q),
     )
     _build.check(err, name)
     decode_attention_cuda.launches += 1
+    if start is not None:
+        decode_attention_cuda.start_launches += 1
     return out
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.start_launches = 0
 
 
 def decode_attention(
@@ -114,6 +133,7 @@ def decode_attention(
     n_head: int,
     origin: torch.Tensor | None = None,
     gather_start: int = 0,
+    start: torch.Tensor | None = None,
     use_kernel: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step of attention, fused with the cache append.
@@ -121,12 +141,16 @@ def decode_attention(
     q/k_new/v_new: (B, D) this step's projections; k_cache/v_cache: (T, B, D)
     with rows ``[0, idx)`` valid; ``idx``: host int, the write position;
     ``origin``: the (T, B) int32 ancestry map read for positions
-    ``[gather_start, idx)``, or None.  Returns ``(attn_out (B, D), k_cache,
-    v_cache)``; the caches are the argument tensors, updated in place.
-    ``use_kernel`` as in :func:`ops._build.kernels_enabled`.
+    ``[gather_start, idx)``, or None; ``start``: each row's first live
+    position (B,) int32, or None for 0 — exclusive with ``origin``.  Returns
+    ``(attn_out (B, D), k_cache, v_cache)``; the caches are the argument
+    tensors, updated in place.  ``use_kernel`` as in
+    :func:`ops._build.kernels_enabled`.
     """
+    if start is not None and origin is not None:
+        raise ValueError("start and origin are exclusive (beam search never passes a start)")
     idx = int(idx)
     fn = (decode_attention_cuda if _build.kernels_enabled(use_kernel, q.device)
           else _decode_attention_plain)
-    out = fn(q, k_new, v_new, k_cache, v_cache, idx, n_head, origin, int(gather_start))
+    out = fn(q, k_new, v_new, k_cache, v_cache, idx, n_head, origin, int(gather_start), start)
     return out, k_cache, v_cache

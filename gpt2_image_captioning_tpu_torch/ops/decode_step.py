@@ -1,6 +1,7 @@
 """The GPT-2 decode step — the counterpart of
 ``gpt2_image_captioning_tpu/ops/decode_step.py`` in its greedy,
-``emit_logits``, ``topk`` and beam-ancestry modes.
+``emit_logits``, ``topk``, beam-ancestry, per-row ``start`` and in-kernel
+``sample`` modes.
 
 On the TPU the whole step is one Pallas kernel (``_step_kernel``), because
 each kernel call there carries a large fixed cost.  Blocks on Hopper cannot
@@ -14,12 +15,15 @@ for the vocabulary:
   down-projection (residual add);
 - ``csrc/decode_attention.cu`` (via :mod:`ops.decode_attention`) — the cache
   append and the valid-prefix attention, optionally through the beam
-  ancestry map ``origin``;
+  ancestry map ``origin`` or over per-row windows ``[start_r, idx]``
+  (continuous batching);
 - the vocabulary, by mode: ``csrc/logits_argmax.cu`` (greedy: the final LN,
   the tied-embedding logits and the argmax, without storing the (B, V)
   logits), ``csrc/logits.cu`` (``emit_logits``: the float32 logits stored,
-  for the sampling tail) or ``csrc/logits_topk.cu`` (``topk``: each row's
-  top-k and logsumexp, for beam search).
+  for the sampling tail), ``csrc/logits_topk.cu`` (``topk``: each row's
+  top-k and logsumexp, for beam search) or ``csrc/logits_sample.cu``
+  (``sample``: a per-row temperature / top-p draw by speculative accept,
+  the logits never stored).
 
 Numerics follow ``_step_kernel``: inputs in the compute dtype, float32
 accumulation, float32 LayerNorm and softmax statistics, a float32 residual
@@ -28,8 +32,8 @@ smallest token id.  Every kernel has a plain PyTorch twin in this module (or
 in ``ops/decode_attention.py``) with the same arithmetic; the CPU runs the
 twins, and ``use_kernels=False`` runs them on the card for comparison.
 
-Not ported: the in-kernel ``sample`` mode, per-row ``start`` windows, int8
-weights and the int8 KV cache (ROADMAP.md, queue 2, item 2).
+Not ported: int8 weights and the int8 KV cache (ROADMAP.md, queue 2,
+item 2, modes 3 and 7).
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ import torch
 from gpt2_image_captioning_tpu_torch.ops import _build
 from gpt2_image_captioning_tpu_torch.ops import nn
 from gpt2_image_captioning_tpu_torch.ops.decode_attention import decode_attention
-from gpt2_image_captioning_tpu_torch.ops.sampling import topk_small
+from gpt2_image_captioning_tpu_torch.ops.sampling import sample_step_plain, topk_small
 
 # epilogue codes of csrc/fused_linear.cu
 EPILOGUES = {"cast": 0, "gelu": 1, "residual": 2}
@@ -329,15 +333,78 @@ def logits_topk(x32, lnf, wte, k: int, eps: float = 1e-5, *, use_kernel: bool | 
 
 
 # ---------------------------------------------------------------------------
+# Final LN + logits → per-row temperature / top-p draw (sample): kernel,
+# dispatcher (twin: ops.sampling.sample_step_plain)
+# ---------------------------------------------------------------------------
+
+SAMPLE_K_MAX = 4  # csrc/logits_sample.cu kMaxCand
+_SAMPLE_TILES = 8  # csrc/logits_sample.cu kTilesPerBlock
+
+
+def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds: int = 6,
+                       eps: float = 1e-5):
+    """Launch ``csrc/logits_sample.cu``: :func:`ops.sampling.sample_step_plain`'s
+    outputs, (token (B,) int32, round (B,) int32, lse (B, 1) float32), the
+    (B, V) logits never stored.  Arguments as :func:`logits_argmax_cuda`;
+    temp, top_p (B,) float32 on the same device; ``seed`` a 64-bit int keying
+    the kernel's Philox; 1 <= k <= 4; rounds >= 0.  2 + rounds CUDA launches,
+    none of which the host waits for."""
+    name = "logits_sample"
+    _check_vocab_args(name, x32, lnf, wte)
+    b, d = x32.shape
+    v = wte.shape[0]
+    _build.require(1 <= k <= SAMPLE_K_MAX, name, f"k must be in [1, {SAMPLE_K_MAX}]")
+    _build.require(rounds >= 0, name, "rounds must be >= 0")
+    for t in (temp, top_p):
+        _build.require(t.shape == (b,) and t.dtype == torch.float32 and t.is_contiguous()
+                       and t.device == x32.device, name,
+                       "temp and top_p must be contiguous float32 (B,) on x32's device")
+    ntiles = -(-v // 32)  # common.cuh BN
+    ncb = -(-ntiles // _SAMPLE_TILES)
+    dev = x32.device
+    xf = torch.empty((b, d), dtype=wte.dtype, device=dev)
+    part_f = torch.empty((b * ncb * (3 + 3 * k),), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b * ncb * (1 + k),), dtype=torch.int32, device=dev)
+    state_i = torch.empty((b * (1 + k),), dtype=torch.int32, device=dev)
+    state_f = torch.empty((b * k,), dtype=torch.float32, device=dev)
+    counters = torch.zeros((1 + -(-b // 64),), dtype=torch.int32, device=dev)  # common.cuh BM
+    tok = torch.empty((b,), dtype=torch.int32, device=dev)
+    rnd = torch.empty((b,), dtype=torch.int32, device=dev)
+    lse = torch.empty((b, 1), dtype=torch.float32, device=dev)
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    err = _build.library().gic_logits_sample(
+        _build.DTYPE_CODE[wte.dtype], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
+        wte.data_ptr(), b, d, v, temp.data_ptr(), top_p.data_ptr(), seed & 0xFFFFFFFF,
+        seed >> 32, k, rounds, xf.data_ptr(), part_f.data_ptr(), part_i.data_ptr(),
+        state_i.data_ptr(), state_f.data_ptr(), counters.data_ptr(), tok.data_ptr(),
+        rnd.data_ptr(), lse.data_ptr(), _build.stream_of(x32),
+    )
+    _build.check(err, name)
+    logits_sample_cuda.launches += 1
+    return tok, rnd, lse
+
+
+logits_sample_cuda.launches = 0
+
+
+def logits_sample(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds: int = 6,
+                  eps: float = 1e-5, *, use_kernel: bool | None = None):
+    if _build.kernels_enabled(use_kernel, x32.device):
+        return logits_sample_cuda(x32, lnf, wte, temp, top_p, seed, k, rounds, eps)
+    return sample_step_plain(x32, lnf, wte, temp, top_p, seed, k, rounds, eps=eps)
+
+
+# ---------------------------------------------------------------------------
 # The step
 # ---------------------------------------------------------------------------
 
 def decode_layers(packed, x0, k_cache, v_cache, idx: int, *, n_head: int, eps: float = 1e-5,
-                  origin=None, gather_start: int = 0,
+                  origin=None, gather_start: int = 0, start=None,
                   use_kernels: bool | None = None) -> torch.Tensor:
     """All layers of one step: returns the (B, D) float32 residual stream
     before the final LN.  Appends each layer's K/V at ``idx`` in place;
-    ``origin``/``gather_start`` as in :func:`ops.decode_attention.decode_attention`."""
+    ``origin``/``gather_start``/``start`` as in
+    :func:`ops.decode_attention.decode_attention`."""
     d = x0.shape[1]
     x32 = x0.to(torch.float32, copy=True)
     for l in range(k_cache.shape[0]):
@@ -347,7 +414,8 @@ def decode_layers(packed, x0, k_cache, v_cache, idx: int, *, n_head: int, eps: f
         )
         a, _, _ = decode_attention(
             qkv[:, :d], qkv[:, d : 2 * d], qkv[:, 2 * d :], k_cache[l], v_cache[l], idx,
-            n_head=n_head, origin=origin, gather_start=gather_start, use_kernel=use_kernels,
+            n_head=n_head, origin=origin, gather_start=gather_start, start=start,
+            use_kernel=use_kernels,
         )
         fused_linear(a, packed["projw"][l], packed["projb"][l], epilogue="residual",
                      residual=x32, use_kernel=use_kernels)
@@ -374,7 +442,10 @@ def fused_decode_step(
     origin: torch.Tensor | None = None,
     beam_k: int = 0,
     gather_start: int = 0,
+    start: torch.Tensor | None = None,
     sample: dict | None = None,
+    sample_k: int = 3,
+    sample_rounds: int = 6,
     k_scale: torch.Tensor | None = None,
     v_scale: torch.Tensor | None = None,
     use_kernels: bool | None = None,
@@ -389,21 +460,27 @@ def fused_decode_step(
     - ``emit_logits=True``: ``(logits (B, V) float32, k_cache, v_cache)``;
     - ``topk=k``: ``(values (B, k) float32, token_ids (B, k) int32,
       logsumexp (B, 1) float32, k_cache, v_cache)``, values descending, ties
-      to the smallest id.
+      to the smallest id;
+    - ``sample={"temp": (B,) f32, "top_p": (B,) f32, "seed": int}``:
+      ``(token (B,) int32, resolve_round (B,) int32, logsumexp (B, 1)
+      float32, k_cache, v_cache)`` — the in-kernel draw by speculative accept
+      with ``sample_k`` candidates and ``sample_rounds`` rounds
+      (:func:`ops.sampling.sample_step_plain`); rows with temp 0 take the
+      argmax and report round 0.
 
-    Beam mode (``origin`` and ``beam_k``, with any vocabulary mode): row r's
-    attention reads position t in ``[gather_start, idx)`` from cache row
-    ``origin[t, r]`` of the (Tpad, B) int32 map; rows are beam-major, B a
-    multiple of ``beam_k``.  ``use_kernels=False`` is the step's plain twin.
-    ``sample`` and the int8 cache (``k_scale``/``v_scale``) are not ported
-    and raise.
+    Beam mode (``origin`` and ``beam_k``, with any vocabulary mode but
+    ``sample``): row r's attention reads position t in ``[gather_start,
+    idx)`` from cache row ``origin[t, r]`` of the (Tpad, B) int32 map; rows
+    are beam-major, B a multiple of ``beam_k``.  ``start`` ((B,) int32, any
+    vocabulary mode, not with beam mode): row r attends only its window
+    ``[start_r, idx)`` and its new row — continuous batching.
+    ``use_kernels=False`` is the step's plain twin.  The int8 cache
+    (``k_scale``/``v_scale``) is not ported and raises.
     """
-    if sample is not None:
-        raise NotImplementedError(
-            "the in-kernel sample mode is not ported yet (ROADMAP.md, queue 2, item 2, mode 6: "
-            "sample, with continuous serving); decode with emit_logits=True and "
-            "ops.sampling.sample_token"
-        )
+    if sample is not None and (topk or emit_logits or beam_k):
+        raise ValueError("sample mode is exclusive with topk/emit_logits/beam")
+    if start is not None and origin is not None:
+        raise ValueError("start and origin are exclusive (beam search never passes a start)")
     if k_scale is not None or v_scale is not None or k_cache.dtype == torch.int8:
         raise NotImplementedError(
             "the int8 KV cache is not ported yet (ROADMAP.md, queue 2, item 2, mode 7: int8 KV)"
@@ -416,8 +493,16 @@ def fused_decode_step(
         raise ValueError(f"batch {x0.shape[0]} is not a whole number of beam groups of {beam_k}")
     use = fused_greedy_enabled(use_kernels, x0.device)
     x32 = decode_layers(packed, x0, k_cache, v_cache, int(idx), n_head=n_head, eps=eps,
-                        origin=origin, gather_start=gather_start, use_kernels=use)
+                        origin=origin, gather_start=gather_start, start=start, use_kernels=use)
     lnf, wte = packed["lnf"], packed["wte"]
+    if sample is not None:
+        b = x0.shape[0]
+        temp = torch.as_tensor(sample["temp"], dtype=torch.float32, device=x0.device).reshape(b)
+        top_p = torch.as_tensor(sample["top_p"], dtype=torch.float32, device=x0.device).reshape(b)
+        tok, rnd, lse = logits_sample(x32, lnf, wte, temp.contiguous(), top_p.contiguous(),
+                                      int(sample["seed"]), sample_k, sample_rounds, eps,
+                                      use_kernel=use)
+        return tok, rnd, lse, k_cache, v_cache
     if topk:
         return (*logits_topk(x32, lnf, wte, topk, eps, use_kernel=use), k_cache, v_cache)
     if emit_logits:

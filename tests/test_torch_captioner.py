@@ -136,8 +136,9 @@ def test_model_facade_bf16_and_refusals():
     assert ids.shape == (3, 6) and ids.dtype == torch.int32
     caps = model.generate_captions(emb, max_length=6, temperature=0.0)
     assert len(caps) == 3 and all(isinstance(c, str) for c in caps)
-    with pytest.raises(NotImplementedError, match="sample, with continuous serving"):
-        TC.generate(tr, fz, cfg, torch.from_numpy(emb), temperature=1.0, sample_in_kernel=True)
+    in_kernel = TC.generate(tr, fz, cfg, torch.from_numpy(emb), max_length=6, temperature=1.0,
+                            sample_in_kernel=True, policy=pol)
+    assert in_kernel.shape == (3, 6) and in_kernel.dtype == torch.int32
     with pytest.raises(NotImplementedError, match="int8"):
         model.generate(emb, temperature=0.0, decode_precision="int8")
     with pytest.raises(NotImplementedError, match="parallelism"):

@@ -18,7 +18,9 @@ def test_import_leaves_jax_out():
         "from gpt2_image_captioning_tpu_torch.models import captioner, porting\n"
         "from gpt2_image_captioning_tpu_torch.ops import attention, decode_step, xent, _build\n"
         "from gpt2_image_captioning_tpu_torch.train import checkpoint, loop, optim\n"
-        "from gpt2_image_captioning_tpu_torch.data import dataset\n"
+        "from gpt2_image_captioning_tpu_torch.data import dataset, tokenizer\n"
+        "from gpt2_image_captioning_tpu_torch.models import continuous\n"
+        "from gpt2_image_captioning_tpu_torch import serving\n"
         "jax_pkg = 'gpt2_image_captioning_tpu'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == jax_pkg or m.startswith(jax_pkg + '.'))\n"
@@ -61,6 +63,6 @@ def test_dispatch_on_cpu(flag, want):
 def test_build_key_covers_every_source():
     names = {p.name for p in _build._sources()}
     assert {"decode_attention.cu", "fused_linear.cu", "logits_argmax.cu", "flash_attention.cu",
-            "common.cuh"} <= names
+            "logits_sample.cu", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
