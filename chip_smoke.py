@@ -8,9 +8,11 @@ It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
 PyTorch twin at the main paths' shapes, with its time beside its bound (the
 least time the card could take for the same work) and, where one PyTorch
-call computes the same function, that call's time.  Then it drives the five
-paths the port has, each with the kernels' launch counters set to 0 just
-before and read just after:
+call computes the same function, that call's time — the int8 modes too: the
+row quantizer, int8 weights in the projections and the four vocabulary
+kernels (``torch._int_mm`` beside them), the int8 KV cache.  Then it drives
+the paths the port has, each with the kernels' launch counters set to 0
+just before and read just after:
 
 - greedy serving: exact greedy tokens against the plain path on a tiny
   float32 model, then three requests of 128 image embeddings through
@@ -28,12 +30,20 @@ before and read just after:
   must be within 0.05 of the plain path's score of it, the kernels'
   captions must score no worse than the plain path's on average, and in
   float32 the captions must be the plain path's;
+- int8 serving, each beside its bf16 figure from the same run: greedy W8A8
+  through ``ImageCaptioningModel.generate(decode_precision="int8")``, the
+  same with the int8 KV cache through ``generate(decode_quant=True,
+  decode_quant_cache=True)``, sampled on the logits tail and in the kernel,
+  and beam-4 with ``decode_quant=True``: exact tokens against the plain path
+  on the tiny float32 model, and at full width every token held to the int8
+  plain path (teacher-forced logits within 0.05, the nucleus, beam scores);
 - continuous serving: ``ContinuousCaptionService`` fed by image embeddings,
   greedy, sampled on the logits tail and sampled in the kernel: exact
   captions against one-shot ``generate`` on the tiny float32 model, kernels
   on and off; then at full width, 512 slots, 2,048 requests with caps in
   [8, 50], every greedy token teacher-forced against the plain path and
-  every sampled token inside the plain path's nucleus;
+  every sampled token inside the plain path's nucleus; then greedy in int8
+  (``decode_precision="int8"``) against the int8 plain path;
 - training: the train step (``make_train_step``) at full width — GPT-2 124M
   frozen, the transformer mapper trainable, bf16 compute, AdamW, b 128,
   captions padded to 50 — fed by the ``Batcher``: step-1 loss and gradients
@@ -51,6 +61,7 @@ log, every phase's record) goes to ``chiprun_out/``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gzip
 import json
 import subprocess
@@ -99,7 +110,16 @@ TOL = {
 # up to 49 steps of cache, measured below as the one-step drift on identical
 # inputs.  0.05 is ~9 % of the logit std and several times the drift, yet far
 # below the gap to a wrong token picked by a broken kernel (~1 logit std).
+# The int8 paths hold the same bound against the int8 twins, started from
+# the kernels' prefill (see plain_logits_along).
 TF_TOL = 0.05
+# The int8 service's served tokens: 58,000 of them, against 19,200 in a
+# one-shot path, and int8's drift is 4.6x bf16's (NUCLEUS_SLACK_INT8), so the
+# tail of its deficits reaches further: worst 0.058 in two runs (bf16's
+# service 0.016, one-shot int8 0.038).  0.15 is 2.6x that and still ~4x
+# below a wrong token of a broken kernel (~1 logit std); the record counts
+# the tokens above TF_TOL.
+TF_TOL_INT8_SERVED = 0.15
 # Sampled path, bf16, teacher-forced along the kernels' tokens: the plain
 # path's probability mass strictly above each drawn token's logit must be
 # <= top_p + NUCLEUS_SLACK.  The two paths' logits differ by the drift above
@@ -110,6 +130,13 @@ TF_TOL = 0.05
 # raw softmax) lies above 0.9 + 0.01 about one time in ten and shows within
 # a few draws.
 NUCLEUS_SLACK = 0.01
+# The int8 paths against the int8 twins: their logits drift 4.6x as far as
+# bf16's (worst teacher-forced deficit 0.038 against 0.008, one-step drift
+# 0.062 against 0.014; PERF.md §6), so by the same reckoning the mass
+# above a drawn token moves 4.6x as far: 0.03.  A draw from outside the
+# nucleus lies above 0.93 about one time in fourteen, and a path draws
+# ~19,000 tokens.
+NUCLEUS_SLACK_INT8 = 0.03
 # Beam path, bf16.  The score the kernels' search gives each image's chosen
 # caption (sum log-prob / length, accumulated along the ancestry map) must be
 # within BEAM_SCORE_TOL of the plain path's score of the same tokens,
@@ -161,8 +188,17 @@ PHILOX_OPS, DRAW_OPS, LOGIT_OPS, VERIFY_OPS = 100, 7, 5, 2
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense): HBM bytes/s and
 # operations/s by the element type of the products.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 VECTOR_OPS_S = 67e12  # float32 outside the tensor cores
+
+# The int8 modes against their twins.  The row quantizer with a LayerNorm:
+# the two sides' LN statistics differ in summation order, which can flip the
+# rounding of an LN output to the compute dtype, moving one quantized value
+# by one step (INT8_STEP) or, where the flipped value is the row's largest,
+# the row's scale by that rounding step: one bf16 ulp (2^-8 relative) or a
+# few float32 ulps.
+INT8_STEP = 1
+ROWQUANT_SCALE_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-6}
 
 # Flash attention on the paths: (name, B, H, T, hd, causal, padding mask) —
 # the GPT-2 blocks in training (15 prefix + 50 caption positions), the
@@ -734,6 +770,332 @@ def check_logits_argmax(dtype, g) -> dict:
             "at": f"B {B}, D {D}, V {V}", "rows_with_clear_gap": int(clear.sum()), "ties": ties}
 
 
+# ---------------------------------------------------------------------------
+# The int8 modes (W8A8 weights, int8 KV cache) against their twins
+# ---------------------------------------------------------------------------
+
+def check_rowquant(dtype, g) -> dict:
+    """``csrc/rowquant.cu`` at B 128 in its step roles: LN -> D (qkv, fc,
+    LN_f), D (the attention output), 4D (gelu(h)).  Without the LN the kernel
+    and the twin quantize the same values the same way: identical int8 and
+    scales.  With it, their LN statistics differ in summation order, which
+    can flip the rounding of an LN output to the compute dtype (one bf16 ulp,
+    2^-8, or ~1e-7 in float32) and so move a quantized value by one step or
+    a row's scale by that ulp: INT8_STEP and ROWQUANT_SCALE_RTOL."""
+    from gpt2_image_captioning_tpu_torch.ops import quant as Q
+
+    roles, worst, ms_ln = {}, 0.0, None
+    for name, k, ln in (("ln_d", D, True), ("d", D, False), ("4d", 4 * D, False)):
+        if ln:
+            x = 3.0 * torch.randn(B, k, generator=g, device="cuda")
+            lnp = (1 + 0.1 * torch.randn(k, generator=g, device="cuda"),
+                   0.1 * torch.randn(k, generator=g, device="cuda"))
+        else:
+            x, lnp = torch.randn(B, k, generator=g, device="cuda").to(dtype), None
+        got_q, got_s = Q.rowquant_cuda(x, lnp, compute_dtype=dtype)
+        want_q, want_s = Q.rowquant_plain(x, lnp, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        step = int((got_q.int() - want_q.int()).abs().max())
+        rel = float(((got_s - want_s).abs() / want_s).max())
+        if ln:
+            check(step <= INT8_STEP and rel <= ROWQUANT_SCALE_RTOL[dtype],
+                  f"rowquant {name}: int8 values {step} apart, scales {rel} apart")
+        else:
+            check(step == 0 and rel == 0.0, f"rowquant {name}: int8 values {step} apart, scales "
+                                            f"{rel} apart (identical inputs)")
+        worst = max(worst, rel)
+        ms = time_ms(lambda: Q.rowquant_cuda(x, lnp, compute_dtype=dtype))
+        plain_ms = time_ms(lambda: Q.rowquant_plain(x, lnp, compute_dtype=dtype))
+        nbytes = B * k * (x.element_size() + 1) + 4 * B + (8 * k if ln else 0)
+        bound_ms, bound_by = bound(nbytes, 0, dtype)
+        roles[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                       "bytes": nbytes, "max_int8_step": step, "scale_rel_err": rel,
+                       "int8_identical": float((got_q == want_q).float().mean())}
+    main = roles["ln_d"]
+    return {"kernel": "rowquant", "max_abs_err": worst, "error_is": "max relative scale error",
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "library": "none: no one PyTorch call quantizes rows",
+            "at": f"B {B}: LN + quantize of D {D} rows (the row's figures); roles below",
+            "roles": roles}
+
+
+def flip_allowance(x, lnp, dtype, wq, sw, want) -> tuple[torch.Tensor, int]:
+    """How far an int8 product's output may lie from the twin's, per row,
+    when the rows carry a LayerNorm: the two sides' LN statistics differ in
+    summation order, so an LN output can round to the compute dtype
+    differently and quantize one step apart (check_rowquant), which moves
+    each output of its row by up to sx * max |w|; a row's scale one rounding
+    apart moves its outputs by that ratio.  Read from the quantizer kernel
+    and its twin on the same rows: ((M, N) allowance, flipped elements)."""
+    from gpt2_image_captioning_tpu_torch.ops import quant as Q
+
+    q_k, s_k = Q.rowquant_cuda(x, lnp, compute_dtype=dtype)
+    q_p, s_p = Q.rowquant_plain(x, lnp, compute_dtype=dtype)
+    flips = (q_k != q_p).sum(dim=1, keepdim=True)
+    w_max = float((wq.abs().float() * sw[:, None]).max())
+    allowance = flips * s_p * w_max + (s_k / s_p - 1).abs() * want.float().abs()
+    return allowance, int(flips.sum())
+
+
+def close_int8(got, want, tol, allowance) -> float:
+    """:func:`close` with a per-element ``allowance`` added to the bound."""
+    atol, rtol = tol
+    diff = (got.float() - want.float()).abs()
+    worst = float(diff.max())
+    check(bool((diff <= atol + rtol * want.float().abs() + allowance).all()),
+          f"max |diff| {worst} exceeds atol {atol} + rtol {rtol} + the flip allowance")
+    return worst
+
+
+def int8_weights(n: int, k: int, g) -> tuple[torch.Tensor, torch.Tensor]:
+    """(N, K) int8 weights and their (N,) scales, from N(0, 0.02) float32
+    weights quantized per output column as the pack does."""
+    from gpt2_image_captioning_tpu_torch.ops import quant as Q
+
+    wq, sw = Q.colquant((0.02 * torch.randn(n, k, generator=g, device="cuda")).t())
+    return wq.t().contiguous(), sw.contiguous()
+
+
+def library_int8(xq, sx, wq_t, sw):
+    """``torch._int_mm`` of int8 rows by int8 weights (given transposed, (K,
+    N) column-major), dequantized as the kernels do: the library's int8
+    product (timed only here)."""
+    return torch._int_mm(xq, wq_t).float() * sx * sw
+
+
+def check_linear_int8(dtype, g) -> dict:
+    """``csrc/fused_linear.cu`` with int8 weights (one call: the row
+    quantizer, then the int8 tile) at B 128 in the four roles of a layer.
+    Without the LN both sides quantize identical rows and sum exact integer
+    products, so they differ by the float epilogue's rounding only: the
+    tolerances of the float kernel.  With the LN, plus the allowance of
+    :func:`flip_allowance` for the rows' quantizations that came out one step
+    apart."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+    from gpt2_image_captioning_tpu_torch.ops import quant as Q
+
+    worst, roles = 0.0, {}
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+    el = torch.tensor([], dtype=dtype).element_size()
+    for name, k, n, ln, epi in LINEAR_ROLES:
+        wq, sw = int8_weights(n, k, g)
+        bias = 0.02 * torch.randn(n, generator=g, device="cuda")
+        lnp = None
+        if ln:
+            x = 3.0 * torch.randn(B, k, generator=g, device="cuda")
+            lnp = (1 + 0.1 * torch.randn(k, generator=g, device="cuda"),
+                   0.1 * torch.randn(k, generator=g, device="cuda"))
+        else:
+            x = torch.randn(B, k, generator=g, device="cuda").to(dtype)
+        res = torch.randn(B, n, generator=g, device="cuda") if epi == "residual" else None
+        kw = dict(epilogue=epi, ln=lnp, w_scale=sw, compute_dtype=dtype)
+        r_plain, r_kernel = (None, None) if res is None else (res.clone(), res.clone())
+        want = DS.fused_linear_plain(x, wq, bias, residual=r_plain, **kw)
+        got = DS.fused_linear_cuda(x, wq, bias, residual=r_kernel, **kw)
+        torch.cuda.synchronize()
+        allowance, flips = flip_allowance(x, lnp, dtype, wq, sw, want) if ln else (0.0, 0)
+        err = close_int8(got, want, TOL[dtype]["f32" if epi == "residual" else "out"], allowance)
+        worst = max(worst, err)
+        ms = time_ms(lambda: DS.fused_linear_cuda(x, wq, bias, residual=r_kernel, **kw))
+        plain_ms = time_ms(lambda: DS.fused_linear_plain(x, wq, bias, residual=r_plain, **kw))
+        xq, sx = Q.rowquant_plain(x, lnp, compute_dtype=dtype)
+        wq_t = wq.t()
+        library_ms = time_ms(lambda: library_int8(xq, sx, wq_t, sw) + bias)
+        # x, W (int8), its scales, bias (and LN params) read; the output
+        # written, or the float32 residual stream read and written
+        role_bytes = (B * k * x.element_size() + n * k + 8 * n + (8 * k if ln else 0)
+                      + (8 * B * n if epi == "residual" else el * B * n))
+        role_bound, role_by = bound(role_bytes, 2 * B * k * n, torch.int8)
+        roles[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": role_bound, "bound_by": role_by,
+                       "bytes": role_bytes, "int8_flips": flips}
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
+                         ("bytes", role_bytes), ("ops", 2 * B * k * n)):
+            totals[key] += val
+    bound_ms, bound_by = bound(totals["bytes"], totals["ops"], torch.int8)
+    return {"kernel": "fused_linear", "mode": "int8", "max_abs_err": worst, "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": totals["bytes"], "library_ms": totals["library_ms"],
+            "library": "torch._int_mm + dequantize + bias on pre-quantized rows",
+            "at": f"B {B}: the four projections of one layer, summed (8 CUDA launches)",
+            "roles": roles}
+
+
+def int8_vocab_inputs(b: int, dtype, g):
+    """The int8 vocabulary kernels' inputs: the float32 residual stream, LN_f,
+    an int8 wte (V, D) with its (V,) scales, and the keywords that select the
+    int8 mode."""
+    x32, lnf, _ = vocab_inputs(b, torch.float32, g)
+    wq, sw = int8_weights(V, D, g)
+    return x32, lnf, wq, {"wte_scale": sw, "compute_dtype": dtype}
+
+
+def library_vocab_int8(x32, lnf, wq_pad_t, sw_pad, dtype):
+    """The library's way to the int8 logits: LayerNorm, the rows quantized in
+    torch ops, ``torch._int_mm`` over wte padded to V 50,264 (its N must be a
+    multiple of 8), dequantized, the padding cut."""
+    from gpt2_image_captioning_tpu_torch.ops import quant as Q
+
+    xq, sx = Q.absmax_quant(F.layer_norm(x32, (D,), lnf[0], lnf[1], 1e-5).to(dtype))
+    return library_int8(xq, sx, wq_pad_t, sw_pad)[:, :V]
+
+
+def check_vocab_int8(dtype, g) -> list[dict]:
+    """The four vocabulary kernels with an int8 wte, each against its twin at
+    its path's width: argmax and the stored logits at B 128, top-k at B 512
+    (k 4), the sampler at B 512 (temperature 1.0, top_p 0.9).  The int8
+    products are exact on both sides: the float kernels' tolerances, plus
+    :func:`flip_allowance` for the rows whose LN_f output quantized one step
+    apart; the argmax, top-k ids and draws must agree on every row that has
+    no such flip, where the float kernels' rules hold."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+    from gpt2_image_captioning_tpu_torch.ops import sampling as S
+
+    out = []
+    tol = TOL[dtype]
+    twins = {"logits_argmax": DS.logits_argmax_plain, "logits": DS.logits_plain,
+             "logits_topk": DS.logits_topk_plain, "logits_sample": S.sample_step_plain}
+    for kind, b in (("logits_argmax", B), ("logits", B), ("logits_topk", B_BEAM),
+                    ("logits_sample", B_SERVE)):
+        x32, lnf, wq, kw = int8_vocab_inputs(b, dtype, g)
+        sw = kw["wte_scale"]
+        pad = (-V) % 8
+        lib_logits = functools.partial(library_vocab_int8, x32, lnf, F.pad(wq, (0, 0, 0, pad)).t(),
+                                       F.pad(sw, (0, pad)), dtype)
+        temp = torch.full((b,), 1.0, device="cuda")
+        top_p = torch.full((b,), TOP_P, device="cuda")
+        extra = {"logits_topk": (BEAM_K,),
+                 "logits_sample": (temp, top_p, 5, SAMPLE_K, SAMPLE_ROUNDS)}.get(kind, ())
+        run = functools.partial(getattr(DS, f"{kind}_cuda"), x32, lnf, wq, *extra, **kw)
+        plain = functools.partial(twins[kind], x32, lnf, wq, *extra, **kw)
+        logits = DS.logits_plain(x32, lnf, wq, **kw)
+        allowance, flips = flip_allowance(x32, (lnf[0], lnf[1]), dtype, wq, sw, logits)
+        row_slack = allowance.max(dim=1).values  # (B,): what a row's flips may move a logit by
+        got, want = run(), plain()
+        rec = {"kernel": kind, "mode": "int8", "int8_flips": flips}
+        if kind == "logits_argmax":
+            top2 = logits.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > tol["gap"] + 2 * row_slack
+            check(bool((got == want)[clear].all()),
+                  "int8 argmax differs on a row with a clear top-2 gap")
+            deficit = top2[:, 0] - logits.gather(1, got.long()[:, None])[:, 0]
+            err = float(deficit.max())
+            check(bool((deficit <= tol["gap"] + 2 * row_slack).all()),
+                  f"int8 argmax: a chosen token's logit is {err} below the max")
+            library, out_bytes = (lambda: lib_logits().argmax(-1)), 4 * b
+        elif kind == "logits":
+            err = close_int8(got, want, tol["out"], allowance)
+            library, out_bytes = lib_logits, 4 * b * V
+        elif kind == "logits_topk":
+            (gv, gi, gl), (wv, wi, wl) = got, want
+            slack = row_slack[:, None]
+            err = max(close_int8(gv, wv, tol["out"], slack), close_int8(gl, wl, tol["out"], slack))
+            top, _ = S.topk_small(logits, BEAM_K + 1)
+            clear = ((top[:, :-1] - top[:, 1:]) > tol["gap"] + 2 * slack).all(dim=1)
+            check(bool((gi == wi)[clear].all()), "int8 top-k ids differ on a row with clear gaps")
+
+            def library():
+                lg = lib_logits()
+                return torch.topk(lg, BEAM_K), torch.logsumexp(lg, dim=-1)
+
+            out_bytes = 8 * b * BEAM_K + 4 * b
+        else:
+            (tok, _, lse), (wtok, wrnd, wlse) = got, want
+            err = close_int8(lse, wlse, tol["out"], row_slack[:, None])
+            same = float((tok == wtok).float().mean())
+            check(same >= SAMPLE_BF16_AGREE, f"int8 sampler: {same} of the tokens identical")
+            if dtype == torch.float32:
+                check(bool((tok == wtok)[row_slack == 0].all()),
+                      "int8 sampler: a float32 row without a flipped quantization drew another "
+                      "token")
+            excess = nucleus_excess(logits, tok, top_p)
+            check(excess <= NUCLEUS_SLACK, f"int8 sampler: a drawn token lies {excess} outside")
+            rec.update(tokens_identical=same, worst_nucleus_excess=excess)
+            library, out_bytes = None, 12 * b
+        torch.cuda.synchronize()
+        ms = time_ms(run)
+        plain_ms = time_ms(plain, iters=3, warmup=1)
+        nbytes = V * D + 4 * V + 4 * b * D + 8 * D + out_bytes  # wte int8 and its scales
+        bound_ms, bound_by = bound(nbytes, 2 * b * D * V, torch.int8)
+        if kind == "logits_sample":
+            bound_ms, bound_by, rec["work"] = sampler_bound(b, wq, temp, wrnd)
+        rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, bytes=nbytes,
+                   library_ms=time_ms(library) if library else None,
+                   library=("layer_norm + row quantization + torch._int_mm (V padded to "
+                            f"{V + pad}) + dequantize" if library else "none"),
+                   at=f"B {b}, D {D}, V {V}, int8 wte, {str(dtype).replace('torch.', '')} rows")
+        out.append(rec)
+    return out
+
+
+def int8_caches(t: int, b: int, dtype, g):
+    """int8 caches (T, B, D) with (T, B) float32 scales, quantized from random
+    caches in ``dtype`` as generate does after prefill."""
+    from gpt2_image_captioning_tpu_torch.ops import quant as Q
+
+    kq, vq, ks, vs = Q.quantize_cache(torch.randn(t, b, D, generator=g, device="cuda").to(dtype),
+                                      torch.randn(t, b, D, generator=g, device="cuda").to(dtype))
+    return kq, vq, ks.contiguous(), vs.contiguous()
+
+
+def check_attention_int8(dtype, g) -> dict:
+    """``csrc/decode_attention.cu`` with the int8 cache at B 128 (greedy),
+    at every idx of ATTN_IDX, then once in beam mode (B 512, idx 40) and
+    once with start windows (B 512, idx 64), against the twin: the same
+    quantizing append (identical int8 rows and scales at idx; no other row
+    touched) and the walk dequantized in the compute dtype; the outputs to
+    the float kernel's tolerance (summation order only)."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_attention as DA
+
+    worst = 0.0
+    cases = [(B, idx, {}) for idx in ATTN_IDX]
+    cases.append((B_BEAM, 40, {"origin": beam_origin(T, B_BEAM, g), "gather_start": P_LEN}))
+    start = torch.randint(0, 65, (B_SERVE,), generator=g, device="cuda").to(torch.int32)
+    cases.append((B_SERVE, 64, {"start": start}))
+    for b, idx, mode in cases:
+        q, kn, vn = (torch.randn(b, D, generator=g, device="cuda").to(dtype) for _ in range(3))
+        kc, vc, ks, vs = int8_caches(T, b, dtype, g)
+        kp, vp, ksp, vsp = kc.clone(), vc.clone(), ks.clone(), vs.clone()
+        want = DA._decode_attention_plain(q, kn, vn, kp, vp, idx, H, k_scale=ksp, v_scale=vsp,
+                                          **mode)
+        got = DA.decode_attention_cuda(q, kn, vn, kc, vc, idx, H, k_scale=ks, v_scale=vs, **mode)
+        torch.cuda.synchronize()
+        worst = max(worst, close(got, want, TOL[dtype]["out"]))
+        check(all(torch.equal(a, c) for a, c in ((kc, kp), (vc, vp), (ks, ksp), (vs, vsp))),
+              f"int8 cache rows or scales differ at idx {idx} ({list(mode)})")
+    b, idx = B, max(ATTN_IDX)
+    q, kn, vn = (torch.randn(b, D, generator=g, device="cuda").to(dtype) for _ in range(3))
+    kc, vc, ks, vs = int8_caches(T, b, dtype, g)
+    kp, vp, ksp, vsp = kc.clone(), vc.clone(), ks.clone(), vs.clone()
+    ms = time_ms(lambda: DA.decode_attention_cuda(q, kn, vn, kc, vc, idx, H, k_scale=ks,
+                                                  v_scale=vs))
+    plain_ms = time_ms(lambda: DA._decode_attention_plain(q, kn, vn, kp, vp, idx, H, k_scale=ksp,
+                                                          v_scale=vsp))
+    # the library call: SDPA over the dequantized cache rows [0, idx]
+    from gpt2_image_captioning_tpu_torch.ops import quant as Q
+
+    hd, el = D // H, q.element_size()
+    q4 = q.view(b, H, 1, hd)
+
+    def dequantized():
+        return (Q.dequant(c[: idx + 1], s[: idx + 1], dtype).view(idx + 1, b, H, hd)
+                .permute(1, 2, 0, 3) for c, s in ((kc, ks), (vc, vs)))
+
+    k4, v4 = dequantized()
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+    dequant_library_ms = time_ms(lambda: F.scaled_dot_product_attention(q4, *dequantized()))
+    # int8 cache rows and their scales read, q / k_new / v_new read, the
+    # output written, the int8 rows and scales appended
+    nbytes = 2 * idx * b * (D + 4) + el * b * D * 4 + 2 * b * (D + 4)
+    bound_ms, bound_by = bound(nbytes, 4 * b * D * (idx + 1), dtype)
+    return {"kernel": "decode_attention", "mode": "int8_kv", "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "library_ms": library_ms, "library": "scaled_dot_product_attention over the cache "
+            "dequantized beforehand", "dequantize_and_sdpa_ms": dequant_library_ms,
+            "at": f"B {b}, D {D}, H {H}, T {T}, idx {idx}, int8 cache (3 CUDA launches)"}
+
+
 def flash_inputs(b, h, t, hd, masked, dtype, g):
     """q, k, v as the path has them — permuted views of one (B, T, 3 H hd)
     projection — and, with ``masked``, the padding mask of 15 prefix tokens
@@ -871,9 +1233,11 @@ def tiny_config():
 
 def tiny_exact(mode: str) -> dict:
     """Kernels against the plain path on the tiny float32 model, exactly:
-    greedy tokens, sampled tokens from one generator seed, or beams.  EOS :=
-    a token row 0 emits after its first, absent from the first column, so
-    some rows stop early and get padded while others run on."""
+    greedy tokens, sampled tokens from one generator seed, beams, or
+    continuous serving's captions; the ``*_int8`` modes decode W8A8
+    (``decode_quant=True``), ``greedy_int8_kv`` with the int8 cache too.
+    EOS := a token row 0 emits after its first, absent from the first
+    column, so some rows stop early and get padded while others run on."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
 
     cfg = tiny_config()
@@ -885,16 +1249,18 @@ def tiny_exact(mode: str) -> dict:
     firsts = set(probe[:, 0].tolist())
     eos = next((int(t) for t in probe[0, 1:] if int(t) not in firsts), int(probe[0, 1]))
     cfg = dataclasses.replace(cfg, eos_token_id=eos)
-    if mode == "continuous":
-        return tiny_continuous(tr, fz, cfg)
+    quant = mode.endswith(("_int8", "_int8_kv"))
+    if mode.startswith("continuous"):
+        return tiny_continuous(tr, fz, cfg, quant)
 
     def run(use):
-        if mode == "beam":
+        if mode.startswith("beam"):
             return C.beam_generate(tr, fz, cfg, emb, max_length=12, beam_size=BEAM_K,
-                                   use_kernels=use)
-        kw = dict(temperature=0.0) if mode == "greedy" else dict(
+                                   use_kernels=use, decode_quant=quant)
+        kw = dict(temperature=0.0) if mode.startswith("greedy") else dict(
             temperature=1.0, top_p=TOP_P, generator=torch.Generator(device="cuda").manual_seed(3))
-        return C.generate(tr, fz, cfg, emb, max_length=12, use_kernels=use, **kw)
+        return C.generate(tr, fz, cfg, emb, max_length=12, use_kernels=use, decode_quant=quant,
+                          decode_quant_cache=mode == "greedy_int8_kv", **kw)
 
     want, got = run(False), run(True)
     torch.cuda.synchronize()
@@ -935,11 +1301,15 @@ def one_shot_ids(tokens: torch.Tensor, caps, eos: int) -> list[list[int]]:
     return out
 
 
-def tiny_continuous(tr, fz, cfg) -> dict:
+def tiny_continuous(tr, fz, cfg, quant: bool = False) -> dict:
     """Greedy continuous serving on the tiny float32 model, with the kernels
     and without: every caption equals one-shot ``generate``'s, across
     staggered admission (10 requests, 3 slots), compaction at every macro
-    (the minimal t_max), per-request caps and pool reuse after a drain."""
+    (the minimal t_max), per-request caps and pool reuse after a drain.
+    ``quant``: W8A8 in float32 — the service built as ``decode_precision=
+    "int8"`` builds it, its pack made W8A8, here from the float32 weights
+    (the public option packs the bf16 copy, which the full-width int8 phase
+    runs)."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
     from gpt2_image_captioning_tpu_torch.serving import ContinuousCaptionService
 
@@ -949,15 +1319,17 @@ def tiny_continuous(tr, fz, cfg) -> dict:
     embs = np.random.default_rng(6).normal(size=(12, 16)).astype(np.float32)
     caps = [12, 5, 1, 12, 8, 12, 3, 12, 12, 7, 12, 12]
     tokens = C.generate(tr, fz, cfg, torch.from_numpy(embs).cuda(), max_length=12,
-                        temperature=0.0, use_kernels=False)
+                        temperature=0.0, use_kernels=False, decode_quant=quant)
     want = one_shot_ids(tokens, caps, cfg.eos_token_id)
     kernels = C.generate(tr, fz, cfg, torch.from_numpy(embs).cuda(), max_length=12,
-                         temperature=0.0)
+                         temperature=0.0, decode_quant=quant)
     check(torch.equal(kernels, tokens), "tiny f32 one-shot generate: kernels differ from plain")
     out = {}
     for use in (None, False):
         svc = ContinuousCaptionService(model, slots=3, segment=2, bursts=2, admit=2,
                                        max_length=12, use_kernels=use)
+        if quant:
+            svc._packed = C.prepare_decode_weights(tr, fz, cfg, quant=True)
         check(svc.t_max == -(-(cfg.total_prefix_length + 12 + 4) // 8) * 8, "t_max not minimal")
         got = served_ids(svc, embs[:10], caps[:10])
         check(svc.step() == {}, "the drained pool still emitted")
@@ -966,14 +1338,25 @@ def tiny_continuous(tr, fz, cfg) -> dict:
         check(got == want, f"tiny f32 continuous captions (kernels {use is None}) differ from "
                            f"one-shot generate:\n{got}\n{want}")
         out["kernels" if use is None else "plain"] = svc.stats["macros"]
-    return {"phase": "tiny_f32_exact_continuous", "eos": cfg.eos_token_id, "requests": 12,
-            "captions_equal_one_shot": True, "macros": out, "slots": 3}
+    return {"phase": "tiny_f32_exact_continuous" + ("_int8" if quant else ""),
+            "eos": cfg.eos_token_id, "requests": 12, "captions_equal_one_shot": True,
+            "macros": out, "slots": 3}
 
 
-def plain_logits_along(model, emb: torch.Tensor, tokens: torch.Tensor):
+def plain_logits_along(model, emb: torch.Tensor, tokens: torch.Tensor, quant: bool = False,
+                       quant_cache: bool = False):
     """Feed ``tokens`` (B, L) through the plain path step by step, from the
-    bf16 weights: yields (step s, the plain float32 logits (B, V) that
-    predict token s, the rows that had not emitted EOS before s)."""
+    bf16 weights (``quant``: their W8A8 pack; ``quant_cache``: the int8 KV
+    cache): yields (step s, the plain float32 logits (B, V) that predict
+    token s, the rows that had not emitted EOS before s).
+
+    The int8 reference starts from the kernels' mapper and prefill (flash
+    attention, held to the plain prefill by the bf16 phases) and runs every
+    int8 decode step in the twins.  From the plain prefill, the bf16
+    rounding of the prefill's attention moves activations across
+    quantization steps, and the int8 steps carry that as a drift of their
+    own (worst teacher-forced deficit 0.05-0.07 against 0.01-0.03 from the
+    kernels' prefill, PERF.md §6), which is not the decode kernels'."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
     from gpt2_image_captioning_tpu_torch.models import gpt2 as G
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
@@ -981,21 +1364,28 @@ def plain_logits_along(model, emb: torch.Tensor, tokens: torch.Tensor):
     cfg = model.cfg
     tr, fz, pol = model.decode_params("bf16")
     gpt = C._gpt(tr, fz)
-    packed = C.prepare_decode_weights(tr, fz, cfg, pol)
+    packed = C.prepare_decode_weights(tr, fz, cfg, pol, quant=quant)
+    vocab_kw = {"wte_scale": packed["wtes"], "compute_dtype": pol.compute_dtype} if quant else {}
     eos, eps = cfg.eos_token_id, cfg.gpt2.layer_norm_epsilon
-    prefix = C.build_prefix(tr, cfg, emb, pol, use_kernels=False)
+    prefill_kernels = None if quant else False
+    prefix = C.build_prefix(tr, cfg, emb, pol, use_kernels=prefill_kernels)
     b, p_len, _ = prefix.shape
     cache = G.init_cache(cfg.gpt2, b, p_len + tokens.shape[1], dtype=pol.compute_dtype,
                          device="cuda")
-    logits, cache = G.forward_cached(gpt, cfg.gpt2, prefix, cache, pol, use_kernels=False)
+    logits, cache = G.forward_cached(gpt, cfg.gpt2, prefix, cache, pol,
+                                     use_kernels=prefill_kernels)
+    k, v, scales = cache["k"], cache["v"], {}
+    if quant_cache:
+        k, v, ks, vs = DS.quantize_cache(k, v)
+        scales = {"k_scale": ks, "v_scale": vs}
     alive = torch.ones(b, dtype=torch.bool, device="cuda")
     idx = cache["index"]
     for s in range(tokens.shape[1]):
         if s > 0:
             x0 = (gpt["wte"][tokens[:, s - 1].long()] + gpt["wpe"][idx]).to(pol.compute_dtype)
-            x32 = DS.decode_layers(packed, x0, cache["k"], cache["v"], idx,
-                                   n_head=cfg.gpt2.n_head, eps=eps, use_kernels=False)
-            logits = DS.logits_plain(x32, packed["lnf"], packed["wte"], eps)
+            x32 = DS.decode_layers(packed, x0, k, v, idx, n_head=cfg.gpt2.n_head, eps=eps,
+                                   use_kernels=False, **scales)
+            logits = DS.logits_plain(x32, packed["lnf"], packed["wte"], eps, **vocab_kw)
             idx += 1
         yield s, logits, alive
         alive = alive & (tokens[:, s] != eos)
@@ -1003,11 +1393,13 @@ def plain_logits_along(model, emb: torch.Tensor, tokens: torch.Tensor):
             return
 
 
-def teacher_forced(model, emb: torch.Tensor, tokens: torch.Tensor) -> tuple[float, int, float]:
+def teacher_forced(model, emb: torch.Tensor, tokens: torch.Tensor,
+                   **quant) -> tuple[float, int, float]:
     """Greedy: (worst deficit of a chosen token's plain logit below the plain
-    max, tokens checked, share of them that are the plain argmax)."""
+    max, tokens checked, share of them that are the plain argmax); ``quant``
+    as in :func:`plain_logits_along`."""
     worst, n, agree = 0.0, 0, 0
-    for s, logits, alive in plain_logits_along(model, emb, tokens):
+    for s, logits, alive in plain_logits_along(model, emb, tokens, **quant):
         chosen = logits.gather(1, tokens[:, s].long()[:, None])[:, 0]
         deficit = (logits.max(dim=-1).values - chosen)[alive]
         worst = max(worst, float(deficit.max()))
@@ -1016,13 +1408,13 @@ def teacher_forced(model, emb: torch.Tensor, tokens: torch.Tensor) -> tuple[floa
     return worst, n, agree / n
 
 
-def nucleus_mass(model, emb: torch.Tensor, tokens: torch.Tensor,
-                 temperature: float) -> tuple[float, int, float]:
+def nucleus_mass(model, emb: torch.Tensor, tokens: torch.Tensor, temperature: float,
+                 **quant) -> tuple[float, int, float]:
     """Sampled: (the largest plain-path probability mass strictly above a
     drawn token's logit, tokens checked, share of them that are the plain
     argmax)."""
     worst, n, top1 = 0.0, 0, 0
-    for s, logits, alive in plain_logits_along(model, emb, tokens):
+    for s, logits, alive in plain_logits_along(model, emb, tokens, **quant):
         lg = logits / temperature
         chosen = lg.gather(1, tokens[:, s].long()[:, None])
         above = torch.where(lg > chosen, torch.softmax(lg, dim=-1), 0.0).sum(dim=-1)[alive]
@@ -1032,13 +1424,13 @@ def nucleus_mass(model, emb: torch.Tensor, tokens: torch.Tensor,
     return worst, n, top1 / n
 
 
-def plain_scores(model, emb: torch.Tensor, tokens: torch.Tensor,
-                 length_penalty: float) -> torch.Tensor:
+def plain_scores(model, emb: torch.Tensor, tokens: torch.Tensor, length_penalty: float,
+                 **quant) -> torch.Tensor:
     """Beam: each caption's length-normalised score under the plain path,
     sum log-prob / length ** length_penalty, the length counting tokens up to
     and including EOS (beam_generate's own score)."""
     total = torch.zeros(tokens.shape[0], dtype=torch.float32, device="cuda")
-    for s, logits, alive in plain_logits_along(model, emb, tokens):
+    for s, logits, alive in plain_logits_along(model, emb, tokens, **quant):
         lp = torch.log_softmax(logits, dim=-1).gather(1, tokens[:, s].long()[:, None])[:, 0]
         total += torch.where(alive, lp, 0.0)
     is_eos = tokens == model.cfg.eos_token_id
@@ -1046,9 +1438,10 @@ def plain_scores(model, emb: torch.Tensor, tokens: torch.Tensor,
     return total / length.float() ** length_penalty
 
 
-def one_step_drift(model, emb: torch.Tensor) -> float:
+def one_step_drift(model, emb: torch.Tensor, quant: bool = False) -> float:
     """Max |logit| difference of one decode step run by the kernels and by
-    the plain twins from the same prefilled cache and input."""
+    the plain twins from the same prefilled cache and input (``quant``: the
+    W8A8 pack)."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
     from gpt2_image_captioning_tpu_torch.models import gpt2 as G
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
@@ -1056,7 +1449,8 @@ def one_step_drift(model, emb: torch.Tensor) -> float:
     cfg = model.cfg
     tr, fz, pol = model.decode_params("bf16")
     gpt = C._gpt(tr, fz)
-    packed = C.prepare_decode_weights(tr, fz, cfg, pol)
+    packed = C.prepare_decode_weights(tr, fz, cfg, pol, quant=quant)
+    vocab_kw = {"wte_scale": packed["wtes"], "compute_dtype": pol.compute_dtype} if quant else {}
     prefix = C.build_prefix(tr, cfg, emb, pol, use_kernels=False)
     cache = G.init_cache(cfg.gpt2, prefix.shape[0], prefix.shape[1] + 50,
                          dtype=pol.compute_dtype, device="cuda")
@@ -1068,14 +1462,14 @@ def one_step_drift(model, emb: torch.Tensor) -> float:
         k, v = cache["k"].clone(), cache["v"].clone()
         x32 = DS.decode_layers(packed, x0, k, v, idx, n_head=cfg.gpt2.n_head,
                                eps=cfg.gpt2.layer_norm_epsilon, use_kernels=use)
-        out.append(DS.logits_plain(x32, packed["lnf"], packed["wte"]))
+        out.append(DS.logits_plain(x32, packed["lnf"], packed["wte"], **vocab_kw))
     return float((out[0] - out[1]).abs().max())
 
 
 # the decode step's kernels by their CUDA function names (csrc/*.cu): the
 # layers' and, by path, the vocabulary's
 LAYER_KERNELS = ("fused_linear_kernel", "ln_stats_kernel", "decode_attention_kernel",
-                 "ln_rows_kernel")
+                 "ln_rows_kernel", "rowquant_kernel")
 VOCAB_KERNELS = {"greedy": ("logits_tile_kernel", "argmax_reduce_kernel"),
                  "sampled": ("logits_store_kernel",),
                  "beam": ("topk_tile_kernel", "topk_merge_kernel")}
@@ -1084,6 +1478,9 @@ VOCAB_KERNELS.update({
     "continuous_greedy": VOCAB_KERNELS["greedy"] + ("flash_attention_kernel",),
     "continuous_sampled": VOCAB_KERNELS["sampled"] + ("flash_attention_kernel",),
     "continuous_in_kernel": ("sample_tile_kernel", "flash_attention_kernel")})
+# the int8 paths run the same kernels, instantiated for int8 operands
+VOCAB_KERNELS.update({f"{path}_int8": names for path, names in VOCAB_KERNELS.items()})
+VOCAB_KERNELS.update(greedy_int8_kv=VOCAB_KERNELS["greedy"], in_kernel_int8=("sample_tile_kernel",))
 
 
 def traced(fn, trace_name: str) -> tuple[float, list[dict]]:
@@ -1236,15 +1633,17 @@ def profile_path(run, path: str, steps: int, seconds_per_request: float) -> dict
 
 
 def wrappers() -> dict:
-    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    """Each kernel's wrapper, whose ``launches`` counts its launches (the row
+    quantizer's: its launches inside the int8 calls of the others too)."""
     from gpt2_image_captioning_tpu_torch.ops import attention as A
     from gpt2_image_captioning_tpu_torch.ops import decode_attention as DA
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+    from gpt2_image_captioning_tpu_torch.ops import quant as Q
 
     return {"decode_attention": DA.decode_attention_cuda, "fused_linear": DS.fused_linear_cuda,
             "logits_argmax": DS.logits_argmax_cuda, "flash_attention": A.flash_attention_cuda,
             "logits": DS.logits_cuda, "logits_topk": DS.logits_topk_cuda,
-            "logits_sample": DS.logits_sample_cuda}
+            "logits_sample": DS.logits_sample_cuda, "rowquant": Q.rowquant_cuda}
 
 
 def reset_launches() -> None:
@@ -1272,13 +1671,23 @@ def run_counted(fn, reqs) -> tuple[list, float, dict]:
     return outs, seconds, read_launches()
 
 
+def rowquant_per_step(n_layer: int, quant: bool, quant_cache: bool = False) -> int:
+    """Row quantizer launches of one decode step: W8A8 quantizes the input of
+    each of a layer's four projections and of the vocabulary; the int8 cache
+    quantizes each layer's new K and V rows."""
+    return (4 * n_layer + 1) * quant + 2 * n_layer * quant_cache
+
+
 def check_decode_launches(launches: dict, vocab_kernel: str, steps: int, requests: int,
-                          n_layer: int, flash_per_request: int) -> None:
+                          n_layer: int, flash_per_request: int, quant: bool = False,
+                          quant_cache: bool = False) -> None:
     """Each decode step launched the layers' kernels once a layer and this
-    path's vocabulary kernel once; the other vocabulary kernels never ran."""
+    path's vocabulary kernel once, and the row quantizer as its int8 modes
+    need; the other vocabulary kernels never ran."""
     want = {"flash_attention": flash_per_request * requests, "decode_attention": n_layer * steps,
             "fused_linear": 4 * n_layer * steps, "logits_argmax": 0, "logits": 0,
-            "logits_topk": 0, "logits_sample": 0, "decode_attention_start": 0}
+            "logits_topk": 0, "logits_sample": 0, "decode_attention_start": 0,
+            "rowquant": rowquant_per_step(n_layer, quant, quant_cache) * steps}
     want[vocab_kernel] = steps
     check(launches == want, f"launches {launches} != {want} ({steps} decode steps)")
 
@@ -1299,36 +1708,67 @@ def serving_model():
 MODEL_NAME = "GPT-2 124M + transformer mapper (512->768, 15+10)"
 
 
-def greedy_path(model, reqs) -> tuple[dict, dict, dict]:
+def int8_decoder(model, **kw):
+    """Module-level ``generate`` on the façade's bf16 weights through their
+    W8A8 pack, for the int8 options the façade does not take (the int8
+    cache, the in-kernel draw): ``run(embeddings, use_kernels)``."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    tr, fz, pol = model.decode_params("bf16")
+    packed = C.prepare_decode_weights(tr, fz, model.cfg, pol, quant=True)
+
+    def run(r, use=None):
+        return C.generate(tr, fz, model.cfg, torch.as_tensor(r, device="cuda"), max_length=50,
+                          policy=pol, packed=packed, decode_quant=True, use_kernels=use, **kw)
+
+    return run
+
+
+def greedy_path(model, reqs, precision: str = "bf16",
+                quant_cache: bool = False) -> tuple[dict, dict, dict]:
+    """Greedy serving, 50 tokens: ``ImageCaptioningModel.generate`` at
+    ``precision`` (bf16, or int8: W8A8 from the bf16 copy), or with
+    ``quant_cache`` module-level ``generate(decode_quant=True,
+    decode_quant_cache=True)`` on the same weights."""
     cfg = model.cfg
-    kw = dict(max_length=50, temperature=0.0, decode_precision="bf16")
-    model.generate(reqs[0], **kw)  # warm-up: bf16 weight copy, packing, first launches
+    quant = precision == "int8"
+    if quant_cache:
+        run = int8_decoder(model, temperature=0.0, decode_quant_cache=True)
+        path = "greedy_int8_kv"
+    else:
+        def run(r, use=None):
+            return model.generate(r, max_length=50, temperature=0.0, decode_precision=precision,
+                                  use_kernels=use)
+        path = "greedy_int8" if quant else "greedy"
+    run(reqs[0])  # warm-up: bf16 weight copy, packing, first launches
     torch.cuda.synchronize()
-    outs, seconds, launches = run_counted(lambda r: model.generate(r, **kw), reqs)
+    outs, seconds, launches = run_counted(run, reqs)
     steps = sum(decode_steps(o, cfg.eos_token_id) for o in outs)
     flash_per_request = cfg.mapping.num_layers + cfg.gpt2.n_layer  # the mapper, the prefill
     check_decode_launches(launches, "logits_argmax", steps, len(reqs), cfg.gpt2.n_layer,
-                          flash_per_request)
+                          flash_per_request, quant, quant_cache)
     for o in outs:
         check(tuple(o.shape) == (B, 50) and o.dtype == torch.int32, f"bad output {o.shape}")
         check_padding(o, cfg.eos_token_id, cfg.gpt2.vocab_size)
 
     t0 = time.perf_counter()
-    plain = [model.generate(r, use_kernels=False, **kw) for r in reqs]
+    plain = [run(r, use=False) for r in reqs]
     torch.cuda.synchronize()
     plain_seconds = time.perf_counter() - t0
     same = sum(int((a == b).all(dim=1).sum()) for a, b in zip(outs, plain))
 
-    drift = one_step_drift(model, torch.from_numpy(reqs[0]).cuda())
+    drift = one_step_drift(model, torch.from_numpy(reqs[0]).cuda(), quant)
     worst, checked, agree = 0.0, 0, 0.0
     for r, o in zip(reqs, outs):
-        w, n, a = teacher_forced(model, torch.from_numpy(r).cuda(), o)
+        w, n, a = teacher_forced(model, torch.from_numpy(r).cuda(), o, quant=quant,
+                                 quant_cache=quant_cache)
         worst, checked, agree = max(worst, w), checked + n, agree + a * n
-    check(worst <= TF_TOL, f"teacher-forced: a chosen token is {worst} below the plain max "
-                           f"(tolerance {TF_TOL})")
+    check(worst <= TF_TOL, f"teacher-forced ({path}): a chosen token is {worst} below the plain "
+                           f"max (tolerance {TF_TOL})")
     record = {
-        "phase": "main_path", "model": MODEL_NAME,
-        "dtype": "bf16", "requests": len(reqs), "batch": B, "max_length": 50,
+        "phase": "main_path" if path == "greedy" else f"{path}_path", "model": MODEL_NAME,
+        "dtype": "bf16" + (", W8A8" if quant else "") + (", int8 KV cache" if quant_cache else ""),
+        "requests": len(reqs), "batch": B, "max_length": 50,
         "decode_steps": steps, "launches": launches,
         "img_per_s_kernels": len(reqs) * B / seconds, "seconds_kernels": seconds,
         "img_per_s_plain": len(reqs) * B / plain_seconds, "seconds_plain": plain_seconds,
@@ -1338,51 +1778,63 @@ def greedy_path(model, reqs) -> tuple[dict, dict, dict]:
                            "share_plain_argmax": agree / checked},
         "card": nvidia_smi(),
     }
-    profiled = profile_path(lambda: model.generate(reqs[0], **kw), "greedy",
-                            decode_steps(outs[0], cfg.eos_token_id), seconds / len(reqs))
+    profiled = profile_path(lambda: run(reqs[0]), path, decode_steps(outs[0], cfg.eos_token_id),
+                            seconds / len(reqs))
     return record, launches, profiled
 
 
-def sampled_path(model, reqs) -> tuple[dict, dict, dict]:
+def sampled_path(model, reqs, precision: str = "bf16",
+                 in_kernel: bool = False) -> tuple[dict, dict, dict]:
     """Top-p sampling through the façade at its defaults (temperature 1.0,
-    top_p 0.9, a generator seeded with 0 per call), bf16, 50 tokens."""
+    top_p 0.9, a generator seeded with 0 per call), 50 tokens, at
+    ``precision`` (bf16, or int8); ``in_kernel`` (int8): module-level
+    ``generate(decode_quant=True, sample_in_kernel=True)`` on the same
+    weights, the draw inside the step."""
     cfg = model.cfg
-    kw = dict(max_length=50, decode_precision="bf16")
-    model.generate(reqs[0], **kw)  # warm-up
+    quant = precision == "int8"
+    if in_kernel:
+        run = int8_decoder(model, temperature=1.0, top_p=TOP_P, sample_in_kernel=True)
+        path, vocab = "in_kernel_int8", "logits_sample"
+    else:
+        def run(r, use=None):
+            return model.generate(r, max_length=50, decode_precision=precision, use_kernels=use)
+        path, vocab = ("sampled_int8" if quant else "sampled"), "logits"
+    run(reqs[0])  # warm-up
     torch.cuda.synchronize()
-    outs, seconds, launches = run_counted(lambda r: model.generate(r, **kw), reqs)
+    outs, seconds, launches = run_counted(run, reqs)
     steps = sum(decode_steps(o, cfg.eos_token_id) for o in outs)
-    check_decode_launches(launches, "logits", steps, len(reqs), cfg.gpt2.n_layer,
-                          cfg.mapping.num_layers + cfg.gpt2.n_layer)
+    check_decode_launches(launches, vocab, steps, len(reqs), cfg.gpt2.n_layer,
+                          cfg.mapping.num_layers + cfg.gpt2.n_layer, quant)
     for o in outs:
         check(tuple(o.shape) == (B, 50) and o.dtype == torch.int32, f"bad output {o.shape}")
         check_padding(o, cfg.eos_token_id, cfg.gpt2.vocab_size)
 
     t0 = time.perf_counter()
-    plain = [model.generate(r, use_kernels=False, **kw) for r in reqs]
+    plain = [run(r, use=False) for r in reqs]
     torch.cuda.synchronize()
     plain_seconds = time.perf_counter() - t0
 
     worst, checked, top1 = 0.0, 0, 0.0
     for r, o in zip(reqs, outs):
-        w, n, t1 = nucleus_mass(model, torch.from_numpy(r).cuda(), o, 1.0)
+        w, n, t1 = nucleus_mass(model, torch.from_numpy(r).cuda(), o, 1.0, quant=quant)
         worst, checked, top1 = max(worst, w), checked + n, top1 + t1 * n
-    check(worst <= TOP_P + NUCLEUS_SLACK,
-          f"a drawn token has plain mass {worst} above it (top_p {TOP_P} + {NUCLEUS_SLACK})")
+    slack = NUCLEUS_SLACK_INT8 if quant else NUCLEUS_SLACK
+    check(worst <= TOP_P + slack,
+          f"a drawn token has plain mass {worst} above it (top_p {TOP_P} + {slack})")
     record = {
-        "phase": "sampled_path", "model": MODEL_NAME, "dtype": "bf16",
+        "phase": f"{path}_path", "model": MODEL_NAME, "dtype": "bf16" + (", W8A8" if quant else ""),
         "temperature": 1.0, "top_p": TOP_P, "requests": len(reqs), "batch": B, "max_length": 50,
         "decode_steps": steps, "launches": launches,
         "img_per_s_kernels": len(reqs) * B / seconds, "seconds_kernels": seconds,
         "img_per_s_plain": len(reqs) * B / plain_seconds, "seconds_plain": plain_seconds,
         "rows_identical_to_plain": sum(int((a == b).all(dim=1).sum()) for a, b in zip(outs, plain)),
         "rows": len(reqs) * B,
-        "nucleus": {"worst_mass_above": worst, "limit": TOP_P + NUCLEUS_SLACK,
+        "nucleus": {"worst_mass_above": worst, "limit": TOP_P + slack,
                     "tokens_checked": checked, "share_plain_argmax": top1 / checked},
         "card": nvidia_smi(),
     }
-    profiled = profile_path(lambda: model.generate(reqs[0], **kw), "sampled",
-                            decode_steps(outs[0], cfg.eos_token_id), seconds / len(reqs))
+    profiled = profile_path(lambda: run(reqs[0]), path, decode_steps(outs[0], cfg.eos_token_id),
+                            seconds / len(reqs))
     return record, launches, profiled
 
 
@@ -1402,27 +1854,29 @@ def beam_f32(model, emb: torch.Tensor, length_penalty: float) -> dict:
     return {"images": n, "captions_identical": same, "parted_allowed": BEAM_F32_PARTED}
 
 
-def beam_path(model, reqs, length_penalty: float = 1.0) -> tuple[dict, dict, dict]:
+def beam_path(model, reqs, length_penalty: float = 1.0,
+              quant: bool = False) -> tuple[dict, dict, dict]:
     """Beam search, 4 beams on each request's 128 images (512 decode rows),
-    bf16, 50 tokens, through ``beam_generate`` on the façade's bf16 weights."""
+    bf16, 50 tokens, through ``beam_generate`` on the façade's bf16 weights
+    (``quant``: ``decode_quant=True``, their W8A8 pack)."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
 
     cfg = model.cfg
     tr, fz, pol = model.decode_params("bf16")
-    packed = C.prepare_decode_weights(tr, fz, cfg, pol)
+    packed = C.prepare_decode_weights(tr, fz, cfg, pol, quant=quant)
     embs = [torch.from_numpy(r).cuda() for r in reqs]
 
     def run(emb, use=None):
         return C.beam_generate(tr, fz, cfg, emb, max_length=50, beam_size=BEAM_K,
                                length_penalty=length_penalty, policy=pol, packed=packed,
-                               use_kernels=use)
+                               use_kernels=use, decode_quant=quant)
 
     run(embs[0])  # warm-up
     torch.cuda.synchronize()
     outs, seconds, launches = run_counted(run, embs)
     steps = 49 * len(reqs)  # a fixed 50 selections; the last one's forward is skipped
     check_decode_launches(launches, "logits_topk", steps, len(reqs), cfg.gpt2.n_layer,
-                          cfg.mapping.num_layers + cfg.gpt2.n_layer)
+                          cfg.mapping.num_layers + cfg.gpt2.n_layer, quant)
     for o in outs:
         check(tuple(o.shape) == (B, 50) and o.dtype == torch.int32, f"bad output {o.shape}")
         check_padding(o, cfg.eos_token_id, cfg.gpt2.vocab_size)
@@ -1435,12 +1889,12 @@ def beam_path(model, reqs, length_penalty: float = 1.0) -> tuple[dict, dict, dic
     score_err, shortfall, same, parted_at = 0.0, [], 0, {}
     for e, o, p in zip(embs, outs, plain):
         beams = C._beam_search(tr, fz, cfg, e, max_length=50, beam_size=BEAM_K, policy=pol,
-                               use_kernels=None, packed=packed)
+                               use_kernels=None, packed=packed, decode_quant=quant)
         best, searched = C._best_beam(*beams, length_penalty=length_penalty)
         check(torch.equal(best, o), "the kernels' search is not deterministic")
-        sk = plain_scores(model, e, o, length_penalty)
+        sk = plain_scores(model, e, o, length_penalty, quant=quant)
         score_err = max(score_err, float((searched - sk).abs().max()))
-        shortfall.append(plain_scores(model, e, p, length_penalty) - sk)
+        shortfall.append(plain_scores(model, e, p, length_penalty, quant=quant) - sk)
         same += int((o == p).all(dim=1).sum())
         # where the two searches' chosen captions first differ, by position
         differs = o != p
@@ -1452,9 +1906,11 @@ def beam_path(model, reqs, length_penalty: float = 1.0) -> tuple[dict, dict, dic
     mean_short = float(shortfall.mean())
     check(mean_short <= BEAM_MEAN_TOL, f"the kernels' captions score {mean_short} below the plain "
                                        f"path's on average (tolerance {BEAM_MEAN_TOL})")
-    f32 = beam_f32(model, embs[0][:BEAM_F32_IMAGES], length_penalty)
+    # float32 at full width (the float kernels; tiny_exact holds the int8 ones in float32)
+    f32 = None if quant else beam_f32(model, embs[0][:BEAM_F32_IMAGES], length_penalty)
     record = {
-        "phase": "beam_path", "model": MODEL_NAME, "dtype": "bf16", "beam_size": BEAM_K,
+        "phase": "beam_int8_path" if quant else "beam_path", "model": MODEL_NAME,
+        "dtype": "bf16, W8A8" if quant else "bf16", "beam_size": BEAM_K,
         "length_penalty": length_penalty, "requests": len(reqs), "images": B,
         "decode_rows": B_BEAM, "max_length": 50, "decode_steps": steps, "launches": launches,
         "img_per_s_kernels": len(reqs) * B / seconds, "seconds_kernels": seconds,
@@ -1467,7 +1923,8 @@ def beam_path(model, reqs, length_penalty: float = 1.0) -> tuple[dict, dict, dic
                                     "images_over_0.05": int((shortfall > 0.05).sum())},
         "float32": f32, "card": nvidia_smi(),
     }
-    profiled = profile_path(lambda: run(embs[0]), "beam", 49, seconds / len(reqs))
+    profiled = profile_path(lambda: run(embs[0]), "beam_int8" if quant else "beam", 49,
+                            seconds / len(reqs))
     return record, launches, profiled
 
 
@@ -1504,16 +1961,17 @@ def served_matrix(ids, caps, eos: int):
     return tokens.cuda(), torch.tensor(n_gen, device="cuda")
 
 
-def check_served_tokens(model, embs, tokens, n_gen, sampled: bool) -> dict:
+def check_served_tokens(model, embs, tokens, n_gen, sampled: bool, quant: bool = False) -> dict:
     """Teacher-forced along each request's generated tokens on the plain
-    path, in blocks of 256 requests: greedy, each token's plain logit within
-    TF_TOL of the plain max; sampled (temperature 1.0), the plain mass
-    strictly above each token <= TOP_P + NUCLEUS_SLACK."""
-    worst, checked, hits = (-1.0 if sampled else 0.0), 0, 0
+    path (``quant``: W8A8), in blocks of 256 requests: greedy, each token's
+    plain logit within TF_TOL (int8: TF_TOL_INT8_SERVED) of the plain max,
+    and the tokens above TF_TOL counted; sampled (temperature 1.0), the plain
+    mass strictly above each token <= TOP_P + NUCLEUS_SLACK."""
+    worst, checked, hits, over = (-1.0 if sampled else 0.0), 0, 0, 0
     for c0 in range(0, len(embs), 256):
         emb = torch.from_numpy(embs[c0 : c0 + 256]).cuda()
         tok, ng = tokens[c0 : c0 + 256], n_gen[c0 : c0 + 256]
-        for s, logits, alive in plain_logits_along(model, emb, tok):
+        for s, logits, alive in plain_logits_along(model, emb, tok, quant=quant):
             live = alive & (s < ng)
             if not bool(live.any()):
                 continue
@@ -1522,27 +1980,35 @@ def check_served_tokens(model, embs, tokens, n_gen, sampled: bool) -> dict:
                 above = torch.where(logits > chosen, torch.softmax(logits, dim=-1), 0.0).sum(-1)
                 worst = max(worst, float(above[live].max()))
             else:
-                worst = max(worst, float((logits.max(dim=-1).values - chosen[:, 0])[live].max()))
+                deficit = (logits.max(dim=-1).values - chosen[:, 0])[live]
+                worst = max(worst, float(deficit.max()))
+                over += int((deficit > TF_TOL).sum())
             hits += int((logits.argmax(dim=-1) == tok[:, s])[live].sum())
             checked += int(live.sum())
     if sampled:
         check(worst <= TOP_P + NUCLEUS_SLACK, f"a served token has plain mass {worst} above it")
         return {"worst_mass_above": worst, "limit": TOP_P + NUCLEUS_SLACK,
                 "tokens_checked": checked, "share_plain_argmax": hits / checked}
-    check(worst <= TF_TOL, f"a served greedy token is {worst} below the plain max")
-    return {"worst_deficit": worst, "tolerance": TF_TOL, "tokens_checked": checked,
-            "share_plain_argmax": hits / checked}
+    tol = TF_TOL_INT8_SERVED if quant else TF_TOL
+    check(worst <= tol, f"a served greedy token is {worst} below the plain max ({over} of "
+                        f"{checked} above {TF_TOL}, {hits / checked} the plain argmax)")
+    return {"worst_deficit": worst, "tolerance": tol, "tokens_checked": checked,
+            f"tokens_over_{TF_TOL}": over, "share_plain_argmax": hits / checked}
 
 
-def continuous_path(model, mode: str, embs: np.ndarray, caps: np.ndarray):
+def continuous_path(model, mode: str, embs: np.ndarray, caps: np.ndarray,
+                    precision: str = "bf16"):
     """``ContinuousCaptionService`` at full width: 512 slots, segment 4, 8
-    bursts, 32 admissions, 50 tokens, bf16, all requests submitted up front;
-    ``mode`` greedy, sampled on the logits tail or sampled in the kernel
-    (temperature 1.0, top_p 0.9)."""
+    bursts, 32 admissions, 50 tokens, at ``precision`` (bf16, or int8: W8A8
+    from the bf16 copy), all requests submitted up front; ``mode`` greedy,
+    sampled on the logits tail or sampled in the kernel (temperature 1.0,
+    top_p 0.9)."""
     from gpt2_image_captioning_tpu_torch.serving import ContinuousCaptionService
 
     cfg, eos = model.cfg, model.cfg.eos_token_id
-    kw = dict(CONTINUOUS, decode_precision="bf16", seed=0, **CONTINUOUS_MODES[mode])
+    quant = precision == "int8"
+    name = f"continuous_{mode}" + ("_int8" if quant else "")
+    kw = dict(CONTINUOUS, decode_precision=precision, seed=0, **CONTINUOUS_MODES[mode])
     served_ids(ContinuousCaptionService(model, **kw), embs[:64], np.full(64, 8))  # warm-up
     svc = ContinuousCaptionService(model, **kw)
     check(len(embs) >= svc.recommended_inflight(), "fewer requests than recommended_inflight()")
@@ -1560,16 +2026,19 @@ def continuous_path(model, mode: str, embs: np.ndarray, caps: np.ndarray):
     want = {"flash_attention": (cfg.mapping.num_layers + n_layer) * prefills,
             "decode_attention": n_layer * steps, "decode_attention_start": n_layer * steps,
             "fused_linear": 4 * n_layer * steps, "logits_argmax": 0, "logits": 0,
-            "logits_topk": 0, "logits_sample": 0}
+            "logits_topk": 0, "logits_sample": 0,
+            "rowquant": rowquant_per_step(n_layer, quant) * steps}
     want[vocab] = steps
-    check(launches == want, f"continuous {mode}: launches {launches} != {want}")
+    check(launches == want, f"{name}: launches {launches} != {want}")
     for r, c in zip(ids, caps):
         check(len(r) <= c and all(0 <= t < eos for t in r), "a served caption breaks its cap")
     tokens, n_gen = served_matrix(ids, caps, eos)
-    checked = check_served_tokens(model, embs, tokens, n_gen, sampled=mode != "greedy")
+    checked = check_served_tokens(model, embs, tokens, n_gen, sampled=mode != "greedy",
+                                  quant=quant)
     stats = svc.stats
     record = {
-        "phase": f"continuous_{mode}", "model": MODEL_NAME, "dtype": "bf16", **CONTINUOUS,
+        "phase": name, "model": MODEL_NAME, "dtype": "bf16" + (", W8A8" if quant else ""),
+        **CONTINUOUS,
         **CONTINUOUS_MODES[mode], "requests": len(embs), "caps": [int(caps.min()), int(caps.max())],
         "recommended_inflight": svc.recommended_inflight(), "seconds": seconds,
         "requests_per_s": len(embs) / seconds, "tokens_per_s": int(n_gen.sum()) / seconds,
@@ -1589,14 +2058,14 @@ def continuous_path(model, mode: str, embs: np.ndarray, caps: np.ndarray):
         one_shot = []
         for c0 in range(0, len(embs), B_SERVE):
             out = model.generate(embs[c0 : c0 + B_SERVE], max_length=50, temperature=0.0,
-                                 decode_precision="bf16")
+                                 decode_precision=precision)
             one_shot += one_shot_ids(out, caps[c0 : c0 + B_SERVE], eos)
         record["identical_to_one_shot_generate"] = sum(a == b for a, b in zip(ids, one_shot)) / len(ids)
     # one more run of a pool's worth of requests, traced, for the device's idle share
     traced_svc = ContinuousCaptionService(model, **kw)
     profiled, traced_staged = counting_macros(
         lambda: profile_request(lambda: served_ids(traced_svc, embs[:B_SERVE], caps[:B_SERVE]),
-                                f"continuous_{mode}", 0))
+                                name, 0))
     profiled.update(decode_steps=per_macro * len(traced_staged), requests=B_SERVE)
     return record, launches, profiled
 
@@ -1754,29 +2223,53 @@ def main() -> int:
     kernel_rows = {}
     checks = (check_attention, check_attention_origin, check_attention_start, check_linear,
               check_logits_argmax, check_logits, check_logits_topk, check_sampler, check_flash)
+    int8_checks = (check_rowquant, check_linear_int8, check_vocab_int8, check_attention_int8)
     for dtype in (torch.bfloat16, torch.float32):
-        for fn in checks:
-            rec = fn(dtype, g)
-            rec = {"phase": "kernel_vs_plain", "dtype": str(dtype).replace("torch.", ""), **rec}
-            emit(rec)
-            if dtype == torch.bfloat16:
-                kernel_rows[rec["kernel"] + ("_" + rec["mode"] if "mode" in rec else "")] = rec
+        for fn in checks + int8_checks:
+            recs = fn(dtype, g)
+            for rec in recs if isinstance(recs, list) else [recs]:
+                rec = {"phase": "kernel_vs_plain", "dtype": str(dtype).replace("torch.", ""),
+                       **rec}
+                emit(rec)
+                if dtype == torch.bfloat16:
+                    kernel_rows[rec["kernel"] + ("_" + rec["mode"] if "mode" in rec else "")] = rec
     emit(check_flash_backward(g))
 
-    for mode in ("greedy", "sampled", "beam", "continuous"):
+    for mode in ("greedy", "sampled", "beam", "continuous", "greedy_int8", "greedy_int8_kv",
+                 "beam_int8", "continuous_int8"):
         emit(tiny_exact(mode))
     model, reqs = serving_model()
-    launches = {}
+    launches, bf16 = {}, {}
     for path, fn in (("greedy", greedy_path), ("sampled", sampled_path), ("beam", beam_path)):
         record, launches[path], profiled = fn(model, reqs)
+        bf16[path] = record
+        emit(record)
+        emit(profiled)
+    # the int8 paths, each beside the bf16 figure of its path from this run
+    int8_paths = (
+        ("greedy_int8", "greedy", lambda: greedy_path(model, reqs, "int8")),
+        ("greedy_int8_kv", "greedy", lambda: greedy_path(model, reqs, "int8", quant_cache=True)),
+        ("sampled_int8", "sampled", lambda: sampled_path(model, reqs, "int8")),
+        ("in_kernel_int8", "sampled", lambda: sampled_path(model, reqs, "int8", in_kernel=True)),
+        ("beam_int8", "beam", lambda: beam_path(model, reqs, quant=True)),
+    )
+    for path, base, fn in int8_paths:
+        record, launches[path], profiled = fn()
+        record["bf16_same_run"] = {k: bf16[base][k] for k in ("img_per_s_kernels",
+                                                               "seconds_kernels")}
         emit(record)
         emit(profiled)
     model.tokenizer = synthetic_tokenizer(V)
     rng = np.random.default_rng(1)
     embs = rng.normal(size=(CONTINUOUS_REQUESTS, 512)).astype(np.float32)
     caps = rng.integers(8, CONTINUOUS["max_length"] + 1, size=CONTINUOUS_REQUESTS)
-    for mode in CONTINUOUS_MODES:
-        record, launches[f"continuous_{mode}"], profiled = continuous_path(model, mode, embs, caps)
+    for mode, precision in [(m, "bf16") for m in CONTINUOUS_MODES] + [("greedy", "int8")]:
+        record, counts, profiled = continuous_path(model, mode, embs, caps, precision)
+        launches[record["phase"]] = counts
+        if precision == "int8":
+            record["bf16_same_run"] = {k: bf16["continuous_greedy"][k] for k in (
+                "requests_per_s", "latency_p50_s", "latency_p95_s", "occupancy")}
+        bf16[record["phase"]] = record
         emit(record)
         emit(profiled)
     del model
@@ -1812,12 +2305,37 @@ def main() -> int:
         "logits_sample": ("logits_sample.cu", f"{step_kernel}:641", "continuous_in_kernel",
                           f"call (2 + {SAMPLE_ROUNDS} CUDA launches), B 512, temperature 1.0, "
                           f"top_p {TOP_P}"),
+        # the int8 modes: W8A8 (rowquant :234, stream_matmul :262-287, the
+        # vocabulary's int8 tile :555-563 in each vocabulary mode) and the
+        # int8 KV cache (:311-323, :404-409); the same wrappers, so the same
+        # counters, read on the int8 paths
+        "rowquant": ("rowquant.cu", f"{step_kernel}:234", "greedy_int8",
+                     "CUDA launch: LN + quantize, B 128, D 768; launched inside the int8 calls"),
+        "fused_linear_int8": ("fused_linear.cu", f"{step_kernel}:262", "greedy_int8",
+                              "layer: 4 calls (8 CUDA launches: rowquant + int8 tile each)"),
+        "logits_argmax_int8": ("logits_argmax.cu", f"{step_kernel}:555", "greedy_int8",
+                               "call (3 CUDA launches), B 128"),
+        "logits_int8": ("logits.cu", f"{step_kernel}:555", "sampled_int8",
+                        "call (2 CUDA launches), B 128, emit_logits (:617)"),
+        "logits_topk_int8": ("logits_topk.cu", f"{step_kernel}:555", "beam_int8",
+                             "call (3 CUDA launches), B 512, k 4, topk (:569)"),
+        "logits_sample_int8": ("logits_sample.cu", f"{step_kernel}:555", "in_kernel_int8",
+                               f"call (2 + {SAMPLE_ROUNDS} CUDA launches), B 512, temperature "
+                               f"1.0, top_p {TOP_P}, sample (:641)"),
+        "decode_attention_int8_kv": ("decode_attention.cu", f"{step_kernel}:311",
+                                     "greedy_int8_kv",
+                                     "call (3 CUDA launches), idx 64, B 128, int8 cache"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def counter(name):  # the wrapper whose count a row reads
+        return name.removesuffix("_int8_kv").removesuffix("_int8")
+
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{source}{src}", "replaces": replaces,
-         "launches": launches[home][name], **{k: kernel_rows[name][k] for k in keys}, "per": per,
-         "launches_by_path": {path: counts[name] for path, counts in launches.items()}}
+         "launches": launches[home][counter(name)], **{k: kernel_rows[name][k] for k in keys},
+         "per": per, "path": home,
+         "launches_by_path": {path: counts[counter(name)] for path, counts in launches.items()}}
         for name, (src, replaces, home, per) in rows.items()
     ]}
     origin = kernel_rows["decode_attention_origin"]

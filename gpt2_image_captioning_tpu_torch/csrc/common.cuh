@@ -1,17 +1,20 @@
 // Shared pieces of the port's CUDA kernels: element types, warp reductions,
 // and the tiled row-block x weight-tile product that fused_linear.cu and
-// logits_argmax.cu both run.
+// the vocabulary kernels all run.
 //
 // Element type codes match ops/_build.py::DTYPE_CODE: 0 = float, 1 = bf16.
 // Inputs are read in the element type, products accumulate in float32, and
 // LayerNorm statistics are float32, as in the TPU kernel
-// (gpt2_image_captioning_tpu/ops/decode_step.py::_step_kernel).
+// (gpt2_image_captioning_tpu/ops/decode_step.py::_step_kernel).  The W8A8
+// mode (the step kernel's quant mode) multiplies int8 rows by int8 weights
+// with int32 accumulators and dequantizes each tile as acc * sx * sw.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <cstdint>
 #include <type_traits>
 
 namespace gic {
@@ -35,6 +38,20 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// csrc/rowquant.cu: per-row symmetric int8 quantization of M rows of K (row
+// m of x at x + m * ld, in T, or with LN the float32 rows LayerNorm'd and
+// rounded to T first) into q (row m at q + m * ldq) and sx (M,) float32.
+// One launch on stream s; T is float or __nv_bfloat16.
+template <typename T, bool LN>
+void launch_rowquant(cudaStream_t s, const void* x, int ld, const float* ln_s, const float* ln_b,
+                     float eps, int M, int K, int8_t* q, int ldq, float* sx);
+
 // ---------------------------------------------------------------------------
 // Tiled product: one block computes a BM x BN tile of
 //   Y = prologue(X) @ W^T,   X (M, K) row-major,  W (N, K) row-major,
@@ -49,7 +66,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 //
 // bf16 runs on the tensor cores through WMMA 16x16x16 fragments (float
 // accumulators); float runs as plain FMA, so the float build reproduces the
-// reference in full float32.
+// reference in full float32.  int8 (W8A8: X quantized per row by
+// rowquant.cu, W per output column by ops/quant.py::colquant) runs WMMA
+// signed-char 16x16x16 fragments with int32 accumulators, exact at any K;
+// the tile is dequantized on its way to sm.cs as (float)acc * sx[row] *
+// sw[col] (decode_step.py:286, :562), so every epilogue reads float tiles
+// whatever the operand type.
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64;       // rows of X (batch rows) per block
@@ -67,6 +89,34 @@ struct __align__(32) TileSmem {
   float mean[BM];
   float rstd[BM];
 };
+
+// int8: each 16-deep k-slice of the stage is stored apart ([slice][row][16]),
+// so every WMMA fragment starts on a 32-byte boundary (an int8 fragment
+// 16 bytes into a padded row would not); sx/sw hold the tile's row and
+// column scales.
+constexpr int KS = BK / 16;  // k-slices of one stage
+template <>
+struct __align__(32) TileSmem<int8_t> {
+  __align__(32) int8_t xs[KS][BM][16];
+  __align__(32) int8_t ws[KS][BN][16];
+  __align__(32) float cs[BM][LDC];
+  float sx[BM];
+  float sw[BN];
+};
+
+// Where a stage's 16-byte vector of row r, columns c.., is stored.
+template <typename T>
+__device__ __forceinline__ T* x_slot(TileSmem<T>& sm, int r, int c) { return &sm.xs[r][c]; }
+template <typename T>
+__device__ __forceinline__ T* w_slot(TileSmem<T>& sm, int r, int c) { return &sm.ws[r][c]; }
+template <>
+__device__ __forceinline__ int8_t* x_slot(TileSmem<int8_t>& sm, int r, int c) {
+  return &sm.xs[c / 16][r][0];
+}
+template <>
+__device__ __forceinline__ int8_t* w_slot(TileSmem<int8_t>& sm, int r, int c) {
+  return &sm.ws[c / 16][r][0];
+}
 
 // LayerNorm statistics of one float32 row, two-pass (mean, then the mean of
 // squared deviations), by one warp; every lane gets the result.
@@ -105,8 +155,8 @@ __device__ void load_row_stats(TileSmem<T>& sm, const float* stats, int M, int m
 // stage is a 16-byte vector and all of a thread's loads are issued before
 // any of them is stored, so each thread keeps several loads in flight; the
 // caller issues stage k+1's loads before stage k's MMAs (tile_product).
-// Needs K to be a multiple of the vector width (8 bf16 / 4 float) and
-// 16-byte-aligned rows, which the wrappers check.
+// Needs K to be a multiple of the vector width (8 bf16 / 4 float / 16 int8)
+// and 16-byte-aligned rows, which the wrappers check.
 template <typename T, bool LN>
 struct StageRegs {
   using XT = typename std::conditional<LN, float, T>::type;  // element type of X in memory
@@ -145,7 +195,7 @@ struct StageRegs {
     for (int i = 0; i < NX; ++i) {
       const int v = threadIdx.x + i * THREADS;
       const int r = v / (BK / XE), c = (v % (BK / XE)) * XE;
-      if (LN) {
+      if constexpr (LN) {
         const float* xv = reinterpret_cast<const float*>(&x[i]);
 #pragma unroll
         for (int e = 0; e < XE; ++e) {
@@ -155,14 +205,14 @@ struct StageRegs {
                                   : from_f32<T>(0.f);
         }
       } else {
-        *reinterpret_cast<uint4*>(&sm.xs[r][c]) = x[i];
+        *reinterpret_cast<uint4*>(x_slot(sm, r, c)) = x[i];
       }
     }
 #pragma unroll
     for (int i = 0; i < NW; ++i) {
       const int v = threadIdx.x + i * THREADS;
       const int r = v / (BK / WE), c = (v % (BK / WE)) * WE;
-      *reinterpret_cast<uint4*>(&sm.ws[r][c]) = w[i];
+      *reinterpret_cast<uint4*>(w_slot(sm, r, c)) = w[i];
     }
   }
 };
@@ -235,17 +285,70 @@ template <> struct TileMma<float> {
   }
 };
 
+// int8: warp w owns rows 16w .. 16w+15 and all BN columns, as bf16 does;
+// its int32 tile goes to sm.cs as ints and is dequantized in place.
+template <> struct TileMma<int8_t> {
+  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, int> acc[BN / 16];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j) nvcuda::wmma::fill_fragment(acc[j], 0);
+  }
+  __device__ void step(TileSmem<int8_t>& sm) {
+    using namespace nvcuda;
+    const int warp = threadIdx.x / 32;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
+      wmma::load_matrix_sync(a, &sm.xs[s][warp * 16][0], 16);
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) {
+        // B = W^T: element (k, n) sits at ws[s][n][k % 16], column-major with pitch 16
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b;
+        wmma::load_matrix_sync(b, &sm.ws[s][j * 16][0], 16);
+        wmma::mma_sync(acc[j], a, b, acc[j]);
+      }
+    }
+  }
+  __device__ void store(TileSmem<int8_t>& sm) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+#pragma unroll
+    for (int j = 0; j < BN / 16; ++j)
+      nvcuda::wmma::store_matrix_sync(reinterpret_cast<int*>(&sm.cs[warp * 16][j * 16]), acc[j],
+                                      LDC, nvcuda::wmma::mem_row_major);
+    __syncwarp();
+    for (int i = lane; i < 16 * BN; i += 32) {  // this warp's own rows
+      const int r = warp * 16 + i / BN, c = i % BN;
+      float& cell = sm.cs[r][c];
+      cell = (float)__float_as_int(cell) * sm.sx[r] * sm.sw[c];
+    }
+  }
+};
+
+// Copy the row scales of rows m0.. and the column scales of columns n0..
+// into shared memory (0 past M and N, whose products are padding anyway).
+__device__ __forceinline__ void load_scales(TileSmem<int8_t>& sm, const float* sx,
+                                            const float* sw, int M, int N, int m0, int n0) {
+  for (int r = threadIdx.x; r < BM; r += THREADS) sm.sx[r] = m0 + r < M ? sx[m0 + r] : 0.f;
+  for (int c = threadIdx.x; c < BN; c += THREADS) sm.sw[c] = n0 + c < N ? sw[n0 + c] : 0.f;
+}
+
 // Computes this block's tile (rows m0.., columns n0..) into sm.cs; rows >= M
 // and columns >= N hold zeros.  Ends with a barrier, so sm.cs is readable.
 // With LN, ``stats`` holds each row's (mean, rstd) and ln_s/ln_b the scale and
-// bias; without, all three are unused.
+// bias; without, all three are unused.  For int8 operands (never with LN),
+// ``sx`` (M,) and ``sw`` (N,) are the row and column dequantization scales.
 template <typename T, bool LN>
 __device__ void tile_product(TileSmem<T>& sm, const void* x, const float* stats,
                              const float* ln_s, const float* ln_b, const T* w, int M, int K, int N,
-                             int m0, int n0) {
+                             int m0, int n0, const float* sx = nullptr,
+                             const float* sw = nullptr) {
+  static_assert(!(LN && std::is_same<T, int8_t>::value), "int8 rows are quantized after LN");
   StageRegs<T, LN> regs;
   regs.load(x, w, M, K, N, m0, n0, 0);
-  if (LN) load_row_stats(sm, stats, M, m0);
+  if constexpr (LN) load_row_stats(sm, stats, M, m0);
+  // read only by mma.store, after the loop's barriers
+  if constexpr (std::is_same<T, int8_t>::value) load_scales(sm, sx, sw, M, N, m0, n0);
   TileMma<T> mma;
   mma.zero();
   for (int k0 = 0; k0 < K; k0 += BK) {

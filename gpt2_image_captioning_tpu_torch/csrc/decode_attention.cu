@@ -21,7 +21,8 @@
 // Bound on the H100: reading the cache, 2 * idx * B * D elements per layer
 // (25 MB in bf16 at idx 64, B 128, D 768 — more than the layer's weights;
 // 63 MB at idx 40, B 512 in beam search); with start, 2 * (idx - start_r) * D
-// per row (continuous serving reads only the live windows).
+// per row (continuous serving reads only the live windows); int8 caches
+// read half those bytes plus a 4-byte scale per row read.
 //
 // Design: one warp per (batch row, head), the head's hd <= 128 elements
 // spread over the lanes (lane + 32 e).  A chunk's 16 rows are loaded before
@@ -39,6 +40,19 @@
 // masks the positions below it, so every (row, head) skips its own dead
 // history; the TPU's per-batch-block first live chunk has no separate
 // counterpart.
+//
+// int8 KV cache (the step kernel's cache_quant mode, :311-323, :404-409):
+// the caches hold int8 rows with a float32 scale per (position, batch row)
+// in (T, B) arrays.  The new K and V rows are quantized over their whole D,
+// all heads together, so one warp per (row, head) cannot scale them alone:
+// the call's first two launches are rowquant.cu on k_new and v_new, writing
+// the int8 rows into row idx of the caches and their scales into row idx of
+// the scale arrays.  The walk then reads int8 rows and each position's scale
+// (through the ancestry map's row too) and dequantizes as the TPU kernel
+// does, in the compute dtype: to_cdt(float(q) * to_cdt(scale)).  The new
+// row's own term still uses the exact k_new / v_new from registers.  The
+// cache bytes halve (12.6 MB at idx 64, B 128, D 768) plus 4 bytes a row
+// for the scales.
 #include "common.cuh"
 
 namespace gic {
@@ -48,11 +62,22 @@ constexpr int kMaxPerLane = 4;    // head dim up to 4 * 32 = 128
 constexpr int kWarpsPerBlock = 4;
 constexpr float kNegInf = -3.4028234663852886e38f;  // float32 minimum, the mask value
 
-template <typename T, bool kOrigin>
+// A cache element as the walk uses it: C = T as stored, C = int8_t
+// dequantized with its row's scale ``s``, already rounded to T.
+template <typename T, typename C>
+__device__ __forceinline__ float cache_value(C x, float s) {
+  if constexpr (std::is_same<C, int8_t>::value) return to_f32(from_f32<T>((float)x * s));
+  else return to_f32(x);
+}
+
+// T: the compute dtype; C: the cache element type (T, or int8_t with the
+// (T, B) scale arrays ks / vs).
+template <typename T, typename C, bool kOrigin>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
-decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* kc, T* vc, T* out,
+decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, C* kc, C* vc, T* out,
                         int B, int D, int H, int idx, float scale, const int* origin,
-                        int gather_start, const int* start) {
+                        int gather_start, const int* start, const float* ks, const float* vs) {
+  constexpr bool kInt8 = std::is_same<C, int8_t>::value;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int pair = blockIdx.x * kWarpsPerBlock + warp;
   if (pair >= B * H) return;
@@ -72,9 +97,11 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
     knv[e] = in ? to_f32(kn[in_off + j]) : 0.f;
     vnv[e] = in ? to_f32(vn[in_off + j]) : 0.f;
     acc[e] = 0.f;
-    if (in) {  // the append: only rows < idx are read below, so no warp races it
-      kc[(size_t)idx * trow + off + j] = kn[in_off + j];
-      vc[(size_t)idx * trow + off + j] = vn[in_off + j];
+    if constexpr (!kInt8) {  // int8 caches: appended by the call's quantizing launches
+      if (in) {  // the append: only rows < idx are read below, so no warp races it
+        kc[(size_t)idx * trow + off + j] = kn[in_off + j];
+        vc[(size_t)idx * trow + off + j] = vn[in_off + j];
+      }
     }
   }
 
@@ -86,23 +113,31 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
   for (int t0 = first; t0 < idx; t0 += kChunk) {
     float s[kChunk];
     size_t roff[kChunk];  // offset of the cache row position t0 + c is read from
+    float kcs[kChunk], vcs[kChunk];  // int8: that row's scales, rounded to T
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
       const int t = t0 + c;
-      roff[c] = off;
-      if (kOrigin && t >= gather_start && t < idx)
-        roff[c] = (size_t)origin[(size_t)t * B + b] * D + hoff;
+      int src = b;
+      if (kOrigin && t >= gather_start && t < idx) src = origin[(size_t)t * B + b];
+      roff[c] = (size_t)src * D + hoff;
+      kcs[c] = vcs[c] = 0.f;
+      if constexpr (kInt8) {
+        if (t < idx) {
+          kcs[c] = to_f32(from_f32<T>(ks[(size_t)t * B + src]));
+          vcs[c] = to_f32(from_f32<T>(vs[(size_t)t * B + src]));
+        }
+      }
     }
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
       const int t = t0 + c;
       float d = 0.f;
       if (t >= lo && t < idx) {
-        const T* krow = kc + (size_t)t * trow + roff[c];
+        const C* krow = kc + (size_t)t * trow + roff[c];
 #pragma unroll
         for (int e = 0; e < kMaxPerLane; ++e) {
           const int j = lane + 32 * e;
-          if (j < hd) d = fmaf(qv[e], to_f32(krow[j]), d);
+          if (j < hd) d = fmaf(qv[e], cache_value<T, C>(krow[j], kcs[c]), d);
         }
       }
       s[c] = d;
@@ -124,11 +159,11 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
       if (t >= lo && t < idx) {
         const float p = expf(s[c] - m_new);
         l += p;
-        const T* vrow = vc + (size_t)t * trow + roff[c];
+        const C* vrow = vc + (size_t)t * trow + roff[c];
 #pragma unroll
         for (int e = 0; e < kMaxPerLane; ++e) {
           const int j = lane + 32 * e;
-          if (j < hd) acc[e] = fmaf(p, to_f32(vrow[j]), acc[e]);
+          if (j < hd) acc[e] = fmaf(p, cache_value<T, C>(vrow[j], vcs[c]), acc[e]);
         }
       }
     }
@@ -155,27 +190,49 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, T* 
 
 namespace gic {
 
-template <typename T, bool kOrigin>
+template <typename T, typename C, bool kOrigin>
 static void launch(const void* q, const void* kn, const void* vn, int in_stride, void* kc,
                    void* vc, void* out, int B, int D, int H, int idx, const int* origin,
-                   int gather_start, const int* start, cudaStream_t s) {
+                   int gather_start, const int* start, const float* ks, const float* vs,
+                   cudaStream_t s) {
   const float scale = 1.f / sqrtf((float)(D / H));
   const int blocks = (B * H + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  decode_attention_kernel<T, kOrigin><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
+  decode_attention_kernel<T, C, kOrigin><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(kn), static_cast<const T*>(vn), in_stride,
-      static_cast<T*>(kc), static_cast<T*>(vc), static_cast<T*>(out), B, D, H, idx, scale, origin,
-      gather_start, start);
+      static_cast<C*>(kc), static_cast<C*>(vc), static_cast<T*>(out), B, D, H, idx, scale, origin,
+      gather_start, start, ks, vs);
+}
+
+template <typename T, typename C>
+static void dispatch_map(const void* q, const void* kn, const void* vn, int in_stride, void* kc,
+                         void* vc, void* out, int B, int D, int H, int idx, const int* origin,
+                         int gather_start, const int* start, const float* ks, const float* vs,
+                         cudaStream_t s) {
+  if (origin)
+    launch<T, C, true>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, origin, gather_start,
+                       nullptr, ks, vs, s);
+  else
+    launch<T, C, false>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, nullptr, 0, start, ks,
+                        vs, s);
 }
 
 template <typename T>
 static void dispatch(const void* q, const void* kn, const void* vn, int in_stride, void* kc,
                      void* vc, void* out, int B, int D, int H, int idx, const int* origin,
-                     int gather_start, const int* start, cudaStream_t s) {
-  if (origin)
-    launch<T, true>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, origin, gather_start,
-                    nullptr, s);
-  else
-    launch<T, false>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, nullptr, 0, start, s);
+                     int gather_start, const int* start, float* ks, float* vs, cudaStream_t s) {
+  if (!ks) {
+    dispatch_map<T, T>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, origin, gather_start,
+                       start, nullptr, nullptr, s);
+    return;
+  }
+  // the int8 append: each new row quantized over its D into row idx
+  const size_t row = (size_t)idx * B;
+  launch_rowquant<T, false>(s, kn, in_stride, nullptr, nullptr, 0.f, B, D,
+                            static_cast<int8_t*>(kc) + row * D, D, ks + row);
+  launch_rowquant<T, false>(s, vn, in_stride, nullptr, nullptr, 0.f, B, D,
+                            static_cast<int8_t*>(vc) + row * D, D, vs + row);
+  dispatch_map<T, int8_t>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, origin, gather_start,
+                          start, ks, vs, s);
 }
 
 }  // namespace gic
@@ -185,24 +242,30 @@ static void dispatch(const void* q, const void* kn, const void* vn, int in_strid
 // written; out: (B, D).  All in the element type.  origin: (T, B) int32
 // contiguous with entries in [0, B), or null; gather_start: the first
 // position read through it.  start: (B,) int32 first live position of each
-// row (<= idx), or null for 0; never together with origin.  Returns
+// row (<= idx), or null for 0; never together with origin.  k_scale /
+// v_scale: null, or the (T, B) float32 per-row scales of int8 caches, whose
+// row idx the call writes (three launches then, one otherwise).  Returns
 // cudaGetLastError().
 extern "C" int gic_decode_attention(int dtype, const void* q, const void* kn, const void* vn,
                                     int in_stride, void* kc, void* vc, void* out, int B, int D,
                                     int H, int idx, const void* origin, int gather_start,
-                                    const void* start, void* stream) {
+                                    const void* start, void* k_scale, void* v_scale,
+                                    void* stream) {
   using namespace gic;
   if (B <= 0 || H <= 0 || D % H != 0 || D / H > 32 * kMaxPerLane || idx < 0 || gather_start < 0 ||
-      (origin && start))
+      (origin && start) || (!k_scale != !v_scale))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* o = static_cast<const int*>(origin);
   const int* st = static_cast<const int*>(start);
+  float* ks = static_cast<float*>(k_scale);
+  float* vs = static_cast<float*>(v_scale);
   if (dtype == kBF16)
     dispatch<__nv_bfloat16>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, o, gather_start, st,
-                            s);
+                            ks, vs, s);
   else if (dtype == kF32)
-    dispatch<float>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, o, gather_start, st, s);
+    dispatch<float>(q, kn, vn, in_stride, kc, vc, out, B, D, H, idx, o, gather_start, st, ks, vs,
+                    s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -21,7 +21,9 @@
 // run in no order, so the tie rule is applied to (value, index) pairs and
 // never depends on which block finished first.  Normalising once matters:
 // with the LN inside the tile, each of the 3,142 blocks recomputed its rows'
-// statistics, ~1.8 GB of L2 reads per call against 77 MB of wte.
+// statistics, ~1.8 GB of L2 reads per call against 77 MB of wte.  With an
+// int8 wte (W8A8) pass 0 quantizes the rows too and pass 1 runs the int8
+// tile: 38.6 MB of wte, ~12 us.
 #include "vocab.cuh"
 
 namespace gic {
@@ -29,11 +31,11 @@ namespace gic {
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 logits_tile_kernel(const T* xf, const T* wte, int M, int K, int V, float* part_val,
-                   int* part_idx) {
+                   int* part_idx, const float* sx, const float* sw) {
   __shared__ TileSmem<T> sm;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
   const int nblk = gridDim.x;
-  tile_product<T, false>(sm, xf, nullptr, nullptr, nullptr, wte, M, K, V, m0, n0);
+  tile_product<T, false>(sm, xf, nullptr, nullptr, nullptr, wte, M, K, V, m0, n0, sx, sw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < BM; r += THREADS / 32) {
     const int m = m0 + r;
@@ -68,25 +70,29 @@ __global__ void argmax_reduce_kernel(const float* part_val, const int* part_idx,
   if (lane == 0) tok[m] = i;
 }
 
-template <typename T>
+template <typename T, typename E>
 static void launch_passes(cudaStream_t s, const float* x, const float* lns, const float* lnb,
-                          float eps, const void* wte, int M, int K, int V, void* xf, float* pv,
-                          int* pi) {
-  launch_ln_rows<T>(s, x, lns, lnb, eps, M, K, xf);
+                          float eps, const void* wte, const float* wte_scale, int M, int K, int V,
+                          void* xf, float* sx, float* pv, int* pi) {
+  launch_prepass<T, E>(s, x, lns, lnb, eps, M, K, xf, sx);
   const dim3 grid((V + BN - 1) / BN, (M + BM - 1) / BM);
-  logits_tile_kernel<T><<<grid, THREADS, 0, s>>>(static_cast<const T*>(xf),
-                                                 static_cast<const T*>(wte), M, K, V, pv, pi);
+  logits_tile_kernel<E><<<grid, THREADS, 0, s>>>(static_cast<const E*>(xf),
+                                                 static_cast<const E*>(wte), M, K, V, pv, pi, sx,
+                                                 wte_scale);
 }
 
 }  // namespace gic
 
-// x32: (M, K) float32 residual stream; wte: (V, K) element type; xf: (M, K)
-// element-type scratch for the normalised rows; part_val/part_idx:
+// x32: (M, K) float32 residual stream; wte: (V, K) element type, or int8
+// when wte_scale ((V,) float32) is given; xf: (M, K) element-type scratch
+// for the normalised rows (their int8 quantization with an int8 wte, the
+// row scales then in sx, (M,) float32 scratch); part_val/part_idx:
 // (M, ceil(V/32)) scratch; tok: (M,) int32.  K must be a multiple of the
 // 16-byte vector width.  Returns cudaGetLastError() after the three launches.
 extern "C" int gic_logits_argmax(int dtype, const void* x32, const void* ln_s, const void* ln_b,
-                                 float eps, const void* wte, int M, int K, int V, void* xf,
-                                 void* part_val, void* part_idx, void* tok, void* stream) {
+                                 float eps, const void* wte, const void* wte_scale, int M, int K,
+                                 int V, void* xf, void* sx, void* part_val, void* part_idx,
+                                 void* tok, void* stream) {
   using namespace gic;
   if (M <= 0 || K <= 0 || V <= 0) return (int)cudaErrorInvalidValue;
   const int nblk = (V + BN - 1) / BN;
@@ -96,11 +102,13 @@ extern "C" int gic_logits_argmax(int dtype, const void* x32, const void* ln_s, c
   const float* lnb = static_cast<const float*>(ln_b);
   float* pv = static_cast<float*>(part_val);
   int* pi = static_cast<int*>(part_idx);
-  if (dtype == kBF16)
-    launch_passes<__nv_bfloat16>(s, x, lns, lnb, eps, wte, M, K, V, xf, pv, pi);
-  else if (dtype == kF32)
-    launch_passes<float>(s, x, lns, lnb, eps, wte, M, K, V, xf, pv, pi);
-  else
+  const float* ws = static_cast<const float*>(wte_scale);
+  float* sq = static_cast<float*>(sx);
+  if (!with_types(dtype, ws != nullptr, [&](auto t) {
+        using Ty = decltype(t);
+        launch_passes<typename Ty::T, typename Ty::E>(s, x, lns, lnb, eps, wte, ws, M, K, V, xf,
+                                                      sq, pv, pi);
+      }))
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;

@@ -51,7 +51,8 @@
 // __threadfence before the ticket) merges all column blocks' partials of
 // its 64 rows in a fixed order and resolves them, so a round is one launch
 // whose result does not depend on which block finished first.  Every
-// comparison is the (value, index) order of vocab.cuh.
+// comparison is the (value, index) order of vocab.cuh.  With an int8 wte
+// (W8A8) pass 0 quantizes the rows too and every walk runs the int8 tile.
 #include "vocab.cuh"
 
 #include <cstdint>
@@ -117,6 +118,9 @@ struct SampleArgs {
   int* cc;      // (M, k) the candidates the next round tests
   float* cl;    // (M, k) their scaled logits
   int* count;   // [0] unresolved rows; [1 + row block] arrival tickets
+  // W8A8 only: the rows' (M,) and wte's (V,) dequantization scales
+  const float* sx;
+  const float* sw;
 };
 
 struct RowPartial {
@@ -171,7 +175,8 @@ sample_tile_kernel(const T* xf, const T* wte, SampleArgs a, int round) {
   const int t_end = min(ntiles, (cb + 1) * kTilesPerBlock);
   for (int t = cb * kTilesPerBlock; t < t_end; ++t) {
     const int n0 = t * BN;
-    tile_product<T, false>(sm, xf, nullptr, nullptr, nullptr, wte, a.M, a.K, a.V, m0, n0);
+    tile_product<T, false>(sm, xf, nullptr, nullptr, nullptr, wte, a.M, a.K, a.V, m0, n0, a.sx,
+                           a.sw);
     const int n = n0 + lane;
     const bool valid = n < a.V;  // every tile holds column n0 < V
     for (int r = warp; r < BM; r += THREADS / 32) {
@@ -340,32 +345,33 @@ sample_tile_kernel(const T* xf, const T* wte, SampleArgs a, int round) {
   if (threadIdx.x == 0) a.count[1 + rb] = 0;  // the next pass's tickets
 }
 
-template <typename T>
-static cudaError_t launch_all(cudaStream_t s, const float* x, const float* lns, const float* lnb,
-                              float eps, const void* wte, void* xf, const SampleArgs& a) {
-  launch_ln_rows<T>(s, x, lns, lnb, eps, a.M, a.K, xf);
+template <typename T, typename E>
+static void launch_all(cudaStream_t s, const float* x, const float* lns, const float* lnb,
+                       float eps, const void* wte, void* xf, const SampleArgs& a) {
+  launch_prepass<T, E>(s, x, lns, lnb, eps, a.M, a.K, xf, const_cast<float*>(a.sx));
   const dim3 grid(a.ncb, (a.M + BM - 1) / BM);
-  const T* xt = static_cast<const T*>(xf);
-  const T* wt = static_cast<const T*>(wte);
-  sample_tile_kernel<T, false><<<grid, THREADS, 0, s>>>(xt, wt, a, 0);
-  for (int r = 1; r <= a.rounds; ++r) sample_tile_kernel<T, true><<<grid, THREADS, 0, s>>>(xt, wt, a, r);
-  return cudaGetLastError();
+  const E* xt = static_cast<const E*>(xf);
+  const E* wt = static_cast<const E*>(wte);
+  sample_tile_kernel<E, false><<<grid, THREADS, 0, s>>>(xt, wt, a, 0);
+  for (int r = 1; r <= a.rounds; ++r) sample_tile_kernel<E, true><<<grid, THREADS, 0, s>>>(xt, wt, a, r);
 }
 
 }  // namespace gic
 
 // x32: (M, K) float32 residual stream; ln_s/ln_b (K,) float32; wte: (V, K)
-// element type; temp/topp (M,) float32; key0/key1 the Philox key; 1 <= k <=
-// 4 candidates, rounds >= 0.  Scratch: xf (M, K) element type; part_f float32
+// element type, or int8 when wte_scale ((V,) float32) is given, the rows'
+// scales then in sx, (M,) float32 scratch; temp/topp (M,) float32;
+// key0/key1 the Philox key; 1 <= k <= 4 candidates, rounds >= 0.  Scratch: xf (M, K) element type; part_f float32
 // of M * ncb * (3 + 3k) and part_i int32 of M * ncb * (1 + k), ncb =
 // ceil(ceil(V / 32) / 8); state_i int32 of M * (1 + k); state_f float32 of
 // M * k; counters int32 of 1 + ceil(M / 64), ZEROED.  Outputs tok, rnd (M,)
 // int32 and lse (M,) float32.  Launches 2 + rounds kernels; returns
 // cudaGetLastError().
 extern "C" int gic_logits_sample(int dtype, const void* x32, const void* ln_s, const void* ln_b,
-                                 float eps, const void* wte, int M, int K, int V,
-                                 const void* temp, const void* topp, unsigned int key0,
-                                 unsigned int key1, int k, int rounds, void* xf, void* part_f,
+                                 float eps, const void* wte, const void* wte_scale, int M, int K,
+                                 int V, const void* temp, const void* topp, unsigned int key0,
+                                 unsigned int key1, int k, int rounds, void* xf, void* sx,
+                                 void* part_f,
                                  void* part_i, void* state_i, void* state_f, void* counters,
                                  void* tok, void* rnd, void* lse, void* stream) {
   using namespace gic;
@@ -400,16 +406,16 @@ extern "C" int gic_logits_sample(int dtype, const void* x32, const void* ln_s, c
   a.rnd = static_cast<int*>(rnd);
   a.lse = static_cast<float*>(lse);
   a.count = static_cast<int*>(counters);
+  a.sx = static_cast<const float*>(sx);
+  a.sw = static_cast<const float*>(wte_scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* x = static_cast<const float*>(x32);
   const float* lns = static_cast<const float*>(ln_s);
   const float* lnb = static_cast<const float*>(ln_b);
-  cudaError_t err;
-  if (dtype == kBF16)
-    err = launch_all<__nv_bfloat16>(s, x, lns, lnb, eps, wte, xf, a);
-  else if (dtype == kF32)
-    err = launch_all<float>(s, x, lns, lnb, eps, wte, xf, a);
-  else
+  if (!with_types(dtype, a.sw != nullptr, [&](auto t) {
+        using Ty = decltype(t);
+        launch_all<typename Ty::T, typename Ty::E>(s, x, lns, lnb, eps, wte, xf, a);
+      }))
     return (int)cudaErrorInvalidValue;
-  return (int)err;
+  return (int)cudaGetLastError();
 }

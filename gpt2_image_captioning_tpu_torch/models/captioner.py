@@ -14,10 +14,13 @@ the float32 logits for :func:`ops.sampling.sample_token`, beam steps emit
 each row's top-k and logsumexp and read the cache through an ancestry map.
 With ``sample_in_kernel=True`` a sampled step draws its token inside the
 step (``csrc/logits_sample.cu``).  ``generate``'s early exit reads one flag
-from the device per step.
+from the device per step.  ``decode_quant=True`` decodes from a W8A8 pack
+(int8 weights, int8 activations per row) in every mode, and
+``decode_quant_cache=True`` keeps an int8 KV cache; the mapper, the prefill
+and the first token stay at the compute precision, as in the JAX package.
 
-Not ported yet, and refused rather than run another way: meshes and the int8
-weight mode (see ROADMAP.md).
+Not ported yet, and refused rather than run another way: meshes (see
+ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -145,10 +148,22 @@ def mean_loss(trainable: dict, frozen: dict, cfg: CaptionerConfig, batch: dict,
 
 
 def prepare_decode_weights(trainable: dict, frozen: dict, cfg: CaptionerConfig,
-                           policy: Policy = F32) -> dict:
-    """The step kernels' weight layout (:func:`ops.decode_step.pack_decode_weights`);
-    compute it once per weight set and pass it to :func:`generate`."""
-    return DS.pack_decode_weights(_gpt(trainable, frozen), policy.compute_dtype)
+                           policy: Policy = F32, quant: bool = False) -> dict:
+    """The step kernels' weight layout (:func:`ops.decode_step.pack_decode_weights`;
+    ``quant=True`` the W8A8 pack); compute it once per weight set and pass it
+    to :func:`generate`."""
+    return DS.pack_decode_weights(_gpt(trainable, frozen), policy.compute_dtype, quant=quant)
+
+
+def _decode_pack(packed, gpt_params, policy: Policy, decode_quant: bool) -> dict:
+    """The pack a decode runs from: ``packed`` if given, which must be int8
+    exactly when ``decode_quant`` asks for int8, else a new one."""
+    if packed is None:
+        return DS.pack_decode_weights(gpt_params, policy.compute_dtype, quant=decode_quant)
+    if ("qkvs" in packed) != decode_quant:
+        raise ValueError(f"decode_quant={decode_quant} needs a pack with quant={decode_quant} "
+                         "(prepare_decode_weights)")
+    return packed
 
 
 def _refuse_mesh(mesh) -> None:
@@ -175,6 +190,8 @@ def generate(
     mesh=None,
     sample_in_kernel: bool = False,
     sample_k: int = 3,
+    decode_quant: bool = False,
+    decode_quant_cache: bool = False,
 ) -> torch.Tensor:
     """Caption generation → token ids (B, max_length) int32, padded with EOS
     after each row's first EOS; the loop stops once every row has emitted EOS.
@@ -196,11 +213,18 @@ def generate(
     it.  At ``top_p < 0.5`` it warns and samples from the emitted logits, as
     the JAX package does: small nuclei make speculative accept retry often.
 
+    ``decode_quant=True``: every decode step runs W8A8 (the int8 pack, from
+    ``packed`` or made here), in every mode.  ``decode_quant_cache=True``:
+    the prefilled cache is quantized once (:func:`ops.quant.quantize_cache`)
+    and each step appends int8 rows with their scales; with it,
+    ``sample_in_kernel`` warns and samples from the emitted logits, as the
+    JAX package does (the in-kernel draw has no int8-cache variant).
+
     ``use_kernels``: None runs the CUDA kernels for CUDA inputs and their
     plain twins on the CPU; False runs the plain path (every kernel off, the
     mapper's and the prefill's attention included); True on the CPU raises.
-    ``packed``: weights from :func:`prepare_decode_weights`, reused across
-    calls.
+    ``packed``: weights from :func:`prepare_decode_weights` (int8 exactly
+    when ``decode_quant``), reused across calls.
     """
     _refuse_mesh(mesh)
     gpt_params = _gpt(trainable, frozen)
@@ -208,16 +232,16 @@ def generate(
     cdt = policy.compute_dtype
     device = image_embeddings.device
     use = DS.fused_greedy_enabled(use_kernels, device)
-    if packed is None:
-        packed = DS.pack_decode_weights(gpt_params, cdt)
+    packed = _decode_pack(packed, gpt_params, policy, decode_quant)
     greedy = temperature == 0.0
     if not greedy and generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
     in_kernel = sample_in_kernel and not greedy
-    if in_kernel and top_p < 0.5:
-        warnings.warn(
-            f"sample_in_kernel needs top_p >= 0.5 (got {top_p}): smaller nuclei reject most "
-            "speculative candidates; sampling from the emitted logits instead", stacklevel=2)
+    if in_kernel and (top_p < 0.5 or decode_quant_cache):
+        why = (f"needs top_p >= 0.5 (got {top_p}): smaller nuclei reject most speculative "
+               "candidates" if top_p < 0.5 else "has no int8-KV-cache variant")
+        warnings.warn(f"sample_in_kernel {why}; sampling from the emitted logits instead",
+                      stacklevel=2)
         in_kernel = False
 
     def select(logits):
@@ -227,6 +251,10 @@ def generate(
     b, p_len, _ = prefix.shape
     cache = G.init_cache(cfg.gpt2, b, p_len + max_length, dtype=cdt, device=prefix.device)
     logits, cache = G.forward_cached(gpt_params, cfg.gpt2, prefix, cache, policy, use)
+    k_cache, v_cache, scales = cache["k"], cache["v"], {}
+    if decode_quant_cache:
+        k_cache, v_cache, ks, vs = DS.quantize_cache(k_cache, v_cache)
+        scales = {"k_scale": ks, "v_scale": vs}
 
     nxt = select(logits)
     finished = nxt == eos
@@ -247,9 +275,9 @@ def generate(
             mode = {"sample": {"temp": temps, "top_p": topps, "seed": seeds[step]},
                     "sample_k": sample_k}
         out = DS.fused_decode_step(
-            packed, x0, cache["k"], cache["v"], index, n_head=cfg.gpt2.n_head,
+            packed, x0, k_cache, v_cache, index, n_head=cfg.gpt2.n_head,
             eps=cfg.gpt2.layer_norm_epsilon, emit_logits=not greedy and not in_kernel,
-            use_kernels=use, **mode,
+            use_kernels=use, **mode, **scales,
         )[0]
         nxt = out if greedy or in_kernel else select(out)
         finished = finished | (nxt == eos)
@@ -378,16 +406,13 @@ def beam_generate(
     last step's forward, whose outputs nothing reads, is skipped).  Score =
     sum log-prob / length ** ``length_penalty``, lengths counting tokens up
     to and including EOS.  Any batch and ``beam_size`` <= 16 run on the
-    kernels.  ``use_kernels`` and ``packed`` as in :func:`generate`.
+    kernels.  ``use_kernels``, ``packed`` and ``decode_quant`` (W8A8 steps;
+    the prefill stays at the compute precision) as in :func:`generate`.
     """
     _refuse_mesh(mesh)
-    if decode_quant:
-        raise NotImplementedError(
-            "int8 decode is not ported yet (ROADMAP.md, queue 2, item 2, mode 3: int8 W8A8)"
-        )
     beams = _beam_search(trainable, frozen, cfg, image_embeddings, max_length=max_length,
                          beam_size=beam_size, policy=policy, use_kernels=use_kernels,
-                         packed=packed)
+                         packed=packed, decode_quant=decode_quant)
     return _best_beam(*beams, length_penalty=length_penalty)[0]
 
 
@@ -403,7 +428,8 @@ def _best_beam(tokens, scores, lengths, *, length_penalty: float):
 
 @torch.no_grad()
 def _beam_search(trainable, frozen, cfg, image_embeddings, *, max_length: int, beam_size: int,
-                 policy: Policy, use_kernels: bool | None, packed: dict | None):
+                 policy: Policy, use_kernels: bool | None, packed: dict | None,
+                 decode_quant: bool = False):
     """The search of :func:`beam_generate`: every beam's tokens (B, K, L)
     int32, summed log-probs (B, K) float32 and lengths (B, K) int32 (tokens
     up to and including EOS; ``max_length`` for a beam that never ended)."""
@@ -411,8 +437,7 @@ def _beam_search(trainable, frozen, cfg, image_embeddings, *, max_length: int, b
     eos, k = cfg.eos_token_id, beam_size
     cdt = policy.compute_dtype
     use = DS.fused_greedy_enabled(use_kernels, image_embeddings.device)
-    if packed is None:
-        packed = DS.pack_decode_weights(gpt_params, cdt)
+    packed = _decode_pack(packed, gpt_params, policy, decode_quant)
 
     prefix = build_prefix(trainable, cfg, image_embeddings, policy, use)
     b, p_len, _ = prefix.shape
@@ -494,21 +519,24 @@ class ImageCaptioningModel:
         ``temperature=0.0`` (the module-level :func:`generate`; ``generator``
         on the model's device draws the tokens, seeded with 0 when None).
         ``decode_precision="bf16"`` decodes from a cached bfloat16 copy of the
-        weights (half the bytes each step reads); None/"f32" keeps the float32
-        parameters.  "int8" is not ported and raises."""
-        if decode_precision == "int8":
-            raise NotImplementedError(
-                "int8 decode is not ported yet (ROADMAP.md, queue 2, item 2, mode 3: int8 W8A8)"
-            )
-        tr, fz, pol = self.decode_params(decode_precision)
+        weights (half the bytes each step reads); ``"int8"`` decodes from that
+        copy through the W8A8 pack (int8 weights and per-row int8
+        activations, half the bytes again); None/"f32" keeps the float32
+        parameters.  The packs are cached per precision, so bf16 and int8
+        requests on one model both stay warm."""
+        quant = decode_precision == "int8"
+        tr, fz, pol = self.decode_params("bf16" if quant else decode_precision)
         cache = getattr(self, "_packed_cache", None)
         if cache is None or cache[0] is not tr or cache[1] is not fz or cache[2] is not pol:
-            cache = (tr, fz, pol, prepare_decode_weights(tr, fz, self.cfg, pol))
+            cache = (tr, fz, pol, {})
             self._packed_cache = cache
+        if quant not in cache[3]:
+            cache[3][quant] = prepare_decode_weights(tr, fz, self.cfg, pol, quant=quant)
         emb = torch.as_tensor(image_embeddings, dtype=torch.float32, device=self.device)
         return generate(
             tr, fz, self.cfg, emb, max_length=max_length, temperature=temperature, top_p=top_p,
-            generator=generator, policy=pol, use_kernels=use_kernels, packed=cache[3], mesh=mesh,
+            generator=generator, policy=pol, use_kernels=use_kernels, packed=cache[3][quant],
+            mesh=mesh, decode_quant=quant,
         )
 
     def decode_params(self, decode_precision: str | None = None):

@@ -46,22 +46,27 @@ _SIGNATURES = {
     # stream
     "gic_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P],
     # dtype, q, k_new, v_new, in_stride, k_cache, v_cache, out, B, D, H, idx, origin,
-    # gather_start, start, stream
-    "gic_decode_attention": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P],
-    # dtype, ln, epilogue, x, ln_scale, ln_bias, eps, w, bias, out, stats, M, K, N, stream
-    "gic_fused_linear": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _P],
-    # dtype, x32, ln_scale, ln_bias, eps, wte, M, K, V, xf, part_val, part_idx, tok, stream
-    "gic_logits_argmax": [_I, _P, _P, _P, _F, _P, _I, _I, _I, _P, _P, _P, _P, _P],
-    # dtype, x32, ln_scale, ln_bias, eps, wte, M, K, V, xf, logits, stream
-    "gic_logits": [_I, _P, _P, _P, _F, _P, _I, _I, _I, _P, _P, _P],
-    # dtype, x32, ln_scale, ln_bias, eps, wte, M, K, V, k, xf, part_val, part_idx, part_m,
-    # part_s, vals, ids, lse, stream
-    "gic_logits_topk": [_I, _P, _P, _P, _F, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P],
-    # dtype, x32, ln_scale, ln_bias, eps, wte, M, K, V, temp, top_p, key0, key1, k, rounds, xf,
-    # part_f, part_i, state_i, state_f, counters, tok, rnd, lse, stream
-    "gic_logits_sample": [_I, _P, _P, _P, _F, _P, _I, _I, _I, _P, _P, _U, _U, _I, _I, _P, _P,
-                          _P, _P, _P, _P, _P, _P, _P, _P],
+    # gather_start, start, k_scale, v_scale, stream
+    "gic_decode_attention": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,
+                             _P],
+    # dtype, ln, x, ln_scale, ln_bias, eps, q, sx, M, K, stream
+    "gic_rowquant": [_I, _I, _P, _P, _P, _F, _P, _P, _I, _I, _P],
+    # dtype, ln, epilogue, x, ln_scale, ln_bias, eps, w, w_scale, bias, out, stats, xq, sx, M,
+    # K, N, stream
+    "gic_fused_linear": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, xf, sx, part_val, part_idx,
+    # tok, stream
+    "gic_logits_argmax": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, xf, sx, logits, stream
+    "gic_logits": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, k, xf, sx, part_val,
+    # part_idx, part_m, part_s, vals, ids, lse, stream
+    "gic_logits_topk": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P],
+    # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, temp, top_p, key0, key1, k,
+    # rounds, xf, sx, part_f, part_i, state_i, state_f, counters, tok, rnd, lse, stream
+    "gic_logits_sample": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _U, _U, _I, _I, _P, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -168,6 +173,11 @@ def check(err: int, kernel: str) -> None:
     if err != 0:
         msg = library().gic_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """A tensor's device pointer for the C interface; None (NULL) for None."""
+    return None if t is None else t.data_ptr()
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -11,7 +11,11 @@ row r then reads position t in ``[gather_start, idx)`` from cache row
 gathered or rewritten between steps.  Continuous batching passes a (B,)
 int32 ``start`` instead: row r then attends only ``[start_r, idx]`` (the JAX
 step kernel's ``start``; a row with ``start_r == idx`` is dead and attends
-its own new row alone).
+its own new row alone).  int8 caches come with (T, B) float32 per-row scales
+``k_scale``/``v_scale`` (the JAX step kernel's int8 cache): the new rows are
+quantized over their whole D before the append, and the walk dequantizes
+each row in the compute dtype; the new row's own term uses the exact
+``k_new``/``v_new``.
 
 Kernel: ``csrc/decode_attention.cu`` (hand-written CUDA for sm_90a; its
 header comment gives the design and the bound), wrapped by
@@ -28,6 +32,7 @@ import torch
 
 from gpt2_image_captioning_tpu_torch.ops import _build
 from gpt2_image_captioning_tpu_torch.ops.nn import NEG_INF
+from gpt2_image_captioning_tpu_torch.ops.quant import absmax_quant, dequant, rowquant_cuda
 
 # init_cache rounds the cache length up to a multiple of this (the kernel's
 # walk step and the JAX package's chunk).
@@ -35,20 +40,29 @@ CHUNK_T = 16
 
 
 def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int,
-                            origin=None, gather_start: int = 0, start=None):
+                            origin=None, gather_start: int = 0, start=None, k_scale=None,
+                            v_scale=None):
     """Append at ``idx``, then float32 attention of each row's query over cache
     rows ``[0, idx]``; rows past ``idx`` are masked.  With ``origin``, the
     positions ``[gather_start, idx)`` are first gathered from the rows it
     names; position ``idx`` is each row's own new row.  With ``start``,
-    row r's positions below ``start[r]`` are masked too."""
-    k_cache[idx] = k_new.to(k_cache.dtype)
-    v_cache[idx] = v_new.to(v_cache.dtype)
+    row r's positions below ``start[r]`` are masked too.  With scales, the
+    int8 append and the dequantized walk, the own row exact."""
     tk, b, d = k_cache.shape
-    kc, vc = k_cache, v_cache
+    if k_scale is None:
+        k_cache[idx] = k_new.to(k_cache.dtype)
+        v_cache[idx] = v_new.to(v_cache.dtype)
+        kc, vc = k_cache, v_cache
+    else:
+        for new, cache, scale in ((k_new, k_cache, k_scale), (v_new, v_cache, v_scale)):
+            cache[idx], s = absmax_quant(new)
+            scale[idx] = s[:, 0]
+        kc, vc = (dequant(c, s, q.dtype) for c, s in ((k_cache, k_scale), (v_cache, v_scale)))
+        kc[idx], vc[idx] = k_new, v_new
     if origin is not None:
         src = torch.arange(b, device=q.device).expand(tk, b).clone()
         src[gather_start:idx] = origin[gather_start:idx].long()
-        kc, vc = (c.gather(1, src[:, :, None].expand(tk, b, d)) for c in (k_cache, v_cache))
+        kc, vc = (c.gather(1, src[:, :, None].expand(tk, b, d)) for c in (kc, vc))
     hd = d // n_head
     scale = 1.0 / math.sqrt(hd)
     qh = q.reshape(b, n_head, hd).float()
@@ -65,13 +79,16 @@ def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head:
 
 
 def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int,
-                          origin=None, gather_start: int = 0, start=None):
+                          origin=None, gather_start: int = 0, start=None, k_scale=None,
+                          v_scale=None):
     """Launch ``csrc/decode_attention.cu``.  q/k_new/v_new (B, D) may be
     column slices of one (B, 3D) QKV tensor (equal row strides, unit column
-    stride); caches (T, B, D) contiguous, same dtype; origin (T, B) int32
-    contiguous with entries in [0, B), or None; start (B,) int32 contiguous
-    with entries in [0, idx], or None; returns (B, D).  ``launches`` counts
-    every launch, ``start_launches`` those with a start window."""
+    stride); caches (T, B, D) contiguous, in q's dtype, or int8 with
+    k_scale/v_scale (T, B) float32 contiguous (two more CUDA launches, the
+    new rows' quantization); origin (T, B) int32 contiguous with entries in
+    [0, B), or None; start (B,) int32 contiguous with entries in [0, idx], or
+    None; returns (B, D).  ``launches`` counts every call, ``start_launches``
+    those with a start window."""
     name = "decode_attention"
     _build.require(q.is_cuda, name, "q must be a CUDA tensor")
     _build.require(q.dtype in _build.DTYPE_CODE, name, f"unsupported dtype {q.dtype}")
@@ -82,12 +99,21 @@ def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: i
     for t in (q, k_new, v_new):
         _build.require(t.stride(1) == 1 and t.stride(0) == q.stride(0), name,
                        "q, k_new, v_new need unit column stride and one row stride")
-    for t in (k_new, v_new, k_cache, v_cache):
+    quant = k_scale is not None
+    cache_dtype = torch.int8 if quant else q.dtype
+    for t in (k_new, v_new):
         _build.require(t.dtype == q.dtype and t.device == q.device, name,
-                       "inputs and caches must share dtype and device")
+                       "q, k_new and v_new must share dtype and device")
     for t in (k_cache, v_cache):
+        _build.require(t.dtype == cache_dtype and t.device == q.device, name,
+                       "caches must be int8 with scales, else in q's dtype, on q's device")
         _build.require(t.shape == (tk, b, d) and t.is_contiguous(), name,
                        "caches must be contiguous (T, B, D)")
+    if quant:
+        for t in (k_scale, v_scale):
+            _build.require(t is not None and t.shape == (tk, b) and t.dtype == torch.float32
+                           and t.is_contiguous() and t.device == q.device, name,
+                           "k_scale and v_scale must be contiguous float32 (T, B) on q's device")
     _build.require(d % n_head == 0 and d // n_head <= 128, name,
                    "head_dim must divide D and be <= 128")
     _build.require(0 <= idx < tk, name, f"idx {idx} outside the cache of {tk} rows")
@@ -109,10 +135,13 @@ def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: i
     err = _build.library().gic_decode_attention(
         _build.DTYPE_CODE[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         q.stride(0), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        b, d, n_head, idx, origin_ptr, int(gather_start), start_ptr, _build.stream_of(q),
+        b, d, n_head, idx, origin_ptr, int(gather_start), start_ptr, _build.ptr(k_scale),
+        _build.ptr(v_scale), _build.stream_of(q),
     )
     _build.check(err, name)
     decode_attention_cuda.launches += 1
+    if quant:
+        rowquant_cuda.launches += 2
     if start is not None:
         decode_attention_cuda.start_launches += 1
     return out
@@ -134,6 +163,8 @@ def decode_attention(
     origin: torch.Tensor | None = None,
     gather_start: int = 0,
     start: torch.Tensor | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
     use_kernel: bool | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decode step of attention, fused with the cache append.
@@ -142,9 +173,11 @@ def decode_attention(
     with rows ``[0, idx)`` valid; ``idx``: host int, the write position;
     ``origin``: the (T, B) int32 ancestry map read for positions
     ``[gather_start, idx)``, or None; ``start``: each row's first live
-    position (B,) int32, or None for 0 — exclusive with ``origin``.  Returns
-    ``(attn_out (B, D), k_cache, v_cache)``; the caches are the argument
-    tensors, updated in place.  ``use_kernel`` as in
+    position (B,) int32, or None for 0 — exclusive with ``origin``;
+    ``k_scale``/``v_scale``: the (T, B) float32 row scales of int8 caches,
+    whose row ``idx`` is written in place.  Returns ``(attn_out (B, D),
+    k_cache, v_cache)``; the caches are the argument tensors, updated in
+    place.  ``use_kernel`` as in
     :func:`ops._build.kernels_enabled`.
     """
     if start is not None and origin is not None:
@@ -152,5 +185,8 @@ def decode_attention(
     idx = int(idx)
     fn = (decode_attention_cuda if _build.kernels_enabled(use_kernel, q.device)
           else _decode_attention_plain)
-    out = fn(q, k_new, v_new, k_cache, v_cache, idx, n_head, origin, int(gather_start), start)
+    if (k_cache.dtype == torch.int8) != (k_scale is not None and v_scale is not None):
+        raise ValueError("int8 caches need k_scale and v_scale, and only they take them")
+    out = fn(q, k_new, v_new, k_cache, v_cache, idx, n_head, origin, int(gather_start), start,
+             k_scale, v_scale)
     return out, k_cache, v_cache

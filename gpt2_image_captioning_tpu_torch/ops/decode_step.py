@@ -1,7 +1,8 @@
 """The GPT-2 decode step — the counterpart of
 ``gpt2_image_captioning_tpu/ops/decode_step.py`` in its greedy,
 ``emit_logits``, ``topk``, beam-ancestry, per-row ``start`` and in-kernel
-``sample`` modes.
+``sample`` modes, each with float or int8 (W8A8) weights, and its int8 KV
+cache.
 
 On the TPU the whole step is one Pallas kernel (``_step_kernel``), because
 each kernel call there carries a large fixed cost.  Blocks on Hopper cannot
@@ -32,8 +33,14 @@ smallest token id.  Every kernel has a plain PyTorch twin in this module (or
 in ``ops/decode_attention.py``) with the same arithmetic; the CPU runs the
 twins, and ``use_kernels=False`` runs them on the card for comparison.
 
-Not ported: int8 weights and the int8 KV cache (ROADMAP.md, queue 2,
-item 2, modes 3 and 7).
+W8A8 (``pack_decode_weights(quant=True)``; the pack carries ``qkvs``): the
+four projections and wte are int8 with per-output-column float32 scales;
+each call quantizes its input rows first (``csrc/rowquant.cu``, after the
+LayerNorm and the cast where the role has one) and multiplies int8 by int8
+with int32 accumulators, dequantized as ``acc * sx * sw`` before the same
+epilogues.  int8 KV cache (int8 caches with ``k_scale``/``v_scale``): each
+new K/V row is quantized over its D and appended with its scale, and the
+walk dequantizes in the compute dtype; the new row's own term is exact.
 """
 
 from __future__ import annotations
@@ -43,6 +50,9 @@ import torch
 from gpt2_image_captioning_tpu_torch.ops import _build
 from gpt2_image_captioning_tpu_torch.ops import nn
 from gpt2_image_captioning_tpu_torch.ops.decode_attention import decode_attention
+from gpt2_image_captioning_tpu_torch.ops.quant import (  # noqa: F401 (re-exported)
+    colquant, int8_matmul, quantize_cache, rowquant_cuda, rowquant_plain,
+)
 from gpt2_image_captioning_tpu_torch.ops.sampling import sample_step_plain, topk_small
 
 # epilogue codes of csrc/fused_linear.cu
@@ -57,7 +67,8 @@ def fused_greedy_enabled(use_kernels: bool | None, device) -> bool:
     return _build.kernels_enabled(use_kernels, device)
 
 
-def pack_decode_weights(params: dict, compute_dtype: torch.dtype = torch.bfloat16) -> dict:
+def pack_decode_weights(params: dict, compute_dtype: torch.dtype = torch.bfloat16,
+                        quant: bool = False) -> dict:
     """One-time re-layout of the stacked GPT-2 params for the step kernels.
 
     The kernels read every weight output-major, (N, K) with each output
@@ -65,6 +76,13 @@ def pack_decode_weights(params: dict, compute_dtype: torch.dtype = torch.bfloat1
     So the (L, in, out) ``Conv1D`` matrices are transposed once to
     (L, out, in) in the compute dtype; wte stays (V, D).  LayerNorm params and
     biases are float32.
+
+    ``quant=True`` packs the W8A8 mode: the four matrices and wte are
+    quantized per output column from their float32 values
+    (:func:`ops.quant.colquant`) and stored int8 in the same layouts, with
+    float32 scales ``qkvs``/``projs``/``fcs``/``cprojs`` (L, N) and ``wtes``
+    (V,) — a per-output-column scale is a per-row scale of the stored
+    matrix.  The step's int8 mode is keyed on ``"qkvs" in packed``.
     """
     blocks = params["blocks"]
 
@@ -74,21 +92,30 @@ def pack_decode_weights(params: dict, compute_dtype: torch.dtype = torch.bfloat1
     def f32(t):
         return t.to(torch.float32).contiguous()
 
+    mats = {"qkvw": blocks["attn"]["c_attn"]["w"], "projw": blocks["attn"]["c_proj"]["w"],
+            "fcw": blocks["mlp"]["c_fc"]["w"], "cprojw": blocks["mlp"]["c_proj"]["w"]}
+    if quant:
+        out = {}
+        for name, w in mats.items():
+            wq, sw = colquant(w.float())
+            out[name] = wq.transpose(1, 2).contiguous()
+            out[name[:-1] + "s"] = sw.contiguous()  # qkvs / projs / fcs / cprojs
+        wq, sw = colquant(params["wte"].float().t())  # (D, V): a column per token
+        out["wte"], out["wtes"] = wq.t().contiguous(), sw.contiguous()
+    else:
+        out = {name: mat(w) for name, w in mats.items()}
+        out["wte"] = params["wte"].to(compute_dtype).contiguous()
     return {
+        **out,
         "ln1s": f32(blocks["ln_1"]["scale"]),
         "ln1b": f32(blocks["ln_1"]["bias"]),
         "ln2s": f32(blocks["ln_2"]["scale"]),
         "ln2b": f32(blocks["ln_2"]["bias"]),
-        "qkvw": mat(blocks["attn"]["c_attn"]["w"]),
         "attnb": f32(blocks["attn"]["c_attn"]["b"]),
-        "projw": mat(blocks["attn"]["c_proj"]["w"]),
         "projb": f32(blocks["attn"]["c_proj"]["b"]),
-        "fcw": mat(blocks["mlp"]["c_fc"]["w"]),
         "fcb": f32(blocks["mlp"]["c_fc"]["b"]),
-        "cprojw": mat(blocks["mlp"]["c_proj"]["w"]),
         "cprojb": f32(blocks["mlp"]["c_proj"]["b"]),
         "lnf": f32(torch.stack([params["ln_f"]["scale"], params["ln_f"]["bias"]])),
-        "wte": params["wte"].to(compute_dtype).contiguous(),
     }
 
 
@@ -102,13 +129,18 @@ def _gelu_new(x32: torch.Tensor) -> torch.Tensor:
     return 0.5 * x32 * (1.0 + torch.tanh(c * (x32 + 0.044715 * x32 * x32 * x32)))
 
 
-def fused_linear_plain(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, residual=None):
+def fused_linear_plain(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, residual=None,
+                       w_scale=None, compute_dtype=None):
     """Plain twin of ``csrc/fused_linear.cu``; same arguments as
     :func:`fused_linear_cuda`."""
-    cdt = w.dtype
-    if ln is not None:
-        x = nn.layer_norm({"scale": ln[0], "bias": ln[1]}, x.float(), eps).to(cdt)
-    y = nn.dot_f32(x.to(cdt), w.t()) + bias.float()
+    cdt = compute_dtype or w.dtype
+    if w_scale is not None:
+        xq, sx = rowquant_plain(x, ln, eps, cdt)
+        y = int8_matmul(xq, sx, w, w_scale) + bias.float()
+    else:
+        if ln is not None:
+            x = nn.layer_norm({"scale": ln[0], "bias": ln[1]}, x.float(), eps).to(cdt)
+        y = nn.dot_f32(x.to(cdt), w.t()) + bias.float()
     if epilogue == "cast":
         return y.to(cdt)
     if epilogue == "gelu":
@@ -117,19 +149,26 @@ def fused_linear_plain(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5,
     return residual
 
 
-def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, residual=None):
+def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, residual=None,
+                      w_scale=None, compute_dtype=None):
     """Launch ``csrc/fused_linear.cu``: ``epilogue(prologue(x) @ w.T + bias)``.
 
     x: (M, K) — the float32 residual stream when ``ln=(scale, bias)`` (the
-    LayerNorm prologue), else the compute dtype; w: (N, K) compute dtype;
-    bias: (N,) float32.  ``epilogue`` "cast" or "gelu" returns a new (M, N)
-    tensor in the compute dtype; "residual" adds into ``residual`` (M, N)
-    float32 in place and returns it.
+    LayerNorm prologue), else the compute dtype; w: (N, K) in the compute
+    dtype, or int8 with ``w_scale`` (N,) float32 (W8A8: the call quantizes x
+    per row, then multiplies in int8; one more CUDA launch); bias: (N,)
+    float32.  ``compute_dtype`` defaults to w's, and int8 weights need it.
+    ``epilogue`` "cast" or "gelu" returns a new (M, N) tensor in the compute
+    dtype; "residual" adds into ``residual`` (M, N) float32 in place and
+    returns it.
     """
     name = "fused_linear"
-    cdt = w.dtype
+    quant = w_scale is not None
+    cdt = compute_dtype or w.dtype
     _build.require(x.is_cuda, name, "x must be a CUDA tensor")
-    _build.require(cdt in _build.DTYPE_CODE, name, f"unsupported weight dtype {cdt}")
+    _build.require(cdt in _build.DTYPE_CODE, name, f"unsupported compute dtype {cdt}")
+    _build.require(w.dtype == (torch.int8 if quant else cdt), name,
+                   "w must be int8 with w_scale, else the compute dtype")
     _build.require(epilogue in EPILOGUES, name, f"unknown epilogue {epilogue!r}")
     m, k = x.shape
     n = w.shape[0]
@@ -137,17 +176,27 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
     _build.require(x.is_contiguous(), name, "x must be contiguous")
     _build.require(k % (16 // w.element_size()) == 0 and x.data_ptr() % 16 == 0
                    and w.data_ptr() % 16 == 0, name,
-                   "K must be a multiple of 8 (bf16) or 4 (float32), x and w 16-byte aligned")
+                   "K must be a multiple of 16 (int8), 8 (bf16) or 4 (float32), x and w 16-byte "
+                   "aligned")
     _build.require(x.dtype == (torch.float32 if ln is not None else cdt), name,
-                   "x must be float32 with the LN prologue, else the weight dtype")
+                   "x must be float32 with the LN prologue, else the compute dtype")
     _build.require(bias.shape == (n,) and bias.dtype == torch.float32 and bias.is_contiguous(),
                    name, "bias must be contiguous float32 (N,)")
-    ln_s = ln_b = stats = 0
+    ln_s = ln_b = stats = xq = sx = w_s = None
     if ln is not None:
         for t in ln:
             _build.require(t.shape == (k,) and t.dtype == torch.float32 and t.is_contiguous(),
                            name, "LN scale/bias must be contiguous float32 (K,)")
         ln_s, ln_b = ln[0].data_ptr(), ln[1].data_ptr()
+    if quant:
+        _build.require(w_scale.shape == (n,) and w_scale.dtype == torch.float32
+                       and w_scale.is_contiguous() and w_scale.device == x.device, name,
+                       "w_scale must be contiguous float32 (N,) on x's device")
+        w_s = w_scale.data_ptr()
+        xq_buf = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        sx_buf = torch.empty((m,), dtype=torch.float32, device=x.device)
+        xq, sx = xq_buf.data_ptr(), sx_buf.data_ptr()
+    elif ln is not None:
         stats_buf = torch.empty((m, 2), dtype=torch.float32, device=x.device)  # (mean, rstd)
         stats = stats_buf.data_ptr()
     if epilogue == "residual":
@@ -163,10 +212,13 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
         _build.require(t.device == x.device, name, "all tensors must be on one device")
     err = _build.library().gic_fused_linear(
         _build.DTYPE_CODE[cdt], int(ln is not None), EPILOGUES[epilogue], x.data_ptr(), ln_s, ln_b,
-        eps, w.data_ptr(), bias.data_ptr(), out.data_ptr(), stats, m, k, n, _build.stream_of(x),
+        eps, w.data_ptr(), w_s, bias.data_ptr(), out.data_ptr(), stats, xq, sx, m, k, n,
+        _build.stream_of(x),
     )
     _build.check(err, name)
     fused_linear_cuda.launches += 1
+    if quant:
+        rowquant_cuda.launches += 1
     return out
 
 
@@ -174,107 +226,142 @@ fused_linear_cuda.launches = 0
 
 
 def fused_linear(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, residual=None,
-                 use_kernel: bool | None = None):
+                 w_scale=None, compute_dtype=None, use_kernel: bool | None = None):
     fn = fused_linear_cuda if _build.kernels_enabled(use_kernel, x.device) else fused_linear_plain
-    return fn(x, w, bias, epilogue=epilogue, ln=ln, eps=eps, residual=residual)
+    return fn(x, w, bias, epilogue=epilogue, ln=ln, eps=eps, residual=residual, w_scale=w_scale,
+              compute_dtype=compute_dtype)
 
 
 # ---------------------------------------------------------------------------
 # Final LN + logits + greedy argmax: kernel, plain twin, dispatcher
 # ---------------------------------------------------------------------------
 
-def logits_plain(x32, lnf, wte, eps: float = 1e-5) -> torch.Tensor:
+def logits_plain(x32, lnf, wte, eps: float = 1e-5, *, wte_scale=None,
+                 compute_dtype=None) -> torch.Tensor:
     """(B, V) float32 logits of the step: LN_f in float32, cast to the compute
-    dtype, times wte^T with float32 accumulation."""
-    xf = nn.layer_norm({"scale": lnf[0], "bias": lnf[1]}, x32.float(), eps).to(wte.dtype)
+    dtype (default wte's), times wte^T with float32 accumulation — or, with
+    an int8 wte and its (V,) ``wte_scale``, the cast rows quantized and
+    multiplied in int8 (:func:`ops.quant.int8_matmul`)."""
+    cdt = compute_dtype or wte.dtype
+    if wte_scale is not None:
+        xq, sx = rowquant_plain(x32, (lnf[0], lnf[1]), eps, cdt)
+        return int8_matmul(xq, sx, wte, wte_scale)
+    xf = nn.layer_norm({"scale": lnf[0], "bias": lnf[1]}, x32.float(), eps).to(cdt)
     return nn.dot_f32(xf, wte.t())
 
 
-def logits_argmax_plain(x32, lnf, wte, eps: float = 1e-5) -> torch.Tensor:
+def logits_argmax_plain(x32, lnf, wte, eps: float = 1e-5, **quant) -> torch.Tensor:
     """Plain twin of ``csrc/logits_argmax.cu``: (B,) int32 greedy tokens
-    (``torch.argmax`` returns the first index of the max)."""
-    return torch.argmax(logits_plain(x32, lnf, wte, eps), dim=-1).to(torch.int32)
+    (``torch.argmax`` returns the first index of the max).  ``quant``:
+    ``wte_scale`` and ``compute_dtype`` as in :func:`logits_plain`."""
+    return torch.argmax(logits_plain(x32, lnf, wte, eps, **quant), dim=-1).to(torch.int32)
 
 
-def logits_argmax_cuda(x32, lnf, wte, eps: float = 1e-5) -> torch.Tensor:
+def logits_argmax_cuda(x32, lnf, wte, eps: float = 1e-5, *, wte_scale=None,
+                       compute_dtype=None) -> torch.Tensor:
     """Launch ``csrc/logits_argmax.cu``.  x32: (B, D) float32 residual stream;
-    lnf: (2, D) float32 LN_f scale and bias; wte: (V, D) compute dtype.
-    Returns (B,) int32."""
+    lnf: (2, D) float32 LN_f scale and bias; wte: (V, D) in the compute dtype,
+    or int8 with its (V,) float32 ``wte_scale`` (the rows are then quantized
+    inside the call); ``compute_dtype`` defaults to wte's.  Returns (B,)
+    int32."""
     name = "logits_argmax"
-    _check_vocab_args(name, x32, lnf, wte)
+    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
     b, d = x32.shape
     v = wte.shape[0]
     nblk = -(-v // 32)  # csrc/common.cuh BN
-    xf = torch.empty((b, d), dtype=wte.dtype, device=x32.device)
     part_val = torch.empty((b, nblk), dtype=torch.float32, device=x32.device)
     part_idx = torch.empty((b, nblk), dtype=torch.int32, device=x32.device)
     tok = torch.empty((b,), dtype=torch.int32, device=x32.device)
     err = _build.library().gic_logits_argmax(
-        _build.DTYPE_CODE[wte.dtype], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
-        wte.data_ptr(), b, d, v, xf.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
-        tok.data_ptr(), _build.stream_of(x32),
+        _build.DTYPE_CODE[cdt], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
+        wte.data_ptr(), _build.ptr(ws), b, d, v, xf.data_ptr(), _build.ptr(sx),
+        part_val.data_ptr(), part_idx.data_ptr(), tok.data_ptr(), _build.stream_of(x32),
     )
-    _build.check(err, name)
-    logits_argmax_cuda.launches += 1
+    _count_vocab(logits_argmax_cuda, name, err, ws)
     return tok
 
 
 logits_argmax_cuda.launches = 0
 
 
-def logits_argmax(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None = None):
+def logits_argmax(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None = None, **quant):
     if _build.kernels_enabled(use_kernel, x32.device):
-        return logits_argmax_cuda(x32, lnf, wte, eps)
-    return logits_argmax_plain(x32, lnf, wte, eps)
+        return logits_argmax_cuda(x32, lnf, wte, eps, **quant)
+    return logits_argmax_plain(x32, lnf, wte, eps, **quant)
 
 
-def _check_vocab_args(name, x32, lnf, wte) -> None:
-    """The argument checks the three vocabulary kernels share."""
+def _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype):
+    """The argument checks the four vocabulary kernels share.  Returns the
+    compute dtype, the (B, D) scratch of the normalised rows (int8 with an
+    int8 wte), the (B,) scratch of the rows' scales and ``wte_scale`` (both
+    None for a float wte)."""
     _build.require(x32.is_cuda, name, "x32 must be a CUDA tensor")
-    _build.require(wte.dtype in _build.DTYPE_CODE, name, f"unsupported wte dtype {wte.dtype}")
-    d = x32.shape[1]
+    quant = wte_scale is not None
+    cdt = compute_dtype or wte.dtype
+    _build.require(cdt in _build.DTYPE_CODE, name, f"unsupported compute dtype {cdt}")
+    _build.require(wte.dtype == (torch.int8 if quant else cdt), name,
+                   "wte must be int8 with wte_scale, else the compute dtype")
+    b, d = x32.shape
+    v = wte.shape[0]
     _build.require(x32.dtype == torch.float32 and x32.is_contiguous(), name,
                    "x32 must be contiguous float32")
     _build.require(wte.shape[1] == d and wte.is_contiguous(), name,
                    "wte must be contiguous (V, D)")
     _build.require(d % (16 // wte.element_size()) == 0 and x32.data_ptr() % 16 == 0
                    and wte.data_ptr() % 16 == 0, name,
-                   "D must be a multiple of 8 (bf16) or 4 (float32), x32 and wte 16-byte aligned")
+                   "D must be a multiple of 16 (int8), 8 (bf16) or 4 (float32), x32 and wte "
+                   "16-byte aligned")
     _build.require(lnf.shape == (2, d) and lnf.dtype == torch.float32 and lnf.is_contiguous(), name,
                    "lnf must be contiguous float32 (2, D)")
     for t in (lnf, wte):
         _build.require(t.device == x32.device, name, "all tensors must be on one device")
+    xf = torch.empty((b, d), dtype=torch.int8 if quant else cdt, device=x32.device)
+    if not quant:
+        return cdt, xf, None, None
+    _build.require(wte_scale.shape == (v,) and wte_scale.dtype == torch.float32
+                   and wte_scale.is_contiguous() and wte_scale.device == x32.device, name,
+                   "wte_scale must be contiguous float32 (V,) on x32's device")
+    return cdt, xf, torch.empty((b,), dtype=torch.float32, device=x32.device), wte_scale
+
+
+def _count_vocab(wrapper, name, err, wte_scale) -> None:
+    """Raise on a failed launch, else count the wrapper's call, and the row
+    quantizer's launch inside it for an int8 wte."""
+    _build.check(err, name)
+    wrapper.launches += 1
+    if wte_scale is not None:
+        rowquant_cuda.launches += 1
 
 
 # ---------------------------------------------------------------------------
 # Final LN + logits stored (emit_logits): kernel, dispatcher (twin: logits_plain)
 # ---------------------------------------------------------------------------
 
-def logits_cuda(x32, lnf, wte, eps: float = 1e-5) -> torch.Tensor:
+def logits_cuda(x32, lnf, wte, eps: float = 1e-5, *, wte_scale=None,
+                compute_dtype=None) -> torch.Tensor:
     """Launch ``csrc/logits.cu``: the (B, V) float32 logits of
     :func:`logits_plain`.  Arguments as :func:`logits_argmax_cuda`."""
     name = "logits"
-    _check_vocab_args(name, x32, lnf, wte)
+    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
     b, d = x32.shape
     v = wte.shape[0]
-    xf = torch.empty((b, d), dtype=wte.dtype, device=x32.device)
     out = torch.empty((b, v), dtype=torch.float32, device=x32.device)
     err = _build.library().gic_logits(
-        _build.DTYPE_CODE[wte.dtype], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
-        wte.data_ptr(), b, d, v, xf.data_ptr(), out.data_ptr(), _build.stream_of(x32),
+        _build.DTYPE_CODE[cdt], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
+        wte.data_ptr(), _build.ptr(ws), b, d, v, xf.data_ptr(), _build.ptr(sx), out.data_ptr(),
+        _build.stream_of(x32),
     )
-    _build.check(err, name)
-    logits_cuda.launches += 1
+    _count_vocab(logits_cuda, name, err, ws)
     return out
 
 
 logits_cuda.launches = 0
 
 
-def logits(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None = None):
+def logits(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None = None, **quant):
     if _build.kernels_enabled(use_kernel, x32.device):
-        return logits_cuda(x32, lnf, wte, eps)
-    return logits_plain(x32, lnf, wte, eps)
+        return logits_cuda(x32, lnf, wte, eps, **quant)
+    return logits_plain(x32, lnf, wte, eps, **quant)
 
 
 # ---------------------------------------------------------------------------
@@ -284,27 +371,27 @@ def logits(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None = None):
 TOPK_MAX = 16  # csrc/logits_topk.cu kMaxK
 
 
-def logits_topk_plain(x32, lnf, wte, k: int, eps: float = 1e-5):
+def logits_topk_plain(x32, lnf, wte, k: int, eps: float = 1e-5, **quant):
     """Plain twin of ``csrc/logits_topk.cu``: :func:`logits_plain`, then
     :func:`ops.sampling.topk_small` and the logsumexp.  Returns (values (B, k)
     float32, ids (B, k) int32, lse (B, 1) float32)."""
-    lg = logits_plain(x32, lnf, wte, eps)
+    lg = logits_plain(x32, lnf, wte, eps, **quant)
     vals, ids = topk_small(lg, k)
     return vals, ids, torch.logsumexp(lg, dim=-1, keepdim=True)
 
 
-def logits_topk_cuda(x32, lnf, wte, k: int, eps: float = 1e-5):
+def logits_topk_cuda(x32, lnf, wte, k: int, eps: float = 1e-5, *, wte_scale=None,
+                     compute_dtype=None):
     """Launch ``csrc/logits_topk.cu``: :func:`logits_topk_plain`'s outputs,
     the (B, V) logits never stored.  Arguments as :func:`logits_argmax_cuda`;
     1 <= k <= min(16, V)."""
     name = "logits_topk"
-    _check_vocab_args(name, x32, lnf, wte)
+    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
     b, d = x32.shape
     v = wte.shape[0]
     _build.require(1 <= k <= min(TOPK_MAX, v), name, f"k must be in [1, {min(TOPK_MAX, v)}]")
     nblk = -(-v // 32)  # csrc/common.cuh BN
     dev = x32.device
-    xf = torch.empty((b, d), dtype=wte.dtype, device=dev)
     part_val = torch.empty((b, nblk, k), dtype=torch.float32, device=dev)
     part_idx = torch.empty((b, nblk, k), dtype=torch.int32, device=dev)
     part_m = torch.empty((b, nblk), dtype=torch.float32, device=dev)
@@ -313,23 +400,23 @@ def logits_topk_cuda(x32, lnf, wte, k: int, eps: float = 1e-5):
     ids = torch.empty((b, k), dtype=torch.int32, device=dev)
     lse = torch.empty((b, 1), dtype=torch.float32, device=dev)
     err = _build.library().gic_logits_topk(
-        _build.DTYPE_CODE[wte.dtype], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
-        wte.data_ptr(), b, d, v, k, xf.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
-        part_m.data_ptr(), part_s.data_ptr(), vals.data_ptr(), ids.data_ptr(), lse.data_ptr(),
-        _build.stream_of(x32),
+        _build.DTYPE_CODE[cdt], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
+        wte.data_ptr(), _build.ptr(ws), b, d, v, k, xf.data_ptr(), _build.ptr(sx),
+        part_val.data_ptr(), part_idx.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
+        vals.data_ptr(), ids.data_ptr(), lse.data_ptr(), _build.stream_of(x32),
     )
-    _build.check(err, name)
-    logits_topk_cuda.launches += 1
+    _count_vocab(logits_topk_cuda, name, err, ws)
     return vals, ids, lse
 
 
 logits_topk_cuda.launches = 0
 
 
-def logits_topk(x32, lnf, wte, k: int, eps: float = 1e-5, *, use_kernel: bool | None = None):
+def logits_topk(x32, lnf, wte, k: int, eps: float = 1e-5, *, use_kernel: bool | None = None,
+                **quant):
     if _build.kernels_enabled(use_kernel, x32.device):
-        return logits_topk_cuda(x32, lnf, wte, k, eps)
-    return logits_topk_plain(x32, lnf, wte, k, eps)
+        return logits_topk_cuda(x32, lnf, wte, k, eps, **quant)
+    return logits_topk_plain(x32, lnf, wte, k, eps, **quant)
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +429,7 @@ _SAMPLE_TILES = 8  # csrc/logits_sample.cu kTilesPerBlock
 
 
 def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds: int = 6,
-                       eps: float = 1e-5):
+                       eps: float = 1e-5, *, wte_scale=None, compute_dtype=None):
     """Launch ``csrc/logits_sample.cu``: :func:`ops.sampling.sample_step_plain`'s
     outputs, (token (B,) int32, round (B,) int32, lse (B, 1) float32), the
     (B, V) logits never stored.  Arguments as :func:`logits_argmax_cuda`;
@@ -350,7 +437,7 @@ def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds
     the kernel's Philox; 1 <= k <= 4; rounds >= 0.  2 + rounds CUDA launches,
     none of which the host waits for."""
     name = "logits_sample"
-    _check_vocab_args(name, x32, lnf, wte)
+    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
     b, d = x32.shape
     v = wte.shape[0]
     _build.require(1 <= k <= SAMPLE_K_MAX, name, f"k must be in [1, {SAMPLE_K_MAX}]")
@@ -362,7 +449,6 @@ def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds
     ntiles = -(-v // 32)  # common.cuh BN
     ncb = -(-ntiles // _SAMPLE_TILES)
     dev = x32.device
-    xf = torch.empty((b, d), dtype=wte.dtype, device=dev)
     part_f = torch.empty((b * ncb * (3 + 3 * k),), dtype=torch.float32, device=dev)
     part_i = torch.empty((b * ncb * (1 + k),), dtype=torch.int32, device=dev)
     state_i = torch.empty((b * (1 + k),), dtype=torch.int32, device=dev)
@@ -373,14 +459,13 @@ def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds
     lse = torch.empty((b, 1), dtype=torch.float32, device=dev)
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     err = _build.library().gic_logits_sample(
-        _build.DTYPE_CODE[wte.dtype], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
-        wte.data_ptr(), b, d, v, temp.data_ptr(), top_p.data_ptr(), seed & 0xFFFFFFFF,
-        seed >> 32, k, rounds, xf.data_ptr(), part_f.data_ptr(), part_i.data_ptr(),
-        state_i.data_ptr(), state_f.data_ptr(), counters.data_ptr(), tok.data_ptr(),
-        rnd.data_ptr(), lse.data_ptr(), _build.stream_of(x32),
+        _build.DTYPE_CODE[cdt], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
+        wte.data_ptr(), _build.ptr(ws), b, d, v, temp.data_ptr(), top_p.data_ptr(),
+        seed & 0xFFFFFFFF, seed >> 32, k, rounds, xf.data_ptr(), _build.ptr(sx),
+        part_f.data_ptr(), part_i.data_ptr(), state_i.data_ptr(), state_f.data_ptr(),
+        counters.data_ptr(), tok.data_ptr(), rnd.data_ptr(), lse.data_ptr(), _build.stream_of(x32),
     )
-    _build.check(err, name)
-    logits_sample_cuda.launches += 1
+    _count_vocab(logits_sample_cuda, name, err, ws)
     return tok, rnd, lse
 
 
@@ -388,10 +473,10 @@ logits_sample_cuda.launches = 0
 
 
 def logits_sample(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds: int = 6,
-                  eps: float = 1e-5, *, use_kernel: bool | None = None):
+                  eps: float = 1e-5, *, use_kernel: bool | None = None, **quant):
     if _build.kernels_enabled(use_kernel, x32.device):
-        return logits_sample_cuda(x32, lnf, wte, temp, top_p, seed, k, rounds, eps)
-    return sample_step_plain(x32, lnf, wte, temp, top_p, seed, k, rounds, eps=eps)
+        return logits_sample_cuda(x32, lnf, wte, temp, top_p, seed, k, rounds, eps, **quant)
+    return sample_step_plain(x32, lnf, wte, temp, top_p, seed, k, rounds, eps=eps, **quant)
 
 
 # ---------------------------------------------------------------------------
@@ -399,32 +484,36 @@ def logits_sample(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds: int
 # ---------------------------------------------------------------------------
 
 def decode_layers(packed, x0, k_cache, v_cache, idx: int, *, n_head: int, eps: float = 1e-5,
-                  origin=None, gather_start: int = 0, start=None,
+                  origin=None, gather_start: int = 0, start=None, k_scale=None, v_scale=None,
                   use_kernels: bool | None = None) -> torch.Tensor:
     """All layers of one step: returns the (B, D) float32 residual stream
-    before the final LN.  Appends each layer's K/V at ``idx`` in place;
+    before the final LN.  Appends each layer's K/V at ``idx`` in place (and,
+    for int8 caches, its scales into ``k_scale``/``v_scale`` (L, T, B));
     ``origin``/``gather_start``/``start`` as in
-    :func:`ops.decode_attention.decode_attention`."""
+    :func:`ops.decode_attention.decode_attention`.  An int8 pack (``qkvs``)
+    runs every projection in W8A8."""
     d = x0.shape[1]
+    cdt = x0.dtype
+    quant = "qkvs" in packed
     x32 = x0.to(torch.float32, copy=True)
+
+    def linear(x, role, bias, l, **kw):
+        scale = packed[role[:-1] + "s"][l] if quant else None
+        return fused_linear(x, packed[role][l], packed[bias][l], eps=eps, w_scale=scale,
+                            compute_dtype=cdt if quant else None, use_kernel=use_kernels, **kw)
+
     for l in range(k_cache.shape[0]):
-        qkv = fused_linear(
-            x32, packed["qkvw"][l], packed["attnb"][l], epilogue="cast",
-            ln=(packed["ln1s"][l], packed["ln1b"][l]), eps=eps, use_kernel=use_kernels,
-        )
+        qkv = linear(x32, "qkvw", "attnb", l, epilogue="cast",
+                     ln=(packed["ln1s"][l], packed["ln1b"][l]))
+        cache_scales = {} if k_scale is None else {"k_scale": k_scale[l], "v_scale": v_scale[l]}
         a, _, _ = decode_attention(
             qkv[:, :d], qkv[:, d : 2 * d], qkv[:, 2 * d :], k_cache[l], v_cache[l], idx,
             n_head=n_head, origin=origin, gather_start=gather_start, start=start,
-            use_kernel=use_kernels,
+            use_kernel=use_kernels, **cache_scales,
         )
-        fused_linear(a, packed["projw"][l], packed["projb"][l], epilogue="residual",
-                     residual=x32, use_kernel=use_kernels)
-        h = fused_linear(
-            x32, packed["fcw"][l], packed["fcb"][l], epilogue="gelu",
-            ln=(packed["ln2s"][l], packed["ln2b"][l]), eps=eps, use_kernel=use_kernels,
-        )
-        fused_linear(h, packed["cprojw"][l], packed["cprojb"][l], epilogue="residual",
-                     residual=x32, use_kernel=use_kernels)
+        linear(a, "projw", "projb", l, epilogue="residual", residual=x32)
+        h = linear(x32, "fcw", "fcb", l, epilogue="gelu", ln=(packed["ln2s"][l], packed["ln2b"][l]))
+        linear(h, "cprojw", "cprojb", l, epilogue="residual", residual=x32)
     return x32
 
 
@@ -474,17 +563,26 @@ def fused_decode_step(
     are beam-major, B a multiple of ``beam_k``.  ``start`` ((B,) int32, any
     vocabulary mode, not with beam mode): row r attends only its window
     ``[start_r, idx)`` and its new row — continuous batching.
-    ``use_kernels=False`` is the step's plain twin.  The int8 cache
-    (``k_scale``/``v_scale``) is not ported and raises.
+
+    W8A8: a pack from ``pack_decode_weights(quant=True)`` (it holds ``qkvs``)
+    runs every projection and the vocabulary in int8, in every mode.  int8
+    KV cache: int8 caches with ``k_scale``/``v_scale`` (L, Tpad, B) float32
+    per-row scales (:func:`ops.quant.quantize_cache`); the step writes row
+    ``idx``'s scales in place and the return tuple ends with ``k_scale,
+    v_scale``.  As in the JAX package it has no ``topk`` or ``sample``
+    variant.  ``use_kernels=False`` is the step's plain twin.
     """
+    cache_quant = k_cache.dtype == torch.int8
     if sample is not None and (topk or emit_logits or beam_k):
         raise ValueError("sample mode is exclusive with topk/emit_logits/beam")
     if start is not None and origin is not None:
         raise ValueError("start and origin are exclusive (beam search never passes a start)")
-    if k_scale is not None or v_scale is not None or k_cache.dtype == torch.int8:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP.md, queue 2, item 2, mode 7: int8 KV)"
-        )
+    if cache_quant != (k_scale is not None) or cache_quant != (v_scale is not None):
+        raise ValueError("an int8 KV cache needs k_scale and v_scale, and only it takes them")
+    if cache_quant and topk:
+        raise ValueError("beam top-k mode has no int8-cache variant")
+    if cache_quant and sample is not None:
+        raise ValueError("sample mode has no int8-cache variant")
     if (origin is None) != (beam_k == 0):
         raise ValueError("beam mode needs origin and beam_k together")
     if topk and emit_logits:
@@ -493,18 +591,21 @@ def fused_decode_step(
         raise ValueError(f"batch {x0.shape[0]} is not a whole number of beam groups of {beam_k}")
     use = fused_greedy_enabled(use_kernels, x0.device)
     x32 = decode_layers(packed, x0, k_cache, v_cache, int(idx), n_head=n_head, eps=eps,
-                        origin=origin, gather_start=gather_start, start=start, use_kernels=use)
+                        origin=origin, gather_start=gather_start, start=start, k_scale=k_scale,
+                        v_scale=v_scale, use_kernels=use)
     lnf, wte = packed["lnf"], packed["wte"]
+    quant = {"wte_scale": packed["wtes"], "compute_dtype": x0.dtype} if "qkvs" in packed else {}
+    caches = (k_cache, v_cache) + ((k_scale, v_scale) if cache_quant else ())
     if sample is not None:
         b = x0.shape[0]
         temp = torch.as_tensor(sample["temp"], dtype=torch.float32, device=x0.device).reshape(b)
         top_p = torch.as_tensor(sample["top_p"], dtype=torch.float32, device=x0.device).reshape(b)
         tok, rnd, lse = logits_sample(x32, lnf, wte, temp.contiguous(), top_p.contiguous(),
                                       int(sample["seed"]), sample_k, sample_rounds, eps,
-                                      use_kernel=use)
-        return tok, rnd, lse, k_cache, v_cache
+                                      use_kernel=use, **quant)
+        return tok, rnd, lse, *caches
     if topk:
-        return (*logits_topk(x32, lnf, wte, topk, eps, use_kernel=use), k_cache, v_cache)
+        return (*logits_topk(x32, lnf, wte, topk, eps, use_kernel=use, **quant), *caches)
     if emit_logits:
-        return logits(x32, lnf, wte, eps, use_kernel=use), k_cache, v_cache
-    return logits_argmax(x32, lnf, wte, eps, use_kernel=use), k_cache, v_cache
+        return logits(x32, lnf, wte, eps, use_kernel=use, **quant), *caches
+    return logits_argmax(x32, lnf, wte, eps, use_kernel=use, **quant), *caches

@@ -213,7 +213,7 @@ def gumbel_of_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def sample_step_plain(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds: int = 6,
-                      bits=None, eps: float = 1e-5):
+                      bits=None, eps: float = 1e-5, **quant):
     """Plain twin of ``csrc/logits_sample.cu``, the step's in-kernel
     temperature / top-p draw by speculative accept.
 
@@ -227,12 +227,13 @@ def sample_step_plain(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds:
     unresolved takes the last round's first fresh candidate and reports
     ``rounds + 1``.  ``bits(round)`` gives the (B, V, k) uniform words of a
     round; None means :func:`philox_words` under ``seed``, the kernel's.
-    Returns (token (B,) int32, resolve round (B,) int32, logsumexp of the
-    scaled logits (B, 1) float32).
+    ``quant``: ``wte_scale`` and ``compute_dtype`` for an int8 wte, as in
+    :func:`ops.decode_step.logits_plain`.  Returns (token (B,) int32, resolve
+    round (B,) int32, logsumexp of the scaled logits (B, 1) float32).
     """
     from gpt2_image_captioning_tpu_torch.ops.decode_step import logits_plain
 
-    lg = logits_plain(x32, lnf, wte, eps)
+    lg = logits_plain(x32, lnf, wte, eps, **quant)
     b, v = lg.shape
     if bits is None:
         def bits(r):

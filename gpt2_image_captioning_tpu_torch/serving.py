@@ -16,12 +16,13 @@ Greedy serving gives every request the tokens of one-shot greedy
 :func:`models.captioner.generate`.  ``temperature`` / ``top_p`` (or
 ``per_request_sampling``) select sampled serving, each request with its own
 values; ``sample_in_kernel`` draws decode tokens inside the step.
+``decode_precision="int8"`` decodes from the W8A8 pack of the bf16 weights
+(admission's prefill stays bf16), as the JAX service does.
 
 Not ported here, and refused: image intake (``submit_array``,
 ``submit_bytes``, ``submit_prepped``, ``caption_arrays``) and the HTTP
 endpoints need the vision towers (ROADMAP.md, queue 1, item 10); ``mesh``
-needs parallelism (item 13); ``decode_precision="int8"`` the int8 step
-(queue 2, item 2, mode 3).
+needs parallelism (item 13).
 """
 
 from __future__ import annotations
@@ -81,16 +82,14 @@ class ContinuousCaptionService:
             raise NotImplementedError(
                 "a dp mesh of sub-pools is not ported yet (ROADMAP.md, queue 1, item 13: "
                 "parallelism)")
-        if decode_precision == "int8":
-            raise NotImplementedError(
-                "int8 serving is not ported yet (ROADMAP.md, queue 2, item 2, mode 3: int8 W8A8)")
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         self.model = model
         cfg = model.cfg
         self.cfg = cfg
-        self._tr, self._fz, self._pol = model.decode_params(decode_precision)
-        self._packed = C.prepare_decode_weights(self._tr, self._fz, cfg, self._pol)
+        quant = decode_precision == "int8"
+        self._tr, self._fz, self._pol = model.decode_params("bf16" if quant else decode_precision)
+        self._packed = C.prepare_decode_weights(self._tr, self._fz, cfg, self._pol, quant=quant)
         self.device = model.device
         self._use_kernels = use_kernels
         self.slots = slots

@@ -99,7 +99,11 @@ def test_beam_refusals():
     x = torch.from_numpy(emb)
     with pytest.raises(NotImplementedError, match="parallelism"):
         TC.beam_generate(ttr, tfz, tcfg, x, mesh=object())
-    with pytest.raises(NotImplementedError, match="int8"):
-        TC.beam_generate(ttr, tfz, tcfg, x, decode_quant=True)
+    int8 = TC.beam_generate(ttr, tfz, tcfg, x, max_length=MAX_LEN, decode_quant=True)
+    packed = TC.prepare_decode_weights(ttr, tfz, tcfg, quant=True)
+    assert torch.equal(int8, TC.beam_generate(ttr, tfz, tcfg, x, max_length=MAX_LEN,
+                                              decode_quant=True, packed=packed))
+    with pytest.raises(ValueError, match="decode_quant=False needs a pack with quant=False"):
+        TC.beam_generate(ttr, tfz, tcfg, x, packed=packed)
     with pytest.raises(ValueError, match="CUDA"):
         TC.beam_generate(ttr, tfz, tcfg, x, use_kernels=True)

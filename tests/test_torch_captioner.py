@@ -115,7 +115,8 @@ def test_build_prefix_with_task_prompt_matches_jax():
 
 def test_model_facade_bf16_and_refusals():
     """ImageCaptioningModel: bf16 decode params are cached, generate_captions
-    decodes through the tokenizer, and what is not ported raises."""
+    decodes through the tokenizer, int8 decodes the bf16 copy W8A8, and what
+    is not ported raises."""
     cfg = TC.CaptionerConfig(
         gpt2=TG.GPT2Config.tiny(),
         mapping=TM.MLPMappingConfig(prefix_length=2, embed_dim=8, gpt_dim=32),
@@ -139,8 +140,9 @@ def test_model_facade_bf16_and_refusals():
     in_kernel = TC.generate(tr, fz, cfg, torch.from_numpy(emb), max_length=6, temperature=1.0,
                             sample_in_kernel=True, policy=pol)
     assert in_kernel.shape == (3, 6) and in_kernel.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="int8"):
-        model.generate(emb, temperature=0.0, decode_precision="int8")
+    ids8 = model.generate(emb, max_length=6, temperature=0.0, decode_precision="int8")
+    assert torch.equal(ids8, TC.generate(tr, fz, cfg, torch.from_numpy(emb), max_length=6,
+                                         temperature=0.0, policy=pol, decode_quant=True))
     with pytest.raises(NotImplementedError, match="parallelism"):
         model.generate(emb, temperature=0.0, mesh=object())
     beams = TC.beam_generate(tr, fz, cfg, torch.from_numpy(emb), max_length=6, beam_size=4,

@@ -332,8 +332,9 @@ def test_service_affinity_and_pipeline_depth_keep_captions(depth):
 
 def test_service_sampling_modes_and_refusals():
     """Per-request sampling mixes greedy rows (exactly one-shot greedy) with
-    sampled ones, deterministic per seed in both sampling modes; what is
-    not ported raises, naming its slice; bad requests raise."""
+    sampled ones, deterministic per seed in both sampling modes; int8
+    serving gives one-shot int8 captions; what is not ported raises, naming
+    its slice; bad requests raise."""
     _, tmodel = _service_models()
     embs = np.random.default_rng(41).normal(size=(6, 8)).astype(np.float32)
     want = tmodel.generate_captions(embs, max_length=6, temperature=0.0)
@@ -363,8 +364,12 @@ def test_service_sampling_modes_and_refusals():
             fn(b"")
     with pytest.raises(NotImplementedError, match="item 13"):
         ContinuousCaptionService(tmodel, mesh=object())
-    with pytest.raises(NotImplementedError, match="mode 3"):
-        ContinuousCaptionService(tmodel, decode_precision="int8")
+    svc8 = ContinuousCaptionService(tmodel, slots=3, max_length=6, decode_precision="int8")
+    assert "qkvs" in svc8._packed and svc8._pol.compute_dtype == torch.bfloat16
+    rid = svc8.submit_embedding(embs[0])
+    svc8.drain()
+    assert svc8.pop_result(rid) == tmodel.generate_captions(
+        embs[:1], max_length=6, temperature=0.0, decode_precision="int8")[0]
     with pytest.raises(ValueError, match="top_p >= 0.5"):
         ContinuousCaptionService(tmodel, temperature=1.0, top_p=0.3, sample_in_kernel=True)
     svc = ContinuousCaptionService(tmodel, temperature=1.0, sample_in_kernel=True)

@@ -218,8 +218,8 @@ def test_beam_origin_mode_matches_jax_kernel():
 
 
 def test_step_mode_rules_and_refusals():
-    """The JAX function's exclusivity rules; the unported mode (the int8 cache)
-    raises and names the ROADMAP item."""
+    """The JAX function's exclusivity rules; scales with a float cache
+    raise (only an int8 cache takes them)."""
     b = 4
     params, cache, x0 = _step_inputs(b, p_len=3, seed=2)
     packed = TDS.pack_decode_weights(_torch_params(params), torch.float32)
@@ -238,7 +238,7 @@ def test_step_mode_rules_and_refusals():
         call(sample={"temp": torch.ones(b), "top_p": torch.ones(b), "seed": 0}, topk=2)
     with pytest.raises(ValueError, match="start and origin are exclusive"):
         call(origin=origin, beam_k=2, start=torch.zeros(b, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="queue 2, item 2, mode 7"):
+    with pytest.raises(ValueError, match="k_scale and v_scale"):
         call(k_scale=torch.ones(1), v_scale=torch.ones(1))
     with pytest.raises(ValueError, match="CUDA"):
         call(emit_logits=True, use_kernels=True)
