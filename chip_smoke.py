@@ -6,7 +6,9 @@ Run from the repository root with no arguments:
 
 It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
-PyTorch twin at the main paths' shapes, with its time beside its bound (the
+PyTorch twin at the main paths' shapes (the GPT-2 prefill at a request of
+128 images and an admission of 8, the uint8 patch embedding at the three
+towers' shapes among them), with its time beside its bound (the
 least time the card could take for the same work) and, where one PyTorch
 call computes the same function, that call's time — the int8 modes too: the
 row quantizer, int8 weights in the projections and the four vocabulary
@@ -44,6 +46,18 @@ just before and read just after:
   [8, 50], every greedy token teacher-forced against the plain path and
   every sampled token inside the plain path's nucleus; then greedy in int8
   (``decode_precision="int8"``) against the int8 plain path;
+- the vision towers at full width, bf16, random seeded weights, on
+  synthetic uint8 pixels already at 224 x 224 (no PIL): CLIP ViT-B/32 at b
+  256, ViT-B/16 at b 128, DINOv3 ViT-L/16 at b 64, each through its uint8
+  entry point (the patch-embed kernel, the flash kernel at T 50 / 197 /
+  201), img/s, launches, features against the plain path, one traced encode;
+- images to captions: ``CaptionService(batch_size=128)`` on CLIP B/32 + the
+  serving model, greedy and sampled at the façade's defaults, over 4
+  batches of synthetic pixels: img/s, the encode / decode split, launches,
+  every token held to the plain path; tiny float32 captions from pixels
+  equal with and without the kernels, through ``CaptionService`` and the
+  continuous service's ``submit_prepped``; extraction (``_run_extraction``
+  from an in-memory loader) with the ``.pt`` read back;
 - training: the train step (``make_train_step``) at full width — GPT-2 124M
   frozen, the transformer mapper trainable, bf16 compute, AdamW, b 128,
   captions padded to 50 — fed by the ``Batcher``: step-1 loss and gradients
@@ -51,7 +65,11 @@ just before and read just after:
   float32 check at a tiny config, and ten steps on one batch that must
   lower the loss.
 
-Each phase prints one JSON line; the last three lines are the kernel table,
+Every request and admission prefills through the prefill kernel (an int8
+decode through ``forward_cached``, as the reference), and the launch checks
+count it.  Each phase prints one JSON line (an ``environment`` record lists
+which of PIL, transformers, triton and numpy import); the last three lines
+are the kernel table,
 the card's name and power limit, and ``{"ok": true, ...}``.  Any failed
 check raises, so the script exits non-zero without the ``ok`` line.
 Without a CUDA device it exits non-zero at once.  Longer output (nvcc's
@@ -202,11 +220,17 @@ ROWQUANT_SCALE_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-6}
 
 # Flash attention on the paths: (name, B, H, T, hd, causal, padding mask) —
 # the GPT-2 blocks in training (15 prefix + 50 caption positions), the
-# transformer mapper (10 + 15 tokens, 768 / 8 heads), the GPT-2 prefill.
+# transformer mapper (10 + 15 tokens, 768 / 8 heads), the GPT-2 prefill of
+# the int8 decode (forward_cached), and the three vision towers at their
+# batches (CLIP B/32: 49 patches + CLS; ViT-B/16: 196 + CLS; DINOv3 L/16:
+# 196 + CLS + 4 registers).
 FLASH_SHAPES = (
     ("gpt2_train", B, 12, 65, 64, True, True),
     ("mapper", B, 8, 25, 96, False, False),
     ("gpt2_prefill", B, 12, 15, 64, True, False),
+    ("clip_tower", 256, 12, 50, 64, False, False),
+    ("vit_tower", 128, 12, 197, 64, False, False),
+    ("dino_tower", 64, 16, 201, 64, False, False),
 )
 # Flash kernel against its twin, |kernel - plain| <= atol + rtol * |plain|.
 # bf16: the kernel rounds p to bf16 before P V (the twin keeps it float32),
@@ -230,6 +254,43 @@ TRAIN_TOL = {"loss_bf16": 1e-2, "grad_bf16": 5e-2, "loss_f32": 1e-5, "grad_f32":
 # forward against the twin's: the outputs, and so the incoming gradient of
 # the test loss, differ by a bf16 ulp, so 1e-2 relative in norm.
 FLASH_BWD_TOL = 1e-2
+
+# The prefill kernel (csrc/prefill.cu) against its twin, GPT-2 124M: a
+# request (B 128 images x 15 prefix tokens) and an admission of 8 images.
+# bf16: Q, K, V, the attention output and the MLP's hidden layer round to
+# bf16 in both, and a summation-order difference flips one such rounding by
+# an ulp (2^-8 relative), which the later layers carry; measured on an
+# H100: 2.9e-3 on the float32 residual stream (|max| 2.7), one ulp on cache
+# rows (1.6e-2 at values in [2, 4)), 6.6e-3 on the first-token logits.
+# float32: summation order only (measured <= 4e-6).
+PREFILL_BATCHES = (B, 8)
+PREFILL_TOL = {
+    torch.bfloat16: {"x32": (1e-2, 1e-2), "cache": (1e-2, 1e-2), "logits": (2e-2, 1e-2)},
+    torch.float32: {"x32": (1e-4, 1e-4), "cache": (1e-4, 1e-4), "logits": (1e-4, 1e-4)},
+}
+# The towers at full width on synthetic uint8 pixels already at 224 x 224:
+# (name, batch, patch, width, bias) — CLIP ViT-B/32 at b 256, ViT-B/16 at
+# b 128, DINOv3 ViT-L/16 at b 64; flash attention at T 50, 197 and 201.
+TOWERS = (("clip", 256, 32, 768, False), ("vit", 128, 16, 768, True),
+          ("dino", 64, 16, 1024, True))
+CLIP_LAYERS = 12  # CLIP ViT-B/32's, the tower of image serving
+# The patch-embed kernel (csrc/patch_embed.cu) against its twin: both round
+# the same normalised values to the operand type (the same float32 steps),
+# so only the product's summation order differs (measured: bf16 0, float32
+# 1.8e-5 at outputs of |max| 7).
+PATCH_TOL = (1e-4, 1e-4)
+# Tower features, bf16, kernels against use_kernels=False on the same
+# weights and pixels: the flash kernel rounds unnormalised p to bf16 where
+# the plain attention rounds the probabilities, over 12-24 layers; measured
+# on an H100 at most 1.8e-3 on unit vectors (components up to 0.19), cosine
+# >= 0.99993.  Held to 1e-2 and 0.999: a wrong patch layout or mask moves
+# features by O(0.1) and the cosine far below.
+TOWER_TOL, TOWER_COS = 1e-2, 0.999
+# Image serving: CaptionService on CLIP B/32 + GPT-2 124M, 4 device batches
+# of 128 synthetic images each, greedy and sampled at the façade's defaults.
+IMAGE_BATCHES = 4
+# Extraction: three loader batches of 64 (the last with 40 valid images).
+EXTRACT_BATCHES, EXTRACT_TAIL = 3, 40
 
 RESULTS: list[dict] = []
 T0 = time.perf_counter()
@@ -1190,6 +1251,370 @@ def check_flash_backward(g) -> dict:
             "fwd_bwd_ms": time_ms(fwd_bwd, iters=10)}
 
 
+@functools.cache
+def gpt2_124m_params() -> dict:
+    """GPT-2 124M at its init distributions from a seed, float32 on the CPU."""
+    from gpt2_image_captioning_tpu_torch.models import gpt2 as G
+
+    return G.init(torch.Generator().manual_seed(0), G.GPT2Config.gpt2_124m())
+
+
+def check_prefill(dtype, g) -> dict:
+    """The prefill kernel against its twin at a request (B 128) and an
+    admission (8 images) of 15 prefix tokens: the residual stream, every
+    layer's K/V cache rows and the first-token logits; beside its time the
+    twin's and the eager prefill's (``forward_cached`` with the flash kernel,
+    the port's prefill before the kernel: no one library call computes it)."""
+    from gpt2_image_captioning_tpu_torch import BF16, F32
+    from gpt2_image_captioning_tpu_torch.core.tree import tree_map
+    from gpt2_image_captioning_tpu_torch.models import gpt2 as G
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+    from gpt2_image_captioning_tpu_torch.ops import prefill_step as PS
+
+    cfg = G.GPT2Config.gpt2_124m()
+    gp = tree_map(lambda t: t.to("cuda", dtype), gpt2_124m_params())
+    packed = DS.pack_decode_weights(gp, dtype)
+    pol = BF16 if dtype == torch.bfloat16 else F32
+    tol, el, n_layer = PREFILL_TOL[dtype], gp["wte"].element_size(), cfg.n_layer
+    shapes = {}
+    for b in PREFILL_BATCHES:
+        prefix = 0.5 * torch.randn(b, P_LEN, D, generator=g, device="cuda")
+        x0 = (prefix + gp["wpe"][:P_LEN].float()).to(dtype)
+        ck, cp = (G.init_cache(cfg, b, P_LEN, dtype=dtype, device="cuda") for _ in range(2))
+        got = PS.prefill_cuda(packed, x0, ck["k"], ck["v"], n_head=H)
+        want = PS.prefill_plain(packed, x0, cp["k"], cp["v"], n_head=H)
+        lk = PS.prefill_into_cache(packed, gp, cfg, prefix, G.init_cache(
+            cfg, b, P_LEN, dtype=dtype, device="cuda"), pol, use_kernel=True)[0]
+        lp = PS.prefill_into_cache(packed, gp, cfg, prefix, G.init_cache(
+            cfg, b, P_LEN, dtype=dtype, device="cuda"), pol, use_kernel=False)[0]
+        torch.cuda.synchronize()
+        errs = {"x32": close(got, want, tol["x32"]),
+                "cache": max(close(ck[n][:, :P_LEN], cp[n][:, :P_LEN], tol["cache"])
+                             for n in ("k", "v")),
+                "logits": close(lk, lp, tol["logits"])}
+        ms = time_ms(lambda: PS.prefill_cuda(packed, x0, ck["k"], ck["v"], n_head=H))
+        plain_ms = time_ms(lambda: PS.prefill_plain(packed, x0, cp["k"], cp["v"], n_head=H),
+                           iters=5)
+        ce = G.init_cache(cfg, b, P_LEN, dtype=dtype, device="cuda")
+
+        def eager():
+            ce["index"] = 0
+            G.forward_cached(gp, cfg, prefix, ce, pol)
+
+        eager_ms = time_ms(eager, iters=5)
+        # the weights, biases and LN parameters read once; x0 read, the float32
+        # stream and every layer's K/V rows written; four products and the
+        # causal attention (4 hd per (query, key) pair) a layer
+        rows = b * P_LEN
+        nbytes = (n_layer * (12 * D * D * el + 4 * 13 * D) + rows * D * (el + 4)
+                  + 2 * n_layer * rows * D * el)
+        ops = n_layer * (2 * rows * 12 * D * D + 4 * (D // H) * H * b * P_LEN * (P_LEN + 1) // 2)
+        bound_ms, bound_by = bound(nbytes, ops, dtype)
+        shapes[f"b{b}"] = {"images": b, "prefix": P_LEN, "max_abs_err": max(errs.values()),
+                           "errors": errs, "ms": ms, "plain_ms": plain_ms, "eager_ms": eager_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+                           "ops": ops}
+    # beyond MAX_PREFIX the kernel route refuses on the card: no other prefill runs
+    long = torch.zeros(1, PS.MAX_PREFIX + 1, D, device="cuda")
+    try:
+        PS.prefill_into_cache(packed, gp, cfg, long, G.init_cache(
+            cfg, 1, PS.MAX_PREFIX + 1, dtype=dtype, device="cuda"), pol, use_kernel=True)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, f"prefill: a {PS.MAX_PREFIX + 1}-token prefix was not refused")
+    main = shapes[f"b{B}"]
+    return {"kernel": "prefill", "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None, "eager_ms": main["eager_ms"],
+            "eager": "gpt2.forward_cached with the flash kernel (the port's earlier prefill)",
+            "tolerance": tol, "at": f"GPT-2 124M, B {B} x {P_LEN} tokens", "shapes": shapes,
+            "refuses_prefix": PS.MAX_PREFIX + 1}
+
+
+def check_patch_embed(dtype, g) -> dict:
+    """The patch-embed kernel against its twin at the three towers' shapes,
+    with its time beside the bound and the library route (unfold, normalise,
+    ``torch.mm``)."""
+    from gpt2_image_captioning_tpu_torch.embeddings.preprocess import SPECS
+    from gpt2_image_captioning_tpu_torch.ops import patch_embed as PE
+
+    shapes = {}
+    for name, b, p, d, with_bias in TOWERS:
+        px = torch.randint(0, 256, (b, 224, 224, 3), generator=g, device="cuda",
+                           dtype=torch.int32).to(torch.uint8)
+        w = (0.02 * torch.randn(3 * p * p, d, generator=g, device="cuda")).to(dtype)
+        bias = 0.1 * torch.randn(d, generator=g, device="cuda") if with_bias else None
+        mean, inv = PE.normalization_vectors(SPECS[name], p, "cuda")
+        got = PE.patch_embed_cuda(px, w, mean, inv, p, bias)
+        want = PE.patch_embed_plain(px, w, mean, inv, p, bias)
+        torch.cuda.synchronize()
+        err = close(got, want, PATCH_TOL)
+        ms = time_ms(lambda: PE.patch_embed_cuda(px, w, mean, inv, p, bias))
+        plain_ms = time_ms(lambda: PE.patch_embed_plain(px, w, mean, inv, p, bias))
+        kw = {"out_dtype": torch.float32} if dtype == torch.bfloat16 else {}
+
+        def library():
+            x = ((PE._unfold_u8(px, p).float() * (1.0 / 255.0) - mean) * inv).to(dtype)
+            return torch.mm(x, w, **kw)
+
+        library_ms = time_ms(library)
+        m, k = b * (224 // p) ** 2, 3 * p * p
+        nbytes = b * 224 * 224 * 3 + k * d * w.element_size() + 4 * m * d + 8 * k + 4 * d
+        bound_ms, bound_by = bound(nbytes, 2 * m * k * d, dtype)
+        shapes[name] = {"images": b, "patch": p, "M": m, "K": k, "D": d, "bias": with_bias,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "bytes": nbytes}
+    main = shapes["clip"]
+    return {"kernel": "patch_embed", "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "library": "unfold + normalise + torch.mm (float32 out)", "tolerance": PATCH_TOL,
+            "at": "CLIP B/32, b 256", "shapes": shapes}
+
+
+def trace_summary(events: list[dict]) -> dict:
+    """A traced window's device time: from its first device event to the end
+    of its last, the busy union of all of them, the idle share, and the
+    kernels that take the most of it."""
+    if not events:
+        return {"idle_share": "not measured"}
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    busy = busy_us(events, lo, hi)
+    by_name: dict[str, float] = {}
+    for e in events:
+        if e["cat"] == "kernel":
+            by_name[e["name"][:100]] = by_name.get(e["name"][:100], 0.0) + e["dur"] * 1e-6
+    return {"device_window_s": (hi - lo) * 1e-6, "device_busy_s": busy * 1e-6,
+            "idle_share": 1.0 - busy / (hi - lo),
+            "kernel_launches": sum(e["cat"] == "kernel" for e in events),
+            "top_kernels_s": sorted(by_name.items(), key=lambda kv: -kv[1])[:10]}
+
+
+def tower_params(name: str):
+    """A tower at full width from a seed, bf16 on the card: (module, config,
+    params)."""
+    from gpt2_image_captioning_tpu_torch.core.precision import cast_floating
+    from gpt2_image_captioning_tpu_torch.models import clip as CL
+    from gpt2_image_captioning_tpu_torch.models import dino as DN
+    from gpt2_image_captioning_tpu_torch.models import vit as VT
+
+    mod, cfg, init = {"clip": (CL, CL.CLIPVisionConfig.vit_b32(), CL.init_vision),
+                      "vit": (VT, VT.ViTConfig.base_patch16_224(), VT.init),
+                      "dino": (DN, DN.DINOv3Config.vitl16(), DN.init)}[name]
+    params = cast_floating(init(torch.Generator().manual_seed(0), cfg, device="cuda"),
+                           torch.bfloat16)
+    return mod, cfg, params
+
+
+def towers_path() -> tuple[list[dict], dict]:
+    """Each tower at full width, bf16, from synthetic uint8 pixels through its
+    uint8 entry point (the patch-embed kernel, then the tower with the flash
+    kernel): img/s over three batches, launches, features against
+    ``use_kernels=False``, and one traced encode's idle share."""
+    from gpt2_image_captioning_tpu_torch import BF16
+    from gpt2_image_captioning_tpu_torch.embeddings.preprocess import SPECS
+
+    records, launches = [], {}
+    for name, b, _, _, _ in TOWERS:
+        mod, cfg, params = tower_params(name)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        px = torch.randint(0, 256, (b, 224, 224, 3), generator=g, device="cuda",
+                           dtype=torch.int32).to(torch.uint8)
+
+        def run(_=None, use=None):
+            with torch.no_grad():
+                return mod.encode_image_u8(params, cfg, px, SPECS[name], policy=BF16,
+                                           use_kernels=use)
+
+        run()  # warm-up
+        torch.cuda.synchronize()
+        outs, seconds, counts = run_counted(run, range(3))
+        want = {k: 0 for k in counts}
+        want.update(patch_embed=3, flash_attention=3 * cfg.num_hidden_layers)
+        check(counts == want, f"{name} tower launches {counts} != {want}")
+        feats, plain = outs[0].float(), run(use=False).float()
+        check(tuple(feats.shape) == (b, plain.shape[1]) and bool(feats.isfinite().all()),
+              f"{name}: bad features {tuple(feats.shape)}")
+        diff = float((feats - plain).abs().max())
+        cos = float((feats * plain).sum(-1).min())
+        norm_err = float((feats.norm(dim=-1) - 1.0).abs().max())
+        check(diff <= TOWER_TOL and cos >= TOWER_COS and norm_err <= 1e-3,
+              f"{name} features: max diff {diff} (<= {TOWER_TOL}), min cosine {cos} "
+              f"(>= {TOWER_COS}), norm error {norm_err}")
+        _, events = traced(run, f"{name}_encode_trace.json")
+        seq = {"clip": 50, "vit": 197, "dino": 201}[name]
+        records.append({
+            "phase": f"tower_{name}", "config": type(cfg).__name__, "dtype": "bf16",
+            "images": b, "batches": 3, "seconds": seconds, "img_per_s": 3 * b / seconds,
+            "launches": counts, "flash_seq_len": seq, "features_vs_plain_max_abs": diff,
+            "features_vs_plain_min_cos": cos, "tolerance": [TOWER_TOL, TOWER_COS],
+            "traced_encode": {**trace_summary(events), "trace": f"{name}_encode_trace.json.gz"},
+            "card": nvidia_smi()})
+        launches[f"tower_{name}"] = counts
+        del params, px, outs
+        torch.cuda.empty_cache()
+    return records, launches
+
+
+def images_path(model, clip_cfg, clip_params, mode: str) -> tuple[dict, dict]:
+    """Images to captions: ``CaptionService(batch_size=128)`` on CLIP B/32 +
+    the serving model (bf16 decode), ``IMAGE_BATCHES`` batches of synthetic
+    uint8 pixels at 224, greedy or sampled at the façade's defaults; img/s end
+    to end, the encode / decode split, launches, and every token held to the
+    plain path as the one-shot paths' are (teacher-forced / nucleus)."""
+    from gpt2_image_captioning_tpu_torch.serving import CaptionService
+
+    kw = dict(temperature=0.0) if mode == "greedy" else dict(temperature=1.0, top_p=TOP_P)
+    svc = CaptionService(model, clip_params, clip_cfg, batch_size=B,
+                         max_length=50, decode_precision="bf16", **kw)
+    rng = np.random.default_rng(4)
+    batches = [rng.integers(0, 256, size=(B, 224, 224, 3), dtype=np.uint8)
+               for _ in range(IMAGE_BATCHES)]
+    svc.caption_prepped(batches[0][:8])  # warm-up
+    # the encode's window from CUDA events recorded on the stream, with no
+    # barrier inside the timed run; the embeddings are kept for the checks
+    encode, embs, marks = svc._encode, [], []
+
+    def marked_encode(params, u8):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        e = encode(params, u8)
+        end.record()
+        marks.append((start, end))
+        embs.append(e)
+        return e
+
+    svc._encode = marked_encode
+    torch.cuda.synchronize()
+    caps, seconds, launches = run_counted(svc.caption_prepped, batches)
+    svc._encode = encode
+    enc_s = sum(a.elapsed_time(z) for a, z in marks) / 1e3
+    cfg, eos = model.cfg, model.cfg.eos_token_id
+    worst, checked, agree, steps = 0.0, 0, 0.0, 0
+    for e, c in zip(embs, caps):
+        ids = [caption_ids(x) for x in c]
+        tokens, _ = served_matrix(ids, [50] * len(ids), eos)
+        steps += decode_steps(tokens, eos)
+        if mode == "greedy":
+            w, n, a = teacher_forced(model, e, tokens)
+        else:
+            w, n, a = nucleus_mass(model, e, tokens, 1.0)
+        worst, checked, agree = max(worst, w), checked + n, agree + a * n
+    check_decode_launches(launches, "logits_argmax" if mode == "greedy" else "logits", steps,
+                          IMAGE_BATCHES, cfg, images=True)
+    if mode == "greedy":
+        check(worst <= TF_TOL, f"images_{mode}: a chosen token is {worst} below the plain max")
+        checked_rec = {"worst_deficit": worst, "tolerance": TF_TOL}
+    else:
+        check(worst <= TOP_P + NUCLEUS_SLACK, f"images_{mode}: plain mass {worst} above a draw")
+        checked_rec = {"worst_mass_above": worst, "limit": TOP_P + NUCLEUS_SLACK}
+    n_img = IMAGE_BATCHES * B
+    record = {
+        "phase": f"images_{mode}_path", "model": f"CLIP ViT-B/32 + {MODEL_NAME}",
+        "dtype": "bf16 tower and decode", "images": n_img, "batch": B, "max_length": 50, **kw,
+        "seconds": seconds, "img_per_s": n_img / seconds, "encode_s": enc_s,
+        "decode_s": seconds - enc_s, "encode_share": enc_s / seconds,
+        "encode_timed_by": "CUDA events around each batch's encode, no barrier",
+        "decode_steps": steps, "launches": launches,
+        "checked": {**checked_rec, "tokens_checked": checked, "share_plain_argmax": agree / checked},
+        "card": nvidia_smi()}
+    return record, launches
+
+
+def tiny_pixels() -> dict:
+    """Tiny float32 from pixels: a CLIP tower with the flash kernel's head dim
+    (128 = 2 x 64, 64-pixel images of 16 patches) feeding the tiny captioner;
+    ``CaptionService`` and the continuous service's ``submit_prepped`` give
+    the same captions with the kernels as without them."""
+    from gpt2_image_captioning_tpu_torch import F32
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models.clip import CLIPVisionConfig, init_vision
+    from gpt2_image_captioning_tpu_torch.serving import CaptionService, ContinuousCaptionService
+
+    cfg = tiny_config()
+    vcfg = CLIPVisionConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2,
+                            num_attention_heads=2, image_size=64, patch_size=16,
+                            projection_dim=16)
+    vparams = init_vision(torch.Generator().manual_seed(8), vcfg, device="cuda")
+    model = C.ImageCaptioningModel(cfg, tokenizer=synthetic_tokenizer(cfg.gpt2.vocab_size),
+                                   generator=torch.Generator().manual_seed(7), device="cuda")
+    prepped = np.random.default_rng(9).integers(0, 256, size=(10, 64, 64, 3), dtype=np.uint8)
+    out, counts = {}, {}
+    for use in (None, False):
+        key = "kernels" if use is None else "plain"
+        reset_launches()
+        fixed = CaptionService(model, vparams, vcfg, batch_size=4, max_length=12, policy=F32,
+                               use_kernels=use).caption_prepped(prepped)
+        svc = ContinuousCaptionService(model, vparams, vcfg, slots=3, segment=2, bursts=2,
+                                       admit=2, max_length=12, use_kernels=use)
+        rids = [svc.submit_prepped(p) for p in prepped]
+        svc.drain()
+        torch.cuda.synchronize()
+        counts[key] = read_launches()
+        out[key] = (fixed, [svc.pop_result(r) for r in rids])
+    check(out["kernels"] == out["plain"], f"tiny f32 captions from pixels differ: {out}")
+    check(out["kernels"][0] == out["kernels"][1],
+          f"tiny f32: the continuous service's captions differ from CaptionService's: {out}")
+    check(all(counts["kernels"][k] > 0 for k in ("patch_embed", "prefill", "flash_attention"))
+          and not any(counts["plain"].values()), f"tiny f32 from pixels: launches {counts}")
+    return {"phase": "tiny_f32_exact_pixels", "images": len(prepped), "captions_equal": True,
+            "launches_kernels": counts["kernels"]}
+
+
+def extraction_phase(cfg, clip_params) -> dict:
+    """``_run_extraction`` from an in-memory loader of prepped uint8 batches
+    (the tail padded and masked) through CLIP B/32's uint8 entry point, the
+    ``.pt`` written and read back."""
+    from gpt2_image_captioning_tpu_torch import BF16
+    from gpt2_image_captioning_tpu_torch.data.embeddings_io import load_embeddings
+    from gpt2_image_captioning_tpu_torch.embeddings.extract import _run_extraction
+    from gpt2_image_captioning_tpu_torch.embeddings.preprocess import SPECS
+    from gpt2_image_captioning_tpu_torch.models import clip as CL
+
+    bs = 64
+    rng = np.random.default_rng(5)
+    loader = []
+    for i in range(EXTRACT_BATCHES):
+        n = EXTRACT_TAIL if i == EXTRACT_BATCHES - 1 else bs
+        batch = rng.integers(0, 256, size=(bs, 224, 224, 3), dtype=np.uint8)
+        batch[n:] = batch[n - 1]
+        loader.append(([f"img_{i * bs + j:05d}.jpg" for j in range(n)], batch,
+                       np.arange(bs) < n))
+    path = OUT_DIR / "extract_clip.pt"
+    reset_launches()
+    names, emb = _run_extraction(
+        loader, str(path), lambda u8: CL.encode_image_u8(clip_params, cfg, u8, SPECS["clip"],
+                                                         policy=BF16), "CLIP", device="cuda")
+    counts = read_launches()
+    n_img = (EXTRACT_BATCHES - 1) * bs + EXTRACT_TAIL
+    check(len(names) == n_img and emb.shape == (n_img, cfg.projection_dim),
+          f"extraction: {len(names)} names, embeddings {emb.shape}")
+    check(counts["patch_embed"] == EXTRACT_BATCHES, f"extraction launches {counts}")
+    back_names, back = load_embeddings(str(path))
+    check(back_names == names and np.array_equal(back, emb), "the .pt did not read back")
+    norm_err = float(np.abs(np.linalg.norm(emb, axis=-1) - 1.0).max())
+    check(norm_err <= 1e-3, f"extraction: norm error {norm_err}")
+    return {"phase": "extraction", "images": n_img, "batches": EXTRACT_BATCHES,
+            "embeddings": list(emb.shape), "launches": counts, "file": path.name,
+            "norm_err": norm_err}
+
+
+def environment() -> dict:
+    """Which of PIL, transformers, triton and numpy import here, and their
+    versions (PIL is imported only where an image is decoded)."""
+    import importlib
+
+    found = {}
+    for name in ("PIL", "transformers", "triton", "numpy"):
+        try:
+            found[name] = getattr(importlib.import_module(name), "__version__", "unknown")
+        except Exception as e:  # recorded, not raised: a package that is absent is the answer
+            found[name] = f"not importable ({type(e).__name__})"
+    return {"phase": "environment", "packages": found}
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: generate — greedy, sampled (top-p) and beam search
 # ---------------------------------------------------------------------------
@@ -1350,9 +1775,11 @@ def plain_logits_along(model, emb: torch.Tensor, tokens: torch.Tensor, quant: bo
     cache): yields (step s, the plain float32 logits (B, V) that predict
     token s, the rows that had not emitted EOS before s).
 
-    The int8 reference starts from the kernels' mapper and prefill (flash
-    attention, held to the plain prefill by the bf16 phases) and runs every
-    int8 decode step in the twins.  From the plain prefill, the bf16
+    The bf16 reference is the plain path of ``generate(use_kernels=False)``:
+    the plain mapper and the prefill kernel's twin.  The int8 reference
+    starts from the kernels' mapper and prefill as the int8 decode runs them
+    (flash attention in ``forward_cached``, held to the plain path by the
+    bf16 phases) and runs every int8 decode step in the twins.  From the plain prefill, the bf16
     rounding of the prefill's attention moves activations across
     quantization steps, and the int8 steps carry that as a drift of their
     own (worst teacher-forced deficit 0.05-0.07 against 0.01-0.03 from the
@@ -1372,8 +1799,7 @@ def plain_logits_along(model, emb: torch.Tensor, tokens: torch.Tensor, quant: bo
     b, p_len, _ = prefix.shape
     cache = G.init_cache(cfg.gpt2, b, p_len + tokens.shape[1], dtype=pol.compute_dtype,
                          device="cuda")
-    logits, cache = G.forward_cached(gpt, cfg.gpt2, prefix, cache, pol,
-                                     use_kernels=prefill_kernels)
+    logits, cache = C.prefill(gpt, cfg, prefix, cache, pol, packed, prefill_kernels is None)
     k, v, scales = cache["k"], cache["v"], {}
     if quant_cache:
         k, v, ks, vs = DS.quantize_cache(k, v)
@@ -1473,11 +1899,14 @@ LAYER_KERNELS = ("fused_linear_kernel", "ln_stats_kernel", "decode_attention_ker
 VOCAB_KERNELS = {"greedy": ("logits_tile_kernel", "argmax_reduce_kernel"),
                  "sampled": ("logits_store_kernel",),
                  "beam": ("topk_tile_kernel", "topk_merge_kernel")}
-# continuous serving also runs the admission prefill's flash attention
+# continuous serving also runs the admission's mapper (flash attention) and
+# prefill (csrc/prefill.cu; forward_cached's flash attention in int8)
+ADMISSION_KERNELS = ("flash_attention_kernel", "prefill_linear_kernel", "prefill_attention_kernel",
+                     "prefill_layernorm_kernel")
 VOCAB_KERNELS.update({
-    "continuous_greedy": VOCAB_KERNELS["greedy"] + ("flash_attention_kernel",),
-    "continuous_sampled": VOCAB_KERNELS["sampled"] + ("flash_attention_kernel",),
-    "continuous_in_kernel": ("sample_tile_kernel", "flash_attention_kernel")})
+    "continuous_greedy": VOCAB_KERNELS["greedy"] + ADMISSION_KERNELS,
+    "continuous_sampled": VOCAB_KERNELS["sampled"] + ADMISSION_KERNELS,
+    "continuous_in_kernel": ("sample_tile_kernel",) + ADMISSION_KERNELS})
 # the int8 paths run the same kernels, instantiated for int8 operands
 VOCAB_KERNELS.update({f"{path}_int8": names for path, names in VOCAB_KERNELS.items()})
 VOCAB_KERNELS.update(greedy_int8_kv=VOCAB_KERNELS["greedy"], in_kernel_int8=("sample_tile_kernel",))
@@ -1638,12 +2067,15 @@ def wrappers() -> dict:
     from gpt2_image_captioning_tpu_torch.ops import attention as A
     from gpt2_image_captioning_tpu_torch.ops import decode_attention as DA
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+    from gpt2_image_captioning_tpu_torch.ops import patch_embed as PE
+    from gpt2_image_captioning_tpu_torch.ops import prefill_step as PS
     from gpt2_image_captioning_tpu_torch.ops import quant as Q
 
     return {"decode_attention": DA.decode_attention_cuda, "fused_linear": DS.fused_linear_cuda,
             "logits_argmax": DS.logits_argmax_cuda, "flash_attention": A.flash_attention_cuda,
             "logits": DS.logits_cuda, "logits_topk": DS.logits_topk_cuda,
-            "logits_sample": DS.logits_sample_cuda, "rowquant": Q.rowquant_cuda}
+            "logits_sample": DS.logits_sample_cuda, "rowquant": Q.rowquant_cuda,
+            "prefill": PS.prefill_cuda, "patch_embed": PE.patch_embed_cuda}
 
 
 def reset_launches() -> None:
@@ -1678,13 +2110,21 @@ def rowquant_per_step(n_layer: int, quant: bool, quant_cache: bool = False) -> i
     return (4 * n_layer + 1) * quant + 2 * n_layer * quant_cache
 
 
-def check_decode_launches(launches: dict, vocab_kernel: str, steps: int, requests: int,
-                          n_layer: int, flash_per_request: int, quant: bool = False,
-                          quant_cache: bool = False) -> None:
-    """Each decode step launched the layers' kernels once a layer and this
-    path's vocabulary kernel once, and the row quantizer as its int8 modes
-    need; the other vocabulary kernels never ran."""
+def check_decode_launches(launches: dict, vocab_kernel: str, steps: int, requests: int, cfg,
+                          quant: bool = False, quant_cache: bool = False,
+                          images: bool = False) -> None:
+    """Each request ran the mapper's flash attention once a mapper layer and
+    the prefill kernel once — with an int8 pack, ``forward_cached``'s flash
+    attention once a GPT-2 layer instead — and, fed by ``images``, the
+    patch-embed kernel once and the CLIP tower's flash attention once a
+    tower layer; each decode step launched the layers' kernels once a layer
+    and this path's vocabulary kernel once, and the row quantizer as its
+    int8 modes need; the other vocabulary kernels never ran."""
+    n_layer = cfg.gpt2.n_layer
+    flash_per_request = (cfg.mapping.num_layers + n_layer * quant
+                         + images * CLIP_LAYERS)
     want = {"flash_attention": flash_per_request * requests, "decode_attention": n_layer * steps,
+            "prefill": (not quant) * requests, "patch_embed": images * requests,
             "fused_linear": 4 * n_layer * steps, "logits_argmax": 0, "logits": 0,
             "logits_topk": 0, "logits_sample": 0, "decode_attention_start": 0,
             "rowquant": rowquant_per_step(n_layer, quant, quant_cache) * steps}
@@ -1744,9 +2184,7 @@ def greedy_path(model, reqs, precision: str = "bf16",
     torch.cuda.synchronize()
     outs, seconds, launches = run_counted(run, reqs)
     steps = sum(decode_steps(o, cfg.eos_token_id) for o in outs)
-    flash_per_request = cfg.mapping.num_layers + cfg.gpt2.n_layer  # the mapper, the prefill
-    check_decode_launches(launches, "logits_argmax", steps, len(reqs), cfg.gpt2.n_layer,
-                          flash_per_request, quant, quant_cache)
+    check_decode_launches(launches, "logits_argmax", steps, len(reqs), cfg, quant, quant_cache)
     for o in outs:
         check(tuple(o.shape) == (B, 50) and o.dtype == torch.int32, f"bad output {o.shape}")
         check_padding(o, cfg.eos_token_id, cfg.gpt2.vocab_size)
@@ -1803,8 +2241,7 @@ def sampled_path(model, reqs, precision: str = "bf16",
     torch.cuda.synchronize()
     outs, seconds, launches = run_counted(run, reqs)
     steps = sum(decode_steps(o, cfg.eos_token_id) for o in outs)
-    check_decode_launches(launches, vocab, steps, len(reqs), cfg.gpt2.n_layer,
-                          cfg.mapping.num_layers + cfg.gpt2.n_layer, quant)
+    check_decode_launches(launches, vocab, steps, len(reqs), cfg, quant)
     for o in outs:
         check(tuple(o.shape) == (B, 50) and o.dtype == torch.int32, f"bad output {o.shape}")
         check_padding(o, cfg.eos_token_id, cfg.gpt2.vocab_size)
@@ -1875,8 +2312,7 @@ def beam_path(model, reqs, length_penalty: float = 1.0,
     torch.cuda.synchronize()
     outs, seconds, launches = run_counted(run, embs)
     steps = 49 * len(reqs)  # a fixed 50 selections; the last one's forward is skipped
-    check_decode_launches(launches, "logits_topk", steps, len(reqs), cfg.gpt2.n_layer,
-                          cfg.mapping.num_layers + cfg.gpt2.n_layer, quant)
+    check_decode_launches(launches, "logits_topk", steps, len(reqs), cfg, quant)
     for o in outs:
         check(tuple(o.shape) == (B, 50) and o.dtype == torch.int32, f"bad output {o.shape}")
         check_padding(o, cfg.eos_token_id, cfg.gpt2.vocab_size)
@@ -2023,7 +2459,8 @@ def continuous_path(model, mode: str, embs: np.ndarray, caps: np.ndarray,
     prefills = CONTINUOUS["bursts"] * sum(n > 0 for n in staged)
     n_layer = cfg.gpt2.n_layer
     vocab = {"greedy": "logits_argmax", "sampled": "logits", "in_kernel": "logits_sample"}[mode]
-    want = {"flash_attention": (cfg.mapping.num_layers + n_layer) * prefills,
+    want = {"flash_attention": (cfg.mapping.num_layers + n_layer * quant) * prefills,
+            "prefill": (not quant) * prefills, "patch_embed": 0,
             "decode_attention": n_layer * steps, "decode_attention_start": n_layer * steps,
             "fused_linear": 4 * n_layer * steps, "logits_argmax": 0, "logits": 0,
             "logits_topk": 0, "logits_sample": 0,
@@ -2209,6 +2646,7 @@ def main() -> int:
     emit({"phase": "device", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+    emit(environment())
 
     t0 = time.perf_counter()
     lib_path = _build.build()
@@ -2222,7 +2660,8 @@ def main() -> int:
     emit(check_dot_f32(g))
     kernel_rows = {}
     checks = (check_attention, check_attention_origin, check_attention_start, check_linear,
-              check_logits_argmax, check_logits, check_logits_topk, check_sampler, check_flash)
+              check_logits_argmax, check_logits, check_logits_topk, check_sampler, check_flash,
+              check_prefill, check_patch_embed)
     int8_checks = (check_rowquant, check_linear_int8, check_vocab_int8, check_attention_int8)
     for dtype in (torch.bfloat16, torch.float32):
         for fn in checks + int8_checks:
@@ -2238,8 +2677,13 @@ def main() -> int:
     for mode in ("greedy", "sampled", "beam", "continuous", "greedy_int8", "greedy_int8_kv",
                  "beam_int8", "continuous_int8"):
         emit(tiny_exact(mode))
-    model, reqs = serving_model()
+    emit(tiny_pixels())
     launches, bf16 = {}, {}
+    tower_records, tower_launches = towers_path()
+    for record in tower_records:
+        emit(record)
+    launches.update(tower_launches)
+    model, reqs = serving_model()
     for path, fn in (("greedy", greedy_path), ("sampled", sampled_path), ("beam", beam_path)):
         record, launches[path], profiled = fn(model, reqs)
         bf16[path] = record
@@ -2260,6 +2704,12 @@ def main() -> int:
         emit(record)
         emit(profiled)
     model.tokenizer = synthetic_tokenizer(V)
+    _, clip_cfg, clip_params = tower_params("clip")
+    for mode in ("greedy", "sampled"):
+        record, launches[f"images_{mode}"] = images_path(model, clip_cfg, clip_params, mode)
+        emit(record)
+    emit(extraction_phase(clip_cfg, clip_params))
+    del clip_params
     rng = np.random.default_rng(1)
     embs = rng.normal(size=(CONTINUOUS_REQUESTS, 512)).astype(np.float32)
     caps = rng.integers(8, CONTINUOUS["max_length"] + 1, size=CONTINUOUS_REQUESTS)
@@ -2325,6 +2775,13 @@ def main() -> int:
         "decode_attention_int8_kv": ("decode_attention.cu", f"{step_kernel}:311",
                                      "greedy_int8_kv",
                                      "call (3 CUDA launches), idx 64, B 128, int8 cache"),
+        # the prefill counts greedy serving (one a request), the patch
+        # embedding image serving (one a device batch of 128 images; its
+        # row is timed at CLIP B/32's b 256)
+        "prefill": ("prefill.cu", "gpt2_image_captioning_tpu/ops/prefill_step.py:87", "greedy",
+                    "call (84 CUDA launches: 7 a layer), GPT-2 124M, B 128 x 15 tokens"),
+        "patch_embed": ("patch_embed.cu", "gpt2_image_captioning_tpu/ops/patch_embed.py:36",
+                        "images_greedy", "call (1 CUDA launch), CLIP B/32, b 256, 224 px"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 

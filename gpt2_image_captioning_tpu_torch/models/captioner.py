@@ -5,8 +5,9 @@ sampled (top-p) ``generate``, ``beam_generate``, and the host-driven
 continuous-batching primitives ``decode_segment`` and ``admit_prefill``.
 
 Parameters split into a trainable and a frozen tree as in the JAX package.
-Everything runs eagerly.  The mapper and the prefill are torch ops around the
-flash-attention kernel, then each decode step is
+Everything runs eagerly.  The mapper is torch ops around the
+flash-attention kernel; the prefill is :func:`ops.prefill_step.prefill_into_cache`
+(the prefill kernel); then each decode step is
 :func:`ops.decode_step.fused_decode_step` — the hand-written CUDA kernels for
 CUDA tensors, their plain twins on the CPU; ``use_kernels=False`` switches
 every kernel off.  Greedy steps end in the argmax kernel, sampled steps emit
@@ -17,10 +18,13 @@ step (``csrc/logits_sample.cu``).  ``generate``'s early exit reads one flag
 from the device per step.  ``decode_quant=True`` decodes from a W8A8 pack
 (int8 weights, int8 activations per row) in every mode, and
 ``decode_quant_cache=True`` keeps an int8 KV cache; the mapper, the prefill
-and the first token stay at the compute precision, as in the JAX package.
+and the first token stay at the compute precision, as in the JAX package,
+and the prefill runs ``gpt2.forward_cached`` there (an int8 pack holds no
+float weights), as the JAX package keeps its XLA prefill.
 
 Not ported yet, and refused rather than run another way: meshes (see
-ROADMAP.md).
+ROADMAP.md), and prefixes longer than the prefill kernel's
+:data:`ops.prefill_step.MAX_PREFIX` tokens (the reference's gate).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from gpt2_image_captioning_tpu_torch.core.tree import tree_map
 from gpt2_image_captioning_tpu_torch.models import gpt2 as G
 from gpt2_image_captioning_tpu_torch.models import mapping as M
 from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+from gpt2_image_captioning_tpu_torch.ops import prefill_step as PS
 from gpt2_image_captioning_tpu_torch.ops.sampling import NEG_INF, sample_token, topk_small
 from gpt2_image_captioning_tpu_torch.ops.xent import IGNORE_INDEX, xent_sum
 
@@ -166,6 +171,19 @@ def _decode_pack(packed, gpt_params, policy: Policy, decode_quant: bool) -> dict
     return packed
 
 
+def prefill(gpt_params, cfg: CaptionerConfig, prefix, cache, policy: Policy, packed: dict,
+            use: bool):
+    """The prefill of a fresh cache → (first-token logits, cache): the
+    prefill kernel (:func:`ops.prefill_step.prefill_into_cache`) from the
+    float decode pack, which refuses a prefix longer than
+    :data:`ops.prefill_step.MAX_PREFIX`; ``gpt2.forward_cached`` with an int8
+    pack, where the JAX package keeps its XLA prefill (``captioner.py:291-303``)."""
+    if "qkvs" in packed:
+        return G.forward_cached(gpt_params, cfg.gpt2, prefix, cache, policy, use)
+    return PS.prefill_into_cache(packed, gpt_params, cfg.gpt2, prefix, cache, policy,
+                                 use_kernel=use)
+
+
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
@@ -250,7 +268,7 @@ def generate(
     prefix = build_prefix(trainable, cfg, image_embeddings, policy, use)
     b, p_len, _ = prefix.shape
     cache = G.init_cache(cfg.gpt2, b, p_len + max_length, dtype=cdt, device=prefix.device)
-    logits, cache = G.forward_cached(gpt_params, cfg.gpt2, prefix, cache, policy, use)
+    logits, cache = prefill(gpt_params, cfg, prefix, cache, policy, packed, use)
     k_cache, v_cache, scales = cache["k"], cache["v"], {}
     if decode_quant_cache:
         k_cache, v_cache, ks, vs = DS.quantize_cache(k_cache, v_cache)
@@ -329,15 +347,17 @@ def decode_segment(packed: dict, wte: torch.Tensor, wpe: torch.Tensor, k: torch.
 def admit_prefill(trainable: dict, frozen: dict, cfg: CaptionerConfig, emb: torch.Tensor,
                   k: torch.Tensor, v: torch.Tensor, idx: int, rows: torch.Tensor,
                   valid: torch.Tensor, *, policy: Policy = F32,
-                  use_kernels: bool | None = None):
+                  use_kernels: bool | None = None, packed: dict):
     """Admit up to n requests into freed rows of a live decode batch — the
     admission :func:`models.continuous.macro_step` runs at every burst.
 
     ``emb`` (n, E) → mapper prefix (n, P, D) → prefill with LOCAL positions;
     the K/V rows land in cache positions ``[idx - P, idx)`` of rows ``rows``
     (n,) distinct (an indexed write in place), so the admitted rows join the
-    shared append position ``idx``; their start is ``idx - P``.  ``valid``
-    (n,) bool masks padding entries, whose rows keep their values: padding
+    shared append position ``idx``; their start is ``idx - P``.  The prefill
+    runs from ``packed`` (the engine's decode pack), as :func:`generate`'s
+    does.  ``valid`` (n,) bool masks
+    padding entries, whose rows keep their values: padding
     may name any rows the valid entries do not, live ones included, and may
     be every entry, so a caller that counts its admissions on the device
     never reads that count.  (The JAX function's padding instead repeats
@@ -349,7 +369,7 @@ def admit_prefill(trainable: dict, frozen: dict, cfg: CaptionerConfig, emb: torc
     prefix = build_prefix(trainable, cfg, emb, policy, use)
     n, p, _ = prefix.shape
     cache_n = G.init_cache(cfg.gpt2, n, p, dtype=policy.compute_dtype, device=emb.device)
-    logits, cache_n = G.forward_cached(gpt_params, cfg.gpt2, prefix, cache_n, policy, use)
+    logits, cache_n = prefill(gpt_params, cfg, prefix, cache_n, policy, packed, use)
     rows = rows.long()
     keep = valid[None, None, :, None]
     for cache, new in ((k, cache_n["k"]), (v, cache_n["v"])):
@@ -396,9 +416,11 @@ def beam_generate(
     """Length-normalised beam search → the best beam's token ids
     (B, max_length) int32, EOS-padded after its EOS.
 
-    The B·K beams are rows of one batch, beam-major.  The expanded prefix is
-    prefilled once; each step then selects the union of the beams' top-k,
-    carries the beam state along the chosen parents and decodes the chosen
+    The B·K beams are rows of one batch, beam-major.  The B images are
+    prefilled once and their cache rows and logits repeated K times, as the
+    JAX package's fused prefill does (with an int8 pack the expanded prefix
+    is prefilled, as there); each step then selects the union of the beams'
+    top-k, carries the beam state along the chosen parents and decodes the chosen
     tokens, whose attention reads the history through an ancestry map
     (``origin``) instead of a gathered cache; the image prefix, shared by
     every beam of an image, is read directly (``gather_start = p_len``).
@@ -443,8 +465,17 @@ def _beam_search(trainable, frozen, cfg, image_embeddings, *, max_length: int, b
     b, p_len, _ = prefix.shape
     dev = prefix.device
     cache = G.init_cache(cfg.gpt2, b * k, p_len + max_length, dtype=cdt, device=dev)
-    logits, cache = G.forward_cached(gpt_params, cfg.gpt2, prefix.repeat_interleave(k, dim=0),
-                                     cache, policy, use)
+    # every beam of an image is the image's prefix before the first token: the
+    # B images are prefilled once and repeated K times, as the reference's
+    # fused branch; its int8 branch prefills every beam's row
+    rep = k if "qkvs" in packed else 1
+    cache_p = G.init_cache(cfg.gpt2, b * rep, p_len, dtype=cdt, device=dev)
+    logits, cache_p = prefill(gpt_params, cfg, prefix.repeat_interleave(rep, dim=0), cache_p,
+                              policy, packed, use)
+    for name in ("k", "v"):
+        cache[name][:, :p_len] = cache_p[name][:, :p_len].repeat_interleave(k // rep, dim=2)
+    cache["index"] = p_len
+    logits = logits.repeat_interleave(k // rep, dim=0)
     lf = logits.float()
     vals, tok_k = topk_small(lf, k)
     lse = torch.logsumexp(lf, dim=-1, keepdim=True)

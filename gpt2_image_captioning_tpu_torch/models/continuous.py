@@ -204,7 +204,7 @@ def macro_step(
             valid = slots_a < ntake
             qidx = torch.clamp(qhead + slots_a, max=q_cap - 1)
             logits, k, v = admit_prefill(trainable, frozen, cfg, emb_q[qidx], k, v, idx, rows,
-                                         valid, policy=policy, use_kernels=use)
+                                         valid, policy=policy, use_kernels=use, packed=packed)
             if sampled:
                 noise = torch.Generator(device=dev).manual_seed(fold_seed(seed, 2 * t + 1))
                 first = sample_rows(logits, temp_q[qidx], topp_q[qidx], noise)

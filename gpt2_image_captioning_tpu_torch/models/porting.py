@@ -223,3 +223,129 @@ def export_transformer_mapping(params: dict) -> dict[str, torch.Tensor]:
         out[f"{t}.linear2.weight"] = _f32(lp["fc2"]["w"].t())
         out[f"{t}.linear2.bias"] = _f32(lp["fc2"]["b"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Vision towers: the JAX package's trees, and the published state dicts
+# ---------------------------------------------------------------------------
+
+def vision_from_jax_numpy(params: dict, device=DEFAULT_DEVICE,
+                          dtype: torch.dtype | None = None) -> dict:
+    """A JAX vision tower's parameter tree (CLIP, ViT or DINOv3), as numpy
+    arrays, → the port's tree of tensors on ``device`` (the card unless the
+    caller asks for the CPU); ``dtype`` casts the floating leaves."""
+    device = resolve_device(device)
+    return tree_map(lambda a: _tensor(a, device, dtype), params)
+
+
+def _conv_as_matmul(w: torch.Tensor) -> torch.Tensor:
+    """A stride-patch conv weight (D, 3, P, P) → the (3·P·P, D) matmul layout."""
+    return _f32(w).reshape(w.shape[0], -1).t().contiguous()
+
+
+def _clip_encoder_layers(sd: Mapping, prefix: str, n_layers: int) -> dict:
+    layers = []
+    for i in range(n_layers):
+        p = f"{prefix}encoder.layers.{i}"
+        layers.append({
+            "ln1": _ln(sd, f"{p}.layer_norm1"),
+            "attn": {"q": _linear(sd, f"{p}.self_attn.q_proj", transpose=True),
+                     "k": _linear(sd, f"{p}.self_attn.k_proj", transpose=True),
+                     "v": _linear(sd, f"{p}.self_attn.v_proj", transpose=True),
+                     "out": _linear(sd, f"{p}.self_attn.out_proj", transpose=True)},
+            "ln2": _ln(sd, f"{p}.layer_norm2"),
+            "mlp": {"fc1": _linear(sd, f"{p}.mlp.fc1", transpose=True),
+                    "fc2": _linear(sd, f"{p}.mlp.fc2", transpose=True)},
+        })
+    return stack_blocks(layers)
+
+
+def port_clip_vision(state_dict: Mapping, cfg) -> dict:
+    """HF CLIP vision tower + visual projection (a full ``CLIPModel`` or a
+    ``CLIPVisionModelWithProjection`` state dict) → :mod:`models.clip`'s
+    tree.  HF's historical key ``pre_layrnorm`` is read as such."""
+    sd = dict(state_dict)
+    pre = ("vision_model.pre_layrnorm" if "vision_model.pre_layrnorm.weight" in sd
+           else "vision_model.pre_layernorm")
+    return {
+        "class_embedding": _f32(sd["vision_model.embeddings.class_embedding"]),
+        "patch_embedding": _conv_as_matmul(sd["vision_model.embeddings.patch_embedding.weight"]),
+        "position_embedding": _f32(sd["vision_model.embeddings.position_embedding.weight"]),
+        "pre_layernorm": _ln(sd, pre),
+        "layers": _clip_encoder_layers(sd, "vision_model.", cfg.num_hidden_layers),
+        "post_layernorm": _ln(sd, "vision_model.post_layernorm"),
+        "visual_projection": {"w": _f32(sd["visual_projection.weight"]).t().contiguous()},
+    }
+
+
+def port_vit(state_dict: Mapping, cfg) -> dict:
+    """HF ``ViTModel`` state dict (with or without ``vit.``) → :mod:`models.vit`'s
+    tree."""
+    sd = _strip_prefix(dict(state_dict), "vit.")
+    layers = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"encoder.layer.{i}"
+        layers.append({
+            "ln_before": _ln(sd, f"{p}.layernorm_before"),
+            "attn": {"q": _linear(sd, f"{p}.attention.attention.query", transpose=True),
+                     "k": _linear(sd, f"{p}.attention.attention.key", transpose=True),
+                     "v": _linear(sd, f"{p}.attention.attention.value", transpose=True),
+                     "out": _linear(sd, f"{p}.attention.output.dense", transpose=True)},
+            "ln_after": _ln(sd, f"{p}.layernorm_after"),
+            "mlp": {"fc1": _linear(sd, f"{p}.intermediate.dense", transpose=True),
+                    "fc2": _linear(sd, f"{p}.output.dense", transpose=True)},
+        })
+    return {
+        "cls_token": _f32(sd["embeddings.cls_token"]),
+        "patch_embedding": {
+            "w": _conv_as_matmul(sd["embeddings.patch_embeddings.projection.weight"]),
+            "b": _f32(sd["embeddings.patch_embeddings.projection.bias"]),
+        },
+        "position_embeddings": _f32(sd["embeddings.position_embeddings"]),
+        "layers": stack_blocks(layers),
+        "final_layernorm": _ln(sd, "layernorm"),
+        "pooler": _linear(sd, "pooler.dense", transpose=True),
+    }
+
+
+def port_dinov3_backbone(state_dict: Mapping, cfg) -> dict:
+    """facebookresearch/dinov3 hub backbone state dict (``backbone.`` stripped
+    when present) → :mod:`models.dino`'s tree; the dino.txt head is a zero
+    placeholder until :func:`port_dinotxt_head` fills it."""
+    sd = _strip_prefix(dict(state_dict), "backbone.")
+    conv = sd["patch_embed.proj.weight"]
+    d = conv.shape[0]
+    reg_key = "storage_tokens" if "storage_tokens" in sd else "register_tokens"
+    blocks = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"blocks.{i}"
+        blocks.append({
+            "ln1": _ln(sd, f"{p}.norm1"),
+            "attn": {"qkv": _linear(sd, f"{p}.attn.qkv", transpose=True),
+                     "proj": _linear(sd, f"{p}.attn.proj", transpose=True)},
+            "gamma1": _f32(sd[f"{p}.ls1.gamma"]),
+            "ln2": _ln(sd, f"{p}.norm2"),
+            "mlp": {"fc1": _linear(sd, f"{p}.mlp.fc1", transpose=True),
+                    "fc2": _linear(sd, f"{p}.mlp.fc2", transpose=True)},
+            "gamma2": _f32(sd[f"{p}.ls2.gamma"]),
+        })
+    return {
+        "patch_embedding": {"w": _conv_as_matmul(conv), "b": _f32(sd["patch_embed.proj.bias"])},
+        "cls_token": _f32(sd["cls_token"]).reshape(1, 1, d),
+        "register_tokens": _f32(sd[reg_key]).reshape(1, -1, d),
+        "blocks": stack_blocks(blocks),
+        "norm": _ln(sd, "norm"),
+        "head": {"w": torch.zeros((2 * d, cfg.text_embed_dim), dtype=torch.float32)},
+    }
+
+
+def port_dinotxt_head(params: dict, state_dict: Mapping, cfg) -> dict:
+    """Attach the dino.txt vision head (``visual_head`` / ``image_projection``
+    / ``vision_head`` linear) to a ported backbone tree."""
+    sd = dict(state_dict)
+    for key in ("visual_head.weight", "image_projection.weight", "vision_head.weight"):
+        if key in sd:
+            return dict(params, head={"w": _f32(sd[key]).t().contiguous()})
+    raise KeyError(
+        "dino.txt vision head weight not found; expected one of visual_head/image_projection/"
+        f"vision_head among {sorted(k for k in sd if 'head' in k or 'proj' in k)[:20]}")

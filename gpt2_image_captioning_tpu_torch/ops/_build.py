@@ -67,6 +67,12 @@ _SIGNATURES = {
     # rounds, xf, sx, part_f, part_i, state_i, state_f, counters, tok, rnd, lse, stream
     "gic_logits_sample": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _U, _U, _I, _I, _P, _P,
                           _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # dtype, L, B, T, D, H, eps, x32, qkvw, projw, fcw, cprojw, attnb, projb, fcb, cprojb, ln1s,
+    # ln1b, ln2s, ln2b, k_cache, v_cache, cache_t, qbuf, abuf, hbuf, stream
+    "gic_prefill": [_I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _I, _P, _P, _P, _P],
+    # dtype, pixels, w, mean, inv_std, bias, out, B, S, patch, D, stream
+    "gic_patch_embed": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -118,6 +118,18 @@ def gelu_new(x: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """Exact-erf GELU (HF ViT, DINOv3)."""
+    xf = x.float()
+    return (xf * 0.5 * (1.0 + torch.erf(xf / math.sqrt(2.0)))).to(x.dtype)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's x · sigmoid(1.702 x)."""
+    xf = x.float()
+    return (xf * torch.sigmoid(1.702 * xf)).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention (the plain formula; kept free of scaled_dot_product_attention so a
 # hand-written flash kernel has a plain twin to be held to)

@@ -1,6 +1,21 @@
-"""Continuous-batching caption serving — the counterpart of
-``gpt2_image_captioning_tpu/serving.py::ContinuousCaptionService``, fed by
-image embeddings.
+"""Image → caption serving — the counterpart of
+``gpt2_image_captioning_tpu/serving.py``: ``CaptionService`` (fixed
+batches) and ``ContinuousCaptionService`` (rolling admission), fed by images
+or by image embeddings.
+
+The vision frontend (:func:`_make_frontend`) takes host-preprocessed uint8
+(B, S, S, 3) pixels to L2-normalised embeddings on the model's device: the
+named towers (``encoder="clip"``, ``"vit"``, ``"dino"``) through their uint8
+entry points, whose patch embedding is the patch-embed kernel on the card;
+a custom ``encode_fn`` after :func:`embeddings.preprocess.normalize_on_device`.
+The host's geometry (decode, resize, crop) uses PIL, imported only where a
+file or an array of another size is taken in.
+
+``CaptionService`` encodes and decodes fixed device batches of
+``batch_size`` images (the last one padded by repeating its last image), with
+the model façade's packs cached across requests; sampled decoding draws from
+a fresh ``torch.Generator`` per device batch, seeded from the service's
+seed and a counter (the JAX service folds its key the same way).
 
 ``ContinuousCaptionService`` keeps a fixed pool of ``slots`` decode rows live
 across requests: whenever a row's caption finishes (EOS or its length cap)
@@ -19,34 +34,200 @@ values; ``sample_in_kernel`` draws decode tokens inside the step.
 ``decode_precision="int8"`` decodes from the W8A8 pack of the bf16 weights
 (admission's prefill stays bf16), as the JAX service does.
 
-Not ported here, and refused: image intake (``submit_array``,
-``submit_bytes``, ``submit_prepped``, ``caption_arrays``) and the HTTP
-endpoints need the vision towers (ROADMAP.md, queue 1, item 10); ``mesh``
-needs parallelism (item 13).
+Not ported here, and refused: ``mesh`` needs parallelism (ROADMAP.md, queue
+1); the HTTP endpoints (``serve_http*``) are not ported yet.
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
+import io
 import time
+from typing import Sequence
 
 import numpy as np
 import torch
 
+from gpt2_image_captioning_tpu_torch.core.precision import BF16
+from gpt2_image_captioning_tpu_torch.embeddings.preprocess import (
+    SPECS, normalize_on_device, resize_and_crop,
+)
 from gpt2_image_captioning_tpu_torch.models import captioner as C
 from gpt2_image_captioning_tpu_torch.models import continuous as CE
+from gpt2_image_captioning_tpu_torch.ops.sampling import fold_seed
 
-_VISION = ("image intake needs the vision towers, which are not ported yet (ROADMAP.md, "
-           "queue 1, item 10: vision); submit image embeddings with submit_embedding")
+
+def _make_frontend(vision_cfg, encoder: str, encode_fn, spec, policy,
+                   use_kernels: bool | None = None):
+    """The vision frontend shared by both services → ``(spec, encode)``:
+    ``encode(vision_params, batch_u8)`` takes a uint8 (B, S, S, 3) tensor on
+    the device to (B, E) L2-normalised embeddings.  Named encoders run their
+    uint8 entry point (``encode_image_u8``: the patch-embed kernel, then the
+    tower); a custom ``encode_fn(params, cfg, pixels, policy=, normalize=)``
+    gets :func:`normalize_on_device`'s pixels and needs ``spec`` when
+    ``encoder`` names no tower.  A named spec's resize is scaled when the
+    tower's ``image_size`` differs from the 224-pixel production towers."""
+    if spec is None:
+        if encoder not in SPECS:
+            raise ValueError(f"unknown encoder {encoder!r}; pass spec= with a custom encode_fn")
+        spec = SPECS[encoder]
+    size = getattr(vision_cfg, "image_size", None)
+    base = spec.crop or spec.resize
+    if size and size != base:
+        spec = dataclasses.replace(spec, resize=max(1, round(spec.resize * size / base)),
+                                   crop=size if spec.crop else None)
+    final = spec
+    if encode_fn is not None:
+        def encode(vparams, batch_u8):
+            px = normalize_on_device(batch_u8, final)
+            return encode_fn(vparams, vision_cfg, px, policy=policy, normalize=True)
+        return spec, encode
+    if encoder == "clip":
+        from gpt2_image_captioning_tpu_torch.models.clip import encode_image_u8
+    elif encoder == "vit":
+        from gpt2_image_captioning_tpu_torch.models.vit import encode_image_u8
+    elif encoder == "dino":
+        from gpt2_image_captioning_tpu_torch.models.dino import encode_image_u8
+    else:
+        raise ValueError(f"unknown encoder {encoder!r}")
+
+    def encode(vparams, batch_u8):
+        return encode_image_u8(vparams, vision_cfg, batch_u8, final, policy=policy,
+                               normalize=True, use_kernels=use_kernels)
+
+    return spec, encode
+
+
+def _decode_rgb(blob: bytes) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(blob)).convert("RGB"), np.uint8)
+
+
+class CaptionService:
+    """images → captions in fixed device batches.
+
+    ``model``: an :class:`models.captioner.ImageCaptioningModel` with a
+    tokenizer, on the device the service runs on; ``vision_params`` /
+    ``vision_cfg``: a tower's tree (on the same device) and config,
+    ``encoder`` naming it, or ``encode_fn`` (and ``spec``) for another one.
+    ``policy`` is the vision tower's (bf16 by default, as in the JAX
+    package); ``decode_precision`` the decoder's (the façade's option).
+    ``temperature=0`` decodes greedily; otherwise top-p sampling at
+    ``top_p``, each device batch drawing from a fresh generator seeded by
+    :func:`ops.sampling.fold_seed` of ``seed`` and the batch's counter.
+    ``use_kernels`` as in :func:`models.captioner.generate`.
+    """
+
+    def __init__(self, model, vision_params, vision_cfg, *, encoder: str = "clip",
+                 encode_fn=None, batch_size: int = 64, max_length: int = 50,
+                 temperature: float = 0.0, top_p: float = 0.9,
+                 decode_precision: str | None = None, policy=None, spec=None, seed: int = 0,
+                 mesh=None, use_kernels: bool | None = None):
+        C._refuse_mesh(mesh)
+        self.model = model
+        self.spec, self._encode = _make_frontend(vision_cfg, encoder, encode_fn, spec,
+                                                 policy or BF16, use_kernels)
+        self._vparams = vision_params
+        self.batch_size = batch_size
+        self.max_length = max_length
+        self.temperature = temperature
+        self.top_p = top_p
+        self.decode_precision = decode_precision
+        self.seed = int(seed)
+        self._use_kernels = use_kernels
+        self._draws = 0
+        self._stats = {"images": 0, "requests": 0, "device_s": 0.0}
+
+    def _next_generator(self) -> torch.Generator:
+        """A fresh generator per device batch (greedy decoding ignores it)."""
+        self._draws += 1
+        return torch.Generator(device=self.model.device).manual_seed(
+            fold_seed(self.seed, self._draws) & 0x7FFFFFFFFFFFFFFF)
+
+    def _caption_batch(self, batch_u8: np.ndarray) -> list[str]:
+        u8 = torch.from_numpy(np.ascontiguousarray(batch_u8, np.uint8)).to(self.model.device)
+        with torch.no_grad():
+            emb = self._encode(self._vparams, u8)
+        return self.model.generate_captions(
+            emb, max_length=self.max_length, temperature=self.temperature, top_p=self.top_p,
+            generator=self._next_generator(), decode_precision=self.decode_precision,
+            use_kernels=self._use_kernels)
+
+    def _to_square_u8(self, rgb: np.ndarray) -> np.ndarray:
+        return resize_and_crop(np.asarray(rgb, np.uint8), self.spec)
+
+    def caption_arrays(self, images: Sequence[np.ndarray]) -> list[str]:
+        """uint8 RGB arrays of any size → captions, in order."""
+        if len(images) == 0:
+            return []
+        return self.caption_prepped(np.stack([self._to_square_u8(im) for im in images]))
+
+    def caption_prepped(self, prepped: np.ndarray) -> list[str]:
+        """An already resized and cropped uint8 batch (N, S, S, 3) → captions;
+        the last device batch is padded by repeating its last image."""
+        n = len(prepped)
+        if n == 0:
+            return []
+        captions: list[str] = []
+        t0 = time.perf_counter()
+        for start in range(0, n, self.batch_size):
+            chunk = prepped[start : start + self.batch_size]
+            k = len(chunk)
+            if k < self.batch_size:  # pad to the fixed serving shape
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], self.batch_size - k, axis=0)])
+            captions.extend(self._caption_batch(chunk)[:k])
+        self._stats["images"] += n
+        self._stats["requests"] += 1
+        self._stats["device_s"] += time.perf_counter() - t0
+        return captions
+
+    def caption_bytes(self, blobs: Sequence[bytes]) -> list[str]:
+        """Encoded image bytes (JPEG, PNG, ...) → captions."""
+        return self.caption_arrays([_decode_rgb(b) for b in blobs])
+
+    def caption_paths(self, paths: Sequence[str]) -> list[str]:
+        from PIL import Image
+
+        return self.caption_arrays(
+            [np.asarray(Image.open(p).convert("RGB"), np.uint8) for p in paths])
+
+    def caption_dir(self, image_dir: str, num_workers: int = 4) -> dict[str, str]:
+        """Caption every image of a directory → {filename: caption}, through
+        the prefetching batch loader (the C++ pipeline when built, PIL threads
+        otherwise), so the host's decode of batch i + 1 overlaps batch i."""
+        from gpt2_image_captioning_tpu_torch.embeddings.extract import _make_loader
+
+        loader = _make_loader(image_dir, self.spec, self.batch_size, num_workers)
+        out: dict[str, str] = {}
+        t0 = time.perf_counter()
+        for names, batch_u8, _valid in loader:
+            out.update(zip(names, self._caption_batch(batch_u8)))
+        self._stats["images"] += len(out)
+        self._stats["requests"] += 1
+        self._stats["device_s"] += time.perf_counter() - t0
+        return out
+
+    @property
+    def stats(self) -> dict:
+        s = dict(self._stats)
+        if s["device_s"] > 0:
+            s["img_per_s"] = s["images"] / s["device_s"]
+        return s
 
 
 class ContinuousCaptionService:
-    """Rolling-admission ("continuous batching") caption serving of image
-    embeddings.
+    """Rolling-admission ("continuous batching") caption serving of images
+    and image embeddings.
 
     ``model`` is an :class:`models.captioner.ImageCaptioningModel` with a
     tokenizer; the pool runs on its device.  ``vision_params`` /
-    ``vision_cfg`` must be None (image intake is not ported).  ``slots`` decode
+    ``vision_cfg`` (with ``encoder``, or ``encode_fn`` and ``spec``) are the
+    vision tower of image submissions, as in :class:`CaptionService`; the
+    tower runs at the decoder's policy, and each macro's staged images are
+    encoded once, together, before it.  Without them only
+    :meth:`submit_embedding` takes requests.  ``slots`` decode
     rows, ``segment`` steps between admission points, ``bursts`` admission
     points per macro, up to ``admit`` admissions at each; ``max_length`` is
     the longest caption a request may ask for.  ``pipeline_depth`` macros
@@ -59,6 +240,9 @@ class ContinuousCaptionService:
         vision_params=None,
         vision_cfg=None,
         *,
+        encoder: str = "clip",
+        encode_fn=None,
+        spec=None,
         slots: int = 64,
         segment: int = 4,
         bursts: int = 8,
@@ -76,8 +260,6 @@ class ContinuousCaptionService:
         admit_affinity: bool = False,
         use_kernels: bool | None = None,
     ):
-        if vision_params is not None or vision_cfg is not None:
-            raise NotImplementedError(_VISION)
         if mesh is not None:
             raise NotImplementedError(
                 "a dp mesh of sub-pools is not ported yet (ROADMAP.md, queue 1, item 13: "
@@ -90,6 +272,9 @@ class ContinuousCaptionService:
         quant = decode_precision == "int8"
         self._tr, self._fz, self._pol = model.decode_params("bf16" if quant else decode_precision)
         self._packed = C.prepare_decode_weights(self._tr, self._fz, cfg, self._pol, quant=quant)
+        self.spec, self._encode = _make_frontend(vision_cfg, encoder, encode_fn, spec, self._pol,
+                                                 use_kernels)
+        self._vparams = vision_params
         self.device = model.device
         self._use_kernels = use_kernels
         self.slots = slots
@@ -117,7 +302,9 @@ class ContinuousCaptionService:
         self.q_cap = max(slots, min(bursts * self.admit, 4 * slots))
         self.pipeline_depth = pipeline_depth
         self._state = CE.init_state(cfg, slots, self.t_max, p, self._pol, self.device)
-        self._queue: list[tuple[int, np.ndarray]] = []
+        # (request id, payload, is_embedding): an embedding (numpy, or a device
+        # row once encoded) or a prepped uint8 image
+        self._queue: list[tuple[int, object, bool]] = []
         self._inflight: collections.deque = collections.deque()
         self._host_bufs: list[torch.Tensor] = []  # pinned output buffers, reused
         self._live: set[int] = set()
@@ -139,10 +326,48 @@ class ContinuousCaptionService:
     # -- request intake ------------------------------------------------------
     def submit_embedding(self, emb: np.ndarray, max_length: int | None = None,
                          temperature: float | None = None, top_p: float | None = None) -> int:
-        """Queue one image embedding (E,); returns a request id.
-        ``max_length`` caps this request's caption below the service's;
-        ``temperature`` / ``top_p`` override the service's for this request
-        (sampled services only; ``temperature=0`` is greedy)."""
+        """Queue one image embedding (E,), skipping the vision tower; returns a
+        request id.  ``max_length`` caps this request's caption below the
+        service's; ``temperature`` / ``top_p`` override the service's for this
+        request (sampled services only; ``temperature=0`` is greedy)."""
+        emb = np.asarray(emb, np.float32)
+        if emb.shape != (self._emb_dim,):
+            raise ValueError(f"an embedding must have shape ({self._emb_dim},), got {emb.shape}")
+        return self._enqueue(emb, True, max_length, temperature, top_p)
+
+    def submit_array(self, rgb: np.ndarray, max_length: int | None = None,
+                     temperature: float | None = None, top_p: float | None = None) -> int:
+        """Queue one uint8 RGB image of any size (resized and cropped on the
+        host by the tower's spec); the rest as :meth:`submit_embedding`."""
+        return self.submit_prepped(resize_and_crop(np.asarray(rgb, np.uint8), self.spec),
+                                   max_length, temperature, top_p)
+
+    def submit_bytes(self, blob: bytes, max_length: int | None = None,
+                     temperature: float | None = None, top_p: float | None = None) -> int:
+        """Queue one encoded image (JPEG, PNG, ...)."""
+        return self.submit_array(_decode_rgb(blob), max_length, temperature, top_p)
+
+    def submit_prepped(self, arr: np.ndarray, max_length: int | None = None,
+                       temperature: float | None = None, top_p: float | None = None) -> int:
+        """Queue one uint8 image already resized and cropped to the spec's
+        (S, S, 3)."""
+        if self._vparams is None:
+            raise ValueError("this service has no vision tower: pass vision_params and "
+                             "vision_cfg, or submit embeddings")
+        a = np.asarray(arr, np.uint8)
+        side = self.spec.size
+        if a.shape != (side, side, 3):
+            raise ValueError(f"a prepped image must be {(side, side, 3)}, got {a.shape}")
+        return self._enqueue(a, False, max_length, temperature, top_p)
+
+    def caption_arrays(self, images: Sequence[np.ndarray]) -> list[str]:
+        """Submit every image and drain; the captions in input order."""
+        ids = [self.submit_array(im) for im in images]
+        self.drain()
+        return [self._results.pop(i) for i in ids]
+
+    def _enqueue(self, payload, is_emb: bool, max_length: int | None,
+                 temperature: float | None, top_p: float | None) -> int:
         if max_length is not None and not 1 <= max_length <= self.max_length:
             raise ValueError(f"per-request max_length must be in [1, {self.max_length}]")
         if temperature is not None:
@@ -159,12 +384,9 @@ class ContinuousCaptionService:
             raise ValueError(
                 f"this service draws tokens in the step (sample_in_kernel=True), which needs "
                 f"per-request top_p >= 0.5; got {top_p}")
-        emb = np.asarray(emb, np.float32)
-        if emb.shape != (self._emb_dim,):
-            raise ValueError(f"an embedding must have shape ({self._emb_dim},), got {emb.shape}")
         rid = self._next_id
         self._next_id += 1
-        self._queue.append((rid, emb))
+        self._queue.append((rid, payload, is_emb))
         if max_length is not None:
             self._req_max[rid] = max_length
         if temperature is not None:
@@ -173,18 +395,6 @@ class ContinuousCaptionService:
             self._req_topp[rid] = float(top_p)
         self._submit_t[rid] = time.perf_counter()
         return rid
-
-    def submit_array(self, *args, **kwargs) -> int:
-        raise NotImplementedError(_VISION)
-
-    def submit_bytes(self, *args, **kwargs) -> int:
-        raise NotImplementedError(_VISION)
-
-    def submit_prepped(self, *args, **kwargs) -> int:
-        raise NotImplementedError(_VISION)
-
-    def caption_arrays(self, *args, **kwargs) -> list[str]:
-        raise NotImplementedError(_VISION)
 
     @property
     def live(self) -> int:
@@ -226,15 +436,33 @@ class ContinuousCaptionService:
         floats = np.empty((2, self.q_cap), np.float32)  # temperature, top_p
         ints[0] = self.max_length
         floats[0], floats[1] = self.temperature, self.top_p
-        for i, (rid, payload) in enumerate(entries):
-            emb[i] = payload
+        images, encoded = [], []
+        for i, (rid, payload, is_emb) in enumerate(entries):
+            if not is_emb:
+                images.append(i)
+            elif isinstance(payload, torch.Tensor):  # an image encoded by an earlier macro
+                encoded.append(i)
+            else:
+                emb[i] = payload
             ints[:, i] = self._req_max.get(rid, self.max_length), rid
             floats[:, i] = self._req_temp.get(rid, self.temperature), self._req_topp.get(
                 rid, self.top_p)
         dev = self.device
+        emb_d = torch.from_numpy(emb).to(dev)
+        if encoded:
+            emb_d[encoded] = torch.stack([entries[i][1] for i in encoded])
+        if images:
+            u8 = torch.from_numpy(np.stack([entries[i][1] for i in images])).to(dev)
+            with torch.no_grad():
+                enc = self._encode(self._vparams, u8).float()
+            emb_d[images] = enc
+            # entries the macro does not reach go back to the queue as
+            # embeddings, so each image is encoded once
+            for j, i in enumerate(images):
+                entries[i] = (entries[i][0], enc[j], True)
         ints_d, floats_d = torch.from_numpy(ints).to(dev), torch.from_numpy(floats).to(dev)
         self._state, out = CE.macro_step(
-            self._packed, self._tr, self._fz, self._state, torch.from_numpy(emb).to(dev),
+            self._packed, self._tr, self._fz, self._state, emb_d,
             ints_d[0], ints_d[1], n, self.seed if self.sampled else None, floats_d[0],
             floats_d[1],
             cfg=self.cfg, policy=self._pol, seg=self.segment, bursts=self.bursts,

@@ -172,7 +172,8 @@ def test_segment_and_admission_match_jax():
                                               jnp.int32(idx), jnp.asarray(rows_a),
                                               jnp.asarray(valid), policy=JF32)
                 tl, tk, tv = TC.admit_prefill(ttr, tfz, tcfg, _t(emb_a), tk, tv, idx,
-                                              _t(trows), _t(valid), policy=F32)
+                                              _t(trows), _t(valid), policy=F32,
+                                              packed=tpacked)
                 tf = torch.argmax(tl, dim=-1).to(torch.int32)
                 np.testing.assert_array_equal(tf.numpy(), np.asarray(jf))
                 for i, r in enumerate(rows):
@@ -357,11 +358,12 @@ def test_service_sampling_modes_and_refusals():
         svc.submit_embedding(embs[0], temperature=1.0)
     with pytest.raises(ValueError, match="top_p"):
         svc.submit_embedding(embs[0], top_p=1.5)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        svc.submit_array(np.zeros((8, 8, 3), np.uint8))
-    for fn in (svc.submit_bytes, svc.submit_prepped, svc.caption_arrays):
-        with pytest.raises(NotImplementedError, match="vision"):
-            fn(b"")
+    # image intake needs a vision tower, and this service was built without one
+    for fn, arg in ((svc.submit_array, np.zeros((8, 8, 3), np.uint8)),
+                    (svc.submit_prepped, np.zeros((224, 224, 3), np.uint8)),
+                    (svc.caption_arrays, [np.zeros((8, 8, 3), np.uint8)])):
+        with pytest.raises(ValueError, match="no vision tower"):
+            fn(arg)
     with pytest.raises(NotImplementedError, match="item 13"):
         ContinuousCaptionService(tmodel, mesh=object())
     svc8 = ContinuousCaptionService(tmodel, slots=3, max_length=6, decode_precision="int8")

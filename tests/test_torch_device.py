@@ -47,11 +47,12 @@ def test_entry_point_defaults_to_the_card(name, monkeypatch):
 
 
 def _spy(monkeypatch) -> list:
-    """Record the ``use_kernel`` flag of every attention dispatch."""
+    """Record the ``use_kernel`` flag of every attention dispatch, and of the
+    prefill's (whose kernel holds the prefill's attention)."""
     seen, real = [], _build.kernels_enabled
 
     def spy(use_kernel, device):
-        if sys._getframe(1).f_code.co_name == "mha":
+        if sys._getframe(1).f_code.co_name in ("mha", "fused_prefill"):
             seen.append(use_kernel)
         return real(use_kernel, device)
 
@@ -69,9 +70,11 @@ def _batch():
 
 @pytest.mark.parametrize("flag", [None, False])
 def test_use_kernels_reaches_every_attention(flag, monkeypatch):
-    """Two mapper layers and two GPT-2 layers: four dispatches in ``loss_fn``
-    and four in ``generate`` (mapper + prefill), each with the caller's flag
-    (``generate`` resolves None for CPU inputs to False first)."""
+    """Two mapper layers and two GPT-2 layers: four attention dispatches in
+    ``loss_fn``, and in ``generate`` two in the mapper and one for the
+    prefill (its kernel runs every layer's attention), each with the
+    caller's flag (``generate`` resolves None for CPU inputs to False
+    first)."""
     tr, fz = TC.init_params(torch.Generator().manual_seed(0), CFG, device="cpu")
     seen = _spy(monkeypatch)
     TC.loss_fn(tr, fz, CFG, _batch(), use_kernels=flag)
@@ -79,6 +82,6 @@ def test_use_kernels_reaches_every_attention(flag, monkeypatch):
     seen.clear()
     TC.generate(tr, fz, CFG, _batch()["image_embedding"], max_length=3, temperature=0.0,
                 use_kernels=flag)
-    assert seen == [False] * 4
+    assert seen == [False] * 3
     with pytest.raises(ValueError, match="CUDA tensors"):
         TC.loss_fn(tr, fz, CFG, _batch(), use_kernels=True)

@@ -21,6 +21,11 @@ def test_import_leaves_jax_out():
         "from gpt2_image_captioning_tpu_torch.data import dataset, tokenizer\n"
         "from gpt2_image_captioning_tpu_torch.models import continuous\n"
         "from gpt2_image_captioning_tpu_torch import serving\n"
+        "from gpt2_image_captioning_tpu_torch.models import clip, dino, vit\n"
+        "from gpt2_image_captioning_tpu_torch.ops import patch_embed, prefill_step\n"
+        "from gpt2_image_captioning_tpu_torch.embeddings import extract, preprocess\n"
+        "from gpt2_image_captioning_tpu_torch.data import embeddings_io, images, native_pipe\n"
+        "assert 'PIL' not in sys.modules, 'PIL is imported where an image is decoded'\n"
         "jax_pkg = 'gpt2_image_captioning_tpu'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == jax_pkg or m.startswith(jax_pkg + '.'))\n"
