@@ -12,12 +12,17 @@ towers' shapes among them), with its time beside its bound (the
 least time the card could take for the same work) and, where one PyTorch
 call computes the same function, that call's time — the int8 modes too: the
 row quantizer, int8 weights in the projections and the four vocabulary
-kernels (``torch._int_mm`` beside them), the int8 KV cache.  Then it drives
-the paths the port has, each with the kernels' launch counters set to 0
-just before and read just after:
+kernels (``torch._int_mm`` beside them), the int8 KV cache.  Flash attention
+is also held to its twin on its contract beyond the paths' shapes (a causal
+tail with a q_offset, T 1,024 masked and causal, hd 96 at T 197), and the
+two redesigned kernels (flash attention, and the float32 product tile in
+the kernels built on it) report their first version's time beside the
+new one.  Then it drives the paths the port has, each with the kernels'
+launch counters set to 0 just before and read just after:
 
 - greedy serving: exact greedy tokens against the plain path on a tiny
-  float32 model, then three requests of 128 image embeddings through
+  float32 model (sampled, in-kernel sampled, beam and continuous too), then
+  three requests of 128 image embeddings through
   ``ImageCaptioningModel.generate`` at GPT-2 124M width (random weights from
   a seed, bf16, greedy, 50 tokens), and one more traced with
   ``torch.profiler`` for the decode loop's device idle share;
@@ -26,6 +31,10 @@ just before and read just after:
   façade's defaults): exact tokens against the plain path on the tiny model
   with one generator seed, then at full width every drawn token must lie in
   the plain path's nucleus, teacher-forced along the kernels' tokens;
+- float32 greedy serving, the façade's default (``ImageCaptioningModel``'s
+  F32 policy): the three requests with the kernels and with
+  ``use_kernels=False``, every token teacher-forced against the float32
+  plain path, one request traced for the device time a step;
 - beam search: ``beam_generate`` with 4 beams on 128 images (512 decode
   rows), 50 tokens: exact beams against the plain path on the tiny model;
   at full width the score the kernels' search gave each chosen caption
@@ -129,8 +138,18 @@ TOL = {
 # inputs.  0.05 is ~9 % of the logit std and several times the drift, yet far
 # below the gap to a wrong token picked by a broken kernel (~1 logit std).
 # The int8 paths hold the same bound against the int8 twins, started from
-# the kernels' prefill (see plain_logits_along).
+# the kernels' prefill (see plain_logits_along); their integer products are
+# exact and the step's order-sensitive sums (LayerNorm statistics, gelu,
+# attention) run in float64 in kernel and twin alike, so the int8 step's
+# one-step drift reads 0.
 TF_TOL = 0.05
+# The float32 greedy path (the façade's default) by the same check: the
+# kernels and the twins differ in summation order and the TF32 split's
+# ~2^-21 relative error a product (one_step_drift reports one step's logit
+# difference), far below the ~0.1 logit expected between the best two of
+# 50,257 random-init logits, and a broken kernel's token lies ~1 logit std
+# below the max.  1e-3.
+TF_TOL_F32 = 1e-3
 # The int8 service's served tokens: 58,000 of them, against 19,200 in a
 # one-shot path, and int8's drift is 4.6x bf16's (NUCLEUS_SLACK_INT8), so the
 # tail of its deficits reaches further: worst 0.058 in two runs (bf16's
@@ -204,9 +223,14 @@ SAMPLE_TV_DRAWS, SAMPLE_TV_TOL = 4096, 0.06
 PHILOX_OPS, DRAW_OPS, LOGIT_OPS, VERIFY_OPS = 100, 7, 5, 2
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense): HBM bytes/s and
-# operations/s by the element type of the products.
+# operations/s by the element type of the products.  float32 products of the
+# product tile (common.cuh) and of flash attention run on the tensor cores as
+# a three-term TF32 split, three TF32 products each: their bound takes the
+# TF32 peak over three ("tf32x3", 165 TFLOP/s), which lies above float32's
+# 67 TFLOP/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
+PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12,
+              "tf32x3": 495e12 / 3}
 VECTOR_OPS_S = 67e12  # float32 outside the tensor cores
 
 # The int8 modes against their twins.  The row quantizer with a LayerNorm:
@@ -238,6 +262,39 @@ FLASH_SHAPES = (
 # bf16, which can differ by one ulp (2^-8 relative): 1e-2 / 1e-2.  float32:
 # summation order and online against plain softmax only, so 1e-5 / 1e-5.
 FLASH_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
+# The shape a dtype's kernel row reports: bf16 the training step's, which
+# launches it most; float32 the mapper's, which the float32 greedy path runs.
+FLASH_MAIN = {torch.bfloat16: "gpt2_train", torch.float32: "mapper"}
+# The flash kernel's contract beyond the paths' shapes, held to its twin
+# under FLASH_TOL, correctness only: (name, B, H, Tq, Tk, hd, causal, key
+# mask, q_offset) — a causal tail of 15 queries after 50 positions (Tq < Tk),
+# T 1,024 (16 key tiles through the ring, 8 query tiles a head)
+# bidirectional with a key mask and causal, and hd 96 at T 197.
+FLASH_CONTRACT = (
+    ("causal_q_offset", 32, 12, 15, 65, 64, True, False, 50),
+    ("long_masked", 4, 12, 1024, 1024, 64, False, True, 0),
+    ("long_causal", 4, 12, 1024, 1024, 64, True, False, 0),
+    ("hd96_t197", 32, 8, 197, 197, 96, False, False, 0),
+)
+# The float32 rows of the kernel table: (source, the TPU kernel it replaces,
+# the float32 path whose launches the row reports, what one "ms" covers).
+STEP_KERNEL = "gpt2_image_captioning_tpu/ops/decode_step.py"
+F32_ROWS = {
+    "flash_attention": ("flash_attention.cu", "gpt2_image_captioning_tpu/ops/attention.py:40",
+                        "greedy_f32", "call (1 CUDA launch) at the mapper's (128, 8, 25, 96)"),
+    "fused_linear": ("fused_linear.cu", f"{STEP_KERNEL}:112", "greedy_f32",
+                     "layer: 4 calls (qkv, attn_proj, mlp_fc, mlp_proj; 6 CUDA launches), B 128"),
+    "logits_argmax": ("logits_argmax.cu", f"{STEP_KERNEL}:112", "greedy_f32",
+                      "call (3 CUDA launches), B 128"),
+    "logits": ("logits.cu", f"{STEP_KERNEL}:617", "sampled_f32",
+               "call (2 CUDA launches), B 128"),
+    "logits_topk": ("logits_topk.cu", f"{STEP_KERNEL}:569", "beam_f32",
+                    "call (3 CUDA launches), B 512, k 4"),
+    "logits_sample": ("logits_sample.cu", f"{STEP_KERNEL}:641", "in_kernel_f32",
+                      "call (2 + 6 CUDA launches), B 512, temperature 1.0, top_p 0.9"),
+    "prefill": ("prefill.cu", "gpt2_image_captioning_tpu/ops/prefill_step.py:87", "greedy_f32",
+                "call (84 CUDA launches: 7 a layer), GPT-2 124M, B 128 x 15 tokens"),
+}
 # Training, bf16, kernel path against use_kernels=False on the same weights
 # and batch.  The two paths differ only in attention: the kernel rounds
 # unnormalised p to bf16 and divides in float32, the plain path rounds the
@@ -337,6 +394,12 @@ def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
     operations of ``dtype`` products, and which of the two bounds it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / PEAK_OPS_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def split_type(dtype):
+    """The product type whose peak bounds the tile kernels and flash
+    attention: float32 runs as the three-term TF32 split."""
+    return "tf32x3" if dtype == torch.float32 else dtype
 
 
 def nvidia_smi() -> str:
@@ -503,7 +566,8 @@ def sampler_bound(b: int, wte, temp, rnd) -> tuple[float, str, dict]:
     draw = PHILOX_OPS + SAMPLE_K * DRAW_OPS
     vector = V * (b * LOGIT_OPS + (sampled + fresh) * draw + verify * SAMPLE_K * VERIFY_OPS)
     times = {"bytes": nbytes / HBM_BYTES_S * 1e3,
-             "operations": max(products / PEAK_OPS_S[wte.dtype], vector / VECTOR_OPS_S) * 1e3}
+             "operations": max(products / PEAK_OPS_S[split_type(wte.dtype)],
+                               vector / VECTOR_OPS_S) * 1e3}
     by = max(times, key=times.get)
     return times[by], by, {"bytes": nbytes, "product_flop": products, "vector_ops": vector,
                            "draw_rows": sampled + fresh, "verify_rows": verify}
@@ -679,7 +743,7 @@ def check_linear(dtype, g) -> dict:
         # residual stream read and written
         role_bytes = (B * k * x.element_size() + n * k * el + 4 * n + (8 * k if ln else 0)
                       + (8 * B * n if epi == "residual" else el * B * n))
-        role_bound, role_by = bound(role_bytes, 2 * B * k * n, dtype)
+        role_bound, role_by = bound(role_bytes, 2 * B * k * n, split_type(dtype))
         roles[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "cublas_addmm_ms":
                        cublas_ms, "bound_ms": role_bound, "bound_by": role_by, "bytes": role_bytes}
         ms_sum += ms
@@ -687,7 +751,7 @@ def check_linear(dtype, g) -> dict:
         cublas_sum += cublas_ms
         nbytes += role_bytes
         ops += 2 * B * k * n
-    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    bound_ms, bound_by = bound(nbytes, ops, split_type(dtype))
     return {"kernel": "fused_linear", "max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
             "cublas_addmm_ms": cublas_sum,
@@ -736,7 +800,7 @@ def check_logits(dtype, g) -> dict:
     plain_ms = time_ms(lambda: DS.logits_plain(x32, lnf, wte))
     library_ms = time_ms(lambda: library_logits(x32, lnf, wte))
     nbytes = vocab_bytes(B, wte, 4 * B * V)
-    bound_ms, bound_by = bound(nbytes, 2 * B * D * V, dtype)
+    bound_ms, bound_by = bound(nbytes, 2 * B * D * V, split_type(dtype))
     return {"kernel": "logits", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "library_ms": library_ms, "library": "layer_norm + mm with a float32 result",
@@ -784,7 +848,7 @@ def check_logits_topk(dtype, g) -> dict:
 
     library_ms = time_ms(library)
     nbytes = vocab_bytes(B_BEAM, wte, 8 * B_BEAM * k + 4 * B_BEAM)
-    bound_ms, bound_by = bound(nbytes, 2 * B_BEAM * D * V, dtype)
+    bound_ms, bound_by = bound(nbytes, 2 * B_BEAM * D * V, split_type(dtype))
     return {"kernel": "logits_topk", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "library_ms": library_ms, "library": "layer_norm + mm + topk + logsumexp",
@@ -824,7 +888,7 @@ def check_logits_argmax(dtype, g) -> dict:
     xf, wt = x32.to(dtype), wte.t()
     cublas_ms = time_ms(lambda: torch.mm(xf, wt))
     nbytes = vocab_bytes(B, wte, 4 * B)  # the tokens written
-    bound_ms, bound_by = bound(nbytes, 2 * B * D * V, dtype)
+    bound_ms, bound_by = bound(nbytes, 2 * B * D * V, split_type(dtype))
     return {"kernel": "logits_argmax", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
             "cublas_mm_ms": cublas_ms,
@@ -1172,6 +1236,18 @@ def flash_inputs(b, h, t, hd, masked, dtype, g):
     return q, k, v, mask
 
 
+def flash_contract_inputs(b, h, tq, tk, hd, masked, dtype, g):
+    """q (B, H, Tq, hd), k and v (B, H, Tk, hd), and with ``masked`` a key
+    mask keeping each batch row's first Tk/2 to Tk keys."""
+    q = torch.randn(b, h, tq, hd, generator=g, device="cuda").to(dtype)
+    k, v = (torch.randn(b, h, tk, hd, generator=g, device="cuda").to(dtype) for _ in range(2))
+    mask = None
+    if masked:
+        lens = torch.randint(tk // 2, tk + 1, (b,), generator=g, device="cuda")
+        mask = (torch.arange(tk, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    return q, k, v, mask
+
+
 def check_flash(dtype, g) -> dict:
     from gpt2_image_captioning_tpu_torch.ops import attention as A
 
@@ -1193,16 +1269,25 @@ def check_flash(dtype, g) -> dict:
         # operations per (query, key) pair the masks leave to compute
         pairs = t * (t + 1) // 2 if causal else t * t
         nbytes = 4 * b * h * t * hd * q.element_size() + (4 * b * t if masked else 0)
-        bound_ms, bound_by = bound(nbytes, 4 * hd * pairs * b * h, dtype)
+        bound_ms, bound_by = bound(nbytes, 4 * hd * pairs * b * h, split_type(dtype))
         shapes[name] = {"at": [b, h, t, hd], "causal": causal, "padding_mask": masked,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                        "bytes": nbytes}
+                        "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "bytes": nbytes,
+                        "plan": A.flash_plan(t)._asdict()}
+    for name, b, h, tq, tk, hd, causal, masked, q_offset in FLASH_CONTRACT:
+        q, k, v, mask = flash_contract_inputs(b, h, tq, tk, hd, masked, dtype, g)
+        want = A._flash_attention_plain(q, k, v, mask, causal, q_offset)
+        got = A.flash_attention_cuda(q, k, v, mask, causal, q_offset)
+        torch.cuda.synchronize()
+        shapes[name] = {"at": [b, h, tq, tk, hd], "causal": causal, "q_offset": q_offset,
+                        "key_mask": masked, "max_abs_err": close(got, want, FLASH_TOL[dtype]),
+                        "plan": A.flash_plan(tq)._asdict()}
     shapes["fully_masked_row"] = check_flash_masked_row(dtype, g)
-    main = shapes["gpt2_train"]
+    main = shapes[FLASH_MAIN[dtype]]
     return {"kernel": "flash_attention", "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "library": "scaled_dot_product_attention, same boolean mask",
+            "at": FLASH_MAIN[dtype], "library": "scaled_dot_product_attention, same boolean mask",
             "tolerance": FLASH_TOL[dtype], "shapes": shapes}
 
 
@@ -1309,7 +1394,7 @@ def check_prefill(dtype, g) -> dict:
         nbytes = (n_layer * (12 * D * D * el + 4 * 13 * D) + rows * D * (el + 4)
                   + 2 * n_layer * rows * D * el)
         ops = n_layer * (2 * rows * 12 * D * D + 4 * (D // H) * H * b * P_LEN * (P_LEN + 1) // 2)
-        bound_ms, bound_by = bound(nbytes, ops, dtype)
+        bound_ms, bound_by = bound(nbytes, ops, split_type(dtype))
         shapes[f"b{b}"] = {"images": b, "prefix": P_LEN, "max_abs_err": max(errs.values()),
                            "errors": errs, "ms": ms, "plain_ms": plain_ms, "eager_ms": eager_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
@@ -1658,11 +1743,13 @@ def tiny_config():
 
 def tiny_exact(mode: str) -> dict:
     """Kernels against the plain path on the tiny float32 model, exactly:
-    greedy tokens, sampled tokens from one generator seed, beams, or
-    continuous serving's captions; the ``*_int8`` modes decode W8A8
-    (``decode_quant=True``), ``greedy_int8_kv`` with the int8 cache too.
-    EOS := a token row 0 emits after its first, absent from the first
-    column, so some rows stop early and get padded while others run on."""
+    greedy tokens, sampled tokens from one generator seed (``in_kernel``:
+    drawn inside the step by the sampler kernel, whose twin takes the same
+    Philox words), beams, or continuous serving's captions; the ``*_int8``
+    modes decode W8A8 (``decode_quant=True``), ``greedy_int8_kv`` with the
+    int8 cache too.  EOS := a token row 0 emits after its first, absent from
+    the first column, so some rows stop early and get padded while others
+    run on.  The record carries the kernels' launches in the kernel run."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
 
     cfg = tiny_config()
@@ -1683,14 +1770,19 @@ def tiny_exact(mode: str) -> dict:
             return C.beam_generate(tr, fz, cfg, emb, max_length=12, beam_size=BEAM_K,
                                    use_kernels=use, decode_quant=quant)
         kw = dict(temperature=0.0) if mode.startswith("greedy") else dict(
-            temperature=1.0, top_p=TOP_P, generator=torch.Generator(device="cuda").manual_seed(3))
+            temperature=1.0, top_p=TOP_P, generator=torch.Generator(device="cuda").manual_seed(3),
+            sample_in_kernel=mode == "in_kernel")
         return C.generate(tr, fz, cfg, emb, max_length=12, use_kernels=use, decode_quant=quant,
                           decode_quant_cache=mode == "greedy_int8_kv", **kw)
 
-    want, got = run(False), run(True)
+    want = run(False)
+    reset_launches()
+    got = run(True)
     torch.cuda.synchronize()
+    launches = read_launches()
     check(torch.equal(got, want), f"tiny f32 {mode} tokens differ:\n{got.cpu()}\n{want.cpu()}")
     return {"phase": f"tiny_f32_exact_{mode}", "eos": eos, "tokens_equal": True,
+            "launches": launches,
             "rows_finished_early": check_padding(got, eos, cfg.gpt2.vocab_size),
             "decode_steps": decode_steps(got, eos), "batch": 5, "max_length": 12}
 
@@ -1769,11 +1861,12 @@ def tiny_continuous(tr, fz, cfg, quant: bool = False) -> dict:
 
 
 def plain_logits_along(model, emb: torch.Tensor, tokens: torch.Tensor, quant: bool = False,
-                       quant_cache: bool = False):
+                       quant_cache: bool = False, precision: str = "bf16"):
     """Feed ``tokens`` (B, L) through the plain path step by step, from the
     bf16 weights (``quant``: their W8A8 pack; ``quant_cache``: the int8 KV
-    cache): yields (step s, the plain float32 logits (B, V) that predict
-    token s, the rows that had not emitted EOS before s).
+    cache; ``precision="f32"``: the float32 weights): yields (step s, the
+    plain float32 logits (B, V) that predict token s, the rows that had not
+    emitted EOS before s).
 
     The bf16 reference is the plain path of ``generate(use_kernels=False)``:
     the plain mapper and the prefill kernel's twin.  The int8 reference
@@ -1789,7 +1882,7 @@ def plain_logits_along(model, emb: torch.Tensor, tokens: torch.Tensor, quant: bo
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 
     cfg = model.cfg
-    tr, fz, pol = model.decode_params("bf16")
+    tr, fz, pol = model.decode_params(precision)
     gpt = C._gpt(tr, fz)
     packed = C.prepare_decode_weights(tr, fz, cfg, pol, quant=quant)
     vocab_kw = {"wte_scale": packed["wtes"], "compute_dtype": pol.compute_dtype} if quant else {}
@@ -1823,7 +1916,7 @@ def teacher_forced(model, emb: torch.Tensor, tokens: torch.Tensor,
                    **quant) -> tuple[float, int, float]:
     """Greedy: (worst deficit of a chosen token's plain logit below the plain
     max, tokens checked, share of them that are the plain argmax); ``quant``
-    as in :func:`plain_logits_along`."""
+    (and ``precision``) as in :func:`plain_logits_along`."""
     worst, n, agree = 0.0, 0, 0
     for s, logits, alive in plain_logits_along(model, emb, tokens, **quant):
         chosen = logits.gather(1, tokens[:, s].long()[:, None])[:, 0]
@@ -1864,16 +1957,17 @@ def plain_scores(model, emb: torch.Tensor, tokens: torch.Tensor, length_penalty:
     return total / length.float() ** length_penalty
 
 
-def one_step_drift(model, emb: torch.Tensor, quant: bool = False) -> float:
+def one_step_drift(model, emb: torch.Tensor, quant: bool = False,
+                   precision: str = "bf16") -> float:
     """Max |logit| difference of one decode step run by the kernels and by
     the plain twins from the same prefilled cache and input (``quant``: the
-    W8A8 pack)."""
+    W8A8 pack; ``precision="f32"``: the float32 weights)."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
     from gpt2_image_captioning_tpu_torch.models import gpt2 as G
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 
     cfg = model.cfg
-    tr, fz, pol = model.decode_params("bf16")
+    tr, fz, pol = model.decode_params(precision)
     gpt = C._gpt(tr, fz)
     packed = C.prepare_decode_weights(tr, fz, cfg, pol, quant=quant)
     vocab_kw = {"wte_scale": packed["wtes"], "compute_dtype": pol.compute_dtype} if quant else {}
@@ -1909,7 +2003,9 @@ VOCAB_KERNELS.update({
     "continuous_in_kernel": ("sample_tile_kernel",) + ADMISSION_KERNELS})
 # the int8 paths run the same kernels, instantiated for int8 operands
 VOCAB_KERNELS.update({f"{path}_int8": names for path, names in VOCAB_KERNELS.items()})
-VOCAB_KERNELS.update(greedy_int8_kv=VOCAB_KERNELS["greedy"], in_kernel_int8=("sample_tile_kernel",))
+VOCAB_KERNELS.update(greedy_int8_kv=VOCAB_KERNELS["greedy"], in_kernel_int8=("sample_tile_kernel",),
+                     greedy_f32=VOCAB_KERNELS["greedy"], sampled_f32=VOCAB_KERNELS["sampled"],
+                     in_kernel_f32=("sample_tile_kernel",))
 
 
 def traced(fn, trace_name: str) -> tuple[float, list[dict]]:
@@ -2148,18 +2244,20 @@ def serving_model():
 MODEL_NAME = "GPT-2 124M + transformer mapper (512->768, 15+10)"
 
 
-def int8_decoder(model, **kw):
-    """Module-level ``generate`` on the façade's bf16 weights through their
-    W8A8 pack, for the int8 options the façade does not take (the int8
-    cache, the in-kernel draw): ``run(embeddings, use_kernels)``."""
+def module_decoder(model, precision: str, **kw):
+    """Module-level ``generate`` on the façade's weights at ``precision``
+    (f32; or int8: the bf16 copy through its W8A8 pack), for the options the
+    façade does not take (the int8 cache, the in-kernel draw):
+    ``run(embeddings, use_kernels)``."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
 
-    tr, fz, pol = model.decode_params("bf16")
-    packed = C.prepare_decode_weights(tr, fz, model.cfg, pol, quant=True)
+    quant = precision == "int8"
+    tr, fz, pol = model.decode_params("bf16" if quant else precision)
+    packed = C.prepare_decode_weights(tr, fz, model.cfg, pol, quant=quant)
 
     def run(r, use=None):
         return C.generate(tr, fz, model.cfg, torch.as_tensor(r, device="cuda"), max_length=50,
-                          policy=pol, packed=packed, decode_quant=True, use_kernels=use, **kw)
+                          policy=pol, packed=packed, decode_quant=quant, use_kernels=use, **kw)
 
     return run
 
@@ -2167,20 +2265,24 @@ def int8_decoder(model, **kw):
 def greedy_path(model, reqs, precision: str = "bf16",
                 quant_cache: bool = False) -> tuple[dict, dict, dict]:
     """Greedy serving, 50 tokens: ``ImageCaptioningModel.generate`` at
-    ``precision`` (bf16, or int8: W8A8 from the bf16 copy), or with
-    ``quant_cache`` module-level ``generate(decode_quant=True,
-    decode_quant_cache=True)`` on the same weights."""
+    ``precision`` (bf16; f32, the façade's default; or int8: W8A8 from the
+    bf16 copy), or with ``quant_cache`` module-level ``generate(decode_quant
+    =True, decode_quant_cache=True)`` on the same weights; the kernels, then
+    ``use_kernels=False``, in this call.  Every token is teacher-forced
+    against the plain path (float32: to TF_TOL_F32); one traced request
+    gives the device time a step."""
     cfg = model.cfg
-    quant = precision == "int8"
+    quant, f32 = precision == "int8", precision == "f32"
     if quant_cache:
-        run = int8_decoder(model, temperature=0.0, decode_quant_cache=True)
+        run = module_decoder(model, "int8", temperature=0.0, decode_quant_cache=True)
         path = "greedy_int8_kv"
     else:
         def run(r, use=None):
             return model.generate(r, max_length=50, temperature=0.0, decode_precision=precision,
                                   use_kernels=use)
-        path = "greedy_int8" if quant else "greedy"
-    run(reqs[0])  # warm-up: bf16 weight copy, packing, first launches
+        path = {"int8": "greedy_int8", "f32": "greedy_f32"}.get(precision, "greedy")
+    run(reqs[0])  # warm-up of both routes: weight copies, packing, first launches
+    run(reqs[0], use=False)
     torch.cuda.synchronize()
     outs, seconds, launches = run_counted(run, reqs)
     steps = sum(decode_steps(o, cfg.eos_token_id) for o in outs)
@@ -2195,29 +2297,34 @@ def greedy_path(model, reqs, precision: str = "bf16",
     plain_seconds = time.perf_counter() - t0
     same = sum(int((a == b).all(dim=1).sum()) for a, b in zip(outs, plain))
 
-    drift = one_step_drift(model, torch.from_numpy(reqs[0]).cuda(), quant)
+    weights = "f32" if f32 else "bf16"
+    drift = one_step_drift(model, torch.from_numpy(reqs[0]).cuda(), quant, precision=weights)
     worst, checked, agree = 0.0, 0, 0.0
     for r, o in zip(reqs, outs):
         w, n, a = teacher_forced(model, torch.from_numpy(r).cuda(), o, quant=quant,
-                                 quant_cache=quant_cache)
+                                 quant_cache=quant_cache, precision=weights)
         worst, checked, agree = max(worst, w), checked + n, agree + a * n
-    check(worst <= TF_TOL, f"teacher-forced ({path}): a chosen token is {worst} below the plain "
-                           f"max (tolerance {TF_TOL})")
+    tol = TF_TOL_F32 if f32 else TF_TOL
+    check(worst <= tol, f"teacher-forced ({path}): a chosen token is {worst} below the plain "
+                        f"max (tolerance {tol})")
     record = {
         "phase": "main_path" if path == "greedy" else f"{path}_path", "model": MODEL_NAME,
-        "dtype": "bf16" + (", W8A8" if quant else "") + (", int8 KV cache" if quant_cache else ""),
+        "dtype": "float32 (the façade's default)" if f32 else
+                 "bf16" + (", W8A8" if quant else "") + (", int8 KV cache" if quant_cache else ""),
         "requests": len(reqs), "batch": B, "max_length": 50,
         "decode_steps": steps, "launches": launches,
         "img_per_s_kernels": len(reqs) * B / seconds, "seconds_kernels": seconds,
         "img_per_s_plain": len(reqs) * B / plain_seconds, "seconds_plain": plain_seconds,
         "rows_identical_to_plain": same, "rows": len(reqs) * B,
         "one_step_logit_drift": drift,
-        "teacher_forced": {"worst_deficit": worst, "tolerance": TF_TOL, "tokens_checked": checked,
+        "teacher_forced": {"worst_deficit": worst, "tolerance": tol, "tokens_checked": checked,
                            "share_plain_argmax": agree / checked},
         "card": nvidia_smi(),
     }
-    profiled = profile_path(lambda: run(reqs[0]), path, decode_steps(outs[0], cfg.eos_token_id),
-                            seconds / len(reqs))
+    steps0 = decode_steps(outs[0], cfg.eos_token_id)
+    profiled = profile_path(lambda: run(reqs[0]), path, steps0, seconds / len(reqs))
+    if "device_busy_s" in profiled:
+        profiled["device_ms_per_step"] = 1e3 * profiled["device_busy_s"] / steps0
     return record, launches, profiled
 
 
@@ -2225,18 +2332,20 @@ def sampled_path(model, reqs, precision: str = "bf16",
                  in_kernel: bool = False) -> tuple[dict, dict, dict]:
     """Top-p sampling through the façade at its defaults (temperature 1.0,
     top_p 0.9, a generator seeded with 0 per call), 50 tokens, at
-    ``precision`` (bf16, or int8); ``in_kernel`` (int8): module-level
-    ``generate(decode_quant=True, sample_in_kernel=True)`` on the same
-    weights, the draw inside the step."""
+    ``precision`` (bf16; f32, the façade's default; or int8); ``in_kernel``
+    (f32 or int8): module-level ``generate(sample_in_kernel=True)`` on the
+    same weights, the draw inside the step."""
     cfg = model.cfg
-    quant = precision == "int8"
+    quant, f32 = precision == "int8", precision == "f32"
+    suffix = {"int8": "_int8", "f32": "_f32"}.get(precision, "")
     if in_kernel:
-        run = int8_decoder(model, temperature=1.0, top_p=TOP_P, sample_in_kernel=True)
-        path, vocab = "in_kernel_int8", "logits_sample"
+        run = module_decoder(model, precision, temperature=1.0, top_p=TOP_P,
+                             sample_in_kernel=True)
+        path, vocab = "in_kernel" + suffix, "logits_sample"
     else:
         def run(r, use=None):
             return model.generate(r, max_length=50, decode_precision=precision, use_kernels=use)
-        path, vocab = ("sampled_int8" if quant else "sampled"), "logits"
+        path, vocab = "sampled" + suffix, "logits"
     run(reqs[0])  # warm-up
     torch.cuda.synchronize()
     outs, seconds, launches = run_counted(run, reqs)
@@ -2253,13 +2362,15 @@ def sampled_path(model, reqs, precision: str = "bf16",
 
     worst, checked, top1 = 0.0, 0, 0.0
     for r, o in zip(reqs, outs):
-        w, n, t1 = nucleus_mass(model, torch.from_numpy(r).cuda(), o, 1.0, quant=quant)
+        w, n, t1 = nucleus_mass(model, torch.from_numpy(r).cuda(), o, 1.0, quant=quant,
+                                precision="f32" if f32 else "bf16")
         worst, checked, top1 = max(worst, w), checked + n, top1 + t1 * n
     slack = NUCLEUS_SLACK_INT8 if quant else NUCLEUS_SLACK
     check(worst <= TOP_P + slack,
           f"a drawn token has plain mass {worst} above it (top_p {TOP_P} + {slack})")
     record = {
-        "phase": f"{path}_path", "model": MODEL_NAME, "dtype": "bf16" + (", W8A8" if quant else ""),
+        "phase": f"{path}_path", "model": MODEL_NAME,
+        "dtype": "float32 (the façade's default)" if f32 else "bf16" + (", W8A8" if quant else ""),
         "temperature": 1.0, "top_p": TOP_P, "requests": len(reqs), "batch": B, "max_length": 50,
         "decode_steps": steps, "launches": launches,
         "img_per_s_kernels": len(reqs) * B / seconds, "seconds_kernels": seconds,
@@ -2282,13 +2393,22 @@ def beam_f32(model, emb: torch.Tensor, length_penalty: float) -> dict:
 
     tr, fz, pol = model.decode_params("f32")
     packed = C.prepare_decode_weights(tr, fz, model.cfg, pol)
-    got, want = (C.beam_generate(tr, fz, model.cfg, emb, max_length=50, beam_size=BEAM_K,
-                                 length_penalty=length_penalty, policy=pol, packed=packed,
-                                 use_kernels=use) for use in (None, False))
+
+    def run(use):
+        return C.beam_generate(tr, fz, model.cfg, emb, max_length=50, beam_size=BEAM_K,
+                               length_penalty=length_penalty, policy=pol, packed=packed,
+                               use_kernels=use)
+
+    reset_launches()
+    got = run(None)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = run(False)
     n = emb.shape[0]
     same = int((got == want).all(dim=1).sum())
     check(n - same <= BEAM_F32_PARTED, f"float32 beams: {same} of {n} captions equal the plain path's")
-    return {"images": n, "captions_identical": same, "parted_allowed": BEAM_F32_PARTED}
+    return {"images": n, "captions_identical": same, "parted_allowed": BEAM_F32_PARTED,
+            "launches": launches}
 
 
 def beam_path(model, reqs, length_penalty: float = 1.0,
@@ -2672,13 +2792,18 @@ def main() -> int:
                 emit(rec)
                 if dtype == torch.bfloat16:
                     kernel_rows[rec["kernel"] + ("_" + rec["mode"] if "mode" in rec else "")] = rec
+                elif rec["kernel"] in F32_ROWS and "mode" not in rec:
+                    kernel_rows[rec["kernel"] + "_f32"] = rec
     emit(check_flash_backward(g))
 
-    for mode in ("greedy", "sampled", "beam", "continuous", "greedy_int8", "greedy_int8_kv",
-                 "beam_int8", "continuous_int8"):
-        emit(tiny_exact(mode))
-    emit(tiny_pixels())
     launches, bf16 = {}, {}
+    for mode in ("greedy", "sampled", "in_kernel", "beam", "continuous", "greedy_int8",
+                 "greedy_int8_kv", "beam_int8", "continuous_int8"):
+        record = tiny_exact(mode)
+        emit(record)
+        if "launches" in record:
+            launches[record["phase"].replace("_exact", "")] = record["launches"]
+    emit(tiny_pixels())
     tower_records, tower_launches = towers_path()
     for record in tower_records:
         emit(record)
@@ -2687,6 +2812,15 @@ def main() -> int:
     for path, fn in (("greedy", greedy_path), ("sampled", sampled_path), ("beam", beam_path)):
         record, launches[path], profiled = fn(model, reqs)
         bf16[path] = record
+        emit(record)
+        emit(profiled)
+    launches["beam_f32"] = bf16["beam"]["float32"]["launches"]
+    # the façade's default precision, float32, at full width: greedy, sampled
+    # (the façade's defaults) and the draw in the kernel
+    for path, fn in (("greedy_f32", lambda: greedy_path(model, reqs, "f32")),
+                     ("sampled_f32", lambda: sampled_path(model, reqs, "f32")),
+                     ("in_kernel_f32", lambda: sampled_path(model, reqs, "f32", in_kernel=True))):
+        record, launches[path], profiled = fn()
         emit(record)
         emit(profiled)
     # the int8 paths, each beside the bf16 figure of its path from this run
@@ -2783,10 +2917,19 @@ def main() -> int:
         "patch_embed": ("patch_embed.cu", "gpt2_image_captioning_tpu/ops/patch_embed.py:36",
                         "images_greedy", "call (1 CUDA launch), CLIP B/32, b 256, 224 px"),
     }
+    # the float32 rows of the two redesigned kernels: flash attention and the
+    # kernels built on the float32 product tile (common.cuh, the three-term
+    # TF32 split), each counted on a float32 path at full width — the
+    # façade's default greedy decode (mapper flash, layers, greedy
+    # vocabulary, prefill), its sampled decode, the draw in the kernel and
+    # the float32 beams; bound_ms counts their float32 products at the
+    # split's 165 TFLOP/s
+    for name, (src, replaces, home, per) in F32_ROWS.items():
+        rows[f"{name}_f32"] = (src, replaces, home, per)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def counter(name):  # the wrapper whose count a row reads
-        return name.removesuffix("_int8_kv").removesuffix("_int8")
+        return name.removesuffix("_int8_kv").removesuffix("_int8").removesuffix("_f32")
 
     table = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{source}{src}", "replaces": replaces,
@@ -2795,6 +2938,8 @@ def main() -> int:
          "launches_by_path": {path: counts[counter(name)] for path, counts in launches.items()}}
         for name, (src, replaces, home, per) in rows.items()
     ]}
+    idle = [r["name"] for r in table["kernels"] if r["launches"] == 0]
+    check(not idle, f"kernels never launched on their paths: {idle}")
     origin = kernel_rows["decode_attention_origin"]
     table["kernels"][0]["beam_origin"] = {
         "replaces": f"{step_kernel}:371", "launches": launches["beam"]["decode_attention"],

@@ -8,6 +8,13 @@
 // (gpt2_image_captioning_tpu/ops/decode_step.py::_step_kernel).  The W8A8
 // mode (the step kernel's quant mode) multiplies int8 rows by int8 weights
 // with int32 accumulators and dequantizes each tile as acc * sx * sw.
+//
+// The tile serves the step kernel's weight stream (fused_linear.cu, the four
+// vocabulary kernels) and the prefill kernel's products (prefill.cu,
+// gpt2_image_captioning_tpu/ops/prefill_step.py::_prefill_kernel).  Its
+// bound on the H100: at a decode batch of 128 the weights' bytes (a float32
+// GPT-2 layer: 28 MB, 8.5 us at 3.35 TB/s); the prefill's 1,920 rows are
+// bound by operations (float32: three TF32 products at 495 TFLOP/s).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,10 +45,50 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// ---------------------------------------------------------------------------
+// float32 products on the tensor cores: the three-term TF32 split.
+// mma.sync m16n8k8 .tf32 fragments, lane = 4 g + t (g = lane / 4, t = lane % 4):
+//   A (16 x 8, row-major): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+//   B (8 x 8, k x n):      b0 (k t, n g), b1 (k t + 4, n g)
+//   C (16 x 8):            c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// ---------------------------------------------------------------------------
+
+// x = hi + lo with hi = tf32(x) rounded to nearest (ties away) and lo =
+// tf32(x - hi): 11 + 11 significant bits, x to about 2^-22 relative.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  const float rest = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a * b in about float32 precision: the two small cross terms first.
+__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
 }
 
 // csrc/rowquant.cu: per-row symmetric int8 quantization of M rows of K (row
@@ -65,26 +112,49 @@ void launch_rowquant(cudaStream_t s, const void* x, int ld, const float* ln_s, c
 // per-row statistics (mean, rstd) that a pre-pass computed once.
 //
 // bf16 runs on the tensor cores through WMMA 16x16x16 fragments (float
-// accumulators); float runs as plain FMA, so the float build reproduces the
-// reference in full float32.  int8 (W8A8: X quantized per row by
-// rowquant.cu, W per output column by ops/quant.py::colquant) runs WMMA
-// signed-char 16x16x16 fragments with int32 accumulators, exact at any K;
-// the tile is dequantized on its way to sm.cs as (float)acc * sx[row] *
-// sw[col] (decode_step.py:286, :562), so every epilogue reads float tiles
-// whatever the operand type.
+// accumulators).  float runs on the tensor cores too, as a three-term TF32
+// split (mma.sync m16n8k8 .tf32, split_tf32 and mma_tf32x3 below): each
+// operand x is hi = tf32(x) plus lo = tf32(x - hi), 22 significant bits
+// together, and a product is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with float32
+// accumulators; the dropped a_lo*b_lo term and the split's rounding leave
+// about 2^-21 relative error a product, the order of a float32 summation
+// difference.  Each 64-deep stage accumulates into a fresh register tile
+// that is added to the running sum with a float32 add, so the tensor
+// core's truncating accumulation reaches over 24 products at most.  The
+// float stage has its own pitch (BK + 4 floats) so that the fragment
+// loads, lane (g, t) at row g and column t, hit 32 distinct banks.  On an
+// H100 a float32 GPT-2 layer at b 128 takes 0.19 ms against its 0.011 ms
+// bound: its grids of 48-192 blocks keep one stage in flight each.
+// int8 (W8A8: X quantized per row by rowquant.cu, W per output column by
+// ops/quant.py::colquant) runs WMMA signed-char 16x16x16 fragments with
+// int32 accumulators, exact at any K; the tile is dequantized on its way
+// to sm.cs as (float)acc * sx[row] * sw[col] (decode_step.py:286, :562),
+// so every epilogue reads float tiles whatever the operand type.
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64;       // rows of X (batch rows) per block
 constexpr int BN = 32;       // output columns per block
 constexpr int BK = 64;       // depth of one shared-memory stage
 constexpr int THREADS = 128; // 4 warps
-constexpr int LDS = BK + 8;  // shared pitch of the X/W stages (WMMA wants a multiple of 8)
+constexpr int LDS = BK + 8;  // shared pitch of the bf16 X/W stages (WMMA wants a multiple of 8)
 constexpr int LDC = BN + 4;  // shared pitch of the float result tile
 
 template <typename T>
 struct __align__(32) TileSmem {
   __align__(32) T xs[BM][LDS];
   __align__(32) T ws[BN][LDS];
+  __align__(32) float cs[BM][LDC];
+  float mean[BM];
+  float rstd[BM];
+};
+
+// float: the pitch BK + 4 (= 4 mod 32 banks) makes the TF32 fragment loads
+// conflict-free (TileMma<float>) and keeps every row 16-byte aligned.
+constexpr int LDSF = BK + 4;
+template <>
+struct __align__(32) TileSmem<float> {
+  __align__(32) float xs[BM][LDSF];
+  __align__(32) float ws[BN][LDSF];
   __align__(32) float cs[BM][LDC];
   float mean[BM];
   float rstd[BM];
@@ -119,26 +189,45 @@ __device__ __forceinline__ int8_t* w_slot(TileSmem<int8_t>& sm, int r, int c) {
 }
 
 // LayerNorm statistics of one float32 row, two-pass (mean, then the mean of
-// squared deviations), by one warp; every lane gets the result.
+// squared deviations), by one warp; every lane gets the result.  The sums
+// run in float64 and are rounded once, mean = float(m) and rstd =
+// float(1 / sqrt(v + eps)), so the float32 statistics do not depend on the
+// order of the sums: the plain twins (ops/nn.py::layer_norm_rows) reach the
+// same values in any order.  That matters in the int8 step, where a
+// one-ulp difference in a normalised value can move it across a
+// quantization step and the step's later layers carry that on.
 __device__ __forceinline__ void row_mean_rstd(const float* row, int K, float eps, float& mean,
                                               float& rstd) {
   const int lane = threadIdx.x % 32;
-  float s = 0.f;
+  double s = 0.0;
   for (int k = lane; k < K; k += 32) s += row[k];
-  mean = warp_sum(s) / (float)K;
-  float v = 0.f;
+  const double m = warp_sum(s) / K;
+  double v = 0.0;
   for (int k = lane; k < K; k += 32) {
-    const float d = row[k] - mean;
+    const double d = row[k] - m;
     v += d * d;
   }
-  rstd = 1.f / sqrtf(warp_sum(v) / (float)K + eps);
+  mean = (float)m;
+  rstd = (float)(1.0 / sqrt(warp_sum(v) / K + (double)eps));
 }
 
 // The LN prologue's value of one element, rounded to the compute dtype where
-// _step_kernel rounds it (decode_step.py:531, :553).
+// _step_kernel rounds it (decode_step.py:531, :553): ((x - mean) * rstd) *
+// s + b in float32, each operation rounded on its own (no contraction into
+// an FMA), as the twins' elementwise torch ops round.
 template <typename T>
 __device__ __forceinline__ T ln_value(float x, float mean, float rstd, float s, float b) {
-  return from_f32<T>((x - mean) * rstd * s + b);
+  return from_f32<T>(__fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mean), rstd), s), b));
+}
+
+// GPT-2's tanh GELU (decode_step.py:76-78, prefill_step.py:80-82), in
+// float64 and rounded once to float32, so the result does not depend on how
+// the expression is contracted or on the float32 tanh's last bit: the twin
+// (ops/decode_step.py::_gelu_new) computes it alike.
+__device__ __forceinline__ float gelu_new(float x32) {
+  const double c = 0.7978845608028654;  // sqrt(2 / pi)
+  const double x = x32;
+  return (float)(0.5 * x * (1.0 + tanh(c * (x + 0.044715 * x * x * x))));
 }
 
 // Copy the (mean, rstd) pairs of rows m0 .. m0+BM-1 into shared memory.
@@ -252,36 +341,58 @@ template <> struct TileMma<__nv_bfloat16> {
   }
 };
 
-// float: thread (ty, tx) of a 16 x 8 grid owns a 4 x 4 block of the tile.
+// float: warp w owns rows 16w .. 16w+15 and all BN columns, as bf16 does, as
+// BN / 8 TF32 m16n8k8 accumulators; each stage's products go to a fresh
+// tile (part) that is added to acc once, in float32.
 template <> struct TileMma<float> {
-  float acc[4][4];
+  float acc[BN / 8][4];
 
   __device__ void zero() {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   }
   __device__ void step(TileSmem<float>& sm) {
-    const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
-    for (int k = 0; k < BK; ++k) {
-      float a[4], b[4];
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    float part[BN / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sm.xs[ty * 4 + i][k];
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = sm.ws[tx * 4 + j][k];
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+    const float* x0 = &sm.xs[warp * 16 + g][t];
+    const float* x1 = &sm.xs[warp * 16 + g + 8][t];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < BK; kk += 8) {
+      uint32_t ah[4], al[4];
+      split_tf32(x0[kk], ah[0], al[0]);
+      split_tf32(x1[kk], ah[1], al[1]);
+      split_tf32(x0[kk + 4], ah[2], al[2]);
+      split_tf32(x1[kk + 4], ah[3], al[3]);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int j = 0; j < BN / 8; ++j) {
+        // B = W^T: element (k, n) sits at ws[n][k]
+        const float* w = &sm.ws[j * 8 + g][kk + t];
+        uint32_t bh[2], bl[2];
+        split_tf32(w[0], bh[0], bl[0]);
+        split_tf32(w[4], bh[1], bl[1]);
+        mma_tf32x3(part[j], ah, al, bh, bl);
+      }
     }
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
   }
   __device__ void store(TileSmem<float>& sm) {
-    const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sm.cs[ty * 4 + i][tx * 4 + j] = acc[i][j];
+    for (int j = 0; j < BN / 8; ++j) {
+      *reinterpret_cast<float2*>(&sm.cs[warp * 16 + g][j * 8 + 2 * t]) =
+          make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(&sm.cs[warp * 16 + g + 8][j * 8 + 2 * t]) =
+          make_float2(acc[j][2], acc[j][3]);
+    }
   }
 };
 

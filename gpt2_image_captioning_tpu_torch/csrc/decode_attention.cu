@@ -6,7 +6,7 @@
 // (:68) and the attention() of ops/decode_step.py::_step_kernel (:292-517),
 // with its beam mode (origin + gather_start, :134-138, :371-456, :488-503).
 // Each (batch row, head) attends cache rows [0, idx) walked in 16-row chunks
-// with an online float32 softmax, then folds in this step's own K/V row
+// with an online softmax, then folds in this step's own K/V row
 // straight from its inputs (decode_attention.py:157-172); the new K/V row is
 // written into row idx of the (T, B, D) caches in place.  idx = 0 attends the
 // new row alone.  With an origin map (T, B) int32, row r reads position t
@@ -41,6 +41,18 @@
 // history; the TPU's per-batch-block first live chunk has no separate
 // counterpart.
 //
+// Numerics: the scores, the softmax and the p·v sums run in float64 and the
+// output is rounded once, to float32 and then to the compute dtype.  The
+// result is then that of exact arithmetic on the rounded inputs to within
+// ~1e-16, whatever the order of the sums, so the plain twin
+// (ops/decode_attention.py::_decode_attention_plain), which computes it in
+// float64 too, rounds to the same value.  In the int8 step a one-ulp
+// difference in the attention output crosses a quantization step now and
+// then, and the step's later layers carry that on (0.06 of a logit in one
+// step at GPT-2 124M, b 128); the float32 form of the TPU kernel parts from
+// any other order so.  float64 on the H100 runs at half the float32 rate,
+// and this walk is bound by its loads and its latency, not by its math.
+//
 // int8 KV cache (the step kernel's cache_quant mode, :311-323, :404-409):
 // the caches hold int8 rows with a float32 scale per (position, batch row)
 // in (T, B) arrays.  The new K and V rows are quantized over their whole D,
@@ -58,6 +70,7 @@
 namespace gic {
 
 constexpr int kChunk = 16;        // cache rows per step of the walk (ops/decode_attention.CHUNK_T)
+static_assert(kChunk == 16, "the score reduction leaves position c in lanes 2c and 2c + 1");
 constexpr int kMaxPerLane = 4;    // head dim up to 4 * 32 = 128
 constexpr int kWarpsPerBlock = 4;
 constexpr float kNegInf = -3.4028234663852886e38f;  // float32 minimum, the mask value
@@ -75,7 +88,7 @@ __device__ __forceinline__ float cache_value(C x, float s) {
 template <typename T, typename C, bool kOrigin>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, C* kc, C* vc, T* out,
-                        int B, int D, int H, int idx, float scale, const int* origin,
+                        int B, int D, int H, int idx, double scale, const int* origin,
                         int gather_start, const int* start, const float* ks, const float* vs) {
   constexpr bool kInt8 = std::is_same<C, int8_t>::value;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -88,7 +101,8 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, C* 
   const size_t hoff = (size_t)h * hd;
   const size_t in_off = (size_t)b * in_stride + (size_t)h * hd;
 
-  float qv[kMaxPerLane], knv[kMaxPerLane], vnv[kMaxPerLane], acc[kMaxPerLane];
+  float qv[kMaxPerLane], knv[kMaxPerLane], vnv[kMaxPerLane];
+  double acc[kMaxPerLane];
 #pragma unroll
   for (int e = 0; e < kMaxPerLane; ++e) {
     const int j = lane + 32 * e;
@@ -96,7 +110,7 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, C* 
     qv[e] = in ? to_f32(q[in_off + j]) : 0.f;
     knv[e] = in ? to_f32(kn[in_off + j]) : 0.f;
     vnv[e] = in ? to_f32(vn[in_off + j]) : 0.f;
-    acc[e] = 0.f;
+    acc[e] = 0.0;
     if constexpr (!kInt8) {  // int8 caches: appended by the call's quantizing launches
       if (in) {  // the append: only rows < idx are read below, so no warp races it
         kc[(size_t)idx * trow + off + j] = kn[in_off + j];
@@ -109,9 +123,9 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, C* 
   // every chunk it visits holds at least one live position
   const int lo = start ? min(max(start[b], 0), idx) : 0;
   const int first = lo < idx ? lo / kChunk * kChunk : idx;
-  float m = kNegInf, l = 0.f;
+  double m = kNegInf, l = 0.0;
   for (int t0 = first; t0 < idx; t0 += kChunk) {
-    float s[kChunk];
+    double s[kChunk];
     size_t roff[kChunk];  // offset of the cache row position t0 + c is read from
     float kcs[kChunk], vcs[kChunk];  // int8: that row's scales, rounded to T
 #pragma unroll
@@ -131,39 +145,52 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, C* 
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
       const int t = t0 + c;
-      float d = 0.f;
+      double d = 0.0;
       if (t >= lo && t < idx) {
         const C* krow = kc + (size_t)t * trow + roff[c];
 #pragma unroll
         for (int e = 0; e < kMaxPerLane; ++e) {
           const int j = lane + 32 * e;
-          if (j < hd) d = fmaf(qv[e], cache_value<T, C>(krow[j], kcs[c]), d);
+          if (j < hd) d = fma((double)qv[e], (double)cache_value<T, C>(krow[j], kcs[c]), d);
         }
       }
       s[c] = d;
     }
-    float cmax = kNegInf;
+    // the chunk's 16 sums over the lanes, halving the values a lane holds
+    // at each step: afterwards lanes 2c and 2c + 1 hold position c's score,
+    // so each lane takes one exp a chunk, not 16
 #pragma unroll
-    for (int c = 0; c < kChunk; ++c) {
-      s[c] = warp_sum(s[c]) * scale;
-      if (t0 + c >= lo && t0 + c < idx) cmax = fmaxf(cmax, s[c]);
+    for (int half = kChunk / 2; half >= 1; half /= 2) {
+      const bool upper = lane & (2 * half);
+#pragma unroll
+      for (int i = 0; i < half; ++i) {
+        const double send = upper ? s[i] : s[i + half];
+        s[i] = (upper ? s[i + half] : s[i]) + __shfl_xor_sync(0xffffffffu, send, 2 * half);
+      }
     }
-    const float m_new = fmaxf(m, cmax);
-    const float alpha = expf(m - m_new);
+    const int mine = lane >> 1;
+    const bool live = t0 + mine >= lo && t0 + mine < idx;
+    const double score = (s[0] + __shfl_xor_sync(0xffffffffu, s[0], 1)) * scale;
+    double cmax = live ? score : kNegInf;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) cmax = fmax(cmax, __shfl_xor_sync(0xffffffffu, cmax, o));
+    const double m_new = fmax(m, cmax);
+    const double alpha = exp(m - m_new);
+    const double p_mine = live ? exp(score - m_new) : 0.0;
     l *= alpha;
 #pragma unroll
     for (int e = 0; e < kMaxPerLane; ++e) acc[e] *= alpha;
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
       const int t = t0 + c;
+      const double p = __shfl_sync(0xffffffffu, p_mine, 2 * c);
       if (t >= lo && t < idx) {
-        const float p = expf(s[c] - m_new);
         l += p;
         const C* vrow = vc + (size_t)t * trow + roff[c];
 #pragma unroll
         for (int e = 0; e < kMaxPerLane; ++e) {
           const int j = lane + 32 * e;
-          if (j < hd) acc[e] = fmaf(p, cache_value<T, C>(vrow[j], vcs[c]), acc[e]);
+          if (j < hd) acc[e] = fma(p, (double)cache_value<T, C>(vrow[j], vcs[c]), acc[e]);
         }
       }
     }
@@ -171,18 +198,20 @@ decode_attention_kernel(const T* q, const T* kn, const T* vn, int in_stride, C* 
   }
 
   // epilogue: this step's own row, from registers
-  float d = 0.f;
+  double d = 0.0;
 #pragma unroll
-  for (int e = 0; e < kMaxPerLane; ++e) d = fmaf(qv[e], knv[e], d);
-  const float s_new = warp_sum(d) * scale;
-  const float m_f = fmaxf(m, s_new);
-  const float p_new = expf(s_new - m_f);
-  const float alpha = expf(m - m_f);
+  for (int e = 0; e < kMaxPerLane; ++e) d = fma((double)qv[e], (double)knv[e], d);
+  const double s_new = warp_sum(d) * scale;
+  const double m_f = fmax(m, s_new);
+  const double p_new = exp(s_new - m_f);
+  const double alpha = exp(m - m_f);
   l = l * alpha + p_new;
 #pragma unroll
   for (int e = 0; e < kMaxPerLane; ++e) {
     const int j = lane + 32 * e;
-    if (j < hd) out[(size_t)b * D + (size_t)h * hd + j] = from_f32<T>((acc[e] * alpha + p_new * vnv[e]) / l);
+    if (j < hd)
+      out[(size_t)b * D + (size_t)h * hd + j] =
+          from_f32<T>((float)((acc[e] * alpha + p_new * vnv[e]) / l));
   }
 }
 
@@ -195,7 +224,7 @@ static void launch(const void* q, const void* kn, const void* vn, int in_stride,
                    void* vc, void* out, int B, int D, int H, int idx, const int* origin,
                    int gather_start, const int* start, const float* ks, const float* vs,
                    cudaStream_t s) {
-  const float scale = 1.f / sqrtf((float)(D / H));
+  const double scale = 1.0 / sqrt((double)(D / H));
   const int blocks = (B * H + kWarpsPerBlock - 1) / kWarpsPerBlock;
   decode_attention_kernel<T, C, kOrigin><<<blocks, 32 * kWarpsPerBlock, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(kn), static_cast<const T*>(vn), in_stride,

@@ -17,7 +17,7 @@
 //
 // Design: a block computes a 64-row x 32-column tile (common.cuh) and walks K
 // in 64-deep shared-memory stages; bf16 runs on the tensor cores (WMMA),
-// float32 on FMA.  Row tiling re-reads W: at B = 128 the grid has
+// float32 on them too as the three-term TF32 split (common.cuh).  Row tiling re-reads W: at B = 128 the grid has
 // ceil(128 / 64) = 2 row blocks, so every weight tile is fetched twice, the
 // second time mostly from L2 since both row blocks of a column run together.
 // With the LayerNorm prologue a first launch computes every row's (mean,
@@ -44,11 +44,6 @@ namespace gic {
 constexpr int kEpiCast = 0;
 constexpr int kEpiGelu = 1;
 constexpr int kEpiResidual = 2;
-
-__device__ __forceinline__ float gelu_new(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
 
 // (mean, rstd) of each float32 row, one warp per row.
 __global__ void ln_stats_kernel(const float* x, int M, int K, float eps, float* stats) {

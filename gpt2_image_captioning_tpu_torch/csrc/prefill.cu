@@ -53,11 +53,6 @@ constexpr int kPreMaxT = 32;     // keys of one image: one lane each
 constexpr int kPreMaxHd = 96;    // head dim: the three (T, hd + 1) float tiles stay under 48 KB
 constexpr int kAttnWarps = 4;
 
-__device__ __forceinline__ float prefill_gelu(float x) {
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi), prefill_step.py:80-82
-  return 0.5f * x * (1.f + tanhf(c * (x + 0.044715f * x * x * x)));
-}
-
 // y = LN(x) in T for each float32 row of K, one warp per row.
 template <typename T>
 __global__ void prefill_layernorm_kernel(const float* x, const float* ln_s, const float* ln_b,
@@ -96,7 +91,7 @@ prefill_linear_kernel(const T* x, const T* w, const float* bias, void* out, int 
         cache[((size_t)t * cache_b + g) * d + (n % d)] = from_f32<T>(y);
       }
     } else if (EPI == kPreGelu) {
-      static_cast<T*>(out)[(size_t)m * N + n] = from_f32<T>(prefill_gelu(y));
+      static_cast<T*>(out)[(size_t)m * N + n] = from_f32<T>(gelu_new(y));
     } else {
       static_cast<float*>(out)[(size_t)m * N + n] += y;  // the float32 residual stream
     }

@@ -21,7 +21,9 @@ run ``attention_xla``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -30,6 +32,26 @@ from gpt2_image_captioning_tpu_torch.ops import _build, nn
 from gpt2_image_captioning_tpu_torch.ops.nn import NEG_INF
 
 HEAD_DIMS = (64, 96)  # the head dims the kernel is built for (GPT-2 124M, the mapper)
+FLASH_MAX_WARPS = 8  # csrc/flash_attention.cu MAX_WARPS: a block's warps, 16 query rows each
+
+
+class FlashPlan(NamedTuple):
+    q_tiles: int  # blocks a (batch row, head)
+    warps: int    # 16 query rows each
+    rows: int     # query rows a block owns
+
+
+@functools.cache
+def flash_plan(tq: int) -> FlashPlan:
+    """The flash kernel's split of Tq query rows: ``q_tiles`` blocks a
+    (batch row, head), each of ``warps`` warps owning 16 rows, the q-tiles
+    as even as 16-row granularity allows (Tq 197: 2 of 112 rows, where fixed
+    128-row tiles would leave 59 idle rows), so K and V are read ``q_tiles``
+    times a head.  The kernel sizes its K/V ring and shared memory from Tk
+    and hd itself."""
+    q_tiles = -(-tq // (16 * FLASH_MAX_WARPS))
+    warps = -(-(-(-tq // q_tiles)) // 16)
+    return FlashPlan(q_tiles, warps, 16 * warps)
 
 
 def _valid(q, k, key_mask, causal: bool, q_offset: int) -> torch.Tensor:
@@ -113,7 +135,8 @@ def flash_attention_cuda(q, k, v, key_mask=None, causal: bool = False, q_offset:
     )
     err = _build.library().gic_flash_attention(
         _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        mask_ptr, b, h, tq, tk, hd, strides, int(causal), int(q_offset), _build.stream_of(q),
+        mask_ptr, b, h, tq, tk, hd, strides, int(causal), int(q_offset), flash_plan(tq).warps,
+        _build.stream_of(q),
     )
     _build.check(err, name)
     flash_attention_cuda.launches += 1

@@ -47,7 +47,10 @@ def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head:
     positions ``[gather_start, idx)`` are first gathered from the rows it
     names; position ``idx`` is each row's own new row.  With ``start``,
     row r's positions below ``start[r]`` are masked too.  With scales, the
-    int8 append and the dequantized walk, the own row exact."""
+    int8 append and the dequantized walk, the own row exact.  The scores,
+    the softmax and p·v run in float64, rounded once to float32 and then to
+    q's dtype, as the kernel computes them: both then round the exact
+    result on the same inputs, whatever the order of their sums."""
     tk, b, d = k_cache.shape
     if k_scale is None:
         k_cache[idx] = k_new.to(k_cache.dtype)
@@ -65,9 +68,9 @@ def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head:
         kc, vc = (c.gather(1, src[:, :, None].expand(tk, b, d)) for c in (kc, vc))
     hd = d // n_head
     scale = 1.0 / math.sqrt(hd)
-    qh = q.reshape(b, n_head, hd).float()
-    kh = kc.reshape(tk, b, n_head, hd).float()
-    vh = vc.reshape(tk, b, n_head, hd).float()
+    qh = q.reshape(b, n_head, hd).double()
+    kh = kc.reshape(tk, b, n_head, hd).double()
+    vh = vc.reshape(tk, b, n_head, hd).double()
     s = torch.einsum("bhd,kbhd->bhk", qh, kh) * scale
     pos = torch.arange(tk, device=q.device)
     live = (pos <= idx)[None, None, :]
@@ -75,7 +78,7 @@ def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head:
         live = live & (pos[None, :] >= start.to(pos.dtype)[:, None])[:, None, :]
     p = torch.softmax(torch.where(live, s, NEG_INF), dim=-1)
     out = torch.einsum("bhk,kbhd->bhd", p, vh)
-    return out.reshape(b, d).to(q.dtype)
+    return out.reshape(b, d).float().to(q.dtype)
 
 
 def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int,

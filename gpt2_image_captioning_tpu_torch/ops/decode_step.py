@@ -27,11 +27,18 @@ for the vocabulary:
   the logits never stored).
 
 Numerics follow ``_step_kernel``: inputs in the compute dtype, float32
-accumulation, float32 LayerNorm and softmax statistics, a float32 residual
-stream to which the projections are added unrounded, and ties to the
-smallest token id.  Every kernel has a plain PyTorch twin in this module (or
-in ``ops/decode_attention.py``) with the same arithmetic; the CPU runs the
-twins, and ``use_kernels=False`` runs them on the card for comparison.
+accumulation of the products, float32 LayerNorm statistics, a float32
+residual stream to which the projections are added unrounded, and ties to
+the smallest token id.  Every kernel has a plain PyTorch twin in this module
+(or in ``ops/decode_attention.py``) with the same arithmetic; the CPU runs
+the twins, and ``use_kernels=False`` runs them on the card for comparison.
+The LayerNorm statistics, gelu_new and the attention (scores, softmax, p·v)
+run in float64 in kernel and twin alike and are rounded once
+(:func:`ops.nn.layer_norm_rows`, :func:`_gelu_new`), so their results do
+not depend on the order of the sums: with int8 weights, whose integer
+products are exact, the kernels and the twins then compute the same step,
+where a one-ulp difference would now and then cross a quantization step
+and grow through the later layers.
 
 W8A8 (``pack_decode_weights(quant=True)``; the pack carries ``qkvs``): the
 four projections and wte are int8 with per-output-column float32 scales;
@@ -124,9 +131,11 @@ def pack_decode_weights(params: dict, compute_dtype: torch.dtype = torch.bfloat1
 # ---------------------------------------------------------------------------
 
 def _gelu_new(x32: torch.Tensor) -> torch.Tensor:
-    # the step kernel's form (x*x*x, not x**3), decode_step.py:76-78
+    # the step kernel's form (x*x*x, not x**3), decode_step.py:76-78, in
+    # float64 and rounded once to float32, as csrc/common.cuh::gelu_new
     c = 0.7978845608028654
-    return 0.5 * x32 * (1.0 + torch.tanh(c * (x32 + 0.044715 * x32 * x32 * x32)))
+    x = x32.double()
+    return (0.5 * x * (1.0 + torch.tanh(c * (x + 0.044715 * x * x * x)))).float()
 
 
 def fused_linear_plain(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, residual=None,
@@ -139,7 +148,7 @@ def fused_linear_plain(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5,
         y = int8_matmul(xq, sx, w, w_scale) + bias.float()
     else:
         if ln is not None:
-            x = nn.layer_norm({"scale": ln[0], "bias": ln[1]}, x.float(), eps).to(cdt)
+            x = nn.layer_norm_rows(ln[0], ln[1], x.float(), eps).to(cdt)
         y = nn.dot_f32(x.to(cdt), w.t()) + bias.float()
     if epilogue == "cast":
         return y.to(cdt)
@@ -246,7 +255,7 @@ def logits_plain(x32, lnf, wte, eps: float = 1e-5, *, wte_scale=None,
     if wte_scale is not None:
         xq, sx = rowquant_plain(x32, (lnf[0], lnf[1]), eps, cdt)
         return int8_matmul(xq, sx, wte, wte_scale)
-    xf = nn.layer_norm({"scale": lnf[0], "bias": lnf[1]}, x32.float(), eps).to(cdt)
+    xf = nn.layer_norm_rows(lnf[0], lnf[1], x32.float(), eps).to(cdt)
     return nn.dot_f32(xf, wte.t())
 
 

@@ -111,6 +111,22 @@ def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor
     return (y * params["scale"].float() + params["bias"].float()).to(x.dtype)
 
 
+def layer_norm_rows(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm of float32 rows as the step kernels compute it
+    (``csrc/common.cuh``: ``row_mean_rstd``, ``ln_value``): the statistics
+    in float64, rounded once (mean, and rstd = 1 / sqrt(var + float32(eps))),
+    so no summation order shows in them; then ((x - mean) * rstd) * scale +
+    bias in float32.  Returns float32."""
+    x64 = x.double()
+    mean = x64.mean(dim=-1, keepdim=True)
+    var = torch.square(x64 - mean).mean(dim=-1, keepdim=True)
+    eps32 = float(torch.tensor(eps, dtype=torch.float32))
+    rstd = (1.0 / torch.sqrt(var + eps32)).float()
+    y = (x.float() - mean.float()) * rstd
+    return y * scale.float() + bias.float()
+
+
 def gelu_new(x: torch.Tensor) -> torch.Tensor:
     """GPT-2's tanh-approximated GELU."""
     xf = x.float()

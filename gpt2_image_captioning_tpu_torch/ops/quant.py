@@ -63,7 +63,7 @@ def rowquant_plain(x: torch.Tensor, ln=None, eps: float = 1e-5, compute_dtype=No
     (M, 1) float32).  With ``ln=(scale, bias)`` the rows are the float32
     residual stream, LayerNorm'd and rounded to ``compute_dtype`` first."""
     if ln is not None:
-        x = nn.layer_norm({"scale": ln[0], "bias": ln[1]}, x.float(), eps).to(compute_dtype)
+        x = nn.layer_norm_rows(ln[0], ln[1], x.float(), eps).to(compute_dtype)
     return absmax_quant(x)
 
 

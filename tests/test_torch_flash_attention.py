@@ -1,8 +1,10 @@
 """The port's flash attention against the JAX package's Pallas kernel (run in
 interpret mode): the plain twin's forward and ``FlashAttention``'s gradients,
 in float32, over causal and bidirectional attention, ragged lengths with a
-key mask, a static q_offset, several blocks (T 200) and head dims 8 and 24;
-then ``mha`` on the CPU against the JAX package's ``mha``.
+key mask, a static q_offset (with Tq < Tk), several blocks (T 200), head
+dims 8 and 24 and the paths' 64 and 96 at their ragged lengths; then
+``mha`` on the CPU against the JAX package's ``mha``, and the CUDA
+kernel's launch plan.
 
 Tolerances: the forward to 1e-5 and the gradients to 1e-4 (both sides are
 float32; they differ in summation order and in the online against the plain
@@ -27,6 +29,11 @@ CASES = {
     "odd_masked_bidirectional": (3, 2, 11, 11, 8, False, True, 0),
     "q_offset": (2, 2, 5, 12, 8, True, True, 7),
     "multi_block_t200": (1, 2, 200, 200, 24, True, True, 0),
+    # the paths' head dims at their ragged lengths: ViT-B/16's T 197 at hd 64,
+    # the mapper's T 25 at hd 96; a causal tail of 15 queries after 50 keys
+    "ragged_t197_hd64": (1, 2, 197, 197, 64, False, True, 0),
+    "mapper_t25_hd96": (2, 2, 25, 25, 96, False, False, 0),
+    "causal_q_offset_tq_lt_tk_hd64": (2, 2, 15, 65, 64, True, True, 50),
 }
 
 
@@ -122,3 +129,29 @@ def test_flash_attention_cuda_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="CUDA tensors"):
         TA.flash_attention(x, x, x, use_kernel=True)
     assert TA.HEAD_DIMS == (64, 96)
+
+
+# (Tq, Tk, hd) the kernel runs at: the paths' FLASH_SHAPES in chip_smoke.py
+# (training, mapper, int8 prefill, CLIP, ViT, DINOv3), the card's extra
+# contract cases (a causal tail with q_offset, hd 96 at T 197, T 1,024) and
+# the tiny float32 models' 7 + 12 positions.
+# Tq of the paths' shapes (training 65, the mapper 25, the prefill 15, the
+# towers 50, 197 and 201), the long case 1,024 and a few short ones
+PLAN_TQ = [65, 25, 15, 50, 197, 201, 1024, 19, 7, 1]
+
+
+@pytest.mark.parametrize("tq", PLAN_TQ)
+def test_flash_plan_covers_every_row(tq):
+    """The q-tile split of ``csrc/flash_attention.cu``: its q-tiles cover
+    every query row with none empty, each block holds 1-8 warps of 16 rows
+    and computes fewer than 16 rows past Tq beyond its idle warps, and K and
+    V are read at most twice a head at T <= 256."""
+    plan = TA.flash_plan(tq)
+    rows, tiles = plan.rows, plan.q_tiles
+    assert plan.warps * 16 == rows and 1 <= plan.warps <= TA.FLASH_MAX_WARPS
+    assert (tiles - 1) * rows < tq <= tiles * rows, plan
+    tail = tq - (tiles - 1) * rows
+    assert -(-tail // 16) * 16 - tail < 16
+    assert tiles <= (2 if tq <= 256 else -(-tq // 128))
+    if tq == 197:
+        assert rows == 112

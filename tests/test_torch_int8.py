@@ -342,6 +342,49 @@ def test_int8_cache_attention_twin_reads_dequantized_rows_and_the_exact_new_row(
         TDA.decode_attention(q, kn, vn, kq.clone(), vq.clone(), idx, n_head=h)
 
 
+@pytest.mark.parametrize("part", ["layer_norm", "attention", "gelu"])
+def test_step_twins_round_the_exact_result_in_any_order(part):
+    """The step's order-sensitive parts — the LayerNorm statistics, the
+    attention's sums and softmax, gelu_new — are computed in float64 and
+    rounded once, so reordering their inputs gives the same bits (the
+    kernels compute them so too, and an int8 step on the card then equals
+    its twin's step); each stays within a float32 rounding of its float32
+    form."""
+    rng = np.random.default_rng(11)
+    if part == "layer_norm":
+        x = torch.from_numpy((rng.normal(size=(64, 768)) * 40 + 300).astype(np.float32))
+        scale, bias = (torch.from_numpy(rng.normal(size=768).astype(np.float32)) for _ in range(2))
+        perm = torch.from_numpy(rng.permutation(768))
+        got = TDS.nn.layer_norm_rows(scale, bias, x, 1e-5)
+        again = TDS.nn.layer_norm_rows(scale[perm], bias[perm], x[:, perm], 1e-5)
+        assert torch.equal(again, got[:, perm]) and got.dtype == torch.float32
+        want = TDS.nn.layer_norm({"scale": scale, "bias": bias}, x, 1e-5)
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    elif part == "attention":
+        t, b, d, h, idx = 48, 3, 64, 2, 40
+        q, kn, vn = (torch.from_numpy(rng.normal(size=(b, d)).astype(np.float32) * 3)
+                     for _ in range(3))
+        kc, vc = (torch.from_numpy(rng.normal(size=(t, b, d)).astype(np.float32) * 3)
+                  for _ in range(2))
+        perm = torch.cat([torch.from_numpy(rng.permutation(idx)), torch.arange(idx, t)])
+        got = TDA._decode_attention_plain(q, kn, vn, kc.clone(), vc.clone(), idx, h)
+        again = TDA._decode_attention_plain(q, kn, vn, kc[perm].clone(), vc[perm].clone(), idx, h)
+        assert torch.equal(again, got)
+        qh, kh, vh = q.reshape(b, h, -1), kc[: idx + 1].clone(), vc[: idx + 1].clone()
+        kh[idx], vh[idx] = kn, vn
+        s = torch.einsum("bhd,kbhd->bhk", qh, kh.reshape(idx + 1, b, h, -1)) / np.sqrt(d // h)
+        want = torch.einsum("bhk,kbhd->bhd", torch.softmax(s, dim=-1),
+                            vh.reshape(idx + 1, b, h, -1)).reshape(b, d)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        y = torch.from_numpy((rng.normal(size=(4096,)) * 3).astype(np.float32))
+        got = TDS._gelu_new(y)
+        x = y.double()
+        exact = (0.5 * x * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x ** 3))))
+        assert torch.equal(got, exact.float()) and got.dtype == torch.float32
+        torch.testing.assert_close(got, TDS.nn.gelu_new(y), atol=1e-6, rtol=1e-6)
+
+
 @pytest.mark.parametrize("mode", ["topk", "sample"])
 def test_int8_cache_refuses_topk_and_sample(mode):
     """As the JAX kernel (decode_step.py:1075, :1078): top-k and the in-kernel
