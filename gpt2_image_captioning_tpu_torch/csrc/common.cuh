@@ -57,6 +57,24 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Asynchronous 16- and 4-byte copies global -> shared (cp.async), zero-filled
+// where ``valid`` is false (src is then not read), and their groups.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // ---------------------------------------------------------------------------
 // float32 products on the tensor cores: the three-term TF32 split.
 // mma.sync m16n8k8 .tf32 fragments, lane = 4 g + t (g = lane / 4, t = lane % 4):
@@ -90,6 +108,11 @@ __device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ah)[4
   mma_tf32(c, ah, bl);
   mma_tf32(c, ah, bh);
 }
+
+// The int8 row scale, as the TPU kernel's float32 math has it: max(max|v| *
+// kInv127, kMinScale) with float32(1/127) and float32(1e-12).
+constexpr float kInv127 = (float)(1.0 / 127.0);
+constexpr float kMinScale = (float)1e-12;
 
 // csrc/rowquant.cu: per-row symmetric int8 quantization of M rows of K (row
 // m of x at x + m * ld, in T, or with LN the float32 rows LayerNorm'd and

@@ -25,9 +25,6 @@
 
 namespace gic {
 
-// float32(1/127) and float32(1e-12), as the TPU kernel's float32 math has them
-constexpr float kInv127 = (float)(1.0 / 127.0);
-constexpr float kMinScale = (float)1e-12;
 constexpr int kRowsPerBlock = 4;  // one warp per row
 
 template <typename T, bool LN>

@@ -13,8 +13,9 @@ int32 ``start`` instead: row r then attends only ``[start_r, idx]`` (the JAX
 step kernel's ``start``; a row with ``start_r == idx`` is dead and attends
 its own new row alone).  int8 caches come with (T, B) float32 per-row scales
 ``k_scale``/``v_scale`` (the JAX step kernel's int8 cache): the new rows are
-quantized over their whole D before the append, and the walk dequantizes
-each row in the compute dtype; the new row's own term uses the exact
+quantized over their whole D in the same launch (the row quantizer's
+formula, ``ops/quant.py::absmax_quant``), and the walk dequantizes each row
+in the compute dtype; the new row's own term uses the exact
 ``k_new``/``v_new``.
 
 Kernel: ``csrc/decode_attention.cu`` (hand-written CUDA for sm_90a; its
@@ -32,10 +33,10 @@ import torch
 
 from gpt2_image_captioning_tpu_torch.ops import _build
 from gpt2_image_captioning_tpu_torch.ops.nn import NEG_INF
-from gpt2_image_captioning_tpu_torch.ops.quant import absmax_quant, dequant, rowquant_cuda
+from gpt2_image_captioning_tpu_torch.ops.quant import absmax_quant, dequant
 
-# init_cache rounds the cache length up to a multiple of this (the kernel's
-# walk step and the JAX package's chunk).
+# init_cache rounds the cache length up to a multiple of this (the JAX
+# package's chunk; the kernel walks any length).
 CHUNK_T = 16
 
 
@@ -84,67 +85,65 @@ def _decode_attention_plain(q, k_new, v_new, k_cache, v_cache, idx: int, n_head:
 def decode_attention_cuda(q, k_new, v_new, k_cache, v_cache, idx: int, n_head: int,
                           origin=None, gather_start: int = 0, start=None, k_scale=None,
                           v_scale=None):
-    """Launch ``csrc/decode_attention.cu``.  q/k_new/v_new (B, D) may be
-    column slices of one (B, 3D) QKV tensor (equal row strides, unit column
-    stride); caches (T, B, D) contiguous, in q's dtype, or int8 with
-    k_scale/v_scale (T, B) float32 contiguous (two more CUDA launches, the
-    new rows' quantization); origin (T, B) int32 contiguous with entries in
-    [0, B), or None; start (B,) int32 contiguous with entries in [0, idx], or
-    None; returns (B, D).  ``launches`` counts every call, ``start_launches``
-    those with a start window."""
+    """Launch ``csrc/decode_attention.cu`` (one CUDA launch, the int8
+    append included).  q/k_new/v_new (B, D) may be column slices of one
+    (B, 3D) QKV tensor (equal row strides, unit column stride); caches (T, B,
+    D) contiguous, in q's dtype, or int8 with k_scale/v_scale (T, B) float32
+    contiguous; origin (T, B) int32 contiguous with entries in [0, B), or
+    None; start (B,) int32 contiguous with entries in [0, idx], or None;
+    returns (B, D).  ``launches`` counts every call, ``start_launches`` those
+    with a start window."""
     name = "decode_attention"
     _build.require(q.is_cuda, name, "q must be a CUDA tensor")
-    _build.require(q.dtype in _build.DTYPE_CODE, name, f"unsupported dtype {q.dtype}")
-    b, d = q.shape
+    # plain and-chains, not generators: the host's enqueue sets the rate of
+    # a kernel this short
+    dtype, device, shape, strides = q.dtype, q.device, q.shape, q.stride()
+    b, d = shape
     tk = k_cache.shape[0]
-    for t in (k_new, v_new):
-        _build.require(t.shape == (b, d), name, "q, k_new and v_new must share their (B, D) shape")
-    for t in (q, k_new, v_new):
-        _build.require(t.stride(1) == 1 and t.stride(0) == q.stride(0), name,
-                       "q, k_new, v_new need unit column stride and one row stride")
-    quant = k_scale is not None
-    cache_dtype = torch.int8 if quant else q.dtype
-    for t in (k_new, v_new):
-        _build.require(t.dtype == q.dtype and t.device == q.device, name,
-                       "q, k_new and v_new must share dtype and device")
-    for t in (k_cache, v_cache):
-        _build.require(t.dtype == cache_dtype and t.device == q.device, name,
-                       "caches must be int8 with scales, else in q's dtype, on q's device")
-        _build.require(t.shape == (tk, b, d) and t.is_contiguous(), name,
-                       "caches must be contiguous (T, B, D)")
-    if quant:
-        for t in (k_scale, v_scale):
-            _build.require(t is not None and t.shape == (tk, b) and t.dtype == torch.float32
-                           and t.is_contiguous() and t.device == q.device, name,
-                           "k_scale and v_scale must be contiguous float32 (T, B) on q's device")
-    _build.require(d % n_head == 0 and d // n_head <= 128, name,
-                   "head_dim must divide D and be <= 128")
-    _build.require(0 <= idx < tk, name, f"idx {idx} outside the cache of {tk} rows")
-    origin_ptr = None
+    _build.require(
+        dtype in _build.DTYPE_CODE and strides[1] == 1
+        and k_new.shape == shape and v_new.shape == shape
+        and k_new.stride() == strides and v_new.stride() == strides
+        and k_new.dtype == dtype and v_new.dtype == dtype
+        and k_new.device == device and v_new.device == device, name,
+        "q, k_new and v_new must share dtype, device, their (B, D) shape and one row stride "
+        "with unit column stride, in float32 or bfloat16")
+    cache_shape = (tk, b, d)
+    _build.require(
+        k_cache.dtype == v_cache.dtype == (dtype if k_scale is None else torch.int8)
+        and k_cache.shape == cache_shape and v_cache.shape == cache_shape
+        and k_cache.device == device and v_cache.device == device
+        and k_cache.is_contiguous() and v_cache.is_contiguous(), name,
+        "caches must be contiguous (T, B, D), int8 with scales, else in q's dtype, on q's device")
+    if k_scale is not None:
+        _build.require(
+            v_scale is not None and k_scale.shape == v_scale.shape == (tk, b)
+            and k_scale.dtype == v_scale.dtype == torch.float32
+            and k_scale.device == device and v_scale.device == device
+            and k_scale.is_contiguous() and v_scale.is_contiguous(), name,
+            "k_scale and v_scale must be contiguous float32 (T, B) on q's device")
+    _build.require(d % n_head == 0 and d // n_head <= 128 and 0 <= idx < tk, name,
+                   "head_dim must divide D and be <= 128, and idx must lie inside the cache")
     if origin is not None:
         _build.require(origin.shape == (tk, b) and origin.dtype == torch.int32
-                       and origin.is_contiguous() and origin.device == q.device, name,
-                       "origin must be a contiguous int32 (T, B) tensor on q's device")
-        _build.require(gather_start >= 0, name, "gather_start must be >= 0")
-        origin_ptr = origin.data_ptr()
-    start_ptr = None
+                       and origin.is_contiguous() and origin.device == device
+                       and gather_start >= 0, name,
+                       "origin must be a contiguous int32 (T, B) tensor on q's device, "
+                       "gather_start >= 0")
     if start is not None:
-        _build.require(origin is None, name, "start and origin are exclusive")
-        _build.require(start.shape == (b,) and start.dtype == torch.int32
-                       and start.is_contiguous() and start.device == q.device, name,
-                       "start must be a contiguous int32 (B,) tensor on q's device")
-        start_ptr = start.data_ptr()
-    out = torch.empty((b, d), dtype=q.dtype, device=q.device)
+        _build.require(origin is None and start.shape == (b,) and start.dtype == torch.int32
+                       and start.is_contiguous() and start.device == device, name,
+                       "start must be a contiguous int32 (B,) tensor on q's device, "
+                       "exclusive with origin")
+    out = q.new_empty((b, d))
     err = _build.library().gic_decode_attention(
-        _build.DTYPE_CODE[q.dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
-        q.stride(0), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        b, d, n_head, idx, origin_ptr, int(gather_start), start_ptr, _build.ptr(k_scale),
-        _build.ptr(v_scale), _build.stream_of(q),
+        _build.DTYPE_CODE[dtype], q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        strides[0], k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        b, d, n_head, idx, _build.ptr(origin), int(gather_start), _build.ptr(start),
+        _build.ptr(k_scale), _build.ptr(v_scale), _build.stream_of(q),
     )
     _build.check(err, name)
     decode_attention_cuda.launches += 1
-    if quant:
-        rowquant_cuda.launches += 2
     if start is not None:
         decode_attention_cuda.start_launches += 1
     return out

@@ -4,16 +4,20 @@
 Kernel: ``csrc/patch_embed.cu`` (hand-written CUDA for sm_90a; its header
 gives the design and the bound), the port of the JAX package's Pallas
 ``_kernel``: the (B, S, S, 3) uint8 pixels are unfolded into patches inside
-the tile load, scaled by 1/255, normalised per element and cast to the
-operand type on their way into shared memory, then multiplied by the (K, D)
-patch weights into (B·N, D) float32 — no patch tensor reaches device memory.
-Wrapped by :func:`patch_embed_cuda`.  Plain twin: :func:`patch_embed_plain`,
-the XLA composition of the JAX package (unfold, scale, normalise, one
-product), which the reference measured bit-identical to its kernel.
+the tile load, in the pixels' own order (a patch row is 3·patch contiguous
+bytes, read as 16-byte vectors where every such run is 16-byte aligned, a
+byte at a time otherwise: the kernel's dispatch decides), scaled by 1/255,
+normalised per element and cast to the operand type on their way into
+shared memory, then multiplied by the (K, D) patch weights into (B·N, D)
+float32 — no patch tensor reaches device memory.  Wrapped by :func:`patch_embed_cuda`.  Plain twin:
+:func:`patch_embed_plain`, the XLA composition of the JAX package (unfold,
+scale, normalise, one product), which the reference measured bit-identical
+to its kernel.
 
-Operands are in ``compute_dtype``: bf16 on the tensor cores, as the towers
-round their patches to the compute dtype before the product; float32 in
-full float32.
+Operands are in ``compute_dtype``: bf16 on the tensor cores (wgmma), as
+the towers round their patches to the compute dtype before the product;
+float32 on the tensor cores as a three-term TF32 split, within float32
+summation order of the float32 product.
 """
 
 from __future__ import annotations
@@ -67,9 +71,11 @@ def patch_embed_plain(batch_u8, w, mean_vec, inv_vec, patch: int, bias=None) -> 
 
 def patch_embed_cuda(batch_u8, w, mean_vec, inv_vec, patch: int, bias=None) -> torch.Tensor:
     """Launch ``csrc/patch_embed.cu``.  batch_u8: (B, S, S, 3) uint8,
-    contiguous, S a multiple of ``patch``; w: (3·patch², D) contiguous in
-    the operand type (bf16 or float32); mean_vec / inv_vec: (3·patch²,)
-    float32 (:func:`normalization_vectors`); bias: (D,) float32 or None.
+    contiguous, S a multiple of ``patch`` (any such patch: the alignment of
+    its rows decides only how the kernel reads them); w:
+    (3·patch², D) contiguous in the operand type (bf16 or float32);
+    mean_vec / inv_vec: (3·patch²,) float32 (:func:`normalization_vectors`);
+    bias: (D,) float32 or None.
     Returns (B·N, D) float32, N = (S / patch)²."""
     name = "patch_embed"
     _build.require(batch_u8.is_cuda, name, "pixels must be a CUDA tensor")
@@ -92,7 +98,8 @@ def patch_embed_cuda(batch_u8, w, mean_vec, inv_vec, patch: int, bias=None) -> t
                        f"mean and inv_std must be contiguous float32 ({k},)")
     if bias is not None:
         _build.require(bias.shape == (d,) and bias.dtype == torch.float32
-                       and bias.is_contiguous(), name, "bias must be contiguous float32 (D,)")
+                       and bias.is_contiguous() and bias.data_ptr() % 16 == 0, name,
+                       "bias must be contiguous, 16-byte aligned float32 (D,)")
     for t in (w, mean_vec, inv_vec) + (() if bias is None else (bias,)):
         _build.require(t.device == batch_u8.device, name, "all tensors must be on one device")
     out = torch.empty((b * (s // patch) ** 2, d), dtype=torch.float32, device=batch_u8.device)

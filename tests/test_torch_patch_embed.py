@@ -110,3 +110,21 @@ def test_host_preprocess_matches_jax(name):
         got = TP.make_host_preprocess(TP.SPECS[name])(rgb)
         np.testing.assert_array_equal(got, JP.resize_and_crop(rgb, JP.SPECS[name]))
         assert got.shape == (TP.SPECS[name].size,) * 2 + (3,)
+
+
+@pytest.mark.parametrize("side, patch, images, d", [(32, 8, 3, 40), (224, 14, 1, 24),
+                                                    (64, 16, 3, 200)])
+def test_patch_embed_matches_jax_at_the_kernels_edge_shapes(side, patch, images, d):
+    """The byte-load route's patches (24- and 42-byte rows) and M and D off
+    the kernel's tiles (48 rows by 200 columns; 128 and 256 are its tiles):
+    the twin against the JAX package's Pallas kernel in interpret mode and
+    its XLA composition, 1e-4 as the JAX test."""
+    jspec, tspec = _specs("clip", side)
+    rng = np.random.default_rng(side * patch)
+    batch = rng.integers(0, 256, size=(images, side, side, 3), dtype=np.uint8)
+    w = (rng.normal(size=(3 * patch * patch, d)) * 0.02).astype(np.float32)
+    got = TPE.patch_embed(torch.from_numpy(batch), torch.from_numpy(w), tspec, patch)
+    for use_pallas in (True, False):
+        want = JPE.patch_embed(jnp.asarray(batch), jnp.asarray(w), jspec, patch,
+                               use_pallas=use_pallas, interpret=use_pallas)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
