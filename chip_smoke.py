@@ -4,6 +4,10 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
+(``--only linear`` runs the build and the projections' checks alone,
+bf16 and int8, and prints their records without the summary lines: the
+way to read an earlier tree's ``fused_linear`` on the same card.)
+
 It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
 PyTorch twin at the main paths' shapes (the GPT-2 prefill at a request of
@@ -18,7 +22,11 @@ tail with a q_offset, T 1,024 masked and causal, hd 96 at T 197), and so
 are decode attention (every mode and cache at hd 64 and 128, and hd 42
 on its one-element-a-lane route, B 3-128, idx on each boundary of its
 walk, the appended rows and scales equal) and the patch embedding (patch 8
-and 14, M and D off its tiles).  Decode attention and the patch embedding
+and 14, M and D off its tiles), and so are the decode step's projections
+in bf16 and int8 (``fused_linear``: every role at D 768, 1024 and 1600, M
+1-512, and each role called twice for equal bits).  Decode attention, the
+patch embedding and the projections (at the 128 rows of a request and the
+512 of beam-4 and continuous serving, the int8 quantizer's launch apart)
 also report their device time from a profiler trace beside the events
 time, their library call's too.  Then it drives the paths the port has,
 each with the kernels' launch counters set to 0 just before and read just
@@ -414,23 +422,47 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str | None, trace_name: str, iters: int = 20,
-              attempts: int = 3) -> float | str:
+def host_us(fn, iters: int = 50) -> float:
+    """Microseconds of the host's enqueue of one call: ``iters`` calls back to
+    back on the host clock, without waiting for the device (the queue holds
+    far more launches than that)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
+def device_split(fn, kernels: tuple[str, ...], trace_name: str, iters: int = 20,
+                 attempts: int = 3) -> dict | str:
     """Mean device time of one call from a ``traced`` window over ``iters``
-    calls: the summed durations of the kernels whose name holds ``kernel``,
-    or of every device event in the window (kernels, copies, memsets) for
-    None — the library routes, which launch several.  Unlike ``time_ms`` it
-    leaves out the host's enqueue.  A window in which CUPTI lost the device
-    record of any launch is traced again, up to ``attempts`` windows; "not
+    calls: over every device event in the window (kernels, copies, memsets)
+    as "total", and over the kernels whose name holds each of ``kernels``.
+    Unlike ``time_ms`` it leaves out the host's enqueue.  A window in which
+    CUPTI lost the device record of any launch, or that holds none of a
+    named kernel, is traced again, up to ``attempts`` windows; "not
     measured" if none was whole."""
     fn()
     for _ in range(attempts):
         _, events, dropped = traced(lambda: [fn() for _ in range(iters)], trace_name)
-        spans = [e for e in events
-                 if kernel is None or (e["cat"] == "kernel" and kernel in e["name"])]
-        if spans and not dropped:
-            return sum(e["dur"] for e in spans) / iters / 1e3
+        spans = {k: [e["dur"] for e in events if e["cat"] == "kernel" and k in e["name"]]
+                 for k in kernels}
+        if events and not dropped and all(spans.values()):
+            return {"total": sum(e["dur"] for e in events) / iters / 1e3,
+                    **{k: sum(v) / iters / 1e3 for k, v in spans.items()}}
     return "not measured"
+
+
+def device_ms(fn, kernel: str | None, trace_name: str, iters: int = 20,
+              attempts: int = 3) -> float | str:
+    """:func:`device_split`'s time of the kernels whose name holds
+    ``kernel``, or of every device event for None — the library routes,
+    which launch several."""
+    got = device_split(fn, () if kernel is None else (kernel,), trace_name, iters, attempts)
+    return got if isinstance(got, str) else got["total" if kernel is None else kernel]
 
 
 def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
@@ -823,62 +855,6 @@ def check_dot_f32(g) -> dict:
             "max_abs_err": err, "grad_max_abs_err": grad_err}
 
 
-LINEAR_ROLES = (  # name, K, N, LayerNorm prologue, epilogue
-    ("qkv", D, 3 * D, True, "cast"),
-    ("attn_proj", D, D, False, "residual"),
-    ("mlp_fc", D, 4 * D, True, "gelu"),
-    ("mlp_proj", 4 * D, D, False, "residual"),
-)
-
-
-def check_linear(dtype, g) -> dict:
-    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
-
-    worst, roles, ms_sum, plain_sum, cublas_sum, nbytes, ops = 0.0, {}, 0.0, 0.0, 0.0, 0, 0
-    el = torch.tensor([], dtype=dtype).element_size()
-    for name, k, n, ln, epi in LINEAR_ROLES:
-        w = (0.02 * torch.randn(n, k, generator=g, device="cuda")).to(dtype)
-        bias = 0.02 * torch.randn(n, generator=g, device="cuda")
-        lnp = None
-        if ln:
-            x = 3.0 * torch.randn(B, k, generator=g, device="cuda")
-            lnp = (1 + 0.1 * torch.randn(k, generator=g, device="cuda"),
-                   0.1 * torch.randn(k, generator=g, device="cuda"))
-        else:
-            x = torch.randn(B, k, generator=g, device="cuda").to(dtype)
-        res = torch.randn(B, n, generator=g, device="cuda") if epi == "residual" else None
-        kw = dict(epilogue=epi, ln=lnp)
-        r_plain, r_kernel = (None, None) if res is None else (res.clone(), res.clone())
-        want = DS.fused_linear_plain(x, w, bias, residual=r_plain, **kw)
-        got = DS.fused_linear_cuda(x, w, bias, residual=r_kernel, **kw)
-        torch.cuda.synchronize()
-        err = close(got, want, TOL[dtype]["f32" if epi == "residual" else "out"])
-        worst = max(worst, err)
-        ms = time_ms(lambda: DS.fused_linear_cuda(x, w, bias, residual=r_kernel, **kw))
-        plain_ms = time_ms(lambda: DS.fused_linear_plain(x, w, bias, residual=r_plain, **kw))
-        # no single library call fuses the prologue and epilogue: cuBLAS's bare
-        # product plus bias at the role's shape, for scale
-        xc, wt = x.to(dtype), w.t()
-        cublas_ms = time_ms(lambda: torch.addmm(bias.to(dtype), xc, wt))
-        # x, W, bias (and LN params) read; the output written, or the float32
-        # residual stream read and written
-        role_bytes = (B * k * x.element_size() + n * k * el + 4 * n + (8 * k if ln else 0)
-                      + (8 * B * n if epi == "residual" else el * B * n))
-        role_bound, role_by = bound(role_bytes, 2 * B * k * n, split_type(dtype))
-        roles[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "cublas_addmm_ms":
-                       cublas_ms, "bound_ms": role_bound, "bound_by": role_by, "bytes": role_bytes}
-        ms_sum += ms
-        plain_sum += plain_ms
-        cublas_sum += cublas_ms
-        nbytes += role_bytes
-        ops += 2 * B * k * n
-    bound_ms, bound_by = bound(nbytes, ops, split_type(dtype))
-    return {"kernel": "fused_linear", "max_abs_err": worst, "ms": ms_sum, "plain_ms": plain_sum,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
-            "cublas_addmm_ms": cublas_sum,
-            "at": f"B {B}: the four projections of one layer, summed", "roles": roles}
-
-
 def vocab_inputs(b: int, dtype, g):
     """The vocabulary kernels' inputs as the step gives them: the float32
     residual stream, LN_f's (2, D) scale and bias, and wte (V, D)."""
@@ -1109,62 +1085,215 @@ def library_int8(xq, sx, wq_t, sw):
     return torch._int_mm(xq, wq_t).float() * sx * sw
 
 
-def check_linear_int8(dtype, g) -> dict:
-    """``csrc/fused_linear.cu`` with int8 weights (one call: the row
-    quantizer, then the int8 tile) at B 128 in the four roles of a layer.
-    Without the LN both sides quantize identical rows and sum exact integer
-    products, so they differ by the float epilogue's rounding only: the
-    tolerances of the float kernel.  With the LN, plus the allowance of
-    :func:`flip_allowance` for the rows' quantizations that came out one step
-    apart."""
+def linear_roles(d: int) -> tuple:
+    """The four projections of a GPT-2 layer of width d: (name, K, N,
+    LayerNorm prologue, epilogue)."""
+    return (("qkv", d, 3 * d, True, "cast"), ("attn_proj", d, d, False, "residual"),
+            ("mlp_fc", d, 4 * d, True, "gelu"), ("mlp_proj", 4 * d, d, False, "residual"))
+
+
+LINEAR_ROLES = linear_roles(D)
+# fused_linear's bf16 and int8 route (csrc/fused_linear.cu) beyond the
+# paths' shapes, held to its twin under TOL (int8: close_int8), correctness
+# only: every role at D 768, 1024 and 1600 (GPT-2 XL's K 1600 and 6400 are
+# no multiples of 64 boxes' worth of slices), M on each side of the kernel's
+# 64-row warpgroups and 128-row tiles.
+LINEAR_CONTRACT_M = (1, 3, 64, 127, 128, 129, 512)
+LINEAR_CONTRACT_D = (768, 1024, 1600)
+
+
+def linear_inputs(b: int, k: int, n: int, ln: bool, epi: str, dtype, quant: bool, g):
+    """One role's inputs as the step gives them: (x, w, bias, residual or
+    None, keyword arguments of the wrapper), int8 weights and their scales
+    with ``quant``."""
+    if quant:
+        w, sw = int8_weights(n, k, g)
+        kw = dict(w_scale=sw, compute_dtype=dtype)
+    else:
+        w, kw = (0.02 * torch.randn(n, k, generator=g, device="cuda")).to(dtype), {}
+    bias = 0.02 * torch.randn(n, generator=g, device="cuda")
+    lnp = None
+    if ln:
+        x = 3.0 * torch.randn(b, k, generator=g, device="cuda")
+        lnp = (1 + 0.1 * torch.randn(k, generator=g, device="cuda"),
+               0.1 * torch.randn(k, generator=g, device="cuda"))
+    else:
+        x = torch.randn(b, k, generator=g, device="cuda").to(dtype)
+    res = torch.randn(b, n, generator=g, device="cuda") if epi == "residual" else None
+    return x, w, bias, res, dict(epilogue=epi, ln=lnp, **kw)
+
+
+def linear_error(x, w, bias, res, kw, dtype) -> tuple[float, int]:
+    """The kernel against its twin on one role's inputs: (max |diff|, int8
+    quantizations one step apart).  bf16 and float32 under TOL; int8 under
+    TOL plus, with a LayerNorm, :func:`flip_allowance`."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+    r_plain, r_kernel = (None, None) if res is None else (res.clone(), res.clone())
+    want = DS.fused_linear_plain(x, w, bias, residual=r_plain, **kw)
+    got = DS.fused_linear_cuda(x, w, bias, residual=r_kernel, **kw)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == want.dtype, f"fused_linear gave {got.shape} "
+          f"{got.dtype}, the twin {want.shape} {want.dtype}")
+    tol = TOL[dtype]["f32" if kw["epilogue"] == "residual" else "out"]
+    if "w_scale" not in kw:
+        return close(got, want, tol), 0
+    allowance, flips = (flip_allowance(x, kw["ln"], dtype, w, kw["w_scale"], want)
+                        if kw["ln"] is not None else (0.0, 0))
+    return close_int8(got, want, tol, allowance), flips
+
+
+def linear_contract(dtype, quant: bool, g) -> dict:
+    """fused_linear's bf16 / int8 route against its twin at
+    LINEAR_CONTRACT_D x LINEAR_CONTRACT_M in every role."""
+    worst, cases = 0.0, 0
+    for d in LINEAR_CONTRACT_D:
+        for _, k, n, ln, epi in linear_roles(d):
+            for m in LINEAR_CONTRACT_M:
+                err, _ = linear_error(*linear_inputs(m, k, n, ln, epi, dtype, quant, g), dtype)
+                worst = max(worst, err)
+                cases += 1
+    return {"cases": cases, "max_abs_err": worst, "D": list(LINEAR_CONTRACT_D),
+            "M": list(LINEAR_CONTRACT_M)}
+
+
+def linear_repeat(x, w, bias, res, kw) -> None:
+    """The same call twice on the same inputs gives the same bits: the K
+    split's partial tiles are added in a fixed order."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+    outs = [DS.fused_linear_cuda(x, w, bias, residual=None if res is None else res.clone(), **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    check(torch.equal(outs[0], outs[1]), f"fused_linear gave other bits on a repeat: "
+          f"{kw['epilogue']}, ({x.shape[0]}, {w.shape[1]}) x {w.shape[0]}")
+
+
+def linear_plan_of(m: int, k: int, n: int, quant: bool) -> dict | None:
+    """The kernel's split of a role (None on a tree without one)."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+    plan = getattr(DS, "linear_plan", None)
+    return None if plan is None else plan(m, k, n, 1 if quant else 2)._asdict()
+
+
+def linear_role(name, b, k, n, ln, epi, dtype, quant: bool, device: bool, g) -> dict:
+    """One role at batch b: the kernel against its twin, its repeat, the
+    events ms of the kernel, the twin and the library call, their device ms
+    (``device``; int8 split into the row quantizer's launch and the
+    product's), the bound.  The library: cuBLAS's bare product plus bias on
+    rows already in the compute dtype (bf16, float32), or ``torch._int_mm`` +
+    dequantize + bias on rows already quantized (int8): no one library call
+    fuses the prologue and the epilogue."""
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
     from gpt2_image_captioning_tpu_torch.ops import quant as Q
 
-    worst, roles = 0.0, {}
-    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+    x, w, bias, res, kw = linear_inputs(b, k, n, ln, epi, dtype, quant, g)
+    err, flips = linear_error(x, w, bias, res, kw, dtype)
+    if dtype == torch.bfloat16 or quant:
+        linear_repeat(x, w, bias, res, kw)
+    r_kernel, r_plain = (None, None) if res is None else (res.clone(), res.clone())
+
+    def kernel():
+        return DS.fused_linear_cuda(x, w, bias, residual=r_kernel, **kw)
+
+    if quant:
+        xq, sx = Q.rowquant_plain(x, kw["ln"], compute_dtype=dtype)
+        wq_t, sw = w.t(), kw["w_scale"]
+
+        def library():
+            return library_int8(xq, sx, wq_t, sw) + bias
+    else:
+        xc, wt, bc = x.to(dtype), w.t(), bias.to(dtype)
+
+        def library():
+            return torch.addmm(bc, xc, wt)
+
+    ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: DS.fused_linear_plain(x, w, bias, residual=r_plain, **kw))
+    library_ms = time_ms(library)
     el = torch.tensor([], dtype=dtype).element_size()
-    for name, k, n, ln, epi in LINEAR_ROLES:
-        wq, sw = int8_weights(n, k, g)
-        bias = 0.02 * torch.randn(n, generator=g, device="cuda")
-        lnp = None
-        if ln:
-            x = 3.0 * torch.randn(B, k, generator=g, device="cuda")
-            lnp = (1 + 0.1 * torch.randn(k, generator=g, device="cuda"),
-                   0.1 * torch.randn(k, generator=g, device="cuda"))
-        else:
-            x = torch.randn(B, k, generator=g, device="cuda").to(dtype)
-        res = torch.randn(B, n, generator=g, device="cuda") if epi == "residual" else None
-        kw = dict(epilogue=epi, ln=lnp, w_scale=sw, compute_dtype=dtype)
-        r_plain, r_kernel = (None, None) if res is None else (res.clone(), res.clone())
-        want = DS.fused_linear_plain(x, wq, bias, residual=r_plain, **kw)
-        got = DS.fused_linear_cuda(x, wq, bias, residual=r_kernel, **kw)
-        torch.cuda.synchronize()
-        allowance, flips = flip_allowance(x, lnp, dtype, wq, sw, want) if ln else (0.0, 0)
-        err = close_int8(got, want, TOL[dtype]["f32" if epi == "residual" else "out"], allowance)
-        worst = max(worst, err)
-        ms = time_ms(lambda: DS.fused_linear_cuda(x, wq, bias, residual=r_kernel, **kw))
-        plain_ms = time_ms(lambda: DS.fused_linear_plain(x, wq, bias, residual=r_plain, **kw))
-        xq, sx = Q.rowquant_plain(x, lnp, compute_dtype=dtype)
-        wq_t = wq.t()
-        library_ms = time_ms(lambda: library_int8(xq, sx, wq_t, sw) + bias)
-        # x, W (int8), its scales, bias (and LN params) read; the output
-        # written, or the float32 residual stream read and written
-        role_bytes = (B * k * x.element_size() + n * k + 8 * n + (8 * k if ln else 0)
-                      + (8 * B * n if epi == "residual" else el * B * n))
-        role_bound, role_by = bound(role_bytes, 2 * B * k * n, torch.int8)
-        roles[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": role_bound, "bound_by": role_by,
-                       "bytes": role_bytes, "int8_flips": flips}
-        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", library_ms),
-                         ("bytes", role_bytes), ("ops", 2 * B * k * n)):
-            totals[key] += val
-    bound_ms, bound_by = bound(totals["bytes"], totals["ops"], torch.int8)
-    return {"kernel": "fused_linear", "mode": "int8", "max_abs_err": worst, "ms": totals["ms"],
-            "plain_ms": totals["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": totals["bytes"], "library_ms": totals["library_ms"],
-            "library": "torch._int_mm + dequantize + bias on pre-quantized rows",
-            "at": f"B {B}: the four projections of one layer, summed (8 CUDA launches)",
-            "roles": roles}
+    # x, W, its scales (int8), bias (and LN params) read; the output written,
+    # or the float32 residual stream read and written
+    nbytes = (b * k * x.element_size() + n * k * w.element_size() + (8 if quant else 4) * n
+              + (8 * k if ln else 0) + (8 * b * n if epi == "residual" else el * b * n))
+    bound_ms, bound_by = bound(nbytes, 2 * b * k * n, torch.int8 if quant else split_type(dtype))
+    rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": 2 * b * k * n,
+           "plan": linear_plan_of(b, k, n, quant) if quant or dtype == torch.bfloat16 else None}
+    if quant:
+        rec["int8_flips"] = flips
+    if device:
+        tag = f"{name}_b{b}_{'int8' if quant else str(dtype).replace('torch.', '')}"
+        dev = device_split(kernel, ("rowquant_kernel",) * quant, f"kernel_linear_{tag}.json")
+        rec["device_ms"] = dev if isinstance(dev, str) else dev["total"]
+        if quant and not isinstance(dev, str):
+            rec["rowquant_device_ms"] = dev["rowquant_kernel"]
+            rec["product_device_ms"] = dev["total"] - dev["rowquant_kernel"]
+        rec["library_device_ms"] = device_ms(library, None, f"library_linear_{tag}.json")
+        if quant:  # the bare integer product, without the dequantize and the bias
+            rec["int_mm_device_ms"] = device_ms(lambda: torch._int_mm(xq, wq_t), None,
+                                                f"library_int_mm_{tag}.json")
+        rec["host_us"] = host_us(kernel)
+    return rec
+
+
+def linear_layer(dtype, quant: bool, b: int, device: bool, g) -> dict:
+    """The four roles of a layer at batch b, each and summed."""
+    roles = {name: linear_role(name, b, k, n, ln, epi, dtype, quant, device, g)
+             for name, k, n, ln, epi in LINEAR_ROLES}
+    keys = ["ms", "plain_ms", "library_ms", "bytes", "ops"]
+    keys += ["device_ms", "library_device_ms", "host_us"]
+    keys += ["rowquant_device_ms", "product_device_ms", "int_mm_device_ms"] * quant
+    total = {}
+    for key in keys if device else keys[:5]:
+        vals = [r.get(key) for r in roles.values()]
+        total[key] = sum(vals) if all(isinstance(v, (int, float)) for v in vals) else "not measured"
+    total["bound_ms"], total["bound_by"] = bound(total["bytes"], total["ops"],
+                                                 torch.int8 if quant else split_type(dtype))
+    total["max_abs_err"] = max(r["max_abs_err"] for r in roles.values())
+    return {**total, "roles": roles}
+
+
+def check_linear(dtype, g) -> dict:
+    """``csrc/fused_linear.cu`` with float weights in the four roles of a
+    layer: bf16 runs the TMA / wgmma / cluster route (its device time from
+    a trace beside the events time, at B 128 and at the 512 rows of beam-4
+    and continuous serving; each role repeated for equal bits; the contract
+    sweep), float32 the product tile at B 128."""
+    wgmma = dtype == torch.bfloat16
+    main = linear_layer(dtype, False, B, wgmma, g)
+    rec = {"kernel": "fused_linear", **{k: v for k, v in main.items() if k != "roles"},
+           "library": "addmm x 4 (bare product + bias on rows in the compute dtype)",
+           "at": f"B {B}: the four projections of one layer, summed (6 CUDA launches)",
+           "roles": main["roles"]}
+    if wgmma:
+        rec["b512"] = linear_layer(dtype, False, B_BEAM, True, g)
+        rec["contract"] = linear_contract(dtype, False, g)
+        rec["repeat"] = "every role at B 128 and 512: equal bits"
+    return rec
+
+
+def check_linear_int8(dtype, g) -> dict:
+    """``csrc/fused_linear.cu`` with int8 weights (one call: the row
+    quantizer, then the int8 product on the TMA / wgmma / cluster route) in
+    the four roles of a layer, at B 128 and 512, with device times (the
+    quantizer's launch and the product's apart) where the compute dtype is
+    bf16, the repeat and the contract sweep.  Without the LN both sides
+    quantize identical rows and sum exact integer products, so they differ
+    by the float epilogue's rounding only: the tolerances of the float
+    kernel.  With the LN, plus the allowance of :func:`flip_allowance` for
+    the rows' quantizations that came out one step apart."""
+    device = dtype == torch.bfloat16
+    main = linear_layer(dtype, True, B, device, g)
+    rec = {"kernel": "fused_linear", "mode": "int8",
+           **{k: v for k, v in main.items() if k != "roles"},
+           "library": "torch._int_mm + dequantize + bias on pre-quantized rows, x 4",
+           "at": f"B {B}: the four projections of one layer, summed (8 CUDA launches)",
+           "roles": main["roles"], "b512": linear_layer(dtype, True, B_BEAM, device, g),
+           "contract": linear_contract(dtype, True, g),
+           "repeat": "every role at B 128 and 512: equal bits"}
+    return rec
 
 
 def int8_vocab_inputs(b: int, dtype, g):
@@ -2138,8 +2267,8 @@ def one_step_drift(model, emb: torch.Tensor, quant: bool = False,
 
 # the decode step's kernels by their CUDA function names (csrc/*.cu): the
 # layers' and, by path, the vocabulary's
-LAYER_KERNELS = ("fused_linear_kernel", "ln_stats_kernel", "decode_attention_kernel",
-                 "ln_rows_kernel", "rowquant_kernel")
+LAYER_KERNELS = ("fused_linear_kernel", "linear_wgmma_kernel", "ln_stats_kernel",
+                 "decode_attention_kernel", "ln_rows_kernel", "rowquant_kernel")
 VOCAB_KERNELS = {"greedy": ("logits_tile_kernel", "argmax_reduce_kernel"),
                  "sampled": ("logits_store_kernel",),
                  "beam": ("topk_tile_kernel", "topk_merge_kernel")}
@@ -2921,7 +3050,10 @@ def train_path() -> tuple[dict, dict, dict]:
     return record, profiled, launches
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    if argv not in ([], ["--only", "linear"]):
+        print("usage: python3 chip_smoke.py [--only linear]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU", file=sys.stderr)
         return 1
@@ -2944,6 +3076,11 @@ def main() -> int:
     (OUT_DIR / "nvcc.log").write_text((lib_path.parent / "nvcc.log").read_text())
 
     g = torch.Generator(device="cuda").manual_seed(0)
+    if argv:  # the projections' records alone, e.g. of an earlier tree's kernel
+        for fn in (check_linear, check_linear_int8):
+            emit({"phase": "kernel_vs_plain", "dtype": "bfloat16", **fn(torch.bfloat16, g)})
+        print(nvidia_smi(), flush=True)
+        return 0
     emit(check_dot_f32(g))
     kernel_rows = {}
     checks = (check_attention, check_attention_origin, check_attention_start, check_linear,
@@ -3127,4 +3264,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -50,8 +50,6 @@
 // GFLOP, 0.060 ms in bf16, against 82 MB moved (0.024 ms): operations.
 // ViT-B/16 at b 128 (M 25,088, K 768) is about balanced (30 GFLOP, 98 MB:
 // the float32 output dominates the bytes).
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched from the driver at run time
-
 #include "common.cuh"
 
 namespace gic {
@@ -78,10 +76,6 @@ template <> struct PeCfg<float> {
   static constexpr int A_BYTES = PE_BM * A_LD * 4, B_BYTES = BK * B_LD * 4;
   static constexpr int STAGE = A_BYTES + B_BYTES + 2 * BK * 4;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
 
 // Where the 16 normalised values of row r, columns 16 cc .. 16 cc + 15 of a
 // stage go.  bf16: the 128-byte swizzle wgmma reads (16-byte piece j of row
@@ -113,95 +107,6 @@ __device__ __forceinline__ void a_store(unsigned char* a, int r, int cc, const f
 // float32 B stage (bf16 stages come whole from TMA): a padded row.
 __device__ __forceinline__ int b_offset(int kk, int n) { return (kk * PeCfg<float>::B_LD + n) * 4; }
 
-// The bf16 W stage by TMA: W (K, D) seen as the 3-D tensor (D, 3, p^2) —
-// column n, channel c (p^2 D elements apart), pixel r = py p + px of the
-// patch (D apart) — so that the box (64, 3, 16) at pixel r0 is the stage's
-// 48 rows k' = 3r + c in the kernel's order, 128-byte swizzled as wgmma's
-// N-major operand reads them, and signals the slot's mbarrier.
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n"
-      ::"r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor: 128-byte swizzle, byte offsets lbo
-// (between 64-element blocks along the contiguous dimension) and sbo
-// (between 8-row groups).
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-// d (64 x 256 float32, the warpgroup's fragments) += A (64 x 16 bf16, K-major
-// in shared memory) x B (16 x 256 bf16, N-major in shared memory: trans-b 1).
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 template <typename T> struct PeMma;
 
 // bf16: consumer warpgroup g multiplies rows 64g .. 64g + 63 of a stage by
@@ -220,23 +125,19 @@ template <> struct PeMma<__nv_bfloat16> {
   __device__ void issue(const unsigned char* a, const unsigned char* b) {
     const uint32_t a0 = smem_u32(a) + (threadIdx.x / 128) * 64 * 128;
     const uint32_t b0 = smem_u32(b);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < PeCfg<__nv_bfloat16>::BK / 16; ++kk)
       wgmma_m64n256k16(d, wgmma_desc(a0 + kk * 32, 16, 1024),
                        wgmma_desc(b0 + kk * 16 * 128, PeCfg<__nv_bfloat16>::BK * 128, 1024));
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    wgmma_commit();
     // wait for the previous stage's products: its A and B slots are free
-    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-    fence_acc();
+    wgmma_wait<1>();
+    wgmma_fence_regs(d);
   }
   __device__ void finish() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-    fence_acc();
-  }
-  __device__ void fence_acc() {
-#pragma unroll
-    for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    wgmma_wait<0>();
+    wgmma_fence_regs(d);
   }
 };
 
@@ -294,12 +195,6 @@ template <> struct PeMma<float> {
 // Named barriers (0 is __syncthreads): stage slot s is full (the producer
 // arrives, the consumers wait) or empty (the reverse); the producer's own.
 constexpr int BAR_FULL = 1, BAR_EMPTY = BAR_FULL + PE_STAGES, BAR_PRODUCER = BAR_EMPTY + PE_STAGES;
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
 
 // px: (B, S, S, 3) uint8; w: (K, D); mean/inv: (K,) float32; bias: (D,)
 // float32 or null; out: (B * N, D) float32, N = (S / p)^2; wmap: W's TMA
@@ -494,25 +389,11 @@ static size_t pe_smem_bytes() {
   return 1024 + PE_STAGES * (size_t)PeCfg<T>::STAGE;  // 1024: room to align the ring
 }
 
-// cuTensorMapEncodeTiled, fetched from the driver once (no link to libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-static EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// W (3 p^2, D) bf16 as the (D, 3, p^2) tensor of the kernel's TMA boxes
+// The bf16 W stage by TMA: W (K, D) seen as the 3-D tensor (D, 3, p^2) —
+// column n, channel c (p^2 D elements apart), pixel r = py p + px of the
+// patch (D apart) — so that the box (64, 3, 16) at pixel r0 is the stage's
+// 48 rows k' = 3r + c in the kernel's order, 128-byte swizzled as wgmma's
+// N-major operand reads them; each copy signals its slot's mbarrier.
 static int w_map(CUtensorMap* map, const void* w, int p, int D) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return (int)cudaErrorNotSupported;

@@ -1,6 +1,6 @@
 // Shared pieces of the four vocabulary kernels (logits_argmax.cu, logits.cu,
-// logits_topk.cu, logits_sample.cu): the LN_f pre-pass, the dispatch on the
-// element and weight types, and the (value, index) order.
+// logits_topk.cu, logits_sample.cu): the LN_f pre-pass by operand type, the
+// dispatch on the element and weight types, and the (value, index) order.
 //
 // Each of them ends the decode step of gpt2_image_captioning_tpu/ops/
 // decode_step.py::_step_kernel: LN_f of the float32 residual stream, then
@@ -41,30 +41,14 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
-// Internal linkage: each .cu that includes this header gets its own copy of
-// the pre-pass kernel, so no two translation units register one kernel.
+// Internal linkage, as ln_rows_kernel (common.cuh).
 namespace {
 
-// Pass 0: LN_f of each float32 row, one warp per row, into (M, K) rows of
-// the compute dtype — the operand the vocabulary walk reads.  Normalising
-// once matters: with the LN inside the tile, each of the 1,571 column
-// blocks would recompute its rows' statistics.
-template <typename T>
-__global__ void ln_rows_kernel(const float* x, const float* ln_s, const float* ln_b, float eps,
-                               int M, int K, T* xf) {
-  const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (m >= M) return;
-  const float* row = x + (size_t)m * K;
-  float mean, rstd;
-  row_mean_rstd(row, K, eps, mean, rstd);
-  for (int k = threadIdx.x % 32; k < K; k += 32)
-    xf[(size_t)m * K + k] = ln_value<T>(row[k], mean, rstd, ln_s[k], ln_b[k]);
-}
-
-constexpr int kLnRowsPerBlock = 4;  // one warp per row
-
-// Pass 0 by operand type: T rows of LN_f for a float wte, or, for an int8
-// wte (E = int8_t), int8 rows in xf and their scales in sx.
+// Pass 0 by operand type: T rows of LN_f for a float wte
+// (common.cuh::ln_rows_kernel; normalising once matters: with the LN inside
+// the tile, each of the 1,571 column blocks would recompute its rows'
+// statistics), or, for an int8 wte (E = int8_t), int8 rows in xf and their
+// scales in sx.
 template <typename T, typename E>
 void launch_prepass(cudaStream_t s, const float* x, const float* lns, const float* lnb, float eps,
                     int M, int K, void* xf, float* sx) {

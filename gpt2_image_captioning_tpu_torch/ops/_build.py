@@ -51,9 +51,10 @@ _SIGNATURES = {
                              _P],
     # dtype, ln, x, ln_scale, ln_bias, eps, q, sx, M, K, stream
     "gic_rowquant": [_I, _I, _P, _P, _P, _F, _P, _P, _I, _I, _P],
-    # dtype, ln, epilogue, x, ln_scale, ln_bias, eps, w, w_scale, bias, out, stats, xq, sx, M,
-    # K, N, stream
-    "gic_fused_linear": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # dtype, ln, epilogue, x, ln_scale, ln_bias, eps, w, w_scale, bias, out, stats, xa, sx, M,
+    # K, N, bn, splits, k_slice, stream
+    "gic_fused_linear": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _P],
     # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, xf, sx, part_val, part_idx,
     # tok, stream
     "gic_logits_argmax": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],

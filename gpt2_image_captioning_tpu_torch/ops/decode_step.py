@@ -13,7 +13,9 @@ for the vocabulary:
 - ``csrc/fused_linear.cu`` — ``y = epilogue(prologue(x) @ W + b)``: the QKV
   projection (LN1 prologue), the attention output projection (residual-add
   epilogue), the MLP up-projection (LN2 prologue, gelu_new epilogue) and its
-  down-projection (residual add);
+  down-projection (residual add); in bf16 and int8 a TMA ring, ``wgmma`` and
+  a K split over a thread-block cluster, planned per shape by
+  :func:`linear_plan`;
 - ``csrc/decode_attention.cu`` (via :mod:`ops.decode_attention`) — the cache
   append and the valid-prefix attention, optionally through the beam
   ancestry map ``origin`` or over per-row windows ``[start_r, idx]``
@@ -52,6 +54,9 @@ walk dequantizes in the compute dtype; the new row's own term is exact.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from gpt2_image_captioning_tpu_torch.ops import _build
@@ -64,6 +69,89 @@ from gpt2_image_captioning_tpu_torch.ops.sampling import sample_step_plain, topk
 
 # epilogue codes of csrc/fused_linear.cu
 EPILOGUES = {"cast": 0, "gelu": 1, "residual": 2}
+
+# csrc/fused_linear.cu's bf16 and int8 route (its LIN_* constants)
+LINEAR_BN = (32, 64, 128)        # the wgmma widths: output columns a block
+LINEAR_SPLITS = (1, 2, 3, 4, 6, 8)  # K-slices of a column tile (<= 8: a portable cluster)
+LINEAR_BOX_BYTES = 128           # K bytes of a TMA box and a ring stage
+LINEAR_RING_BUDGET = 110 * 1024  # a block's ring, so that two blocks share an SM
+LINEAR_MAX_STAGES = 8
+LINEAR_PAD = 8                   # the partial tile's row pitch is bn + LINEAR_PAD
+SMS = 132                        # the H100's streaming multiprocessors
+# what a K-slice costs a block beyond its bytes (the cluster barriers and the
+# partials' round trip), in bytes streamed: fitted to scripts/linear_plan_sweep.py
+LINEAR_SPLIT_BYTES = 8 * 1024
+
+
+class LinearPlan(NamedTuple):
+    bn: int         # output columns a block
+    splits: int     # K-slices of a column tile: the blocks of its cluster
+    k_slice: int    # K elements a slice (whole boxes); the last slice ends at K
+    n_tiles: int    # column tiles
+    row_tiles: int  # row tiles of 64 x consumers rows
+    consumers: int  # consumer warpgroups, 64 rows each
+    stages: int     # the ring's depth (fused_linear.cu::lin_stages)
+    smem: int       # dynamic shared memory bytes of a block (fused_linear.cu::lin_smem)
+
+    @property
+    def blocks(self) -> int:
+        return self.n_tiles * self.splits * self.row_tiles
+
+
+_NO_PLAN = LinearPlan(0, 0, 0, 0, 0, 0, 0, 0)
+
+
+def linear_plan_options(m: int, k: int, n: int, element_size: int) -> list[LinearPlan]:
+    """Every split ``csrc/fused_linear.cu`` can run an (M, K) x (K, N)
+    product with ``element_size``-byte operands (2 bf16, 1 int8) in: a
+    block owns ``bn`` output columns, every row up to 128 (more rows take
+    more row tiles) and one K-slice of whole 128-byte boxes; the ``splits``
+    slices of a column tile, none empty, form a cluster that reduces their
+    partial tiles in rank order (clusters of 5 and 7 left out: they measured
+    slower than their neighbours on the card).  ``stages`` and ``smem``
+    mirror the kernel's own sizing of its ring (``lin_stages``,
+    ``lin_smem``)."""
+    consumers = 1 if m <= 64 else 2
+    bm = 64 * consumers
+    row_tiles = -(-m // bm)
+    boxes = -(-k // (LINEAR_BOX_BYTES // element_size))
+    plans = []
+    for bn in LINEAR_BN:
+        stage = (bm + bn) * LINEAR_BOX_BYTES
+        for splits in LINEAR_SPLITS:
+            per = -(-boxes // splits)
+            if -(-boxes // per) != splits:  # a slice would be empty
+                continue
+            stages = max(1, min(per, LINEAR_RING_BUDGET // stage, LINEAR_MAX_STAGES))
+            smem = 1024 + max(stages * stage, bm * (bn + LINEAR_PAD) * 4)
+            plans.append(LinearPlan(bn, splits, per * LINEAR_BOX_BYTES // element_size,
+                                    -(-n // bn), row_tiles, consumers, stages, smem))
+    return plans
+
+
+@functools.lru_cache(maxsize=None)
+def linear_plan(m: int, k: int, n: int, element_size: int) -> LinearPlan:
+    """The split :func:`fused_linear_cuda` launches an (M, K) x (K, N)
+    product in, once per shape: among :func:`linear_plan_options` that give
+    at least one block an SM (or the most blocks the shape allows), the one
+    whose blocks stream the fewest bytes — a block's row and weight boxes,
+    the partial tiles it reads and ``LINEAR_SPLIT_BYTES`` a K-slice, times
+    the waves of two blocks an SM — ties to wider tiles.  On an H100 this
+    rule picks, at 128 and 512 rows of every GPT-2 124M role, bf16 and
+    int8, a split within 1.3 us of the fastest one that
+    ``scripts/linear_plan_sweep.py`` timed."""
+    options = linear_plan_options(m, k, n, element_size)
+    wave = min(SMS, max(p.blocks for p in options))
+
+    def cost(p: LinearPlan):
+        bm = 64 * p.consumers
+        boxes = p.k_slice * element_size // LINEAR_BOX_BYTES
+        streamed = boxes * (bm + p.bn) * LINEAR_BOX_BYTES
+        reduced = bm * p.bn * 4 if p.splits > 1 else 0
+        waves = -(-p.blocks // (2 * SMS))
+        return waves * (streamed + reduced + LINEAR_SPLIT_BYTES * p.splits), -p.bn
+
+    return min((p for p in options if p.blocks >= wave), key=cost)
 
 
 def fused_greedy_enabled(use_kernels: bool | None, device) -> bool:
@@ -165,8 +253,9 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
     x: (M, K) — the float32 residual stream when ``ln=(scale, bias)`` (the
     LayerNorm prologue), else the compute dtype; w: (N, K) in the compute
     dtype, or int8 with ``w_scale`` (N,) float32 (W8A8: the call quantizes x
-    per row, then multiplies in int8; one more CUDA launch); bias: (N,)
-    float32.  ``compute_dtype`` defaults to w's, and int8 weights need it.
+    per row, then multiplies in int8; one more CUDA launch, as the bf16
+    LayerNorm roles' pre-pass is); bias: (N,) float32.  ``compute_dtype``
+    defaults to w's, and int8 weights need it.
     ``epilogue`` "cast" or "gelu" returns a new (M, N) tensor in the compute
     dtype; "residual" adds into ``residual`` (M, N) float32 in place and
     returns it.
@@ -191,20 +280,27 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
                    "x must be float32 with the LN prologue, else the compute dtype")
     _build.require(bias.shape == (n,) and bias.dtype == torch.float32 and bias.is_contiguous(),
                    name, "bias must be contiguous float32 (N,)")
-    ln_s = ln_b = stats = xq = sx = w_s = None
+    ln_s = ln_b = stats = xa = sx = w_s = None
     if ln is not None:
         for t in ln:
             _build.require(t.shape == (k,) and t.dtype == torch.float32 and t.is_contiguous(),
                            name, "LN scale/bias must be contiguous float32 (K,)")
         ln_s, ln_b = ln[0].data_ptr(), ln[1].data_ptr()
+    plan = _NO_PLAN  # float32 keeps the product tile
     if quant:
         _build.require(w_scale.shape == (n,) and w_scale.dtype == torch.float32
                        and w_scale.is_contiguous() and w_scale.device == x.device, name,
                        "w_scale must be contiguous float32 (N,) on x's device")
         w_s = w_scale.data_ptr()
-        xq_buf = torch.empty((m, k), dtype=torch.int8, device=x.device)
+        xa_buf = torch.empty((m, k), dtype=torch.int8, device=x.device)
         sx_buf = torch.empty((m,), dtype=torch.float32, device=x.device)
-        xq, sx = xq_buf.data_ptr(), sx_buf.data_ptr()
+        xa, sx = xa_buf.data_ptr(), sx_buf.data_ptr()
+        plan = linear_plan(m, k, n, 1)
+    elif cdt == torch.bfloat16:
+        if ln is not None:  # the normalised rows, the product's operand
+            xa_buf = torch.empty((m, k), dtype=cdt, device=x.device)
+            xa = xa_buf.data_ptr()
+        plan = linear_plan(m, k, n, 2)
     elif ln is not None:
         stats_buf = torch.empty((m, 2), dtype=torch.float32, device=x.device)  # (mean, rstd)
         stats = stats_buf.data_ptr()
@@ -221,8 +317,8 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
         _build.require(t.device == x.device, name, "all tensors must be on one device")
     err = _build.library().gic_fused_linear(
         _build.DTYPE_CODE[cdt], int(ln is not None), EPILOGUES[epilogue], x.data_ptr(), ln_s, ln_b,
-        eps, w.data_ptr(), w_s, bias.data_ptr(), out.data_ptr(), stats, xq, sx, m, k, n,
-        _build.stream_of(x),
+        eps, w.data_ptr(), w_s, bias.data_ptr(), out.data_ptr(), stats, xa, sx, m, k, n,
+        plan.bn, plan.splits, plan.k_slice, _build.stream_of(x),
     )
     _build.check(err, name)
     fused_linear_cuda.launches += 1

@@ -167,10 +167,14 @@ def test_rowquant_plain_matches_the_step_formula(with_ln, dtype):
         assert float(s[1]) == np.float32(1e-12) and not q[1].any()
 
 
-def test_int8_accumulation_stays_exact_at_k3072():
+@pytest.mark.parametrize("rows", [0, 128, 512], ids=["unsplit", "plan_b128", "plan_b512"])
+def test_int8_accumulation_stays_exact_at_k3072(rows):
     """±127 operands over K = 3072 (the MLP down-projection): the twin's
     products equal the exact integer sums, which float32 accumulation would
-    round (3072 * 127^2 > 2^24)."""
+    round (3072 * 127^2 > 2^24).  With ``rows``, also the int8 kernel's K
+    split at that batch (``linear_plan``): the int32 partial sums over its
+    K-slices, added in any order, give the unsplit result bit for bit, so
+    the cluster's reduction cannot move an int8 output."""
     rng = np.random.default_rng(0)
     xq = torch.from_numpy(rng.choice([-127, 127], size=(4, 3072)).astype(np.int8))
     wq = torch.from_numpy(rng.choice([-127, 126, 127], size=(5, 3072)).astype(np.int8))
@@ -183,6 +187,22 @@ def test_int8_accumulation_stays_exact_at_k3072():
     assert int(exact[0, 0]) == 3072 * 127 * 127
     f32 = xq.float() @ wq.float().t()
     assert not torch.equal(f32.double(), exact.double())  # float32 rounds some sums
+    if not rows:
+        return
+    plan = TDS.linear_plan(rows, 3072, 768, 1)
+    assert plan.splits > 1
+    ks = plan.k_slice
+    parts = [(xq[:, i * ks:(i + 1) * ks].long() @ wq[:, i * ks:(i + 1) * ks].long().t())
+             for i in range(plan.splits)]
+    assert all(int(p.abs().max()) < 2 ** 31 for p in parts)  # each fits the int32 accumulator
+    sx, sw = torch.full((4, 1), 0.0123), torch.full((5,), 0.0071)
+    want = TQ.int8_matmul(xq, sx, wq, sw)
+    for order in (range(plan.splits), reversed(range(plan.splits)),
+                  rng.permutation(plan.splits)):
+        acc = torch.zeros(4, 5, dtype=torch.int32)
+        for i in order:
+            acc += parts[int(i)].to(torch.int32)
+        assert torch.equal(acc.float() * sx * sw, want)
 
 
 # ---------------------------------------------------------------------------
