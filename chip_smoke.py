@@ -6,7 +6,9 @@ Run from the repository root with no arguments:
 
 (``--only linear`` runs the build and the projections' checks alone,
 bf16 and int8, and prints their records without the summary lines: the
-way to read an earlier tree's ``fused_linear`` on the same card.)
+way to read an earlier tree's ``fused_linear`` on the same card.
+``--only vocab`` does the same for the two selection kernels, the sampler
+and the top-k, in bf16, int8 and float32, with their contract sweeps.)
 
 It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
@@ -24,11 +26,15 @@ on its one-element-a-lane route, B 3-128, idx on each boundary of its
 walk, the appended rows and scales equal) and the patch embedding (patch 8
 and 14, M and D off its tiles), and so are the decode step's projections
 in bf16 and int8 (``fused_linear``: every role at D 768, 1024 and 1600, M
-1-512, and each role called twice for equal bits).  Decode attention, the
+1-512, and each role called twice for equal bits), and so are the sampler
+and the top-k (``vocab_contract``: B 1-512 on each boundary of the walk's
+row tiles, V 50,257, 1,025 and 100, k 1-16 for the top-k and 1-4 for the
+sampler, every call twice for equal bits, bf16, int8 and float32).  Decode attention, the
 patch embedding and the projections (at the 128 rows of a request and the
 512 of beam-4 and continuous serving, the int8 quantizer's launch apart)
 also report their device time from a profiler trace beside the events
-time, their library call's too.  Then it drives the paths the port has,
+time, their library call's too; so do the sampler and the top-k, at B 128
+and 512, bf16 and int8.  Then it drives the paths the port has,
 each with the kernels' launch counters set to 0 just before and read just
 after:
 
@@ -818,8 +824,18 @@ def check_sampler(dtype, g) -> dict:
     bound_ms, bound_by, work = sampler_bound(B_SERVE, wte, temp, wrnd)
     gen = torch.Generator(device="cuda").manual_seed(0)
     eager_ms = time_ms(lambda: S.sample_rows(library_logits(x32, lnf, wte), temp, top_p, gen))
+    name = f"logits_sample_{str(dtype).replace('torch.', '')}"
+    x128, t128, p128 = x32[:B].contiguous(), temp[:B].contiguous(), top_p[:B].contiguous()
+    devices = {
+        "device_ms": vocab_device(lambda: DS.logits_sample_cuda(
+            x32, lnf, wte, temp, top_p, 5, SAMPLE_K, SAMPLE_ROUNDS), name),
+        "device_ms_b128": vocab_device(lambda: DS.logits_sample_cuda(
+            x128, lnf, wte, t128, p128, 5, SAMPLE_K, SAMPLE_ROUNDS), f"{name}_b128"),
+        "ms_b128": time_ms(lambda: DS.logits_sample_cuda(x128, lnf, wte, t128, p128, 5, SAMPLE_K,
+                                                         SAMPLE_ROUNDS))}
     return {"kernel": "logits_sample", "max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "work": work, "library_ms": None,
+            **devices,
             "eager_tail_ms": eager_ms, "eager_tail": "layer_norm + mm + ops.sampling.sample_rows",
             "at": f"B {B_SERVE}, D {D}, V {V}, k {SAMPLE_K}, rounds {SAMPLE_ROUNDS}, "
                   f"temperature 1.0, top_p {TOP_P}",
@@ -877,6 +893,13 @@ def library_logits(x32, lnf, wte):
 def vocab_bytes(b: int, wte, out_bytes: int) -> int:
     """wte, the residual rows and LN_f read, ``out_bytes`` written."""
     return V * D * wte.element_size() + 4 * b * D + 8 * D + out_bytes
+
+
+def vocab_device(run, name: str) -> float | str:
+    """Device ms of one call of a vocabulary wrapper, from a ``traced``
+    window: every device event of the call (pass 0, the walk or walks, the
+    merge; a memset where the wrapper makes one)."""
+    return device_ms(run, None, f"{name}_trace.json")
 
 
 def check_logits(dtype, g) -> dict:
@@ -946,8 +969,15 @@ def check_logits_topk(dtype, g) -> dict:
     library_ms = time_ms(library)
     nbytes = vocab_bytes(B_BEAM, wte, 8 * B_BEAM * k + 4 * B_BEAM)
     bound_ms, bound_by = bound(nbytes, 2 * B_BEAM * D * V, split_type(dtype))
+    name = f"logits_topk_{str(dtype).replace('torch.', '')}"
+    x128 = x32[:B].contiguous()
+    devices = {"device_ms": vocab_device(lambda: DS.logits_topk_cuda(x32, lnf, wte, k), name),
+               "library_device_ms": vocab_device(library, f"{name}_library"),
+               "device_ms_b128": vocab_device(lambda: DS.logits_topk_cuda(x128, lnf, wte, k),
+                                              f"{name}_b128"),
+               "ms_b128": time_ms(lambda: DS.logits_topk_cuda(x128, lnf, wte, k))}
     return {"kernel": "logits_topk", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, **devices,
             "library_ms": library_ms, "library": "layer_norm + mm + topk + logsumexp",
             "at": f"B {B_BEAM}, D {D}, V {V}, k {k}", "rows_with_clear_gaps": int(clear.sum()),
             "forced_ties": {"kernel": tie_i[0].tolist(), "plain": tie_plain[0].tolist()}}
@@ -1315,7 +1345,8 @@ def library_vocab_int8(x32, lnf, wq_pad_t, sw_pad, dtype):
     return library_int8(xq, sx, wq_pad_t, sw_pad)[:, :V]
 
 
-def check_vocab_int8(dtype, g) -> list[dict]:
+def check_vocab_int8(dtype, g, kinds=("logits_argmax", "logits", "logits_topk",
+                                       "logits_sample")) -> list[dict]:
     """The four vocabulary kernels with an int8 wte, each against its twin at
     its path's width: argmax and the stored logits at B 128, top-k at B 512
     (k 4), the sampler at B 512 (temperature 1.0, top_p 0.9).  The int8
@@ -1330,8 +1361,9 @@ def check_vocab_int8(dtype, g) -> list[dict]:
     tol = TOL[dtype]
     twins = {"logits_argmax": DS.logits_argmax_plain, "logits": DS.logits_plain,
              "logits_topk": DS.logits_topk_plain, "logits_sample": S.sample_step_plain}
-    for kind, b in (("logits_argmax", B), ("logits", B), ("logits_topk", B_BEAM),
-                    ("logits_sample", B_SERVE)):
+    widths = {"logits_argmax": B, "logits": B, "logits_topk": B_BEAM, "logits_sample": B_SERVE}
+    for kind in kinds:
+        b = widths[kind]
         x32, lnf, wq, kw = int8_vocab_inputs(b, dtype, g)
         sw = kw["wte_scale"]
         pad = (-V) % 8
@@ -1394,6 +1426,16 @@ def check_vocab_int8(dtype, g) -> list[dict]:
         bound_ms, bound_by = bound(nbytes, 2 * b * D * V, torch.int8)
         if kind == "logits_sample":
             bound_ms, bound_by, rec["work"] = sampler_bound(b, wq, temp, wrnd)
+        if kind in ("logits_topk", "logits_sample"):  # the redesigned walks, at b and B 128
+            name = f"{kind}_int8_{str(dtype).replace('torch.', '')}"
+            cut = (x32[:B].contiguous(), lnf, wq) + tuple(
+                e[:B].contiguous() if torch.is_tensor(e) else e for e in extra)
+            run128 = functools.partial(getattr(DS, f"{kind}_cuda"), *cut, **kw)
+            rec.update(device_ms=vocab_device(run, name),
+                       device_ms_b128=vocab_device(run128, f"{name}_b128"),
+                       ms_b128=time_ms(run128))
+            if library:
+                rec["library_device_ms"] = vocab_device(library, f"{name}_library")
         rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, bytes=nbytes,
                    library_ms=time_ms(library) if library else None,
@@ -1402,6 +1444,112 @@ def check_vocab_int8(dtype, g) -> list[dict]:
                    at=f"B {b}, D {D}, V {V}, int8 wte, {str(dtype).replace('torch.', '')} rows")
         out.append(rec)
     return out
+
+
+# The two selection kernels' contract beyond the paths' shapes (bf16, int8
+# and float32): rows on each boundary of the walk's row tiles (64 rows a
+# warpgroup, 128 a block), V at GPT-2's 50,257, at eight 128-column tiles
+# plus one (the last tile one column wide) and below one tile, k 1, 4 and
+# 16 for the top-k and 1-4 for the sampler (mixed temperatures and top_p,
+# and every third row count forced through every round to the fallback);
+# each call made twice, for equal bits.  The paths' tolerances and rules
+# hold: TOL, the clear-gap id rule, the nucleus, float32 tokens exact,
+# SAMPLE_BF16_AGREE over all the cases' rows, flip_allowance for int8.
+VOCAB_CONTRACT_B = (1, 3, 63, 64, 65, 127, 129, 255, 512)
+VOCAB_CONTRACT_V = (V, 8 * 128 + 1, 100)
+TOPK_CONTRACT_K = (1, 4, 16)
+
+
+def vocab_contract(dtype, g, quant: bool = False) -> dict:
+    """``logits_topk_cuda`` and ``logits_sample_cuda`` against their twins
+    at every case of the contract above."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+    from gpt2_image_captioning_tpu_torch.ops import sampling as S
+
+    tol = TOL[dtype]
+    most = max(VOCAB_CONTRACT_B)
+    if quant:
+        x_all, lnf, w_all, kw = int8_vocab_inputs(most, dtype, g)
+    else:
+        (x_all, lnf, w_all), kw = vocab_inputs(most, dtype, g), {}
+    same = total = cases = topk_cases = 0
+    worst = 0.0
+    for v in VOCAB_CONTRACT_V:
+        wte = w_all[:v]
+        kwv = {**kw, "wte_scale": kw["wte_scale"][:v]} if quant else {}
+        for i, b in enumerate(VOCAB_CONTRACT_B):
+            x32 = x_all[:b]
+            at = f"B {b} V {v}"
+            logits = DS.logits_plain(x32, lnf, wte, **kwv)
+            slack = torch.zeros(b, device="cuda")
+            if quant:
+                allowance, _ = flip_allowance(x32, (lnf[0], lnf[1]), dtype, wte,
+                                              kwv["wte_scale"], logits)
+                slack = allowance.max(dim=1).values
+            for k in TOPK_CONTRACT_K:
+                got = DS.logits_topk_cuda(x32, lnf, wte, k, **kwv)
+                again = DS.logits_topk_cuda(x32, lnf, wte, k, **kwv)
+                check(all(torch.equal(a, c) for a, c in zip(got, again)),
+                      f"top-k {at} k {k}: two calls differ")
+                wv, wi, wl = DS.logits_topk_plain(x32, lnf, wte, k, **kwv)
+                worst = max(worst, close_int8(got[0], wv, tol["out"], slack[:, None]),
+                            close_int8(got[2], wl, tol["out"], slack[:, None]))
+                top, _ = S.topk_small(logits, k + 1)
+                clear = ((top[:, :-1] - top[:, 1:]) > tol["gap"] + 2 * slack[:, None]).all(dim=1)
+                check(bool((got[1] == wi)[clear].all()), f"top-k {at} k {k}: ids differ on a "
+                      "row with clear gaps")
+                check(all(len(set(r)) == k for r in got[1].tolist()),
+                      f"top-k {at} k {k}: repeated ids in a row")
+                topk_cases += 1
+            ks, forced = 1 + cases % 4, i % 3 == 2
+            rows = torch.arange(b, device="cuda")
+            temp = torch.tensor(SAMPLE_TEMPS, device="cuda")[rows % len(SAMPLE_TEMPS)]
+            top_p = (torch.full((b,), -1.0, device="cuda") if forced else
+                     torch.tensor(SAMPLE_TOPPS, device="cuda")[(rows // 4) % len(SAMPLE_TOPPS)])
+            rounds, seed = (3 if forced else SAMPLE_ROUNDS), 7000 + 13 * b + v
+            args = (x32, lnf, wte, temp, top_p, seed, ks, rounds)
+            tok, rnd, lse = DS.logits_sample_cuda(*args, **kwv)
+            again = DS.logits_sample_cuda(*args, **kwv)
+            check(all(torch.equal(a, c) for a, c in zip((tok, rnd, lse), again)),
+                  f"sampler {at} k {ks}: two calls differ")
+            wtok, wrnd, wlse = S.sample_step_plain(*args, **kwv)
+            worst = max(worst, close_int8(lse, wlse, tol["out"], slack[:, None]))
+            greedy = temp == 0
+            check(bool((rnd[greedy] == 0).all()), f"sampler {at}: a temperature-0 row did not "
+                  "resolve in round 0")
+            deficit = logits.max(dim=1).values - logits.gather(1, tok.long()[:, None])[:, 0]
+            check(bool((deficit[greedy] <= tol["gap"] + 2 * slack[greedy]).all()),
+                  f"sampler {at}: a temperature-0 row's token is not the argmax")
+            if forced:
+                check(bool((rnd[~greedy] == rounds + 1).all()),
+                      f"sampler {at}: top_p < 0 and a row did not fall back")
+            else:  # accepted rows; a row out of rounds takes an unchecked candidate
+                took = ~greedy & (rnd <= rounds)
+                check(bool((rnd[~greedy] >= 1).all()), f"sampler {at}: a sampled row in round 0")
+                if bool(took.any()):
+                    lq = logits / torch.where(temp > 0, temp, 1.0)[:, None]
+                    excess = nucleus_excess(lq[took], tok[took], top_p[took])
+                    check(excess <= NUCLEUS_SLACK, f"sampler {at}: a token lies {excess} outside")
+            if dtype == torch.float32 and not quant:
+                check(torch.equal(tok, wtok) and torch.equal(rnd, wrnd),
+                      f"float32 sampler {at}: tokens or rounds differ from the twin's")
+            same += int((tok == wtok).sum())
+            total += b
+            cases += 1
+    agree = same / total
+    check(agree >= SAMPLE_BF16_AGREE, f"sampler contract: {agree} of the tokens identical")
+    return {"phase": "vocab_contract", "dtype": str(dtype).replace("torch.", ""),
+            "mode": "int8" if quant else "float", "topk_cases": topk_cases,
+            "sampler_cases": cases, "max_abs_err": worst, "sampler_tokens_identical": agree,
+            "rows": list(VOCAB_CONTRACT_B), "vocab": list(VOCAB_CONTRACT_V),
+            "topk_k": list(TOPK_CONTRACT_K), "repeats_equal": True}
+
+
+# ``--only vocab``: the sampler's and the top-k's checks alone, float and
+# int8 weights, with their contract sweeps
+VOCAB_CHECKS = (check_logits_topk, check_sampler,
+                functools.partial(check_vocab_int8, kinds=("logits_topk", "logits_sample")),
+                vocab_contract, functools.partial(vocab_contract, quant=True))
 
 
 def int8_caches(t: int, b: int, dtype, g, d: int = D):
@@ -2271,7 +2419,7 @@ LAYER_KERNELS = ("fused_linear_kernel", "linear_wgmma_kernel", "ln_stats_kernel"
                  "decode_attention_kernel", "ln_rows_kernel", "rowquant_kernel")
 VOCAB_KERNELS = {"greedy": ("logits_tile_kernel", "argmax_reduce_kernel"),
                  "sampled": ("logits_store_kernel",),
-                 "beam": ("topk_tile_kernel", "topk_merge_kernel")}
+                 "beam": ("topk_walk_kernel", "topk_tile_kernel", "topk_merge_kernel")}
 # continuous serving also runs the admission's mapper (flash attention) and
 # prefill (csrc/prefill.cu; forward_cached's flash attention in int8)
 ADMISSION_KERNELS = ("flash_attention_kernel", "prefill_linear_kernel", "prefill_attention_kernel",
@@ -2279,10 +2427,10 @@ ADMISSION_KERNELS = ("flash_attention_kernel", "prefill_linear_kernel", "prefill
 VOCAB_KERNELS.update({
     "continuous_greedy": VOCAB_KERNELS["greedy"] + ADMISSION_KERNELS,
     "continuous_sampled": VOCAB_KERNELS["sampled"] + ADMISSION_KERNELS,
-    "continuous_in_kernel": ("sample_tile_kernel",) + ADMISSION_KERNELS})
+    "continuous_in_kernel": ("sample_walk_kernel",) + ADMISSION_KERNELS})
 # the int8 paths run the same kernels, instantiated for int8 operands
 VOCAB_KERNELS.update({f"{path}_int8": names for path, names in VOCAB_KERNELS.items()})
-VOCAB_KERNELS.update(greedy_int8_kv=VOCAB_KERNELS["greedy"], in_kernel_int8=("sample_tile_kernel",),
+VOCAB_KERNELS.update(greedy_int8_kv=VOCAB_KERNELS["greedy"], in_kernel_int8=("sample_walk_kernel",),
                      greedy_f32=VOCAB_KERNELS["greedy"], sampled_f32=VOCAB_KERNELS["sampled"],
                      in_kernel_f32=("sample_tile_kernel",))
 
@@ -3051,8 +3199,8 @@ def train_path() -> tuple[dict, dict, dict]:
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--only", "linear"]):
-        print("usage: python3 chip_smoke.py [--only linear]", file=sys.stderr)
+    if argv not in ([], ["--only", "linear"], ["--only", "vocab"]):
+        print("usage: python3 chip_smoke.py [--only linear|vocab]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU", file=sys.stderr)
@@ -3076,17 +3224,27 @@ def main(argv: list[str]) -> int:
     (OUT_DIR / "nvcc.log").write_text((lib_path.parent / "nvcc.log").read_text())
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    if argv:  # the projections' records alone, e.g. of an earlier tree's kernel
+    if argv == ["--only", "linear"]:  # the projections' records alone, e.g. of an earlier tree's
         for fn in (check_linear, check_linear_int8):
             emit({"phase": "kernel_vs_plain", "dtype": "bfloat16", **fn(torch.bfloat16, g)})
+        print(nvidia_smi(), flush=True)
+        return 0
+    if argv:  # the two selection kernels' records alone, e.g. of an earlier tree's
+        for dtype in (torch.bfloat16, torch.float32):
+            for fn in VOCAB_CHECKS:
+                recs = fn(dtype, g)
+                for rec in recs if isinstance(recs, list) else [recs]:
+                    emit({"phase": "kernel_vs_plain", "dtype": str(dtype).replace("torch.", ""),
+                          **rec})
         print(nvidia_smi(), flush=True)
         return 0
     emit(check_dot_f32(g))
     kernel_rows = {}
     checks = (check_attention, check_attention_origin, check_attention_start, check_linear,
               check_logits_argmax, check_logits, check_logits_topk, check_sampler, check_flash,
-              check_prefill, check_patch_embed)
-    int8_checks = (check_rowquant, check_linear_int8, check_vocab_int8, check_attention_int8)
+              check_prefill, check_patch_embed, vocab_contract)
+    int8_checks = (check_rowquant, check_linear_int8, check_vocab_int8, check_attention_int8,
+                   functools.partial(vocab_contract, quant=True))
     for dtype in (torch.bfloat16, torch.float32):
         for fn in checks + int8_checks:
             recs = fn(dtype, g)
@@ -3094,6 +3252,8 @@ def main(argv: list[str]) -> int:
                 rec = {"phase": "kernel_vs_plain", "dtype": str(dtype).replace("torch.", ""),
                        **rec}
                 emit(rec)
+                if "kernel" not in rec:  # the contract sweeps
+                    continue
                 if dtype == torch.bfloat16:
                     kernel_rows[rec["kernel"] + ("_" + rec["mode"] if "mode" in rec else "")] = rec
                 elif rec["kernel"] in F32_ROWS and "mode" not in rec:
@@ -3191,8 +3351,8 @@ def main(argv: list[str]) -> int:
                                    "continuous_greedy",
                                    "call (1 CUDA launch), idx 64, B 512, random starts"),
         "logits_sample": ("logits_sample.cu", f"{step_kernel}:641", "continuous_in_kernel",
-                          f"call (2 + {SAMPLE_ROUNDS} CUDA launches), B 512, temperature 1.0, "
-                          f"top_p {TOP_P}"),
+                          f"call (2 + 2 x {SAMPLE_ROUNDS} CUDA launches), B 512, temperature "
+                          f"1.0, top_p {TOP_P}"),
         # the int8 modes: W8A8 (rowquant :234, stream_matmul :262-287, the
         # vocabulary's int8 tile :555-563 in each vocabulary mode) and the
         # int8 KV cache (:311-323, :404-409); the same wrappers, so the same
@@ -3208,8 +3368,8 @@ def main(argv: list[str]) -> int:
         "logits_topk_int8": ("logits_topk.cu", f"{step_kernel}:555", "beam_int8",
                              "call (3 CUDA launches), B 512, k 4, topk (:569)"),
         "logits_sample_int8": ("logits_sample.cu", f"{step_kernel}:555", "in_kernel_int8",
-                               f"call (2 + {SAMPLE_ROUNDS} CUDA launches), B 512, temperature "
-                               f"1.0, top_p {TOP_P}, sample (:641)"),
+                               f"call (2 + 2 x {SAMPLE_ROUNDS} CUDA launches), B 512, "
+                               f"temperature 1.0, top_p {TOP_P}, sample (:641)"),
         "decode_attention_int8_kv": ("decode_attention.cu", f"{step_kernel}:311",
                                      "greedy_int8_kv",
                                      "call (1 CUDA launch, the quantizing append included), "

@@ -1,9 +1,10 @@
 // Shared pieces of the port's CUDA kernels: element types, warp reductions,
 // the Hopper building blocks (TMA tensor maps and copies, mbarriers, wgmma
 // descriptors and products, cluster barriers and distributed shared memory)
-// that fused_linear.cu and patch_embed.cu run on, the LayerNorm pre-pass,
-// and the tiled row-block x weight-tile product that the float32 route of
-// fused_linear.cu, the vocabulary kernels and the prefill run.
+// that fused_linear.cu, patch_embed.cu and vocab_walk.cuh run on, the
+// LayerNorm pre-pass, and the tiled row-block x weight-tile product that
+// the float32 route of fused_linear.cu, the vocabulary kernels (the top-k
+// and the sampler in float32 only) and the prefill run.
 //
 // Element type codes match ops/_build.py::DTYPE_CODE: 0 = float, 1 = bf16.
 // Inputs are read in the element type, products accumulate in float32, and
@@ -15,8 +16,10 @@
 // Which design runs where: the decode step's bf16 and int8 projections
 // (fused_linear.cu) stream their operands by TMA into a ring and multiply
 // on wgmma, split over K across a thread-block cluster (its header gives the
-// design and the bound).  The tile below serves the float32 projections,
-// the four vocabulary kernels (every operand type) and the prefill kernel's
+// design and the bound); the top-k's and the sampler's bf16 and int8
+// routes walk wte on vocab_walk.cuh.  The tile below serves the float32
+// projections, logits_argmax.cu and logits.cu (every operand type), the
+// float32 routes of the top-k and the sampler, and the prefill kernel's
 // products (prefill.cu, gpt2_image_captioning_tpu/ops/prefill_step.py::
 // _prefill_kernel).  Its bound on the H100: at a decode batch of 128 the
 // weights' bytes (a float32 GPT-2 layer: 28 MB, 8.5 us at 3.35 TB/s); the
@@ -30,7 +33,10 @@
 #include <mma.h>
 
 #include <cstdint>
+#include <functional>
+#include <mutex>
 #include <type_traits>
+#include <unordered_map>
 
 namespace gic {
 
@@ -205,6 +211,59 @@ inline EncodeTiled encode_tiled() {
     return reinterpret_cast<EncodeTiled>(f);
   }();
   return fn;
+}
+
+// The TMA map of a (rows, cols) row-major operand (cols = K), box (128 bytes
+// of K, box_rows), 128-byte swizzled, zero-filled out of bounds; encoded
+// once per (pointer, shape, box) and cached: a map is a function of these
+// alone, and the step's weights, and the caching allocator's buffers, recur.
+// fused_linear.cu and the vocabulary walk (vocab_walk.cuh) read their
+// operands through these maps.  Returns 0 or a cudaError_t.
+constexpr int kTmaBox = 128;  // bytes of K a box: one swizzled row
+
+struct TmaMapKey {
+  const void* ptr;
+  int rows, cols, box_rows, int8;
+  bool operator==(const TmaMapKey& o) const {
+    return ptr == o.ptr && rows == o.rows && cols == o.cols && box_rows == o.box_rows &&
+           int8 == o.int8;
+  }
+};
+struct TmaMapKeyHash {
+  size_t operator()(const TmaMapKey& k) const {
+    size_t h = std::hash<const void*>()(k.ptr);
+    for (int v : {k.rows, k.cols, k.box_rows, k.int8}) h = h * 1000003u ^ (size_t)v;
+    return h;
+  }
+};
+
+inline int tma_operand_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
+                           bool int8) {
+  static std::mutex mu;
+  static std::unordered_map<TmaMapKey, CUtensorMap, TmaMapKeyHash> cache;
+  const TmaMapKey key{ptr, rows, cols, box_rows, int8};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return 0;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const int el = int8 ? 1 : 2;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * el};  // bytes
+  const cuuint32_t box[2] = {(cuuint32_t)(kTmaBox / el), (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                            2, const_cast<void*>(ptr), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return 0;
 }
 
 // A wgmma shared-memory descriptor: 128-byte swizzle, byte offsets lbo
@@ -394,8 +453,9 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 // ((N, K): each output column's weights are contiguous in K), which is the
 // natural layout of the tied embedding (V, D) and what pack_decode_weights
 // gives the four GPT-2 projections.  Its users: the float32 route of
-// fused_linear.cu, the four vocabulary kernels in every operand type, and
-// the prefill's products.  (The decode step's bf16 and int8 projections
+// fused_linear.cu, logits_argmax.cu and logits.cu in every operand type,
+// the float32 routes of logits_topk.cu and logits_sample.cu, and the
+// prefill's products.  (The decode step's bf16 and int8 projections
 // run on fused_linear.cu's TMA ring, wgmma and cluster split instead: at B
 // 128 this tile's 48-192 blocks, one stage in flight each, read every
 // weight once a 64-row block and normalised every row once a column block,

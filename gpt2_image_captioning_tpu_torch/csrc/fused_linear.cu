@@ -57,8 +57,9 @@
 // read again by every column tile, from L2.  At 512 rows each column tile's
 // weights are read by four row tiles, once from device memory and three
 // times from L2 (a role's weights, <= 4.7 MB, stay in its 50 MB).  Tensor
-// maps are encoded once per (pointer, shape, box) and cached here, so a
-// call encodes none once its buffers recur.
+// maps are encoded once per (pointer, shape, box) and cached
+// (common.cuh::tma_operand_map), so a call encodes none once its buffers
+// recur.
 //
 // What bounds it at B 128 on the H100 is latency, not bytes: a product
 // launch's phases (the TMA round trip, the products, the cluster's two
@@ -67,9 +68,6 @@
 // rows MLP fc took 23-29 us in every split, far above its bytes and
 // products (1.4 and 2.4 us); by estimate its gelu_new, kept in float64 for
 // the int8 step's exactness, holds the SMs' float64 units for several us.
-#include <mutex>
-#include <unordered_map>
-
 #include "common.cuh"
 
 namespace gic {
@@ -141,7 +139,7 @@ static void launch_f32(int ln, int epi, cudaStream_t s, const float* x, float* s
 // bf16 and int8: TMA ring, wgmma, cluster split-K
 // ---------------------------------------------------------------------------
 
-constexpr int LIN_BOX = 128;              // bytes of K a box and a ring stage: one swizzled row
+constexpr int LIN_BOX = kTmaBox;          // bytes of K a box and a ring stage: one swizzled row
 constexpr int LIN_MAX_SPLITS = 8;         // K-slices of a column tile: a portable cluster
 constexpr int LIN_MAX_STAGES = 8;
 constexpr int LIN_RING_BUDGET = 110 * 1024;  // a block's ring: two blocks an SM
@@ -362,55 +360,6 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   cluster_wait_thread();  // this block's partial stays until the cluster has read it
 }
 
-// The TMA map of a (rows, cols) row-major operand (cols = K), box (128 bytes
-// of K, box_rows), 128-byte swizzled, zero-filled out of bounds; encoded
-// once per (pointer, shape, box) and cached: a map is a function of these
-// alone, and the step's weights, and the caching allocator's buffers, recur.
-struct MapKey {
-  const void* ptr;
-  int rows, cols, box_rows, int8;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && rows == o.rows && cols == o.cols && box_rows == o.box_rows &&
-           int8 == o.int8;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    size_t h = std::hash<const void*>()(k.ptr);
-    for (int v : {k.rows, k.cols, k.box_rows, k.int8}) h = h * 1000003u ^ (size_t)v;
-    return h;
-  }
-};
-
-static int operand_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
-                       bool int8) {
-  static std::mutex mu;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
-  const MapKey key{ptr, rows, cols, box_rows, int8};
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *map = it->second;
-    return 0;
-  }
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return (int)cudaErrorNotSupported;
-  const int el = int8 ? 1 : 2;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * el};  // bytes
-  const cuuint32_t box[2] = {(cuuint32_t)(LIN_BOX / el), (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                            2, const_cast<void*>(ptr), dims, strides, box, unit,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  if (cache.size() >= 4096) cache.clear();
-  cache.emplace(key, *map);
-  return 0;
-}
-
 template <typename E, int BN>
 static int launch_wgmma(const void* a, const void* w, const float* bias, void* out, int out_f32,
                         int epi, int M, int N, int K, int kslice, int splits, const float* sx,
@@ -424,8 +373,8 @@ static int launch_wgmma(const void* a, const void* w, const float* bias, void* o
   const int consumers = M <= 64 ? 1 : 2, bm = 64 * consumers;
   const int stages = lin_stages(bm, BN, kslice / BK);
   CUtensorMap amap, wmap;
-  int err = operand_map(&amap, a, M, K, bm, kInt8);
-  if (!err) err = operand_map(&wmap, w, N, K, BN, kInt8);
+  int err = tma_operand_map(&amap, a, M, K, bm, kInt8);
+  if (!err) err = tma_operand_map(&wmap, w, N, K, BN, kInt8);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((N + BN - 1) / BN * splits), (unsigned)((M + bm - 1) / bm), 1);

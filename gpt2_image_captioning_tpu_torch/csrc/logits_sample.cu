@@ -35,25 +35,50 @@
 // are needed only for rows a round leaves unresolved.  A row needs round
 // r + 1 with probability <= (1 - top_p)^k (each candidate is an independent
 // draw from the full softmax, inside the nucleus with probability >= top_p),
-// 1e-3 at top_p 0.9, k 3: round 2 and on are rare, and their launches exit
-// at once on a device-side count of unresolved rows that the host never
-// reads.  This design keeps no logits, so round 1 walks wte again for the
-// masses (a second 39.5 GFLOP product and set of draws): a cost of the
+// 1e-3 at top_p 0.9, k 3: round 2 and on are rare, and their blocks exit
+// at once where no row is unresolved (the float32 route reads a
+// device-side count of them, the walk its row tile's flags); the host
+// never reads either.  Neither route keeps the logits, so round 1 walks wte
+// again for the masses (a second 39.5 GFLOP product): a cost of the
 // design, which storing the logits (2 x 103 MB, ~60 us) would trade for.
 //
-// Design, in the shape of logits_topk.cu: pass 0 normalises each row once
-// (vocab.cuh).  Then one launch per pass over wte — the initial walk, then
-// each verification round.  A block owns 64 rows x kTilesPerBlock 32-column
-// tiles of common.cuh (256 columns); per tile one warp per row (a lane per
-// column) reduces the tile and folds it into the row's running partials in
-// shared memory (only that warp touches them).  The block writes its
-// partials, and the last block of its row block to arrive (a ticket counter;
-// __threadfence before the ticket) merges all column blocks' partials of
-// its 64 rows in a fixed order and resolves them, so a round is one launch
-// whose result does not depend on which block finished first.  Every
-// comparison is the (value, index) order of vocab.cuh.  With an int8 wte
-// (W8A8) pass 0 quantizes the rows too and every walk runs the int8 tile.
-#include "vocab.cuh"
+// Both routes: pass 0 normalises each row once (vocab.cuh; for an int8 wte
+// it quantizes the rows too).  Each later launch is one pass over wte whose
+// blocks write one partial per (row, block); the last block of a row tile
+// to arrive (a ticket counter; __threadfence before the ticket) merges its
+// rows' partials in block order and resolves them, so a pass's result does
+// not depend on which block finished first and two runs give the same
+// bits.  Every comparison is the (value, index) order of vocab.cuh.  The
+// tickets are reset by the pass's last block and the count of unresolved
+// rows returns to 0 by the last round, so the counters a call leaves are
+// the zeros the next call needs.
+//
+// bf16 and int8: the vocabulary walk of vocab_walk.cuh (TMA ring, wgmma, a
+// block per (row tile, column range)).  Each thread folds its two rows'
+// logits, in registers, into per-row state: the (max, sum) (rescaled once
+// a tile), the argmax, and for each candidate the best perturbed value,
+// its column and its scaled logit, from one Philox call per (row, column)
+// (PhiloxRows: what depends on the row and the round alone computed once)
+// and k Gumbel draws from its words; temperature-0 rows draw nothing.  A
+// draw's two logs are computed only where it could beat its candidate (an
+// exact test from the candidate's value, the row's max and the word's
+// bits; see step()), and the common path is branch free, so the four
+// Philox chains of a step overlap.  The quad merges once a range, and the
+// ticket's merge takes a quad of lanes a row.  A round is two launches: the
+// verification of the candidates drawn before it (masses only), then round
+// r's fresh draws for the rows it left unresolved, which only those rows'
+// row tiles walk (the same counters, candidates and tokens as drawing in
+// the verification pass, where every unresolved row would draw though
+// ~1e-3 of them need it); after round 1's verification these passes spread
+// each row tile over as many blocks as a full pass has (rare_ranges).
+// 2 + 2 R launches.
+//
+// float32: the common.cuh tile (three-term TF32 split), unchanged: a
+// block owns 64 rows x kTilesPerBlock 32-column tiles (256 columns); per
+// tile one warp per row (a lane per column) reduces the tile and folds it
+// into the row's running partials in shared memory, and each round's
+// launch both verifies and draws.  2 + R launches.
+#include "vocab_walk.cuh"
 
 #include <cstdint>
 
@@ -80,6 +105,50 @@ __device__ __forceinline__ float gumbel(uint32_t bits) {
   const float u = (float)(bits & 0x7FFFFFu) * 1.1920928955078125e-07f + 5.9604644775390625e-08f;
   return -logf(-logf(u));
 }
+
+// Philox4x32-10 of the counters (row, n, round, 0) of one (row, round) as n
+// varies, the words philox4x32_10 gives: what depends on the row and the
+// round alone is computed once (init): the first round's two products, the
+// second round's product of word z, and the round keys.  An element then
+// costs one product in round 2 and two in each of rounds 3-10.
+struct PhiloxRows {
+  static constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  uint32_t a;                  // round 2's x is a ^ n
+  uint32_t c[2], d[2], e[2];   // per row: round 2's x, y and z's mask
+  uint2 rk[8];                 // the keys of rounds 3 .. 10
+
+  __device__ __forceinline__ void init(const int (&rows)[2], uint32_t round, uint2 key) {
+    const uint2 k1 = make_uint2(key.x + 0x9E3779B9u, key.y + 0xBB67AE85u);
+    uint2 k = k1;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      k = make_uint2(k.x + 0x9E3779B9u, k.y + 0xBB67AE85u);
+      rk[i] = k;
+    }
+    const uint32_t lo1 = kM1 * round;  // round 1: (row, n, round, 0) -> (a ^ n, lo1, b, lo0)
+    a = __umulhi(kM1, round) ^ key.x;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t row = (uint32_t)rows[h];
+      const uint32_t b = __umulhi(kM0, row) ^ key.y, lo0 = kM0 * row;
+      c[h] = __umulhi(kM1, b) ^ lo1 ^ k1.x;
+      d[h] = kM1 * b;
+      e[h] = lo0 ^ k1.y;
+    }
+  }
+
+  __device__ __forceinline__ uint4 operator()(int h, uint32_t n) const {
+    const uint32_t x = a ^ n;
+    uint4 w = make_uint4(c[h], d[h], __umulhi(kM0, x) ^ e[h], kM0 * x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t hi0 = __umulhi(kM0, w.x), lo0 = kM0 * w.x;
+      const uint32_t hi1 = __umulhi(kM1, w.z), lo1 = kM1 * w.z;
+      w = make_uint4(hi1 ^ w.y ^ rk[i].x, lo1, hi0 ^ w.w ^ rk[i].y, lo0);
+    }
+    return w;
+  }
+};
 
 __device__ __forceinline__ uint32_t word(const uint4& w, int c) {
   return c == 0 ? w.x : c == 1 ? w.y : c == 2 ? w.z : w.w;
@@ -345,15 +414,406 @@ sample_tile_kernel(const T* xf, const T* wte, SampleArgs a, int round) {
   if (threadIdx.x == 0) a.count[1 + rb] = 0;  // the next pass's tickets
 }
 
+// ---------------------------------------------------------------------------
+// bf16 and int8: the vocabulary walk (vocab_walk.cuh)
+// ---------------------------------------------------------------------------
+
+// The walk's passes: the initial walk (statistics, argmax, round-0 draws),
+// and for each round r the verification of the candidates drawn before it
+// and, for the rows it leaves unresolved, round r's fresh draws.
+constexpr int kInit = 0;
+constexpr int kVerify = 1;
+constexpr int kDraw = 2;
+constexpr float kSkipMargin = 1.001f;  // the init pass's skip test, below
+
+// Per thread, for each of its two rows, the state of one pass.
+template <typename E, int Mode>
+struct SampleSel {
+  static constexpr bool kInt8 = std::is_same<E, int8_t>::value;
+  const float* sw;  // int8: wte's (V,) scales
+  int V, k;
+  int row[2];
+  bool live[2];     // the row takes part in this pass
+  bool draws[2];    // ... and draws candidates in it
+  float rs[2];      // int8: the rows' scales
+  float inv_t[2];   // 1 / temperature (1 for temperature-0 rows)
+  float m[2], s[2], av[2];  // kInit: running max, sum of exp, argmax value; kDraw m: lse
+  int ai[2];
+  float cv[2][kMaxCand], cl[2][kMaxCand];  // kInit, kDraw: the candidates
+  int cc[2][kMaxCand];
+  float em[2][kMaxCand];     // exp(m - cv), the skip test's scale
+  bool seen[2];              // a column of the row below V so far (kDraw: always)
+  int c0;                    // the tile's first column of the thread
+  float lse[2], thr[2][kMaxCand], mass[2][kMaxCand];  // kVerify
+  PhiloxRows philox;
+
+  __device__ __forceinline__ void init(const SampleArgs& a, int row0, int round_) {
+    sw = a.sw;
+    V = a.V;
+    k = a.k;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      const bool in = r < a.M;
+      row[h] = r;
+      live[h] = in && (Mode == kInit || a.unres[r]);
+      const float temp = in ? a.temp[r] : 0.f;
+      draws[h] = live[h] && (Mode == kDraw || (Mode == kInit && temp > 0.f));
+      rs[h] = kInt8 && in ? a.sx[r] : 0.f;
+      inv_t[h] = scale_of(temp);
+      m[h] = -CUDART_INF_F;
+      s[h] = 0.f;
+      av[h] = -CUDART_INF_F;
+      ai[h] = INT_MAX;
+      lse[h] = Mode != kInit && live[h] ? a.lse[r] : 0.f;
+      if (Mode == kDraw) m[h] = lse[h];  // the skip test's reference: >= every logit
+#pragma unroll
+      for (int c = 0; c < kMaxCand; ++c) {
+        cv[h][c] = -CUDART_INF_F;
+        cc[h][c] = INT_MAX;
+        cl[h][c] = -CUDART_INF_F;
+        mass[h][c] = 0.f;
+        em[h][c] = CUDART_INF_F;
+        thr[h][c] = Mode == kVerify && live[h] && c < k ? a.cl[(size_t)r * k + c] : 0.f;
+      }
+    }
+    if (Mode != kVerify) philox.init(row, (uint32_t)round_, a.key);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) seen[h] = Mode == kDraw;
+  }
+
+  // Candidate c's draw at the logit lq of column n, from the word w: exact
+  // (the twin's arithmetic); the best one stays.
+  __device__ __forceinline__ void draw(int h, int c, float lq, int n, uint32_t w) {
+    const float pv = lq + gumbel(w);
+    if (better(pv, n, cv[h][c], cc[h][c])) {
+      cv[h][c] = pv;
+      cc[h][c] = n;
+      cl[h][c] = lq;
+      em[h][c] = expf(m[h] - pv);
+    }
+  }
+
+  // A tile (vocab_walk): its scaled logits and row maxima; kInit the
+  // rescaled (max, sum) and each candidate's skip scale.
+  template <typename Acc>
+  __device__ __forceinline__ void prepare(Acc (&d)[VW_ACC], float (&lg)[VW_ACC], int n0) {
+    float mx[2];
+    c0 = n0 + 2 * (threadIdx.x % 4);
+    vw_logits(d, c0, V, sw, rs, inv_t, lg, mx);
+    if (Mode != kInit) return;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (live[h] && mx[h] > m[h]) {
+        lse_rescale(m[h], s[h], mx[h]);
+#pragma unroll
+        for (int c = 0; c < kMaxCand; ++c) em[h][c] = expf(m[h] - cv[h][c]);
+      }
+      seen[h] = m[h] != -CUDART_INF_F;  // a column of the row below V so far
+    }
+  }
+
+  // Step j of a tile, four logits: kVerify the masses above each candidate;
+  // else their Philox words (unconditional, so the four chains overlap),
+  // kInit's exp, sum, argmax and skip tests (branch free, a mask of the
+  // draws that need computing), and the draws the mask names.
+  __device__ __forceinline__ void step(float (&lg)[VW_ACC], int j) {
+    const int n = c0 + 8 * j;
+    if (Mode != kInit && !live[0] && !live[1]) {  // a later pass: few rows are live
+      vw_shift(lg);
+      return;
+    }
+    if (Mode == kVerify) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int h = i >> 1;
+        const float e = live[h] ? expf(lg[i] - lse[h]) : 0.f;  // 0 past V
+#pragma unroll
+        for (int c = 0; c < kMaxCand; ++c)
+          if (c < k && lg[i] > thr[h][c]) mass[h][c] += e;
+      }
+      vw_shift(lg);
+      return;
+    }
+    uint4 w[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) w[h][e] = philox(h, (uint32_t)(n + e));
+    uint32_t need = 0;  // bit 4 (2 h + e) + c: candidate c's draw at element (h, e)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float lq = lg[2 * h + e];
+        const bool in = live[h] && n + e < V;
+        // exp(lq - m): kInit's sum term, and both passes' skip test
+        const float el = in && seen[h] ? expf(lq - m[h]) : 0.f;
+        if (Mode == kInit) {
+          s[h] += el;
+          const bool b = in && better(lq, n + e, av[h], ai[h]);
+          av[h] = b ? lq : av[h];
+          ai[h] = b ? n + e : ai[h];
+        }
+#pragma unroll
+        for (int c = 0; c < kMaxCand; ++c) {
+          // The draw lq + g(u) can beat cv only if -log u < exp(lq - cv) =
+          // el * em (m the row's max, kDraw its logsumexp: any reference
+          // value serves), and -log u >= 1 - u (u = bits 2^-23 +
+          // 2^-24, bits the word's low 23; 1 - u = (2 - (1 + bits 2^-23)) -
+          // 2^-24, each step exact): a draw whose 1 - u clears that bound by
+          // kSkipMargin loses (its Gumbel value lies >= 1e-3 below cv - lq,
+          // far beyond the float error of computing it), so only the others
+          // are computed, as the twin computes them; the candidates are
+          // unchanged.  el must be a normal float (else its error is
+          // unbounded); em = inf (no candidate yet) never skips.
+          const float one_minus_u =
+              (2.f - __uint_as_float(0x3F800000u | (word(w[h][e], c) & 0x7FFFFFu))) -
+              5.9604644775390625e-08f;
+          const bool skip = el >= 1.17549435e-38f && one_minus_u >= el * em[h][c] * kSkipMargin;
+          need |= (uint32_t)(draws[h] && in && c < k && !skip) << (4 * (2 * h + e) + c);
+        }
+      }
+    }
+    if (need) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int c = 0; c < kMaxCand; ++c)
+            if (need >> (4 * (2 * h + e) + c) & 1u)
+              draw(h, c, lg[2 * h + e], n + e, word(w[h][e], c));
+    }
+    vw_shift(lg);
+  }
+
+  // The quad's merge; its first lane writes the (row, block) partials.
+  __device__ __forceinline__ void finish(const SampleArgs& a, int range) {
+    const bool lead = threadIdx.x % 4 == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool write = lead && live[h];
+      const size_t slot = (size_t)row[h] * a.ncb + range;
+      if (Mode == kInit) {
+        float none = 0.f;
+        quad_lse(m[h], s[h]);
+        quad_argmax(av[h], ai[h], none);
+        if (write) {
+          a.p_m[slot] = m[h];
+          a.p_s[slot] = s[h];
+          a.p_av[slot] = av[h];
+          a.p_ai[slot] = ai[h];
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kMaxCand; ++c) {
+        if (c >= k) break;  // uniform: every lane runs the same shuffles
+        if (Mode == kVerify) {
+          float v = mass[h][c];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          if (write) a.p_mass[slot * k + c] = v;
+        } else {
+          quad_argmax(cv[h][c], cc[h][c], cl[h][c]);
+          if (write) {
+            a.p_cv[slot * k + c] = cv[h][c];
+            a.p_cc[slot * k + c] = cc[h][c];
+            a.p_cl[slot * k + c] = cl[h][c];
+          }
+        }
+      }
+    }
+  }
+};
+
+// The fixed-order merge of row m's partials, a quad of lanes a row (lane t
+// of the quad reads partials t, t + 4, .., so a lane's loads are few and
+// all in flight), and the row's resolution: kInit the logsumexp, the
+// argmax (temperature-0 rows) and the round-0 candidates; kVerify the first
+// candidate whose mass above is <= top_p; kDraw round r's fresh
+// candidates, and the fallback after the last round.  Every lane of the
+// warp calls it (the quads' shuffles); ``valid`` rows load and store.
+template <int Mode>
+__device__ void sample_merge_row(const SampleArgs& a, int m, bool valid, int round) {
+  const int t = threadIdx.x % 4, k = a.k, ncb = valid ? a.ncb : 0;
+  const size_t row = (size_t)m * a.ncb;
+  if (Mode == kVerify) {
+    float mass[kMaxCand] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int j = t; j < ncb; j += 4)
+#pragma unroll
+      for (int c = 0; c < kMaxCand; ++c)
+        if (c < k) mass[c] += __ldcg(a.p_mass + (row + j) * k + c);
+#pragma unroll
+    for (int c = 0; c < kMaxCand; ++c) {
+      mass[c] += __shfl_xor_sync(0xffffffffu, mass[c], 1);
+      mass[c] += __shfl_xor_sync(0xffffffffu, mass[c], 2);
+    }
+    if (valid && t == 0) {
+      for (int c = 0; c < k; ++c) {
+        if (mass[c] <= a.topp[m]) {
+          a.tok[m] = a.cc[(size_t)m * k + c];
+          a.rnd[m] = round;
+          a.unres[m] = 0;
+          break;
+        }
+      }
+    }
+    return;
+  }
+  float cv[kMaxCand], cl[kMaxCand];
+  int cc[kMaxCand];
+#pragma unroll
+  for (int c = 0; c < kMaxCand; ++c) {
+    cv[c] = -CUDART_INF_F;
+    cc[c] = INT_MAX;
+    cl[c] = -CUDART_INF_F;
+  }
+  float mx = -CUDART_INF_F, s = 0.f, av = -CUDART_INF_F;
+  int ai = INT_MAX;
+  // branch free, so the loads of several partials are in flight together
+#pragma unroll 4
+  for (int j = t; j < ncb; j += 4) {
+#pragma unroll
+    for (int c = 0; c < kMaxCand; ++c) {
+      if (c >= k) break;
+      const float v = __ldcg(a.p_cv + (row + j) * k + c);
+      const int i = __ldcg(a.p_cc + (row + j) * k + c);
+      const float l = __ldcg(a.p_cl + (row + j) * k + c);
+      const bool b = better(v, i, cv[c], cc[c]);
+      cv[c] = b ? v : cv[c];
+      cc[c] = b ? i : cc[c];
+      cl[c] = b ? l : cl[c];
+    }
+    if (Mode == kInit) {
+      lse_merge(mx, s, __ldcg(a.p_m + row + j), __ldcg(a.p_s + row + j));
+      const float v = __ldcg(a.p_av + row + j);
+      const int i = __ldcg(a.p_ai + row + j);
+      const bool b = better(v, i, av, ai);
+      av = b ? v : av;
+      ai = b ? i : ai;
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kMaxCand; ++c)
+    if (c < k) quad_argmax(cv[c], cc[c], cl[c]);
+  int tok = 0, rnd = 0, unres = 1;
+  if (Mode == kInit) {
+    float none = 0.f;
+    quad_lse(mx, s);
+    quad_argmax(av, ai, none);
+    if (valid && t == 0) a.lse[m] = mx + logf(s);
+    tok = ai;
+    unres = valid && a.temp[m] > 0.f;
+  }
+  if (!valid || t != 0) return;
+  if (unres && round == a.rounds) {  // no round left: this round's first fresh candidate
+    tok = cc[0];
+    rnd = round + 1;
+    unres = 0;
+  }
+  for (int c = 0; c < k; ++c) {
+    a.cc[(size_t)m * k + c] = cc[c];
+    a.cl[(size_t)m * k + c] = cl[c];
+  }
+  if (Mode == kInit || !unres) {
+    a.tok[m] = tok;
+    a.rnd[m] = rnd;
+    a.unres[m] = unres;
+  }
+}
+
+// One pass over the walk: grid (row tiles, ranges = a.ncb).  The last block
+// of a row tile to arrive (its ticket, count[1 + row tile]) merges its
+// rows; count[0], the float32 route's count of unresolved rows, stays 0.
+template <typename E, int Mode>
+__global__ void __launch_bounds__(VW_MAX_THREADS, 1)
+sample_walk_kernel(const __grid_constant__ CUtensorMap amap,
+                   const __grid_constant__ CUtensorMap wmap, SampleArgs a, int round) {
+  __shared__ int s_flag;
+  const int bm = (blockDim.x - 32) / 2, rb = blockIdx.x, m0 = rb * bm;
+  const int range = blockIdx.y;
+  if (Mode != kInit) {
+    // only row tiles with an unresolved row walk (the flags change only in
+    // this row tile's merge, after all of its blocks have arrived, so every
+    // block of the tile reads the same flags)
+    if (threadIdx.x == 0) s_flag = 0;
+    __syncthreads();
+    if (threadIdx.x < bm && m0 + threadIdx.x < a.M && __ldcg(a.unres + m0 + threadIdx.x))
+      s_flag = 1;
+    __syncthreads();
+    if (!s_flag) return;
+  }
+  const int tiles = (a.V + VW_BN - 1) / VW_BN;
+  const int row0 = m0 + vw_row0();
+  SampleSel<E, Mode> sel;
+  sel.init(a, row0, round);
+  vocab_walk<E>(&amap, &wmap, a.K, tiles * range / a.ncb, tiles * (range + 1) / a.ncb, sel);
+  if (threadIdx.x < blockDim.x - 32) sel.finish(a, range);
+
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_flag = atomicAdd(a.count + 1 + rb, 1) == a.ncb - 1;
+  __syncthreads();
+  if (!s_flag) return;
+  __threadfence();
+  const int end = min(a.M, m0 + bm);
+  for (int base = m0; base < end; base += blockDim.x / 4) {  // every thread, every pass
+    const int m = base + (int)threadIdx.x / 4;
+    const bool valid = m < end && (Mode == kInit || __ldcg(a.unres + m));
+    sample_merge_row<Mode>(a, m, valid, round);
+  }
+  if (threadIdx.x == 0) a.count[1 + rb] = 0;  // the next pass's tickets
+}
+
+template <typename E, int Mode>
+static int launch_sample_walk(cudaStream_t s, const void* xf, const void* wte, const SampleArgs& a,
+                              int round) {
+  const auto kernel = sample_walk_kernel<E, Mode>;
+  static const cudaError_t attr = vw_set_smem(kernel);
+  if (attr != cudaSuccess) return (int)attr;
+  return vw_launch<E>(kernel, s, xf, wte, a.M, a.K, a.V, a.ncb, a, round);
+}
+
+// The ranges of a rare pass: the blocks of a full pass (row tiles x ranges),
+// at most one a tile (ops/decode_step.py::VocabPlan.rare_ranges).
+static int rare_ranges(int M, int V, int ranges) {
+  const int row_tiles = (M + vw_rows(M) - 1) / vw_rows(M), tiles = (V + VW_BN - 1) / VW_BN;
+  return tiles < row_tiles * ranges ? tiles : row_tiles * ranges;
+}
+
+// Every pass of a call: pass 0 (vocab.cuh), then the float32 tile's passes
+// or the walk's.  Returns 0 or the first launch error.
 template <typename T, typename E>
-static void launch_all(cudaStream_t s, const float* x, const float* lns, const float* lnb,
-                       float eps, const void* wte, void* xf, const SampleArgs& a) {
+static int launch_all(cudaStream_t s, const float* x, const float* lns, const float* lnb,
+                      float eps, const void* wte, void* xf, const SampleArgs& a) {
   launch_prepass<T, E>(s, x, lns, lnb, eps, a.M, a.K, xf, const_cast<float*>(a.sx));
-  const dim3 grid(a.ncb, (a.M + BM - 1) / BM);
-  const E* xt = static_cast<const E*>(xf);
-  const E* wt = static_cast<const E*>(wte);
-  sample_tile_kernel<E, false><<<grid, THREADS, 0, s>>>(xt, wt, a, 0);
-  for (int r = 1; r <= a.rounds; ++r) sample_tile_kernel<E, true><<<grid, THREADS, 0, s>>>(xt, wt, a, r);
+  if constexpr (std::is_same<E, float>::value) {
+    if (a.ncb != ((a.V + BN - 1) / BN + kTilesPerBlock - 1) / kTilesPerBlock)
+      return (int)cudaErrorInvalidValue;
+    const dim3 grid(a.ncb, (a.M + BM - 1) / BM);
+    const E* xt = static_cast<const E*>(xf);
+    const E* wt = static_cast<const E*>(wte);
+    sample_tile_kernel<E, false><<<grid, THREADS, 0, s>>>(xt, wt, a, 0);
+    for (int r = 1; r <= a.rounds; ++r)
+      sample_tile_kernel<E, true><<<grid, THREADS, 0, s>>>(xt, wt, a, r);
+    return (int)cudaGetLastError();
+  } else {
+    if (a.ncb < 1 || a.ncb > (a.V + VW_BN - 1) / VW_BN) return (int)cudaErrorInvalidValue;
+    // the passes after round 1's verification walk for the few rows it
+    // leaves unresolved, so their row tiles' work spreads over as many
+    // blocks as a full pass has
+    SampleArgs rare = a;
+    rare.ncb = rare_ranges(a.M, a.V, a.ncb);
+    int err = (int)cudaGetLastError();
+    if (!err) err = launch_sample_walk<E, kInit>(s, xf, wte, a, 0);
+    for (int r = 1; r <= a.rounds && !err; ++r) {
+      err = launch_sample_walk<E, kVerify>(s, xf, wte, r == 1 ? a : rare, r);
+      if (!err) err = launch_sample_walk<E, kDraw>(s, xf, wte, rare, r);
+    }
+    return err;
+  }
 }
 
 }  // namespace gic
@@ -361,21 +821,28 @@ static void launch_all(cudaStream_t s, const float* x, const float* lns, const f
 // x32: (M, K) float32 residual stream; ln_s/ln_b (K,) float32; wte: (V, K)
 // element type, or int8 when wte_scale ((V,) float32) is given, the rows'
 // scales then in sx, (M,) float32 scratch; temp/topp (M,) float32;
-// key0/key1 the Philox key; 1 <= k <= 4 candidates, rounds >= 0.  Scratch: xf (M, K) element type; part_f float32
-// of M * ncb * (3 + 3k) and part_i int32 of M * ncb * (1 + k), ncb =
-// ceil(ceil(V / 32) / 8); state_i int32 of M * (1 + k); state_f float32 of
-// M * k; counters int32 of 1 + ceil(M / 64), ZEROED.  Outputs tok, rnd (M,)
-// int32 and lse (M,) float32.  Launches 2 + rounds kernels; returns
-// cudaGetLastError().
+// key0/key1 the Philox key; 1 <= k <= 4 candidates, rounds >= 0.  ncb: the
+// blocks of a row (float32: ceil(ceil(V / 32) / 8); bf16 and int8: the
+// walk's ranges, 1 .. ceil(V / 128), ops/decode_step.py::vocab_plan).
+// Scratch: xf (M, K) element type; with P the partials a row
+// (ops/decode_step.py::vocab_partials: ncb, or for the walk its rare
+// passes' ranges), part_f float32 of M * P * (3 + 3k) and part_i int32 of
+// M * P * (1 + k); state_i int32 of M * (1 + k);
+// state_f float32 of M * k; counters int32 of 1 + ceil(M / 64), zero on
+// entry and left zero by a call that completes (each pass's last block
+// resets its ticket; every row that counts itself unresolved resolves by
+// the last round).  Outputs tok, rnd (M,) int32 and lse (M,) float32.
+// Launches 2 + rounds kernels (float32) or 2 + 2 rounds (bf16, int8);
+// returns the first launch error.
 extern "C" int gic_logits_sample(int dtype, const void* x32, const void* ln_s, const void* ln_b,
                                  float eps, const void* wte, const void* wte_scale, int M, int K,
                                  int V, const void* temp, const void* topp, unsigned int key0,
-                                 unsigned int key1, int k, int rounds, void* xf, void* sx,
-                                 void* part_f,
-                                 void* part_i, void* state_i, void* state_f, void* counters,
-                                 void* tok, void* rnd, void* lse, void* stream) {
+                                 unsigned int key1, int k, int rounds, int ncb, void* xf,
+                                 void* sx, void* part_f, void* part_i, void* state_i,
+                                 void* state_f, void* counters, void* tok, void* rnd, void* lse,
+                                 void* stream) {
   using namespace gic;
-  if (M <= 0 || K <= 0 || V <= 0 || k < 1 || k > kMaxCand || rounds < 0)
+  if (M <= 0 || K <= 0 || V <= 0 || k < 1 || k > kMaxCand || rounds < 0 || ncb < 1)
     return (int)cudaErrorInvalidValue;
   SampleArgs a;
   a.temp = static_cast<const float*>(temp);
@@ -386,8 +853,9 @@ extern "C" int gic_logits_sample(int dtype, const void* x32, const void* ln_s, c
   a.V = V;
   a.k = k;
   a.rounds = rounds;
-  a.ncb = ((V + BN - 1) / BN + kTilesPerBlock - 1) / kTilesPerBlock;
-  const size_t np = (size_t)M * a.ncb;
+  a.ncb = ncb;
+  const bool walk = dtype != kF32 || wte_scale != nullptr;
+  const size_t np = (size_t)M * (walk ? rare_ranges(M, V, ncb) : ncb);  // a pass's slots
   float* pf = static_cast<float*>(part_f);
   a.p_m = pf;
   a.p_s = pf + np;
@@ -412,10 +880,11 @@ extern "C" int gic_logits_sample(int dtype, const void* x32, const void* ln_s, c
   const float* x = static_cast<const float*>(x32);
   const float* lns = static_cast<const float*>(ln_s);
   const float* lnb = static_cast<const float*>(ln_b);
+  int err = 0;
   if (!with_types(dtype, a.sw != nullptr, [&](auto t) {
         using Ty = decltype(t);
-        launch_all<typename Ty::T, typename Ty::E>(s, x, lns, lnb, eps, wte, xf, a);
+        err = launch_all<typename Ty::T, typename Ty::E>(s, x, lns, lnb, eps, wte, xf, a);
       }))
     return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return err;
 }

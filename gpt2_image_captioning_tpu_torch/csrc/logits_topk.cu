@@ -10,25 +10,38 @@
 //
 // Bound on the H100: the operations.  At B = 512 (128 images x 4 beams) in
 // bf16 the product is 2 x 512 x 768 x 50257 = 39.5 GFLOP, ~40 us at
-// 989 TFLOP/s; the bytes (wte, 77.2 MB) take ~23 us.
+// 989 TFLOP/s; the bytes (wte, 77.2 MB) take ~23 us.  With an int8 wte
+// (W8A8): 39.5 G int8 operations, ~20 us at 1,979 TOPS, and 38.6 MB of wte.
 //
-// Design: three launches.  Pass 0 normalises each row once (vocab.cuh).
-// Pass 1 is the common.cuh tile over wte; for each row of its 64 x 32 tile
-// one warp (a lane per column) reduces the 32 logits to a partial (max,
-// sum of exp(logit - max)) and a partial top-k: k rounds of the warp's
-// (value, index) argmax, the winning lane dropping out as (-inf, INT_MAX),
-// so a tile with fewer than k columns left pads with entries that lose to
-// every real one.  The partials go to (B, ceil(V/32), k) and (B, ceil(V/32))
-// scratch (1/8 of the logits' bytes at k = 4).  Pass 2 gives each row one
-// warp: the lanes fold the partial (max, sum) pairs into the logsumexp, and
-// each lane keeps a sorted top-k of the partials it reads (in registers,
-// k <= 16), then k rounds of the warp argmax over the lanes' heads pick the
-// row's top-k, the winning lane popping its head.  The global top-k lies in
-// the union of the tiles' top-k, and every comparison is the (value, index)
-// order, so the result does not depend on which block finished first.  With
-// an int8 wte (W8A8) pass 0 quantizes the rows too and pass 1 runs the int8
-// tile: 39.5 G int8 operations, ~20 us at 1,979 TOPS, and 38.6 MB of wte.
-#include "vocab.cuh"
+// bf16 and int8: the vocabulary walk of vocab_walk.cuh (TMA ring, wgmma,
+// a block per (row tile, column range)).  Pass 0 normalises each row once
+// (and, for an int8 wte, quantizes it: vocab.cuh).  In the walk each
+// thread keeps, for each of its two rows, the running (max, sum of exp(logit
+// - max)) and a sorted top-k of the logits it holds, in registers (KS
+// slots, 4, 8 or 16, the fewest that hold k).  A tile's logits first give
+// each row's max (the sum is rescaled once a tile, and its terms use the
+// fast exp, ~1e-6 relative: the logsumexp's tolerance is 1e-4); a logit
+// enters the list only if it beats the best last slot of the quad's four
+// lanes as the tile began (with fewer than k better logits in the quad it
+// could be in the top-k; with k, it cannot), which few do once the lists
+// fill.  At the end of its range the quad merges: the (max, sum) pairs,
+// then k rounds of the quad's (value, index) argmax over the lanes' heads,
+// the winner popping its head.  So the partials are one per (row, block),
+// k entries and a (max, sum) pair: 33 a row at B 512, not the 1,571 of a
+// 32-column tile.  The merge launch (below, unchanged) gives each row one
+// warp: the lanes fold the (max, sum) pairs into the logsumexp in block
+// order and keep sorted top-k lists of the partials, then k rounds of the
+// warp argmax pick the row's top-k.  The global top-k lies in the union of
+// the blocks' top-k, every comparison is the (value, index) order, and
+// every sum runs in a fixed order, so the result does not depend on which
+// block finished first and two runs give the same bits.
+//
+// float32: the common.cuh tile (three-term TF32 split), unchanged.
+// Pass 1 reduces each row of a 64 x 32 tile with one warp (a lane per
+// column) to a partial (max, sum) and a partial top-k: k rounds of the
+// warp's argmax, the winning lane dropping out as (-inf, INT_MAX).  The
+// partials, one per (row, 32-column tile), go to the same merge.
+#include "vocab_walk.cuh"
 
 namespace gic {
 
@@ -138,15 +151,185 @@ __global__ void topk_merge_kernel(const float* part_val, const int* part_idx,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 and int8: the vocabulary walk
+// ---------------------------------------------------------------------------
+
+// Per thread, for each of its two rows: the running (max, sum) and a sorted
+// top-KS of its logits, best first.
+template <typename E, int KS>
+struct TopkSel {
+  static constexpr bool kInt8 = std::is_same<E, int8_t>::value;
+  const float* sw;  // int8: wte's (V,) scales
+  int V;
+  float rs[2];      // int8: the rows' scales
+  float m[2], s[2];
+  float lv[2][KS];
+  int li[2][KS];
+  int c0;                       // the tile's first column of the thread
+  float tv[2];                  // the quad's best last slot as the tile began
+  int ti[2];
+  bool seen[2];
+
+  __device__ __forceinline__ void init(const float* sx, const float* sw_, int M, int V_,
+                                       int row0) {
+    sw = sw_;
+    V = V_;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      rs[h] = kInt8 && row < M ? sx[row] : 0.f;
+      m[h] = -CUDART_INF_F;
+      s[h] = 0.f;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        lv[h][j] = -CUDART_INF_F;
+        li[h][j] = INT_MAX;
+      }
+    }
+  }
+
+  // Inserts (v, n) into row h's sorted list, the displaced entry moving down.
+  __device__ __forceinline__ void insert(int h, float v, int n) {
+#pragma unroll
+    for (int j = 0; j < KS; ++j) {
+      if (better(v, n, lv[h][j], li[h][j])) {
+        const float tv = lv[h][j];
+        const int ti = li[h][j];
+        lv[h][j] = v;
+        li[h][j] = n;
+        v = tv;
+        n = ti;
+      }
+    }
+  }
+
+  // A tile (vocab_walk): its logits and row maxima, the rescaled (max,
+  // sum), and the best last slot of the quad's lanes as the tile begins: a
+  // logit that loses to that slot has k better ones in the quad's lists and
+  // is in no top-k, so once the lists fill a step inserts nothing.
+  template <typename Acc>
+  __device__ __forceinline__ void prepare(Acc (&d)[VW_ACC], float (&lg)[VW_ACC], int n0) {
+    const float one[2] = {1.f, 1.f};
+    float mx[2];
+    c0 = n0 + 2 * (threadIdx.x % 4);
+    vw_logits(d, c0, V, sw, rs, one, lg, mx);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float none = 0.f;
+      tv[h] = lv[h][KS - 1];
+      ti[h] = li[h][KS - 1];
+      quad_argmax(tv[h], ti[h], none);
+      lse_rescale(m[h], s[h], mx[h]);
+      seen[h] = m[h] != -CUDART_INF_F;  // a column of the row below V so far
+    }
+  }
+
+  // Step j of a tile: the sums of exp and the insertions of four logits.
+  __device__ __forceinline__ void step(float (&lg)[VW_ACC], int j) {
+    const int n = c0 + 8 * j;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = lg[2 * h + e];
+        s[h] += seen[h] ? __expf(v - m[h]) : 0.f;  // 0 past V
+        if (n + e < V && better(v, n + e, tv[h], ti[h])) insert(h, v, n + e);
+      }
+    }
+    vw_shift(lg);
+  }
+
+  // The quad's merge; its first lane writes the (row, block) partials.
+  __device__ __forceinline__ void finish(int M, int row0, int k, size_t ranges, int range,
+                                         float* part_val, int* part_idx, float* part_m,
+                                         float* part_s) {
+    const bool lead = threadIdx.x % 4 == 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      const bool write = lead && row < M;
+      const size_t slot = (size_t)row * ranges + range;
+      quad_lse(m[h], s[h]);
+      if (write) {
+        part_m[slot] = m[h];
+        part_s[slot] = s[h];
+      }
+      for (int j = 0; j < k; ++j) {
+        float bv = lv[h][0], none = 0.f;
+        int bi = li[h][0];
+        quad_argmax(bv, bi, none);
+        if (write) {
+          part_val[slot * k + j] = bv;
+          part_idx[slot * k + j] = bi;
+        }
+        if (li[h][0] == bi && bi != INT_MAX) {  // ids are distinct: one lane pops its head
+#pragma unroll
+          for (int jj = 0; jj + 1 < KS; ++jj) {
+            lv[h][jj] = lv[h][jj + 1];
+            li[h][jj] = li[h][jj + 1];
+          }
+          lv[h][KS - 1] = -CUDART_INF_F;
+          li[h][KS - 1] = INT_MAX;
+        }
+      }
+    }
+  }
+};
+
+// Grid (row tiles, ranges): the partials of rows blockIdx.x * bm .. over
+// range blockIdx.y's tiles.  part_*: (M, ranges, k) and (M, ranges).
+template <typename E, int KS>
+__global__ void __launch_bounds__(VW_MAX_THREADS, 1)
+topk_walk_kernel(const __grid_constant__ CUtensorMap amap,
+                 const __grid_constant__ CUtensorMap wmap, int M, int K, int V, int k,
+                 float* part_val, int* part_idx, float* part_m, float* part_s, const float* sx,
+                 const float* sw) {
+  const int tiles = (V + VW_BN - 1) / VW_BN, ranges = gridDim.y, range = blockIdx.y;
+  const int bm = (blockDim.x - 32) / 2;
+  const int row0 = blockIdx.x * bm + vw_row0();
+  TopkSel<E, KS> sel;
+  sel.init(sx, sw, M, V, row0);
+  vocab_walk<E>(&amap, &wmap, K, tiles * range / ranges, tiles * (range + 1) / ranges, sel);
+  if (threadIdx.x < blockDim.x - 32)
+    sel.finish(M, row0, k, ranges, range, part_val, part_idx, part_m, part_s);
+}
+
+template <typename E, int KS>
+static int launch_topk_walk(cudaStream_t s, const void* xf, const void* wte, int M, int K, int V,
+                            int k, int ranges, float* pv, int* pi, float* pm, float* ps,
+                            const float* sx, const float* sw) {
+  const auto kernel = topk_walk_kernel<E, KS>;
+  static const cudaError_t attr = vw_set_smem(kernel);
+  if (attr != cudaSuccess) return (int)attr;
+  return vw_launch<E>(kernel, s, xf, wte, M, K, V, ranges, M, K, V, k, pv, pi, pm, ps, sx, sw);
+}
+
+// Pass 0 and pass 1 of either route; nblk partials a row (float32: one a
+// 32-column tile; bf16 and int8: one a range).  Returns 0 or a cudaError_t.
 template <typename T, typename E>
-static void launch_tiles(cudaStream_t s, const float* x, const float* lns, const float* lnb,
-                         float eps, const void* wte, const float* wte_scale, int M, int K, int V,
-                         int k, void* xf, float* sx, float* pv, int* pi, float* pm, float* ps) {
+static int launch_tiles(cudaStream_t s, const float* x, const float* lns, const float* lnb,
+                        float eps, const void* wte, const float* wte_scale, int M, int K, int V,
+                        int k, int nblk, void* xf, float* sx, float* pv, int* pi, float* pm,
+                        float* ps) {
   launch_prepass<T, E>(s, x, lns, lnb, eps, M, K, xf, sx);
-  const dim3 grid((V + BN - 1) / BN, (M + BM - 1) / BM);
-  topk_tile_kernel<E><<<grid, THREADS, 0, s>>>(static_cast<const E*>(xf),
-                                               static_cast<const E*>(wte), M, K, V, k, pv, pi,
-                                               pm, ps, sx, wte_scale);
+  if constexpr (std::is_same<E, float>::value) {
+    if (nblk != (V + BN - 1) / BN) return (int)cudaErrorInvalidValue;
+    const dim3 grid(nblk, (M + BM - 1) / BM);
+    topk_tile_kernel<E><<<grid, THREADS, 0, s>>>(static_cast<const E*>(xf),
+                                                 static_cast<const E*>(wte), M, K, V, k, pv, pi,
+                                                 pm, ps, sx, wte_scale);
+    return (int)cudaGetLastError();
+  } else {
+    if (nblk < 1 || nblk > (V + VW_BN - 1) / VW_BN) return (int)cudaErrorInvalidValue;
+    const cudaError_t pre = cudaGetLastError();
+    if (pre != cudaSuccess) return (int)pre;
+    if (k <= 4)
+      return launch_topk_walk<E, 4>(s, xf, wte, M, K, V, k, nblk, pv, pi, pm, ps, sx, wte_scale);
+    if (k <= 8)
+      return launch_topk_walk<E, 8>(s, xf, wte, M, K, V, k, nblk, pv, pi, pm, ps, sx, wte_scale);
+    return launch_topk_walk<E, 16>(s, xf, wte, M, K, V, k, nblk, pv, pi, pm, ps, sx, wte_scale);
+  }
 }
 
 }  // namespace gic
@@ -154,19 +337,21 @@ static void launch_tiles(cudaStream_t s, const float* x, const float* lns, const
 // x32: (M, K) float32 residual stream; wte: (V, K) element type, or int8
 // when wte_scale ((V,) float32) is given; xf: (M, K) element-type scratch
 // (int8 rows with an int8 wte, their scales in sx, (M,) float32 scratch);
-// part_val/part_idx: (M, ceil(V/32), k) and
-// part_m/part_s: (M, ceil(V/32)) float32/int32 scratch; vals (M, k) float32,
-// ids (M, k) int32, lse (M,) float32.  1 <= k <= min(16, V); K a multiple of
-// the 16-byte vector width.  Returns cudaGetLastError() after the three
-// launches.
+// nblk: the partials a row (ops/decode_step.py::vocab_partials: float32
+// ceil(V / 32), bf16 and int8 the walk's ranges, 1 .. ceil(V / 128));
+// part_val/part_idx: (M, nblk, k) and part_m/part_s: (M, nblk)
+// float32/int32 scratch; vals (M, k) float32, ids (M, k) int32, lse (M,)
+// float32.  1 <= k <= min(16, V); K a multiple of the 16-byte vector width.
+// Returns the first launch error (cudaGetLastError() after the three
+// launches).
 extern "C" int gic_logits_topk(int dtype, const void* x32, const void* ln_s, const void* ln_b,
                                float eps, const void* wte, const void* wte_scale, int M, int K,
-                               int V, int k, void* xf, void* sx, void* part_val, void* part_idx, void* part_m, void* part_s,
-                               void* vals, void* ids, void* lse, void* stream) {
+                               int V, int k, int nblk, void* xf, void* sx, void* part_val,
+                               void* part_idx, void* part_m, void* part_s, void* vals, void* ids,
+                               void* lse, void* stream) {
   using namespace gic;
   if (M <= 0 || K <= 0 || V <= 0 || k < 1 || k > kMaxK || k > V)
     return (int)cudaErrorInvalidValue;
-  const int nblk = (V + BN - 1) / BN;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* x = static_cast<const float*>(x32);
   const float* lns = static_cast<const float*>(ln_s);
@@ -177,14 +362,14 @@ extern "C" int gic_logits_topk(int dtype, const void* x32, const void* ln_s, con
   float* ps = static_cast<float*>(part_s);
   const float* ws = static_cast<const float*>(wte_scale);
   float* sq = static_cast<float*>(sx);
+  int err = 0;
   if (!with_types(dtype, ws != nullptr, [&](auto t) {
         using Ty = decltype(t);
-        launch_tiles<typename Ty::T, typename Ty::E>(s, x, lns, lnb, eps, wte, ws, M, K, V, k, xf,
-                                                     sq, pv, pi, pm, ps);
+        err = launch_tiles<typename Ty::T, typename Ty::E>(s, x, lns, lnb, eps, wte, ws, M, K, V,
+                                                           k, nblk, xf, sq, pv, pi, pm, ps);
       }))
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err) return err;
   const int rows_per_block = 4;  // one warp per row
   topk_merge_kernel<<<(M + rows_per_block - 1) / rows_per_block, 32 * rows_per_block, 0, s>>>(
       pv, pi, pm, ps, M, nblk, k, static_cast<float*>(vals), static_cast<int*>(ids),

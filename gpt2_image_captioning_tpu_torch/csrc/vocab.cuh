@@ -4,13 +4,14 @@
 //
 // Each of them ends the decode step of gpt2_image_captioning_tpu/ops/
 // decode_step.py::_step_kernel: LN_f of the float32 residual stream, then
-// logits = LN_f(x) @ wte^T over the (V, D) tied embedding, walked in the
-// 64 x 32 tiles of common.cuh.  They differ only in what each tile's logits
-// become: a (max, argmax) pair, a float32 store, a partial top-k with a
-// partial logsumexp, or a draw.  With an int8 wte and its (V,) float32
-// scales (W8A8, :555-563) the pre-pass is rowquant.cu's LN variant — LN_f,
-// the cast to the compute dtype, the per-row int8 quantization — and the
-// walk is the int8 tile, whose logits are acc * sx * sw.
+// logits = LN_f(x) @ wte^T over the (V, D) tied embedding: in the 64 x 32
+// tiles of common.cuh, or, for the top-k's and the sampler's bf16 and int8
+// routes, on the walk of vocab_walk.cuh.  They differ only in what each
+// tile's logits become: a (max, argmax) pair, a float32 store, a partial
+// top-k with a partial logsumexp, or a draw.  With an int8 wte and its (V,)
+// float32 scales (W8A8, :555-563) the pre-pass is rowquant.cu's LN variant
+// — LN_f, the cast to the compute dtype, the per-row int8 quantization —
+// and the products are int8, whose logits are acc * sx * sw.
 #pragma once
 
 #include "common.cuh"

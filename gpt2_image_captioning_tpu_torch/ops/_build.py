@@ -60,14 +60,14 @@ _SIGNATURES = {
     "gic_logits_argmax": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, xf, sx, logits, stream
     "gic_logits": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P],
-    # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, k, xf, sx, part_val,
+    # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, k, nblk, xf, sx, part_val,
     # part_idx, part_m, part_s, vals, ids, lse, stream
-    "gic_logits_topk": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                        _P, _P, _P],
+    "gic_logits_topk": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                        _P, _P, _P, _P],
     # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, temp, top_p, key0, key1, k,
-    # rounds, xf, sx, part_f, part_i, state_i, state_f, counters, tok, rnd, lse, stream
-    "gic_logits_sample": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _U, _U, _I, _I, _P, _P,
-                          _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # rounds, ncb, xf, sx, part_f, part_i, state_i, state_f, counters, tok, rnd, lse, stream
+    "gic_logits_sample": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _U, _U, _I, _I, _I, _P,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # dtype, L, B, T, D, H, eps, x32, qkvw, projw, fcw, cprojw, attnb, projb, fcb, cprojb, ln1s,
     # ln1b, ln2s, ln2b, k_cache, v_cache, cache_t, qbuf, abuf, hbuf, stream
     "gic_prefill": [_I, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

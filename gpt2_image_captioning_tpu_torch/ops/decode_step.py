@@ -395,18 +395,15 @@ def logits_argmax(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None =
     return logits_argmax_plain(x32, lnf, wte, eps, **quant)
 
 
-def _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype):
-    """The argument checks the four vocabulary kernels share.  Returns the
-    compute dtype, the (B, D) scratch of the normalised rows (int8 with an
-    int8 wte), the (B,) scratch of the rows' scales and ``wte_scale`` (both
-    None for a float wte)."""
-    _build.require(x32.is_cuda, name, "x32 must be a CUDA tensor")
+def _vocab_check(name, x32, lnf, wte, wte_scale, compute_dtype) -> torch.dtype:
+    """The argument checks the four vocabulary kernels share, short of the
+    device (so a CPU call shows them too).  Returns the compute dtype."""
     quant = wte_scale is not None
     cdt = compute_dtype or wte.dtype
     _build.require(cdt in _build.DTYPE_CODE, name, f"unsupported compute dtype {cdt}")
     _build.require(wte.dtype == (torch.int8 if quant else cdt), name,
                    "wte must be int8 with wte_scale, else the compute dtype")
-    b, d = x32.shape
+    d = x32.shape[1]
     v = wte.shape[0]
     _build.require(x32.dtype == torch.float32 and x32.is_contiguous(), name,
                    "x32 must be contiguous float32")
@@ -420,13 +417,30 @@ def _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype):
                    "lnf must be contiguous float32 (2, D)")
     for t in (lnf, wte):
         _build.require(t.device == x32.device, name, "all tensors must be on one device")
-    xf = torch.empty((b, d), dtype=torch.int8 if quant else cdt, device=x32.device)
-    if not quant:
-        return cdt, xf, None, None
-    _build.require(wte_scale.shape == (v,) and wte_scale.dtype == torch.float32
-                   and wte_scale.is_contiguous() and wte_scale.device == x32.device, name,
-                   "wte_scale must be contiguous float32 (V,) on x32's device")
-    return cdt, xf, torch.empty((b,), dtype=torch.float32, device=x32.device), wte_scale
+    if quant:
+        _build.require(wte_scale.shape == (v,) and wte_scale.dtype == torch.float32
+                       and wte_scale.is_contiguous() and wte_scale.device == x32.device, name,
+                       "wte_scale must be contiguous float32 (V,) on x32's device")
+    return cdt
+
+
+def _vocab_scratch(name, x32, wte_scale, cdt):
+    """The device check, then the (B, D) scratch of the normalised rows (int8
+    with an int8 wte) and the (B,) scratch of the rows' scales (None for a
+    float wte)."""
+    _build.require(x32.is_cuda, name, "x32 must be a CUDA tensor")
+    b, d = x32.shape
+    if wte_scale is None:
+        return torch.empty((b, d), dtype=cdt, device=x32.device), None
+    return (torch.empty((b, d), dtype=torch.int8, device=x32.device),
+            torch.empty((b,), dtype=torch.float32, device=x32.device))
+
+
+def _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype):
+    """:func:`_vocab_check` and :func:`_vocab_scratch`: the compute dtype,
+    the two scratch tensors and ``wte_scale``."""
+    cdt = _vocab_check(name, x32, lnf, wte, wte_scale, compute_dtype)
+    return (cdt, *_vocab_scratch(name, x32, wte_scale, cdt), wte_scale)
 
 
 def _count_vocab(wrapper, name, err, wte_scale) -> None:
@@ -475,6 +489,56 @@ def logits(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None = None, 
 
 TOPK_MAX = 16  # csrc/logits_topk.cu kMaxK
 
+# The walk of the two selection kernels' bf16 and int8 routes
+# (csrc/vocab_walk.cuh) and the float32 route's tile (csrc/common.cuh)
+VOCAB_BN = 128         # vocab_walk.cuh VW_BN: vocabulary columns a tile
+VOCAB_F32_TILE = 32    # common.cuh BN: the float32 route's tile
+_SAMPLE_TILES = 8      # logits_sample.cu kTilesPerBlock: float32 tiles a block
+
+
+class VocabPlan(NamedTuple):
+    rows: int         # rows a block: 64 a consumer warpgroup
+    row_tiles: int
+    tiles: int        # VOCAB_BN-wide column tiles
+    ranges: int       # column ranges: the blocks of a row tile, a partial a row each
+    rare_ranges: int  # the same in the sampler's passes after round 1's verification
+
+    @staticmethod
+    def span(tiles: int, ranges: int, r: int) -> tuple[int, int]:
+        """Range r's column tiles [lo, hi) of ``ranges``, as the kernels cut
+        them."""
+        return tiles * r // ranges, tiles * (r + 1) // ranges
+
+
+@functools.lru_cache(maxsize=None)
+def vocab_plan(m: int, v: int) -> VocabPlan:
+    """The grid the walk of ``csrc/vocab_walk.cuh`` runs M rows over a V-column
+    vocabulary in: row tiles of 128 rows (64 where M <= 64), and for each as
+    many contiguous column ranges as give a block an SM (one at most per
+    tile), balanced to one tile.  The sampler's passes after round 1's
+    verification walk only for the rows it left unresolved, so each row tile
+    spreads over as many ranges as a full pass has blocks
+    (``csrc/logits_sample.cu::rare_ranges``)."""
+    rows = 64 if m <= 64 else 128
+    row_tiles = -(-m // rows)
+    tiles = -(-v // VOCAB_BN)
+    ranges = max(1, min(tiles, SMS // row_tiles))
+    return VocabPlan(rows, row_tiles, tiles, ranges, min(tiles, row_tiles * ranges))
+
+
+def vocab_partials(kernel: str, m: int, v: int, float_route: bool) -> tuple[int, int]:
+    """(blocks a row, partials a row) of ``kernel`` ("topk" or "sample"): the
+    blocks its C entry takes and checks — the float32 route's one a
+    32-column tile (top-k) or a block of ``_SAMPLE_TILES`` of them
+    (sampler), the walk's ranges — and the partials its scratch holds for a
+    row, the most any of its passes writes (the sampler's rare passes)."""
+    if not float_route:
+        plan = vocab_plan(m, v)
+        return plan.ranges, plan.rare_ranges if kernel == "sample" else plan.ranges
+    tiles = -(-v // VOCAB_F32_TILE)
+    blocks = tiles if kernel == "topk" else -(-tiles // _SAMPLE_TILES)
+    return blocks, blocks
+
 
 def logits_topk_plain(x32, lnf, wte, k: int, eps: float = 1e-5, **quant):
     """Plain twin of ``csrc/logits_topk.cu``: :func:`logits_plain`, then
@@ -491,11 +555,11 @@ def logits_topk_cuda(x32, lnf, wte, k: int, eps: float = 1e-5, *, wte_scale=None
     the (B, V) logits never stored.  Arguments as :func:`logits_argmax_cuda`;
     1 <= k <= min(16, V)."""
     name = "logits_topk"
-    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
-    b, d = x32.shape
     v = wte.shape[0]
     _build.require(1 <= k <= min(TOPK_MAX, v), name, f"k must be in [1, {min(TOPK_MAX, v)}]")
-    nblk = -(-v // 32)  # csrc/common.cuh BN
+    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
+    b, d = x32.shape
+    nblk, _ = vocab_partials("topk", b, v, cdt == torch.float32 and ws is None)
     dev = x32.device
     part_val = torch.empty((b, nblk, k), dtype=torch.float32, device=dev)
     part_idx = torch.empty((b, nblk, k), dtype=torch.int32, device=dev)
@@ -506,7 +570,7 @@ def logits_topk_cuda(x32, lnf, wte, k: int, eps: float = 1e-5, *, wte_scale=None
     lse = torch.empty((b, 1), dtype=torch.float32, device=dev)
     err = _build.library().gic_logits_topk(
         _build.DTYPE_CODE[cdt], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
-        wte.data_ptr(), _build.ptr(ws), b, d, v, k, xf.data_ptr(), _build.ptr(sx),
+        wte.data_ptr(), _build.ptr(ws), b, d, v, k, nblk, xf.data_ptr(), _build.ptr(sx),
         part_val.data_ptr(), part_idx.data_ptr(), part_m.data_ptr(), part_s.data_ptr(),
         vals.data_ptr(), ids.data_ptr(), lse.data_ptr(), _build.stream_of(x32),
     )
@@ -530,7 +594,22 @@ def logits_topk(x32, lnf, wte, k: int, eps: float = 1e-5, *, use_kernel: bool | 
 # ---------------------------------------------------------------------------
 
 SAMPLE_K_MAX = 4  # csrc/logits_sample.cu kMaxCand
-_SAMPLE_TILES = 8  # csrc/logits_sample.cu kTilesPerBlock
+
+# The sampler's counters, one zeroed buffer a device: its kernels leave them
+# zero for the next call (csrc/logits_sample.cu), so a call needs no memset.
+# Calls that share a device run in stream order, as the decode step's do.
+_SAMPLE_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _sample_counters(b: int, device: torch.device) -> torch.Tensor:
+    """The device's counters, at least 1 + ceil(B / 64) of them; a larger
+    buffer is made (zeroed) the first time a B needs it."""
+    need = 1 + -(-b // 64)
+    counters = _SAMPLE_COUNTERS.get(device)
+    if counters is None or counters.numel() < need:
+        counters = torch.zeros((need,), dtype=torch.int32, device=device)
+        _SAMPLE_COUNTERS[device] = counters
+    return counters
 
 
 def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds: int = 6,
@@ -539,26 +618,28 @@ def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds
     outputs, (token (B,) int32, round (B,) int32, lse (B, 1) float32), the
     (B, V) logits never stored.  Arguments as :func:`logits_argmax_cuda`;
     temp, top_p (B,) float32 on the same device; ``seed`` a 64-bit int keying
-    the kernel's Philox; 1 <= k <= 4; rounds >= 0.  2 + rounds CUDA launches,
-    none of which the host waits for."""
+    the kernel's Philox; 1 <= k <= 4; rounds >= 0.  2 + rounds CUDA launches
+    with a float32 wte, 2 + 2 rounds with a bf16 or int8 one, none of which
+    the host waits for."""
     name = "logits_sample"
-    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
-    b, d = x32.shape
-    v = wte.shape[0]
     _build.require(1 <= k <= SAMPLE_K_MAX, name, f"k must be in [1, {SAMPLE_K_MAX}]")
     _build.require(rounds >= 0, name, "rounds must be >= 0")
+    cdt = _vocab_check(name, x32, lnf, wte, wte_scale, compute_dtype)
+    b, d = x32.shape
+    v = wte.shape[0]
     for t in (temp, top_p):
         _build.require(t.shape == (b,) and t.dtype == torch.float32 and t.is_contiguous()
                        and t.device == x32.device, name,
                        "temp and top_p must be contiguous float32 (B,) on x32's device")
-    ntiles = -(-v // 32)  # common.cuh BN
-    ncb = -(-ntiles // _SAMPLE_TILES)
+    xf, sx = _vocab_scratch(name, x32, wte_scale, cdt)
+    ws = wte_scale
+    ncb, parts = vocab_partials("sample", b, v, cdt == torch.float32 and ws is None)
     dev = x32.device
-    part_f = torch.empty((b * ncb * (3 + 3 * k),), dtype=torch.float32, device=dev)
-    part_i = torch.empty((b * ncb * (1 + k),), dtype=torch.int32, device=dev)
+    part_f = torch.empty((b * parts * (3 + 3 * k),), dtype=torch.float32, device=dev)
+    part_i = torch.empty((b * parts * (1 + k),), dtype=torch.int32, device=dev)
     state_i = torch.empty((b * (1 + k),), dtype=torch.int32, device=dev)
     state_f = torch.empty((b * k,), dtype=torch.float32, device=dev)
-    counters = torch.zeros((1 + -(-b // 64),), dtype=torch.int32, device=dev)  # common.cuh BM
+    counters = _sample_counters(b, dev)
     tok = torch.empty((b,), dtype=torch.int32, device=dev)
     rnd = torch.empty((b,), dtype=torch.int32, device=dev)
     lse = torch.empty((b, 1), dtype=torch.float32, device=dev)
@@ -566,10 +647,12 @@ def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds
     err = _build.library().gic_logits_sample(
         _build.DTYPE_CODE[cdt], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
         wte.data_ptr(), _build.ptr(ws), b, d, v, temp.data_ptr(), top_p.data_ptr(),
-        seed & 0xFFFFFFFF, seed >> 32, k, rounds, xf.data_ptr(), _build.ptr(sx),
+        seed & 0xFFFFFFFF, seed >> 32, k, rounds, ncb, xf.data_ptr(), _build.ptr(sx),
         part_f.data_ptr(), part_i.data_ptr(), state_i.data_ptr(), state_f.data_ptr(),
         counters.data_ptr(), tok.data_ptr(), rnd.data_ptr(), lse.data_ptr(), _build.stream_of(x32),
     )
+    if err:  # a pass that never ran leaves its counts behind
+        counters.zero_()
     _count_vocab(logits_sample_cuda, name, err, ws)
     return tok, rnd, lse
 
