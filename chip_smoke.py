@@ -7,8 +7,9 @@ Run from the repository root with no arguments:
 (``--only linear`` runs the build and the projections' checks alone,
 bf16 and int8, and prints their records without the summary lines: the
 way to read an earlier tree's ``fused_linear`` on the same card.
-``--only vocab`` does the same for the two selection kernels, the sampler
-and the top-k, in bf16, int8 and float32, with their contract sweeps.)
+``--only vocab`` does the same for the four vocabulary kernels — the
+greedy argmax, the stored logits, the top-k and the sampler — in bf16, int8
+and float32, with their contract sweeps.)
 
 It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
@@ -26,17 +27,19 @@ on its one-element-a-lane route, B 3-128, idx on each boundary of its
 walk, the appended rows and scales equal) and the patch embedding (patch 8
 and 14, M and D off its tiles), and so are the decode step's projections
 in bf16 and int8 (``fused_linear``: every role at D 768, 1024 and 1600, M
-1-512, and each role called twice for equal bits), and so are the sampler
-and the top-k (``vocab_contract``: B 1-512 on each boundary of the walk's
-row tiles, V 50,257, 1,025 and 100, k 1-16 for the top-k and 1-4 for the
-sampler, every call twice for equal bits, bf16, int8 and float32).  Decode attention, the
-patch embedding and the projections (at the 128 rows of a request and the
-512 of beam-4 and continuous serving, the int8 quantizer's launch apart)
-also report their device time from a profiler trace beside the events
-time, their library call's too; so do the sampler and the top-k, at B 128
-and 512, bf16 and int8.  Then it drives the paths the port has,
-each with the kernels' launch counters set to 0 just before and read just
-after:
+1-512, and each role called twice for equal bits), and so are the four
+vocabulary kernels (``vocab_contract``: B 1-512 on each boundary of the
+walk's row tiles, V 50,257, 1,025 and 100, the argmax and the stored
+logits, k 1-16 for the top-k and 1-4 for the sampler, every call twice for
+equal bits, bf16, int8 and float32; the argmax's ties forced across ids,
+tiles and blocks go to the lowest id).  Decode attention, the patch
+embedding and the projections (at the 128 rows of a request and the 512 of
+beam-4 and continuous serving, the int8 quantizer's launch apart) also
+report their device time from a profiler trace beside the events time,
+their library call's too; so do the four vocabulary kernels, at B 128 and
+512 (the argmax and the stored logits in float32 too).  Then it drives the
+paths the port has, each with the kernels' launch counters set to 0 just
+before and read just after:
 
 - greedy serving: exact greedy tokens against the plain path on a tiny
   float32 model (sampled, in-kernel sampled, beam and continuous too), then
@@ -314,9 +317,10 @@ F32_ROWS = {
     "fused_linear": ("fused_linear.cu", f"{STEP_KERNEL}:112", "greedy_f32",
                      "layer: 4 calls (qkv, attn_proj, mlp_fc, mlp_proj; 6 CUDA launches), B 128"),
     "logits_argmax": ("logits_argmax.cu", f"{STEP_KERNEL}:112", "greedy_f32",
-                      "call (3 CUDA launches), B 128"),
+                      "call (3 CUDA launches: LN_f split to TF32 pairs, the TF32 walk, the "
+                      "merge), B 128"),
     "logits": ("logits.cu", f"{STEP_KERNEL}:617", "sampled_f32",
-               "call (2 CUDA launches), B 128"),
+               "call (2 CUDA launches: LN_f split to TF32 pairs, the TF32 walk), B 128"),
     "logits_topk": ("logits_topk.cu", f"{STEP_KERNEL}:569", "beam_f32",
                     "call (3 CUDA launches), B 512, k 4"),
     "logits_sample": ("logits_sample.cu", f"{STEP_KERNEL}:641", "in_kernel_f32",
@@ -896,35 +900,68 @@ def vocab_bytes(b: int, wte, out_bytes: int) -> int:
 
 
 def vocab_device(run, name: str) -> float | str:
-    """Device ms of one call of a vocabulary wrapper, from a ``traced``
-    window: every device event of the call (pass 0, the walk or walks, the
-    merge; a memset where the wrapper makes one)."""
+    """Device ms of one call of a wrapper (a vocabulary kernel's, the
+    prefill's) or of its library route, from a ``traced`` window: every
+    device event of the call (pass 0, the walk or walks, the merge; a memset
+    where the wrapper makes one)."""
     return device_ms(run, None, f"{name}_trace.json")
 
 
 def check_logits(dtype, g) -> dict:
-    """``csrc/logits.cu`` (emit_logits) at the sampled path's B 128.  The
-    kernel and the twin both round LN_f's output to the compute dtype; their
-    float32 statistics differ in summation order, which can flip a bf16
-    rounding of that output, moving a logit by |w| x one bf16 ulp of the
-    LN output (< 1e-2): the "out" tolerance."""
+    """``csrc/logits.cu`` (emit_logits) at the sampled path's B 128, and its
+    device time at B 128 and 512 beside the library's.  The kernel and the
+    twin both round LN_f's output to the compute dtype; their float32
+    statistics differ in summation order, which can flip a bf16 rounding of
+    that output, moving a logit by |w| x one bf16 ulp of the LN output
+    (< 1e-2): the "out" tolerance.  Two calls give equal bits."""
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 
-    x32, lnf, wte = vocab_inputs(B, dtype, g)
+    x512, lnf, wte = vocab_inputs(B_BEAM, dtype, g)
+    x32 = x512[:B].contiguous()
     want = DS.logits_plain(x32, lnf, wte)
     got = DS.logits_cuda(x32, lnf, wte)
     torch.cuda.synchronize()
     check(got.shape == (B, V) and got.dtype == torch.float32, f"logits shape {got.shape}")
+    check(torch.equal(got, DS.logits_cuda(x32, lnf, wte)), "logits: two calls differ")
     err = close(got, want, TOL[dtype]["out"])
     ms = time_ms(lambda: DS.logits_cuda(x32, lnf, wte))
     plain_ms = time_ms(lambda: DS.logits_plain(x32, lnf, wte))
     library_ms = time_ms(lambda: library_logits(x32, lnf, wte))
     nbytes = vocab_bytes(B, wte, 4 * B * V)
     bound_ms, bound_by = bound(nbytes, 2 * B * D * V, split_type(dtype))
+    name = f"logits_{str(dtype).replace('torch.', '')}"
+    devices = {"device_ms": vocab_device(lambda: DS.logits_cuda(x32, lnf, wte), name),
+               "library_device_ms": vocab_device(lambda: library_logits(x32, lnf, wte),
+                                                 f"{name}_library"),
+               "device_ms_b512": vocab_device(lambda: DS.logits_cuda(x512, lnf, wte),
+                                              f"{name}_b512"),
+               "library_device_ms_b512": vocab_device(lambda: library_logits(x512, lnf, wte),
+                                                      f"{name}_library_b512")}
     return {"kernel": "logits", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, **devices,
             "library_ms": library_ms, "library": "layer_norm + mm with a float32 result",
-            "at": f"B {B}, D {D}, V {V}"}
+            "at": f"B {B}, D {D}, V {V}", "repeat": "equal bits"}
+
+
+def check_vocab_ring() -> dict:
+    """The vocabulary walk's ring as the kernels size it (stages, dynamic
+    shared memory with and without the store's staging) against its Python
+    mirror, ``ops/decode_step.py::vocab_ring``, for both block heights and
+    every operand size."""
+    from gpt2_image_captioning_tpu_torch.ops import _build
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+    lib = _build.library()
+    rings = {}
+    for rows in (64, 128):
+        for el in (1, 2, 4):
+            for store in (False, True):
+                c = (lib.gic_vocab_stages(rows, el), lib.gic_vocab_smem(rows, el, int(store)))
+                check(c == DS.vocab_ring(rows, el, store),
+                      f"vocab ring at {rows} rows, {el}-byte operands, store {store}: "
+                      f"{c} != {DS.vocab_ring(rows, el, store)}")
+                rings[f"{rows}x{el}{'_store' if store else ''}"] = list(c)
+    return {"phase": "vocab_ring", "rings": rings}
 
 
 def check_logits_topk(dtype, g) -> dict:
@@ -983,43 +1020,107 @@ def check_logits_topk(dtype, g) -> dict:
             "forced_ties": {"kernel": tie_i[0].tolist(), "plain": tie_plain[0].tolist()}}
 
 
-def check_logits_argmax(dtype, g) -> dict:
+def tie_row(tokens: torch.Tensor, b: int, v: int) -> int:
+    """A row whose winner lets all four forced ties of :func:`argmax_ties`
+    land apart: not in the walk's first range at B rows nor in its range's
+    first 128-column tile, above id 1."""
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 
-    x32, lnf, wte = vocab_inputs(B, dtype, g)
+    plan = DS.vocab_plan(b, v)
+    for row, win in enumerate(tokens.tolist()):
+        tile = win // DS.VOCAB_BN
+        r = max(r for r in range(plan.ranges) if DS.VocabPlan.span(plan.tiles, plan.ranges, r)[0]
+                <= tile)
+        if r >= 1 and tile > DS.VocabPlan.span(plan.tiles, plan.ranges, r)[0] and win > 1:
+            return row
+    raise AssertionError("no row's winner admits the four forced ties; change the seed")
+
+
+def argmax_ties(run, plain, tokens: torch.Tensor, b: int, v: int, copy) -> dict:
+    """Forced ties of the argmax: a chosen row's winning id in the kernel's
+    ``tokens`` copied (``copy(low, win)`` gives the weights with id ``low``'s
+    row set to ``win``'s) to id 0,
+    to the id just below the winner, to the last id of the walk's range before
+    the winner's (another block, at a boundary of the plan at B rows), and to
+    the same column one 128-column tile below (the winner's block, another
+    tile).  The kernel must give each tie to the lower id."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+    row = tie_row(tokens, b, v)
+    win = int(tokens[row])
+    plan = DS.vocab_plan(b, v)
+    tile = win // DS.VOCAB_BN
+    r = max(r for r in range(plan.ranges)
+            if DS.VocabPlan.span(plan.tiles, plan.ranges, r)[0] <= tile)
+    lows = {"id_0": 0, "just_below": win - 1,
+            "other_block": DS.VocabPlan.span(plan.tiles, plan.ranges, r)[0] * DS.VOCAB_BN - 1,
+            "other_tile": win - DS.VOCAB_BN}
+    ties = {"row": row, "winner": win}
+    for what, low in lows.items():
+        weights = copy(low, win)
+        tok, again = run(*weights), run(*weights)
+        check(torch.equal(tok, again), f"argmax tie {what}: two calls differ")
+        check(int(tok[row]) == low,
+              f"argmax tie {what}: ids {low} and {win} tied, the kernel picked {int(tok[row])}")
+        ties[what] = {"low": low, "kernel": int(tok[row]), "plain": int(plain(*weights)[row])}
+    return ties
+
+
+def check_logits_argmax(dtype, g) -> dict:
+    """``csrc/logits_argmax.cu`` at the greedy path's B 128: the token equal to
+    the twin's on every row whose top two logits lie more than the gap
+    tolerance apart, and within it of the row's max on every row; two calls
+    give equal bits; the forced ties of :func:`argmax_ties`; the device time
+    at B 128 and 512 beside the library's (layer_norm + mm + argmax) and the
+    bare product's."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+    x512, lnf, wte = vocab_inputs(B_BEAM, dtype, g)
+    x32 = x512[:B].contiguous()
     logits = DS.logits_plain(x32, lnf, wte)
     want = torch.argmax(logits, dim=-1).to(torch.int32)
     got = DS.logits_argmax_cuda(x32, lnf, wte)
     torch.cuda.synchronize()
+    check(torch.equal(got, DS.logits_argmax_cuda(x32, lnf, wte)), "argmax: two calls differ")
     top2 = logits.topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > TOL[dtype]["gap"]
     check(bool((got == want)[clear].all()), "argmax differs on a row with a clear top-2 gap")
     deficit = top2[:, 0] - logits.gather(1, got.long()[:, None])[:, 0]
     err = float(deficit.max())
     check(err <= TOL[dtype]["gap"], f"a chosen token's logit is {err} below the row max")
-    # forced ties: copy row 0's winner into a lower id — id 0, in another
-    # 32-column tile of the kernel, and the id just below it
-    win = int(want[0])
-    check(win > 0, "row 0's winner is id 0; change the seed")
-    ties = {}
-    for low in sorted({0, win - 1}):
+
+    def copy(low, win):
         w2 = wte.clone()
         w2[low] = wte[win]
-        tok = DS.logits_argmax_cuda(x32, lnf, w2)
-        plain = DS.logits_argmax_plain(x32, lnf, w2)
-        check(int(tok[0]) == low, f"tie between ids {low} and {win} picked {int(tok[0])}")
-        ties[f"{low}={win}"] = {"kernel": int(tok[0]), "plain": int(plain[0])}
+        return (w2,)
+
+    ties = argmax_ties(lambda w2: DS.logits_argmax_cuda(x32, lnf, w2),
+                       lambda w2: DS.logits_argmax_plain(x32, lnf, w2), got, B, V, copy)
     ms = time_ms(lambda: DS.logits_argmax_cuda(x32, lnf, wte))
     plain_ms = time_ms(lambda: DS.logits_argmax_plain(x32, lnf, wte))
-    # no single library call: cuBLAS's bare (B, D) x (D, V) product, for scale
+    # no single library call: layer_norm + mm + argmax, and cuBLAS's bare
+    # (B, D) x (D, V) product alone, for scale
     xf, wt = x32.to(dtype), wte.t()
     cublas_ms = time_ms(lambda: torch.mm(xf, wt))
     nbytes = vocab_bytes(B, wte, 4 * B)  # the tokens written
     bound_ms, bound_by = bound(nbytes, 2 * B * D * V, split_type(dtype))
+    name = f"logits_argmax_{str(dtype).replace('torch.', '')}"
+
+    def library(x):
+        return library_logits(x, lnf, wte).argmax(-1)
+
+    devices = {"device_ms": vocab_device(lambda: DS.logits_argmax_cuda(x32, lnf, wte), name),
+               "library_device_ms": vocab_device(lambda: library(x32), f"{name}_library"),
+               "mm_device_ms": vocab_device(lambda: torch.mm(xf, wt), f"{name}_mm"),
+               "device_ms_b512": vocab_device(lambda: DS.logits_argmax_cuda(x512, lnf, wte),
+                                              f"{name}_b512"),
+               "library_device_ms_b512": vocab_device(lambda: library(x512),
+                                                      f"{name}_library_b512")}
     return {"kernel": "logits_argmax", "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "library_ms": None,
-            "cublas_mm_ms": cublas_ms,
-            "at": f"B {B}, D {D}, V {V}", "rows_with_clear_gap": int(clear.sum()), "ties": ties}
+            "library": "none (device times: layer_norm + mm + argmax)", "cublas_mm_ms": cublas_ms,
+            **devices, "at": f"B {B}, D {D}, V {V}", "rows_with_clear_gap": int(clear.sum()),
+            "ties": ties, "repeat": "equal bits"}
 
 
 # ---------------------------------------------------------------------------
@@ -1380,6 +1481,8 @@ def check_vocab_int8(dtype, g, kinds=("logits_argmax", "logits", "logits_topk",
         row_slack = allowance.max(dim=1).values  # (B,): what a row's flips may move a logit by
         got, want = run(), plain()
         rec = {"kernel": kind, "mode": "int8", "int8_flips": flips}
+        if kind in ("logits_argmax", "logits"):
+            check(torch.equal(got, run()), f"int8 {kind}: two calls differ")
         if kind == "logits_argmax":
             top2 = logits.topk(2, dim=-1).values
             clear = (top2[:, 0] - top2[:, 1]) > tol["gap"] + 2 * row_slack
@@ -1389,6 +1492,17 @@ def check_vocab_int8(dtype, g, kinds=("logits_argmax", "logits", "logits_topk",
             err = float(deficit.max())
             check(bool((deficit <= tol["gap"] + 2 * row_slack).all()),
                   f"int8 argmax: a chosen token's logit is {err} below the max")
+
+            def copy(low, win):
+                w2, s2 = wq.clone(), sw.clone()
+                w2[low], s2[low] = wq[win], sw[win]
+                return w2, s2
+
+            rec["ties"] = argmax_ties(
+                lambda w2, s2: DS.logits_argmax_cuda(x32, lnf, w2, wte_scale=s2,
+                                                     compute_dtype=dtype),
+                lambda w2, s2: DS.logits_argmax_plain(x32, lnf, w2, wte_scale=s2,
+                                                      compute_dtype=dtype), got, b, V, copy)
             library, out_bytes = (lambda: lib_logits().argmax(-1)), 4 * b
         elif kind == "logits":
             err = close_int8(got, want, tol["out"], allowance)
@@ -1436,6 +1550,13 @@ def check_vocab_int8(dtype, g, kinds=("logits_argmax", "logits", "logits_topk",
                        ms_b128=time_ms(run128))
             if library:
                 rec["library_device_ms"] = vocab_device(library, f"{name}_library")
+        else:  # the argmax and the store, redesigned on the walk: at B 128 and 512
+            name = f"{kind}_int8_{str(dtype).replace('torch.', '')}"
+            x512 = 3.0 * torch.randn(B_BEAM, D, generator=g, device="cuda")
+            run512 = functools.partial(getattr(DS, f"{kind}_cuda"), x512, lnf, wq, **kw)
+            rec.update(device_ms=vocab_device(run, name),
+                       library_device_ms=vocab_device(library, f"{name}_library"),
+                       device_ms_b512=vocab_device(run512, f"{name}_b512"))
         rec.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                    bound_by=bound_by, bytes=nbytes,
                    library_ms=time_ms(library) if library else None,
@@ -1446,23 +1567,27 @@ def check_vocab_int8(dtype, g, kinds=("logits_argmax", "logits", "logits_topk",
     return out
 
 
-# The two selection kernels' contract beyond the paths' shapes (bf16, int8
+# The four vocabulary kernels' contract beyond the paths' shapes (bf16, int8
 # and float32): rows on each boundary of the walk's row tiles (64 rows a
 # warpgroup, 128 a block), V at GPT-2's 50,257, at eight 128-column tiles
-# plus one (the last tile one column wide) and below one tile, k 1, 4 and
-# 16 for the top-k and 1-4 for the sampler (mixed temperatures and top_p,
-# and every third row count forced through every round to the fallback);
-# each call made twice, for equal bits.  The paths' tolerances and rules
-# hold: TOL, the clear-gap id rule, the nucleus, float32 tokens exact,
-# SAMPLE_BF16_AGREE over all the cases' rows, flip_allowance for int8.
+# plus one (the last tile one column wide) and below one tile; the argmax
+# and the stored logits at each, k 1, 4 and 16 for the top-k and 1-4 for
+# the sampler (mixed temperatures and top_p, and every third row count
+# forced through every round to the fallback); each call made twice, for
+# equal bits.  The paths' tolerances and rules hold: TOL, the clear-gap id
+# rule, the nucleus, float32 tokens exact, SAMPLE_BF16_AGREE over all the
+# cases' rows, flip_allowance for int8.
 VOCAB_CONTRACT_B = (1, 3, 63, 64, 65, 127, 129, 255, 512)
 VOCAB_CONTRACT_V = (V, 8 * 128 + 1, 100)
 TOPK_CONTRACT_K = (1, 4, 16)
 
 
 def vocab_contract(dtype, g, quant: bool = False) -> dict:
-    """``logits_topk_cuda`` and ``logits_sample_cuda`` against their twins
-    at every case of the contract above."""
+    """The four vocabulary wrappers against their twins at every case of the
+    contract above: ``logits_argmax_cuda`` (ids on the rows with a clear
+    top-2 gap, every row's token within the gap rule of its max),
+    ``logits_cuda`` (every logit within TOL, shape (B, V)),
+    ``logits_topk_cuda`` and ``logits_sample_cuda``."""
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
     from gpt2_image_captioning_tpu_torch.ops import sampling as S
 
@@ -1472,7 +1597,7 @@ def vocab_contract(dtype, g, quant: bool = False) -> dict:
         x_all, lnf, w_all, kw = int8_vocab_inputs(most, dtype, g)
     else:
         (x_all, lnf, w_all), kw = vocab_inputs(most, dtype, g), {}
-    same = total = cases = topk_cases = 0
+    same = total = cases = topk_cases = store_cases = 0
     worst = 0.0
     for v in VOCAB_CONTRACT_V:
         wte = w_all[:v]
@@ -1481,11 +1606,27 @@ def vocab_contract(dtype, g, quant: bool = False) -> dict:
             x32 = x_all[:b]
             at = f"B {b} V {v}"
             logits = DS.logits_plain(x32, lnf, wte, **kwv)
-            slack = torch.zeros(b, device="cuda")
+            allowance = torch.zeros_like(logits)
             if quant:
                 allowance, _ = flip_allowance(x32, (lnf[0], lnf[1]), dtype, wte,
                                               kwv["wte_scale"], logits)
-                slack = allowance.max(dim=1).values
+            slack = allowance.max(dim=1).values
+            tok = DS.logits_argmax_cuda(x32, lnf, wte, **kwv)
+            check(torch.equal(tok, DS.logits_argmax_cuda(x32, lnf, wte, **kwv)),
+                  f"argmax {at}: two calls differ")
+            top2 = logits.topk(2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1]) > tol["gap"] + 2 * slack
+            check(bool((tok.long() == logits.argmax(-1))[clear].all()),
+                  f"argmax {at}: ids differ on a row with a clear top-2 gap")
+            deficit = top2[:, 0] - logits.gather(1, tok.long()[:, None])[:, 0]
+            check(bool((deficit <= tol["gap"] + 2 * slack).all()),
+                  f"argmax {at}: a chosen token's logit lies below the row max")
+            stored = DS.logits_cuda(x32, lnf, wte, **kwv)
+            check(torch.equal(stored, DS.logits_cuda(x32, lnf, wte, **kwv)),
+                  f"logits {at}: two calls differ")
+            check(stored.shape == (b, v), f"logits {at}: shape {tuple(stored.shape)}")
+            worst = max(worst, close_int8(stored, logits, tol["out"], allowance))
+            store_cases += 1
             for k in TOPK_CONTRACT_K:
                 got = DS.logits_topk_cuda(x32, lnf, wte, k, **kwv)
                 again = DS.logits_topk_cuda(x32, lnf, wte, k, **kwv)
@@ -1540,16 +1681,16 @@ def vocab_contract(dtype, g, quant: bool = False) -> dict:
     check(agree >= SAMPLE_BF16_AGREE, f"sampler contract: {agree} of the tokens identical")
     return {"phase": "vocab_contract", "dtype": str(dtype).replace("torch.", ""),
             "mode": "int8" if quant else "float", "topk_cases": topk_cases,
-            "sampler_cases": cases, "max_abs_err": worst, "sampler_tokens_identical": agree,
+            "sampler_cases": cases, "argmax_cases": store_cases, "logits_cases": store_cases,
+            "max_abs_err": worst, "sampler_tokens_identical": agree,
             "rows": list(VOCAB_CONTRACT_B), "vocab": list(VOCAB_CONTRACT_V),
             "topk_k": list(TOPK_CONTRACT_K), "repeats_equal": True}
 
 
-# ``--only vocab``: the sampler's and the top-k's checks alone, float and
-# int8 weights, with their contract sweeps
-VOCAB_CHECKS = (check_logits_topk, check_sampler,
-                functools.partial(check_vocab_int8, kinds=("logits_topk", "logits_sample")),
-                vocab_contract, functools.partial(vocab_contract, quant=True))
+# ``--only vocab``: the four vocabulary kernels' checks alone, float and int8
+# weights, with their contract sweeps
+VOCAB_CHECKS = (check_logits_argmax, check_logits, check_logits_topk, check_sampler,
+                check_vocab_int8, vocab_contract, functools.partial(vocab_contract, quant=True))
 
 
 def int8_caches(t: int, b: int, dtype, g, d: int = D):
@@ -1797,6 +1938,8 @@ def check_prefill(dtype, g) -> dict:
             G.forward_cached(gp, cfg, prefix, ce, pol)
 
         eager_ms = time_ms(eager, iters=5)
+        device = vocab_device(lambda: PS.prefill_cuda(packed, x0, ck["k"], ck["v"], n_head=H),
+                              f"prefill_{str(dtype).replace('torch.', '')}_b{b}")
         # the weights, biases and LN parameters read once; x0 read, the float32
         # stream and every layer's K/V rows written; four products and the
         # causal attention (4 hd per (query, key) pair) a layer
@@ -1806,7 +1949,8 @@ def check_prefill(dtype, g) -> dict:
         ops = n_layer * (2 * rows * 12 * D * D + 4 * (D // H) * H * b * P_LEN * (P_LEN + 1) // 2)
         bound_ms, bound_by = bound(nbytes, ops, split_type(dtype))
         shapes[f"b{b}"] = {"images": b, "prefix": P_LEN, "max_abs_err": max(errs.values()),
-                           "errors": errs, "ms": ms, "plain_ms": plain_ms, "eager_ms": eager_ms,
+                           "errors": errs, "ms": ms, "device_ms": device, "plain_ms": plain_ms,
+                           "eager_ms": eager_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                            "ops": ops}
     # beyond MAX_PREFIX the kernel route refuses on the card: no other prefill runs
@@ -1820,7 +1964,7 @@ def check_prefill(dtype, g) -> dict:
     check(refused, f"prefill: a {PS.MAX_PREFIX + 1}-token prefix was not refused")
     main = shapes[f"b{B}"]
     return {"kernel": "prefill", "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None, "eager_ms": main["eager_ms"],
             "eager": "gpt2.forward_cached with the flash kernel (the port's earlier prefill)",
             "tolerance": tol, "at": f"GPT-2 124M, B {B} x {P_LEN} tokens", "shapes": shapes,
@@ -2417,8 +2561,8 @@ def one_step_drift(model, emb: torch.Tensor, quant: bool = False,
 # layers' and, by path, the vocabulary's
 LAYER_KERNELS = ("fused_linear_kernel", "linear_wgmma_kernel", "ln_stats_kernel",
                  "decode_attention_kernel", "ln_rows_kernel", "rowquant_kernel")
-VOCAB_KERNELS = {"greedy": ("logits_tile_kernel", "argmax_reduce_kernel"),
-                 "sampled": ("logits_store_kernel",),
+VOCAB_KERNELS = {"greedy": ("argmax_walk_kernel", "argmax_reduce_kernel"),
+                 "sampled": ("store_walk_kernel",),
                  "beam": ("topk_walk_kernel", "topk_tile_kernel", "topk_merge_kernel")}
 # continuous serving also runs the admission's mapper (flash attention) and
 # prefill (csrc/prefill.cu; forward_cached's flash attention in int8)
@@ -3239,6 +3383,7 @@ def main(argv: list[str]) -> int:
         print(nvidia_smi(), flush=True)
         return 0
     emit(check_dot_f32(g))
+    emit(check_vocab_ring())
     kernel_rows = {}
     checks = (check_attention, check_attention_origin, check_attention_start, check_linear,
               check_logits_argmax, check_logits, check_logits_topk, check_sampler, check_flash,
@@ -3341,10 +3486,11 @@ def main(argv: list[str]) -> int:
         "fused_linear": ("fused_linear.cu", f"{step_kernel}:112", "greedy",
                          "layer: 4 calls (qkv, attn_proj, mlp_fc, mlp_proj; 6 CUDA launches)"),
         "logits_argmax": ("logits_argmax.cu", f"{step_kernel}:112", "greedy",
-                          "call (3 CUDA launches), B 128"),
+                          "call (3 CUDA launches: LN_f, the walk, the merge), B 128"),
         "flash_attention": ("flash_attention.cu", "gpt2_image_captioning_tpu/ops/attention.py:40",
                             "train", "call (1 CUDA launch) at (128, 12, 65, 64), causal + mask"),
-        "logits": ("logits.cu", f"{step_kernel}:617", "sampled", "call (2 CUDA launches), B 128"),
+        "logits": ("logits.cu", f"{step_kernel}:617", "sampled",
+                   "call (2 CUDA launches: LN_f, the walk), B 128"),
         "logits_topk": ("logits_topk.cu", f"{step_kernel}:569", "beam",
                         "call (3 CUDA launches), B 512, k 4"),
         "decode_attention_start": ("decode_attention.cu", f"{step_kernel}:113",

@@ -17,14 +17,15 @@
 // (fused_linear.cu) stream their operands by TMA into a ring and multiply
 // on wgmma, split over K across a thread-block cluster (its header gives the
 // design and the bound); the top-k's and the sampler's bf16 and int8
-// routes walk wte on vocab_walk.cuh.  The tile below serves the float32
-// projections, logits_argmax.cu and logits.cu (every operand type), the
-// float32 routes of the top-k and the sampler, and the prefill kernel's
-// products (prefill.cu, gpt2_image_captioning_tpu/ops/prefill_step.py::
-// _prefill_kernel).  Its bound on the H100: at a decode batch of 128 the
-// weights' bytes (a float32 GPT-2 layer: 28 MB, 8.5 us at 3.35 TB/s); the
-// prefill's 1,920 rows are bound by operations (float32: three TF32
-// products at 495 TFLOP/s).
+// routes and logits_argmax.cu and logits.cu in every operand type (float32
+// on wgmma TF32) walk wte on vocab_walk.cuh.  The tile below serves the
+// float32 projections, the float32 routes of the top-k and the sampler,
+// and the prefill kernel's products (prefill.cu,
+// gpt2_image_captioning_tpu/ops/prefill_step.py::_prefill_kernel).  Its
+// bound on the H100: at a decode batch of 128 the weights' bytes (a
+// float32 GPT-2 layer: 28 MB, 8.5 us at 3.35 TB/s); the prefill's 1,920
+// rows are bound by operations (float32: three TF32 products at 495
+// TFLOP/s).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the CUDA driver at run time
@@ -223,25 +224,27 @@ constexpr int kTmaBox = 128;  // bytes of K a box: one swizzled row
 
 struct TmaMapKey {
   const void* ptr;
-  int rows, cols, box_rows, int8;
+  int rows, cols, box_rows, el;
   bool operator==(const TmaMapKey& o) const {
     return ptr == o.ptr && rows == o.rows && cols == o.cols && box_rows == o.box_rows &&
-           int8 == o.int8;
+           el == o.el;
   }
 };
 struct TmaMapKeyHash {
   size_t operator()(const TmaMapKey& k) const {
     size_t h = std::hash<const void*>()(k.ptr);
-    for (int v : {k.rows, k.cols, k.box_rows, k.int8}) h = h * 1000003u ^ (size_t)v;
+    for (int v : {k.rows, k.cols, k.box_rows, k.el}) h = h * 1000003u ^ (size_t)v;
     return h;
   }
 };
 
+// el: the element's bytes, 1 (int8), 2 (bf16) or 4 (float32).
 inline int tma_operand_map(CUtensorMap* map, const void* ptr, int rows, int cols, int box_rows,
-                           bool int8) {
+                           int el) {
   static std::mutex mu;
   static std::unordered_map<TmaMapKey, CUtensorMap, TmaMapKeyHash> cache;
-  const TmaMapKey key{ptr, rows, cols, box_rows, int8};
+  if (el != 1 && el != 2 && el != 4) return (int)cudaErrorInvalidValue;
+  const TmaMapKey key{ptr, rows, cols, box_rows, el};
   std::lock_guard<std::mutex> lock(mu);
   const auto it = cache.find(key);
   if (it != cache.end()) {
@@ -250,13 +253,13 @@ inline int tma_operand_map(CUtensorMap* map, const void* ptr, int rows, int cols
   }
   const EncodeTiled encode = encode_tiled();
   if (!encode) return (int)cudaErrorNotSupported;
-  const int el = int8 ? 1 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * el};  // bytes
   const cuuint32_t box[2] = {(cuuint32_t)(kTmaBox / el), (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+  const CUresult r = encode(map, el == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                : el == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                             2, const_cast<void*>(ptr), dims, strides, box, unit,
                             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -394,6 +397,24 @@ GIC_WGMMA(128, 64, GIC_OPS64, GIC_ACC64, 64, 65, 66)
 #undef GIC_WGMMA
 #undef GIC_WGMMA_TAIL
 
+// d (64 x 128 float32) += A (64 x 8) x B (8 x 128) in TF32, both K-major
+// (the only layout .tf32 takes) and 128-byte swizzled in shared memory, A
+// and B as float32 words whose low 13 bits the caller has zeroed (rounded
+// to TF32 with cvt.rna: split_tf32).  d as Wgmma<128>'s.
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+               "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" GIC_OPS64
+               "}, %64, %65, p, 1, 1;\n}\n"
+               : GIC_ACC64("+f", d)
+               : "l"(da), "l"(db), "r"(1));
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma, TMA); a barrier then passes them on.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Thread-block clusters: this block's rank, the cluster-wide barrier in its
 // two halves (every thread of every block of the cluster arrives, then
 // waits; arrive releases and wait acquires, so shared writes before the
@@ -453,13 +474,12 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 // ((N, K): each output column's weights are contiguous in K), which is the
 // natural layout of the tied embedding (V, D) and what pack_decode_weights
 // gives the four GPT-2 projections.  Its users: the float32 route of
-// fused_linear.cu, logits_argmax.cu and logits.cu in every operand type,
-// the float32 routes of logits_topk.cu and logits_sample.cu, and the
-// prefill's products.  (The decode step's bf16 and int8 projections
-// run on fused_linear.cu's TMA ring, wgmma and cluster split instead: at B
-// 128 this tile's 48-192 blocks, one stage in flight each, read every
-// weight once a 64-row block and normalised every row once a column block,
-// 19x the layer's bound in bf16.)
+// fused_linear.cu, the float32 routes of logits_topk.cu and
+// logits_sample.cu, and the prefill's products.  (The decode step's bf16
+// and int8 projections run on fused_linear.cu's TMA ring, wgmma and
+// cluster split instead: at B 128 this tile's 48-192 blocks, one stage in
+// flight each, read every weight once a 64-row block and normalised every
+// row once a column block, 19x the layer's bound in bf16.)
 //
 // prologue: either a plain load of X in the element type, or the LayerNorm of
 // each float32 row of the residual stream, cast to the element type, from
@@ -479,8 +499,9 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 // loads, lane (g, t) at row g and column t, hit 32 distinct banks.  On an
 // H100 a float32 GPT-2 layer at b 128 takes 0.19 ms against its 0.011 ms
 // bound: its grids of 48-192 blocks keep one stage in flight each, and
-// each block re-reads its rows from L2.  The vocabulary walks at 1,571
-// column blocks fill the card; their bound is wte's bytes.
+// each block re-reads its rows from L2.  The top-k's and the sampler's
+// float32 walks at 1,571 column blocks fill the card; their bound is the
+// split's products.
 // int8 (W8A8: X quantized per row by rowquant.cu, W per output column by
 // ops/quant.py::colquant) runs WMMA signed-char 16x16x16 fragments with
 // int32 accumulators, exact at any K; the tile is dequantized on its way
@@ -598,26 +619,45 @@ namespace {
 // elements (every GPT-2 width) is read once into registers, all of a lane's
 // loads in flight together, and normalised from there; other rows are
 // walked an element a lane, once for each statistic and once to write.
+// With xl (float rows only), each value y is stored as its three-term TF32
+// pair: hi = tf32(y) in xf and lo = tf32(y - hi) in xl (split_tf32), the
+// operands of the float32 vocabulary walk.
 constexpr int kLnVectors = 16;  // float4 registers a lane: rows of <= 2,048 floats
+
+// Stores y at out[0], or with lo its TF32 pair at out[0] and lo[0].
+__device__ __forceinline__ void ln_store(float* out, float* lo, float y) {
+  if (lo) {
+    uint32_t h, l;
+    split_tf32(y, h, l);
+    *out = __uint_as_float(h);
+    *lo = __uint_as_float(l);
+  } else {
+    *out = y;
+  }
+}
+__device__ __forceinline__ void ln_store(__nv_bfloat16* out, float*, __nv_bfloat16 y) { *out = y; }
 
 template <typename T>
 __global__ void ln_rows_kernel(const float* x, const float* ln_s, const float* ln_b, float eps,
-                               int M, int K, T* xf) {
+                               int M, int K, T* xf, float* xl) {
   const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (m >= M) return;
   const float* row = x + (size_t)m * K;
   T* out = xf + (size_t)m * K;
+  float* out_lo = xl ? xl + (size_t)m * K : nullptr;
   const int lane = threadIdx.x % 32;
   float mean, rstd;
   const bool vec = K % 4 == 0 && K <= 128 * kLnVectors &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(ln_s) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(ln_b) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(xf) % (4 * sizeof(T)) == 0;
+                   reinterpret_cast<uintptr_t>(xf) % (4 * sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(xl) % 16 == 0;
   if (!vec) {
     row_mean_rstd(row, K, eps, mean, rstd);
     for (int k = lane; k < K; k += 32)
-      out[k] = ln_value<T>(row[k], mean, rstd, ln_s[k], ln_b[k]);
+      ln_store(out + k, out_lo ? out_lo + k : nullptr,
+               ln_value<T>(row[k], mean, rstd, ln_s[k], ln_b[k]));
     return;
   }
   const int nv = K / 4;  // the row's 16-byte vectors; lane l holds l, l + 32, ..
@@ -653,7 +693,17 @@ __global__ void ln_rows_kernel(const float* x, const float* ln_s, const float* l
       const T y2 = ln_value<T>(v[i].z, mean, rstd, s.z, b.z);
       const T y3 = ln_value<T>(v[i].w, mean, rstd, s.w, b.w);
       if constexpr (std::is_same<T, float>::value) {
-        reinterpret_cast<float4*>(out)[j] = make_float4(y0, y1, y2, y3);
+        if (out_lo) {
+          float4 h, l;
+          ln_store(&h.x, &l.x, y0);
+          ln_store(&h.y, &l.y, y1);
+          ln_store(&h.z, &l.z, y2);
+          ln_store(&h.w, &l.w, y3);
+          reinterpret_cast<float4*>(out)[j] = h;
+          reinterpret_cast<float4*>(out_lo)[j] = l;
+        } else {
+          reinterpret_cast<float4*>(out)[j] = make_float4(y0, y1, y2, y3);
+        }
       } else {
         __nv_bfloat162 lo, hi;
         lo.x = y0;

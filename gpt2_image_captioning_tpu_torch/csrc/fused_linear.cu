@@ -364,7 +364,6 @@ template <typename E, int BN>
 static int launch_wgmma(const void* a, const void* w, const float* bias, void* out, int out_f32,
                         int epi, int M, int N, int K, int kslice, int splits, const float* sx,
                         const float* sw, cudaStream_t s) {
-  constexpr bool kInt8 = std::is_same<E, int8_t>::value;
   constexpr int BK = LIN_BOX / (int)sizeof(E);
   auto kernel = linear_wgmma_kernel<E, BN>;
   static const cudaError_t attr = cudaFuncSetAttribute(  // once per instantiation
@@ -373,8 +372,8 @@ static int launch_wgmma(const void* a, const void* w, const float* bias, void* o
   const int consumers = M <= 64 ? 1 : 2, bm = 64 * consumers;
   const int stages = lin_stages(bm, BN, kslice / BK);
   CUtensorMap amap, wmap;
-  int err = tma_operand_map(&amap, a, M, K, bm, kInt8);
-  if (!err) err = tma_operand_map(&wmap, w, N, K, BN, kInt8);
+  int err = tma_operand_map(&amap, a, M, K, bm, (int)sizeof(E));
+  if (!err) err = tma_operand_map(&wmap, w, N, K, BN, (int)sizeof(E));
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((N + BN - 1) / BN * splits), (unsigned)((M + bm - 1) / bm), 1);
@@ -461,7 +460,7 @@ extern "C" int gic_fused_linear(int dtype, int ln, int epi, const void* x, const
     __nv_bfloat16* rows = static_cast<__nv_bfloat16*>(xa);
     ln_rows_kernel<__nv_bfloat16><<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock,
                                     32 * kLnRowsPerBlock, 0, s>>>(
-        static_cast<const float*>(x), lns, lnb, eps, M, K, rows);
+        static_cast<const float*>(x), lns, lnb, eps, M, K, rows, nullptr);
     a = rows;
   }
   const cudaError_t pre = cudaGetLastError();

@@ -429,6 +429,7 @@ constexpr float kSkipMargin = 1.001f;  // the init pass's skip test, below
 // Per thread, for each of its two rows, the state of one pass.
 template <typename E, int Mode>
 struct SampleSel {
+  static constexpr int kSteps = VW_STEPS;  // four logits a step (vocab_walk)
   static constexpr bool kInt8 = std::is_same<E, int8_t>::value;
   const float* sw;  // int8: wte's (V,) scales
   int V, k;
@@ -728,7 +729,7 @@ __device__ void sample_merge_row(const SampleArgs& a, int m, bool valid, int rou
 // of a row tile to arrive (its ticket, count[1 + row tile]) merges its
 // rows; count[0], the float32 route's count of unresolved rows, stays 0.
 template <typename E, int Mode>
-__global__ void __launch_bounds__(VW_MAX_THREADS, 1)
+__global__ void __launch_bounds__(vw_max_threads<E>(), 1)
 sample_walk_kernel(const __grid_constant__ CUtensorMap amap,
                    const __grid_constant__ CUtensorMap wmap, SampleArgs a, int round) {
   __shared__ int s_flag;
@@ -749,7 +750,7 @@ sample_walk_kernel(const __grid_constant__ CUtensorMap amap,
   const int row0 = m0 + vw_row0();
   SampleSel<E, Mode> sel;
   sel.init(a, row0, round);
-  vocab_walk<E>(&amap, &wmap, a.K, tiles * range / a.ncb, tiles * (range + 1) / a.ncb, sel);
+  vocab_walk<E>(&amap, &wmap, a.M, a.K, tiles * range / a.ncb, tiles * (range + 1) / a.ncb, sel);
   if (threadIdx.x < blockDim.x - 32) sel.finish(a, range);
 
   __threadfence();
@@ -771,9 +772,9 @@ template <typename E, int Mode>
 static int launch_sample_walk(cudaStream_t s, const void* xf, const void* wte, const SampleArgs& a,
                               int round) {
   const auto kernel = sample_walk_kernel<E, Mode>;
-  static const cudaError_t attr = vw_set_smem(kernel);
+  static const cudaError_t attr = vw_set_smem<E>(kernel);
   if (attr != cudaSuccess) return (int)attr;
-  return vw_launch<E>(kernel, s, xf, wte, a.M, a.K, a.V, a.ncb, a, round);
+  return vw_launch<E>(kernel, s, xf, wte, a.M, a.K, a.V, a.ncb, 0, a, round);
 }
 
 // The ranges of a rare pass: the blocks of a full pass (row tiles x ranges),

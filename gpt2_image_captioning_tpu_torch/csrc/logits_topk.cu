@@ -159,6 +159,7 @@ __global__ void topk_merge_kernel(const float* part_val, const int* part_idx,
 // top-KS of its logits, best first.
 template <typename E, int KS>
 struct TopkSel {
+  static constexpr int kSteps = VW_STEPS;  // four logits a step (vocab_walk)
   static constexpr bool kInt8 = std::is_same<E, int8_t>::value;
   const float* sw;  // int8: wte's (V,) scales
   int V;
@@ -280,7 +281,7 @@ struct TopkSel {
 // Grid (row tiles, ranges): the partials of rows blockIdx.x * bm .. over
 // range blockIdx.y's tiles.  part_*: (M, ranges, k) and (M, ranges).
 template <typename E, int KS>
-__global__ void __launch_bounds__(VW_MAX_THREADS, 1)
+__global__ void __launch_bounds__(vw_max_threads<E>(), 1)
 topk_walk_kernel(const __grid_constant__ CUtensorMap amap,
                  const __grid_constant__ CUtensorMap wmap, int M, int K, int V, int k,
                  float* part_val, int* part_idx, float* part_m, float* part_s, const float* sx,
@@ -290,7 +291,7 @@ topk_walk_kernel(const __grid_constant__ CUtensorMap amap,
   const int row0 = blockIdx.x * bm + vw_row0();
   TopkSel<E, KS> sel;
   sel.init(sx, sw, M, V, row0);
-  vocab_walk<E>(&amap, &wmap, K, tiles * range / ranges, tiles * (range + 1) / ranges, sel);
+  vocab_walk<E>(&amap, &wmap, M, K, tiles * range / ranges, tiles * (range + 1) / ranges, sel);
   if (threadIdx.x < blockDim.x - 32)
     sel.finish(M, row0, k, ranges, range, part_val, part_idx, part_m, part_s);
 }
@@ -300,9 +301,9 @@ static int launch_topk_walk(cudaStream_t s, const void* xf, const void* wte, int
                             int k, int ranges, float* pv, int* pi, float* pm, float* ps,
                             const float* sx, const float* sw) {
   const auto kernel = topk_walk_kernel<E, KS>;
-  static const cudaError_t attr = vw_set_smem(kernel);
+  static const cudaError_t attr = vw_set_smem<E>(kernel);
   if (attr != cudaSuccess) return (int)attr;
-  return vw_launch<E>(kernel, s, xf, wte, M, K, V, ranges, M, K, V, k, pv, pi, pm, ps, sx, sw);
+  return vw_launch<E>(kernel, s, xf, wte, M, K, V, ranges, 0, M, K, V, k, pv, pi, pm, ps, sx, sw);
 }
 
 // Pass 0 and pass 1 of either route; nblk partials a row (float32: one a

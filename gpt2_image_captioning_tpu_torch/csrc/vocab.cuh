@@ -3,15 +3,21 @@
 // dispatch on the element and weight types, and the (value, index) order.
 //
 // Each of them ends the decode step of gpt2_image_captioning_tpu/ops/
-// decode_step.py::_step_kernel: LN_f of the float32 residual stream, then
-// logits = LN_f(x) @ wte^T over the (V, D) tied embedding: in the 64 x 32
-// tiles of common.cuh, or, for the top-k's and the sampler's bf16 and int8
-// routes, on the walk of vocab_walk.cuh.  They differ only in what each
-// tile's logits become: a (max, argmax) pair, a float32 store, a partial
-// top-k with a partial logsumexp, or a draw.  With an int8 wte and its (V,)
-// float32 scales (W8A8, :555-563) the pre-pass is rowquant.cu's LN variant
-// — LN_f, the cast to the compute dtype, the per-row int8 quantization —
-// and the products are int8, whose logits are acc * sx * sw.
+// decode_step.py::_step_kernel (:112; greedy :552-568, emit_logits
+// :617-640, topk :569-616, sample :641): LN_f of the float32 residual
+// stream, then logits = LN_f(x) @ wte^T over the (V, D) tied embedding, on
+// the walk of vocab_walk.cuh (TMA ring, wgmma: the argmax and the store in
+// every operand type, the top-k and the sampler in bf16 and int8), or, for
+// the top-k's and the sampler's float32 routes, in the 64 x 32 tiles of
+// common.cuh.  They differ only in what each tile's logits become: a (max,
+// argmax) pair, a float32 store, a partial top-k with a partial logsumexp,
+// or a draw.  Bound on the H100: wte's bytes (bf16 77.2 MB, 23 us at 3.35
+// TB/s; int8 38.6 MB) at the greedy and sampled paths' B 128, the products
+// at B 512 and in float32 (the kernels' headers).  With an int8 wte and its
+// (V,) float32 scales (W8A8, :555-563) the pre-pass is rowquant.cu's LN
+// variant — LN_f, the cast to the compute dtype, the per-row int8
+// quantization — and the products are int8, whose logits are acc * sx * sw;
+// the float32 walk's pre-pass writes each row as its TF32 hi and lo parts.
 #pragma once
 
 #include "common.cuh"
@@ -21,7 +27,7 @@
 
 namespace gic {
 
-static_assert(BN == 32, "the vocabulary kernels give one warp lane to each tile column");
+static_assert(BN == 32, "the top-k's and the sampler's float32 tiles give a warp lane a column");
 
 // (v, i) beats (bv, bi): larger value, or equal value and smaller index
 // (jnp.argmax / torch.argmax / lax.top_k order)
@@ -47,17 +53,17 @@ namespace {
 
 // Pass 0 by operand type: T rows of LN_f for a float wte
 // (common.cuh::ln_rows_kernel; normalising once matters: with the LN inside
-// the tile, each of the 1,571 column blocks would recompute its rows'
-// statistics), or, for an int8 wte (E = int8_t), int8 rows in xf and their
-// scales in sx.
+// the product, each column block would recompute its rows' statistics), or,
+// for an int8 wte (E = int8_t), int8 rows in xf and their scales in sx.
+// With xl (float rows), xf and xl take the rows' TF32 hi and lo parts.
 template <typename T, typename E>
 void launch_prepass(cudaStream_t s, const float* x, const float* lns, const float* lnb, float eps,
-                    int M, int K, void* xf, float* sx) {
+                    int M, int K, void* xf, float* sx, float* xl = nullptr) {
   if constexpr (std::is_same<E, int8_t>::value) {
     launch_rowquant<T, true>(s, x, K, lns, lnb, eps, M, K, static_cast<int8_t*>(xf), K, sx);
   } else {
     ln_rows_kernel<T><<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock, 32 * kLnRowsPerBlock, 0,
-                        s>>>(x, lns, lnb, eps, M, K, static_cast<T*>(xf));
+                        s>>>(x, lns, lnb, eps, M, K, static_cast<T*>(xf), xl);
   }
 }
 

@@ -1,17 +1,25 @@
-// The vocabulary walk of the two selection kernels (logits_topk.cu and
-// logits_sample.cu) in bf16 and int8: LN_f(x) @ wte^T over the (V, D) tied
-// embedding on Hopper's TMA and wgmma, each tile's logits handed, still in
-// the accumulator registers, to a selection that the kernel supplies.
+// The vocabulary walk of the four vocabulary kernels: LN_f(x) @ wte^T over
+// the (V, D) tied embedding on Hopper's TMA and wgmma, each tile's logits
+// handed, still in the accumulator registers, to a selection that the kernel
+// supplies: a running (max, first argmax) (logits_argmax.cu), a store
+// (logits.cu), a partial top-k and logsumexp (logits_topk.cu) or the
+// sampler's draws (logits_sample.cu).
 //
-// Replaces, for those two kernels' bf16 and int8 routes, the 64 x 32 WMMA
-// tile of common.cuh (one stage in flight, four warps, a warp a row per
-// 32-column tile).  The float32 routes keep that tile (its three-term TF32
-// split).
+// Replaces the vocabulary walk of gpt2_image_captioning_tpu/ops/
+// decode_step.py::_step_kernel (:112; greedy :552-568 and :805-821, topk
+// :569-616, emit_logits :617-640, sample :641, the int8 tile :555-563),
+// whose first port was the 64 x 32 tile of common.cuh (one stage in
+// flight, four warps, a warp a row per 32-column tile) walking the whole of
+// wte once per 64 rows.  The argmax and the store run on this walk in
+// every operand type (bf16, int8, float32); the top-k and the sampler in
+// bf16 and int8, their float32 routes still on that tile (their headers).
 //
-// Bound on the H100: at B 512 the product's operations (39.5 GFLOP in
-// bf16, 40 us at 989 TFLOP/s; int8 20 us at 1,979 TOPS); wte's bytes (77.2
-// MB bf16, 38.6 MB int8) take 23 / 12 us; the sampler's draws add vector
-// work (its header).
+// Bound on the H100, at the greedy path's B 128: wte's bytes in bf16 (77.2
+// MB, 23 us at 3.35 TB/s) and int8 (38.6 MB, 12 us; the products 5 us at
+// 1,979 TOPS); in float32 the products: three TF32 products (below) of 2 x
+// 128 x 768 x 50,257, 29.6 GFLOP, 60 us at 495 TFLOP/s, above wte's 154 MB
+// (46 us).  At B 512 the bf16 products (39.5 GFLOP, 40 us at 989 TFLOP/s)
+// pass the bytes; the sampler's draws add vector work (its header).
 //
 // Design.
 // - The grid is (row tiles, column ranges).  A row tile is 128 rows (two
@@ -35,18 +43,47 @@
 //   it folds a tile into per-row running state in registers and merges
 //   with its quad once a range.  The swapped product (wte as A) would give
 //   a thread two columns of 64 rows and a shuffle merge every tile.
+// - float32 runs the same walk on wgmma m64n128k8 .tf32 (K-major on both
+//   sides, which is the direct product's layout; a 128-byte box is 32
+//   floats, four k8 steps of 32 bytes, so the descriptors step as bf16's
+//   k16 do) as the three-term split of common.cuh's tile: x = xh + xl with
+//   xh = tf32(x) (cvt.rna) and xl = tf32(x - xh), w alike, and d += xl wh +
+//   xh wl + xh wh into the same float32 accumulators, the small terms
+//   first.  Both sides are rounded explicitly; nothing relies on the tensor
+//   core dropping a raw float's low bits.  The rows are split once, by the
+//   pre-pass (common.cuh::ln_rows_kernel with xl): the (2M, K) operand holds
+//   the xh rows, then the xl rows, streamed as two boxes a stage.  wte is
+//   split in shared memory as each box lands, by seven converter warps
+//   beside the producer (512 threads a block at 128 rows; tf32_rna_bits):
+//   hi in place, lo into a second slot of the stage, then fence.proxy.async
+//   and an mbarrier (ready) that the consumers wait on beside the TMA's.  A
+//   stage is (2 bm + 2 VW_BN) x 128 bytes, 64 KB at bm 128: three stages.
+//   What bounds it is shared memory: a stage moves 48 KB in by TMA, 48 KB
+//   through the converters and 144 KB into the tensor cores (three products
+//   a k8 step read A and B again each), against the 1,536 clocks of its
+//   products; splitting the rows there too, for half the L2 traffic, ran
+//   1.5x slower (PERF.md §6).  Error: the split leaves each product within
+//   3 x 2^-22 of |x w| (the dropped xl wl and the two roundings, each <=
+//   2^-22 |x w|), so a logit within 2^-20 sum_k |x_k w_k| of the exact sum
+//   before the float32 accumulation, which adds at most one float32
+//   rounding (2^-23 relative, truncating or not) of the running sum a
+//   product instruction: 3 a k8 step, 288 at D 768
+//   (tests/test_torch_tf32_split.py emulates both and holds them to these
+//   bounds).
 // - The selection runs from registers, by the thread that holds the
 //   accumulators: when a tile's products are done, the kernel's selection
 //   object turns them into the thread's logits (prepare(): dequantized,
-//   scaled, each row's max, one branch-free pass) and takes them four at a
-//   time (step(), a rolled loop: the logits shift down by four a step,
-//   register moves, so they stay in registers and the code stays small).
-//   The two consumer warpgroups run half a ring out of phase, so one's
+//   scaled, each row's max, one branch-free pass) and, where the selection
+//   is heavy (the top-k, the sampler: Sel::kSteps = VW_STEPS), takes them
+//   four at a time (step(), a rolled loop: the logits shift down by four a
+//   step, register moves, so they stay in registers and the code stays
+//   small); the argmax and the store do a tile's work in prepare() (kSteps
+//   0).  The two consumer warpgroups run half a ring out of phase, so one's
 //   selection overlaps the other's products.  (Holding the next tile's
 //   accumulators beside a tile's logits, to overlap within a warpgroup,
-//   needs ~190 registers a thread against the 168 that a 288-thread block
-//   allows, and measured slower, spilling.)  At the end of its range a
-//   thread merges with its quad once and writes one partial per (row,
+//   needs ~190 registers a thread against the 168 that a block of 9 warps
+//   allows, and measured slower, spilling.)  At the end of its range
+//   a thread merges with its quad once and writes one partial per (row,
 //   block) (finish()); a fixed-order merge follows.
 #pragma once
 
@@ -59,16 +96,38 @@ constexpr int VW_ACC = VW_BN / 2;           // accumulators a thread
 constexpr int VW_STEPS = VW_ACC / 4;        // selection steps a tile: four logits a thread each
 constexpr int VW_MAX_STAGES = 8;
 constexpr int VW_RING_BUDGET = 192 * 1024;  // the ring: one block an SM
-constexpr int VW_MAX_THREADS = 2 * 128 + 32;  // two consumer warpgroups and the producer warp
 constexpr int VW_BAR_PHASE = 1;             // named barrier: warpgroup 1 starts behind 0
+constexpr int VW_CONVERTERS = 224;          // float32: the converter warps' threads
 
-// Ring stages of a block: as many (rows + wte) boxes as fit the budget.
-// ops/decode_step.py::vocab_plan mirrors the grid, not this.
-__host__ __device__ inline int vw_stages(int bm) {
-  const int fit = VW_RING_BUDGET / ((bm + VW_BN) * kTmaBox);
+// The threads beside the consumer warpgroups: the producer warp, and for a
+// float32 operand (E = float) the seven converter warps with it.  (The
+// split of a stage's wte box is the float32 walk's bottleneck after the
+// shared memory's bandwidth: three warps held the walk at B 128 to 0.126
+// device ms, seven to 0.108 (PERF.md §6); a block of 16 warps leaves the
+// consumers 128 registers, which the argmax and the store fit.)
+template <typename E>
+__host__ __device__ constexpr int vw_service() {
+  return std::is_same<E, float>::value ? 32 + VW_CONVERTERS : 32;
+}
+template <typename E>
+__host__ __device__ constexpr int vw_max_threads() {
+  return 2 * 128 + vw_service<E>();
+}
+
+// A ring stage of a block of bm rows, for operands of el bytes: the rows' box
+// and wte's, each twice for float32 (the TF32 hi and lo).
+__host__ __device__ inline int vw_stage_bytes(int bm, int el) {
+  return (bm + VW_BN) * kTmaBox * (el == 4 ? 2 : 1);
+}
+// Ring stages of a block: as many as fit the budget.  ops/decode_step.py::
+// vocab_ring mirrors this and vw_smem (chip_smoke.py compares the two).
+__host__ __device__ inline int vw_stages(int bm, int el) {
+  const int fit = VW_RING_BUDGET / vw_stage_bytes(bm, el);
   return fit < VW_MAX_STAGES ? fit : VW_MAX_STAGES;
 }
-__host__ __device__ inline size_t vw_smem(int bm) { return 1024 + (size_t)vw_stages(bm) * (bm + VW_BN) * kTmaBox; }
+__host__ __device__ inline size_t vw_smem(int bm, int el) {
+  return 1024 + (size_t)vw_stages(bm, el) * vw_stage_bytes(bm, el);
+}
 
 // Rows a block of the walk: two consumer warpgroups, one where M <= 64.
 __host__ __device__ inline int vw_rows(int M) { return M <= 64 ? 64 : 128; }
@@ -80,32 +139,66 @@ __device__ __forceinline__ int vw_row0() {
   return 64 * (threadIdx.x / 128) + 16 * ((threadIdx.x % 128) / 32) + (threadIdx.x % 32) / 4;
 }
 
+// split_tf32 (common.cuh) by integer operations, as the converter warps
+// split wte: half a TF32 ulp added to the magnitude bits and the low 13
+// dropped is cvt.rna.tf32.f32's rounding (to nearest, ties away from zero)
+// of every finite x, without the conversion unit, whose quarter rate held
+// the converters back.
+__device__ __forceinline__ float tf32_rna_bits(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+__device__ __forceinline__ void tf32_split_bits(float x, float& hi, float& lo) {
+  hi = tf32_rna_bits(x);
+  lo = tf32_rna_bits(x - hi);
+}
+
+// The consumer threads of a walk kernel's block (the service threads follow).
+template <typename E>
+__device__ __forceinline__ int vw_consumers() {
+  return (int)blockDim.x - vw_service<E>();
+}
+
+// The block's dynamic shared memory past the ring: a selection's own space
+// (the launch's ``extra`` bytes, vw_launch).
+template <typename E>
+__device__ __forceinline__ unsigned char* vw_after_ring() {
+  extern __shared__ unsigned char smem_raw[];
+  const int bm = vw_consumers<E>() / 2;
+  return reinterpret_cast<unsigned char*>(
+             (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023)) +
+         (size_t)vw_stages(bm, (int)sizeof(E)) * vw_stage_bytes(bm, (int)sizeof(E));
+}
+
 // The walk of one block: row tile blockIdx.x (rows m0 .. m0 + bm - 1), its
-// range's tiles [t0, t1) of wte.  amap: the (M, K) operand rows, box (128
-// bytes, bm rows); wmap: wte (V, K), box (128 bytes, VW_BN rows).  Every
-// consumer thread calls sel.prepare(d, lg, n0) once a tile (n0 its first
-// column), which turns its accumulators into the logits lg, and then
-// sel.step(lg, j) for j = 0 .. VW_STEPS - 1 in a rolled loop, each taking
+// range's tiles [t0, t1) of wte.  amap: the (M, K) operand rows, or for
+// float32 the (2M, K) rows of their TF32 hi (rows 0 .. M - 1) and lo parts,
+// box (128 bytes, bm rows); wmap: wte (V, K), box (128 bytes, VW_BN rows).
+// Every consumer thread calls sel.prepare(d, lg, n0) once a tile (n0 its
+// first column), which turns its accumulators into the logits lg, and then
+// sel.step(lg, j) for j = 0 .. Sel::kSteps - 1 in a rolled loop, each taking
 // lg[0 .. 3] (columns 8 j + {0, 1} past the thread's first, rows h = 0, 1:
-// lg[2 h + e]) and shifting lg down by four (vw_shift).  The producer warp
-// returns once it has issued every box.  Starts with a __syncthreads (the barriers'
-// initialisation); the caller's next block-wide barrier waits for all
-// threads.
+// lg[2 h + e]) and shifting lg down by four (vw_shift).  The service threads
+// return once they have issued (the producer) or split (the converters)
+// every box.  Starts with a __syncthreads (the barriers' initialisation);
+// the caller's next block-wide barrier waits for all threads.
 template <typename E, typename Sel>
-__device__ __forceinline__ void vocab_walk(const CUtensorMap* amap, const CUtensorMap* wmap,
+__device__ __forceinline__ void vocab_walk(const CUtensorMap* amap, const CUtensorMap* wmap, int M,
                                            int K, int t0, int t1, Sel& sel) {
   constexpr bool kInt8 = std::is_same<E, int8_t>::value;
+  constexpr bool kF32 = std::is_same<E, float>::value;
+  constexpr int kParts = kF32 ? 2 : 1;  // boxes an operand: TF32 hi and lo, or the operand
   using Acc = typename std::conditional<kInt8, int, float>::type;
   constexpr int BK = kTmaBox / (int)sizeof(E);  // K elements a box
   extern __shared__ unsigned char smem_raw[];
-  __shared__ uint64_t full[VW_MAX_STAGES], empty[VW_MAX_STAGES];
+  __shared__ uint64_t full[VW_MAX_STAGES], empty[VW_MAX_STAGES], ready[VW_MAX_STAGES];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
-  const int ncons = blockDim.x - 32;  // consumer threads
-  const int bm = ncons / 2;           // 64 rows a consumer warpgroup
-  const int stages = vw_stages(bm);
-  const int stage_bytes = (bm + VW_BN) * kTmaBox;
+  const int ncons = vw_consumers<E>();
+  const int bm = ncons / 2;  // 64 rows a consumer warpgroup
+  const int stages = vw_stages(bm, (int)sizeof(E));
+  const int stage_bytes = vw_stage_bytes(bm, (int)sizeof(E));
+  const int w_off = kParts * bm * kTmaBox;  // wte's box in a stage, after the rows' boxes
   const int m0 = blockIdx.x * bm;
   const int nbox = (K + BK - 1) / BK;
 
@@ -117,23 +210,59 @@ __device__ __forceinline__ void vocab_walk(const CUtensorMap* amap, const CUtens
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], ncons);
+      if (kF32) mbar_init(&ready[s], VW_CONVERTERS);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x >= ncons) {
-    // ---- producer warp: one lane streams every box of the range ----
-    if (threadIdx.x == ncons) {
+    const int st = threadIdx.x - ncons;  // the service thread
+    if (st == 0) {
+      // ---- producer: one lane streams every box of the range ----
       int it = 0;
       for (int t = t0; t < t1; ++t) {
         for (int b = 0; b < nbox; ++b, ++it) {
           const int s = it % stages;
           if (it >= stages) mbar_wait(&empty[s], (it / stages - 1) & 1);  // box it - stages freed
           unsigned char* a = ring + s * stage_bytes;
-          mbar_expect_tx(&full[s], stage_bytes);
+          mbar_expect_tx(&full[s], (kParts * bm + VW_BN) * kTmaBox);
           tma_load_2d(a, amap, &full[s], b * BK, m0);
-          tma_load_2d(a + bm * kTmaBox, wmap, &full[s], b * BK, t * VW_BN);
+          if (kF32) tma_load_2d(a + bm * kTmaBox, amap, &full[s], b * BK, M + m0);  // the lo rows
+          tma_load_2d(a + w_off, wmap, &full[s], b * BK, t * VW_BN);
+        }
+      }
+    } else if (kF32 && st >= 32) {
+      // ---- float32 converters: each landed wte box split into TF32 hi (in
+      // place) and lo (the stage's last slot), for the consumers' wgmma ----
+      int it = 0;
+      for (int t = t0; t < t1; ++t) {
+        for (int b = 0; b < nbox; ++b, ++it) {
+          const int s = it % stages;
+          mbar_wait(&full[s], (it / stages) & 1);
+          float4* hi = reinterpret_cast<float4*>(ring + s * stage_bytes + w_off);
+          float4* lo = hi + VW_BN * kTmaBox / 16;
+          constexpr int N = VW_BN * kTmaBox / 16, U = 4;  // U loads in flight a thread
+          for (int i0 = st - 32; i0 < N; i0 += U * VW_CONVERTERS) {
+            float4 w[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              if (i0 + u * VW_CONVERTERS < N) w[u] = hi[i0 + u * VW_CONVERTERS];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              const int i = i0 + u * VW_CONVERTERS;
+              if (i >= N) break;
+              float4 h, l;
+              tf32_split_bits(w[u].x, h.x, l.x);
+              tf32_split_bits(w[u].y, h.y, l.y);
+              tf32_split_bits(w[u].z, h.z, l.z);
+              tf32_split_bits(w[u].w, h.w, l.w);
+              hi[i] = h;
+              lo[i] = l;
+            }
+          }
+          fence_proxy_async();  // the splits, before the consumers' wgmma reads them
+          mbar_arrive(&ready[s]);
         }
       }
     }
@@ -157,13 +286,26 @@ __device__ __forceinline__ void vocab_walk(const CUtensorMap* amap, const CUtens
     for (int b = 0; b < nbox; ++b, ++it) {
       const int s = it % stages;
       mbar_wait(&full[s], (it / stages) & 1);
+      if (kF32) mbar_wait(&ready[s], (it / stages) & 1);
       const uint32_t a0 = smem_u32(ring + s * stage_bytes) + g * 64 * kTmaBox;
-      const uint32_t w0 = smem_u32(ring + s * stage_bytes) + bm * kTmaBox;
+      const uint32_t w0 = smem_u32(ring + s * stage_bytes) + w_off;
       wgmma_fence();
+      if constexpr (kF32) {
+        const uint32_t al = a0 + bm * kTmaBox, wl = w0 + VW_BN * kTmaBox;
 #pragma unroll
-      for (int kk = 0; kk < kTmaBox / 32; ++kk)  // 32 bytes of K a step: k16 bf16, k32 int8
-        Wgmma<VW_BN>::mma(d, wgmma_desc(a0 + 32 * kk, 16, 1024),
-                          wgmma_desc(w0 + 32 * kk, 16, 1024));
+        for (int kk = 0; kk < kTmaBox / 32; ++kk) {  // k8 a step: 32 bytes of K
+          const uint64_t ah = wgmma_desc(a0 + 32 * kk, 16, 1024);
+          const uint64_t wh = wgmma_desc(w0 + 32 * kk, 16, 1024);
+          wgmma_tf32_m64n128k8(d, wgmma_desc(al + 32 * kk, 16, 1024), wh);
+          wgmma_tf32_m64n128k8(d, ah, wgmma_desc(wl + 32 * kk, 16, 1024));
+          wgmma_tf32_m64n128k8(d, ah, wh);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < kTmaBox / 32; ++kk)  // 32 bytes of K a step: k16 bf16, k32 int8
+          Wgmma<VW_BN>::mma(d, wgmma_desc(a0 + 32 * kk, 16, 1024),
+                            wgmma_desc(w0 + 32 * kk, 16, 1024));
+      }
       wgmma_commit();
       wgmma_wait<1>();  // box it - 1's products are done: release its slot
       wgmma_fence_regs(d);
@@ -175,7 +317,7 @@ __device__ __forceinline__ void vocab_walk(const CUtensorMap* amap, const CUtens
     mbar_arrive(&empty[(it - 1) % stages]);  // the tile's last box
     sel.prepare(d, lg, t * VW_BN);
 #pragma unroll 1
-    for (int j = 0; j < VW_STEPS; ++j) sel.step(lg, j);
+    for (int j = 0; j < Sel::kSteps; ++j) sel.step(lg, j);
   }
   if (g == 0 && ncons > 128 && it <= lag) bar_arrive(VW_BAR_PHASE, ncons);  // a range shorter than the lag
 }
@@ -267,29 +409,47 @@ __device__ __forceinline__ void quad_argmax(float& v, int& i, float& p) {
 }
 
 // A walk kernel's dynamic shared memory limit, set once per kernel by its
-// launcher (a static there).
-template <typename Kernel>
-cudaError_t vw_set_smem(Kernel kernel) {
-  const size_t most = vw_smem(64) > vw_smem(128) ? vw_smem(64) : vw_smem(128);
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)most);
+// launcher (a static there); extra: the selection's bytes past the ring at
+// 128 rows (vw_launch), which bound its bytes at 64.
+template <typename E, typename Kernel>
+cudaError_t vw_set_smem(Kernel kernel, size_t extra = 0) {
+  constexpr int el = (int)sizeof(E);
+  const size_t most = vw_smem(64, el) > vw_smem(128, el) ? vw_smem(64, el) : vw_smem(128, el);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(most + extra));
 }
 
+// Internal linkage, as launch_prepass (vocab.cuh).
+namespace {
+
+// Pass 0 of a walk: launch_prepass (vocab.cuh), a float32 route's rows
+// written as their TF32 pairs, hi then lo: xf then holds 2 M K floats.
+template <typename T, typename E>
+void vw_prepass(cudaStream_t s, const float* x, const float* lns, const float* lnb, float eps,
+                int M, int K, void* xf, float* sx) {
+  float* xl = std::is_same<E, float>::value ? static_cast<float*>(xf) + (size_t)M * K : nullptr;
+  launch_prepass<T, E>(s, x, lns, lnb, eps, M, K, xf, sx, xl);
+}
+
+}  // namespace
+
 // Launches a walk kernel, whose first two parameters are the maps, over the
-// grid (row tiles, ranges).  xf: the (M, K) operand rows (E); wte: (V, K)
-// E.  Returns 0 or a cudaError_t.
+// grid (row tiles, ranges).  xf: the (M, K) operand rows (E; float32: the
+// (2M, K) TF32 pairs of vw_prepass); wte: (V, K) E; extra: dynamic shared
+// bytes past the ring (vw_after_ring).  Returns 0 or a cudaError_t.
 template <typename E, typename Kernel, typename... Args>
 int vw_launch(Kernel kernel, cudaStream_t s, const void* xf, const void* wte, int M, int K, int V,
-              int ranges, Args... args) {
-  constexpr bool kInt8 = std::is_same<E, int8_t>::value;
+              int ranges, size_t extra, Args... args) {
+  constexpr int el = (int)sizeof(E);
   const int bm = vw_rows(M);
   CUtensorMap amap, wmap;
-  int err = tma_operand_map(&amap, xf, M, K, bm, kInt8);
-  if (!err) err = tma_operand_map(&wmap, wte, V, K, VW_BN, kInt8);
+  int err = tma_operand_map(&amap, xf, std::is_same<E, float>::value ? 2 * M : M, K, bm, el);
+  if (!err) err = tma_operand_map(&wmap, wte, V, K, VW_BN, el);
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((M + bm - 1) / bm), (unsigned)ranges, 1);
-  cfg.blockDim = dim3((unsigned)(2 * bm + 32), 1, 1);
-  cfg.dynamicSmemBytes = vw_smem(bm);
+  cfg.blockDim = dim3((unsigned)(2 * bm + vw_service<E>()), 1, 1);
+  cfg.dynamicSmemBytes = vw_smem(bm, el) + extra;
   cfg.stream = s;
   return (int)cudaLaunchKernelEx(&cfg, kernel, amap, wmap, args...);
 }

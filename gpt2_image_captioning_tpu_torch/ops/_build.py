@@ -55,11 +55,14 @@ _SIGNATURES = {
     # K, N, bn, splits, k_slice, stream
     "gic_fused_linear": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _P],
-    # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, xf, sx, part_val, part_idx,
-    # tok, stream
-    "gic_logits_argmax": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, xf, sx, logits, stream
-    "gic_logits": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, ranges, xf, sx, part_val,
+    # part_idx, tok, stream
+    "gic_logits_argmax": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, ranges, xf, sx, logits, stream
+    "gic_logits": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # rows, element bytes (, store): the vocabulary walk's ring (ops/decode_step.py::vocab_ring)
+    "gic_vocab_stages": [_I, _I],
+    "gic_vocab_smem": [_I, _I, _I],
     # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, k, nblk, xf, sx, part_val,
     # part_idx, part_m, part_s, vals, ids, lse, stream
     "gic_logits_topk": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,

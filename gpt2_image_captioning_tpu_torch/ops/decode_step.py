@@ -370,16 +370,16 @@ def logits_argmax_cuda(x32, lnf, wte, eps: float = 1e-5, *, wte_scale=None,
     inside the call); ``compute_dtype`` defaults to wte's.  Returns (B,)
     int32."""
     name = "logits_argmax"
-    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
+    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype, walk=True)
     b, d = x32.shape
     v = wte.shape[0]
-    nblk = -(-v // 32)  # csrc/common.cuh BN
+    nblk, _ = vocab_partials("argmax", b, v, cdt == torch.float32 and ws is None)
     part_val = torch.empty((b, nblk), dtype=torch.float32, device=x32.device)
     part_idx = torch.empty((b, nblk), dtype=torch.int32, device=x32.device)
     tok = torch.empty((b,), dtype=torch.int32, device=x32.device)
     err = _build.library().gic_logits_argmax(
         _build.DTYPE_CODE[cdt], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
-        wte.data_ptr(), _build.ptr(ws), b, d, v, xf.data_ptr(), _build.ptr(sx),
+        wte.data_ptr(), _build.ptr(ws), b, d, v, nblk, xf.data_ptr(), _build.ptr(sx),
         part_val.data_ptr(), part_idx.data_ptr(), tok.data_ptr(), _build.stream_of(x32),
     )
     _count_vocab(logits_argmax_cuda, name, err, ws)
@@ -424,23 +424,26 @@ def _vocab_check(name, x32, lnf, wte, wte_scale, compute_dtype) -> torch.dtype:
     return cdt
 
 
-def _vocab_scratch(name, x32, wte_scale, cdt):
-    """The device check, then the (B, D) scratch of the normalised rows (int8
-    with an int8 wte) and the (B,) scratch of the rows' scales (None for a
-    float wte)."""
+def _vocab_scratch(name, x32, wte_scale, cdt, walk: bool):
+    """The device check, then the scratch of the normalised rows — (B, D) in
+    the compute dtype, int8 with an int8 wte, (2, B, D) for the float32 walk
+    (``walk``: the rows' TF32 hi and lo parts) — and the (B,) scratch of the
+    rows' scales (None for a float wte)."""
     _build.require(x32.is_cuda, name, "x32 must be a CUDA tensor")
     b, d = x32.shape
     if wte_scale is None:
-        return torch.empty((b, d), dtype=cdt, device=x32.device), None
+        shape = (2, b, d) if walk and cdt == torch.float32 else (b, d)
+        return torch.empty(shape, dtype=cdt, device=x32.device), None
     return (torch.empty((b, d), dtype=torch.int8, device=x32.device),
             torch.empty((b,), dtype=torch.float32, device=x32.device))
 
 
-def _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype):
+def _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype, walk: bool = False):
     """:func:`_vocab_check` and :func:`_vocab_scratch`: the compute dtype,
-    the two scratch tensors and ``wte_scale``."""
+    the two scratch tensors and ``wte_scale``.  ``walk``: the kernel walks
+    wte in every operand type (the argmax, the store)."""
     cdt = _vocab_check(name, x32, lnf, wte, wte_scale, compute_dtype)
-    return (cdt, *_vocab_scratch(name, x32, wte_scale, cdt), wte_scale)
+    return (cdt, *_vocab_scratch(name, x32, wte_scale, cdt, walk), wte_scale)
 
 
 def _count_vocab(wrapper, name, err, wte_scale) -> None:
@@ -461,14 +464,14 @@ def logits_cuda(x32, lnf, wte, eps: float = 1e-5, *, wte_scale=None,
     """Launch ``csrc/logits.cu``: the (B, V) float32 logits of
     :func:`logits_plain`.  Arguments as :func:`logits_argmax_cuda`."""
     name = "logits"
-    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
+    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype, walk=True)
     b, d = x32.shape
     v = wte.shape[0]
     out = torch.empty((b, v), dtype=torch.float32, device=x32.device)
     err = _build.library().gic_logits(
         _build.DTYPE_CODE[cdt], x32.data_ptr(), lnf[0].data_ptr(), lnf[1].data_ptr(), eps,
-        wte.data_ptr(), _build.ptr(ws), b, d, v, xf.data_ptr(), _build.ptr(sx), out.data_ptr(),
-        _build.stream_of(x32),
+        wte.data_ptr(), _build.ptr(ws), b, d, v, vocab_plan(b, v).ranges, xf.data_ptr(),
+        _build.ptr(sx), out.data_ptr(), _build.stream_of(x32),
     )
     _count_vocab(logits_cuda, name, err, ws)
     return out
@@ -489,11 +492,16 @@ def logits(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None = None, 
 
 TOPK_MAX = 16  # csrc/logits_topk.cu kMaxK
 
-# The walk of the two selection kernels' bf16 and int8 routes
-# (csrc/vocab_walk.cuh) and the float32 route's tile (csrc/common.cuh)
+# The vocabulary walk (csrc/vocab_walk.cuh: the argmax and the store in every
+# operand type, the two selection kernels in bf16 and int8) and the selection
+# kernels' float32 tile (csrc/common.cuh)
 VOCAB_BN = 128         # vocab_walk.cuh VW_BN: vocabulary columns a tile
-VOCAB_F32_TILE = 32    # common.cuh BN: the float32 route's tile
+VOCAB_F32_TILE = 32    # common.cuh BN: the selection kernels' float32 tile
 _SAMPLE_TILES = 8      # logits_sample.cu kTilesPerBlock: float32 tiles a block
+_RING_BUDGET = 192 * 1024  # vocab_walk.cuh VW_RING_BUDGET: bytes of a block's ring
+_RING_STAGES = 8           # vocab_walk.cuh VW_MAX_STAGES
+_TMA_BOX = 128             # common.cuh kTmaBox: bytes of K a box
+_STORE_STAGING = 8 * 16 * 40 * 4  # logits.cu kStageBytes: the store's staging
 
 
 class VocabPlan(NamedTuple):
@@ -526,13 +534,27 @@ def vocab_plan(m: int, v: int) -> VocabPlan:
     return VocabPlan(rows, row_tiles, tiles, ranges, min(tiles, row_tiles * ranges))
 
 
+def vocab_ring(rows: int, element_size: int, store: bool = False) -> tuple[int, int]:
+    """(stages, dynamic shared memory bytes) of a walk block of ``rows`` rows
+    (64 or 128) over operands of ``element_size`` bytes, as
+    ``csrc/vocab_walk.cuh::vw_stages`` / ``vw_smem`` size them: a stage holds
+    a 128-byte box of the rows and one of VOCAB_BN wte rows — each twice in
+    float32, its TF32 hi and lo parts —, as many stages as the ring's budget
+    holds (at most 8), and 1,024 bytes for alignment; with ``store`` also
+    ``csrc/logits.cu``'s staging (a 16 x 40-float slot for each of 8 warps)."""
+    stage = (rows + VOCAB_BN) * _TMA_BOX * (2 if element_size == 4 else 1)
+    stages = min(_RING_STAGES, _RING_BUDGET // stage)
+    return stages, 1024 + stages * stage + store * _STORE_STAGING
+
+
 def vocab_partials(kernel: str, m: int, v: int, float_route: bool) -> tuple[int, int]:
-    """(blocks a row, partials a row) of ``kernel`` ("topk" or "sample"): the
-    blocks its C entry takes and checks — the float32 route's one a
-    32-column tile (top-k) or a block of ``_SAMPLE_TILES`` of them
-    (sampler), the walk's ranges — and the partials its scratch holds for a
-    row, the most any of its passes writes (the sampler's rare passes)."""
-    if not float_route:
+    """(blocks a row, partials a row) of ``kernel`` ("argmax", "topk" or
+    "sample"): the blocks its C entry takes and checks — the walk's ranges;
+    for the selection kernels' float32 route one a 32-column tile (top-k) or
+    a block of ``_SAMPLE_TILES`` of them (sampler), the argmax walks in
+    float32 too — and the partials its scratch holds for a row, the most any
+    of its passes writes (the sampler's rare passes)."""
+    if not float_route or kernel == "argmax":
         plan = vocab_plan(m, v)
         return plan.ranges, plan.rare_ranges if kernel == "sample" else plan.ranges
     tiles = -(-v // VOCAB_F32_TILE)
@@ -631,7 +653,7 @@ def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds
         _build.require(t.shape == (b,) and t.dtype == torch.float32 and t.is_contiguous()
                        and t.device == x32.device, name,
                        "temp and top_p must be contiguous float32 (B,) on x32's device")
-    xf, sx = _vocab_scratch(name, x32, wte_scale, cdt)
+    xf, sx = _vocab_scratch(name, x32, wte_scale, cdt, walk=False)
     ws = wte_scale
     ncb, parts = vocab_partials("sample", b, v, cdt == torch.float32 and ws is None)
     dev = x32.device

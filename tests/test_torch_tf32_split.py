@@ -1,0 +1,155 @@
+"""The three-term TF32 split of the float32 vocabulary walk
+(``csrc/vocab_walk.cuh``), emulated in torch on the CPU.
+
+The walk multiplies float32 operands on ``wgmma`` TF32: each operand x is
+split as xh = tf32(x) (``cvt.rna``: to nearest, ties away from zero) and
+xl = tf32(x - xh); a logit accumulates xl wh + xh wl + xh wh into float32,
+one k8 step of each product at a time.  The header states two bounds: the
+split leaves a logit within 2^-20 sum_k |x_k w_k| of the exact sum, and the
+float32 accumulation adds at most 2^-23 of the running sum each product
+instruction (3 a k8 step).  The walk's converter warps round wte by the
+same integer operations as ``tf32_rna`` below (``tf32_rna_bits``); the
+known answers pin that to ``cvt.rna``'s rounding.  Here the rounding is
+done on an int32 view, the products in float64 (a TF32 x TF32 product is
+exact there), and the accumulator is rounded to float32 toward zero (the
+tensor core may truncate) and to nearest, at D 768 with LN-scale rows and
+wte of std 0.02 over V 1,025.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+from gpt2_image_captioning_tpu_torch.ops import nn
+
+D, V, B = 768, 1025, 16
+K8 = 8  # wgmma m64n128k8: K a product instruction
+SPLIT_BOUND = 2.0 ** -20  # of sum_k |x_k w_k|: the split alone
+STEP_BOUND = 2.0 ** -23   # of the running sum: one float32 rounding a product instruction
+TF_TOL_F32 = 1e-3         # chip_smoke.py: the float32 greedy path's teacher-forced bound
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 explicit significand bits) to nearest,
+    ties away from zero, as ``cvt.rna.tf32.f32``: half a TF32 ulp (bit 12)
+    added to the magnitude bits, the low 13 bits dropped; the sign bit
+    stays (finite inputs)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``common.cuh::split_tf32``: hi = tf32(x), lo = tf32(x - hi), the
+    difference exact in float32."""
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def operands(seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """LN-scale rows (as LN_f gives them: N(0, 1) times a scale near 1 plus
+    a small bias) and a wte of std 0.02, float32, from numpy."""
+    rng = np.random.default_rng(seed)
+    scale = 1 + 0.1 * rng.standard_normal(D)
+    bias = 0.1 * rng.standard_normal(D)
+    x = rng.standard_normal((B, D)) * scale + bias
+    w = 0.02 * rng.standard_normal((V, D))
+    return torch.tensor(x, dtype=torch.float32), torch.tensor(w, dtype=torch.float32)
+
+
+def round_toward_zero(exact: torch.Tensor) -> torch.Tensor:
+    """float64 values rounded to float32 toward zero."""
+    near = exact.to(torch.float32)
+    away = near.double().abs() > exact.abs()
+    return torch.where(away, torch.nextafter(near, torch.zeros_like(near)), near)
+
+
+def walk_logits(x: torch.Tensor, w: torch.Tensor, truncate: bool) -> tuple[torch.Tensor,
+                                                                           torch.Tensor]:
+    """The walk's float32 logits of x @ w^T, and the sum over its product
+    instructions of |running sum| (the accumulation bound's measure): for
+    each k8 step the three products xl wh, xh wl, xh wh, each an exact
+    8-term sum added to the float32 accumulator with one rounding."""
+    (xh, xl), (wh, wl) = split(x), split(w)
+    acc = torch.zeros(x.shape[0], w.shape[0], dtype=torch.float32)
+    seen = torch.zeros_like(acc, dtype=torch.float64)
+    for k0 in range(0, x.shape[1], K8):
+        ks = slice(k0, k0 + K8)
+        for a, b in ((xl, wh), (xh, wl), (xh, wh)):
+            exact = acc.double() + a[:, ks].double() @ b[:, ks].double().t()
+            acc = round_toward_zero(exact) if truncate else exact.to(torch.float32)
+            seen += acc.double().abs()
+    return acc, seen
+
+
+@pytest.mark.parametrize("value, want", [
+    (1.0, 1.0),
+    (1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10),        # a tie: away from zero
+    (-(1.0 + 2.0 ** -11), -(1.0 + 2.0 ** -10)),
+    (1.0 + 2.0 ** -11 - 2.0 ** -23, 1.0),        # just below the tie: down
+    (1.0 + 3 * 2.0 ** -11, 1.0 + 2.0 ** -9),     # a tie above an odd TF32 value: away
+    (2.0 - 2.0 ** -23, 2.0),                     # the carry into the exponent
+    (0.0, 0.0),
+])
+def test_tf32_rna_rounds_to_nearest_ties_away(value, want):
+    got = tf32_rna(torch.tensor([value], dtype=torch.float32))
+    assert float(got[0]) == want
+
+
+def test_split_parts_are_tf32_and_recover_x_to_2_pow_22():
+    """hi and lo have no bits below TF32's, and hi + lo is x within 2^-22 |x|."""
+    x = torch.tensor(np.random.default_rng(1).standard_normal(100_000) * 10.0 ** np.arange(
+        -3, 3, 6 / 100_000), dtype=torch.float32)
+    hi, lo = split(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    err = (hi.double() + lo.double() - x.double()).abs()
+    assert bool((err <= 2.0 ** -22 * x.double().abs()).all())
+
+
+def test_split_product_within_the_header_bound_of_float64():
+    """The three products summed exactly: within 2^-20 sum_k |x_k w_k| of the
+    float64 product; the dropped xl wl term is what is left."""
+    x, w = operands()
+    (xh, xl), (wh, wl) = split(x), split(w)
+    exact = x.double() @ w.double().t()
+    three = xl.double() @ wh.double().t() + xh.double() @ wl.double().t() + \
+        xh.double() @ wh.double().t()
+    mass = x.double().abs() @ w.double().abs().t()
+    err = (three - exact).abs()
+    assert bool((err <= SPLIT_BOUND * mass).all())
+    # the split keeps float32's precision: far tighter than TF32 alone
+    tf32_alone = (xh.double() @ wh.double().t() - exact).abs()
+    assert float(err.max()) < float(tf32_alone.max()) / 100
+
+
+@pytest.mark.parametrize("truncate", [True, False], ids=["toward_zero", "to_nearest"])
+def test_walk_accumulation_within_the_header_bound_far_inside_tf_tol(truncate):
+    """The walk's order with a float32 accumulator: within the split bound
+    plus 2^-23 of every running sum, and that bound far inside TF_TOL_F32
+    (the float32 greedy path's) and the kernel checks' 1e-4 + 1e-4 |logit|."""
+    x, w = operands(2)
+    got, seen = walk_logits(x, w, truncate)
+    exact = x.double() @ w.double().t()
+    mass = x.double().abs() @ w.double().abs().t()
+    bound = SPLIT_BOUND * mass + STEP_BOUND * seen
+    err = (got.double() - exact).abs()
+    assert bool((err <= bound).all())
+    assert float(bound.max()) < TF_TOL_F32 / 10
+    assert bool((err <= 1e-4 + 1e-4 * exact.abs()).all())
+
+
+def test_walk_emulation_matches_the_float32_twin():
+    """The emulated walk (LN_f's rows as the pre-pass writes them) against
+    ``logits_plain`` in float32, the twin the card's kernel is held to, at
+    the kernel checks' float32 tolerance."""
+    rng = np.random.default_rng(3)
+    x32 = torch.tensor(3.0 * rng.standard_normal((B, D)), dtype=torch.float32)
+    lnf = torch.tensor(np.stack([1 + 0.1 * rng.standard_normal(D), 0.1 * rng.standard_normal(D)]),
+                       dtype=torch.float32)
+    wte = torch.tensor(0.02 * rng.standard_normal((V, D)), dtype=torch.float32)
+    rows = nn.layer_norm_rows(lnf[0], lnf[1], x32, 1e-5)
+    got, _ = walk_logits(rows, wte, truncate=True)
+    want = DS.logits_plain(x32, lnf, wte)
+    assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    assert torch.equal(torch.argmax(got, -1), torch.argmax(want, -1))

@@ -1,8 +1,8 @@
-"""The grid of the two selection kernels' vocabulary walk
-(``csrc/vocab_walk.cuh``, ``ops/decode_step.py::vocab_plan``), the scratch
-their wrappers size from it, and the wrappers' argument checks.  The kernels
-themselves run only on the card (``chip_smoke.py --only vocab`` holds them to
-their twins)."""
+"""The grid of the vocabulary walk (``csrc/vocab_walk.cuh``,
+``ops/decode_step.py::vocab_plan``), its ring (``vocab_ring``), the scratch
+the four vocabulary wrappers size from them, and the wrappers' argument
+checks.  The kernels themselves run only on the card (``chip_smoke.py
+--only vocab`` holds them to their twins)."""
 
 import pytest
 import torch
@@ -46,18 +46,19 @@ def test_vocab_plan_covers_each_column_once_balanced_to_one_tile(m, v):
     assert plan.ranges <= plan.rare_ranges <= plan.tiles
 
 
-@pytest.mark.parametrize("kernel", ["topk", "sample"])
+@pytest.mark.parametrize("kernel", ["topk", "sample", "argmax"])
 @pytest.mark.parametrize("float_route", [False, True], ids=["walk", "float32"])
 @pytest.mark.parametrize("v", VOCABS)
 @pytest.mark.parametrize("m", (1, 65, 512))
 def test_vocab_partials_hold_every_row_block(kernel, float_route, m, v):
     """The wrappers size their partials as M x the partials ``vocab_partials``
     gives: that holds one slot for every (row, block) any pass writes — the
-    walk's (row, range), and the sampler's rare passes' (row, rare range);
-    the float32 tile's (row, 32-column tile) for the top-k and (row, block
-    of 8 tiles) for the sampler — and each slot lands inside."""
+    walk's (row, range) (the argmax's in every operand type), and the
+    sampler's rare passes' (row, rare range); the float32 tile's (row,
+    32-column tile) for the top-k and (row, block of 8 tiles) for the
+    sampler — and each slot lands inside."""
     blocks, parts = DS.vocab_partials(kernel, m, v, float_route)
-    if float_route:
+    if float_route and kernel != "argmax":
         tiles = -(-v // DS.VOCAB_F32_TILE)
         passes = [tiles if kernel == "topk" else -(-tiles // DS._SAMPLE_TILES)]
     else:
@@ -67,6 +68,31 @@ def test_vocab_partials_hold_every_row_block(kernel, float_route, m, v):
     for n in passes:  # a pass's slot of (row, block) is row * n + block
         slots = {row * n + blk for row in range(m) for blk in range(n)}
         assert len(slots) == m * n and max(slots) < m * parts
+
+
+# The card's shared memory a block may take (227 KB) less the walk's static
+# barriers; the ring's budget and its alignment slack must fit under it.
+SMEM_LIMIT = 232448 - 3 * 8 * 8
+
+
+@pytest.mark.parametrize("el", [1, 2, 4], ids=["int8", "bf16", "float32"])
+@pytest.mark.parametrize("v", VOCABS)
+@pytest.mark.parametrize("m", ROWS)
+def test_vocab_ring_holds_whole_stages_within_shared_memory(m, v, el):
+    """The ring of a plan's block: every stage holds the rows' 128-byte box
+    and wte's 128-row box (twice each in float32: the TF32 hi and lo), the
+    stages fill the 192 KB budget as far as whole stages go (8 at most), and
+    with the 1,024 bytes of alignment slack fit the card's shared memory.
+    The float32 walk keeps 3 stages at 128 rows and 4 at 64, bf16 and int8
+    their 6 and 8."""
+    plan = DS.vocab_plan(m, v)
+    stages, smem = DS.vocab_ring(plan.rows, el)
+    stage = (plan.rows + DS.VOCAB_BN) * 128 * (2 if el == 4 else 1)
+    assert smem == 1024 + stages * stage <= SMEM_LIMIT
+    assert stages == 8 or (stages + 1) * stage > 192 * 1024 >= stages * stage
+    assert stages == {(128, 4): 3, (64, 4): 4, (128, 2): 6, (64, 2): 8,
+                      (128, 1): 6, (64, 1): 8}[(plan.rows, el)]
+    assert stages >= 2  # a box lands while another is multiplied
 
 
 def test_vocab_plan_is_cached_per_shape():
@@ -134,3 +160,43 @@ def test_logits_sample_cuda_refuses_bad_arguments_on_the_cpu(case):
         DS.logits_sample_cuda(x32, lnf, args["wte"], args["temp"], args["top_p"], 0, args["k"],
                               args["rounds"], wte_scale=args["wte_scale"],
                               compute_dtype=args["compute_dtype"])
+
+
+VOCAB_REFUSALS = {
+    "wte_float64": (dict(wte=torch.zeros(40, 16, dtype=torch.float64)),
+                    "unsupported compute dtype"),
+    "wte_float16": (dict(wte=torch.zeros(40, 16, dtype=torch.float16)),
+                    "unsupported compute dtype"),
+    "int8_without_scale": (dict(wte=torch.zeros(40, 16, dtype=torch.int8),
+                                compute_dtype=torch.bfloat16), "wte must be int8 with wte_scale"),
+    "scale_without_int8": (dict(wte_scale=torch.ones(40)), "wte must be int8 with wte_scale"),
+    "scale_shape": (dict(wte=torch.zeros(40, 16, dtype=torch.int8), wte_scale=torch.ones(39),
+                         compute_dtype=torch.bfloat16), "wte_scale must be"),
+    "width_apart": (dict(wte=torch.zeros(40, 24, dtype=torch.bfloat16)),
+                    r"wte must be contiguous \(V, D\)"),
+    "width_unaligned": (dict(x32=torch.zeros(4, 12), lnf=torch.zeros(2, 12),
+                             wte=torch.zeros(40, 12, dtype=torch.bfloat16)),
+                        "D must be a multiple of 16"),
+    "lnf_shape": (dict(lnf=torch.zeros(3, 16)), r"lnf must be contiguous"),
+    "x32_bf16": (dict(x32=torch.zeros(4, 16, dtype=torch.bfloat16)),
+                 "x32 must be contiguous float32"),
+    "cpu_tensors": (dict(), "CUDA tensor"),
+    "cpu_tensors_float32": (dict(wte=torch.zeros(40, 16)), "CUDA tensor"),
+    "cpu_tensors_int8": (dict(wte=torch.zeros(40, 16, dtype=torch.int8), wte_scale=torch.ones(40),
+                              compute_dtype=torch.bfloat16), "CUDA tensor"),
+}
+
+
+@pytest.mark.parametrize("wrapper", ["logits_argmax_cuda", "logits_cuda"])
+@pytest.mark.parametrize("case", list(VOCAB_REFUSALS))
+def test_argmax_and_logits_cuda_refuse_bad_arguments_on_the_cpu(wrapper, case):
+    """The argmax's and the store's wrappers (the walk in every operand type)
+    check dtype, shape and alignment before the device, so the refusals show
+    on CPU tensors; valid CPU tensors are refused for lying on the CPU (no
+    fallback to the twin)."""
+    kw, match = VOCAB_REFUSALS[case]
+    x32, lnf, wte = vocab_args()
+    args = {"x32": x32, "lnf": lnf, "wte": wte, "wte_scale": None, "compute_dtype": None, **kw}
+    with pytest.raises(ValueError, match=match):
+        getattr(DS, wrapper)(args["x32"], args["lnf"], args["wte"], wte_scale=args["wte_scale"],
+                             compute_dtype=args["compute_dtype"])
