@@ -9,7 +9,10 @@ bf16 and int8, and prints their records without the summary lines: the
 way to read an earlier tree's ``fused_linear`` on the same card.
 ``--only vocab`` does the same for the four vocabulary kernels — the
 greedy argmax, the stored logits, the top-k and the sampler — in bf16, int8
-and float32, with their contract sweeps.)
+and float32, with their contract sweeps; ``--only prefill`` for the prefill
+kernel (bf16 and float32, its device time by part); ``--only quant`` for
+the int8 row quantizer and the int8 products whose rows carry no LayerNorm,
+which quantize them inside the product.)
 
 It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
@@ -1163,13 +1166,87 @@ def check_rowquant(dtype, g) -> dict:
         bound_ms, bound_by = bound(nbytes, 0, dtype)
         roles[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                        "bytes": nbytes, "max_int8_step": step, "scale_rel_err": rel,
-                       "int8_identical": float((got_q == want_q).float().mean())}
+                       "int8_identical": float((got_q == want_q).float().mean()),
+                       "device_ms": device_ms(lambda: Q.rowquant_cuda(x, lnp, compute_dtype=dtype),
+                                              "rowquant_kernel",
+                                              f"kernel_rowquant_{name}_{dtype_tag(dtype)}.json")}
     main = roles["ln_d"]
     return {"kernel": "rowquant", "max_abs_err": worst, "error_is": "max relative scale error",
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms")},
             "library_ms": None, "library": "none: no one PyTorch call quantizes rows",
             "at": f"B {B}: LN + quantize of D {D} rows (the row's figures); roles below",
             "roles": roles}
+
+
+def dtype_tag(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+# rows that test the product's own quantization: a row of zeros (scale
+# 1e-12), and rows whose largest |v| sits in the first K element, the middle
+# one and the last one, so in the first, a middle and the last K-slice
+FOLD_EDGE_ROWS = 4
+
+
+def fold_inputs(b: int, k: int, n: int, epi: str, dtype, g):
+    """:func:`linear_inputs` of an int8 role without a LayerNorm, with the
+    :data:`FOLD_EDGE_ROWS` rows set."""
+    x, w, bias, res, kw = linear_inputs(b, k, n, False, epi, dtype, True, g)
+    x[0] = 0
+    for row, col in ((1, 0), (2, k // 2), (3, k - 1)):
+        x[row, col] = 40.0 * (-1) ** row  # N(0, 1) rows stay below 6
+    return x, w, bias, res, kw
+
+
+def check_fold(dtype, g) -> dict:
+    """The int8 products whose rows carry no LayerNorm — the attention
+    output -> proj and gelu(h) -> cproj — quantize their rows inside the
+    product (``fused_linear`` with int8 weights and ``ln=None``): each row's
+    scale from the max |v| over the whole of K (the cluster's K-slices
+    exchange their maxima), then ``rint(v / s)``.  Held to
+    ``rowquant_plain`` + ``int8_matmul`` + the bias + the residual, equal
+    bits (the integer sums are exact and the float steps are the twin's, in
+    its order), at B 128 and 512, with :data:`FOLD_EDGE_ROWS`; two calls
+    give equal bits.  Device ms of the call (a tree whose wrapper runs the
+    row quantizer first shows both launches) and of its product kernel."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+    from gpt2_image_captioning_tpu_torch.ops import quant as Q
+
+    roles = {}
+    for name, k, n, ln, epi in LINEAR_ROLES:
+        if ln:
+            continue
+        for b in (B, B_BEAM):
+            x, w, bias, res, kw = fold_inputs(b, k, n, epi, dtype, g)
+            xq, sx = Q.rowquant_plain(x)
+            want = res + (Q.int8_matmul(xq, sx, w, kw["w_scale"]) + bias)
+            outs = [DS.fused_linear_cuda(x, w, bias, residual=res.clone(), **kw) for _ in range(2)]
+            torch.cuda.synchronize()
+            diff = float((outs[0] - want).abs().max())
+            check(torch.equal(outs[0], want), f"folded quantization {name} b {b} "
+                  f"{dtype_tag(dtype)}: {diff} from rowquant_plain + int8_matmul (equal bits "
+                  f"expected)")
+            check(torch.equal(outs[0], outs[1]), f"folded quantization {name} b {b}: a repeat "
+                                                 f"gave other bits")
+            r = res.clone()
+
+            def call():
+                return DS.fused_linear_cuda(x, w, bias, residual=r, **kw)
+
+            dev = device_split(call, ("linear_wgmma_kernel",),
+                               f"kernel_fold_{name}_b{b}_{dtype_tag(dtype)}.json")
+            nbytes = b * k * x.element_size() + n * k + 8 * n + 8 * b * n
+            bound_ms, bound_by = bound(nbytes, 2 * b * k * n, torch.int8)
+            roles[f"{name}_b{b}"] = {
+                "max_abs_err": diff, "ms": time_ms(call), "bound_ms": bound_ms,
+                "bound_by": bound_by, "device_ms": dev if isinstance(dev, str) else dev["total"],
+                "product_device_ms": dev if isinstance(dev, str) else dev["linear_wgmma_kernel"],
+                "plan": linear_plan_of(b, k, n, True, x.element_size())}
+    return {"kernel": "fused_linear", "mode": "int8_folded_quantization", "roles": roles,
+            "max_abs_err": max(r["max_abs_err"] for r in roles.values()),
+            "compared_to": "rowquant_plain + int8_matmul + bias + residual, equal bits",
+            "repeat": "equal bits", "edge_rows": "zeros; max |v| in the first, a middle and the "
+                                                 "last K element"}
 
 
 def flip_allowance(x, lnp, dtype, wq, sw, want) -> tuple[torch.Tensor, int]:
@@ -1300,12 +1377,19 @@ def linear_repeat(x, w, bias, res, kw) -> None:
           f"{kw['epilogue']}, ({x.shape[0]}, {w.shape[1]}) x {w.shape[0]}")
 
 
-def linear_plan_of(m: int, k: int, n: int, quant: bool) -> dict | None:
-    """The kernel's split of a role (None on a tree without one)."""
+def linear_plan_of(m: int, k: int, n: int, quant: bool, row_bytes: int | None = None
+                   ) -> dict | None:
+    """The kernel's split of a role (None on a tree without one; a tree
+    whose plan takes no ``row_bytes`` plans the quantized rows)."""
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 
     plan = getattr(DS, "linear_plan", None)
-    return None if plan is None else plan(m, k, n, 1 if quant else 2)._asdict()
+    if plan is None:
+        return None
+    try:
+        return plan(m, k, n, 1 if quant else 2, row_bytes)._asdict()
+    except TypeError:
+        return plan(m, k, n, 1 if quant else 2)._asdict()
 
 
 def linear_role(name, b, k, n, ln, epi, dtype, quant: bool, device: bool, g) -> dict:
@@ -1351,16 +1435,20 @@ def linear_role(name, b, k, n, ln, epi, dtype, quant: bool, device: bool, g) -> 
     bound_ms, bound_by = bound(nbytes, 2 * b * k * n, torch.int8 if quant else split_type(dtype))
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": 2 * b * k * n,
-           "plan": linear_plan_of(b, k, n, quant) if quant or dtype == torch.bfloat16 else None}
+           "plan": (linear_plan_of(b, k, n, quant, None if ln or not quant else x.element_size())
+                    if quant or dtype == torch.bfloat16 else None)}
     if quant:
         rec["int8_flips"] = flips
     if device:
         tag = f"{name}_b{b}_{'int8' if quant else str(dtype).replace('torch.', '')}"
-        dev = device_split(kernel, ("rowquant_kernel",) * quant, f"kernel_linear_{tag}.json")
+        # the row quantizer's own launch: the LN roles' (the others quantize
+        # inside the product)
+        pre = quant and ln
+        dev = device_split(kernel, ("rowquant_kernel",) * pre, f"kernel_linear_{tag}.json")
         rec["device_ms"] = dev if isinstance(dev, str) else dev["total"]
         if quant and not isinstance(dev, str):
-            rec["rowquant_device_ms"] = dev["rowquant_kernel"]
-            rec["product_device_ms"] = dev["total"] - dev["rowquant_kernel"]
+            rec["rowquant_device_ms"] = dev["rowquant_kernel"] if pre else 0.0
+            rec["product_device_ms"] = dev["total"] - rec["rowquant_device_ms"]
         rec["library_device_ms"] = device_ms(library, None, f"library_linear_{tag}.json")
         if quant:  # the bare integer product, without the dequantize and the bias
             rec["int_mm_device_ms"] = device_ms(lambda: torch._int_mm(xq, wq_t), None,
@@ -1420,7 +1508,8 @@ def check_linear_int8(dtype, g) -> dict:
     rec = {"kernel": "fused_linear", "mode": "int8",
            **{k: v for k, v in main.items() if k != "roles"},
            "library": "torch._int_mm + dequantize + bias on pre-quantized rows, x 4",
-           "at": f"B {B}: the four projections of one layer, summed (8 CUDA launches)",
+           "at": f"B {B}: the four projections of one layer, summed (6 CUDA launches: the "
+                 f"LN roles' row quantizer and product, the others' product alone)",
            "roles": main["roles"], "b512": linear_layer(dtype, True, B_BEAM, device, g),
            "contract": linear_contract(dtype, True, g),
            "repeat": "every role at B 128 and 512: equal bits"}
@@ -1895,6 +1984,55 @@ def gpt2_124m_params() -> dict:
     return G.init(torch.Generator().manual_seed(0), G.GPT2Config.gpt2_124m())
 
 
+PREFILL_ROLES = ("qkv", "attn_proj", "mlp_fc", "mlp_proj")  # a layer's products, in order
+
+
+def prefill_split(run, name: str, attempts: int = 3) -> dict | str:
+    """Device ms of one prefill call by part, from a ``traced`` call: the
+    LayerNorms (``ln_rows_kernel``; a first-version tree's own LN kernel),
+    the attention, and each of a layer's four products summed over the
+    layers (the product launches of a call come in :data:`PREFILL_ROLES`'
+    order each layer); "not measured" if no window was whole."""
+    run()
+    for _ in range(attempts):
+        _, events, dropped = traced(run, f"prefill_split_{name}.json")
+        kernels = sorted((e for e in events if e["cat"] == "kernel"), key=lambda e: e["ts"])
+        products = [e for e in kernels if "linear" in e["name"]]
+        if dropped or not products or len(products) % len(PREFILL_ROLES):
+            continue
+
+        def ms(events):
+            return sum(e["dur"] for e in events) / 1e3
+
+        parts = {"total": ms(events),
+                 "layernorm": ms(e for e in kernels if "layernorm" in e["name"]
+                                 or "ln_rows_kernel" in e["name"]),
+                 "attention": ms(e for e in kernels if "prefill_attention_kernel" in e["name"])}
+        for i, role in enumerate(PREFILL_ROLES):
+            parts[role] = ms(products[i::len(PREFILL_ROLES)])
+        return parts
+    return "not measured"
+
+
+def gelu_share(m: int, g) -> dict:
+    """The MLP fc product at the prefill's ``m`` rows in bf16 (K 768, N
+    3,072) with its gelu_new epilogue (float64, rounded once) and with the
+    plain cast: device ms of the product kernel each, and their difference,
+    what gelu_new costs."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+
+    x = torch.randn(m, D, generator=g, device="cuda").to(torch.bfloat16)
+    w = (0.02 * torch.randn(4 * D, D, generator=g, device="cuda")).to(torch.bfloat16)
+    bias = 0.02 * torch.randn(4 * D, generator=g, device="cuda")
+    out = {}
+    for epi in ("cast", "gelu"):
+        out[epi] = device_ms(lambda: DS.fused_linear_cuda(x, w, bias, epilogue=epi),
+                             "linear_wgmma_kernel", f"gelu_share_{epi}_m{m}.json")
+    if not any(isinstance(v, str) for v in out.values()):
+        out["gelu_new"] = out["gelu"] - out["cast"]
+    return {"rows": m, **out}
+
+
 def check_prefill(dtype, g) -> dict:
     """The prefill kernel against its twin at a request (B 128) and an
     admission (8 images) of 15 prefix tokens: the residual stream, every
@@ -1938,8 +2076,20 @@ def check_prefill(dtype, g) -> dict:
             G.forward_cached(gp, cfg, prefix, ce, pol)
 
         eager_ms = time_ms(eager, iters=5)
-        device = vocab_device(lambda: PS.prefill_cuda(packed, x0, ck["k"], ck["v"], n_head=H),
-                              f"prefill_{str(dtype).replace('torch.', '')}_b{b}")
+        # two calls on the same inputs give the same bits: the products'
+        # K-slices are added in a fixed order, the attention has no atomics
+        again = [G.init_cache(cfg, b, P_LEN, dtype=dtype, device="cuda") for _ in range(2)]
+        twice = [PS.prefill_cuda(packed, x0, c["k"], c["v"], n_head=H) for c in again]
+        torch.cuda.synchronize()
+        check(torch.equal(twice[0], twice[1]) and all(torch.equal(again[0][n], again[1][n])
+                                                      for n in ("k", "v")),
+              f"prefill b {b} {dtype_tag(dtype)}: a repeat gave other bits")
+
+        def run():
+            return PS.prefill_cuda(packed, x0, ck["k"], ck["v"], n_head=H)
+
+        device = vocab_device(run, f"prefill_{dtype_tag(dtype)}_b{b}")
+        parts = prefill_split(run, f"{dtype_tag(dtype)}_b{b}")
         # the weights, biases and LN parameters read once; x0 read, the float32
         # stream and every layer's K/V rows written; four products and the
         # causal attention (4 hd per (query, key) pair) a layer
@@ -1950,6 +2100,7 @@ def check_prefill(dtype, g) -> dict:
         bound_ms, bound_by = bound(nbytes, ops, split_type(dtype))
         shapes[f"b{b}"] = {"images": b, "prefix": P_LEN, "max_abs_err": max(errs.values()),
                            "errors": errs, "ms": ms, "device_ms": device, "plain_ms": plain_ms,
+                           "device_ms_by_part": parts, "repeat": "equal bits",
                            "eager_ms": eager_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
                            "ops": ops}
@@ -1963,6 +2114,8 @@ def check_prefill(dtype, g) -> dict:
         refused = True
     check(refused, f"prefill: a {PS.MAX_PREFIX + 1}-token prefix was not refused")
     main = shapes[f"b{B}"]
+    if dtype == torch.bfloat16:
+        main["mlp_fc_gelu_share"] = gelu_share(B * P_LEN, g)
     return {"kernel": "prefill", "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             **{k: main[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None, "eager_ms": main["eager_ms"],
@@ -2565,9 +2718,10 @@ VOCAB_KERNELS = {"greedy": ("argmax_walk_kernel", "argmax_reduce_kernel"),
                  "sampled": ("store_walk_kernel",),
                  "beam": ("topk_walk_kernel", "topk_tile_kernel", "topk_merge_kernel")}
 # continuous serving also runs the admission's mapper (flash attention) and
-# prefill (csrc/prefill.cu; forward_cached's flash attention in int8)
-ADMISSION_KERNELS = ("flash_attention_kernel", "prefill_linear_kernel", "prefill_attention_kernel",
-                     "prefill_layernorm_kernel")
+# prefill (csrc/prefill.cu: its LayerNorms and bf16 products are the
+# layers' ln_rows_kernel and linear_wgmma_kernel, float32's products
+# prefill_linear_kernel; forward_cached's flash attention in int8)
+ADMISSION_KERNELS = ("flash_attention_kernel", "prefill_linear_kernel", "prefill_attention_kernel")
 VOCAB_KERNELS.update({
     "continuous_greedy": VOCAB_KERNELS["greedy"] + ADMISSION_KERNELS,
     "continuous_sampled": VOCAB_KERNELS["sampled"] + ADMISSION_KERNELS,
@@ -2636,7 +2790,12 @@ def profile_request(run, path: str, steps: int) -> dict:
     window on the device runs from the first launch of the decode step's
     kernels to the end of the last, and its busy time is the union of every
     kernel, copy and memset in the window (the port's kernels and the torch
-    ops between them: the sampling tail, the beam bookkeeping)."""
+    ops between them: the sampling tail, the beam bookkeeping).  On a path
+    that does not count its admissions, the request's prefill (whose bf16
+    LayerNorms and products are the step's kernels) stays out: the window
+    opens two launches of the port (the first step's LN1 and QKV) before
+    its first decode attention.  ``launches_by_name``: the window's launches
+    of each of the path's kernels."""
     trace_name = f"{path}_decode_trace.json"
     wall, events, dropped = traced(run, trace_name)
     names = LAYER_KERNELS + VOCAB_KERNELS[path]
@@ -2644,7 +2803,10 @@ def profile_request(run, path: str, steps: int) -> dict:
     def is_port(e):
         return e["cat"] == "kernel" and any(k in e["name"] for k in names)
 
-    ours = [e for e in events if is_port(e)]
+    ours = sorted((e for e in events if is_port(e)), key=lambda e: e["ts"])
+    first = next((i for i, e in enumerate(ours) if "decode_attention_kernel" in e["name"]), None)
+    if "prefill_attention_kernel" not in names and first is not None:
+        ours = ours[max(0, first - 2):]
     record = {"phase": f"{path}_decode_profile", "profiled_request_s": wall,
               "trace": f"{trace_name}.gz",
               "device_events": len(events), "dropped_device_records": dropped}
@@ -2660,6 +2822,7 @@ def profile_request(run, path: str, steps: int) -> dict:
         if e["cat"] == "kernel" and not is_port(e):
             others[e["name"][:100]] = others.get(e["name"][:100], 0.0) + e["dur"] * 1e-6
     return {**record, "decode_steps": steps, "decode_window_s": window_s,
+            "launches_by_name": {n: sum(n in e["name"] for e in ours) for n in names},
             "device_busy_s": busy_s, "idle_share": 1.0 - busy_s / window_s,
             "port_kernels_s": sum(e["dur"] for e in ours) * 1e-6, "port_kernels_s_by_name": by_name,
             "other_kernels_s": sum(others.values()),
@@ -2788,11 +2951,12 @@ def run_counted(fn, reqs) -> tuple[list, float, dict]:
 
 
 def rowquant_per_step(n_layer: int, quant: bool) -> int:
-    """Row quantizer launches of one decode step: W8A8 quantizes the input of
-    each of a layer's four projections and of the vocabulary.  The int8
-    cache's new K and V rows are quantized inside decode attention's own
-    launch, so they add none."""
-    return (4 * n_layer + 1) * quant
+    """Row quantizer launches of one decode step: W8A8 quantizes the rows
+    that carry a LayerNorm in a launch of their own — LN1 -> qkv, LN2 -> fc
+    and LN_f -> the vocabulary; the attention output -> proj and gelu(h) ->
+    cproj are quantized inside their product's launch, and the int8 cache's
+    new K and V rows inside decode attention's, so they add none."""
+    return (2 * n_layer + 1) * quant
 
 
 def check_decode_launches(launches: dict, vocab_kernel: str, steps: int, requests: int, cfg,
@@ -2913,6 +3077,11 @@ def greedy_path(model, reqs, precision: str = "bf16",
     profiled = profile_path(lambda: run(reqs[0]), path, steps0, seconds / len(reqs))
     if "device_busy_s" in profiled:
         profiled["device_ms_per_step"] = 1e3 * profiled["device_busy_s"] / steps0
+        # the standalone quantizer's launches, counted by name in the trace
+        per_step = profiled["launches_by_name"]["rowquant_kernel"] / steps0
+        profiled["rowquant_launches_per_step"] = per_step
+        check(per_step <= rowquant_per_step(cfg.gpt2.n_layer, quant),
+              f"{path}: {per_step} row quantizer launches a step in the trace")
     return record, launches, profiled
 
 
@@ -3342,9 +3511,18 @@ def train_path() -> tuple[dict, dict, dict]:
     return record, profiled, launches
 
 
+# ``--only <part>``: (compute dtypes, checks) of one part, its records alone
+ONLY = {
+    "linear": ((torch.bfloat16,), (check_linear, check_linear_int8)),
+    "vocab": ((torch.bfloat16, torch.float32), VOCAB_CHECKS),
+    "prefill": ((torch.bfloat16, torch.float32), (check_prefill,)),
+    "quant": ((torch.bfloat16, torch.float32), (check_rowquant, check_fold)),
+}
+
+
 def main(argv: list[str]) -> int:
-    if argv not in ([], ["--only", "linear"], ["--only", "vocab"]):
-        print("usage: python3 chip_smoke.py [--only linear|vocab]", file=sys.stderr)
+    if argv not in ([], *(["--only", part] for part in ONLY)):
+        print(f"usage: python3 chip_smoke.py [--only {'|'.join(ONLY)}]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU", file=sys.stderr)
@@ -3368,18 +3546,13 @@ def main(argv: list[str]) -> int:
     (OUT_DIR / "nvcc.log").write_text((lib_path.parent / "nvcc.log").read_text())
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    if argv == ["--only", "linear"]:  # the projections' records alone, e.g. of an earlier tree's
-        for fn in (check_linear, check_linear_int8):
-            emit({"phase": "kernel_vs_plain", "dtype": "bfloat16", **fn(torch.bfloat16, g)})
-        print(nvidia_smi(), flush=True)
-        return 0
-    if argv:  # the two selection kernels' records alone, e.g. of an earlier tree's
-        for dtype in (torch.bfloat16, torch.float32):
-            for fn in VOCAB_CHECKS:
+    if argv:  # one part's records alone, e.g. of an earlier tree's kernels on the same card
+        dtypes, fns = ONLY[argv[1]]
+        for dtype in dtypes:
+            for fn in fns:
                 recs = fn(dtype, g)
                 for rec in recs if isinstance(recs, list) else [recs]:
-                    emit({"phase": "kernel_vs_plain", "dtype": str(dtype).replace("torch.", ""),
-                          **rec})
+                    emit({"phase": "kernel_vs_plain", "dtype": dtype_tag(dtype), **rec})
         print(nvidia_smi(), flush=True)
         return 0
     emit(check_dot_f32(g))
@@ -3388,8 +3561,8 @@ def main(argv: list[str]) -> int:
     checks = (check_attention, check_attention_origin, check_attention_start, check_linear,
               check_logits_argmax, check_logits, check_logits_topk, check_sampler, check_flash,
               check_prefill, check_patch_embed, vocab_contract)
-    int8_checks = (check_rowquant, check_linear_int8, check_vocab_int8, check_attention_int8,
-                   functools.partial(vocab_contract, quant=True))
+    int8_checks = (check_rowquant, check_linear_int8, check_fold, check_vocab_int8,
+                   check_attention_int8, functools.partial(vocab_contract, quant=True))
     for dtype in (torch.bfloat16, torch.float32):
         for fn in checks + int8_checks:
             recs = fn(dtype, g)
@@ -3506,7 +3679,9 @@ def main(argv: list[str]) -> int:
         "rowquant": ("rowquant.cu", f"{step_kernel}:234", "greedy_int8",
                      "CUDA launch: LN + quantize, B 128, D 768; launched inside the int8 calls"),
         "fused_linear_int8": ("fused_linear.cu", f"{step_kernel}:262", "greedy_int8",
-                              "layer: 4 calls (8 CUDA launches: rowquant + int8 tile each)"),
+                              "layer: 4 calls (6 CUDA launches: rowquant + the int8 product "
+                              "for qkv and mlp_fc, the product quantizing its own rows for "
+                              "attn_proj and mlp_proj)"),
         "logits_argmax_int8": ("logits_argmax.cu", f"{step_kernel}:555", "greedy_int8",
                                "call (3 CUDA launches), B 128"),
         "logits_int8": ("logits.cu", f"{step_kernel}:555", "sampled_int8",

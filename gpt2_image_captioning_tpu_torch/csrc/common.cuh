@@ -18,9 +18,10 @@
 // on wgmma, split over K across a thread-block cluster (its header gives the
 // design and the bound); the top-k's and the sampler's bf16 and int8
 // routes and logits_argmax.cu and logits.cu in every operand type (float32
-// on wgmma TF32) walk wte on vocab_walk.cuh.  The tile below serves the
-// float32 projections, the float32 routes of the top-k and the sampler,
-// and the prefill kernel's products (prefill.cu,
+// on wgmma TF32) walk wte on vocab_walk.cuh; the prefill's bf16 products
+// run on fused_linear.cu's route.  The tile below serves the float32
+// projections, the float32 routes of the top-k and the sampler, and the
+// float32 prefill's products (prefill.cu,
 // gpt2_image_captioning_tpu/ops/prefill_step.py::_prefill_kernel).  Its
 // bound on the H100: at a decode batch of 128 the weights' bytes (a
 // float32 GPT-2 layer: 28 MB, 8.5 us at 3.35 TB/s); the prefill's 1,920
@@ -129,6 +130,66 @@ __device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ah)[4
 constexpr float kInv127 = (float)(1.0 / 127.0);
 constexpr float kMinScale = (float)1e-12;
 
+// rint(v / s) for 4 values, as int8 bytes packed into 4 (v[0] the lowest),
+// equal to rowquant's first version's rintf(__fdiv_rn(v, s)) for |v| <=
+// 127.5 s, from the product z = v * inv with inv = __frcp_rn(s): z lies
+// within 2^-17 of v / s (inv is 2^-24 relative from 1 / s, |v / s| <= 128)
+// and the correctly rounded quotient within 2^-18, so the two round to the
+// same integer unless z lies within 2^-14 of a half-integer; there (about
+// one value in 8,000) the IEEE division decides (quant_pack4_exact).  The
+// rounding is one FMA, z + 1.5 * 2^23, whose float's low byte is rint(z)
+// (half to even, |z| < 2^22), and a second FMA gives z - rint(z): float
+// operations at the full rate, where F2I and I2F run at an eighth of it.
+// The row quantizer (rowquant.cu) and the products that quantize their own
+// rows (fused_linear.cu, where each column tile quantizes the rows again)
+// round so, running many chunks' fast paths before any fix-up: a branch at
+// each would keep the chunks' latencies from overlapping.
+constexpr float kRoundMagic = 12582912.0f;  // 1.5 * 2^23
+__device__ __forceinline__ uint32_t pack_low_bytes(float f0, float f1, float f2, float f3) {
+  return __byte_perm(__byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x0040),
+                     __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x0040), 0x5410);
+}
+// The exact path, out of line: the kernels that quantize run each of their
+// code regions once or a few times a block, so their time follows the code's
+// size (instruction fetch), and four inlined IEEE divisions at every call
+// site would double it.
+static __device__ __noinline__ uint32_t quant_pack4_exact(float v0, float v1, float v2,
+                                                          float v3, float s) {
+  return pack_low_bytes(__fadd_rn(__fdiv_rn(v0, s), kRoundMagic),
+                        __fadd_rn(__fdiv_rn(v1, s), kRoundMagic),
+                        __fadd_rn(__fdiv_rn(v2, s), kRoundMagic),
+                        __fadd_rn(__fdiv_rn(v3, s), kRoundMagic));
+}
+// The fast path alone, without a branch (so a caller can run many chunks'
+// fast paths before any fix-up): near is set where the division must decide.
+__device__ __forceinline__ uint32_t quant_pack4_fast(const float (&v)[4], float inv,
+                                                     bool& near) {
+  float f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    f[j] = __fmaf_rn(v[j], inv, kRoundMagic);
+    near |= fabsf(__fmaf_rn(v[j], inv, -__fsub_rn(f[j], kRoundMagic))) >= 0.5f - 0x1p-14f;
+  }
+  return pack_low_bytes(f[0], f[1], f[2], f[3]);
+}
+
+// The float32 values of a 16-byte chunk: 8 bf16 (a bf16 is a float32's high
+// half) or 4 float32, from the registers themselves.
+__device__ __forceinline__ void unpack16(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
+  }
+}
+__device__ __forceinline__ void unpack16(const uint4& u, float (&v)[4]) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+
 // csrc/rowquant.cu: per-row symmetric int8 quantization of M rows of K (row
 // m of x at x + m * ld, in T, or with LN the float32 rows LayerNorm'd and
 // rounded to T first) into q (row m at q + m * ldq) and sx (M,) float32.
@@ -136,6 +197,21 @@ constexpr float kMinScale = (float)1e-12;
 template <typename T, bool LN>
 void launch_rowquant(cudaStream_t s, const void* x, int ld, const float* ln_s, const float* ln_b,
                      float eps, int M, int K, int8_t* q, int ldq, float* sx);
+
+// Epilogues of the products (fused_linear.cu, prefill.cu): the cast to the
+// compute dtype, gelu_new then the cast, the in-place float32 residual add.
+constexpr int kEpiCast = 0;
+constexpr int kEpiGelu = 1;
+constexpr int kEpiResidual = 2;
+
+// csrc/fused_linear.cu's bf16 route, without a prologue: out = epi(a @ w^T +
+// bias) for (M, K) bf16 rows a and (N, K) bf16 weights w, on the TMA ring,
+// wgmma and the cluster split (bn, splits, kslice: a linear_plan of the
+// shape); out is (M, N) bf16, or the float32 residual stream for
+// kEpiResidual.  One launch on stream s; returns its cudaError_t (0: none).
+// The prefill's four products run on it.
+int linear_wgmma_bf16(const void* a, const void* w, const float* bias, void* out, int epi, int M,
+                      int N, int K, int bn, int splits, int kslice, cudaStream_t s);
 
 // ---------------------------------------------------------------------------
 // Hopper building blocks: TMA, mbarriers, wgmma, clusters
@@ -458,6 +534,11 @@ __device__ __forceinline__ int4 ld_cluster(uint32_t addr, int*) {
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr) : "memory");
   return v;
 }
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
 
 // Named barriers (0 is __syncthreads) over ``n`` threads, whole warps.
 __device__ __forceinline__ void bar_sync(int id, int n) {
@@ -475,7 +556,7 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 // natural layout of the tied embedding (V, D) and what pack_decode_weights
 // gives the four GPT-2 projections.  Its users: the float32 route of
 // fused_linear.cu, the float32 routes of logits_topk.cu and
-// logits_sample.cu, and the prefill's products.  (The decode step's bf16
+// logits_sample.cu, and the float32 prefill's products.  (The decode step's bf16
 // and int8 projections run on fused_linear.cu's TMA ring, wgmma and
 // cluster split instead: at B 128 this tile's 48-192 blocks, one stage in
 // flight each, read every weight once a 64-row block and normalised every
@@ -611,18 +692,34 @@ __device__ __forceinline__ float gelu_new(float x32) {
 // the pre-pass kernel, so no two translation units register one kernel.
 namespace {
 
-// The LayerNorm pre-pass: each float32 row normalised once, one warp per
-// row, into (M, K) rows of the compute dtype T (ln_value: the float64
-// statistics rounded once, then the elementwise float32 steps and the
-// rounding to T) — the operand that fused_linear.cu's bf16 products and the
-// vocabulary walks read.  A row of whole 16-byte vectors up to 2,048
-// elements (every GPT-2 width) is read once into registers, all of a lane's
-// loads in flight together, and normalised from there; other rows are
-// walked an element a lane, once for each statistic and once to write.
-// With xl (float rows only), each value y is stored as its three-term TF32
-// pair: hi = tf32(y) in xf and lo = tf32(y - hi) in xl (split_tf32), the
-// operands of the float32 vocabulary walk.
-constexpr int kLnVectors = 16;  // float4 registers a lane: rows of <= 2,048 floats
+// The LayerNorm pre-pass: each float32 row normalised once, a block of four
+// warps a row, into (M, K) rows of the compute dtype T (ln_value: the
+// float64 statistics rounded once, then the elementwise float32 steps and
+// the rounding to T) — the operand that fused_linear.cu's bf16 products,
+// the prefill's products and the vocabulary walks read.  A row of whole
+// 16-byte vectors up to 2,048 elements (every GPT-2 width) is read once
+// into registers, all of a thread's loads in flight together, and
+// normalised from there; four warps a row keep each thread's chain of
+// dependent instructions (the float64 sums, the stores) short, which sets
+// a launch's time at these sizes (one warp a row took 5.5 us at 128 rows
+// of 768 on an H100).  Other rows are walked an element a lane by the
+// block's first warp, once for each statistic and once to write.  With xl
+// (float rows only), each value y is stored as its three-term TF32 pair:
+// hi = tf32(y) in xf and lo = tf32(y - hi) in xl (split_tf32), the operands
+// of the float32 vocabulary walk.  Launch: launch_ln_rows.
+constexpr int kLnThreads = 128;  // a row's threads: 4 warps
+constexpr int kLnVectors = 4;    // float4 registers a thread: rows of <= 2,048 floats
+
+// The sum of a 128-thread block's values, its 4 warps' sums added in warp
+// order (a fixed order), to every thread; red: 4 doubles of shared memory.
+__device__ __forceinline__ double block_sum(double v, double* red) {
+  v = warp_sum(v);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  const double total = ((red[0] + red[1]) + red[2]) + red[3];
+  __syncthreads();  // red is written again by the next sum
+  return total;
+}
 
 // Stores y at out[0], or with lo its TF32 pair at out[0] and lo[0].
 __device__ __forceinline__ void ln_store(float* out, float* lo, float y) {
@@ -638,53 +735,56 @@ __device__ __forceinline__ void ln_store(float* out, float* lo, float y) {
 __device__ __forceinline__ void ln_store(__nv_bfloat16* out, float*, __nv_bfloat16 y) { *out = y; }
 
 template <typename T>
-__global__ void ln_rows_kernel(const float* x, const float* ln_s, const float* ln_b, float eps,
-                               int M, int K, T* xf, float* xl) {
-  const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+__global__ void __launch_bounds__(kLnThreads)
+ln_rows_kernel(const float* x, const float* ln_s, const float* ln_b, float eps, int M, int K,
+               T* xf, float* xl) {
+  const int m = blockIdx.x;
   if (m >= M) return;
   const float* row = x + (size_t)m * K;
   T* out = xf + (size_t)m * K;
   float* out_lo = xl ? xl + (size_t)m * K : nullptr;
-  const int lane = threadIdx.x % 32;
   float mean, rstd;
-  const bool vec = K % 4 == 0 && K <= 128 * kLnVectors &&
+  const bool vec = K % 4 == 0 && K <= 4 * kLnThreads * kLnVectors &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(ln_s) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(ln_b) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(xf) % (4 * sizeof(T)) == 0 &&
                    reinterpret_cast<uintptr_t>(xl) % 16 == 0;
   if (!vec) {
+    if (threadIdx.x >= 32) return;
     row_mean_rstd(row, K, eps, mean, rstd);
-    for (int k = lane; k < K; k += 32)
+    for (int k = threadIdx.x; k < K; k += 32)
       ln_store(out + k, out_lo ? out_lo + k : nullptr,
                ln_value<T>(row[k], mean, rstd, ln_s[k], ln_b[k]));
     return;
   }
-  const int nv = K / 4;  // the row's 16-byte vectors; lane l holds l, l + 32, ..
+  __shared__ double red[kLnThreads / 32];
+  const int nv = K / 4;  // the row's 16-byte vectors; thread t holds t, t + 128, ..
   float4 v[kLnVectors];
 #pragma unroll
-  for (int i = 0; i < kLnVectors; ++i)
-    v[i] = lane + 32 * i < nv ? reinterpret_cast<const float4*>(row)[lane + 32 * i]
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < kLnVectors; ++i) {
+    const int j = threadIdx.x + kLnThreads * i;
+    v[i] = j < nv ? reinterpret_cast<const float4*>(row)[j] : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   // the statistics of row_mean_rstd, in float64, rounded once
   double sum = 0.0;
 #pragma unroll
   for (int i = 0; i < kLnVectors; ++i)
     sum += ((double)v[i].x + (double)v[i].y) + ((double)v[i].z + (double)v[i].w);
-  const double mu = warp_sum(sum) / K;
+  const double mu = block_sum(sum, red) / K;
   double var = 0.0;
 #pragma unroll
   for (int i = 0; i < kLnVectors; ++i) {
-    if (lane + 32 * i < nv) {
+    if (threadIdx.x + kLnThreads * i < nv) {
       const double a = v[i].x - mu, b = v[i].y - mu, c = v[i].z - mu, d = v[i].w - mu;
       var += (a * a + b * b) + (c * c + d * d);
     }
   }
   mean = (float)mu;
-  rstd = (float)(1.0 / sqrt(warp_sum(var) / K + (double)eps));
+  rstd = (float)(1.0 / sqrt(block_sum(var, red) / K + (double)eps));
 #pragma unroll
   for (int i = 0; i < kLnVectors; ++i) {
-    const int j = lane + 32 * i;
+    const int j = threadIdx.x + kLnThreads * i;
     if (j < nv) {
       const float4 s = reinterpret_cast<const float4*>(ln_s)[j];
       const float4 b = reinterpret_cast<const float4*>(ln_b)[j];
@@ -717,7 +817,13 @@ __global__ void ln_rows_kernel(const float* x, const float* ln_s, const float* l
   }
 }
 
-constexpr int kLnRowsPerBlock = 4;  // one warp per row
+// One launch of ln_rows_kernel over M rows on stream s.
+template <typename T>
+void launch_ln_rows(cudaStream_t s, const float* x, const float* ln_s, const float* ln_b,
+                    float eps, int M, int K, T* xf, float* xl) {
+  ln_rows_kernel<T><<<M, kLnThreads, 0, s>>>(x, ln_s, ln_b, eps, M, K, xf, xl);
+}
+
 
 }  // namespace
 

@@ -21,18 +21,22 @@
 // the product tile of common.cuh (ln_stats_kernel, then fused_linear_kernel:
 // a 64 x 32 tile a block, the three-term TF32 split), unchanged.
 //
-// Design for Hopper (bf16, int8).  The prologue runs once a call as its own
-// launch: the LayerNorm roles normalise their rows into (M, K) bf16
-// (common.cuh::ln_rows_kernel), and the int8 route quantizes its rows into
-// (M, K) int8 and (M,) scales (rowquant.cu, after the LayerNorm and the cast
-// where the role has one).  The product kernel then reads both operands by
-// TMA: a block owns a column tile of BN (32, 64 or 128) outputs, all of the
+// Design for Hopper (bf16, int8).  The LayerNorm roles' prologue runs once
+// a call as its own launch: it normalises their rows into (M, K) bf16
+// (common.cuh::ln_rows_kernel), or in the int8 route normalises, casts and
+// quantizes them into (M, K) int8 and (M,) scales (rowquant.cu).  The int8
+// roles without a LayerNorm (the attention output -> proj, gelu(h) ->
+// cproj) have no prologue launch: their product quantizes its rows itself
+// (the folded quantization, below).  The product kernel reads both operands
+// by TMA: a block owns a column tile of BN (32, 64 or 128) outputs, all of the
 // call's rows up to 128 (two consumer warpgroups of 64 rows on wgmma, one
 // where M <= 64; more rows take more row tiles), and one K-slice.  One
 // producer warp keeps the slice's 128-byte-deep boxes of rows and weights
 // in flight, 128-byte swizzled, in a ring of up to 8 stages (as many as the
 // slice has, within 110 KB, so two blocks share an SM: 3 stages at BN 128,
-// 5 at BN 32) whose mbarriers the consumers wait on and release.  W is (N,
+// 5 at BN 32; within 220 KB, one block an SM, for a folded product whose
+// grid has no more blocks than SMs) whose mbarriers the consumers wait on
+// and release.  W is (N,
 // K) row-major, the K-major B operand wgmma reads in both types: bf16
 // m64nBNk16 with float32 accumulators, int8 m64nBNk32 with int32
 // accumulators.  The K-slices of a column tile form a thread-block cluster
@@ -46,6 +50,26 @@
 // compute dtype, gelu_new in float64 rounded once (common.cuh::gelu_new),
 // or the in-place float32 residual add.  Rows past M and columns past N are
 // masked; TMA zero-fills the boxes past M, N and K.
+//
+// The folded quantization (int8 weights, rows in bf16 or float32).  A ring
+// stage carries a stage's 128 int8 K-elements of rows as 2 bf16 (4 float32)
+// boxes beside the weights' box.  Before the products each block takes the
+// max |v| of each of its rows over its K-slice — from the ring where the
+// whole slice fits it, else from global memory — and the blocks of the
+// cluster, whose slices cover K, exchange their maxima through distributed
+// shared memory, so every block holds each row's scale s = max(max |v| *
+// float32(1/127), 1e-12), exactly rowquant.cu's.  Each consumer warpgroup
+// then turns its 64 rows of each landed stage into int8 in place (into the
+// last row box's bytes, as a TMA int8 box lays them: 128-byte rows, 16-byte
+// chunks swizzled by the row), rint(v / s) by common.cuh::quant_pack4_fast, and
+// runs wgmma s8 on them; the epilogue dequantizes with the same s.  The
+// cost: every column tile quantizes its rows again, and the ring carries
+// twice (four times) the rows' bytes.  ops/quant.py::rowquant_plain and
+// int8_matmul are its twins, to the bit.  On an H100 the conversion's
+// arithmetic sets a folded product's time: at B 128 attn_proj takes 10 us
+// and mlp_proj 16 (the quantizer's launch and the bare product took 8 and
+// 15), at 512 rows 16 and 30 (10 and 18), where four row tiles times six
+// column tiles each convert their rows.
 //
 // The split (BN, splits, K-slice) comes from ops/decode_step.py::linear_plan,
 // once per shape, fitted to the splits' times on an H100
@@ -71,10 +95,6 @@
 #include "common.cuh"
 
 namespace gic {
-
-constexpr int kEpiCast = 0;
-constexpr int kEpiGelu = 1;
-constexpr int kEpiResidual = 2;
 
 // ---------------------------------------------------------------------------
 // float32: the product tile of common.cuh
@@ -139,26 +159,43 @@ static void launch_f32(int ln, int epi, cudaStream_t s, const float* x, float* s
 // bf16 and int8: TMA ring, wgmma, cluster split-K
 // ---------------------------------------------------------------------------
 
-constexpr int LIN_BOX = kTmaBox;          // bytes of K a box and a ring stage: one swizzled row
+constexpr int LIN_BOX = kTmaBox;          // bytes of K a box: one swizzled row
 constexpr int LIN_MAX_SPLITS = 8;         // K-slices of a column tile: a portable cluster
 constexpr int LIN_MAX_STAGES = 8;
 constexpr int LIN_RING_BUDGET = 110 * 1024;  // a block's ring: two blocks an SM
+// with the quantization folded in and no more blocks than SMs: one block an
+// SM, so that the whole slice fits the ring (the rows' maxima then come from it)
+constexpr int LIN_RING_BUDGET_ONE = 220 * 1024;
 constexpr int LIN_PAD = 8;                // the partial tile's row pitch is BN + LIN_PAD
+constexpr int LIN_MAX_ROWS = 128;         // rows of a block: two consumer warpgroups
 constexpr int LIN_MAX_THREADS = 2 * 128 + 32;  // two consumer warpgroups and the producer warp
-constexpr int LIN_SMEM_MAX = 1024 + LIN_RING_BUDGET;
+constexpr int LIN_SMEM_MAX = 1024 + LIN_RING_BUDGET_ONE;
 constexpr int LIN_BAR_CONSUMERS = 1;      // named barrier of the consumer warpgroups
+constexpr int LIN_BAR_WARPGROUP = 2;      // 2 + g: warpgroup g's own (the folded quantization)
 
 // Ring stages of a block: every box of its slice, within the budget (so a
 // slice of <= the budget's stages has all its boxes in flight at once).
-// ops/decode_step.py::linear_plan mirrors this sizing.
-static int lin_stages(int bm, int bn, int boxes) {
-  const int fit = LIN_RING_BUDGET / ((bm + bn) * LIN_BOX);
+// abox: the row boxes of a stage, 1, or with the quantization folded in the
+// rows' element bytes (a stage's 128 int8 K-elements of rows arrive as 2
+// bf16 or 4 float32 boxes); budget: LIN_RING_BUDGET, or LIN_RING_BUDGET_ONE
+// (lin_budget).  ops/decode_step.py::linear_plan mirrors this sizing.
+static int lin_budget(int abox, int blocks) {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  return abox > 1 && blocks <= sms ? LIN_RING_BUDGET_ONE : LIN_RING_BUDGET;
+}
+static int lin_stages(int bm, int bn, int boxes, int abox, int budget) {
+  const int fit = budget / ((bm * abox + bn) * LIN_BOX);
   int stages = boxes < fit ? boxes : fit;
   if (stages > LIN_MAX_STAGES) stages = LIN_MAX_STAGES;
   return stages < 1 ? 1 : stages;
 }
-static size_t lin_smem(int bm, int bn, int stages) {
-  const size_t ring = (size_t)stages * (bm + bn) * LIN_BOX;
+static size_t lin_smem(int bm, int bn, int stages, int abox) {
+  const size_t ring = (size_t)stages * (bm * abox + bn) * LIN_BOX;
   const size_t part = (size_t)bm * (bn + LIN_PAD) * 4;
   return 1024 + (ring > part ? ring : part);  // 1024: room to align the ring
 }
@@ -169,31 +206,184 @@ __device__ __forceinline__ void store2(Acc* p, Acc a, Acc b) {
   else *reinterpret_cast<int2*>(p) = make_int2(a, b);
 }
 
+// The folded quantization (int8 weights, rows A in the compute dtype).  A
+// thread serves 4 rows of its warpgroup (r = 64 g + t / 8 + 16 i) and one
+// 16-byte chunk of each (c = t % 8): 8 lanes a row.  Each step's loads for
+// all four rows are issued together, and the work on them is branch-free,
+// so their latencies overlap (two warps a scheduler hide little).
+constexpr int kFoldRowsPerThread = 4;
+
+template <typename A>
+__device__ __forceinline__ float chunk_absmax(const uint4& u) {
+  float v[16 / sizeof(A)];
+  unpack16(u, v);
+  float m = 0.f;
+#pragma unroll
+  for (int k = 0; k < (int)(16 / sizeof(A)); ++k) m = fmaxf(m, fabsf(v[k]));
+  return m;
+}
+
+// The row maxima of one thread's rows over 8 lanes, into fold_max.
+__device__ __forceinline__ void fold_store_max(float (&mx)[kFoldRowsPerThread], float* fold_max) {
+  const int g = threadIdx.x / 128, t = threadIdx.x % 128;
+#pragma unroll
+  for (int i = 0; i < kFoldRowsPerThread; ++i) {
+    float m = mx[i];
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+    if (t % 8 == 0) fold_max[64 * g + t / 8 + 16 * i] = m;
+  }
+}
+
+// Each of the block's rows' max |v| over its K-slice [k0, k1), read from
+// global memory (16-byte loads), into fold_max.
+template <typename A>
+__device__ __forceinline__ void fold_slice_max(const A* rows, int M, int K, int m0, int k0, int k1,
+                                               float* fold_max) {
+  constexpr int EPC = 16 / (int)sizeof(A);  // elements of a 16-byte chunk
+  const int g = threadIdx.x / 128, t = threadIdx.x % 128;
+  float mx[kFoldRowsPerThread] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+  for (int k = k0 + (t % 8) * EPC; k < k1; k += 8 * EPC) {
+    uint4 u[kFoldRowsPerThread];
+#pragma unroll
+    for (int i = 0; i < kFoldRowsPerThread; ++i) {
+      const int m = m0 + 64 * g + t / 8 + 16 * i;
+      u[i] = m < M ? *reinterpret_cast<const uint4*>(rows + (size_t)m * K + k)
+                   : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < kFoldRowsPerThread; ++i) mx[i] = fmaxf(mx[i], chunk_absmax<A>(u[i]));
+  }
+  fold_store_max(mx, fold_max);
+}
+
+// The same maxima from the slice's nbox stages when all of them are in the
+// ring at once (the rows' boxes as TMA landed them: the 8 lanes of a row
+// read its 8 chunks of each box, in whichever order the swizzle put them).
+template <typename A>
+__device__ __forceinline__ void fold_ring_max(const unsigned char* ring, int stage_bytes,
+                                              int nbox, int bm, float* fold_max) {
+  constexpr int ABOX = (int)sizeof(A);
+  const int g = threadIdx.x / 128, t = threadIdx.x % 128;
+  float mx[kFoldRowsPerThread] = {0.f, 0.f, 0.f, 0.f};
+  for (int b = 0; b < nbox; ++b) {
+    uint4 u[kFoldRowsPerThread][ABOX];
+#pragma unroll
+    for (int i = 0; i < kFoldRowsPerThread; ++i)
+#pragma unroll
+      for (int j = 0; j < ABOX; ++j)
+        u[i][j] = *reinterpret_cast<const uint4*>(
+            ring + b * stage_bytes + (j * bm + 64 * g + t / 8 + 16 * i) * LIN_BOX + (t % 8) * 16);
+#pragma unroll
+    for (int i = 0; i < kFoldRowsPerThread; ++i)
+#pragma unroll
+      for (int j = 0; j < ABOX; ++j) mx[i] = fmaxf(mx[i], chunk_absmax<A>(u[i][j]));
+  }
+  fold_store_max(mx, fold_max);
+}
+
+// Quantizes warpgroup g's 64 rows of a landed stage (ABOX boxes of A, 128
+// int8 K-elements) into int8 in place, into the last box's bytes as a TMA
+// int8 box lays them (128-byte rows, 16-byte chunks swizzled by the row):
+// the warpgroup reads the last box into registers first, then, a row at a
+// time, reads the row's other chunks, runs their fast paths together
+// (common.cuh::quant_pack4_fast), fixes up the rare chunk the division must
+// decide, and stores.  fold_scale / fold_inv: the rows' scales and their
+// reciprocals.
+template <typename A>
+__device__ __forceinline__ void fold_convert(unsigned char* stage, int bm, const float* fold_scale,
+                                             const float* fold_inv) {
+  constexpr int ABOX = (int)sizeof(A);
+  constexpr int EPB = LIN_BOX / (int)sizeof(A);  // K elements of a box
+  constexpr int EPC = 16 / (int)sizeof(A);
+  constexpr int WPC = EPC / 4;  // packed words a chunk
+  const int g = threadIdx.x / 128, t = threadIdx.x % 128, c = t % 8;
+  unsigned char* last = stage + (ABOX - 1) * bm * LIN_BOX;
+  uint4 held[kFoldRowsPerThread];
+#pragma unroll
+  for (int i = 0; i < kFoldRowsPerThread; ++i) {
+    const int r = 64 * g + t / 8 + 16 * i;
+    held[i] = *reinterpret_cast<const uint4*>(last + r * LIN_BOX + ((c ^ (r & 7)) << 4));
+  }
+  bar_sync(LIN_BAR_WARPGROUP + g, 128);  // the last box's rows are read: it takes the int8 tile
+#pragma unroll
+  for (int i = 0; i < kFoldRowsPerThread; ++i) {
+    const int r = 64 * g + t / 8 + 16 * i;
+    const float s = fold_scale[r], inv = fold_inv[r];
+    uint4 u[ABOX];
+#pragma unroll
+    for (int j = 0; j < ABOX - 1; ++j)
+      u[j] = *reinterpret_cast<const uint4*>(stage + (j * bm + r) * LIN_BOX + ((c ^ (r & 7)) << 4));
+    u[ABOX - 1] = held[i];
+    uint32_t w[ABOX][WPC];
+    bool near[ABOX][WPC];
+#pragma unroll
+    for (int j = 0; j < ABOX; ++j) {
+      float v[EPC];
+      unpack16(u[j], v);
+#pragma unroll
+      for (int h = 0; h < WPC; ++h) {
+        const float q[4] = {v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]};
+        near[j][h] = false;
+        w[j][h] = quant_pack4_fast(q, inv, near[j][h]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < ABOX; ++j) {
+#pragma unroll
+      for (int h = 0; h < WPC; ++h) {
+        if (__builtin_expect(near[j][h], 0)) {
+          float v[EPC];
+          unpack16(u[j], v);
+          w[j][h] =
+              quant_pack4_exact(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3], s);
+        }
+      }
+      const int k = j * EPB + c * EPC;  // the chunk's first K index in the stage
+      unsigned char* dst = last + r * LIN_BOX + ((((k >> 4) ^ (r & 7))) << 4) + (k & 15);
+      if constexpr (WPC == 2) *reinterpret_cast<uint2*>(dst) = make_uint2(w[j][0], w[j][1]);
+      else *reinterpret_cast<uint32_t*>(dst) = w[j][0];
+    }
+  }
+  fence_proxy_async();                   // the generic writes, before wgmma's reads
+  bar_sync(LIN_BAR_WARPGROUP + g, 128);  // the int8 tile is whole
+}
+
 // amap: the (M, K) operand rows, box (128 bytes of K, 64 x consumers rows);
 // wmap: W (N, K), box (128 bytes of K, BN rows); both 128-byte swizzled.
+// E: the operands' type in the products (bf16, or int8); A: the rows' type
+// in memory, E, or with int8 weights bf16 / float32, the quantization then
+// folded in (arows: the rows' pointer, read for their maxima).
 // out: (M, N), the compute dtype (float32 where out_f32) or, for the
 // residual epilogue, the float32 stream.  sx (M,) and sw (N,): the int8
-// scales.  Grid: (column tiles x splits, row tiles); cluster (splits, 1, 1).
-// Warps 0 .. 4 consumers - 1 multiply, the last one produces.
-template <typename E, int BN>
+// scales (sx unused with the quantization folded in).  Grid: (column tiles
+// x splits, row tiles); cluster (splits, 1, 1).  Warps 0 .. 4 consumers - 1
+// multiply, the last one produces.
+template <typename E, typename A, int BN>
 __global__ void __launch_bounds__(LIN_MAX_THREADS, 2)
 linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
-                    const __grid_constant__ CUtensorMap wmap, const float* bias, void* out,
-                    int out_f32, int epi, int M, int N, int K, int kslice, int stages,
-                    const float* sx, const float* sw) {
+                    const __grid_constant__ CUtensorMap wmap, const void* arows,
+                    const float* bias, void* out, int out_f32, int epi, int M, int N, int K,
+                    int kslice, int stages, const float* sx, const float* sw) {
   constexpr bool kInt8 = std::is_same<E, int8_t>::value;
+  constexpr bool kFold = kInt8 && !std::is_same<A, int8_t>::value;
+  constexpr int ABOX = (int)(sizeof(A) / sizeof(E));  // row boxes a stage
   using Acc = typename std::conditional<kInt8, int, float>::type;
-  constexpr int BK = LIN_BOX / (int)sizeof(E);  // K elements a box
+  constexpr int BK = LIN_BOX / (int)sizeof(E);  // K elements a stage
   constexpr int R = BN / 2;                     // accumulators a thread
   constexpr int LDP = BN + LIN_PAD;
+  constexpr int kFoldRows = kFold ? LIN_MAX_ROWS : 1;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t full[LIN_MAX_STAGES], empty[LIN_MAX_STAGES];
+  __shared__ float fold_max[kFoldRows], fold_scale[kFoldRows], fold_inv[kFoldRows];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
   const int ncons = blockDim.x - 32;  // consumer threads
   const int bm = ncons / 2;           // 64 rows a consumer warpgroup
-  const int stage_bytes = (bm + BN) * LIN_BOX;
+  const int stage_bytes = (bm * ABOX + BN) * LIN_BOX;
   const int rank = cluster_rank(), splits = gridDim.x / ((N + BN - 1) / BN);
   const int n0 = (blockIdx.x / splits) * BN, m0 = blockIdx.y * bm;
   const int k0 = rank * kslice;
@@ -215,36 +405,71 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
 
   if (threadIdx.x >= ncons) {
     // ---- producer warp: one lane keeps the slice's boxes in flight ----
+    if constexpr (kFold) cluster_arrive();  // the rows' maxima: nothing of the producer's
     if (threadIdx.x == ncons) {
       for (int b = 0; b < nbox; ++b) {
         const int s = b % stages;
         if (b >= stages) mbar_wait(&empty[s], (b / stages - 1) & 1);  // box b - stages released
         unsigned char* a = ring + s * stage_bytes;
         mbar_expect_tx(&full[s], stage_bytes);
-        tma_load_2d(a, &amap, &full[s], k0 + b * BK, m0);
-        tma_load_2d(a + bm * LIN_BOX, &wmap, &full[s], k0 + b * BK, n0);
+#pragma unroll
+        for (int j = 0; j < ABOX; ++j)
+          tma_load_2d(a + j * bm * LIN_BOX, &amap, &full[s],
+                      k0 + b * BK + j * (LIN_BOX / (int)sizeof(A)), m0);
+        tma_load_2d(a + ABOX * bm * LIN_BOX, &wmap, &full[s], k0 + b * BK, n0);
       }
     }
     __syncwarp();
+    if constexpr (kFold) cluster_wait();
   } else {
     // ---- consumer warpgroup g: rows 64 g .. 64 g + 63 of the tile ----
     const int g = threadIdx.x / 128;
+    if constexpr (kFold) {
+      // each row's max |v| over the whole of K: this slice's, then the
+      // cluster's slices' (the max is exact, so every block of the cluster
+      // gets the same scale, the one rowquant.cu would give)
+      if (nbox <= stages) {  // the whole slice is landing in the ring: read it there
+        for (int b = 0; b < nbox; ++b) mbar_wait(&full[b], 0);
+        fold_ring_max<A>(ring, stage_bytes, nbox, bm, fold_max);
+      } else {
+        fold_slice_max<A>(static_cast<const A*>(arows), M, K, m0, k0, k1, fold_max);
+      }
+      cluster_arrive();
+      cluster_wait();
+      if (threadIdx.x < (unsigned)bm) {
+        const uint32_t own = smem_u32(&fold_max[threadIdx.x]);
+        float mx = 0.f;
+        for (int p = 0; p < splits; ++p) mx = fmaxf(mx, ld_cluster_f32(cluster_map(own, p)));
+        const float s = fmaxf(mx * kInv127, kMinScale);
+        fold_scale[threadIdx.x] = s;
+        fold_inv[threadIdx.x] = __frcp_rn(s);
+      }
+      bar_sync(LIN_BAR_CONSUMERS, ncons);
+    }
     Acc d[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) d[i] = 0;
     for (int b = 0; b < nbox; ++b) {
       const int s = b % stages;
       mbar_wait(&full[s], (b / stages) & 1);
-      const uint32_t a0 = smem_u32(ring + s * stage_bytes) + g * 64 * LIN_BOX;
-      const uint32_t w0 = smem_u32(ring + s * stage_bytes) + bm * LIN_BOX;
+      unsigned char* stage = ring + s * stage_bytes;
+      if constexpr (kFold) fold_convert<A>(stage, bm, fold_scale, fold_inv);
+      const uint32_t a0 = smem_u32(stage) + ((ABOX - 1) * bm + g * 64) * LIN_BOX;
+      const uint32_t w0 = smem_u32(stage) + ABOX * bm * LIN_BOX;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < LIN_BOX / 32; ++kk)  // 32 bytes of K a step: k16 bf16, k32 int8
         Wgmma<BN>::mma(d, wgmma_desc(a0 + 32 * kk, 16, 1024), wgmma_desc(w0 + 32 * kk, 16, 1024));
       wgmma_commit();
-      wgmma_wait<1>();  // box b - 1's products are done: release its slot
-      wgmma_fence_regs(d);
-      if (b > 0) mbar_arrive(&empty[(b - 1) % stages]);
+      if (stages > 1) {
+        wgmma_wait<1>();  // box b - 1's products are done: release its slot
+        wgmma_fence_regs(d);
+        if (b > 0) mbar_arrive(&empty[(b - 1) % stages]);
+      } else {  // one slot: box b's products must end before box b + 1 can land
+        wgmma_wait<0>();
+        wgmma_fence_regs(d);
+        mbar_arrive(&empty[0]);
+      }
     }
     wgmma_wait<0>();
     wgmma_fence_regs(d);
@@ -283,7 +508,7 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
       in.y[e] = bias[col];
       in.scale[e] = kInt8 ? sw[col] : 1.f;
     }
-    in.row_scale = kInt8 ? sx[m] : 1.f;
+    in.row_scale = kInt8 && !kFold ? sx[m] : 1.f;  // the folded scale: read after the barrier
     in.res = make_float4(0.f, 0.f, 0.f, 0.f);
     if (epi == kEpiResidual && vec)
       in.res = *reinterpret_cast<const float4*>(static_cast<const float*>(out) +
@@ -319,14 +544,19 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
       }
     }
     const Acc acc[4] = {part[0].x, part[0].y, part[0].z, part[0].w};
+    // the producer warp's threads reduce too: the consumers' fold_scale
+    // reaches them through the cluster barrier above
+    if constexpr (kFold) in.row_scale = fold_scale[r];
     if (q + (int)blockDim.x >= hi) {  // the last group's partials are read
       cluster_arrive_thread();
       arrived = true;
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      // int8: float(acc) * sx * sw, then the bias (decode_step.py:286)
-      if constexpr (kInt8) y[e] += (float)acc[e] * in.row_scale * in.scale[e];
+      // int8: float(acc) * sx * sw, then the bias (decode_step.py:286), each
+      // operation rounded on its own (no FMA), as ops/quant.py::int8_matmul
+      if constexpr (kInt8)
+        y[e] = __fadd_rn(y[e], __fmul_rn(__fmul_rn((float)acc[e], in.row_scale), in.scale[e]));
       else y[e] += acc[e];
     }
     if (epi == kEpiResidual) {
@@ -360,25 +590,27 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   cluster_wait_thread();  // this block's partial stays until the cluster has read it
 }
 
-template <typename E, int BN>
+template <typename E, typename A, int BN>
 static int launch_wgmma(const void* a, const void* w, const float* bias, void* out, int out_f32,
                         int epi, int M, int N, int K, int kslice, int splits, const float* sx,
                         const float* sw, cudaStream_t s) {
   constexpr int BK = LIN_BOX / (int)sizeof(E);
-  auto kernel = linear_wgmma_kernel<E, BN>;
+  constexpr int abox = (int)(sizeof(A) / sizeof(E));
+  auto kernel = linear_wgmma_kernel<E, A, BN>;
   static const cudaError_t attr = cudaFuncSetAttribute(  // once per instantiation
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, LIN_SMEM_MAX);
   if (attr != cudaSuccess) return (int)attr;
   const int consumers = M <= 64 ? 1 : 2, bm = 64 * consumers;
-  const int stages = lin_stages(bm, BN, kslice / BK);
+  const int blocks = (N + BN - 1) / BN * splits * ((M + bm - 1) / bm);
+  const int stages = lin_stages(bm, BN, kslice / BK, abox, lin_budget(abox, blocks));
   CUtensorMap amap, wmap;
-  int err = tma_operand_map(&amap, a, M, K, bm, (int)sizeof(E));
+  int err = tma_operand_map(&amap, a, M, K, bm, (int)sizeof(A));
   if (!err) err = tma_operand_map(&wmap, w, N, K, BN, (int)sizeof(E));
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((N + BN - 1) / BN * splits), (unsigned)((M + bm - 1) / bm), 1);
   cfg.blockDim = dim3((unsigned)(128 * consumers + 32), 1, 1);
-  cfg.dynamicSmemBytes = lin_smem(bm, BN, stages);
+  cfg.dynamicSmemBytes = lin_smem(bm, BN, stages, abox);
   cfg.stream = s;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -387,25 +619,39 @@ static int launch_wgmma(const void* a, const void* w, const float* bias, void* o
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, amap, wmap, bias, out, out_f32, epi, M, N, K,
+  return (int)cudaLaunchKernelEx(&cfg, kernel, amap, wmap, a, bias, out, out_f32, epi, M, N, K,
                                  kslice, stages, sx, sw);
 }
 
-template <typename E>
+template <typename E, typename A>
 static int dispatch_wgmma(int bn, const void* a, const void* w, const float* bias, void* out,
                           int out_f32, int epi, int M, int N, int K, int kslice, int splits,
                           const float* sx, const float* sw, cudaStream_t s) {
+  const int bk = LIN_BOX / (int)sizeof(E);
+  if (splits < 1 || splits > LIN_MAX_SPLITS || kslice <= 0 || kslice % bk ||
+      (K + kslice - 1) / kslice != splits)
+    return (int)cudaErrorInvalidValue;
   switch (bn) {
     case 32:
-      return launch_wgmma<E, 32>(a, w, bias, out, out_f32, epi, M, N, K, kslice, splits, sx, sw, s);
+      return launch_wgmma<E, A, 32>(a, w, bias, out, out_f32, epi, M, N, K, kslice, splits, sx,
+                                    sw, s);
     case 64:
-      return launch_wgmma<E, 64>(a, w, bias, out, out_f32, epi, M, N, K, kslice, splits, sx, sw, s);
+      return launch_wgmma<E, A, 64>(a, w, bias, out, out_f32, epi, M, N, K, kslice, splits, sx,
+                                    sw, s);
     case 128:
-      return launch_wgmma<E, 128>(a, w, bias, out, out_f32, epi, M, N, K, kslice, splits, sx, sw,
-                                  s);
+      return launch_wgmma<E, A, 128>(a, w, bias, out, out_f32, epi, M, N, K, kslice, splits, sx,
+                                     sw, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+int linear_wgmma_bf16(const void* a, const void* w, const float* bias, void* out, int epi, int M,
+                      int N, int K, int bn, int splits, int kslice, cudaStream_t s) {
+  if (M <= 0 || K <= 0 || N <= 0 || epi < kEpiCast || epi > kEpiResidual)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_wgmma<__nv_bfloat16, __nv_bfloat16>(bn, a, w, bias, out, 0, epi, M, N, K,
+                                                      kslice, splits, nullptr, nullptr, s);
 }
 
 }  // namespace gic
@@ -415,12 +661,14 @@ static int dispatch_wgmma(int bn, const void* a, const void* w, const float* bia
 // is given; bias: (N,) float32; out: (M, N) in the compute dtype, or the
 // float32 residual stream (read and written) when epi is the residual add.
 // Scratch: stats (M, 2) float32 (float32 with ln != 0); xa the operand rows,
-// (M, K) int8 with int8 weights, (M, K) bf16 with bf16 weights and ln != 0;
-// sx (M,) float32 with int8 weights.  bn, splits, kslice: the bf16 and int8
-// routes' split (ops/decode_step.py::linear_plan; unused by float32): BN
-// 32, 64 or 128 columns a block, 1-8 K-slices of kslice elements (a
-// multiple of 128 bytes), every slice non-empty.  Returns the first launch
-// error (cudaGetLastError() after the launches).
+// (M, K) int8 with int8 weights and ln != 0, (M, K) bf16 with bf16 weights
+// and ln != 0; sx (M,) float32 with int8 weights and ln != 0.  int8 weights
+// without ln quantize x inside the product (no scratch).  bn, splits,
+// kslice: the bf16 and int8 routes' split (ops/decode_step.py::linear_plan;
+// unused by float32): BN 32, 64 or 128 columns a block, 1-8 K-slices of
+// kslice elements (a multiple of 128 bytes of the weights), every slice
+// non-empty.  Returns the first launch error (cudaGetLastError() after the
+// launches).
 extern "C" int gic_fused_linear(int dtype, int ln, int epi, const void* x, const void* ln_s,
                                 const void* ln_b, float eps, const void* w, const void* w_scale,
                                 const void* bias, void* out, void* stats, void* xa, void* sx,
@@ -434,43 +682,45 @@ extern "C" int gic_fused_linear(int dtype, int ln, int epi, const void* x, const
   const float* lns = static_cast<const float*>(ln_s);
   const float* lnb = static_cast<const float*>(ln_b);
   const float* b = static_cast<const float*>(bias);
+  const float* ws = static_cast<const float*>(w_scale);
   const bool int8 = w_scale != nullptr;
   if (dtype == kF32 && !int8) {
     launch_f32(ln, epi, s, static_cast<const float*>(x), static_cast<float*>(stats), lns, lnb,
                eps, static_cast<const float*>(w), b, static_cast<float*>(out), M, K, N);
     return (int)cudaGetLastError();
   }
-  const int bk = LIN_BOX / (int8 ? 1 : 2);
-  if (splits < 1 || splits > LIN_MAX_SPLITS || kslice <= 0 || kslice % bk ||
-      (K + kslice - 1) / kslice != splits)
-    return (int)cudaErrorInvalidValue;
-  const void* a = x;
-  float* sxp = static_cast<float*>(sx);
-  if (int8) {
-    int8_t* q = static_cast<int8_t*>(xa);
-    if (dtype == kBF16) {
-      if (ln) launch_rowquant<__nv_bfloat16, true>(s, x, K, lns, lnb, eps, M, K, q, K, sxp);
-      else launch_rowquant<__nv_bfloat16, false>(s, x, K, lns, lnb, eps, M, K, q, K, sxp);
-    } else {
-      if (ln) launch_rowquant<float, true>(s, x, K, lns, lnb, eps, M, K, q, K, sxp);
-      else launch_rowquant<float, false>(s, x, K, lns, lnb, eps, M, K, q, K, sxp);
-    }
-    a = q;
-  } else if (ln) {
-    __nv_bfloat16* rows = static_cast<__nv_bfloat16*>(xa);
-    ln_rows_kernel<__nv_bfloat16><<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock,
-                                    32 * kLnRowsPerBlock, 0, s>>>(
-        static_cast<const float*>(x), lns, lnb, eps, M, K, rows, nullptr);
-    a = rows;
-  }
-  const cudaError_t pre = cudaGetLastError();
-  if (pre != cudaSuccess) return (int)pre;
   const int out_f32 = dtype == kF32;
-  const int err =
-      int8 ? dispatch_wgmma<int8_t>(bn, a, w, b, out, out_f32, epi, M, N, K, kslice, splits, sxp,
-                                    static_cast<const float*>(w_scale), s)
-           : dispatch_wgmma<__nv_bfloat16>(bn, a, w, b, out, out_f32, epi, M, N, K, kslice,
-                                           splits, nullptr, nullptr, s);
+  int err;
+  if (int8 && !ln) {  // the rows quantized inside the product
+    err = dtype == kBF16
+              ? dispatch_wgmma<int8_t, __nv_bfloat16>(bn, x, w, b, out, out_f32, epi, M, N, K,
+                                                      kslice, splits, nullptr, ws, s)
+              : dispatch_wgmma<int8_t, float>(bn, x, w, b, out, out_f32, epi, M, N, K, kslice,
+                                              splits, nullptr, ws, s);
+  } else if (int8) {  // LN, the cast and the quantization in one pre-pass (rowquant.cu)
+    int8_t* q = static_cast<int8_t*>(xa);
+    float* sxp = static_cast<float*>(sx);
+    if (dtype == kBF16)
+      launch_rowquant<__nv_bfloat16, true>(s, x, K, lns, lnb, eps, M, K, q, K, sxp);
+    else
+      launch_rowquant<float, true>(s, x, K, lns, lnb, eps, M, K, q, K, sxp);
+    const cudaError_t pre = cudaGetLastError();
+    if (pre != cudaSuccess) return (int)pre;
+    err = dispatch_wgmma<int8_t, int8_t>(bn, q, w, b, out, out_f32, epi, M, N, K, kslice, splits,
+                                         sxp, ws, s);
+  } else {
+    const void* a = x;
+    if (ln) {
+      __nv_bfloat16* rows = static_cast<__nv_bfloat16*>(xa);
+      launch_ln_rows(s, static_cast<const float*>(x), lns, lnb, eps, M, K, rows,
+                     static_cast<float*>(nullptr));
+      const cudaError_t pre = cudaGetLastError();
+      if (pre != cudaSuccess) return (int)pre;
+      a = rows;
+    }
+    err = dispatch_wgmma<__nv_bfloat16, __nv_bfloat16>(bn, a, w, b, out, out_f32, epi, M, N, K,
+                                                       kslice, splits, nullptr, nullptr, s);
+  }
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -18,104 +18,115 @@
 // VMEM.  Copied here, each block would re-read the 170 MB of bf16 weights
 // and only B*T/rows-per-block blocks would be busy.  So gic_prefill runs a
 // per-layer sequence of launches, rows = B*T image-major (row g*T + t):
-//   1. prefill_layernorm_kernel — LN1 of every float32 row, one warp a row,
-//      rounded to the compute dtype where the TPU kernel rounds it (:168);
-//   2. prefill_linear_kernel<QKV> — the tile product of common.cuh and an
-//      epilogue that writes Q to a (rows, D) scratch and K and V straight
-//      into the cache's (T, B, D) rows of layer l, in place of the TPU
-//      kernel's K/V DMA and the caller's transpose (:394-396);
+//   1. LN1 of every float32 row (common.cuh::ln_rows_kernel: four warps a
+//      row, the row read once into registers, float64 statistics rounded
+//      once), rounded to the compute dtype where the TPU kernel rounds it
+//      (:168);
+//   2. the QKV product into a (rows, 3D) scratch, cast to the compute dtype;
 //   3. prefill_attention_kernel — one block per (image, head): the image's T
-//      keys and values (T <= 32) in shared memory, one warp per query row, a
-//      lane per key; row t attends keys [0, t] of its own image
-//      (:195-224);
-//   4. prefill_linear_kernel<RESIDUAL> — the projection added into x32;
-//   5. LN2, 6. prefill_linear_kernel<GELU>, 7. prefill_linear_kernel<RESIDUAL>
-//      (the MLP's down-projection).
-// Seven launches a layer, 84 for GPT-2 124M, from one C call.  The LayerNorm
-// is its own pass, not the tile's prologue as in the decode step: at 1,920
-// rows every column block would normalise the same rows again (72 times for
-// QKV), and the prologue tiles ran at a third of the plain tile's rate.
+//      queries, keys and values (T <= 32) from the QKV rows into shared
+//      memory, 16 bytes a load, K and V also stored into the cache's (T, B,
+//      D) rows of layer l as they pass (in place of the TPU kernel's K/V DMA
+//      and the caller's transpose, :394-396); one warp per query row, a lane
+//      per key; row t attends keys [0, t] of its own image (:195-224);
+//   4. the projection added into x32;
+//   5. LN2, 6. the MLP fc with gelu_new (float64, rounded once), 7. its
+//      down-projection added into x32.
+// Seven launches a layer, 84 for GPT-2 124M, from one C call.  In bf16 the
+// four products run on fused_linear.cu's linear_wgmma_kernel (a TMA ring,
+// wgmma m64nBNk16 with float32 accumulators, the cluster split-K), in the
+// split ops/decode_step.py::linear_plan gives at B*T rows, which the
+// wrapper passes in (at 1,920 rows 128-column tiles, one K-slice for QKV
+// and fc, two for the others; at an admission's 120 the decode step's
+// splits); float32 keeps the three-term TF32 tile of common.cuh
+// (prefill_linear_kernel).  The cache rows are written by the attention
+// kernel rather than by a fourth epilogue of the product: the attention
+// reads each image's K and V anyway, and the decode step's product kernel
+// keeps its three epilogues.  The LayerNorm is its own pass, not a prologue
+// of the product: every column tile would normalise the same rows again.
 //
 // Bound on the H100: operations.  At B 128, T 15 (1,920 rows) a layer does
 // 2 * 1,920 * 7.08 M flops in its four products, 326 GFLOP over 12 layers:
 // 0.33 ms at 989 TFLOP/s in bf16, against 0.05 ms for the 170 MB of weights.
-// An admission of 8 images (120 rows) is weight-bound (0.05 ms).  The tile
-// is the decode step's (64 x 32, one stage in flight, WMMA), far from
-// either bound; wgmma and deeper pipelines are later work.
+// An admission of 8 images (120 rows) is weight-bound (0.05 ms).  On an
+// H100 (700 W) the bf16 call takes 2.2 ms at b 128 (4.0 with the first
+// version's 64 x 32 WMMA tile): the products run at 200-300 TFLOP/s, by
+// estimate bound by their operands' traffic from L2 (a 128 x 128 tile
+// reads both operands once a 64-deep step); gelu_new in float64 adds 0.40
+// ms, the attention 0.25.  An admission takes 0.53 ms (1.27 before).
 #include "common.cuh"
 
 namespace gic {
 
-constexpr int kPreQKV = 0;
-constexpr int kPreGelu = 1;
-constexpr int kPreResidual = 2;
 constexpr int kPreMaxT = 32;     // keys of one image: one lane each
 constexpr int kPreMaxHd = 96;    // head dim: the three (T, hd + 1) float tiles stay under 48 KB
-constexpr int kAttnWarps = 4;
+constexpr int kAttnWarps = 8;
 
-// y = LN(x) in T for each float32 row of K, one warp per row.
-template <typename T>
-__global__ void prefill_layernorm_kernel(const float* x, const float* ln_s, const float* ln_b,
-                                         int M, int K, float eps, T* y) {
-  const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (m >= M) return;
-  const float* row = x + (size_t)m * K;
-  float mean, rstd;
-  row_mean_rstd(row, K, eps, mean, rstd);
-  for (int k = threadIdx.x % 32; k < K; k += 32)
-    y[(size_t)m * K + k] = ln_value<T>(row[k], mean, rstd, ln_s[k], ln_b[k]);
-}
-
-// y = epilogue(prologue(x) @ W^T + bias) for rows m0.., columns n0...
-// QKV: N = 3D; columns [0, D) go to q (M, D), [D, 2D) and [2D, 3D) to the
-// layer's K and V cache rows: row m = g*T + t lands at (t * cache_b + g) * D.
-template <typename T, int EPI>
+// float32: y = epilogue(x @ W^T + bias) for rows m0.., columns n0.. on the
+// product tile of common.cuh (the three-term TF32 split).
+template <int EPI>
 __global__ void __launch_bounds__(THREADS)
-prefill_linear_kernel(const T* x, const T* w, const float* bias, void* out, int M, int K, int N,
-                      T* k_cache, T* v_cache, int tg, int cache_b) {
-  __shared__ TileSmem<T> sm;
+prefill_linear_kernel(const float* x, const float* w, const float* bias, float* out, int M, int K,
+                      int N) {
+  __shared__ TileSmem<float> sm;
   const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  tile_product<T, false>(sm, x, nullptr, nullptr, nullptr, w, M, K, N, m0, n0);
-  const int d = N / 3;
+  tile_product<float, false>(sm, x, nullptr, nullptr, nullptr, w, M, K, N, m0, n0);
   for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
     const int r = i / BN, c = i % BN;
     const int m = m0 + r, n = n0 + c;
     if (m >= M || n >= N) continue;
     const float y = sm.cs[r][c] + bias[n];
-    if (EPI == kPreQKV) {
-      if (n < d) {
-        static_cast<T*>(out)[(size_t)m * d + n] = from_f32<T>(y);
-      } else {
-        const int g = m / tg, t = m % tg;
-        T* cache = n < 2 * d ? k_cache : v_cache;
-        cache[((size_t)t * cache_b + g) * d + (n % d)] = from_f32<T>(y);
-      }
-    } else if (EPI == kPreGelu) {
-      static_cast<T*>(out)[(size_t)m * N + n] = from_f32<T>(gelu_new(y));
-    } else {
-      static_cast<float*>(out)[(size_t)m * N + n] += y;  // the float32 residual stream
-    }
+    const size_t o = (size_t)m * N + n;
+    if (EPI == kEpiCast) out[o] = y;
+    else if (EPI == kEpiGelu) out[o] = gelu_new(y);
+    else out[o] += y;  // the float32 residual stream
   }
 }
 
-// Causal attention inside each image: block (g, h); q (M, D) rows g*T..,
-// K/V from the layer's cache rows (t * cache_b + g); out (M, D) in T.
+// Causal attention inside each image: block (g, h); q, k, v from the QKV
+// product's (M, 3D) rows g*T.. (columns [0, D), [D, 2D), [2D, 3D)); the
+// image's K and V head rows also go to the layer's cache rows (t * cache_b
+// + g), as the loads bring them; out (M, D) in T.  16-byte loads and
+// stores where hd is a multiple of the vector, else an element a thread.
 template <typename T>
 __global__ void __launch_bounds__(32 * kAttnWarps)
-prefill_attention_kernel(const T* q, const T* k_cache, const T* v_cache, T* out, int tg, int D,
-                         int hd, int cache_b, float scale) {
+prefill_attention_kernel(const T* qkv, T* k_cache, T* v_cache, T* out, int tg, int D, int hd,
+                         int cache_b, float scale) {
   extern __shared__ float att_smem[];
   const int pitch = hd + 1;  // lanes read rows j = lane: an odd pitch spreads the banks
   float* qs = att_smem;
   float* ks = qs + tg * pitch;
   float* vs = ks + tg * pitch;
   const int g = blockIdx.x, h = blockIdx.y;
-  for (int i = threadIdx.x; i < tg * hd; i += blockDim.x) {
-    const int t = i / hd, e = i % hd;
+  constexpr int EPV = 16 / (int)sizeof(T);
+  const int step = hd % EPV == 0 ? EPV : 1;  // elements a thread moves at once
+  const int per_row = hd / step;
+  for (int i = threadIdx.x; i < tg * per_row; i += blockDim.x) {
+    const int t = i / per_row, e = (i % per_row) * step;
+    const T* src = qkv + ((size_t)g * tg + t) * 3 * D + (size_t)h * hd + e;
     const size_t c = ((size_t)t * cache_b + g) * D + (size_t)h * hd + e;
-    qs[t * pitch + e] = to_f32(q[((size_t)g * tg + t) * D + (size_t)h * hd + e]);
-    ks[t * pitch + e] = to_f32(k_cache[c]);
-    vs[t * pitch + e] = to_f32(v_cache[c]);
+    if (step == EPV) {
+      const uint4 q4 = *reinterpret_cast<const uint4*>(src);
+      const uint4 k4 = *reinterpret_cast<const uint4*>(src + D);
+      const uint4 v4 = *reinterpret_cast<const uint4*>(src + 2 * D);
+      *reinterpret_cast<uint4*>(k_cache + c) = k4;
+      *reinterpret_cast<uint4*>(v_cache + c) = v4;
+      const T* qe = reinterpret_cast<const T*>(&q4);
+      const T* ke = reinterpret_cast<const T*>(&k4);
+      const T* ve = reinterpret_cast<const T*>(&v4);
+#pragma unroll
+      for (int j = 0; j < EPV; ++j) {
+        qs[t * pitch + e + j] = to_f32(qe[j]);
+        ks[t * pitch + e + j] = to_f32(ke[j]);
+        vs[t * pitch + e + j] = to_f32(ve[j]);
+      }
+    } else {
+      k_cache[c] = src[D];
+      v_cache[c] = src[2 * D];
+      qs[t * pitch + e] = to_f32(src[0]);
+      ks[t * pitch + e] = to_f32(src[D]);
+      vs[t * pitch + e] = to_f32(src[2 * D]);
+    }
   }
   __syncthreads();
   __shared__ float ps[kAttnWarps][kPreMaxT];
@@ -123,9 +134,18 @@ prefill_attention_kernel(const T* q, const T* k_cache, const T* v_cache, T* out,
   for (int t = warp; t < tg; t += kAttnWarps) {
     float s = __int_as_float(0xff800000);  // -inf
     if (lane <= t) {
-      float acc = 0.f;
-      for (int e = 0; e < hd; ++e) acc = fmaf(qs[t * pitch + e], ks[lane * pitch + e], acc);
-      s = acc * scale;
+      // four partial sums, so the FMAs' latencies overlap
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* qr = qs + t * pitch;
+      const float* kr = ks + lane * pitch;
+      int e = 0;
+#pragma unroll 4
+      for (; e + 4 <= hd; e += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[u] = fmaf(qr[e + u], kr[e + u], acc[u]);
+      }
+      for (; e < hd; ++e) acc[0] = fmaf(qr[e], kr[e], acc[0]);
+      s = ((acc[0] + acc[1]) + (acc[2] + acc[3])) * scale;
     }
     const float m = warp_max(s);  // lane 0 <= t always holds a score
     const float p = lane <= t ? expf(s - m) : 0.f;
@@ -141,21 +161,23 @@ prefill_attention_kernel(const T* q, const T* k_cache, const T* v_cache, T* out,
   }
 }
 
-template <typename T, int EPI>
-static void linear(cudaStream_t s, const T* x, const T* w, const float* bias, void* out, int M,
-                   int K, int N, T* k_cache = nullptr, T* v_cache = nullptr, int tg = 1,
-                   int cache_b = 1) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  prefill_linear_kernel<T, EPI><<<grid, THREADS, 0, s>>>(x, w, bias, out, M, K, N, k_cache,
-                                                          v_cache, tg, cache_b);
+// One product of a layer: bf16 on fused_linear.cu's TMA ring and wgmma in
+// the split plan (bn, splits, kslice); float32 on the product tile.
+static int product(cudaStream_t s, const __nv_bfloat16* x, const __nv_bfloat16* w,
+                   const float* bias, void* out, int epi, int M, int K, int N, const int* plan) {
+  return linear_wgmma_bf16(x, w, bias, out, epi, M, N, K, plan[0], plan[1], plan[2], s);
 }
-
-template <typename T>
-static void layernorm(cudaStream_t s, const float* x, const float* ln_s, const float* ln_b, int M,
-                      int K, float eps, T* y) {
-  constexpr int kRowsPerBlock = 4;  // one warp per row
-  prefill_layernorm_kernel<T><<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0,
-                                s>>>(x, ln_s, ln_b, M, K, eps, y);
+static int product(cudaStream_t s, const float* x, const float* w, const float* bias, void* out,
+                   int epi, int M, int K, int N, const int*) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  float* o = static_cast<float*>(out);
+  if (epi == kEpiCast)
+    prefill_linear_kernel<kEpiCast><<<grid, THREADS, 0, s>>>(x, w, bias, o, M, K, N);
+  else if (epi == kEpiGelu)
+    prefill_linear_kernel<kEpiGelu><<<grid, THREADS, 0, s>>>(x, w, bias, o, M, K, N);
+  else
+    prefill_linear_kernel<kEpiResidual><<<grid, THREADS, 0, s>>>(x, w, bias, o, M, K, N);
+  return 0;
 }
 
 template <typename T>
@@ -163,7 +185,7 @@ static int run(cudaStream_t s, int L, int B, int tg, int D, int H, float eps, fl
                const T* qkvw, const T* projw, const T* fcw, const T* cprojw, const float* attnb,
                const float* projb, const float* fcb, const float* cprojb, const float* ln1s,
                const float* ln1b, const float* ln2s, const float* ln2b, T* k_cache, T* v_cache,
-               int cache_t, T* qbuf, T* abuf, T* hbuf) {
+               int cache_t, T* qkvbuf, T* abuf, T* hbuf, const int* plans) {
   const int M = B * tg, F = 4 * D, hd = D / H;
   const size_t smem = 3 * (size_t)tg * (hd + 1) * sizeof(float);
   const float scale = 1.f / sqrtf((float)hd);
@@ -171,19 +193,28 @@ static int run(cudaStream_t s, int L, int B, int tg, int D, int H, float eps, fl
     T* kl = k_cache + (size_t)l * cache_t * B * D;
     T* vl = v_cache + (size_t)l * cache_t * B * D;
     // abuf holds LN1's rows, then the attention output, then LN2's rows
-    layernorm(s, x32, ln1s + (size_t)l * D, ln1b + (size_t)l * D, M, D, eps, abuf);
-    linear<T, kPreQKV>(s, abuf, qkvw + (size_t)l * 3 * D * D, attnb + (size_t)l * 3 * D, qbuf, M,
-                       D, 3 * D, kl, vl, tg, B);
-    prefill_attention_kernel<T><<<dim3(B, H), 32 * kAttnWarps, smem, s>>>(qbuf, kl, vl, abuf, tg,
-                                                                         D, hd, B, scale);
-    linear<T, kPreResidual>(s, abuf, projw + (size_t)l * D * D, projb + (size_t)l * D, x32, M, D,
-                            D);
-    layernorm(s, x32, ln2s + (size_t)l * D, ln2b + (size_t)l * D, M, D, eps, abuf);
-    linear<T, kPreGelu>(s, abuf, fcw + (size_t)l * F * D, fcb + (size_t)l * F, hbuf, M, D, F);
-    linear<T, kPreResidual>(s, hbuf, cprojw + (size_t)l * D * F, cprojb + (size_t)l * D, x32, M,
-                            F, D);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    launch_ln_rows(s, x32, ln1s + (size_t)l * D, ln1b + (size_t)l * D, eps, M, D, abuf,
+                   static_cast<float*>(nullptr));
+    int err = product(s, abuf, qkvw + (size_t)l * 3 * D * D, attnb + (size_t)l * 3 * D, qkvbuf,
+                      kEpiCast, M, D, 3 * D, plans);
+    if (!err) {
+      prefill_attention_kernel<T><<<dim3(B, H), 32 * kAttnWarps, smem, s>>>(qkvbuf, kl, vl, abuf,
+                                                                           tg, D, hd, B, scale);
+      err = product(s, abuf, projw + (size_t)l * D * D, projb + (size_t)l * D, x32, kEpiResidual,
+                    M, D, D, plans + 3);
+    }
+    if (!err) {
+      launch_ln_rows(s, x32, ln2s + (size_t)l * D, ln2b + (size_t)l * D, eps, M, D, abuf,
+                     static_cast<float*>(nullptr));
+      err = product(s, abuf, fcw + (size_t)l * F * D, fcb + (size_t)l * F, hbuf, kEpiGelu, M, D, F,
+                    plans + 6);
+    }
+    if (!err)
+      err = product(s, hbuf, cprojw + (size_t)l * D * F, cprojb + (size_t)l * D, x32, kEpiResidual,
+                    M, F, D, plans + 9);
+    if (err) return err;
+    const cudaError_t last = cudaGetLastError();
+    if (last != cudaSuccess) return (int)last;
   }
   return (int)cudaSuccess;
 }
@@ -196,18 +227,20 @@ static int run(cudaStream_t s, int L, int B, int tg, int D, int H, float eps, fl
 // cprojw (L, D, 4D) in the element type, output-major (the decode pack);
 // biases (L, N) and LN scale/bias (L, D) float32; k_cache/v_cache (L,
 // cache_t, B, D) in the element type, rows [0, T) of each layer written;
-// qbuf/abuf (B*T, D) and hbuf (B*T, 4D) scratch in the element type.
-// Returns the first cudaGetLastError() that is not 0.
+// qkvbuf (B*T, 3D), abuf (B*T, D) and hbuf (B*T, 4D) scratch in the element
+// type; plans: host memory, 12 ints, the bf16 products' splits (bn, splits,
+// kslice of QKV, proj, fc, cproj: ops/decode_step.py::linear_plan at B*T
+// rows; unused by float32).  Returns the first error that is not 0.
 extern "C" int gic_prefill(int dtype, int L, int B, int T, int D, int H, float eps, void* x32,
                            const void* qkvw, const void* projw, const void* fcw,
                            const void* cprojw, const void* attnb, const void* projb,
                            const void* fcb, const void* cprojb, const void* ln1s,
                            const void* ln1b, const void* ln2s, const void* ln2b, void* k_cache,
-                           void* v_cache, int cache_t, void* qbuf, void* abuf, void* hbuf,
-                           void* stream) {
+                           void* v_cache, int cache_t, void* qkvbuf, void* abuf, void* hbuf,
+                           const int* plans, void* stream) {
   using namespace gic;
   if (L <= 0 || B <= 0 || T <= 0 || T > kPreMaxT || T > cache_t || H <= 0 || D % H ||
-      D / H > kPreMaxHd)
+      D / H > kPreMaxHd || (dtype == kBF16 && !plans))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -217,8 +250,8 @@ extern "C" int gic_prefill(int dtype, int L, int B, int T, int D, int H, float e
             static_cast<const TYPE*>(projw), static_cast<const TYPE*>(fcw),                    \
             static_cast<const TYPE*>(cprojw), f(attnb), f(projb), f(fcb), f(cprojb), f(ln1s), \
             f(ln1b), f(ln2s), f(ln2b), static_cast<TYPE*>(k_cache),                            \
-            static_cast<TYPE*>(v_cache), cache_t, static_cast<TYPE*>(qbuf),                    \
-            static_cast<TYPE*>(abuf), static_cast<TYPE*>(hbuf))
+            static_cast<TYPE*>(v_cache), cache_t, static_cast<TYPE*>(qkvbuf),                  \
+            static_cast<TYPE*>(abuf), static_cast<TYPE*>(hbuf), plans)
   if (dtype == kBF16) return GIC_PREFILL(__nv_bfloat16);
   if (dtype == kF32) return GIC_PREFILL(float);
 #undef GIC_PREFILL

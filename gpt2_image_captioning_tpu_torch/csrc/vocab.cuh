@@ -62,8 +62,7 @@ void launch_prepass(cudaStream_t s, const float* x, const float* lns, const floa
   if constexpr (std::is_same<E, int8_t>::value) {
     launch_rowquant<T, true>(s, x, K, lns, lnb, eps, M, K, static_cast<int8_t*>(xf), K, sx);
   } else {
-    ln_rows_kernel<T><<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock, 32 * kLnRowsPerBlock, 0,
-                        s>>>(x, lns, lnb, eps, M, K, static_cast<T*>(xf), xl);
+    launch_ln_rows(s, x, lns, lnb, eps, M, K, static_cast<T*>(xf), xl);
   }
 }
 

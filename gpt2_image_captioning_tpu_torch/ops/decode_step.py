@@ -44,10 +44,12 @@ and grow through the later layers.
 
 W8A8 (``pack_decode_weights(quant=True)``; the pack carries ``qkvs``): the
 four projections and wte are int8 with per-output-column float32 scales;
-each call quantizes its input rows first (``csrc/rowquant.cu``, after the
-LayerNorm and the cast where the role has one) and multiplies int8 by int8
-with int32 accumulators, dequantized as ``acc * sx * sw`` before the same
-epilogues.  int8 KV cache (int8 caches with ``k_scale``/``v_scale``): each
+each call quantizes its input rows — after the LayerNorm and the cast in
+a launch of ``csrc/rowquant.cu`` where the role has one (LN1 -> qkv, LN2 ->
+fc, LN_f -> the vocabulary), inside the product's own launch where it has
+none (the attention output -> proj, gelu(h) -> cproj) — and multiplies int8
+by int8 with int32 accumulators, dequantized as ``acc * sx * sw`` before
+the same epilogues.  int8 KV cache (int8 caches with ``k_scale``/``v_scale``): each
 new K/V row is quantized over its D and appended with its scale, and the
 walk dequantizes in the compute dtype; the new row's own term is exact.
 """
@@ -75,6 +77,7 @@ LINEAR_BN = (32, 64, 128)        # the wgmma widths: output columns a block
 LINEAR_SPLITS = (1, 2, 3, 4, 6, 8)  # K-slices of a column tile (<= 8: a portable cluster)
 LINEAR_BOX_BYTES = 128           # K bytes of a TMA box and a ring stage
 LINEAR_RING_BUDGET = 110 * 1024  # a block's ring, so that two blocks share an SM
+LINEAR_RING_BUDGET_ONE = 220 * 1024  # rows quantized in the product, blocks <= SMs: one an SM
 LINEAR_MAX_STAGES = 8
 LINEAR_PAD = 8                   # the partial tile's row pitch is bn + LINEAR_PAD
 SMS = 132                        # the H100's streaming multiprocessors
@@ -101,28 +104,36 @@ class LinearPlan(NamedTuple):
 _NO_PLAN = LinearPlan(0, 0, 0, 0, 0, 0, 0, 0)
 
 
-def linear_plan_options(m: int, k: int, n: int, element_size: int) -> list[LinearPlan]:
+def linear_plan_options(m: int, k: int, n: int, element_size: int,
+                        row_bytes: int | None = None) -> list[LinearPlan]:
     """Every split ``csrc/fused_linear.cu`` can run an (M, K) x (K, N)
     product with ``element_size``-byte operands (2 bf16, 1 int8) in: a
     block owns ``bn`` output columns, every row up to 128 (more rows take
     more row tiles) and one K-slice of whole 128-byte boxes; the ``splits``
     slices of a column tile, none empty, form a cluster that reduces their
     partial tiles in rank order (clusters of 5 and 7 left out: they measured
-    slower than their neighbours on the card).  ``stages`` and ``smem``
-    mirror the kernel's own sizing of its ring (``lin_stages``,
-    ``lin_smem``)."""
+    slower than their neighbours on the card).  ``row_bytes``: the bytes of
+    a row element as the ring carries it, ``element_size`` (the default),
+    or with int8 weights 2 or 4 where the product quantizes its bf16 or
+    float32 rows itself (a stage then holds 2 or 4 row boxes; a grid of no
+    more blocks than SMs then takes one block an SM and a ring twice the
+    size).  ``stages`` and ``smem`` mirror the kernel's own sizing of its
+    ring (``lin_budget``, ``lin_stages``, ``lin_smem``)."""
     consumers = 1 if m <= 64 else 2
     bm = 64 * consumers
     row_tiles = -(-m // bm)
     boxes = -(-k // (LINEAR_BOX_BYTES // element_size))
+    abox = (row_bytes or element_size) // element_size
     plans = []
     for bn in LINEAR_BN:
-        stage = (bm + bn) * LINEAR_BOX_BYTES
+        stage = (bm * abox + bn) * LINEAR_BOX_BYTES
         for splits in LINEAR_SPLITS:
             per = -(-boxes // splits)
             if -(-boxes // per) != splits:  # a slice would be empty
                 continue
-            stages = max(1, min(per, LINEAR_RING_BUDGET // stage, LINEAR_MAX_STAGES))
+            one = abox > 1 and -(-n // bn) * splits * row_tiles <= SMS
+            budget = LINEAR_RING_BUDGET_ONE if one else LINEAR_RING_BUDGET
+            stages = max(1, min(per, budget // stage, LINEAR_MAX_STAGES))
             smem = 1024 + max(stages * stage, bm * (bn + LINEAR_PAD) * 4)
             plans.append(LinearPlan(bn, splits, per * LINEAR_BOX_BYTES // element_size,
                                     -(-n // bn), row_tiles, consumers, stages, smem))
@@ -130,7 +141,8 @@ def linear_plan_options(m: int, k: int, n: int, element_size: int) -> list[Linea
 
 
 @functools.lru_cache(maxsize=None)
-def linear_plan(m: int, k: int, n: int, element_size: int) -> LinearPlan:
+def linear_plan(m: int, k: int, n: int, element_size: int,
+                row_bytes: int | None = None) -> LinearPlan:
     """The split :func:`fused_linear_cuda` launches an (M, K) x (K, N)
     product in, once per shape: among :func:`linear_plan_options` that give
     at least one block an SM (or the most blocks the shape allows), the one
@@ -139,14 +151,24 @@ def linear_plan(m: int, k: int, n: int, element_size: int) -> LinearPlan:
     the waves of two blocks an SM — ties to wider tiles.  On an H100 this
     rule picks, at 128 and 512 rows of every GPT-2 124M role, bf16 and
     int8, a split within 1.3 us of the fastest one that
-    ``scripts/linear_plan_sweep.py`` timed."""
-    options = linear_plan_options(m, k, n, element_size)
+    ``scripts/linear_plan_sweep.py`` timed; at 1,920 and 120 rows (the
+    prefill's products, bf16) within 1.3 us of it.  ``row_bytes`` as in
+    :func:`linear_plan_options`.  Where the product quantizes its own rows,
+    converting them sets its time: the fewest values a block converts
+    (64 x consumers rows by its K-slice) times the blocks an SM, ties to
+    more blocks — on the card the fastest split at 128 and 512 rows of
+    attn_proj and mlp_proj, or within 0.3 us of it."""
+    options = linear_plan_options(m, k, n, element_size, row_bytes)
+    abox = (row_bytes or element_size) // element_size
+    if abox > 1:
+        return min(options, key=lambda p: (-(-p.blocks // SMS) * 64 * p.consumers * p.k_slice,
+                                           -p.blocks))
     wave = min(SMS, max(p.blocks for p in options))
 
     def cost(p: LinearPlan):
         bm = 64 * p.consumers
         boxes = p.k_slice * element_size // LINEAR_BOX_BYTES
-        streamed = boxes * (bm + p.bn) * LINEAR_BOX_BYTES
+        streamed = boxes * (bm * abox + p.bn) * LINEAR_BOX_BYTES
         reduced = bm * p.bn * 4 if p.splits > 1 else 0
         waves = -(-p.blocks // (2 * SMS))
         return waves * (streamed + reduced + LINEAR_SPLIT_BYTES * p.splits), -p.bn
@@ -253,9 +275,10 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
     x: (M, K) — the float32 residual stream when ``ln=(scale, bias)`` (the
     LayerNorm prologue), else the compute dtype; w: (N, K) in the compute
     dtype, or int8 with ``w_scale`` (N,) float32 (W8A8: the call quantizes x
-    per row, then multiplies in int8; one more CUDA launch, as the bf16
-    LayerNorm roles' pre-pass is); bias: (N,) float32.  ``compute_dtype``
-    defaults to w's, and int8 weights need it.
+    per row, then multiplies in int8; with ``ln`` in one more CUDA launch,
+    ``csrc/rowquant.cu``, as the bf16 LayerNorm roles' pre-pass is, without
+    it inside the product's own launch); bias: (N,) float32.
+    ``compute_dtype`` defaults to w's, and int8 weights need it.
     ``epilogue`` "cast" or "gelu" returns a new (M, N) tensor in the compute
     dtype; "residual" adds into ``residual`` (M, N) float32 in place and
     returns it.
@@ -292,10 +315,13 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
                        and w_scale.is_contiguous() and w_scale.device == x.device, name,
                        "w_scale must be contiguous float32 (N,) on x's device")
         w_s = w_scale.data_ptr()
-        xa_buf = torch.empty((m, k), dtype=torch.int8, device=x.device)
-        sx_buf = torch.empty((m,), dtype=torch.float32, device=x.device)
-        xa, sx = xa_buf.data_ptr(), sx_buf.data_ptr()
-        plan = linear_plan(m, k, n, 1)
+        if ln is not None:  # the quantizer's rows and scales, the product's operand
+            xa_buf = torch.empty((m, k), dtype=torch.int8, device=x.device)
+            sx_buf = torch.empty((m,), dtype=torch.float32, device=x.device)
+            xa, sx = xa_buf.data_ptr(), sx_buf.data_ptr()
+            plan = linear_plan(m, k, n, 1)
+        else:  # the rows quantized inside the product
+            plan = linear_plan(m, k, n, 1, x.element_size())
     elif cdt == torch.bfloat16:
         if ln is not None:  # the normalised rows, the product's operand
             xa_buf = torch.empty((m, k), dtype=cdt, device=x.device)
@@ -322,7 +348,7 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
     )
     _build.check(err, name)
     fused_linear_cuda.launches += 1
-    if quant:
+    if quant and ln is not None:
         rowquant_cuda.launches += 1
     return out
 

@@ -5,10 +5,12 @@
 Kernel: ``csrc/prefill.cu`` (hand-written CUDA for sm_90a; its header gives
 the design and the bound), the port of the JAX package's Pallas
 ``_prefill_kernel``: one C call runs every block over the (B·T, D)
-image-major rows, seven launches a layer — LN1, the QKV product whose
-epilogue writes K and V straight into the cache's (T, B, D) rows, causal
-attention inside each image, the projection added into the float32
-residual stream, LN2 and the MLP's two products — wrapped by
+image-major rows, seven launches a layer — LN1 (``ln_rows_kernel``), the
+QKV product, causal attention inside each image (which also writes K and V
+into the cache's (T, B, D) rows), the projection added into the float32
+residual stream, LN2 and the MLP's two products; in bf16 the four products
+run on ``csrc/fused_linear.cu``'s TMA ring and ``wgmma`` in the splits
+:func:`ops.decode_step.linear_plan` gives at B·T rows — wrapped by
 :func:`prefill_cuda`.
 Plain twin: :func:`prefill_plain`, the same recipe in torch ops (the
 decode step's ``fused_linear_plain`` for the four products).  Unlike the
@@ -29,13 +31,14 @@ longer ones, and so does the twin.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from gpt2_image_captioning_tpu_torch.core.precision import Policy
 from gpt2_image_captioning_tpu_torch.ops import _build, nn
-from gpt2_image_captioning_tpu_torch.ops.decode_step import fused_linear_plain
+from gpt2_image_captioning_tpu_torch.ops.decode_step import fused_linear_plain, linear_plan
 
 MAX_PREFIX = 32  # csrc/prefill.cu: one lane per key of an image
 MAX_HEAD_DIM = 96  # csrc/prefill.cu: the attention's float tiles in 48 KB
@@ -92,6 +95,19 @@ def prefill_plain(packed: dict, x0: torch.Tensor, k_cache: torch.Tensor, v_cache
     return x32.reshape(b, t, d)
 
 
+def prefill_plans(m: int, d: int, compute_dtype: torch.dtype):
+    """The splits of the bf16 prefill's four products at ``m`` = B·T rows —
+    QKV, the attention projection, MLP fc and its down-projection, each
+    :func:`ops.decode_step.linear_plan`'s (bn, splits, k_slice) — as the C
+    entry reads them: 12 ints in host memory (zeros for float32, which keeps
+    the product tile)."""
+    vals = [0] * 12
+    if compute_dtype == torch.bfloat16:
+        roles = ((d, 3 * d), (d, d), (d, 4 * d), (4 * d, d))
+        vals = [v for k, n in roles for v in linear_plan(m, k, n, 2)[:3]]
+    return (ctypes.c_int * 12)(*vals)
+
+
 def prefill_cuda(packed: dict, x0: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                  *, n_head: int, eps: float = 1e-5) -> torch.Tensor:
     """Launch ``csrc/prefill.cu``: every block of GPT-2 over a fresh prefix.
@@ -126,14 +142,15 @@ def prefill_cuda(packed: dict, x0: torch.Tensor, k_cache: torch.Tensor, v_cache:
     m = b * t
     dev = x0.device
     x32 = x0.reshape(m, d).to(torch.float32, copy=True)
-    qbuf = torch.empty((m, d), dtype=cdt, device=dev)
+    qkvbuf = torch.empty((m, 3 * d), dtype=cdt, device=dev)
     abuf = torch.empty((m, d), dtype=cdt, device=dev)
     hbuf = torch.empty((m, 4 * d), dtype=cdt, device=dev)
+    plans = prefill_plans(m, d, cdt)
     err = _build.library().gic_prefill(
         _build.DTYPE_CODE[cdt], n_layer, b, t, d, n_head, eps, x32.data_ptr(),
         *(packed[key].data_ptr() for key in shapes), k_cache.data_ptr(), v_cache.data_ptr(),
-        k_cache.shape[1], qbuf.data_ptr(), abuf.data_ptr(), hbuf.data_ptr(),
-        _build.stream_of(x0),
+        k_cache.shape[1], qkvbuf.data_ptr(), abuf.data_ptr(), hbuf.data_ptr(),
+        ctypes.addressof(plans), _build.stream_of(x0),
     )
     _build.check(err, name)
     prefill_cuda.launches += 1

@@ -205,6 +205,84 @@ def test_int8_accumulation_stays_exact_at_k3072(rows):
         assert torch.equal(acc.float() * sx * sw, want)
 
 
+def _folded_rowquant(x, k_slice):
+    """Plain model of the quantization the int8 product does to its rows
+    where they carry no LayerNorm (``csrc/fused_linear.cu``, the int8 route
+    with bf16 or float32 rows): each K-slice's max |v| a row, the cluster's
+    slices' maxima combined, ``s = max(max * float32(1/127), 1e-12)``, then
+    ``rint(v / s)`` from one multiply by the correctly rounded ``1 / s``, the
+    IEEE division only where that product lies within 2^-14 of a
+    half-integer (``csrc/common.cuh::quant_pack4_fast``)."""
+    xf = x.float()
+    maxima = torch.stack([xf[:, i:i + k_slice].abs().amax(dim=1)
+                          for i in range(0, xf.shape[1], k_slice)], dim=1)
+    s = torch.clamp(maxima.amax(dim=1, keepdim=True) * TQ._INV127, min=TQ.MIN_SCALE)
+    t = xf * (1.0 / s)
+    q = torch.round(t)
+    near = (t - q).abs() >= 0.5 - 2.0 ** -14
+    return torch.where(near, torch.round(xf / s), q).to(torch.int8), s, int(near.sum())
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("role", ["attn_out", "gelu_h"])
+def test_folded_quantization_equals_rowquant_plain(role, dtype):
+    """The int8 product's own quantization of the attention output (-> proj,
+    K = D) and of gelu(h) (-> cproj, K = 4D), in the K-slices of its plan at
+    B 128, equals ``rowquant_plain`` bit for bit: int8 values and scales,
+    with a row of zeros, rows whose max |v| sits in the first, a middle and
+    the last K-slice, and a row of exact half-integer quotients (v / s = j +
+    0.5, which the division's fallback rounds half to even)."""
+    rng = np.random.default_rng(7)
+    d, b = 768, 128
+    k = d if role == "attn_out" else 4 * d
+    tdt = getattr(torch, dtype)
+    plan = TDS.linear_plan(b, k, d, 1, torch.tensor([], dtype=tdt).element_size())
+    assert plan.splits > 1
+    raw = torch.from_numpy(rng.normal(size=(b, k)).astype(np.float32))
+    if role == "gelu_h":
+        raw = TDS._gelu_new(3.0 * raw)
+    x = raw.to(tdt)
+    x[0] = 0.0
+    for row, col in ((1, 0), (2, k // 2), (3, k - 1)):
+        x[row, col] = 40.0 * (-1) ** row
+    ties = torch.arange(k, dtype=torch.float32) % 127 + 0.5  # j + 0.5, exact in bf16
+    x[4] = torch.where(torch.arange(k) % 2 == 0, ties, -ties).to(tdt)
+    x[4, plan.k_slice * (plan.splits - 1)] = 127.0  # s = 127 * float32(1/127), in the last slice
+    got_q, got_s, near = _folded_rowquant(x, plan.k_slice)
+    want_q, want_s = TQ.rowquant_plain(x)
+    assert torch.equal(got_s, want_s)
+    assert torch.equal(got_q, want_q)
+    assert near > 0  # the fallback ran
+    assert not got_q[0].any() and float(got_s[0]) == np.float32(1e-12)
+    assert (got_q[1:4].abs().amax(dim=1) == 127).all()
+
+
+def test_quant_pack4_rounds_as_the_division_near_half_integers():
+    """``quant_pack4_fast``'s multiply-and-check against ``rint(v / s)`` on values
+    placed within a few float32 ulps of each half-integer quotient, for 64
+    scales: the same integers (the check sends every such value to the
+    division); and its rounding, t + 1.5 * 2^23 in float32, whose low byte
+    is rint(t) half to even, over every quotient the quantizer gives."""
+    rng = np.random.default_rng(8)
+    scales = rng.uniform(0.5, 2.0, size=(64, 1)) * 2.0 ** rng.integers(-20, 10, size=(64, 1))
+    s = torch.from_numpy(scales.astype(np.float32))
+    halves = torch.arange(-127, 127, dtype=torch.float32) + 0.5
+    v = (halves[None, :] * s).reshape(64, -1, 1)
+    steps = torch.arange(-4, 5, dtype=torch.float32)
+    v = (v + steps * torch.finfo(torch.float32).eps * v.abs()).reshape(64, -1)
+    t = v * (1.0 / s)
+    q = torch.round(t)
+    near = (t - q).abs() >= 0.5 - 2.0 ** -14
+    got = torch.where(near, torch.round(v / s), q)
+    assert torch.equal(got, torch.round(v / s))
+    assert near.float().mean() > 0.5
+    quotients = np.concatenate([np.linspace(-127.6, 127.6, 200_001, dtype=np.float32),
+                                np.arange(-127, 128, dtype=np.float32) + np.float32(0.5)])
+    f = quotients + np.float32(12582912.0)  # float32 add, round half to even
+    low = (f.view(np.uint32) & 0xFF).astype(np.uint8).view(np.int8)
+    assert np.array_equal(low, np.round(quotients).astype(np.int8))
+
+
 # ---------------------------------------------------------------------------
 # the int8 step in every vocabulary mode against the JAX kernel
 # ---------------------------------------------------------------------------
