@@ -96,7 +96,18 @@ before and read just after:
   captions padded to 50 — fed by the ``Batcher``: step-1 loss and gradients
   against the plain path, captions/s over timed steps, peak memory, a
   float32 check at a tiny config, and ten steps on one batch that must
-  lower the loss.
+  lower the loss;
+- the epoch loop and COCO evaluation: ``train()`` at the same width on a
+  synthetic COCO split made here (a 50,257-token byte-level BPE table, 320
+  train images x 3 random word captions, 256 val images x 2, 512-d
+  embeddings through ``embeddings_io``), two epochs with greedy bf16
+  evaluation each epoch: the artifacts on disk, 20 flash launches a step,
+  finite losses, a run stopped after one epoch and resumed equal to the
+  straight one, one caption per val image; then ``generate_predictions``
+  on the trained model in greedy, sampled, beam-4 and int8 greedy, the
+  first batch's captions equal to the façade's own decode: captions/s of
+  an epoch beside the train step's, seconds by part, eval img/s by mode,
+  and which BPE merge loop ran.
 
 Every request and admission prefills through the prefill kernel (an int8
 decode through ``forward_cached``, as the reference), and the launch checks
@@ -115,6 +126,7 @@ import dataclasses
 import functools
 import gzip
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -3511,6 +3523,319 @@ def train_path() -> tuple[dict, dict, dict]:
     return record, profiled, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the epoch loop and COCO evaluation
+# ---------------------------------------------------------------------------
+
+# a synthetic COCO split each: (images, captions per image, embeddings file)
+EPOCH_SPLITS = {"train": (320, 3, "pt"), "val": (256, 2, "npz")}
+EPOCH_RUN = Path(__file__).resolve().parent / "chip_epochs"  # checkpoints; removed at the end
+CAPTION_WORDS = (
+    "a the man woman dog cat riding standing wave surfboard street red blue bus two on in "
+    "with field grass playing park bench tree sky water group of people next to is are and"
+).split()
+EVAL_MODES = {
+    "greedy": dict(temperature=0.0, decode_precision="bf16"),
+    "sampled": dict(temperature=1.0, top_p=TOP_P, decode_precision="bf16"),
+    "beam": dict(decode="beam", beam_size=BEAM_K, decode_precision="bf16"),
+    "greedy_int8": dict(temperature=0.0, decode_precision="int8"),
+}
+
+
+def fabricated_tokenizer():
+    """A 50,257-token byte-level BPE table, built as
+    ``tests/fabricate_assets.py::fabricate_gpt2_vocab`` builds one: the 256
+    byte symbols, the first 50,000 of their pairs as merges, EOS last; it
+    encodes any text (the GPT-2 assets are not in the repository)."""
+    from gpt2_image_captioning_tpu_torch.data.tokenizer import GPT2BPETokenizer, bytes_to_unicode
+
+    symbols = [bytes_to_unicode()[i] for i in range(256)]
+    merges = [(a, b) for a in symbols for b in symbols][:50000]
+    vocab = symbols + ["".join(m) for m in merges] + ["<|endoftext|>"]
+    return GPT2BPETokenizer({t: i for i, t in enumerate(vocab)}, merges)
+
+
+def write_coco(split: str, rng) -> tuple[str, str]:
+    """Embeddings (512-d, normalised, through the port's ``embeddings_io``)
+    and a COCO annotations JSON of random word captions, 5-12 words each."""
+    from gpt2_image_captioning_tpu_torch.data.embeddings_io import save_embeddings
+
+    n, per_image, ext = EPOCH_SPLITS[split]
+    ids = [(1 if split == "train" else 500_000) + i for i in range(n)]
+    names = [f"COCO_{split}2014_{i:012d}.jpg" for i in ids]
+    emb = rng.normal(size=(n, 512)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    emb_path = str(EPOCH_RUN / f"{split}_embeddings.{ext}")
+    save_embeddings(emb_path, names, emb)
+    anns = [{"image_id": i, "id": len(ids) * c + k,
+             "caption": " ".join(rng.choice(CAPTION_WORDS, size=int(rng.integers(5, 13))))}
+            for k, i in enumerate(ids) for c in range(per_image)]
+    ann_path = str(EPOCH_RUN / f"captions_{split}.json")
+    with open(ann_path, "w") as f:
+        json.dump({"images": [{"id": i, "file_name": f} for i, f in zip(ids, names)],
+                   "annotations": anns}, f)
+    return emb_path, ann_path
+
+
+class PartTimer:
+    """Replaces functions that ``train()`` calls by wrappers that add each
+    call's seconds (the card synchronized) to a part, and, for
+    ``counted`` ones, each call's kernel launches to ``launches``."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self.launches = {k: 0 for k in read_launches()}
+        self._undo = []
+        self._open: set[str] = set()  # parts being timed: a nested call is not added twice
+
+    def wrap(self, part: str, module, attr: str, counted: bool = False) -> None:
+        fn = getattr(module, attr)
+
+        def wrapped(*a, **k):
+            if part in self._open:
+                return fn(*a, **k)
+            self._open.add(part)
+            before = read_launches() if counted else None
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds[part] = self.seconds.get(part, 0.0) + time.perf_counter() - t0
+                self._open.discard(part)
+                if counted:
+                    for key, n in read_launches().items():
+                        self.launches[key] += n - before[key]
+
+        setattr(module, attr, wrapped)
+        self._undo.append((module, attr, fn))
+
+    def clock_epochs(self, loop) -> None:
+        """Time each epoch inside ``train()``: from its first batch's
+        request to its epoch-loss log line, which follows the epoch's one
+        read of its losses from the card (``epochs``: [start, end] each);
+        and the metrics logger's construction (``logger_setup``)."""
+        self.epochs: list[list[float]] = []
+        epochs, seconds = self.epochs, self.seconds
+
+        class ClockedBatcher(loop.Batcher):
+            def epoch(self, epoch_idx=None):
+                epochs.append([time.perf_counter()])
+                yield from super().epoch(epoch_idx)
+
+        class ClockedLogger(loop.MetricsLogger):
+            def __init__(self, *a, **k):  # imports torch's TensorBoard writer where it can
+                t0 = time.perf_counter()
+                super().__init__(*a, **k)
+                seconds["logger_setup"] = (seconds.get("logger_setup", 0.0)
+                                           + time.perf_counter() - t0)
+
+            def add_scalar(self, tag, value, step):
+                if tag == "loss/train_epoch":
+                    epochs[-1].append(time.perf_counter())
+                super().add_scalar(tag, value, step)
+
+        for attr, cls in (("Batcher", ClockedBatcher), ("MetricsLogger", ClockedLogger)):
+            self._undo.append((loop, attr, getattr(loop, attr)))
+            setattr(loop, attr, cls)
+
+    def restore(self) -> None:
+        for module, attr, fn in reversed(self._undo):
+            setattr(module, attr, fn)
+
+
+def full_config():
+    """GPT-2 124M + config.yml's transformer mapper (512 -> 768, 15 + 10)."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config
+    from gpt2_image_captioning_tpu_torch.models.mapping import TransformerMappingConfig
+
+    return C.CaptionerConfig(gpt2=GPT2Config.gpt2_124m(),
+                             mapping=TransformerMappingConfig(512, 768, 15, 10))
+
+
+def trainable_rel_err(got: dict, want: dict) -> float:
+    from gpt2_image_captioning_tpu_torch.core.tree import tree_leaves
+
+    a = torch.cat([t.detach().flatten().float() for t in tree_leaves(got)])
+    b = torch.cat([t.detach().flatten().float() for t in tree_leaves(want)])
+    return float((a - b).norm() / b.norm())
+
+
+def train_epochs_phase(step_captions_per_s: float):
+    """``train()`` at full width — GPT-2 124M frozen, the transformer mapper,
+    bf16, b 128, two epochs of a synthetic COCO split (320 images x 3
+    captions), evaluation each epoch in greedy bf16 on 256 val images, the
+    checkpoints and artifacts on disk — then the same run stopped after one
+    epoch and resumed for the second.  Returns (record, the training steps'
+    launches, the evaluations' launches, the trained model, the val set)."""
+    from gpt2_image_captioning_tpu_torch import BF16, ImageCaptioningModel
+    from gpt2_image_captioning_tpu_torch.data.dataset import CocoDataset
+    from gpt2_image_captioning_tpu_torch.train import loop
+    from gpt2_image_captioning_tpu_torch.utils import plotting_available
+
+    shutil.rmtree(EPOCH_RUN, ignore_errors=True)
+    EPOCH_RUN.mkdir()
+    rng = np.random.default_rng(2)
+    tok = fabricated_tokenizer()
+    files = {split: write_coco(split, rng) for split in EPOCH_SPLITS}
+    t0 = time.perf_counter()
+    train_ds = CocoDataset(*files["train"], tokenizer=tok, max_length=50)
+    val_ds = CocoDataset(*files["val"], tokenizer=tok, max_length=50)
+    tokenize_s = time.perf_counter() - t0
+    cfg = full_config()
+
+    def model():
+        return ImageCaptioningModel(cfg, tokenizer=tok, generator=torch.Generator().manual_seed(0),
+                                    policy=BF16, device="cuda")
+
+    kw = dict(batch_size=B, learning_rate=1e-4, device="cuda")
+    straight = EPOCH_RUN / "straight"
+    trained = model()
+    timer = PartTimer()
+    timer.wrap("evaluation", loop, "evaluate_epoch", counted=True)
+    timer.wrap("checkpoint", loop.checkpoint, "save_captioner")
+    timer.wrap("checkpoint", loop.checkpoint, "save_pytree")
+    for attr in ("save_loss_curves", "save_eval_metric_curves", "save_eval_summary"):
+        timer.wrap("curves_and_summary", loop, attr)
+    timer.clock_epochs(loop)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        hist = loop.train(train_ds, trained, num_epochs=2, save_every_epoch=2,
+                          outputs_dir=str(straight), log_dir=str(straight / "logs"),
+                          val_dataset=val_ds, val_annotations_path=files["val"][1],
+                          eval_batch_size=B, eval_max_length=50, eval_decode_precision="bf16",
+                          **kw)
+        torch.cuda.synchronize()
+    finally:
+        timer.restore()
+    total_s = time.perf_counter() - t0
+    launches = read_launches()
+    eval_launches = timer.launches
+    train_launches = {k: n - eval_launches[k] for k, n in launches.items()}
+
+    steps = hist["step_timing"]["steps"]
+    per_step = cfg.mapping.num_layers + cfg.gpt2.n_layer
+    check(steps == 2 * -(-len(train_ds) // B), f"{steps} optimizer steps in two epochs")
+    check(train_launches["flash_attention"] == per_step * steps,
+          f"training flash launches {train_launches['flash_attention']} != {per_step} x {steps}")
+    check(not any(n for k, n in train_launches.items() if k != "flash_attention"),
+          f"the training steps launched decode kernels: {train_launches}")
+    check(all(np.isfinite(hist["epoch_losses"])), f"non-finite epoch loss: {hist['epoch_losses']}")
+    val_ids = list(dict.fromkeys(int(i) for i in val_ds.image_ids))
+    eval_requests = 2 * -(-len(val_ids) // B)  # two passes of 128-image batches
+    check_decode_launches(eval_launches, "logits_argmax",
+                          eval_launches["decode_attention"] // cfg.gpt2.n_layer, eval_requests, cfg)
+    best = hist["best_epoch"]
+    plots = plotting_available()
+    want = ["model_epoch_2.npz", "optimizer_epoch_2.npz", f"best_model_epoch_{best}.npz",
+            "logs/metrics.jsonl", "eval_results/val_metrics_summary.json"]
+    want += [f"eval_results/epoch_{e}_val_{kind}.json" for e in (1, 2)
+             for kind in ("predictions", "metrics")]
+    want += ["loss_curve.png", "eval_results/val_metrics_curve.png"] if plots else []
+    missing = [f for f in want if not (straight / f).exists()]
+    check(not missing, f"train() artifacts missing: {missing}")
+    preds = json.loads((straight / "eval_results/epoch_2_val_predictions.json").read_text())
+    check([p["image_id"] for p in preds] == val_ids,
+          "generate_predictions did not return one caption per unique val image")
+
+    # one epoch, then a resumed second on a fresh model of the same seed
+    resumed = EPOCH_RUN / "resumed"
+    first = model()
+    loop.train(train_ds, first, num_epochs=2, stop_after_epochs=1, save_every_epoch=1,
+               outputs_dir=str(resumed), log_dir=str(resumed / "logs"), **kw)
+    del first
+    second = model()
+    hist_r = loop.train(train_ds, second, num_epochs=2, resume=True, save_every_epoch=1,
+                        outputs_dir=str(resumed), log_dir=str(resumed / "logs"), **kw)
+    loss_err = abs(hist_r["epoch_losses"][0] - hist["epoch_losses"][1])
+    param_err = trainable_rel_err(second.trainable, trained.trainable)
+    check(len(hist_r["epoch_losses"]) == 1, f"the resumed run ran {hist_r['epoch_losses']}")
+    check(loss_err <= TRAIN_TOL["loss_bf16"], f"resumed epoch-2 loss {hist_r['epoch_losses']} "
+                                              f"against straight {hist['epoch_losses'][1]}")
+    check(param_err <= TRAIN_TOL["loss_bf16"], f"resumed parameters: relative error {param_err}")
+    del second
+    epoch_s = [end - start for start, end in timer.epochs]
+    parts = {"epochs": sum(epoch_s), **timer.seconds}
+    parts["setup_and_rest"] = total_s - sum(parts.values())
+    parts["tokenize"] = tokenize_s
+    record = {
+        "phase": "train_epochs",
+        "model": "GPT-2 124M frozen + transformer mapper (512->768, 15+10)",
+        "dtype": "bf16 compute, float32 params", "batch": B, "epochs": 2,
+        "train_images": EPOCH_SPLITS["train"][0], "train_captions": len(train_ds),
+        "val_images": len(val_ids), "optimizer_steps": steps, "caption_length": 50,
+        "merge_loop": tok.merge_loop, "matplotlib": plots,
+        "captions_per_s_epoch": [len(train_ds) / t for t in epoch_s], "epoch_seconds": epoch_s,
+        "captions_per_s_make_train_step": step_captions_per_s,
+        "train_seconds": total_s, "seconds_by_part": parts,
+        "epoch_losses": hist["epoch_losses"], "val_metrics": hist["val_metrics"],
+        "best_epoch": best, "step_timing": hist["step_timing"],
+        "launches_training": train_launches, "launches_evaluation": eval_launches,
+        "resume": {"epoch2_loss": hist_r["epoch_losses"][0], "loss_abs_err": loss_err,
+                   "param_rel_err": param_err, "tolerance": TRAIN_TOL["loss_bf16"]},
+        "card": nvidia_smi(),
+    }
+    return record, train_launches, eval_launches, trained, val_ds
+
+
+def evaluation_phase(model, val_ds) -> tuple[dict, dict]:
+    """``generate_predictions`` on the trained model over the 256 val images
+    in 128-image batches, in greedy, sampled (the logits tail), beam-4 and
+    greedy int8: one caption per unique image, the first batch's captions
+    equal to the façade's own ``generate`` / ``beam_generate`` on the same
+    embeddings, launches checked.  Returns (record, launches by mode)."""
+    from gpt2_image_captioning_tpu_torch.evaluation import generation
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    cfg, tok = model.cfg, model.tokenizer
+    val_ids = list(dict.fromkeys(int(i) for i in val_ds.image_ids))
+    first = next(val_ds.unique_image_batches(B))
+    emb = torch.from_numpy(first["image_embedding"]).cuda()
+    batches = -(-len(val_ids) // B)
+    out, counts = {"phase": "evaluation", "model": MODEL_NAME, "images": len(val_ids),
+                   "batch": B, "max_length": 50}, {}
+    for mode, kw in EVAL_MODES.items():
+        kw = dict(batch_size=B, max_length=50, verbose=False, device="cuda", **kw)
+        generation.generate_predictions(model, val_ds, **kw)  # warm-up: packs, workspaces
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        preds = generation.generate_predictions(model, val_ds, **kw)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        check([p["image_id"] for p in preds] == val_ids,
+              f"eval {mode}: not one caption per unique val image")
+        quant = kw["decode_precision"] == "int8"
+        if mode == "beam":
+            tr, fz, pol, packed, _ = model.decode_pack("bf16")
+            ids = C.beam_generate(tr, fz, cfg, emb, max_length=50, beam_size=BEAM_K, policy=pol,
+                                  packed=packed)
+            steps = 49 * batches
+            check_decode_launches(launches, "logits_topk", steps, batches, cfg)
+        else:
+            gen = None
+            if kw["temperature"] != 0.0:
+                gen = torch.Generator(device="cuda").manual_seed(generation.batch_seed(0, 0))
+            ids = model.generate(emb, max_length=50, temperature=kw["temperature"],
+                                 top_p=kw.get("top_p", 0.9), generator=gen,
+                                 decode_precision=kw["decode_precision"])
+            steps = launches["decode_attention"] // cfg.gpt2.n_layer
+            check_decode_launches(launches, "logits" if mode == "sampled" else "logits_argmax",
+                                  steps, batches, cfg, quant)
+        want = tok.batch_decode(ids.cpu().numpy(), skip_special_tokens=True)
+        check([p["caption"] for p in preds[:B]] == want,
+              f"eval {mode}: the first batch's captions differ from the façade's")
+        counts[f"eval_{mode}"] = launches
+        out[mode] = {"img_per_s": len(preds) / seconds, "seconds": seconds, "decode_steps": steps,
+                     "first_batch_equal_to_facade": True, "launches": launches,
+                     "distinct_captions": len({p["caption"] for p in preds})}
+    out["card"] = nvidia_smi()
+    return out, counts
+
+
 # ``--only <part>``: (compute dtypes, checks) of one part, its records alone
 ONLY = {
     "linear": ((torch.bfloat16,), (check_linear, check_linear_int8)),
@@ -3643,6 +3968,14 @@ def main(argv: list[str]) -> int:
     train_record, train_profiled, launches["train"] = train_path()
     emit(train_record)
     emit(train_profiled)
+    epochs_record, launches["train_epochs"], launches["train_epochs_eval"], trained, val_ds = \
+        train_epochs_phase(train_record["captions_per_s"])
+    emit(epochs_record)
+    eval_record, eval_launches = evaluation_phase(trained, val_ds)
+    launches.update(eval_launches)
+    emit(eval_record)
+    del trained
+    shutil.rmtree(EPOCH_RUN, ignore_errors=True)
 
     source = "gpt2_image_captioning_tpu_torch/csrc/"
     step_kernel = "gpt2_image_captioning_tpu/ops/decode_step.py"

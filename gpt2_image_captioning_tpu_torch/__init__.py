@@ -3,9 +3,9 @@
 
 It mirrors the JAX package's module paths and public names.  Captioning
 from pixels or embeddings (the vision towers, the GPT-2 prefill and every
-decode mode, the services) and the train step
-(``train/loop.py::make_train_step``) run on hand-written CUDA kernels for
-Hopper (``csrc/*.cu``, built by ``nvcc`` at first use — see
+decode mode, the services), the train step and the epoch loop with COCO
+evaluation (``train/loop.py``, ``evaluation/``) run on hand-written CUDA
+kernels for Hopper (``csrc/*.cu``, built by ``nvcc`` at first use — see
 ``ops/_build.py``); on the CPU the same code runs their plain PyTorch twins.
 The package imports torch and never jax; PIL only where an image is decoded.
 """

@@ -8,9 +8,12 @@ It exposes the slice of the HF API the captioning stack uses:
 ``encode`` / ``decode`` / ``batch_decode(..., skip_special_tokens=True)`` and
 the pad = eos convention.  Decoding needs nothing beyond the standard
 library; encoding needs the ``regex`` package (GPT-2's pre-tokenization
-pattern uses Unicode classes), imported on first use.  The JAX package's
-optional native merge engine is not carried over: encoding runs the
-pure-Python merge loop, which gives the same ids.
+pattern uses Unicode classes), imported on first use.  As in the JAX
+package, the merge loop runs in the native engine (:mod:`data.native_bpe`,
+``native/build/libbpe.so``) where that library is built and
+``$GIC_DISABLE_NATIVE_BPE`` is unset, and in plain Python otherwise; both
+give the same ids.  ``merge_loop`` says which one ran ("native" or
+"python"; None before the first encode).
 """
 
 from __future__ import annotations
@@ -74,6 +77,8 @@ class GPT2BPETokenizer:
         self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
         self._pat = None  # compiled on the first encode (needs `regex`)
         self._bpe_cache: dict[str, str] = {}
+        self._native = None  # the native merge engine, looked for on the first encode
+        self.merge_loop: str | None = None
 
         self.eos_token = eos_token
         if eos_token not in self.encoder:
@@ -162,15 +167,35 @@ class GPT2BPETokenizer:
     def encode(self, text: str) -> list[int]:
         """Text → token ids.  Special tokens present verbatim in the text are
         emitted as their single id."""
+        if self.merge_loop is None:
+            self._native = self._load_native()
+            self.merge_loop = "python" if self._native is None else "native"
         ids: list[int] = []
         for chunk in self._split_on_specials(text):
             if chunk in (self.eos_token,):
                 ids.append(self.encoder[chunk])
                 continue
-            for tok in self.pat.findall(chunk):
-                mapped = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
-                ids.extend(self.encoder[t] for t in self._bpe(mapped).split(" "))
+            words = [
+                "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
+                for tok in self.pat.findall(chunk)
+            ]
+            if self._native is not None:
+                ids.extend(self._native.encode_words(words))
+            else:
+                for mapped in words:
+                    ids.extend(self.encoder[t] for t in self._bpe(mapped).split(" "))
         return ids
+
+    def _load_native(self):
+        """The native merge engine over this vocabulary, or None where
+        ``libbpe.so`` is not built or ``$GIC_DISABLE_NATIVE_BPE`` is set."""
+        if os.environ.get("GIC_DISABLE_NATIVE_BPE"):
+            return None
+        from gpt2_image_captioning_tpu_torch.data import native_bpe
+
+        if not native_bpe.available():
+            return None
+        return native_bpe.NativeBPE(self.encoder, self.bpe_ranks)
 
     def _split_on_specials(self, text: str) -> Iterable[str]:
         parts = text.split(self.eos_token)

@@ -514,10 +514,18 @@ def _beam_search(trainable, frozen, cfg, image_embeddings, *, max_length: int, b
 
 
 class ImageCaptioningModel:
-    """Stateful façade with the JAX package's surface: generate,
-    generate_captions, decode_params.  ``generator`` seeds the random init;
-    ``device`` holds the parameters and runs the model: the card unless the
-    caller asks for the CPU."""
+    """Stateful façade with the JAX package's surface: forward, generate,
+    generate_captions, decode_params, save_parameters and
+    load_saved_parameters.  ``generator`` seeds the random init; ``device``
+    holds the parameters and runs the model: the card unless the caller
+    asks for the CPU.
+
+    The decode copies (the bfloat16 trees of :meth:`decode_params` and the
+    step kernels' packs of :meth:`decode_pack`) are cached on the identity of
+    the live trees.  A weight swap (``load_saved_parameters``, a new tree)
+    renews them; code that changes the live tensors in place, as the train
+    step does, calls :meth:`drop_decode_caches` afterwards.
+    """
 
     def __init__(
         self,
@@ -534,6 +542,31 @@ class ImageCaptioningModel:
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.trainable, self.frozen = init_params(generator, cfg, self.device)
+
+    def forward(
+        self,
+        batch: dict | None = None,
+        *,
+        caption_token_ids=None,
+        image_embeddings=None,
+        attention_mask=None,
+        labels=None,
+    ) -> torch.Tensor:
+        """Teacher-forced mean loss (:func:`mean_loss`) of a batch dict
+        (token_ids, labels, attention_mask, image_embedding) or of the
+        reference's keyword signature, where the mask defaults to ones and
+        the labels to the token ids.  Arrays or tensors, moved to the
+        model's device."""
+        if batch is None:
+            if attention_mask is None:
+                attention_mask = torch.ones_like(torch.as_tensor(caption_token_ids))
+            if labels is None:
+                labels = caption_token_ids
+            batch = {"token_ids": caption_token_ids, "labels": labels,
+                     "attention_mask": attention_mask, "image_embedding": image_embeddings}
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()
+                 if k != "image_id"}
+        return mean_loss(self.trainable, self.frozen, self.cfg, batch, self.policy)
 
     def generate(
         self,
@@ -555,6 +588,20 @@ class ImageCaptioningModel:
         activations, half the bytes again); None/"f32" keeps the float32
         parameters.  The packs are cached per precision, so bf16 and int8
         requests on one model both stay warm."""
+        tr, fz, pol, packed, quant = self.decode_pack(decode_precision)
+        emb = torch.as_tensor(image_embeddings, dtype=torch.float32, device=self.device)
+        return generate(
+            tr, fz, self.cfg, emb, max_length=max_length, temperature=temperature, top_p=top_p,
+            generator=generator, policy=pol, use_kernels=use_kernels, packed=packed,
+            mesh=mesh, decode_quant=quant,
+        )
+
+    def decode_pack(self, decode_precision: str | None = None):
+        """(trainable, frozen, policy, packed, quant) for a decode at
+        ``decode_precision``: :meth:`decode_params`' trees ("int8" decodes
+        from the bfloat16 copy) and the step kernels' pack of them
+        (:func:`prepare_decode_weights`, W8A8 when ``quant``), cached per
+        precision and renewed when the trees are."""
         quant = decode_precision == "int8"
         tr, fz, pol = self.decode_params("bf16" if quant else decode_precision)
         cache = getattr(self, "_packed_cache", None)
@@ -563,12 +610,13 @@ class ImageCaptioningModel:
             self._packed_cache = cache
         if quant not in cache[3]:
             cache[3][quant] = prepare_decode_weights(tr, fz, self.cfg, pol, quant=quant)
-        emb = torch.as_tensor(image_embeddings, dtype=torch.float32, device=self.device)
-        return generate(
-            tr, fz, self.cfg, emb, max_length=max_length, temperature=temperature, top_p=top_p,
-            generator=generator, policy=pol, use_kernels=use_kernels, packed=cache[3][quant],
-            mesh=mesh, decode_quant=quant,
-        )
+        return tr, fz, pol, cache[3][quant], quant
+
+    def drop_decode_caches(self) -> None:
+        """Forget the bfloat16 copy and the packs: the next decode rebuilds
+        them from the live trees."""
+        self._bf16_cache = None
+        self._packed_cache = None
 
     def decode_params(self, decode_precision: str | None = None):
         """(trainable, frozen, policy) for inference at the given precision.
@@ -589,3 +637,18 @@ class ImageCaptioningModel:
     def generate_captions(self, image_embeddings, **kw) -> list[str]:
         ids = self.generate(image_embeddings, **kw)
         return self.tokenizer.batch_decode(ids.cpu().numpy(), skip_special_tokens=True)
+
+    def save_parameters(self, output_path: str) -> None:
+        """The trainable tree to ``.pt`` (reference names) or ``.npz``
+        (:func:`train.checkpoint.save_captioner`)."""
+        from gpt2_image_captioning_tpu_torch.train import checkpoint
+
+        checkpoint.save_captioner(output_path, self.trainable, self.cfg)
+
+    def load_saved_parameters(self, checkpoint_path: str) -> None:
+        """Replace the trainable tree by a checkpoint's; the decode copies
+        go with the old weights."""
+        from gpt2_image_captioning_tpu_torch.train import checkpoint
+
+        self.trainable = checkpoint.load_captioner(checkpoint_path, self.trainable, self.cfg)
+        self.drop_decode_caches()

@@ -14,7 +14,9 @@ does):
 Loading applies the JAX package's checks: unexpected keys raise, and so do
 missing ones (the frozen ``gpt.*`` weights are never looked for).  Loaded
 tensors are float32 on the device of the ``trainable`` tree they replace.
-The orbax format is TPU-only and left behind.
+:func:`save_pytree` / :func:`load_pytree` are the generic ``.npz`` format
+underneath (the optimizer's ``optimizer_epoch_{n}.npz`` too).  The orbax
+format is TPU-only and left behind.
 """
 
 from __future__ import annotations
@@ -30,6 +32,26 @@ from gpt2_image_captioning_tpu_torch.core.tree import (
 )
 from gpt2_image_captioning_tpu_torch.models import porting
 from gpt2_image_captioning_tpu_torch.models.mapping import MLPMappingConfig
+
+
+def save_pytree(path: str, tree) -> None:
+    """A tree of tensors or arrays → ``.npz`` under its flattened paths
+    (``mu.mapping.layers.0.ln1.scale``), the JAX package's ``save_pytree``
+    format; bfloat16 tensors are written as float32."""
+    def arr(v):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu()
+            return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+        return np.asarray(v)
+
+    np.savez(path, **{k: arr(v) for k, v in flatten_with_paths(tree).items()})
+
+
+def load_pytree(path: str):
+    """The tree of :func:`save_pytree` (or of the JAX package's), as CPU
+    tensors in the stored dtypes."""
+    with np.load(path, allow_pickle=False) as data:
+        return unflatten_from_paths({k: torch.from_numpy(data[k]) for k in data.files})
 
 
 def _to_reference_state_dict(trainable: dict, cfg) -> dict[str, torch.Tensor]:
@@ -74,8 +96,7 @@ def save_captioner(path: str, trainable: dict, cfg) -> None:
     if path.endswith(".pt"):
         torch.save(_to_reference_state_dict(trainable, cfg), path)
     else:
-        flat = flatten_with_paths(trainable)
-        np.savez(path, **{k: v.detach().to("cpu", torch.float32).numpy() for k, v in flat.items()})
+        save_pytree(path, tree_map(lambda t: t.detach().to("cpu", torch.float32), trainable))
 
 
 def load_captioner(path: str, trainable: dict, cfg) -> dict:
@@ -86,8 +107,7 @@ def load_captioner(path: str, trainable: dict, cfg) -> dict:
         sd = torch.load(path, map_location="cpu", weights_only=True)
         loaded = _from_reference_state_dict(sd, trainable, cfg)
     else:
-        with np.load(path, allow_pickle=False) as data:
-            flat = {k: torch.from_numpy(data[k].astype(np.float32)) for k in data.files}
+        flat = {k: v.float() for k, v in flatten_with_paths(load_pytree(path)).items()}
         cur = set(flatten_with_paths(trainable))
         unexpected, missing = sorted(set(flat) - cur), sorted(cur - set(flat))
         if unexpected:

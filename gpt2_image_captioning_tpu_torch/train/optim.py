@@ -8,6 +8,12 @@ bias-corrected moments, eps outside the square root); the port takes
 same linear warmup/decay at the 0-based optimizer step, and clips with
 ``torch.nn.utils.clip_grad_norm_``, whose ``max_norm / (norm + 1e-6)`` is the
 JAX package's formula.
+
+:func:`adamw_state` and :func:`restore_adamw_state` carry the optimizer's
+state across checkpoints in the JAX package's ``AdamWState`` layout —
+``{"step": int32, "mu": tree, "nu": tree}``, torch's ``exp_avg`` /
+``exp_avg_sq`` under the parameters' tree paths — so an
+``optimizer_epoch_{n}.npz`` resumes in either package.
 """
 
 from __future__ import annotations
@@ -16,7 +22,11 @@ import dataclasses
 
 import torch
 
-from gpt2_image_captioning_tpu_torch.core.tree import tree_leaves
+from gpt2_image_captioning_tpu_torch.core.tree import (
+    flatten_with_paths,
+    tree_leaves,
+    unflatten_from_paths,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +71,59 @@ def clip_grad_norm(params: list[torch.Tensor], max_norm: float | None) -> torch.
     if max_norm is None:
         return torch.nn.utils.get_total_norm([p.grad for p in params if p.grad is not None])
     return torch.nn.utils.clip_grad_norm_(params, max_norm)
+
+
+def adamw_state(optimizer: torch.optim.Optimizer, trainable) -> dict:
+    """``optimizer``'s AdamW state over ``trainable`` as the JAX package's
+    ``AdamWState`` tree: ``{"step": int32 scalar (optimizer steps taken),
+    "mu": first moments, "nu": second moments}``, the moments float32 CPU
+    tensors shaped like ``trainable`` (zeros, and step 0, before the first
+    step)."""
+    flat = flatten_with_paths(trainable)
+    mu, nu, steps = {}, {}, set()
+    for path, p in flat.items():
+        state = optimizer.state.get(p)
+        if state:
+            steps.add(int(state["step"]))
+            mu[path] = state["exp_avg"].detach().to("cpu", torch.float32).clone()
+            nu[path] = state["exp_avg_sq"].detach().to("cpu", torch.float32).clone()
+        else:
+            steps.add(0)
+            mu[path] = torch.zeros(p.shape, dtype=torch.float32)
+            nu[path] = torch.zeros(p.shape, dtype=torch.float32)
+    if len(steps) != 1:
+        raise ValueError(f"the parameters have taken different numbers of steps: {sorted(steps)}")
+    return {"step": torch.tensor(steps.pop(), dtype=torch.int32),
+            "mu": unflatten_from_paths(mu), "nu": unflatten_from_paths(nu)}
+
+
+def restore_adamw_state(optimizer: torch.optim.Optimizer, scheduler, trainable,
+                        state: dict) -> None:
+    """Load an ``AdamWState`` tree (:func:`adamw_state`'s, or the JAX
+    package's from ``load_pytree``) into ``optimizer`` over ``trainable``,
+    and set ``scheduler`` (the ``LambdaLR`` of :func:`make_optimizer`) to
+    its step, so the learning rate resumes where the run stopped.  Raises
+    on moments whose paths or shapes differ from ``trainable``'s."""
+    step = int(state["step"])
+    flat = flatten_with_paths(trainable)
+    mu, nu = flatten_with_paths(state["mu"]), flatten_with_paths(state["nu"])
+    for name, moments in (("mu", mu), ("nu", nu)):
+        if set(moments) != set(flat):
+            raise ValueError(f"optimizer state {name} does not match the parameters: missing "
+                             f"{sorted(set(flat) - set(moments))}, unexpected "
+                             f"{sorted(set(moments) - set(flat))}")
+    for path, p in flat.items():
+        m, v = (torch.as_tensor(t[path]) for t in (mu, nu))
+        if tuple(m.shape) != tuple(p.shape) or tuple(v.shape) != tuple(p.shape):
+            raise ValueError(f"optimizer state for {path}: shape {tuple(m.shape)}, parameter "
+                             f"{tuple(p.shape)}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(step), dtype=torch.float32),
+            "exp_avg": m.to(p.device, torch.float32).clone(),
+            "exp_avg_sq": v.to(p.device, torch.float32).clone(),
+        }
+    scheduler.last_epoch = step
+    for group, base_lr, fn in zip(optimizer.param_groups, scheduler.base_lrs,
+                                  scheduler.lr_lambdas):
+        group["lr"] = base_lr * fn(step)
+    scheduler._last_lr = [group["lr"] for group in optimizer.param_groups]

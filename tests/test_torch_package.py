@@ -7,9 +7,14 @@ import sys
 import pytest
 import torch
 
+from gpt2_image_captioning_tpu_torch.evaluation import generation
+from gpt2_image_captioning_tpu_torch.models import captioner as C
+from gpt2_image_captioning_tpu_torch.models import gpt2 as G
+from gpt2_image_captioning_tpu_torch.models import mapping as M
 from gpt2_image_captioning_tpu_torch.ops import _build
 from gpt2_image_captioning_tpu_torch.ops import decode_attention as DA
 from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+from gpt2_image_captioning_tpu_torch.train import loop
 
 
 def test_import_leaves_jax_out():
@@ -25,6 +30,10 @@ def test_import_leaves_jax_out():
         "from gpt2_image_captioning_tpu_torch.ops import patch_embed, prefill_step\n"
         "from gpt2_image_captioning_tpu_torch.embeddings import extract, preprocess\n"
         "from gpt2_image_captioning_tpu_torch.data import embeddings_io, images, native_pipe\n"
+        "from gpt2_image_captioning_tpu_torch.data import native_bpe\n"
+        "from gpt2_image_captioning_tpu_torch.core import logging\n"
+        "from gpt2_image_captioning_tpu_torch import evaluation, utils\n"
+        "from gpt2_image_captioning_tpu_torch.evaluation import evaluate, generation, metrics\n"
         "assert 'PIL' not in sys.modules, 'PIL is imported where an image is decoded'\n"
         "jax_pkg = 'gpt2_image_captioning_tpu'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
@@ -55,6 +64,22 @@ def test_kernels_on_cpu_raise():
         DS.fused_linear_cuda(x, torch.zeros(4, 8), torch.zeros(4), epilogue="cast")
     with pytest.raises(ValueError, match="CUDA tensor"):
         DS.logits_argmax_cuda(x, torch.zeros(2, 8), torch.zeros(5, 8))
+
+
+def test_epoch_loop_and_evaluation_default_to_the_card():
+    """``train`` and ``evaluate_epoch`` run on "cuda" unless given
+    ``device="cpu"``: without a card they raise before any work."""
+    cfg = C.CaptionerConfig(gpt2=G.GPT2Config(vocab_size=40, n_positions=16, n_embd=8, n_layer=1,
+                                              n_head=2),
+                            mapping=M.MLPMappingConfig(prefix_length=2, embed_dim=4, gpt_dim=8),
+                            eos_token_id=39)
+    model = C.ImageCaptioningModel(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.train(None, model, batch_size=2, num_epochs=1, outputs_dir="unused")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generation.evaluate_epoch(model, None, "unused.json", epoch=1, split_name="val")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        generation.generate_predictions(model, None)
 
 
 @pytest.mark.parametrize("flag, want", [(None, False), (False, False)])
