@@ -12,7 +12,9 @@ greedy argmax, the stored logits, the top-k and the sampler — in bf16, int8
 and float32, with their contract sweeps; ``--only prefill`` for the prefill
 kernel (bf16 and float32, its device time by part); ``--only quant`` for
 the int8 row quantizer and the int8 products whose rows carry no LayerNorm,
-which quantize them inside the product.)
+which quantize them inside the product.  ``--only http``, ``--only
+pipeline`` and ``--only sizes`` run one of the last three phases below
+alone, with its launch counts by path.)
 
 It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
@@ -107,7 +109,31 @@ before and read just after:
   on the trained model in greedy, sampled, beam-4 and int8 greedy, the
   first batch's captions equal to the façade's own decode: captions/s of
   an epoch beside the train step's, seconds by part, eval img/s by mode,
-  and which BPE merge loop ran.
+  and which BPE merge loop ran;
+- HTTP serving: ``CaptionService(batch_size=128)`` (CLIP B/32 + the serving
+  model, bf16, greedy) behind ``serve_http`` with a 50 ms window, 256 JPEG
+  bodies of mixed sizes from 32 client threads with every request in
+  flight at once: every answer 200 with the caption ``caption_bytes`` gives
+  the same body, at most 2 device batches per 128 requests plus 2, the
+  400 / 404 / 411 / 413 answers, ``shutdown()`` joining the dispatcher;
+  then ``ContinuousCaptionService`` (512 slots, segment 4) behind
+  ``serve_http_continuous``, a max_length of 8-50 a request in the query:
+  every caption within its cap and teacher-forced against the plain path
+  from the embeddings it was served from (its share equal to one-shot
+  greedy reported); requests/s and latency p50 / p95 a surface;
+- config-driven training: a config.yml-schema file (the transformer mapper
+  512 -> 768, GPT-2 124M, bf16, b 128, one epoch, greedy evaluation) on
+  synthetic COCO splits and the fabricated tokenizer's ``vocab.json`` +
+  ``merges.txt`` in ``$GPT2_TOKENIZER_DIR``: ``training_pipeline.run``,
+  then ``sweep.run_one`` for ids 1 and 2 of automation_config.yml and id 1
+  with an unfrozen GPT-2: every artifact under its JAX name, GPT-2 moved
+  only by the unfrozen run, the test predictions decoded again from
+  ``select_test_checkpoint``'s file equal; ``python -m
+  gpt2_image_captioning_tpu_torch`` exits 0 naming the card;
+- the wide sizes: GPT-2 medium, large and XL at full width and depth (the
+  MLP mapper), b 16, 20 tokens, greedy in bf16 and float32 and sampled in
+  bf16, held to the plain path by the 124M bounds, peak memory; exact
+  float32 tokens of a 2-layer, 211-token model of each width.
 
 Every request and admission prefills through the prefill kernel (an int8
 decode through ``forward_cached``, as the reference), and the launch checks
@@ -1315,11 +1341,12 @@ def linear_roles(d: int) -> tuple:
 LINEAR_ROLES = linear_roles(D)
 # fused_linear's bf16 and int8 route (csrc/fused_linear.cu) beyond the
 # paths' shapes, held to its twin under TOL (int8: close_int8), correctness
-# only: every role at D 768, 1024 and 1600 (GPT-2 XL's K 1600 and 6400 are
-# no multiples of 64 boxes' worth of slices), M on each side of the kernel's
-# 64-row warpgroups and 128-row tiles.
+# only: every role at D 768 and the wide sizes' 1024, 1280 and 1600 (GPT-2
+# XL's K 1600 and 6400 are no multiples of 64 boxes' worth of slices; large's
+# N 3,840 and 5,120), M on each side of the kernel's 64-row warpgroups and
+# 128-row tiles.
 LINEAR_CONTRACT_M = (1, 3, 64, 127, 128, 129, 512)
-LINEAR_CONTRACT_D = (768, 1024, 1600)
+LINEAR_CONTRACT_D = (768, 1024, 1280, 1600)
 
 
 def linear_inputs(b: int, k: int, n: int, ln: bool, epi: str, dtype, quant: bool, g):
@@ -2981,7 +3008,8 @@ def check_decode_launches(launches: dict, vocab_kernel: str, steps: int, request
     and this path's vocabulary kernel once, and the row quantizer as its
     int8 modes need; the other vocabulary kernels never ran."""
     n_layer = cfg.gpt2.n_layer
-    flash_per_request = (cfg.mapping.num_layers + n_layer * quant
+    mapper_layers = getattr(cfg.mapping, "num_layers", 0)  # the MLP mapper runs no attention
+    flash_per_request = (mapper_layers + n_layer * quant
                          + images * CLIP_LAYERS)
     want = {"flash_attention": flash_per_request * requests, "decode_attention": n_layer * steps,
             "prefill": (not quant) * requests, "patch_embed": images * requests,
@@ -3556,21 +3584,26 @@ def fabricated_tokenizer():
 
 
 def write_coco(split: str, rng) -> tuple[str, str]:
+    """The split of EPOCH_SPLITS under EPOCH_RUN (:func:`write_split`)."""
+    n, per_image, ext = EPOCH_SPLITS[split]
+    return write_split(split, n, per_image, rng, str(EPOCH_RUN / f"{split}_embeddings.{ext}"),
+                       str(EPOCH_RUN / f"captions_{split}.json"))
+
+
+def write_split(split: str, n: int, per_image: int, rng, emb_path: str,
+                ann_path: str) -> tuple[str, str]:
     """Embeddings (512-d, normalised, through the port's ``embeddings_io``)
     and a COCO annotations JSON of random word captions, 5-12 words each."""
     from gpt2_image_captioning_tpu_torch.data.embeddings_io import save_embeddings
 
-    n, per_image, ext = EPOCH_SPLITS[split]
     ids = [(1 if split == "train" else 500_000) + i for i in range(n)]
     names = [f"COCO_{split}2014_{i:012d}.jpg" for i in ids]
     emb = rng.normal(size=(n, 512)).astype(np.float32)
     emb /= np.linalg.norm(emb, axis=1, keepdims=True)
-    emb_path = str(EPOCH_RUN / f"{split}_embeddings.{ext}")
     save_embeddings(emb_path, names, emb)
     anns = [{"image_id": i, "id": len(ids) * c + k,
              "caption": " ".join(rng.choice(CAPTION_WORDS, size=int(rng.integers(5, 13))))}
             for k, i in enumerate(ids) for c in range(per_image)]
-    ann_path = str(EPOCH_RUN / f"captions_{split}.json")
     with open(ann_path, "w") as f:
         json.dump({"images": [{"id": i, "file_name": f} for i, f in zip(ids, names)],
                    "annotations": anns}, f)
@@ -3836,6 +3869,603 @@ def evaluation_phase(model, val_ds) -> tuple[dict, dict]:
     return out, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the wide GPT-2 sizes
+# ---------------------------------------------------------------------------
+
+# GPT-2 medium, large and XL at full width and depth (no cut: the list of
+# depth cuts stays empty), random weights from a seed, fed by the MLP mapper
+# (512 -> 15 prefix tokens of the model's width): the transformer mapper's
+# heads at these widths (128, 160, 200 wide) are no head dims of the flash
+# kernel, whose wrapper refuses them.  SIZE_BATCH embeddings, SIZE_STEPS
+# tokens, greedy in bf16 and float32 and sampled on the logits tail in bf16,
+# every token held to the plain path by the bounds of the 124M paths; then a
+# tiny-vocabulary float32 model of each width and 2 layers, exact tokens.
+SIZES = ("gpt2_medium", "gpt2_large", "gpt2_xl")
+SIZE_BATCH, SIZE_STEPS = 16, 20
+SIZE_DEPTH_CUTS: dict[str, int] = {}
+SIZE_TINY_VOCAB = 211
+
+
+def size_config(name: str, n_layer: int | None = None, vocab: int | None = None):
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config
+    from gpt2_image_captioning_tpu_torch.models.mapping import MLPMappingConfig
+
+    gcfg = getattr(GPT2Config, name)()
+    if n_layer is not None:
+        gcfg = dataclasses.replace(gcfg, n_layer=n_layer)
+    if vocab is not None:
+        gcfg = dataclasses.replace(gcfg, vocab_size=vocab, n_positions=128)
+    return C.CaptionerConfig(gpt2=gcfg, mapping=MLPMappingConfig(15, 512, gcfg.n_embd),
+                             eos_token_id=gcfg.vocab_size - 1)
+
+
+def size_tiny_exact(name: str) -> dict:
+    """A float32 model of the size's width and heads with 2 layers and a
+    vocabulary of SIZE_TINY_VOCAB: greedy tokens with the kernels equal to
+    the plain path's (EOS picked as in :func:`tiny_exact`)."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    cfg = size_config(name, n_layer=2, vocab=SIZE_TINY_VOCAB)
+    tr, fz = C.init_params(torch.Generator().manual_seed(7), cfg, device="cuda")
+    emb = torch.from_numpy(np.random.default_rng(5).normal(size=(5, 512)).astype(np.float32))
+    emb = emb.cuda()
+    probe = C.generate(tr, fz, cfg, emb, max_length=12, temperature=0.0,
+                       use_kernels=False).cpu().numpy()
+    firsts = set(probe[:, 0].tolist())
+    eos = next((int(t) for t in probe[0, 1:] if int(t) not in firsts), int(probe[0, 1]))
+    cfg = dataclasses.replace(cfg, eos_token_id=eos)
+    want = C.generate(tr, fz, cfg, emb, max_length=12, temperature=0.0, use_kernels=False)
+    reset_launches()
+    got = C.generate(tr, fz, cfg, emb, max_length=12, temperature=0.0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(torch.equal(got, want), f"{name} tiny f32 tokens differ:\n{got.cpu()}\n{want.cpu()}")
+    check(launches["prefill"] == 1 and launches["logits_argmax"] > 0,
+          f"{name} tiny f32: launches {launches}")
+    return {"layers": 2, "vocab": SIZE_TINY_VOCAB, "batch": 5, "max_length": 12, "eos": eos,
+            "tokens_equal": True, "decode_steps": decode_steps(got, eos), "launches": launches}
+
+
+def size_phase(name: str) -> tuple[dict, dict]:
+    """One size: (record, launches by path)."""
+    from gpt2_image_captioning_tpu_torch import ImageCaptioningModel
+
+    cfg = size_config(name, SIZE_DEPTH_CUTS.get(name))
+    g = cfg.gpt2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what earlier phases still hold
+    t0 = time.perf_counter()
+    model = ImageCaptioningModel(cfg, generator=torch.Generator().manual_seed(0), device="cuda")
+    init_s = time.perf_counter() - t0
+    emb = torch.from_numpy(np.random.default_rng(6).normal(size=(SIZE_BATCH, 512))
+                           .astype(np.float32)).cuda()
+    record = {"phase": f"size_{name}", "n_embd": g.n_embd, "n_head": g.n_head,
+              "n_layer": g.n_layer, "depth_cut": name in SIZE_DEPTH_CUTS,
+              "mapper": "mlp (512 -> 15 x D)", "batch": SIZE_BATCH, "max_length": SIZE_STEPS,
+              "init_seconds": init_s}
+    counts = {}
+    runs = (("greedy_bf16", "bf16", dict(temperature=0.0), "logits_argmax"),
+            ("greedy_f32", "f32", dict(temperature=0.0), "logits_argmax"),
+            ("sampled_bf16", "bf16", dict(temperature=1.0, top_p=TOP_P), "logits"))
+    for path, precision, kw, vocab in runs:
+        def run(use=None):
+            gen = torch.Generator(device="cuda").manual_seed(3)
+            return model.generate(emb, max_length=SIZE_STEPS, decode_precision=precision,
+                                  generator=gen, use_kernels=use, **kw)
+
+        run()  # warm-up: the weight copy and packs
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        steps = decode_steps(out, cfg.eos_token_id)
+        check(tuple(out.shape) == (SIZE_BATCH, SIZE_STEPS), f"{name} {path}: shape {out.shape}")
+        check_padding(out, cfg.eos_token_id, g.vocab_size)
+        check_decode_launches(launches, vocab, steps, 1, cfg)
+        t0 = time.perf_counter()
+        plain = run(use=False)
+        torch.cuda.synchronize()
+        plain_seconds = time.perf_counter() - t0
+        rec = {"decode_steps": steps, "seconds_kernels": seconds, "seconds_plain": plain_seconds,
+               "rows_identical_to_plain": int((out == plain).all(dim=1).sum()),
+               "launches": launches}
+        if kw["temperature"] == 0.0:
+            worst, n, agree = teacher_forced(model, emb, out, precision=precision)
+            tol = TF_TOL_F32 if precision == "f32" else TF_TOL
+            check(worst <= tol, f"{name} {path}: a chosen token is {worst} below the plain max "
+                                f"(tolerance {tol})")
+            rec["teacher_forced"] = {"worst_deficit": worst, "tolerance": tol,
+                                     "tokens_checked": n, "share_plain_argmax": agree}
+        else:
+            worst, n, top1 = nucleus_mass(model, emb, out, 1.0, precision=precision)
+            check(worst <= TOP_P + NUCLEUS_SLACK,
+                  f"{name} {path}: a drawn token has plain mass {worst} above it")
+            rec["nucleus"] = {"worst_mass_above": worst, "limit": TOP_P + NUCLEUS_SLACK,
+                              "tokens_checked": n, "share_plain_argmax": top1}
+        record[path] = rec
+        counts[f"size_{name}_{path}"] = launches
+    record["peak_memory_gb"] = (torch.cuda.max_memory_allocated() - held) / 1e9
+    record["held_before_gb"] = held / 1e9
+    del model
+    torch.cuda.empty_cache()
+    record["tiny_f32_exact"] = size_tiny_exact(name)
+    counts[f"size_{name}_tiny_f32"] = record["tiny_f32_exact"]["launches"]
+    record["card"] = nvidia_smi()
+    return record, counts
+
+
+def sizes_phase() -> tuple[list[dict], dict]:
+    records, counts = [], {}
+    for name in SIZES:
+        record, c = size_phase(name)
+        records.append(record)
+        counts.update(c)
+    return records, counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: HTTP serving over both services
+# ---------------------------------------------------------------------------
+
+# HTTP_REQUESTS JPEG bodies of mixed sizes from HTTP_CLIENTS client threads,
+# each of which sends all of its requests (one connection each) before it
+# reads any answer, so every request is in flight at once; the coalescing
+# server's window; device batches allowed beyond 2 per 128 requests: the
+# batch the window cuts before the surge has arrived, and the last one.
+HTTP_REQUESTS, HTTP_CLIENTS, HTTP_WINDOW_MS, HTTP_STRAGGLERS = 256, 32, 50.0, 2
+
+
+def http_bodies(n: int, seed: int) -> list[bytes]:
+    """JPEG bodies, 96-640 pixels a side: smooth random images (8 x 8 noise
+    resized), which compress as photographs do."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        w, h = (int(x) for x in rng.integers(96, 641, size=2))
+        small = Image.fromarray(rng.integers(0, 256, size=(8, 8, 3), dtype=np.uint8))
+        buf = io.BytesIO()
+        small.resize((w, h), Image.BILINEAR).save(buf, format="JPEG", quality=90)
+        out.append(buf.getvalue())
+    return out
+
+
+def http_post_all(port: int, bodies: list[bytes], paths: list[str]):
+    """POST every body from HTTP_CLIENTS threads of a client process of
+    their own (so that the clients do not take the server's interpreter
+    lock), each thread with all of its requests in flight at once, its
+    answers read as their sockets turn readable: ([(status, JSON)],
+    [seconds from send to answer], wall seconds)."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(http_clients, (port, bodies, paths))
+
+
+def http_clients(port: int, bodies: list[bytes], paths: list[str]):
+    """The client process of :func:`http_post_all`."""
+    import http.client
+    import selectors
+    import threading
+
+    n = len(bodies)
+    answers, latency = [None] * n, [0.0] * n
+
+    def client(c: int) -> None:
+        sel, sent = selectors.DefaultSelector(), {}
+        for i in range(c, n, HTTP_CLIENTS):
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            sent[i] = (conn, time.perf_counter())
+            conn.request("POST", paths[i], body=bodies[i])
+            sel.register(conn.sock, selectors.EVENT_READ, i)
+        while sent:
+            for key, _ in sel.select(timeout=600):
+                i = key.data
+                conn, t0 = sent.pop(i)
+                sel.unregister(key.fileobj)
+                r = conn.getresponse()
+                answers[i] = (r.status, json.loads(r.read()))
+                latency[i] = time.perf_counter() - t0
+                conn.close()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return answers, latency, time.perf_counter() - t0
+
+
+def http_raw(port: int, method: str, path: str, body: bytes = b"",
+             headers: dict | None = None) -> tuple[int, dict]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.putrequest(method, path)
+        for k, v in (headers if headers is not None else {"Content-Length": str(len(body))}
+                     ).items():
+            conn.putheader(k, v)
+        conn.endheaders()
+        if body:
+            conn.send(body)
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def http_errors(port: int) -> dict:
+    """The answers given before any device call: 404 (another path), 400 (a
+    body that is no image), 411 (a malformed Content-Length), 413 (a length
+    above the limit, nothing read)."""
+    cases = {"404": ("GET", "/nope", b"", {}), "400": ("POST", "/caption", b"junk", None),
+             "411": ("POST", "/caption", b"", {"Content-Length": "abc"}),
+             "413": ("POST", "/caption", b"x", {"Content-Length": str(1 << 30)})}
+    got = {}
+    for code, (method, path, body, headers) in cases.items():
+        status, answer = http_raw(port, method, path, body, headers)
+        check(status == int(code) and set(answer) == {"error"},
+              f"HTTP {code} case answered {status} {answer}")
+        got[code] = answer["error"][:60]
+    return got
+
+
+def serving_stats(answers, latency, seconds) -> dict:
+    lat = np.sort(latency)
+    return {"requests": len(answers), "seconds": seconds,
+            "requests_per_s": len(answers) / seconds,
+            "latency_p50_s": float(lat[len(lat) // 2]),
+            "latency_p95_s": float(lat[int(len(lat) * 0.95)])}
+
+
+def http_phase() -> tuple[list[dict], dict]:
+    """Both HTTP surfaces at full width: CLIP ViT-B/32 + GPT-2 124M with
+    config.yml's transformer mapper, bf16, random weights from a seed; the
+    synthetic tokenizer, so captions parse back to ids."""
+    import io
+    import threading
+
+    from PIL import Image
+
+    from gpt2_image_captioning_tpu_torch import serving as S
+    from gpt2_image_captioning_tpu_torch.embeddings.preprocess import resize_and_crop
+
+    model, _ = serving_model()
+    model.tokenizer = synthetic_tokenizer(V)
+    _, clip_cfg, clip_params = tower_params("clip")
+    cfg, eos = model.cfg, model.cfg.eos_token_id
+    bodies = http_bodies(HTTP_REQUESTS, seed=12)
+    records, counts = [], {}
+
+    # the coalescing surface
+    svc = S.CaptionService(model, clip_params, clip_cfg, batch_size=B, max_length=50,
+                           decode_precision="bf16")
+    want = svc.caption_bytes(bodies)  # also the warm-up
+    batches, caption_batch = [], svc._caption_batch
+
+    def counted(u8):
+        batches.append(len(u8))
+        return caption_batch(u8)
+
+    svc._caption_batch = counted
+    server = S.serve_http(svc, port=0, window_ms=HTTP_WINDOW_MS)
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    torch.cuda.synchronize()
+    reset_launches()
+    answers, latency, seconds = http_post_all(port, bodies, ["/caption"] * HTTP_REQUESTS)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    errors = http_errors(port)
+    status, health = http_raw(port, "GET", "/healthz", headers={})
+    server.shutdown()
+    server.server_close()
+    serving.join(30)
+    check(not server.dispatcher_thread.is_alive() and not serving.is_alive(),
+          "serve_http: shutdown() left a thread running")
+    check(all(a[0] == 200 for a in answers),
+          f"serve_http: answers {sorted({a[0] for a in answers})}")
+    parted = sum(a[1]["caption"] != w for a, w in zip(answers, want))
+    check(parted == 0, f"serve_http: {parted} captions differ from caption_bytes of the body")
+    allowed = 2 * -(-HTTP_REQUESTS // B) + HTTP_STRAGGLERS
+    check(len(batches) <= allowed, f"serve_http: {len(batches)} device batches for "
+                                   f"{HTTP_REQUESTS} requests (<= {allowed})")
+    used = ("patch_embed", "flash_attention", "prefill", "fused_linear", "decode_attention",
+            "logits_argmax")
+    check(all(launches[k] > 0 for k in used), f"serve_http: launches {launches}")
+    check(status == 200 and health["ok"], f"serve_http /healthz: {status} {health}")
+    counts["http"] = launches
+    records.append({
+        "phase": "http_serve", "model": f"CLIP ViT-B/32 + {MODEL_NAME}", "dtype": "bf16",
+        "batch_size": B, "window_ms": HTTP_WINDOW_MS, "clients": HTTP_CLIENTS,
+        **serving_stats(answers, latency, seconds), "device_batches": len(batches),
+        "device_batches_allowed": allowed, "requests_per_batch": batches,
+        "captions_equal_to_caption_bytes": True, "errors": errors, "launches": launches,
+        "card": nvidia_smi()})
+    del svc
+
+    # the rolling-admission surface: greedy, a max_length of 8-50 a request
+    rng = np.random.default_rng(13)
+    caps = rng.integers(8, 51, size=HTTP_REQUESTS)
+    csvc = S.ContinuousCaptionService(model, clip_params, clip_cfg, **CONTINUOUS,
+                                      decode_precision="bf16")
+    prepped = np.stack([resize_and_crop(np.asarray(Image.open(io.BytesIO(b)).convert("RGB"),
+                                                   np.uint8), csvc.spec) for b in bodies])
+    for p in prepped[:16]:  # warm-up, on this thread
+        csvc.submit_prepped(p, max_length=8)
+    csvc.drain()
+    csvc._results.clear()
+    seen, encode = [], csvc._encode
+
+    def recorded(params, u8):  # the embeddings each request was served from
+        e = encode(params, u8)
+        seen.append((u8, e))
+        return e
+
+    csvc._encode = recorded
+    server = S.serve_http_continuous(csvc, port=0)
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    torch.cuda.synchronize()
+    reset_launches()
+    answers, latency, seconds = http_post_all(
+        port, bodies, [f"/caption?max_length={int(c)}" for c in caps])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    errors = http_errors(port)
+    status, bad_len = http_raw(port, "POST", "/caption?max_length=99", bodies[0])
+    check(status == 400, f"serve_http_continuous: max_length 99 answered {status}")
+    status, health = http_raw(port, "GET", "/healthz", headers={})
+    server.shutdown()
+    server.server_close()
+    serving.join(30)
+    check(not server.pump_thread.is_alive() and not serving.is_alive(),
+          "serve_http_continuous: shutdown() left a thread running")
+    check(all(a[0] == 200 for a in answers),
+          f"serve_http_continuous: answers {sorted({a[0] for a in answers})}")
+    ids = [caption_ids(a[1]["caption"]) for a in answers]
+    for r, c in zip(ids, caps):
+        check(len(r) <= c and all(0 <= t < eos for t in r), "a served caption breaks its cap")
+    by_image = {}
+    for u8, e in seen:
+        for px, row in zip(u8.cpu().numpy(), e.float().cpu().numpy()):
+            by_image[px.tobytes()] = row
+    embs = np.stack([by_image[p.tobytes()] for p in prepped])
+    tokens, n_gen = served_matrix(ids, caps, eos)
+    checked = check_served_tokens(model, embs, tokens, n_gen, sampled=False)
+    one_shot = []
+    for c0 in range(0, HTTP_REQUESTS, B):
+        out = model.generate(embs[c0 : c0 + B], max_length=50, temperature=0.0,
+                             decode_precision="bf16")
+        one_shot += one_shot_ids(out, caps[c0 : c0 + B], eos)
+    check(all(launches[k] > 0 for k in used), f"serve_http_continuous: launches {launches}")
+    check(status == 200 and health["ok"], f"serve_http_continuous /healthz: {status} {health}")
+    counts["http_continuous"] = launches
+    records.append({
+        "phase": "http_serve_continuous", "model": f"CLIP ViT-B/32 + {MODEL_NAME}",
+        "dtype": "bf16", **CONTINUOUS, "clients": HTTP_CLIENTS, "caps": [8, 50],
+        **serving_stats(answers, latency, seconds), "tokens": int(n_gen.sum()),
+        "occupancy": csvc.stats.get("occupancy"), "checked": checked,
+        "identical_to_one_shot_generate": sum(a == b for a, b in zip(ids, one_shot)) / len(ids),
+        "errors": {**errors, "max_length_99": bad_len["error"]}, "launches": launches,
+        "card": nvidia_smi()})
+    del csvc, clip_params, model
+    torch.cuda.empty_cache()
+    return records, counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: config-driven training, the sweep and the environment check
+# ---------------------------------------------------------------------------
+
+PIPELINE_RUN = Path(__file__).resolve().parent / "chip_pipeline"  # removed at the end
+# synthetic COCO splits: (annotations file, images, captions per image)
+PIPELINE_SPLITS = {"train": ("captions_train2017.json", 256, 2),
+                   "val": ("captions_val2017.json", 128, 1),
+                   "test": ("captions_val2014.json", 128, 1)}
+
+
+def pipeline_config(root: Path) -> Path:
+    """config.yml with its data under ``root`` and a run of CPU-free size:
+    the transformer mapper 512 -> 768, prefix 15, GPT-2 124M, bf16 compute, b
+    128, one epoch, greedy evaluation each epoch; written as a file."""
+    from gpt2_image_captioning_tpu_torch.core.config import load_config, update_cfg
+
+    here = Path(__file__).resolve().parent
+    cfg = update_cfg(load_config(str(here / "config.yml")), {
+        "paths": {"data_dir": f"{root / 'coco'}/"},
+        "mapping": {"type": "transformer", "embed_dim": 512, "gpt_dim": 768,
+                    "prefix_length": 15, "hidden_length": 10},
+        "tpu": {"compute_dtype": "bfloat16", "mesh": {"dp": -1, "tp": 1}},
+        "training": {"batch_size": B, "num_epochs": 1, "save_every_epoch": 1},
+        "validation": {"eval_every_epoch": 1, "batch_size": B, "temperature": 0.0},
+    })
+    path = root / "config.yml"
+    cfg.save(str(path))
+    return path
+
+
+def pipeline_launches_used(launches: dict, what: str) -> None:
+    """Training ran flash attention; the greedy evaluations ran the prefill,
+    the step's kernels and the argmax."""
+    used = ("flash_attention", "prefill", "fused_linear", "decode_attention", "logits_argmax")
+    check(all(launches[k] > 0 for k in used), f"{what}: launches {launches}")
+
+
+def gpt_rel_change(model, fresh) -> float:
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    return trainable_rel_err(C._gpt(model.trainable, model.frozen),
+                             C._gpt(fresh.trainable, fresh.frozen))
+
+
+def pipeline_phase() -> tuple[list[dict], dict]:
+    """``training_pipeline.run`` from a config.yml-schema file, then
+    ``sweep.run_one`` for ids 1 and 2 of the repo's automation_config.yml
+    and for id 1 with an unfrozen GPT-2, on synthetic COCO splits and the
+    fabricated 50,257-token tokenizer (``vocab.json`` + ``merges.txt`` in
+    ``$GPT2_TOKENIZER_DIR``); the artifacts, GPT-2 moved only when unfrozen,
+    the test predictions decoded again from ``select_test_checkpoint``'s
+    file; then ``python -m gpt2_image_captioning_tpu_torch``."""
+    import os
+
+    from gpt2_image_captioning_tpu_torch import sweep
+    from gpt2_image_captioning_tpu_torch import training_pipeline as tp
+    from gpt2_image_captioning_tpu_torch.core.config import load_config, update_cfg
+    from gpt2_image_captioning_tpu_torch.data.dataset import CocoDataset
+    from gpt2_image_captioning_tpu_torch.evaluation.generation import (
+        generate_test_caption_predictions,
+    )
+
+    here = Path(__file__).resolve().parent
+    shutil.rmtree(PIPELINE_RUN, ignore_errors=True)
+    (PIPELINE_RUN / "coco" / "embeddings").mkdir(parents=True)
+    (PIPELINE_RUN / "coco" / "annotations").mkdir()
+    seconds, counts = {}, {}
+    t0 = time.perf_counter()
+    tok = fabricated_tokenizer()
+    tok_dir = PIPELINE_RUN / "gpt2_tokenizer"
+    tok_dir.mkdir()
+    (tok_dir / "vocab.json").write_text(json.dumps(tok.encoder))
+    merges = sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)
+    (tok_dir / "merges.txt").write_text("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges))
+    rng = np.random.default_rng(14)
+    for split, (ann, n, per_image) in PIPELINE_SPLITS.items():
+        write_split(split, n, per_image, rng,
+                    str(PIPELINE_RUN / "coco" / "embeddings" / f"{split}_clip_embeddings.pt"),
+                    str(PIPELINE_RUN / "coco" / "annotations" / ann))
+    cfg = load_config(str(pipeline_config(PIPELINE_RUN)))
+    seconds["data_and_tokenizer_files"] = time.perf_counter() - t0
+
+    built, build = [], tp.build_model
+
+    def keep(*a, **k):  # the models the pipeline trains
+        m = build(*a, **k)
+        built.append(m)
+        return m
+
+    old_env, old_cwd = os.environ.get("GPT2_TOKENIZER_DIR"), os.getcwd()
+    os.environ["GPT2_TOKENIZER_DIR"] = str(tok_dir)
+    os.chdir(PIPELINE_RUN)  # train() logs under ./logs
+    tp.build_model = keep
+    records, changes = [], {}
+    try:
+        t0 = time.perf_counter()
+        reset_launches()
+        hist = tp.run(cfg, save_dir=str(PIPELINE_RUN / "run"), device="cuda")
+        torch.cuda.synchronize()
+        seconds["training_pipeline_run"] = time.perf_counter() - t0
+        counts["pipeline_run"] = read_launches()
+        pipeline_launches_used(counts["pipeline_run"], "training_pipeline.run")
+        check(len(hist["epoch_losses"]) == 1 and np.isfinite(hist["epoch_losses"][0]),
+              f"training_pipeline.run: losses {hist['epoch_losses']}")
+        check(built[-1].policy.compute_dtype == torch.bfloat16, "tpu.compute_dtype not bf16")
+        run_files = ["model_epoch_1.npz", "optimizer_epoch_1.npz", "best_model_epoch_1.npz",
+                     "eval_results/epoch_1_val_predictions.json",
+                     "eval_results/epoch_1_val_metrics.json",
+                     "eval_results/val_metrics_summary.json"]
+        missing = [f for f in run_files if not (PIPELINE_RUN / "run" / f).exists()]
+        check(not missing, f"training_pipeline.run: missing {missing}")
+        fresh = build(cfg, tok, device="cuda")
+        changes["pipeline_run"] = gpt_rel_change(built[-1], fresh)
+        check(changes["pipeline_run"] == 0.0, "training_pipeline.run moved the frozen GPT-2")
+        del fresh
+        built.clear()
+
+        auto = load_config(str(here / "automation_config.yml"))
+        plans = sweep.plan_runs(cfg, auto, ["1", "2"])
+        run_cfg = dict((i, c) for i, c, _ in plans)
+        plans.append(("1_unfrozen", update_cfg(run_cfg["1"], {
+            "image_captioning": {"freeze_gpt_weights": False}}), "id 1, GPT-2 unfrozen"))
+        for run_id, run_c, desc in plans:
+            t0 = time.perf_counter()
+            reset_launches()
+            sweep.run_one(run_c, run_id, str(PIPELINE_RUN / "sweep"), desc, device="cuda")
+            torch.cuda.synchronize()
+            seconds[f"sweep_run_one_{run_id}"] = time.perf_counter() - t0
+            counts[f"sweep_{run_id}"] = read_launches()
+            pipeline_launches_used(counts[f"sweep_{run_id}"], f"sweep {run_id}")
+            d = PIPELINE_RUN / "sweep" / f"checkpoint_{run_id}"
+            want = [f"config_{run_id}.yml", f"training_info_{run_id}.txt",
+                    f"test_predictions_{run_id}.json", f"test_metrics_{run_id}.json"] + run_files
+            missing = [f for f in want if not (d / f).exists()]
+            check(not missing, f"sweep {run_id}: missing {missing}")
+            metrics = json.loads((d / f"test_metrics_{run_id}.json").read_text())
+            check("CIDEr" in metrics, f"sweep {run_id}: test metrics {metrics}")
+            trained = built[0]  # the model run() trained; the test pass's is built by sweep
+            fresh = build(run_c, tok, device="cuda")
+            changes[run_id] = gpt_rel_change(trained, fresh)
+            unfrozen = not run_c.image_captioning.freeze_gpt_weights
+            check((changes[run_id] > 0) == unfrozen,
+                  f"sweep {run_id}: GPT-2 moved by {changes[run_id]} (unfrozen: {unfrozen})")
+            t0 = time.perf_counter()
+            best = sweep.select_test_checkpoint(os.listdir(d))
+            fresh.load_saved_parameters(str(d / best))
+            test_ds = CocoDataset(tp.embeddings_file(run_c, "test"),
+                                  str(PIPELINE_RUN / "coco" / "annotations" /
+                                      "captions_val2014.json"),
+                                  tokenizer=tok, max_length=run_c.max_caption_length)
+            again = generate_test_caption_predictions(
+                fresh, test_ds, output_path=str(PIPELINE_RUN / "again.json"),
+                batch_size=run_c.validation.batch_size, max_length=run_c.max_caption_length,
+                temperature=run_c.validation.temperature, top_p=run_c.validation.top_p,
+                decode_precision=run_c.validation.get("decode_precision"), device="cuda")
+            first = json.loads((d / f"test_predictions_{run_id}.json").read_text())
+            check(again == first, f"sweep {run_id}: the test predictions of {best} decoded "
+                                  "again differ")
+            seconds[f"redecode_{run_id}"] = time.perf_counter() - t0
+            info = dict(line.split(": ", 1) for line in
+                        (d / f"training_info_{run_id}.txt").read_text().splitlines())
+            records.append({"phase": f"pipeline_sweep_{run_id}", "description": desc,
+                            "checkpoint": best, "test_metrics": metrics,
+                            "training_info": info, "gpt2_rel_change": changes[run_id],
+                            "test_predictions_equal_on_redecode": True,
+                            "launches": counts[f"sweep_{run_id}"]})
+            del trained, fresh
+            built.clear()
+            torch.cuda.empty_cache()
+    finally:
+        tp.build_model = build
+        os.chdir(old_cwd)
+        if old_env is None:
+            os.environ.pop("GPT2_TOKENIZER_DIR", None)
+        else:
+            os.environ["GPT2_TOKENIZER_DIR"] = old_env
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "gpt2_image_captioning_tpu_torch"],
+                          capture_output=True, text=True, timeout=300, cwd=str(here))
+    seconds["python_m_check"] = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0)
+    check(proc.returncode == 0 and name in proc.stdout,
+          f"python -m gpt2_image_captioning_tpu_torch: exit {proc.returncode}\n{proc.stdout}"
+          f"\n{proc.stderr}")
+    shutil.rmtree(PIPELINE_RUN, ignore_errors=True)
+    records.insert(0, {
+        "phase": "pipeline", "model": MODEL_NAME, "dtype": "bf16 compute (tpu.compute_dtype)",
+        "splits": {k: v[1:] for k, v in PIPELINE_SPLITS.items()}, "batch": B, "epochs": 1,
+        "run_history": {k: hist[k] for k in ("epoch_losses", "best_val_cider", "best_epoch")},
+        "gpt2_rel_change": changes, "seconds_by_part": seconds,
+        "python_m": proc.stdout.strip().splitlines(), "card": nvidia_smi()})
+    return records, counts
+
+
+# ``--only <phase>``: one of the slice's phases alone, its records and launches
+PHASES = {"http": http_phase, "pipeline": pipeline_phase, "sizes": sizes_phase}
+
+
 # ``--only <part>``: (compute dtypes, checks) of one part, its records alone
 ONLY = {
     "linear": ((torch.bfloat16,), (check_linear, check_linear_int8)),
@@ -3846,8 +4476,9 @@ ONLY = {
 
 
 def main(argv: list[str]) -> int:
-    if argv not in ([], *(["--only", part] for part in ONLY)):
-        print(f"usage: python3 chip_smoke.py [--only {'|'.join(ONLY)}]", file=sys.stderr)
+    parts = (*ONLY, *PHASES)
+    if argv not in ([], *(["--only", part] for part in parts)):
+        print(f"usage: python3 chip_smoke.py [--only {'|'.join(parts)}]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs only on the GPU", file=sys.stderr)
@@ -3871,6 +4502,13 @@ def main(argv: list[str]) -> int:
     (OUT_DIR / "nvcc.log").write_text((lib_path.parent / "nvcc.log").read_text())
 
     g = torch.Generator(device="cuda").manual_seed(0)
+    if argv and argv[1] in PHASES:
+        records, counts = PHASES[argv[1]]()
+        for record in records:
+            emit(record)
+        emit({"phase": f"{argv[1]}_launches", "launches_by_path": counts})
+        print(nvidia_smi(), flush=True)
+        return 0
     if argv:  # one part's records alone, e.g. of an earlier tree's kernels on the same card
         dtypes, fns = ONLY[argv[1]]
         for dtype in dtypes:
@@ -3976,6 +4614,12 @@ def main(argv: list[str]) -> int:
     emit(eval_record)
     del trained
     shutil.rmtree(EPOCH_RUN, ignore_errors=True)
+    torch.cuda.empty_cache()
+    for phase in PHASES.values():
+        records, counts = phase()
+        for record in records:
+            emit(record)
+        launches.update(counts)
 
     source = "gpt2_image_captioning_tpu_torch/csrc/"
     step_kernel = "gpt2_image_captioning_tpu/ops/decode_step.py"

@@ -3,10 +3,14 @@
 
 It mirrors the JAX package's module paths and public names.  Captioning
 from pixels or embeddings (the vision towers, the GPT-2 prefill and every
-decode mode, the services), the train step and the epoch loop with COCO
-evaluation (``train/loop.py``, ``evaluation/``) run on hand-written CUDA
-kernels for Hopper (``csrc/*.cu``, built by ``nvcc`` at first use — see
-``ops/_build.py``); on the CPU the same code runs their plain PyTorch twins.
+decode mode, the services and their HTTP endpoints), the train step and the
+epoch loop with COCO evaluation (``train/loop.py``, ``evaluation/``) run on
+hand-written CUDA kernels for Hopper (``csrc/*.cu``, built by ``nvcc`` at
+first use — see ``ops/_build.py``); on the CPU the same code runs their
+plain PyTorch twins.  The entry points: ``python -m
+gpt2_image_captioning_tpu_torch`` (the environment check),
+``.training_pipeline`` (training from ``config.yml``), ``.sweep`` and
+``.viz`` (the results viewer).
 The package imports torch and never jax; PIL only where an image is decoded.
 """
 

@@ -72,24 +72,43 @@ class CaptionerConfig:
 
 def init_params(
     generator: torch.Generator, cfg: CaptionerConfig, device=DEFAULT_DEVICE,
+    gpt_params: dict | None = None,
 ) -> tuple[dict, dict]:
     """Returns (trainable, frozen) trees of float32 tensors on ``device`` (the
     card unless the caller asks for the CPU), drawn from ``generator`` with
     the distributions of the JAX package's init (the draws themselves differ
-    from ``jax.random``)."""
+    from ``jax.random``).
+
+    ``gpt_params`` is a GPT-2 tree in the port's layout — pretrained weights
+    from :func:`models.porting.port_gpt2` of an HF state dict, or a JAX tree
+    through :func:`models.porting.from_jax_numpy` — used in place of a random
+    GPT-2 (the mapper's draws are the same either way).  The task prefix is
+    seeded from its ``wte``; unfrozen, it is trained as a copy, so the
+    caller's tensors never change."""
     device = resolve_device(device)
     mapping_params = M.init_mapping(generator, cfg.mapping)
-    gpt_params = G.init(generator, cfg.gpt2)
-    trainable: dict[str, Any] = {"mapping": mapping_params}
+    if gpt_params is None:
+        gpt_params = tree_map(lambda t: t.to(device), G.init(generator, cfg.gpt2))
+    else:
+        G.check_params(gpt_params, cfg.gpt2)
+
+        def take(t):
+            out = torch.as_tensor(t).to(device=device, dtype=torch.float32)
+            if not cfg.freeze_gpt_weights and out.data_ptr() == torch.as_tensor(t).data_ptr():
+                out = out.clone()
+            return out
+
+        gpt_params = tree_map(take, gpt_params)
+    trainable: dict[str, Any] = {"mapping": tree_map(lambda t: t.to(device), mapping_params)}
     if cfg.task_prompt_ids:
-        ids = torch.tensor(cfg.task_prompt_ids, dtype=torch.long, device=gpt_params["wte"].device)
+        ids = torch.tensor(cfg.task_prompt_ids, dtype=torch.long, device=device)
         trainable["task_prefix"] = gpt_params["wte"][ids]
     frozen: dict[str, Any] = {}
     if cfg.freeze_gpt_weights:
         frozen["gpt"] = gpt_params
     else:
         trainable["gpt"] = gpt_params
-    return tree_map(lambda t: t.to(device), trainable), tree_map(lambda t: t.to(device), frozen)
+    return trainable, frozen
 
 
 def _gpt(trainable: dict, frozen: dict) -> dict:
@@ -187,7 +206,7 @@ def prefill(gpt_params, cfg: CaptionerConfig, prefix, cache, policy: Policy, pac
 def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "sharded decode is not ported yet (ROADMAP.md, queue 1, item 13: parallelism)"
+            "sharded decode is not ported yet (ROADMAP.md, queue 1: parallelism)"
         )
 
 
@@ -518,7 +537,8 @@ class ImageCaptioningModel:
     generate_captions, decode_params, save_parameters and
     load_saved_parameters.  ``generator`` seeds the random init; ``device``
     holds the parameters and runs the model: the card unless the caller
-    asks for the CPU.
+    asks for the CPU; ``gpt_params`` is a GPT-2 tree used in place of the
+    random one (:func:`init_params`).
 
     The decode copies (the bfloat16 trees of :meth:`decode_params` and the
     step kernels' packs of :meth:`decode_pack`) are cached on the identity of
@@ -534,6 +554,7 @@ class ImageCaptioningModel:
         generator: torch.Generator | None = None,
         policy: Policy = F32,
         device=DEFAULT_DEVICE,
+        gpt_params: dict | None = None,
     ):
         self.cfg = cfg
         self.tokenizer = tokenizer
@@ -541,7 +562,7 @@ class ImageCaptioningModel:
         self.device = resolve_device(device)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
-        self.trainable, self.frozen = init_params(generator, cfg, self.device)
+        self.trainable, self.frozen = init_params(generator, cfg, self.device, gpt_params)
 
     def forward(
         self,

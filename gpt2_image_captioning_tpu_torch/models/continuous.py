@@ -264,11 +264,11 @@ def macro_step(
 
 def init_state_dp(*args, **kwargs):
     raise NotImplementedError(
-        "the dp-sharded engine is not ported yet (ROADMAP.md, queue 1, item 13: parallelism)"
+        "the dp-sharded engine is not ported yet (ROADMAP.md, queue 1: parallelism)"
     )
 
 
 def macro_step_dp(*args, **kwargs):
     raise NotImplementedError(
-        "the dp-sharded engine is not ported yet (ROADMAP.md, queue 1, item 13: parallelism)"
+        "the dp-sharded engine is not ported yet (ROADMAP.md, queue 1: parallelism)"
     )

@@ -44,6 +44,23 @@ class GPT2Config:
         return GPT2Config()
 
     @staticmethod
+    def gpt2_medium() -> "GPT2Config":
+        """355M.  Every decode kernel runs at this width and the two below:
+        the port's kernels have no width gate (the JAX package routes these
+        sizes off its fused step kernel)."""
+        return GPT2Config(n_embd=1024, n_layer=24, n_head=16)
+
+    @staticmethod
+    def gpt2_large() -> "GPT2Config":
+        """774M — see :meth:`gpt2_medium`."""
+        return GPT2Config(n_embd=1280, n_layer=36, n_head=20)
+
+    @staticmethod
+    def gpt2_xl() -> "GPT2Config":
+        """1.5B — see :meth:`gpt2_medium`."""
+        return GPT2Config(n_embd=1600, n_layer=48, n_head=25)
+
+    @staticmethod
     def tiny(vocab_size: int = 293) -> "GPT2Config":
         """Small config for CPU tests."""
         return GPT2Config(vocab_size=vocab_size, n_positions=128, n_embd=32, n_layer=2, n_head=2)
@@ -72,6 +89,24 @@ def init(generator: torch.Generator, cfg: GPT2Config) -> dict:
             },
         })
     return {"wte": wte, "wpe": wpe, "ln_f": nn.layer_norm_init(d), "blocks": stack_blocks(layers)}
+
+
+def check_params(gpt: dict, cfg: GPT2Config) -> None:
+    """Raise unless a GPT-2 tree's embedding and block shapes are ``cfg``'s."""
+    want = {
+        "wte": (cfg.vocab_size, cfg.n_embd),
+        "wpe": (cfg.n_positions, cfg.n_embd),
+        "c_attn": (cfg.n_layer, cfg.n_embd, 3 * cfg.n_embd),
+        "c_fc": (cfg.n_layer, cfg.n_embd, 4 * cfg.n_embd),
+    }
+    got = {
+        "wte": tuple(gpt["wte"].shape),
+        "wpe": tuple(gpt["wpe"].shape),
+        "c_attn": tuple(gpt["blocks"]["attn"]["c_attn"]["w"].shape),
+        "c_fc": tuple(gpt["blocks"]["mlp"]["c_fc"]["w"].shape),
+    }
+    if got != want:
+        raise ValueError(f"GPT-2 params do not match {cfg}: shapes {got}, expected {want}")
 
 
 def stack_blocks(blocks: list[dict]) -> dict:

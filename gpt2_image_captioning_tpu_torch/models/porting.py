@@ -29,7 +29,7 @@ import torch
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from gpt2_image_captioning_tpu_torch.core.tree import tree_map
 from gpt2_image_captioning_tpu_torch.models.captioner import CaptionerConfig
-from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config, stack_blocks
+from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config, check_params, stack_blocks
 from gpt2_image_captioning_tpu_torch.models.mapping import (
     MLPMappingConfig,
     TransformerMappingConfig,
@@ -47,23 +47,6 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device)
 
 
-def _check_gpt2(gpt: dict, cfg: GPT2Config) -> None:
-    want = {
-        "wte": (cfg.vocab_size, cfg.n_embd),
-        "wpe": (cfg.n_positions, cfg.n_embd),
-        "c_attn": (cfg.n_layer, cfg.n_embd, 3 * cfg.n_embd),
-        "c_fc": (cfg.n_layer, cfg.n_embd, 4 * cfg.n_embd),
-    }
-    got = {
-        "wte": tuple(gpt["wte"].shape),
-        "wpe": tuple(gpt["wpe"].shape),
-        "c_attn": tuple(gpt["blocks"]["attn"]["c_attn"]["w"].shape),
-        "c_fc": tuple(gpt["blocks"]["mlp"]["c_fc"]["w"].shape),
-    }
-    if got != want:
-        raise ValueError(f"GPT-2 params do not match {cfg}: shapes {got}, expected {want}")
-
-
 def from_jax_numpy(trainable: dict, frozen: dict, cfg: CaptionerConfig, device=DEFAULT_DEVICE,
                    dtype: torch.dtype | None = None) -> tuple[dict, dict]:
     """The JAX package's ``(trainable, frozen)`` trees, as numpy arrays, →
@@ -73,7 +56,7 @@ def from_jax_numpy(trainable: dict, frozen: dict, cfg: CaptionerConfig, device=D
     device = resolve_device(device)
     tr = tree_map(lambda a: _tensor(a, device, dtype), trainable)
     fz = tree_map(lambda a: _tensor(a, device, dtype), frozen)
-    _check_gpt2(fz["gpt"] if "gpt" in fz else tr["gpt"], cfg.gpt2)
+    check_params(fz["gpt"] if "gpt" in fz else tr["gpt"], cfg.gpt2)
     return tr, fz
 
 

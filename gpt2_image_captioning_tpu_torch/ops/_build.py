@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -166,17 +167,24 @@ def build() -> Path:
     return lib
 
 
+_LIBRARY_LOCK = threading.Lock()
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.gic_error_string.argtypes = [_I]
-    lib.gic_error_string.restype = ctypes.c_char_p
-    return lib
+    """The loaded kernel library, built on first call.  Threads that reach
+    the first call together (a server's dispatcher and the main thread) run
+    it one at a time: one ``nvcc`` build, whose object files carry only the
+    process id, and the others load what it built."""
+    with _LIBRARY_LOCK:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.gic_error_string.argtypes = [_I]
+        lib.gic_error_string.restype = ctypes.c_char_p
+        return lib
 
 
 def check(err: int, kernel: str) -> None:

@@ -34,8 +34,17 @@ values; ``sample_in_kernel`` draws decode tokens inside the step.
 ``decode_precision="int8"`` decodes from the W8A8 pack of the bf16 weights
 (admission's prefill stays bf16), as the JAX service does.
 
+:func:`serve_http` (coalesced fixed batches) and :func:`serve_http_continuous`
+(rolling admission) put a stdlib HTTP endpoint in front of either service:
+``POST /caption`` with an encoded image, ``GET /healthz``.  Handler threads
+read and decode the bodies; one thread (the dispatcher, or the pump) makes
+every call into the service, on its own CUDA stream context — the default
+stream of the service's device — so the kernels' launches keep stream order
+(the sampler's counters rely on it: one zeroed buffer a device).  While a
+server runs, nothing else may call its service.
+
 Not ported here, and refused: ``mesh`` needs parallelism (ROADMAP.md, queue
-1); the HTTP endpoints (``serve_http*``) are not ported yet.
+1: parallelism).
 """
 
 from __future__ import annotations
@@ -43,6 +52,10 @@ from __future__ import annotations
 import collections
 import dataclasses
 import io
+import json
+import logging
+import queue
+import threading
 import time
 from typing import Sequence
 
@@ -262,8 +275,7 @@ class ContinuousCaptionService:
     ):
         if mesh is not None:
             raise NotImplementedError(
-                "a dp mesh of sub-pools is not ported yet (ROADMAP.md, queue 1, item 13: "
-                "parallelism)")
+                "a dp mesh of sub-pools is not ported yet (ROADMAP.md, queue 1: parallelism)")
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         self.model = model
@@ -602,3 +614,317 @@ class ContinuousCaptionService:
             s["latency_p50_s"] = float(lat[len(lat) // 2])
             s["latency_p95_s"] = float(lat[int(len(lat) * 0.95)])
         return s
+
+
+# ---------------------------------------------------------------------------
+# HTTP endpoints
+# ---------------------------------------------------------------------------
+
+_log = logging.getLogger(__name__)
+
+
+class _Pending:
+    """One in-flight /caption request: decoded pixels in, caption/error out."""
+
+    __slots__ = ("array", "event", "caption", "error", "max_length", "temperature", "top_p")
+
+    def __init__(self, array: np.ndarray, max_length: int | None = None,
+                 temperature: float | None = None, top_p: float | None = None):
+        self.array = array
+        self.event = threading.Event()
+        self.caption: str | None = None
+        self.error: str | None = None
+        self.max_length = max_length
+        self.temperature = temperature
+        self.top_p = top_p
+
+
+def _service_thread(device: torch.device, body, name: str):
+    """A daemon thread that runs ``body`` with grad mode off on ``device``'s
+    default stream: grad mode, the current device and the current stream are
+    a thread's own, so none is taken from the thread that built the server."""
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+
+    def run():
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        with torch.no_grad():
+            body()
+
+    return threading.Thread(target=run, daemon=True, name=name)
+
+
+def _decode_body(handler, max_body_bytes: int, prep) -> np.ndarray | None:
+    """Read a POST body and turn it into a prepped uint8 image with ``prep``;
+    on a bad request send its error (411, 413 before any read, 400) and
+    return None."""
+    try:
+        length = int(handler.headers.get("Content-Length", 0))
+    except (TypeError, ValueError):
+        handler._json(411, {"error": "missing or malformed Content-Length"})
+        return None
+    if not 0 <= length <= max_body_bytes:
+        # a negative length would make rfile.read(-1) buffer the stream to EOF
+        handler._json(413, {"error": f"body exceeds {max_body_bytes} byte limit"})
+        return None
+    blob = handler.rfile.read(length)
+    from PIL import UnidentifiedImageError
+
+    try:
+        # decode and geometry on the handler's thread: host work runs in
+        # parallel across clients; the device calls are the service thread's
+        return prep(_decode_rgb(blob))
+    except (UnidentifiedImageError, OSError, ValueError) as e:
+        handler._json(400, {"error": f"not a decodable image: {e}"})
+        return None
+
+
+def _http_server(host: str, port: int, service, do_post, stop_thread):
+    """A ``ThreadingHTTPServer`` with the two services' common routes:
+    ``GET /healthz`` → ``{"ok": true, ...stats}``, ``POST`` → ``do_post``;
+    ``shutdown()`` also stops the service thread (``stop_thread()``)."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Server(ThreadingHTTPServer):
+        daemon_threads = True
+        # the listen backlog: socketserver's 5 drops the connections of a
+        # burst of clients beyond it, which retry a second later and miss
+        # the coalescing window
+        request_queue_size = 1024
+
+        def shutdown(self):
+            stop_thread()
+            super().shutdown()
+
+    class Handler(BaseHTTPRequestHandler):
+        def _json(self, code: int, obj) -> None:
+            body = json.dumps(obj).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):  # noqa: N802 (stdlib API)
+            if self.path == "/healthz":
+                self._json(200, {"ok": True, **service.stats})
+            else:
+                self._json(404, {"error": "not found"})
+
+        def do_POST(self):  # noqa: N802
+            do_post(self)
+
+        def log_message(self, *a):  # quiet
+            pass
+
+    return Server((host, port), Handler)
+
+
+def _answer(handler, p: _Pending, timeout_s: float, timeout_msg: str) -> None:
+    if not p.event.wait(timeout=timeout_s):
+        handler._json(504, {"error": timeout_msg})
+    elif p.error is not None:
+        handler._json(500, {"error": p.error})
+    else:
+        handler._json(200, {"caption": p.caption})
+
+
+def serve_http(service: CaptionService, host: str = "127.0.0.1", port: int = 5152, *,
+               window_ms: float = 5.0, max_body_bytes: int = 32 << 20,
+               request_timeout_s: float = 300.0):
+    """HTTP endpoint with request coalescing around a :class:`CaptionService`.
+
+    - ``POST /caption`` with an encoded image body → ``{"caption": str}``
+    - ``GET /healthz`` → ``{"ok": true, ...stats}``
+
+    Each POST is handled on its own thread (body read, decode, resize and
+    crop); one dispatcher thread gathers the prepped images for up to
+    ``window_ms`` or until ``service.batch_size`` wait, makes one
+    ``caption_prepped`` call, and fans the captions back out.  A service
+    failure answers 500 to every waiter of its batch; a request unanswered
+    after ``request_timeout_s`` gets 504; a body larger than
+    ``max_body_bytes`` gets 413 before any of it is read.
+
+    Returns the ``ThreadingHTTPServer`` (call ``serve_forever()`` from a
+    thread); its ``shutdown()`` also stops and joins the dispatcher
+    (``server.dispatcher_thread``).
+    """
+    pending: queue.Queue = queue.Queue()
+    stop = object()  # sentinel
+
+    def dispatcher():
+        while True:
+            item = pending.get()
+            if item is stop:
+                return
+            batch = [item]
+            deadline = time.monotonic() + window_ms / 1000.0
+            while len(batch) < service.batch_size:
+                remain = deadline - time.monotonic()
+                if remain <= 0:
+                    break
+                try:
+                    nxt = pending.get(timeout=remain)
+                except queue.Empty:
+                    break
+                if nxt is stop:
+                    pending.put(stop)  # for the outer loop, after this batch
+                    break
+                batch.append(nxt)
+            try:
+                captions = service.caption_prepped(np.stack([p.array for p in batch]))
+                for p, cap in zip(batch, captions):
+                    p.caption = cap
+            except Exception as e:  # a device failure is the server's, not the client's
+                _log.exception("caption batch of %d failed", len(batch))
+                for p in batch:
+                    p.error = str(e)
+            for p in batch:
+                p.event.set()
+
+    def do_post(handler):
+        if handler.path != "/caption":
+            handler._json(404, {"error": "not found"})
+            return
+        arr = _decode_body(handler, max_body_bytes, service._to_square_u8)
+        if arr is None:
+            return
+        p = _Pending(arr)
+        pending.put(p)
+        _answer(handler, p, request_timeout_s, "caption batch timed out")
+
+    thread = _service_thread(service.model.device, dispatcher, "caption-dispatcher")
+
+    def stop_thread():
+        pending.put(stop)
+        thread.join(timeout=request_timeout_s)
+
+    server = _http_server(host, port, service, do_post, stop_thread)
+    thread.start()
+    server.dispatcher_thread = thread
+    return server
+
+
+def serve_http_continuous(service: ContinuousCaptionService, host: str = "127.0.0.1",
+                          port: int = 5152, *, max_body_bytes: int = 32 << 20,
+                          request_timeout_s: float = 300.0):
+    """HTTP endpoint over a :class:`ContinuousCaptionService`.
+
+    - ``POST /caption[?max_length=N&temperature=T&top_p=P]`` with an encoded
+      image body → ``{"caption": str}`` (400 on a value the service refuses)
+    - ``GET /healthz`` → ``{"ok": true, ...stats}``
+
+    Each request is admitted into a freed decode row mid-flight and
+    completes at its own length.  Handler threads read, decode, resize and
+    crop; one pump thread owns every ``service`` call: it submits the queued
+    images, turns the serving loop (:meth:`ContinuousCaptionService.step`:
+    dispatch the next macro, harvest the one before, whose pinned copy a CUDA
+    event says has landed) and fans completions out.  With nothing to serve
+    it blocks on the intake queue.  A device failure answers 500 to every
+    waiter; requests still waiting at ``shutdown()`` get 500 "server shut
+    down".
+
+    Returns the ``ThreadingHTTPServer`` (run ``serve_forever()`` from a
+    thread); its ``shutdown()`` also stops and joins the pump
+    (``server.pump_thread``).
+    """
+    intake: queue.Queue = queue.Queue()
+    stop = object()
+
+    def busy() -> bool:
+        return bool(service.queued or service.live or service._inflight)
+
+    def pump():
+        rid_map: dict[int, _Pending] = {}
+        while True:
+            try:  # block only when there is nothing to serve
+                item = intake.get_nowait() if rid_map or busy() else intake.get()
+            except queue.Empty:
+                item = None
+            while item is not None:  # drain the burst
+                if item is stop:
+                    for p in rid_map.values():
+                        p.error = "server shut down"
+                        p.event.set()
+                    return
+                try:
+                    rid_map[service.submit_prepped(item.array, item.max_length,
+                                                   item.temperature, item.top_p)] = item
+                except Exception as e:  # bad geometry etc.
+                    item.error = str(e)
+                    item.event.set()
+                try:
+                    item = intake.get_nowait()
+                except queue.Empty:
+                    item = None
+            if not busy():
+                continue
+            try:
+                done = service.step()
+            except Exception as e:  # a device failure: fail every waiter
+                _log.exception("serving step failed")
+                for p in rid_map.values():
+                    p.error = str(e)
+                    p.event.set()
+                rid_map.clear()
+                continue
+            for rid, caption in done.items():
+                service.pop_result(rid)
+                p = rid_map.pop(rid, None)
+                if p is not None:
+                    p.caption = caption
+                    p.event.set()
+
+    def query(handler, qs: dict):
+        """(max_length, temperature, top_p) from the query string, or None
+        after a 400."""
+        out = []
+        checks = (
+            ("max_length", int, lambda v: 1 <= v <= service.max_length,
+             f"max_length must be in [1, {service.max_length}]"),
+            ("temperature", float, lambda v: v >= 0.0 and (service.sampled or v == 0.0),
+             "temperature must be >= 0 (and the service sampled for temperature > 0)"),
+            ("top_p", float, lambda v: 0.0 < v <= 1.0, "top_p must be in (0, 1]"),
+        )
+        for key, kind, ok, msg in checks:
+            value = None
+            if qs.get(key):
+                try:
+                    value = kind(qs[key][0])
+                    if not ok(value):
+                        raise ValueError
+                except ValueError:
+                    handler._json(400, {"error": msg})
+                    return None
+            out.append(value)
+        return out
+
+    def do_post(handler):
+        from urllib.parse import parse_qs, urlparse
+
+        u = urlparse(handler.path)
+        if u.path != "/caption":
+            handler._json(404, {"error": "not found"})
+            return
+        params = query(handler, parse_qs(u.query))
+        if params is None:
+            return
+        arr = _decode_body(handler, max_body_bytes,
+                           lambda rgb: resize_and_crop(rgb, service.spec))
+        if arr is None:
+            return
+        p = _Pending(arr, *params)
+        intake.put(p)
+        _answer(handler, p, request_timeout_s, "caption timed out")
+
+    thread = _service_thread(service.device, pump, "caption-pump")
+
+    def stop_thread():
+        intake.put(stop)
+        thread.join(timeout=request_timeout_s)
+
+    server = _http_server(host, port, service, do_post, stop_thread)
+    thread.start()
+    server.pump_thread = thread
+    return server

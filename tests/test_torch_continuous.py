@@ -364,7 +364,7 @@ def test_service_sampling_modes_and_refusals():
                     (svc.caption_arrays, [np.zeros((8, 8, 3), np.uint8)])):
         with pytest.raises(ValueError, match="no vision tower"):
             fn(arg)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="parallelism"):
         ContinuousCaptionService(tmodel, mesh=object())
     svc8 = ContinuousCaptionService(tmodel, slots=3, max_length=6, decode_precision="int8")
     assert "qkvs" in svc8._packed and svc8._pol.compute_dtype == torch.bfloat16
@@ -378,7 +378,7 @@ def test_service_sampling_modes_and_refusals():
     with pytest.raises(ValueError, match="top_p >= 0.5"):
         svc.submit_embedding(embs[0], top_p=0.3)
     for fn in (TCE.init_state_dp, TCE.macro_step_dp):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="parallelism"):
             fn()
 
 

@@ -23,7 +23,7 @@ def covered_once(size: int, spans) -> bool:
 
 
 @pytest.mark.parametrize("element_size", [2, 1], ids=["bf16", "int8"])
-@pytest.mark.parametrize("d", [768, 1024, 1600])
+@pytest.mark.parametrize("d", [768, 1024, 1280, 1600])
 @pytest.mark.parametrize("m", [1, 3, 128, 512, 120, 1920])
 def test_linear_plan_covers_every_output_and_k_once(m, d, element_size):
     """Every role's (column tile, K-slice) items cover each output column and

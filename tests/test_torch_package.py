@@ -3,6 +3,8 @@ quietly runs the plain path when the kernels were asked for."""
 
 import subprocess
 import sys
+import threading
+import time
 
 import pytest
 import torch
@@ -34,6 +36,11 @@ def test_import_leaves_jax_out():
         "from gpt2_image_captioning_tpu_torch.core import logging\n"
         "from gpt2_image_captioning_tpu_torch import evaluation, utils\n"
         "from gpt2_image_captioning_tpu_torch.evaluation import evaluate, generation, metrics\n"
+        "from gpt2_image_captioning_tpu_torch.core import config\n"
+        "from gpt2_image_captioning_tpu_torch import sweep, training_pipeline, viz\n"
+        "from gpt2_image_captioning_tpu_torch import __main__ as cli\n"
+        "from gpt2_image_captioning_tpu_torch.viz import __main__ as viz_cli, server\n"
+        "from gpt2_image_captioning_tpu_torch.serving import serve_http, serve_http_continuous\n"
         "assert 'PIL' not in sys.modules, 'PIL is imported where an image is decoded'\n"
         "jax_pkg = 'gpt2_image_captioning_tpu'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
@@ -96,3 +103,50 @@ def test_build_key_covers_every_source():
             "logits_sample.cu", "common.cuh"} <= names
     assert len(_build.source_hash()) == 16
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_first_build_runs_once_across_threads(monkeypatch, tmp_path):
+    """Threads that call ``library()`` first at once (a server's dispatcher
+    and the main thread) build once: the others wait for the first and load
+    its library, rather than running nvcc into the same object files."""
+    lib_path = tmp_path / "libgic_kernels.so"
+    state = {"compiles": 0, "inside": 0, "most_inside": 0}
+
+    def fake_build():
+        state["inside"] += 1
+        state["most_inside"] = max(state["most_inside"], state["inside"])
+        if not lib_path.exists():  # as build(): compile unless this source set is built
+            time.sleep(0.2)
+            state["compiles"] += 1
+            lib_path.write_bytes(b"")
+        state["inside"] -= 1
+        return lib_path
+
+    class FakeFn:
+        pass
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = FakeFn()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(_build, "build", fake_build)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    _build.library.cache_clear()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        got = []
+        threads = [threading.Thread(target=lambda: got.append(_build.library())) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(10)
+        assert not any(t.is_alive() for t in threads)
+        assert len(got) == 8 and all(isinstance(lib, FakeLib) for lib in got)
+        assert state["compiles"] == 1 and state["most_inside"] == 1
+        assert got[0].gic_decode_attention.restype is _build.ctypes.c_int
+    finally:
+        sys.setswitchinterval(interval)
+        _build.library.cache_clear()
