@@ -13,8 +13,8 @@ and float32, with their contract sweeps; ``--only prefill`` for the prefill
 kernel (bf16 and float32, its device time by part); ``--only quant`` for
 the int8 row quantizer and the int8 products whose rows carry no LayerNorm,
 which quantize them inside the product.  ``--only http``, ``--only
-pipeline`` and ``--only sizes`` run one of the last three phases below
-alone, with its launch counts by path.)
+pipeline``, ``--only sizes`` and ``--only rat`` run one of the last four
+phases below alone, with its launch counts by path.)
 
 It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
@@ -130,10 +130,25 @@ before and read just after:
   only by the unfrozen run, the test predictions decoded again from
   ``select_test_checkpoint``'s file equal; ``python -m
   gpt2_image_captioning_tpu_torch`` exits 0 naming the card;
-- the wide sizes: GPT-2 medium, large and XL at full width and depth (the
-  MLP mapper), b 16, 20 tokens, greedy in bf16 and float32 and sampled in
-  bf16, held to the plain path by the 124M bounds, peak memory; exact
-  float32 tokens of a 2-layer, 211-token model of each width.
+- the wide sizes: GPT-2 medium, large and XL at full width, 12 layers, with
+  config.yml's transformer mapper at their width (flash at hd 128, 160 and
+  200), b 16, 20 tokens, greedy in bf16 and float32 and sampled in bf16,
+  held to the plain path by the 124M bounds, peak memory; exact float32
+  tokens of a 2-layer, 211-token model of each width;
+- retrieval-augmented training (``--only rat``): a ``DeviceVectorStore`` at
+  COCO train2017's scale (118,287 images, 591,753 captions, 512-d, float32
+  on the card), its fused retrieval's ids against a float64 reference and
+  its caption rows bit-equal to a walk of the table, its device ms against
+  its bound; the fused RAT train step (b 128, top_k 10, top_i 4, attention
+  and mean) against ``use_kernels=False``, captions/s beside the plain
+  step's, peak memory, a trace; caption extraction with the CLIP text
+  tower at full size (b 256, 4,096 captions, features against the plain
+  path); ``sweep.run_one`` for ids 18 and 19 with the test predictions
+  decoded again through the rebuilt store, RAT eval img/s in greedy and
+  beam-4; ``train_rat`` with the flat and the HNSW store over 8,192
+  clustered images (the flat store's ids equal the device store's, HNSW
+  recall@4 >= 0.95), the host retrieval's ms a batch and the prefetched
+  loop's device idle share; tiny float32 RAT tokens exact.
 
 Every request and admission prefills through the prefill kernel (an int8
 decode through ``forward_cached``, as the reference), and the launch checks
@@ -317,14 +332,20 @@ ROWQUANT_SCALE_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-6}
 
 # Flash attention on the paths: (name, B, H, T, hd, causal, padding mask) —
 # the GPT-2 blocks in training (15 prefix + 50 caption positions), the
-# transformer mapper (10 + 15 tokens, 768 / 8 heads), the GPT-2 prefill of
-# the int8 decode (forward_cached), and the three vision towers at their
-# batches (CLIP B/32: 49 patches + CLS; ViT-B/16: 196 + CLS; DINOv3 L/16:
-# 196 + CLS + 4 registers).
+# transformer mapper (10 + 15 tokens, 768 / 8 heads; at GPT-2 medium, large
+# and XL 1024, 1280 and 1600 / 8: hd 128, 160 and 200, the last zero-padded
+# to the 208 build), the GPT-2 prefill of the int8 decode (forward_cached),
+# the CLIP text tower of caption extraction (causal, 77 positions, b 256),
+# and the three vision towers at their batches (CLIP B/32: 49 patches +
+# CLS; ViT-B/16: 196 + CLS; DINOv3 L/16: 196 + CLS + 4 registers).
 FLASH_SHAPES = (
     ("gpt2_train", B, 12, 65, 64, True, True),
     ("mapper", B, 8, 25, 96, False, False),
+    ("mapper_gpt2_medium", B, 8, 25, 128, False, False),
+    ("mapper_gpt2_large", B, 8, 25, 160, False, False),
+    ("mapper_gpt2_xl", B, 8, 25, 200, False, False),
     ("gpt2_prefill", B, 12, 15, 64, True, False),
+    ("clip_text_tower", 256, 8, 77, 64, True, False),
     ("clip_tower", 256, 12, 50, 64, False, False),
     ("vit_tower", 128, 12, 197, 64, False, False),
     ("dino_tower", 64, 16, 201, 64, False, False),
@@ -2872,14 +2893,15 @@ def profile_request(run, path: str, steps: int) -> dict:
             "events_in_window": len(in_window), "card": nvidia_smi()}
 
 
-def profile_train_step(run_step) -> dict:
+def profile_train_step(run_step, trace_name: str = "train_trace.json",
+                       phase: str = "train_profile") -> dict:
     """Trace one train step: its device window (first to last device event),
     busy time (their union), idle share, kernel launches, and device time by
     kind — the flash kernel, matrix products (cuBLAS/CUTLASS kernels), the
     other kernels (elementwise, reductions, softmax), copies — and the
     kernels that take the most of it."""
-    wall, events, dropped = traced(run_step, "train_trace.json")
-    record = {"phase": "train_profile", "profiled_step_s": wall, "trace": "train_trace.json.gz",
+    wall, events, dropped = traced(run_step, trace_name)
+    record = {"phase": phase, "profiled_step_s": wall, "trace": f"{trace_name}.gz",
               "device_events": len(events), "dropped_device_records": dropped}
     if not events:
         return {**record, "idle_share": "not measured"}
@@ -3873,31 +3895,34 @@ def evaluation_phase(model, val_ds) -> tuple[dict, dict]:
 # Phase 8: the wide GPT-2 sizes
 # ---------------------------------------------------------------------------
 
-# GPT-2 medium, large and XL at full width and depth (no cut: the list of
-# depth cuts stays empty), random weights from a seed, fed by the MLP mapper
-# (512 -> 15 prefix tokens of the model's width): the transformer mapper's
-# heads at these widths (128, 160, 200 wide) are no head dims of the flash
-# kernel, whose wrapper refuses them.  SIZE_BATCH embeddings, SIZE_STEPS
-# tokens, greedy in bf16 and float32 and sampled on the logits tail in bf16,
+# GPT-2 medium, large and XL at full width, cut to the 12 layers of 124M (the
+# kernels see the same shapes at any depth; the random init of 24-48 layers
+# on the host took 32 s of the script), random weights from a seed, fed by
+# config.yml's transformer mapper at the model's width (512 -> D, 15 + 10
+# tokens, 8 heads: the flash kernel at hd 128, 160 and 200).  SIZE_BATCH
+# embeddings, SIZE_STEPS tokens, greedy in bf16 and float32 and sampled on
+# the logits tail in bf16,
 # every token held to the plain path by the bounds of the 124M paths; then a
 # tiny-vocabulary float32 model of each width and 2 layers, exact tokens.
 SIZES = ("gpt2_medium", "gpt2_large", "gpt2_xl")
 SIZE_BATCH, SIZE_STEPS = 16, 20
-SIZE_DEPTH_CUTS: dict[str, int] = {}
+SIZE_DEPTH_CUTS: dict[str, int] = {name: 12 for name in SIZES}
 SIZE_TINY_VOCAB = 211
 
 
 def size_config(name: str, n_layer: int | None = None, vocab: int | None = None):
+    """GPT-2 ``name`` with config.yml's transformer mapper at its width (512
+    -> D, 15 + 10 tokens, 8 heads of D / 8: 128, 160 and 200)."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
     from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config
-    from gpt2_image_captioning_tpu_torch.models.mapping import MLPMappingConfig
+    from gpt2_image_captioning_tpu_torch.models.mapping import TransformerMappingConfig
 
     gcfg = getattr(GPT2Config, name)()
     if n_layer is not None:
         gcfg = dataclasses.replace(gcfg, n_layer=n_layer)
     if vocab is not None:
         gcfg = dataclasses.replace(gcfg, vocab_size=vocab, n_positions=128)
-    return C.CaptionerConfig(gpt2=gcfg, mapping=MLPMappingConfig(15, 512, gcfg.n_embd),
+    return C.CaptionerConfig(gpt2=gcfg, mapping=TransformerMappingConfig(512, gcfg.n_embd, 15, 10),
                              eos_token_id=gcfg.vocab_size - 1)
 
 
@@ -3944,7 +3969,8 @@ def size_phase(name: str) -> tuple[dict, dict]:
                            .astype(np.float32)).cuda()
     record = {"phase": f"size_{name}", "n_embd": g.n_embd, "n_head": g.n_head,
               "n_layer": g.n_layer, "depth_cut": name in SIZE_DEPTH_CUTS,
-              "mapper": "mlp (512 -> 15 x D)", "batch": SIZE_BATCH, "max_length": SIZE_STEPS,
+              "mapper": f"transformer (512 -> {g.n_embd}, 15 + 10, 8 heads of {g.n_embd // 8})",
+              "batch": SIZE_BATCH, "max_length": SIZE_STEPS,
               "init_seconds": init_s}
     counts = {}
     runs = (("greedy_bf16", "bf16", dict(temperature=0.0), "logits_argmax"),
@@ -4298,6 +4324,27 @@ def pipeline_config(root: Path) -> Path:
     return path
 
 
+def write_pipeline_data(root: Path):
+    """PIPELINE_SPLITS under ``root/coco`` (embeddings and annotations, as
+    config.yml's paths name them) and the fabricated tokenizer's files in
+    ``root/gpt2_tokenizer``: (tokenizer, its folder)."""
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "coco" / "embeddings").mkdir(parents=True)
+    (root / "coco" / "annotations").mkdir()
+    tok = fabricated_tokenizer()
+    tok_dir = root / "gpt2_tokenizer"
+    tok_dir.mkdir()
+    (tok_dir / "vocab.json").write_text(json.dumps(tok.encoder))
+    merges = sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)
+    (tok_dir / "merges.txt").write_text("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges))
+    rng = np.random.default_rng(14)
+    for split, (ann, n, per_image) in PIPELINE_SPLITS.items():
+        write_split(split, n, per_image, rng,
+                    str(root / "coco" / "embeddings" / f"{split}_clip_embeddings.pt"),
+                    str(root / "coco" / "annotations" / ann))
+    return tok, tok_dir
+
+
 def pipeline_launches_used(launches: dict, what: str) -> None:
     """Training ran flash attention; the greedy evaluations ran the prefill,
     the step's kernels and the argmax."""
@@ -4331,22 +4378,9 @@ def pipeline_phase() -> tuple[list[dict], dict]:
     )
 
     here = Path(__file__).resolve().parent
-    shutil.rmtree(PIPELINE_RUN, ignore_errors=True)
-    (PIPELINE_RUN / "coco" / "embeddings").mkdir(parents=True)
-    (PIPELINE_RUN / "coco" / "annotations").mkdir()
     seconds, counts = {}, {}
     t0 = time.perf_counter()
-    tok = fabricated_tokenizer()
-    tok_dir = PIPELINE_RUN / "gpt2_tokenizer"
-    tok_dir.mkdir()
-    (tok_dir / "vocab.json").write_text(json.dumps(tok.encoder))
-    merges = sorted(tok.bpe_ranks, key=tok.bpe_ranks.get)
-    (tok_dir / "merges.txt").write_text("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges))
-    rng = np.random.default_rng(14)
-    for split, (ann, n, per_image) in PIPELINE_SPLITS.items():
-        write_split(split, n, per_image, rng,
-                    str(PIPELINE_RUN / "coco" / "embeddings" / f"{split}_clip_embeddings.pt"),
-                    str(PIPELINE_RUN / "coco" / "annotations" / ann))
+    tok, tok_dir = write_pipeline_data(PIPELINE_RUN)
     cfg = load_config(str(pipeline_config(PIPELINE_RUN)))
     seconds["data_and_tokenizer_files"] = time.perf_counter() - t0
 
@@ -4462,8 +4496,644 @@ def pipeline_phase() -> tuple[list[dict], dict]:
     return records, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: retrieval-augmented training (RAT)
+# ---------------------------------------------------------------------------
+
+# The device store at COCO train2017's scale: 118,287 images and 591,753
+# captions (5 an image; 318 images hold a sixth or a seventh), seeded unit
+# vectors of 512, float32 on the card (about 1.45 GB).
+COCO_IMAGES, COCO_CAPTIONS, COCO_EXTRA = 118_287, 591_753, {6: 270, 7: 24}
+RAT_TOP = dict(top_k=10, top_i=4)  # config.yml's retrieval block
+RAT_STEPS = 6  # timed train steps a configuration, after one warm-up step
+# The fused retrieval's image ids against a float64 reference: equal, except
+# where two of the reference's similarities within 1e-6 of each other sit
+# on either side of a rank (the float32 product cannot order them).
+RAT_GAP = 1e-6
+# The host stores (flat and HNSW at M 32, ef_construction 200, ef_search
+# 64): 8,192 images around RAT_CENTRES cluster centres, as real CLIP
+# embeddings lie (uniform random 512-d vectors are HNSW's worst case), and
+# HOST_CAPTIONS caption vector an image near it (so top_k 10 over 4 images
+# gives 4 rows and 6 zero rows).  HNSW's single-threaded build of both
+# indices (≈ 90 s at 2 captions an image on the card's host) runs in a
+# thread beside the other parts.
+HOST_IMAGES, HOST_CAPTIONS, RAT_CENTRES = 8192, 1, 300
+HNSW_RECALL_MIN = 0.95  # tests/test_hnsw_store.py's recall bound
+HOST_STEPS = 6  # train steps in a traced window of the prefetched loop
+# Caption extraction: the CLIP text tower at full size (ViT-B/32's: 49,408
+# tokens, 12 layers of 512, 8 heads, 77 positions) over EXTRACT_CAPTIONS
+# captions of 1,024 images in batches of EXTRACT_BATCH; features against
+# the plain path by the towers' bounds.
+EXTRACT_CAPTIONS, EXTRACT_BATCH = 4096, 256
+RAT_RUN = Path(__file__).resolve().parent / "chip_rat"  # removed at the end
+
+
+def unit_rows(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x, dim=1, keepdim=True)
+
+
+def coco_store():
+    """The COCO-scale DeviceVectorStore, made on the card from a seed."""
+    from gpt2_image_captioning_tpu_torch.retrieval.exact import DeviceVectorStore
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    images = unit_rows(torch.randn(COCO_IMAGES, 512, generator=g, device="cuda"))
+    captions = unit_rows(torch.randn(COCO_CAPTIONS, 512, generator=g, device="cuda"))
+    counts = np.full(COCO_IMAGES, 5)
+    picked = np.random.default_rng(15).choice(COCO_IMAGES, sum(COCO_EXTRA.values()),
+                                              replace=False)
+    counts[picked[:COCO_EXTRA[6]]], counts[picked[COCO_EXTRA[6]:]] = 6, 7
+    check(int(counts.sum()) == COCO_CAPTIONS, f"{counts.sum()} captions")
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(counts.max())
+    table = np.where(slot[None] < counts[:, None], starts[:, None] + slot[None], -1)
+    names = [f"COCO_train2017_{i:012d}.jpg" for i in range(COCO_IMAGES)]
+    return DeviceVectorStore(names, images, captions, np.arange(COCO_CAPTIONS), table,
+                             device="cuda")
+
+
+def retrieval_reference(queries: torch.Tensor, images: torch.Tensor, got_idx: np.ndarray,
+                        top_i: int) -> dict:
+    """The ranked image ids against numpy in float64 (self-matches above
+    0.9999 dropped): rows equal, or equal up to RAT_GAP."""
+    q64, im64 = queries.double().cpu().numpy(), images.double().cpu().numpy()
+    ref = q64 @ im64.T
+    ref[ref > 0.9999] = -np.inf
+    want = np.argsort(-ref, axis=1, kind="stable")[:, :top_i]
+    equal, near = 0, 0
+    for r, (g_, w_) in enumerate(zip(got_idx, want)):
+        if np.array_equal(g_, w_):
+            equal += 1
+            continue
+        gap = float(np.abs(ref[r, g_] - ref[r, w_]).max())
+        check(gap < RAT_GAP, f"retrieval row {r}: ids {g_} against the reference's {w_} "
+                             f"(similarities {gap} apart)")
+        near += 1
+    return {"rows": len(want), "equal": equal, "equal_up_to_gap": near, "gap": RAT_GAP}
+
+
+def caption_rows_walked(store, img_idx: np.ndarray, top_k: int) -> torch.Tensor:
+    """The caption rows of ranked images gathered by walking the table on the
+    host, each image's captions in order, up to top_k, zeros after."""
+    table = store.caption_table.cpu().numpy()
+    out = torch.zeros(len(img_idx), top_k, store.caption_embeddings.shape[1], device="cuda")
+    for r, row in enumerate(img_idx):
+        caps = [c for i in row for c in table[i] if c >= 0][:top_k]
+        out[r, : len(caps)] = store.caption_embeddings[torch.tensor(caps, device="cuda")]
+    return out
+
+
+def rat_model_params(cfg, rcfg, seed: int):
+    """(trainable, frozen) of a RAT model: GPT-2 124M frozen, the mapper and
+    the aggregator of ``rcfg`` trainable, from a seed."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models import rat as R
+
+    gen = torch.Generator().manual_seed(seed)
+    tr, fz = C.init_params(gen, cfg, device="cuda")
+    agg = R.init_aggregator(gen, rcfg, device="cuda")
+    if agg:
+        tr["aggregator"] = agg
+    return tr, fz
+
+
+def rat_loss_check(cfg, rcfg, tr, fz, batch, arrays) -> dict:
+    """The fused RAT loss and its gradients with the kernels against
+    ``use_kernels=False`` on the same weights and batch, by the train
+    phase's bounds."""
+    from gpt2_image_captioning_tpu_torch import BF16
+    from gpt2_image_captioning_tpu_torch.core.tree import tree_leaves
+    from gpt2_image_captioning_tpu_torch.models import rat as R
+
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    params = tree_leaves(tr)
+    out = []
+    for use in (None, False):
+        s_, c = R.loss_fn_fused(tr, fz, cfg, rcfg, batch, arrays, BF16, use_kernels=use)
+        loss = s_ / torch.clamp(c, min=1)
+        loss.backward()
+        out.append((float(loss.detach()), torch.cat([p.grad.float().flatten() for p in params])))
+        for p in params:
+            p.grad = None
+    (lk, gk), (lp, gp) = out
+    grad_err = float((gk - gp).norm() / gp.norm())
+    check(abs(lk - lp) <= TRAIN_TOL["loss_bf16"], f"RAT loss {lk} against plain {lp}")
+    check(grad_err <= TRAIN_TOL["grad_bf16"], f"RAT grads: relative error {grad_err}")
+    return {"loss_kernels": lk, "loss_plain": lp, "grad_rel_err": grad_err,
+            "tolerance": [TRAIN_TOL["loss_bf16"], TRAIN_TOL["grad_bf16"]]}
+
+
+def timed_steps(step, tr, opt, sched, fz, batches, extra=None) -> tuple[float, dict, list]:
+    """One warm-up step, then the batches timed with the launch counters set
+    to 0 just before and read just after: (seconds, launches, losses)."""
+    step(tr, opt, sched, fz, batches[0], extra)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = [step(tr, opt, sched, fz, b, extra) for b in batches[1:]]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return seconds, read_launches(), [float(l) for l, _ in out]
+
+
+def rat_device_store_part() -> tuple[dict, dict]:
+    """The fused RAT train step on the COCO-scale store: the retrieval's ids
+    and rows, its device ms against its bound, the loss against the plain
+    path, captions/s with the attention and the mean aggregators beside the
+    plain step's, peak memory, one traced step."""
+    from gpt2_image_captioning_tpu_torch import BF16
+    from gpt2_image_captioning_tpu_torch.models import rat as R
+    from gpt2_image_captioning_tpu_torch.retrieval import exact as E
+    from gpt2_image_captioning_tpu_torch.train import loop, optim
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    store = coco_store()
+    torch.cuda.synchronize()
+    store_s = time.perf_counter() - t0
+    store_gb = (torch.cuda.memory_allocated() - held) / 1e9
+    arrays = store.arrays()
+    top_i, top_k = RAT_TOP["top_i"], RAT_TOP["top_k"]
+    rng = np.random.default_rng(16)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    own = torch.from_numpy(rng.choice(COCO_IMAGES, B // 2, replace=False)).cuda()
+    queries = torch.cat([store.image_embeddings[own],
+                         unit_rows(torch.randn(B - B // 2, 512, generator=g, device="cuda"))])
+    sims, idx = E.top_images(E.similarities(queries, store.image_embeddings), top_i)
+    ids = retrieval_reference(queries, store.image_embeddings, idx.cpu().numpy(), top_i)
+    check(not (idx[: B // 2] == own[:, None]).any(), "a query retrieved its own image")
+    fused = store.retrieve_fused(queries, top_i, top_k)
+    walked = caption_rows_walked(store, idx.cpu().numpy(), top_k)
+    check(torch.equal(fused, walked), "fused caption rows differ from the table walk")
+    retrieve = lambda: E.fused_retrieve(queries, *arrays.values(), top_i=top_i, top_k=top_k)
+    nbytes = 4 * (COCO_IMAGES * 512 + B * 512 + B * top_k * 512)  # store, queries, rows out
+    bound_ms, bound_by = bound(nbytes, 2 * B * 512 * COCO_IMAGES, torch.float32)
+    retrieval = {"ms": time_ms(retrieve), "device_ms": device_ms(retrieve, None,
+                                                                  "rat_retrieval_trace.json"),
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 "multiply_adds": B * 512 * COCO_IMAGES, "bytes": nbytes,
+                 "float32_product": "torch.matmul, TF32 off"}
+
+    cfg = full_config()
+    ds = Captions(RAT_STEPS * B + 40, 50, cfg.eos_token_id, 512, seed=17)  # the last padded
+    ds.data["image_embedding"] = store.image_embeddings[
+        torch.from_numpy(rng.integers(0, COCO_IMAGES, len(ds))).cuda()].cpu().numpy()
+    from gpt2_image_captioning_tpu_torch.data.dataset import Batcher
+
+    batches = list(Batcher(ds, B, seed=0).epoch(0))
+    opt_cfg = optim.AdamWConfig(learning_rate=1e-4, num_training_steps=100)
+    per_step = cfg.mapping.num_layers + cfg.gpt2.n_layer
+    runs, counts, checks = {}, {}, {}
+    for kind in ("attention", "mean"):
+        rcfg = R.RATConfig(aggregation_type=kind, **RAT_TOP)
+        tr, fz = rat_model_params(cfg, rcfg, seed=18)
+        opt, sched = optim.make_optimizer(tr, opt_cfg)
+        checks[kind] = rat_loss_check(cfg, rcfg, tr, fz, batches[0], arrays)
+        step = loop.make_train_step(cfg, opt_cfg, BF16, device="cuda", rat_cfg=rcfg,
+                                    fused_retrieval=True)
+        torch.cuda.reset_peak_memory_stats()
+        seconds, launches, losses = timed_steps(step, tr, opt, sched, fz, batches, arrays)
+        steps = len(batches) - 1
+        check(launches["flash_attention"] == per_step * steps,
+              f"RAT {kind}: flash launches {launches['flash_attention']} != {per_step} x {steps}")
+        check(all(np.isfinite(losses)), f"RAT {kind}: losses {losses}")
+        runs[kind] = {"captions_per_s": B * steps / seconds, "ms_per_step": 1e3 * seconds / steps,
+                      "losses": losses, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": launches}
+        counts[f"rat_fused_{kind}"] = launches
+        if kind == "mean":
+            profiled = profile_train_step(lambda: step(tr, opt, sched, fz, batches[1], arrays),
+                                          "rat_train_trace.json", "rat_train_profile")
+        del tr, opt, sched
+    plain_tr, fz = rat_model_params(cfg, R.RATConfig(), seed=18)
+    opt, sched = optim.make_optimizer(plain_tr, opt_cfg)
+    plain_step = loop.make_train_step(cfg, opt_cfg, BF16, device="cuda")
+    seconds, _, _ = timed_steps(plain_step, plain_tr, opt, sched, fz, batches)
+    del plain_tr, opt, sched, store, arrays
+    torch.cuda.empty_cache()
+    record = {"phase": "rat_fused", "model": MODEL_NAME + ", aggregator trainable",
+              "store": {"images": COCO_IMAGES, "captions": COCO_CAPTIONS, "dim": 512,
+                        "device_gb": store_gb, "made_s": store_s},
+              "batch": B, "caption_length": 50, **RAT_TOP, "timed_steps": len(batches) - 1,
+              "retrieval_ids": ids, "caption_rows_bit_equal": True, "retrieval": retrieval,
+              "by_aggregation": runs, "loss_vs_plain": checks,
+              "plain_step_captions_per_s": B * (len(batches) - 1) / seconds,
+              "train_profile": profiled, "card": nvidia_smi()}
+    return record, counts
+
+
+def host_store_data():
+    """HOST_IMAGES clustered unit vectors with HOST_CAPTIONS caption vectors
+    each near its image: (names, images, grouped caption entries)."""
+    rng = np.random.default_rng(19)
+    centres = rng.normal(size=(RAT_CENTRES, 512))
+    x = centres[rng.integers(0, RAT_CENTRES, HOST_IMAGES)] + 0.3 * rng.normal(size=(HOST_IMAGES, 512))
+    images = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    names = [f"COCO_train2017_{i:012d}.jpg" for i in range(HOST_IMAGES)]
+    entries = []
+    for i, f in enumerate(names):
+        caps = images[i] + 0.5 * rng.normal(size=(HOST_CAPTIONS, 512)) / np.sqrt(512)
+        caps = (caps / np.linalg.norm(caps, axis=1, keepdims=True)).astype(np.float32)
+        entries.append({"filenames": f, "embeddings": [
+            {"caption_id": HOST_CAPTIONS * i + c, "embedding": torch.from_numpy(v)}
+            for c, v in enumerate(caps)]})
+    return names, images, entries
+
+
+def ranked(store, queries: np.ndarray, top_i: int) -> list[list[str]]:
+    """Each query's retrieved filenames, through the store's search API."""
+    from gpt2_image_captioning_tpu_torch.retrieval import exact as E
+
+    if isinstance(store, E.DeviceVectorStore):
+        rows = E.retrieve_images_by_vector_similarity(store, queries, top_i)
+    else:
+        rows = store.retrieve_images_by_vector_similarity(queries, top_i)
+    return [[f for f, _ in row] for row in rows]
+
+
+def rat_host_store_part(hnsw_build) -> tuple[dict, dict]:
+    """``train_rat`` with the flat and the HNSW store (one epoch each):
+    captions/s, the host retrieval's ms a batch, and a traced window of the
+    prefetched loop — its device idle share beside the fused step's; the
+    flat store's ids against the device store's, HNSW's recall."""
+    from gpt2_image_captioning_tpu_torch import BF16
+    from gpt2_image_captioning_tpu_torch.data.dataset import Batcher
+    from gpt2_image_captioning_tpu_torch.models import rat as R
+    from gpt2_image_captioning_tpu_torch.retrieval import exact as E
+    from gpt2_image_captioning_tpu_torch.retrieval import store as S
+    from gpt2_image_captioning_tpu_torch.train import loop, optim
+
+    names, images, entries = host_store_data()
+    t0 = time.perf_counter()
+    flat = S.create_store(names, images, entries, backend="flat")
+    flat_build_s = time.perf_counter() - t0
+    device = E.DeviceVectorStore.build(names, images, entries, device="cuda")
+    top_i, top_k = RAT_TOP["top_i"], RAT_TOP["top_k"]
+    rng = np.random.default_rng(20)
+    queries = images[rng.choice(HOST_IMAGES, 512, replace=False)]
+    want = ranked(device, queries, top_i)
+    got = ranked(flat, queries, top_i)
+    ref = queries.astype(np.float64) @ images.T.astype(np.float64)
+    index = {f: i for i, f in enumerate(names)}
+    flat_near = 0
+    for r, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            gap = float(np.abs(ref[r, [index[f] for f in a]] - ref[r, [index[f] for f in b]]).max())
+            check(gap < RAT_GAP, f"flat store row {r}: {a} against the device store's {b}")
+            flat_near += 1
+    hnsw, hnsw_build_s = hnsw_build.result()
+    recall = float(np.mean([len(set(a) & set(b)) / top_i
+                            for a, b in zip(ranked(hnsw, queries, top_i), got)]))
+    check(recall >= HNSW_RECALL_MIN, f"HNSW recall@{top_i} {recall} < {HNSW_RECALL_MIN}")
+
+    cfg = full_config()
+    rcfg = R.RATConfig(aggregation_type="mean", **RAT_TOP)
+    ds = Captions(10 * B, 50, cfg.eos_token_id, 512, seed=21)
+    ds.data["image_embedding"] = images[rng.integers(0, HOST_IMAGES, len(ds))]
+    batches = list(Batcher(ds, B, seed=0).epoch(0))
+    opt_cfg = optim.AdamWConfig(learning_rate=1e-4, num_training_steps=100)
+    per_step = cfg.mapping.num_layers + cfg.gpt2.n_layer
+    stores, record, counts = {"flat": flat, "hnsw": hnsw, "device": device}, {}, {}
+    # one model trains through both host stores in turn, and one set of trees
+    # runs the three traced windows (each with a fresh optimizer)
+    model = R.RetrievalAugmentedTransformer(rcfg, cfg, generator=torch.Generator().manual_seed(22),
+                                            policy=BF16, device="cuda")
+    tr, fz = rat_model_params(cfg, rcfg, seed=23)
+    for name, store in stores.items():
+        def retrieve(batch, store=store):
+            return dict(batch, retrieved_embeddings=np.asarray(
+                R.retrieve(rcfg, store, batch["image_embedding"]), np.float32))
+
+        rec = {}
+        if name != "device":
+            t0 = time.perf_counter()
+            for b in batches[:5]:
+                retrieve(b)
+            rec["retrieval_ms_per_batch"] = 1e3 * (time.perf_counter() - t0) / 5
+            out = RAT_RUN / f"train_rat_{name}"
+            reset_launches()
+            t0 = time.perf_counter()
+            hist = loop.train_rat(ds, model, store, batch_size=B, num_epochs=1, device="cuda",
+                                  outputs_dir=str(out), log_dir=str(out / "logs"),
+                                  save_optimizer_state=False, **RAT_TOP)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = read_launches()
+            steps = len(batches)
+            check(launches["flash_attention"] == per_step * steps,
+                  f"train_rat {name}: flash launches {launches['flash_attention']}")
+            check(np.isfinite(hist["epoch_losses"][0]), f"train_rat {name}: {hist}")
+            rec.update({"train_rat_epoch_s": seconds, "captions_per_s": B * steps / seconds,
+                        "epoch_loss": hist["epoch_losses"][0], "launches": launches})
+            counts[f"train_rat_{name}"] = launches
+        # the loop of train(): retrieval prefetched a batch ahead (host
+        # stores) or fused in the step (device), HOST_STEPS steps traced
+        opt, sched = optim.make_optimizer(tr, opt_cfg)
+        fused = name == "device"
+        step = loop.make_train_step(cfg, opt_cfg, BF16, device="cuda", rat_cfg=rcfg,
+                                    fused_retrieval=fused)
+        extra = device.arrays() if fused else None
+        window = batches[1: 1 + HOST_STEPS]
+        step(tr, opt, sched, fz, window[0] if fused else retrieve(window[0]), extra)
+
+        def run_window():
+            feed = iter(window) if fused else loop._prefetched(iter(window), retrieve)
+            for b in feed:
+                step(tr, opt, sched, fz, b, extra)
+
+        wall, events, dropped = traced(run_window, f"rat_{name}_window_trace.json")
+        lo = min(e["ts"] for e in events)
+        hi = max(e["ts"] + e["dur"] for e in events)
+        rec["window"] = {"steps": len(window), "wall_s": wall, "ms_per_step": 1e3 * wall / len(window),
+                         "device_busy_s": busy_us(events, lo, hi) * 1e-6,
+                         "idle_share": 1.0 - busy_us(events, lo, hi) / (hi - lo),
+                         "dropped_device_records": dropped}
+        record[name] = rec
+        del opt, sched
+    del model, tr, fz
+    for name in ("flat", "hnsw"):
+        record[name]["prefetch_hides_retrieval"] = bool(
+            record[name]["window"]["idle_share"] <= record["device"]["window"]["idle_share"] + 0.05)
+    torch.cuda.empty_cache()
+    return {"phase": "rat_host_stores", "images": HOST_IMAGES, "captions_per_image": HOST_CAPTIONS,
+            "centres": RAT_CENTRES, **RAT_TOP, "batch": B,
+            "flat_ids_vs_device": {"rows": len(got), "equal_up_to_gap": flat_near, "gap": RAT_GAP},
+            "hnsw": {"M": 32, "ef_construction": 200, "ef_search": 64,
+                     f"recall_at_{top_i}": recall, "bound": HNSW_RECALL_MIN,
+                     "build_s_in_thread": hnsw_build_s},
+            "flat_build_s": flat_build_s, "by_store": record, "card": nvidia_smi()}, counts
+
+
+def clip_text_tokenizer():
+    """A 49,408-token CLIP vocabulary built as ``tests/test_clip_tokenizer.py``
+    builds its assets (the published files are not in the repository): the
+    256 byte symbols, each also with ``</w>``, 48,894 word-final merges of
+    two symbols, BOS and EOS last (49,406 and 49,407, ViT-B/32's ids)."""
+    from gpt2_image_captioning_tpu_torch.data.tokenizer import CLIPBPETokenizer, bytes_to_unicode
+
+    symbols = [bytes_to_unicode()[i] for i in range(256)]
+    merges = [(a, b + "</w>") for a in symbols for b in symbols][:49408 - 2 - 512]
+    vocab = symbols + [s + "</w>" for s in symbols] + ["".join(m) for m in merges]
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    tok = CLIPBPETokenizer({t: i for i, t in enumerate(vocab)}, merges)
+    check(tok.eos_token_id == 49407 and tok.bos_token_id == 49406, "CLIP ids")
+    return tok
+
+
+def rat_extraction_part() -> tuple[dict, dict]:
+    """``extract_caption_embeddings`` with the CLIP text tower at full size,
+    bf16, b 256: captions/s, 12 flash launches a batch, the artifact; a
+    batch's features against the plain path."""
+    from gpt2_image_captioning_tpu_torch import BF16
+    from gpt2_image_captioning_tpu_torch.embeddings.word_embeddings import (
+        extract_caption_embeddings,
+    )
+    from gpt2_image_captioning_tpu_torch.models import clip as CL
+
+    cfg = CL.CLIPTextConfig()
+    tok = clip_text_tokenizer()
+    params = CL.init_text(torch.Generator().manual_seed(24), cfg, device="cuda")
+    rng = np.random.default_rng(25)
+    n_images = EXTRACT_CAPTIONS // 4
+    anns = [{"image_id": i % n_images, "id": i,
+             "caption": " ".join(rng.choice(CAPTION_WORDS, size=int(rng.integers(5, 13))))}
+            for i in range(EXTRACT_CAPTIONS)]
+    ann_path = RAT_RUN / "captions_extract.json"
+    ann_path.write_text(json.dumps({"images": [{"id": i} for i in range(n_images)],
+                                    "annotations": anns}))
+    ids = torch.from_numpy(tok([a["caption"] for a in anns[:EXTRACT_BATCH]])["input_ids"]).cuda()
+    got = CL.encode_text(params, cfg, ids, policy=BF16)
+    plain = CL.encode_text(params, cfg, ids, policy=BF16, use_kernels=False)
+    diff = float((got - plain).abs().max())
+    cos = float((got * plain).sum(-1).min())
+    check(diff <= TOWER_TOL and cos >= TOWER_COS,
+          f"text features: max diff {diff} (<= {TOWER_TOL}), min cosine {cos}")
+    encode_ms = time_ms(lambda: CL.encode_text(params, cfg, ids, policy=BF16), iters=10)
+    out = RAT_RUN / "train_clip_caption_embeddings.pt"
+    reset_launches()
+    t0 = time.perf_counter()
+    result = extract_caption_embeddings(str(ann_path), str(out), params, cfg, tok,
+                                        batch_size=EXTRACT_BATCH)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    batches = -(-EXTRACT_CAPTIONS // EXTRACT_BATCH)
+    check(launches["flash_attention"] == cfg.num_hidden_layers * batches,
+          f"extraction flash launches {launches['flash_attention']}")
+    read = torch.load(out, weights_only=False)
+    vecs = torch.stack([e["embedding"] for item in read for e in item["embeddings"]])
+    check(len(read) == n_images and len(vecs) == EXTRACT_CAPTIONS and len(result) == n_images,
+          f"artifact: {len(read)} images, {len(vecs)} captions")
+    check(bool(((vecs.norm(dim=1) - 1).abs() < 1e-3).all()), "caption features not unit norm")
+    del params
+    return {"phase": "rat_extraction", "tower": "CLIP ViT-B/32 text (49,408 x 512, 12 layers, "
+            "8 heads, 77 positions)", "dtype": "bf16", "captions": EXTRACT_CAPTIONS,
+            "batch": EXTRACT_BATCH, "seconds": seconds, "captions_per_s": EXTRACT_CAPTIONS / seconds,
+            "encode_ms_per_batch": encode_ms,
+            "encode_captions_per_s": EXTRACT_BATCH / encode_ms * 1e3,
+            "features_vs_plain_max_diff": diff, "features_vs_plain_min_cos": cos,
+            "tolerance": [TOWER_TOL, TOWER_COS], "launches": launches,
+            "card": nvidia_smi()}, {"rat_extraction": launches}
+
+
+def rat_sweep_part() -> tuple[list[dict], dict]:
+    """``sweep.run_one`` for ids 18 and 19 of automation_config.yml (RAT,
+    top_k 20, top_i 6, mean; 19 with GPT-2 unfrozen) on the pipeline phase's
+    data with the train split's caption embeddings: the artifacts, GPT-2
+    moved only when unfrozen, the test predictions decoded again through
+    the rebuilt store from ``select_test_checkpoint``'s file equal, and RAT
+    eval img/s in greedy and beam-4."""
+    import os
+
+    from gpt2_image_captioning_tpu_torch import sweep
+    from gpt2_image_captioning_tpu_torch import training_pipeline as tp
+    from gpt2_image_captioning_tpu_torch.core.config import load_config
+    from gpt2_image_captioning_tpu_torch.data.dataset import CocoDataset
+    from gpt2_image_captioning_tpu_torch.data.embeddings_io import load_embeddings
+    from gpt2_image_captioning_tpu_torch.evaluation.generation import (
+        generate_predictions,
+        generate_test_caption_predictions,
+    )
+    from gpt2_image_captioning_tpu_torch.retrieval import rat_pipeline as RP
+
+    here = Path(__file__).resolve().parent
+    root = RAT_RUN / "pipeline"
+    tok, tok_dir = write_pipeline_data(root)
+    cfg = load_config(str(pipeline_config(root)))
+    names, images = load_embeddings(tp.embeddings_file(cfg, "train"))
+    rng = np.random.default_rng(26)
+    entries = []
+    for i, (f, v) in enumerate(zip(names, images)):
+        caps = v + 0.05 * rng.normal(size=(int(rng.integers(2, 6)), 512))
+        entries.append({"filenames": f, "embeddings": [
+            {"caption_id": 10 * i + c, "embedding": torch.from_numpy(
+                (u / np.linalg.norm(u)).astype(np.float32))} for c, u in enumerate(caps)]})
+    torch.save(entries, RP.caption_embeddings_file(cfg))
+    plans = sweep.plan_runs(cfg, load_config(str(here / "automation_config.yml")), ["18", "19"])
+    built, build = [], tp.build_model
+
+    def keep(*a, **k):  # the models the pipeline trains
+        m = build(*a, **k)
+        built.append(m)
+        return m
+
+    old_env, old_cwd = os.environ.get("GPT2_TOKENIZER_DIR"), os.getcwd()
+    os.environ["GPT2_TOKENIZER_DIR"] = str(tok_dir)
+    os.chdir(root)
+    tp.build_model = keep
+    records, counts = [], {}
+    try:
+        for run_id, run_c, desc in plans:
+            check(run_c.retrieval_augmentation and run_c.retrieval.top_k == 20
+                  and run_c.retrieval.top_i == 6, f"id {run_id}: {run_c.retrieval}")
+            t0 = time.perf_counter()
+            reset_launches()
+            sweep.run_one(run_c, run_id, str(root / "sweep"), desc, device="cuda")
+            torch.cuda.synchronize()
+            seconds = {"run_one": time.perf_counter() - t0}
+            counts[f"rat_sweep_{run_id}"] = read_launches()
+            pipeline_launches_used(counts[f"rat_sweep_{run_id}"], f"RAT sweep {run_id}")
+            d = root / "sweep" / f"checkpoint_{run_id}"
+            want = [f"config_{run_id}.yml", f"training_info_{run_id}.txt",
+                    f"test_predictions_{run_id}.json", f"test_metrics_{run_id}.json",
+                    "model_epoch_1.npz", "optimizer_epoch_1.npz", "best_model_epoch_1.npz",
+                    "eval_results/epoch_1_val_predictions_rat.json",
+                    "eval_results/epoch_1_val_metrics_rat.json",
+                    "eval_results/val_metrics_summary.json"]
+            missing = [f for f in want if not (d / f).exists()]
+            check(not missing, f"RAT sweep {run_id}: missing {missing}")
+            metrics = json.loads((d / f"test_metrics_{run_id}.json").read_text())
+            trained = built[0]
+            fresh = build(run_c, tok, device="cuda")
+            change = gpt_rel_change(trained, fresh)
+            unfrozen = not run_c.image_captioning.freeze_gpt_weights
+            check((change > 0) == unfrozen, f"RAT sweep {run_id}: GPT-2 moved by {change}")
+            t0 = time.perf_counter()
+            fresh = RP.wrap_model(run_c, fresh)
+            best = sweep.select_test_checkpoint(os.listdir(d))
+            fresh.load_saved_parameters(str(d / best))
+            store = RP.build_store(run_c, device="cuda")
+            test_ds = CocoDataset(tp.embeddings_file(run_c, "test"),
+                                  str(root / "coco" / "annotations" / "captions_val2014.json"),
+                                  tokenizer=tok, max_length=run_c.max_caption_length)
+            kw = dict(batch_size=run_c.validation.batch_size, max_length=run_c.max_caption_length,
+                      db_store=store, top_k=run_c.retrieval.top_k, top_i=run_c.retrieval.top_i,
+                      device="cuda")
+            again = generate_test_caption_predictions(
+                fresh, test_ds, output_path=str(root / "again.json"),
+                temperature=run_c.validation.temperature, top_p=run_c.validation.top_p,
+                decode_precision=run_c.validation.get("decode_precision"), **kw)
+            first = json.loads((d / f"test_predictions_{run_id}.json").read_text())
+            check(again == first, f"RAT sweep {run_id}: the test predictions of {best} "
+                                  "decoded again through the rebuilt store differ")
+            seconds["redecode"] = time.perf_counter() - t0
+            eval_ips = {}
+            modes = (("greedy", dict(temperature=0.0, decode_precision="bf16")),
+                     ("beam", dict(decode="beam", beam_size=BEAM_K, decode_precision="bf16")))
+            for mode, mkw in modes if run_id == plans[0][0] else ():  # timed once
+                generate_predictions(fresh, test_ds, verbose=False, **mkw, **kw)  # warm-up
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                preds = generate_predictions(fresh, test_ds, verbose=False, **mkw, **kw)
+                torch.cuda.synchronize()
+                eval_ips[mode] = len(preds) / (time.perf_counter() - t0)
+                counts[f"rat_eval_{mode}_{run_id}"] = read_launches()
+                check(len(preds) == PIPELINE_SPLITS["test"][1], f"RAT eval {mode}: {len(preds)}")
+            info = dict(line.split(": ", 1) for line in
+                        (d / f"training_info_{run_id}.txt").read_text().splitlines())
+            records.append({"phase": f"rat_sweep_{run_id}", "description": desc,
+                            "checkpoint": best, "test_metrics": metrics, "training_info": info,
+                            "gpt2_rel_change": change, "seconds_by_part": seconds,
+                            "test_predictions_equal_on_redecode": True,
+                            "rat_eval_img_per_s": eval_ips, "eval_precision": "bf16",
+                            "launches": counts[f"rat_sweep_{run_id}"]})
+            del trained, fresh, store
+            built.clear()
+            torch.cuda.empty_cache()
+    finally:
+        tp.build_model = build
+        os.chdir(old_cwd)
+        if old_env is None:
+            os.environ.pop("GPT2_TOKENIZER_DIR", None)
+        else:
+            os.environ["GPT2_TOKENIZER_DIR"] = old_env
+    return records, counts
+
+
+def rat_tiny_exact() -> dict:
+    """Tiny float32 RAT greedy tokens through a device store (attention
+    aggregator): the kernels' tokens equal the plain path's."""
+    from gpt2_image_captioning_tpu_torch.models import rat as R
+    from gpt2_image_captioning_tpu_torch.retrieval.exact import DeviceVectorStore
+
+    cfg = tiny_config()
+    rng = np.random.default_rng(27)
+    images = rng.normal(size=(64, 16)).astype(np.float32)
+    images /= np.linalg.norm(images, axis=1, keepdims=True)
+    entries = [{"filenames": f"{i}.jpg", "embeddings": [
+        {"caption_id": 4 * i + c, "embedding": torch.from_numpy(rng.normal(size=16)
+                                                                 .astype(np.float32))}
+        for c in range(i % 4)]} for i in range(64)]
+    store = DeviceVectorStore.build([f"{i}.jpg" for i in range(64)], images, entries,
+                                    device="cuda")
+    model = R.RetrievalAugmentedTransformer(
+        R.RATConfig(embed_dim=16, aggregation_type="attention", top_k=5, top_i=3), cfg,
+        generator=torch.Generator().manual_seed(28), device="cuda")
+    emb = images[:12] * 0.7 + rng.normal(size=(12, 16)).astype(np.float32) * 0.3
+    reset_launches()
+    got = model.generate(emb, db_store=store, max_length=12, temperature=0.0)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = model.generate(emb, db_store=store, max_length=12, temperature=0.0, use_kernels=False)
+    check(torch.equal(got, want), f"tiny f32 RAT tokens differ:\n{got.cpu()}\n{want.cpu()}")
+    plain = model.generate(emb, max_length=12, temperature=0.0)
+    check(launches["prefill"] == 1 and launches["logits_argmax"] > 0, f"launches {launches}")
+    return {"batch": 12, "max_length": 12, "tokens_equal": True,
+            "rows_changed_by_retrieval": int((plain != got).any(dim=1).sum()),
+            "launches": launches}
+
+
+def rat_phase() -> tuple[list[dict], dict]:
+    """Retrieval-augmented training on the card (RAT_* above): the fused step
+    on the COCO-scale device store, ``train_rat`` with the host stores,
+    caption extraction with the CLIP text tower, a RAT sweep of ids 18 and
+    19, tiny float32 RAT tokens exact."""
+    import concurrent.futures
+
+    from gpt2_image_captioning_tpu_torch.retrieval import store as S
+
+    shutil.rmtree(RAT_RUN, ignore_errors=True)
+    RAT_RUN.mkdir()
+    seconds = {}
+
+    def build_hnsw():  # the ctypes calls leave the interpreter lock to the card's work
+        t0 = time.perf_counter()
+        store = S.create_store(*host_store_data(), backend="hnsw")
+        return store, time.perf_counter() - t0
+
+    records, counts = [], {}
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        hnsw_build = pool.submit(build_hnsw)
+        for name, part in (("fused", rat_device_store_part), ("extraction", rat_extraction_part),
+                           ("sweep", rat_sweep_part),
+                           ("host_stores", lambda: rat_host_store_part(hnsw_build))):
+            t0 = time.perf_counter()
+            got, c = part()
+            seconds[name] = time.perf_counter() - t0
+            records += got if isinstance(got, list) else [got]
+            counts.update(c)
+    tiny = rat_tiny_exact()
+    counts["rat_tiny_f32"] = tiny.pop("launches")
+    shutil.rmtree(RAT_RUN, ignore_errors=True)
+    records.insert(0, {"phase": "rat", "seconds_by_part": seconds, "tiny_f32_exact": tiny,
+                       "card": nvidia_smi()})
+    return records, counts
+
+
 # ``--only <phase>``: one of the slice's phases alone, its records and launches
-PHASES = {"http": http_phase, "pipeline": pipeline_phase, "sizes": sizes_phase}
+PHASES = {"http": http_phase, "pipeline": pipeline_phase, "sizes": sizes_phase, "rat": rat_phase}
 
 
 # ``--only <part>``: (compute dtypes, checks) of one part, its records alone

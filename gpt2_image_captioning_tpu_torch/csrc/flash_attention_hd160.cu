@@ -1,0 +1,6 @@
+// flash_attention.cuh's kernel at head dim 160, in a translation unit of its
+// own so that nvcc builds it beside the others.
+#include "flash_attention.cuh"
+
+GIC_FLASH_INSTANTIATE(float, 160)
+GIC_FLASH_INSTANTIATE(__nv_bfloat16, 160)

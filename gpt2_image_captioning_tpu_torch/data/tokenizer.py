@@ -1,7 +1,8 @@
-"""GPT-2 byte-level BPE tokenizer — a plain-Python copy of
+"""GPT-2 and CLIP byte-level BPE tokenizers — a plain-Python copy of
 ``gpt2_image_captioning_tpu/data/tokenizer.py`` (``bytes_to_unicode``,
-``GPT2BPETokenizer``, ``load_gpt2_tokenizer``), so the port never imports
-the JAX package.
+``GPT2BPETokenizer``, ``load_gpt2_tokenizer``, and for the caption
+embeddings of retrieval ``CLIPBPETokenizer``, ``_clip_whitespace_clean``,
+``load_clip_tokenizer``), so the port never imports the JAX package.
 
 It exposes the slice of the HF API the captioning stack uses:
 ``tokenizer(text, max_length=..., padding="max_length", truncation=True)``,
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 from functools import lru_cache
 from typing import Iterable, Sequence
 
@@ -265,4 +267,160 @@ def load_gpt2_tokenizer(assets_dir: str | None = None) -> GPT2BPETokenizer:
         "GPT-2 tokenizer assets (vocab.json + merges.txt) not found; looked for "
         + ", ".join(os.path.join(c, "vocab.json") for c in looked)
         + ". Set GPT2_TOKENIZER_DIR or pass assets_dir."
+    )
+
+
+# ---------------------------------------------------------------------------
+# CLIP text tokenizer (caption embeddings for retrieval)
+# ---------------------------------------------------------------------------
+
+_CLIP_SPLIT_PATTERN = (
+    r"""<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d|[\p{L}]+|[\p{N}]|"""
+    r"""[^\s\p{L}\p{N}]+"""
+)
+
+
+def _clip_whitespace_clean(text: str) -> str:
+    return re.sub(r"\s+", " ", text).strip()
+
+
+class CLIPBPETokenizer:
+    """CLIP's byte-level BPE variant: ``</w>`` word-end merges, lowercasing,
+    whitespace cleanup, BOS/EOS wrapping, rows padded with EOS to
+    ``context_length`` (77) — the tokenizer of the caption-text embeddings.
+    Loads the published ``vocab.json`` + ``merges.txt`` of
+    ``openai/clip-vit-base-patch32``.  The merge loop runs in the native
+    engine where ``libbpe.so`` is built (``merge_loop`` says which ran), as
+    :class:`GPT2BPETokenizer`'s does."""
+
+    def __init__(self, vocab: dict[str, int], merges, context_length: int = 77):
+        self.encoder = dict(vocab)
+        self.decoder = {v: k for k, v in self.encoder.items()}
+        self.bpe_ranks = {tuple(m): i for i, m in enumerate(merges)}
+        self.byte_encoder = bytes_to_unicode()
+        self.byte_decoder = {v: k for k, v in self.byte_encoder.items()}
+        self._pat = None  # compiled on the first encode (needs `regex`)
+        self.context_length = context_length
+        self._cache: dict[str, str] = {}
+        self._native = None
+        self.merge_loop: str | None = None
+        self.bos_token = "<|startoftext|>"
+        self.eos_token = "<|endoftext|>"
+        for tok in (self.bos_token, self.eos_token):
+            if tok not in self.encoder:
+                self.encoder[tok] = len(self.encoder)
+                self.decoder[self.encoder[tok]] = tok
+        self.bos_token_id = self.encoder[self.bos_token]
+        self.eos_token_id = self.encoder[self.eos_token]
+        self.pad_token_id = self.eos_token_id
+
+    from_files = classmethod(GPT2BPETokenizer.from_files.__func__)
+    from_pretrained = classmethod(GPT2BPETokenizer.from_pretrained.__func__)
+
+    @property
+    def pat(self):
+        if self._pat is None:
+            import regex
+
+            self._pat = regex.compile(_CLIP_SPLIT_PATTERN, regex.IGNORECASE)
+        return self._pat
+
+    def _bpe(self, token: str) -> str:
+        cached = self._cache.get(token)
+        if cached is not None:
+            return cached
+        # CLIP: the word's last character carries the '</w>' suffix
+        word = tuple(token[:-1]) + (token[-1] + "</w>",)
+        pairs = _get_pairs(word)
+        if not pairs:
+            return token + "</w>"
+        while True:
+            bigram = min(pairs, key=lambda p: self.bpe_ranks.get(p, float("inf")))
+            if bigram not in self.bpe_ranks:
+                break
+            first, second = bigram
+            new_word: list[str] = []
+            i = 0
+            while i < len(word):
+                try:
+                    j = word.index(first, i)
+                except ValueError:
+                    new_word.extend(word[i:])
+                    break
+                new_word.extend(word[i:j])
+                i = j
+                if i < len(word) - 1 and word[i + 1] == second:
+                    new_word.append(first + second)
+                    i += 2
+                else:
+                    new_word.append(word[i])
+                    i += 1
+            word = tuple(new_word)
+            if len(word) == 1:
+                break
+            pairs = _get_pairs(word)
+        out = " ".join(word)
+        self._cache[token] = out
+        return out
+
+    def _load_native(self):
+        if os.environ.get("GIC_DISABLE_NATIVE_BPE"):
+            return None
+        from gpt2_image_captioning_tpu_torch.data import native_bpe
+
+        if not native_bpe.available():
+            return None
+        return native_bpe.NativeBPE(self.encoder, self.bpe_ranks, end_suffix="</w>")
+
+    def encode(self, text: str, add_special_tokens: bool = True) -> list[int]:
+        if self.merge_loop is None:
+            self._native = self._load_native()
+            self.merge_loop = "python" if self._native is None else "native"
+        text = _clip_whitespace_clean(text).lower()
+        words = [
+            "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
+            for tok in self.pat.findall(text)
+        ]
+        if self._native is not None:
+            ids = self._native.encode_words(words)
+        else:
+            ids = []
+            for mapped in words:
+                ids.extend(self.encoder[t] for t in self._bpe(mapped).split(" "))
+        if add_special_tokens:
+            ids = [self.bos_token_id] + ids + [self.eos_token_id]
+        return ids
+
+    def __call__(self, text: str | Sequence[str], padding: str = "max_length",
+                 truncation: bool = True) -> dict[str, np.ndarray]:
+        """Rows of ``context_length`` ids (EOS-padded; truncation keeps EOS
+        last) and their masks, int32."""
+        texts = [text] if isinstance(text, str) else list(text)
+        L = self.context_length
+        all_ids, masks = [], []
+        for t in texts:
+            ids = self.encode(t)
+            if truncation and len(ids) > L:
+                ids = ids[: L - 1] + [self.eos_token_id]  # keep EOS terminal
+            masks.append([1] * len(ids) + [0] * (L - len(ids)))
+            all_ids.append(ids + [self.pad_token_id] * (L - len(ids)))
+        return {
+            "input_ids": np.asarray(all_ids, dtype=np.int32),
+            "attention_mask": np.asarray(masks, dtype=np.int32),
+        }
+
+
+def load_clip_tokenizer(assets_dir: str | None = None) -> CLIPBPETokenizer:
+    """The CLIP tokenizer from ``vocab.json`` + ``merges.txt`` of
+    openai/clip-vit-base-patch32 under ``assets_dir``, ``$CLIP_TOKENIZER_DIR``
+    or ``./assets/clip``; raises, naming the places it looked, when none has
+    them (the assets are not in the repository)."""
+    looked = [c for c in (assets_dir, os.environ.get("CLIP_TOKENIZER_DIR"), "assets/clip") if c]
+    for cand in looked:
+        if os.path.exists(os.path.join(cand, "vocab.json")):
+            return CLIPBPETokenizer.from_pretrained(cand)
+    raise FileNotFoundError(
+        "CLIP tokenizer assets (vocab.json + merges.txt) not found; looked for "
+        + ", ".join(os.path.join(c, "vocab.json") for c in looked)
+        + ". Set CLIP_TOKENIZER_DIR or pass assets_dir."
     )

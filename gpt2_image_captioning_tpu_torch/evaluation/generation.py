@@ -22,9 +22,14 @@ Where the port differs from the JAX package:
 - ``rng=`` becomes ``seed=``: sampled batch i draws from a ``torch.Generator``
   on the model's device seeded from (seed, i) — the counterpart of
   ``jax.random.fold_in(rng, i)``; the draws differ from ``jax.random``'s.
-- Retrieval augmentation (``db_store``, ``top_k``, ``top_i``) and a ``mesh``
-  are not ported yet and raise ``NotImplementedError`` (ROADMAP.md, queue 1:
-  RAT; parallelism).
+- A ``mesh`` is not ported yet and raises ``NotImplementedError``
+  (ROADMAP.md, queue 1: parallelism).
+
+With ``db_store`` (a RAT model, :class:`models.rat.RetrievalAugmentedTransformer`)
+each batch's embeddings are retrieval-augmented first — the store's
+retrieval and the aggregator at the model's own precision and trees, at
+``top_k`` / ``top_i`` (default the model's ``rcfg``) — and then decoded at
+``decode_precision``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,13 +51,9 @@ from gpt2_image_captioning_tpu_torch.evaluation.evaluate import (
 from gpt2_image_captioning_tpu_torch.models import captioner as C
 
 
-def refuse_unported(db_store=None, top_k=None, top_i=None, mesh=None, rat_cfg=None) -> None:
-    """Raise ``NotImplementedError`` for the options whose slices are still
-    to come: retrieval augmentation and device meshes."""
-    if any(x is not None for x in (db_store, top_k, top_i, rat_cfg)):
-        raise NotImplementedError(
-            "retrieval-augmented captioning (db_store, top_k, top_i, rat_cfg) is not ported "
-            "yet (ROADMAP.md, queue 1: RAT)")
+def refuse_unported(mesh=None) -> None:
+    """Raise ``NotImplementedError`` for a device mesh, whose slice is still
+    to come."""
     if mesh is not None:
         raise NotImplementedError("a device mesh is not ported yet (ROADMAP.md, queue 1: "
                                   "parallelism); the port runs on one device")
@@ -106,11 +107,16 @@ def generate_predictions(
     at ``temperature`` / ``top_p`` (module-level ``generate``); ``"beam"``:
     ``beam_generate`` with ``beam_size`` beams.  ``decode_precision``: None
     or "f32" (the model's own trees), "bf16" (its cached bfloat16 copy) or
-    "int8" (the W8A8 pack of that copy).  ``device`` must be where the model
-    lives: the card unless the caller asks for the CPU."""
-    refuse_unported(db_store, top_k, top_i, mesh)
+    "int8" (the W8A8 pack of that copy).  ``db_store``: a store to augment
+    each batch's embeddings from (the model must be a RAT model), at
+    ``top_k`` / ``top_i``.  ``device`` must be where the model lives: the
+    card unless the caller asks for the CPU."""
+    refuse_unported(mesh)
     if decode not in ("sample", "beam"):
         raise ValueError(f"decode must be 'sample' or 'beam', got {decode!r}")
+    if db_store is not None and not hasattr(model, "augment"):
+        raise TypeError("db_store needs a retrieval-augmented model "
+                        "(models.rat.RetrievalAugmentedTransformer)")
     device = check_model_device(model, device)
     tokenizer = dataset.tokenizer
     tr, fz, pol, packed, quant = model.decode_pack(decode_precision)
@@ -120,6 +126,8 @@ def generate_predictions(
 
     def dispatch(i, batch):
         emb = torch.as_tensor(batch["image_embedding"], dtype=torch.float32, device=device)
+        if db_store is not None:
+            emb = model.augment(emb, db_store, top_k, top_i)
         if decode == "beam":
             return C.beam_generate(tr, fz, model.cfg, emb, max_length=max_length,
                                    beam_size=beam_size, policy=pol, packed=packed,
@@ -226,7 +234,7 @@ def evaluate_epoch(
     """Per-epoch evaluation with the reference's artifacts
     (``epoch_{n}_{split}_predictions[_rat].json`` and ``..._metrics...``)
     under ``output_dir``."""
-    refuse_unported(db_store, top_k, top_i, mesh)
+    refuse_unported(mesh)
     check_model_device(model, device)
     print(f"\n{'=' * 60}\nEpoch {epoch} | {split_name.upper()} Evaluation\n{'=' * 60}")
     predictions, metrics = generate_and_evaluate(
@@ -240,6 +248,9 @@ def evaluate_epoch(
         decode=decode,
         beam_size=beam_size,
         seed=seed,
+        db_store=db_store,
+        top_k=top_k,
+        top_i=top_i,
         decode_precision=decode_precision,
         device=device,
     )

@@ -1,7 +1,7 @@
-"""CLIP ViT-B/32 vision tower — the counterpart of the vision half of
-``gpt2_image_captioning_tpu/models/clip.py`` (``get_image_features`` of HF's
-``CLIPModel`` plus the extractor's L2 normalisation), with the same
-parameter tree.
+"""CLIP ViT-B/32's two towers — the counterpart of
+``gpt2_image_captioning_tpu/models/clip.py``: ``get_image_features`` and
+``get_text_features`` of HF's ``CLIPModel`` plus the extractors' L2
+normalisation, with the same parameter trees.
 
 The patch convolution is a product over unfolded patches; then CLS and
 learned positions, pre-LN, N pre-norm layers (quick-GELU MLP), post-LN on
@@ -13,6 +13,12 @@ H, W), as the JAX function does; :func:`encode_image_u8` takes the host's
 uint8 (B, S, S, 3) pixels and embeds the patches with
 :func:`ops.patch_embed.patch_embed` (the patch-embed kernel on the card),
 in place of normalising, unfolding and multiplying in three steps.
+
+The text tower (:func:`encode_text`, the caption embeddings of retrieval):
+token and position embeddings, the same layers with causal attention (the
+flash kernel at T 77, hd 64 on the card), the final LN, the features at
+each row's first EOT (``argmax`` of ``ids == eos_token_id``, as HF pools),
+the text projection.
 """
 
 from __future__ import annotations
@@ -58,6 +64,27 @@ class CLIPVisionConfig:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 512
+    intermediate_size: int = 2048
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 8
+    max_position_embeddings: int = 77
+    projection_dim: int = 512
+    layer_norm_eps: float = 1e-5
+    eos_token_id: int = 49407  # openai/clip-vit-base-patch32's EOT id
+
+    @staticmethod
+    def tiny(vocab_size: int = 99) -> "CLIPTextConfig":
+        return CLIPTextConfig(
+            vocab_size=vocab_size, hidden_size=32, intermediate_size=64,
+            num_hidden_layers=2, num_attention_heads=4, max_position_embeddings=16,
+            projection_dim=16, eos_token_id=vocab_size - 1,
+        )
+
+
 def layer_params(stacked: dict, i: int) -> dict:
     """Layer ``i`` of a tree stacked on a leading layer dim."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in stacked.items()}
@@ -81,10 +108,10 @@ def _init_clip_layer(g: torch.Generator, d: int, inter: int) -> dict:
 
 
 def _clip_layer(lp: dict, x: torch.Tensor, n_head: int, eps: float, policy: Policy,
-                use_kernels: bool | None) -> torch.Tensor:
+                use_kernels: bool | None, causal: bool = False) -> torch.Tensor:
     h = nn.layer_norm(lp["ln1"], x, eps)
     q, k, v = (nn.split_heads(nn.dense(lp["attn"][n], h, policy), n_head) for n in "qkv")
-    a = mha(q, k, v, causal=False, policy=policy, use_kernel=use_kernels)
+    a = mha(q, k, v, causal=causal, policy=policy, use_kernel=use_kernels)
     x = x + nn.dense(lp["attn"]["out"], nn.merge_heads(a), policy)
     h = nn.layer_norm(lp["ln2"], x, eps)
     h = nn.quick_gelu(nn.dense(lp["mlp"]["fc1"], h, policy))
@@ -159,3 +186,44 @@ def encode_image_u8(params: dict, cfg: CLIPVisionConfig, batch_u8: torch.Tensor,
                     compute_dtype=policy.compute_dtype, use_kernel=use_kernels)
     pooled = _tower(params, cfg, x, policy, use_kernels)
     return _project(params, pooled, policy, normalize)
+
+
+# ---------------------------------------------------------------------------
+# Text tower (the caption embeddings of retrieval)
+# ---------------------------------------------------------------------------
+
+def init_text(generator: torch.Generator, cfg: CLIPTextConfig, device=DEFAULT_DEVICE) -> dict:
+    """Random text tower with the JAX package's distributions (the draws
+    differ from ``jax.random``'s), float32 on ``device``."""
+    d = cfg.hidden_size
+    params = {
+        "token_embedding": nn.normal(generator, (cfg.vocab_size, d), 0.02),
+        "position_embedding": nn.normal(generator, (cfg.max_position_embeddings, d), 0.02),
+        "layers": stack_blocks([_init_clip_layer(generator, d, cfg.intermediate_size)
+                                for _ in range(cfg.num_hidden_layers)]),
+        "final_layernorm": nn.layer_norm_init(d),
+        "text_projection": {"w": nn.normal(generator, (d, cfg.projection_dim), 0.02)},
+    }
+    return on_device(params, device)
+
+
+def encode_text(params: dict, cfg: CLIPTextConfig, input_ids: torch.Tensor,
+                policy: Policy = F32, normalize: bool = True,
+                use_kernels: bool | None = None) -> torch.Tensor:
+    """``CLIPModel.get_text_features`` (+ L2 normalisation): token ids (B, T)
+    → (B, projection_dim) float32, pooled at each row's first EOT."""
+    input_ids = input_ids.long()
+    b, t = input_ids.shape
+    x = params["token_embedding"][input_ids].float()
+    x = (x + params["position_embedding"][:t].float()[None]).to(policy.compute_dtype)
+    for i in range(cfg.num_hidden_layers):
+        x = _clip_layer(layer_params(params["layers"], i), x, cfg.num_attention_heads,
+                        cfg.layer_norm_eps, policy, use_kernels, causal=True)
+    x = nn.layer_norm(params["final_layernorm"], x, cfg.layer_norm_eps)
+    eot = torch.argmax((input_ids == cfg.eos_token_id).int(), dim=-1)
+    pooled = x[torch.arange(b, device=x.device), eot]
+    cdt = policy.compute_dtype
+    feats = nn.dot_f32(pooled.to(cdt), params["text_projection"]["w"].to(cdt))
+    if normalize:
+        feats = feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
+    return feats

@@ -261,6 +261,28 @@ def port_clip_vision(state_dict: Mapping, cfg) -> dict:
     }
 
 
+def text_from_jax_numpy(params: dict, device=DEFAULT_DEVICE,
+                        dtype: torch.dtype | None = None) -> dict:
+    """A JAX CLIP text tower's parameter tree (``clip.init_text``), as numpy
+    arrays, → the port's tree of tensors on ``device`` (the card unless the
+    caller asks for the CPU); ``dtype`` casts the floating leaves."""
+    return vision_from_jax_numpy(params, device, dtype)
+
+
+def port_clip_text(state_dict: Mapping, cfg) -> dict:
+    """HF CLIP text tower + text projection (a full ``CLIPModel`` or a
+    ``CLIPTextModelWithProjection`` state dict) → :func:`models.clip.init_text`'s
+    tree."""
+    sd = dict(state_dict)
+    return {
+        "token_embedding": _f32(sd["text_model.embeddings.token_embedding.weight"]),
+        "position_embedding": _f32(sd["text_model.embeddings.position_embedding.weight"]),
+        "layers": _clip_encoder_layers(sd, "text_model.", cfg.num_hidden_layers),
+        "final_layernorm": _ln(sd, "text_model.final_layer_norm"),
+        "text_projection": {"w": _f32(sd["text_projection.weight"]).t().contiguous()},
+    }
+
+
 def port_vit(state_dict: Mapping, cfg) -> dict:
     """HF ``ViTModel`` state dict (with or without ``vit.``) → :mod:`models.vit`'s
     tree."""

@@ -43,9 +43,9 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
-    # dtype, q, k, v, out, key_mask, B, H, Tq, Tk, hd, strides (12 int64), causal, q_offset,
-    # warps, stream
-    "gic_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P],
+    # dtype, q, k, v, out, key_mask, B, H, Tq, Tk, hd, scale_hd, strides (12 int64), causal,
+    # q_offset, warps, stream
+    "gic_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P],
     # dtype, q, k_new, v_new, in_stride, k_cache, v_cache, out, B, D, H, idx, origin,
     # gather_start, start, k_scale, v_scale, stream
     "gic_decode_attention": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,

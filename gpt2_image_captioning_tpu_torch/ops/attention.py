@@ -26,12 +26,17 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from gpt2_image_captioning_tpu_torch.core.precision import F32, Policy
 from gpt2_image_captioning_tpu_torch.ops import _build, nn
 from gpt2_image_captioning_tpu_torch.ops.nn import NEG_INF
 
-HEAD_DIMS = (64, 96)  # the head dims the kernel is built for (GPT-2 124M, the mapper)
+# the head dims the kernel is built for: GPT-2 124M and the towers (64), the
+# transformer mapper at GPT-2 124M / medium / large (96, 128, 160), and 208,
+# to which the wrapper zero-pads GPT-2 XL's mapper heads of 200
+HEAD_DIMS = (64, 96, 128, 160, 208)
+PADDED_HEAD_DIMS = {200: 208}  # head dim served by zero-padding → the build it runs
 FLASH_MAX_WARPS = 8  # csrc/flash_attention.cu MAX_WARPS: a block's warps, 16 query rows each
 
 
@@ -66,12 +71,24 @@ def _valid(q, k, key_mask, causal: bool, q_offset: int) -> torch.Tensor:
     return valid
 
 
-def _flash_attention_plain(q, k, v, key_mask=None, causal: bool = False, q_offset: int = 0):
+def pad_heads(q, k, v):
+    """(q, k, v, scale_hd) as the kernel takes them: a head dim of
+    :data:`PADDED_HEAD_DIMS` zero-padded to its build (new tensors), its own
+    head dim kept for the 1/sqrt scale; any other head dim as it is."""
+    hd = q.shape[-1]
+    if hd not in PADDED_HEAD_DIMS:
+        return q, k, v, hd
+    pad = PADDED_HEAD_DIMS[hd] - hd
+    return (*(F.pad(t, (0, pad)) for t in (q, k, v)), hd)
+
+
+def _flash_attention_plain(q, k, v, key_mask=None, causal: bool = False, q_offset: int = 0,
+                           scale_hd: int | None = None):
     """Plain twin of ``csrc/flash_attention.cu``: float32 scores scaled by
-    1/sqrt(hd), the masks, a float32 softmax, p·v in float32, the output cast
-    to q's dtype; a row with no valid key gives the mean of v over the Tk
-    keys (zeros when Tk is 0)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    1/sqrt(scale_hd) (default: q's head dim), the masks, a float32 softmax,
+    p·v in float32, the output cast to q's dtype; a row with no valid key
+    gives the mean of v over the Tk keys (zeros when Tk is 0)."""
+    scale = 1.0 / math.sqrt(scale_hd or q.shape[-1])
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     valid = _valid(q, k, key_mask, causal, q_offset)
     s = torch.where(valid, s, NEG_INF)
@@ -102,18 +119,23 @@ def _flash_backward(q, k, v, key_mask, causal: bool, q_offset: int, g):
 def flash_attention_cuda(q, k, v, key_mask=None, causal: bool = False, q_offset: int = 0):
     """Launch ``csrc/flash_attention.cu``.  q: (B, H, Tq, hd), k/v: (B, H, Tk,
     hd), one dtype (bf16 or float32), any strides with a unit stride on hd
-    (the permuted views of ``nn.split_heads`` are read in place); hd 64 or 96;
-    key_mask: (B, Tk), nonzero = attend, or None.  Returns (B, H, Tq, hd) as a
-    view of a contiguous (B, Tq, H, hd) tensor, the layout ``nn.merge_heads``
+    (the permuted views of ``nn.split_heads`` are read in place); hd one of
+    :data:`HEAD_DIMS`, or 200, which is zero-padded to 208 (copies of q, k
+    and v) and scaled by 1/sqrt(200); key_mask: (B, Tk), nonzero = attend, or
+    None.  Returns (B, H, Tq, hd) as a view of a contiguous (B, Tq, H, hd)
+    tensor (of (B, Tq, H, 208) for hd 200), the layout ``nn.merge_heads``
     reads without a copy."""
     name = "flash_attention"
     _build.require(q.is_cuda, name, "q must be a CUDA tensor")
     _build.require(q.dtype in _build.DTYPE_CODE, name, f"unsupported dtype {q.dtype}")
     b, h, tq, hd = q.shape
     tk = k.shape[2]
-    _build.require(hd in HEAD_DIMS, name, f"head_dim must be one of {HEAD_DIMS}, got {hd}")
+    _build.require(hd in HEAD_DIMS or hd in PADDED_HEAD_DIMS, name,
+                   f"head_dim must be one of {HEAD_DIMS + tuple(PADDED_HEAD_DIMS)}, got {hd}")
     _build.require(k.shape == (b, h, tk, hd) and v.shape == k.shape, name,
                    "k and v must be (B, H, Tk, hd) with q's B, H and hd")
+    q, k, v, scale_hd = pad_heads(q, k, v)
+    hd = q.shape[-1]
     vec = 16 // q.element_size()
     for t in (q, k, v):
         _build.require(t.dtype == q.dtype and t.device == q.device, name,
@@ -129,18 +151,18 @@ def flash_attention_cuda(q, k, v, key_mask=None, causal: bool = False, q_offset:
         mask_ptr = key_mask.data_ptr()
     out = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
     if tq == 0:
-        return out
+        return out[..., :scale_hd]
     strides = (ctypes.c_longlong * 12)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3]
     )
     err = _build.library().gic_flash_attention(
         _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        mask_ptr, b, h, tq, tk, hd, strides, int(causal), int(q_offset), flash_plan(tq).warps,
-        _build.stream_of(q),
+        mask_ptr, b, h, tq, tk, hd, scale_hd, strides, int(causal), int(q_offset),
+        flash_plan(tq).warps, _build.stream_of(q),
     )
     _build.check(err, name)
     flash_attention_cuda.launches += 1
-    return out
+    return out[..., :scale_hd]
 
 
 flash_attention_cuda.launches = 0

@@ -12,9 +12,14 @@ caption the held-out test split, with each run's artifacts under
 - ``training_info_<id>.txt`` (duration, parameter counts, description)
 - ``test_predictions_<id>.json`` + ``test_metrics_<id>.json``
 
+A retrieval-augmented id (``retrieval_augmentation: true``, ids 18 and 19
+of the repo's automation_config.yml) trains through RAT; its test pass wraps
+the freshly built model with an aggregator seeded by ``seed + 1`` and
+rebuilds the training store, as the JAX package does.
+
 Every selected id is merged and checked before the first run: ids whose
-config needs a slice not ported yet (retrieval augmentation, a mesh of more
-than one device) are refused together, up front.
+config needs a slice not ported yet (a mesh of more than one device) are
+refused together, up front.
 """
 
 from __future__ import annotations
@@ -75,6 +80,14 @@ def run_one(cfg: Config, run_id: str, base_dir: str, description: str = "",
     # then takes the trained weights for the test pass
     tokenizer = load_gpt2_tokenizer()
     model = build_model(cfg, tokenizer, device=device)
+    db_store = None
+    if cfg.get("retrieval_augmentation", False):
+        # the reference reuses the training store for the RAT test pass:
+        # rebuild it, and wrap the model as the training run did
+        from gpt2_image_captioning_tpu_torch.retrieval.rat_pipeline import build_store, wrap_model
+
+        model = wrap_model(cfg, model)
+        db_store = build_store(cfg, device=device)
     trainable, total = count_model_parameters(model)
     best = select_test_checkpoint(os.listdir(save_dir))
     if best:
@@ -109,6 +122,9 @@ def run_one(cfg: Config, run_id: str, base_dir: str, description: str = "",
             decode="beam" if tpu.get("decode") == "beam" else "sample",
             beam_size=tpu.get("beam_size", 4),
             decode_precision=cfg.validation.get("decode_precision", None),
+            db_store=db_store,
+            top_k=cfg.retrieval.top_k if db_store is not None else None,
+            top_i=cfg.retrieval.top_i if db_store is not None else None,
             device=device,
         )
         metrics = evaluate_captions(preds, test_ann)

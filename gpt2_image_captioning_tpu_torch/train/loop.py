@@ -16,15 +16,23 @@ signature, history dict and artifacts: ``model_epoch_{n}.{npz|pt}`` and
 ``optimizer_epoch_{n}.npz`` (the JAX package's ``AdamWState`` layout, so a
 run resumes across the two packages), ``best_model_epoch_{n}`` by
 validation CIDEr, the per-epoch evaluation JSONs, ``val_metrics_summary.json``,
-the curves and ``logs/metrics.jsonl``.  Meshes and RAT are not ported yet
+the curves and ``logs/metrics.jsonl``.  Meshes are not ported yet
 (ROADMAP.md, queue 1) and raise.
+
+Retrieval-augmented training (:func:`train_rat`, or ``train(rat_cfg=,
+db_store=)``): with a :class:`retrieval.exact.DeviceVectorStore` the step
+retrieves on the card (its arrays are the step's side input, as the JAX
+package's ``extra``); with a host store (HNSW, flat, persistent) a thread
+retrieves each batch one batch ahead of the step (:func:`_prefetched`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import queue
 import re
+import threading
 import time
 from typing import Any
 
@@ -38,6 +46,7 @@ from gpt2_image_captioning_tpu_torch.core.tree import tree_leaves
 from gpt2_image_captioning_tpu_torch.data.dataset import Batcher, CocoDataset
 from gpt2_image_captioning_tpu_torch.evaluation.evaluate import save_eval_summary
 from gpt2_image_captioning_tpu_torch.evaluation.generation import (
+    _indexed,
     check_model_device,
     evaluate_epoch,
     refuse_unported,
@@ -58,28 +67,46 @@ def make_train_step(
     policy: Policy,
     grad_accum_steps: int = 1,
     device=DEFAULT_DEVICE,
+    rat_cfg=None,
+    fused_retrieval: bool = False,
 ):
-    """Build ``step(trainable, optimizer, scheduler, frozen, batch) →
-    (loss, grad_norm)``.  ``optimizer``/``scheduler`` come from
+    """Build ``step(trainable, optimizer, scheduler, frozen, batch, extra=None)
+    → (loss, grad_norm)``.  ``optimizer``/``scheduler`` come from
     :func:`train.optim.make_optimizer` over ``trainable``, which the step
     updates in place.  ``batch``: numpy arrays or tensors (token_ids, labels,
     attention_mask, image_embedding; ``image_id`` is dropped), moved to
-    ``device`` — the card unless the caller asks for the CPU."""
-    device = resolve_device(device)
+    ``device`` — the card unless the caller asks for the CPU.
 
-    def step(trainable, optimizer, scheduler, frozen, batch):
+    With ``rat_cfg`` (:class:`models.rat.RATConfig`) the step is RAT's: with
+    ``fused_retrieval`` it retrieves from ``extra``, a device store's
+    ``arrays()`` (:func:`models.rat.loss_fn_fused`); without, the batch
+    carries ``retrieved_embeddings`` (:func:`models.rat.loss_fn`)."""
+    device = resolve_device(device)
+    if rat_cfg is not None:
+        from gpt2_image_captioning_tpu_torch.models import rat as R
+
+    def micro_loss(trainable, frozen, batch, extra):
+        if rat_cfg is None:
+            return C.mean_loss(trainable, frozen, cfg, batch, policy)
+        if fused_retrieval:
+            s, c = R.loss_fn_fused(trainable, frozen, cfg, rat_cfg, batch, extra, policy)
+        else:
+            s, c = R.loss_fn(trainable, frozen, cfg, rat_cfg, batch, policy)
+        return s / torch.clamp(c, min=1)
+
+    def step(trainable, optimizer, scheduler, frozen, batch, extra=None):
         params = tree_leaves(trainable)
         batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items() if k != "image_id"}
         optimizer.zero_grad(set_to_none=True)
         if grad_accum_steps == 1:
-            loss = C.mean_loss(trainable, frozen, cfg, batch, policy)
+            loss = micro_loss(trainable, frozen, batch, extra)
             loss.backward()
             loss = loss.detach()
         else:
             loss = torch.zeros((), device=device)
             for i in range(grad_accum_steps):
                 micro = {k: v[i] for k, v in batch.items()}
-                l = C.mean_loss(trainable, frozen, cfg, micro, policy)
+                l = micro_loss(trainable, frozen, micro, extra)
                 l.backward()
                 loss += l.detach()
             loss /= grad_accum_steps
@@ -92,6 +119,34 @@ def make_train_step(
         return loss, grad_norm
 
     return step
+
+
+def _prefetched(iterable, transform, depth: int = 2):
+    """``transform`` of each item, computed by a thread up to ``depth`` items
+    ahead of the consumer, in order: the next batch's host-store retrieval
+    runs while the card computes this one.  An exception in the thread
+    re-raises in the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    sentinel = object()
+    err: list[BaseException] = []
+
+    def worker():
+        try:
+            for item in iterable:
+                q.put(transform(item))
+        except BaseException as e:  # noqa: BLE001 — re-raised in the consumer
+            err.append(e)
+        finally:
+            q.put(sentinel)
+
+    threading.Thread(target=worker, daemon=True).start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            if err:
+                raise err[0]
+            return
+        yield item
 
 
 def _group_microbatches(batches: list[dict], accum: int) -> dict:
@@ -172,10 +227,14 @@ def train(
     ``torch.profiler`` trace of the first epoch's second optimizer step.
     ``remat=True`` recomputes each GPT-2 block in the backward
     (``CaptionerConfig.remat``).  ``device``: where the model lives, the
-    card unless the caller asks for the CPU.  ``mesh``, ``rat_cfg`` and
-    ``db_store`` are not ported yet and raise.
+    card unless the caller asks for the CPU.  ``rat_cfg`` and ``db_store``
+    (both or neither; ``model`` a RAT model) train retrieval-augmented, and
+    each evaluation retrieves from ``db_store`` at ``rat_cfg``'s depths.
+    ``mesh`` is not ported yet and raises.
     """
-    refuse_unported(db_store=db_store, mesh=mesh, rat_cfg=rat_cfg)
+    refuse_unported(mesh)
+    if (rat_cfg is None) != (db_store is None):
+        raise ValueError("rat_cfg and db_store go together: pass both for RAT, or neither")
     device = check_model_device(model, device)
     if val_dataset is not None and val_annotations_path is None:
         raise ValueError("val_annotations_path is required when val_dataset is provided")
@@ -193,7 +252,24 @@ def train(
         # micro-batches x epochs, accumulation or not (the reference's count)
         num_training_steps=steps_per_epoch * num_epochs,
     )
-    step_fn = make_train_step(cfg, opt_cfg, model.policy, grad_accum_steps, device=device)
+    from gpt2_image_captioning_tpu_torch.retrieval.exact import DeviceVectorStore
+
+    fused_retrieval = isinstance(db_store, DeviceVectorStore)
+    extra = None
+    if fused_retrieval:
+        if _indexed(db_store.device) != _indexed(device):
+            raise ValueError(f"the store is on {db_store.device}, the model on {device}")
+        extra = db_store.arrays()
+
+    def host_retrieve(batch: dict) -> dict:
+        """A host store's retrieval for the batch, attached to it."""
+        from gpt2_image_captioning_tpu_torch.models.rat import retrieve
+
+        retrieved = retrieve(rat_cfg, db_store, batch["image_embedding"])
+        return dict(batch, retrieved_embeddings=np.asarray(retrieved, np.float32))
+
+    step_fn = make_train_step(cfg, opt_cfg, model.policy, grad_accum_steps, device=device,
+                              rat_cfg=rat_cfg, fused_retrieval=fused_retrieval)
 
     start_epoch = 0
     opt_state = None
@@ -220,7 +296,8 @@ def train(
 
     def run_group(group) -> torch.Tensor:
         timer.start()
-        loss, _ = step_fn(trainable, optimizer, scheduler, frozen, group)
+        side = () if extra is None else (extra,)  # the fused store's arrays
+        loss, _ = step_fn(trainable, optimizer, scheduler, frozen, group, *side)
         timer.stop()
         return loss
 
@@ -233,7 +310,10 @@ def train(
             group_real_micro: list[int] = []  # real (non-padded) micro-batches per group
             pending: list[dict] = []
             t_epoch = time.perf_counter()
-            for batch in batcher.epoch(epoch):
+            batch_iter = batcher.epoch(epoch)
+            if rat_cfg is not None and not fused_retrieval:
+                batch_iter = _prefetched(batch_iter, host_retrieve)
+            for batch in batch_iter:
                 if grad_accum_steps == 1:
                     group = batch
                 else:
@@ -291,6 +371,10 @@ def train(
                     temperature=eval_temperature,
                     top_p=eval_top_p,
                     output_dir=eval_dir,
+                    rat=rat_cfg is not None,
+                    db_store=db_store,
+                    top_k=getattr(rat_cfg, "top_k", None),
+                    top_i=getattr(rat_cfg, "top_i", None),
                     decode_precision=eval_decode_precision,
                     device=device,
                 )
@@ -343,3 +427,23 @@ def train(
         "best_epoch": best_epoch,
         "step_timing": timer.summary(),
     }
+
+
+def train_rat(
+    train_dataset: CocoDataset,
+    model,
+    db_store,
+    top_k: int,
+    top_i: int,
+    batch_size: int,
+    num_epochs: int,
+    **kwargs,
+) -> dict[str, Any]:
+    """Retrieval-augmented training with the reference's ``train_rat``
+    signature: :func:`train` with the store and the retrieval depths.
+    ``model`` is a :class:`models.rat.RetrievalAugmentedTransformer` (its
+    ``rcfg`` gives the aggregation; ``top_k`` / ``top_i`` here override the
+    depths)."""
+    rcfg = dataclasses.replace(model.rcfg, top_k=top_k, top_i=top_i)
+    return train(train_dataset, model, batch_size=batch_size, num_epochs=num_epochs,
+                 rat_cfg=rcfg, db_store=db_store, **kwargs)

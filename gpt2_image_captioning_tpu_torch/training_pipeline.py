@@ -11,9 +11,15 @@ From the ``tpu:`` block: ``compute_dtype`` picks the bf16 or float32 policy,
 ``remat`` and ``grad_accum_steps`` pass through to ``train()``, and
 ``validation.decode_precision`` to its evaluation.  ``tpu.mesh`` must name
 one device (``dp`` -1 or 1, ``tp`` 1): the port runs on one card, and other
-meshes raise ``NotImplementedError`` (ROADMAP.md, queue 1: parallelism), as
-does ``retrieval_augmentation: true`` (queue 1: RAT), before any data is
-read.
+meshes raise ``NotImplementedError`` (ROADMAP.md, queue 1: parallelism)
+before any data is read.
+
+``retrieval_augmentation: true`` runs retrieval-augmented training
+(:func:`retrieval.rat_pipeline.run_rat_training`): the store of
+``retrieval.backend`` (``device`` by default) over the train split's image
+embeddings and ``train_{encoder}_caption_embeddings.pt``, the model wrapped
+with the aggregator of ``retrieval.aggregation_type``, ``retrieval.top_k``
+/ ``top_i``.  It passes the ``tpu`` block's options as the plain run does.
 """
 
 from __future__ import annotations
@@ -39,11 +45,7 @@ def _tpu(cfg: Config) -> Config:
 
 def refuse_unported(cfg: Config) -> None:
     """Raise ``NotImplementedError`` for a config whose run needs a slice
-    still to come: retrieval augmentation, or a mesh of more than one
-    device."""
-    if cfg.get("retrieval_augmentation", False):
-        raise NotImplementedError(
-            "retrieval_augmentation: true (RAT) is not ported yet (ROADMAP.md, queue 1: RAT)")
+    still to come: a mesh of more than one device."""
     mesh = _tpu(cfg).get("mesh", None) or {}
     dp, tp = mesh.get("dp", -1), mesh.get("tp", 1)
     if dp not in (-1, 1) or tp != 1:
@@ -107,6 +109,15 @@ def run(cfg: Config, save_dir: str | None = None, gpt_params=None,
     tokenizer = load_gpt2_tokenizer()
     train_ds, val_ds = build_datasets(cfg, tokenizer)
     model = build_model(cfg, tokenizer, gpt_params=gpt_params, device=device)
+    save_dir = save_dir or cfg.paths.checkpoints_path
+    tpu_kw = dict(grad_accum_steps=tpu.get("grad_accum_steps", 1),
+                  eval_decode_precision=cfg.validation.get("decode_precision", None),
+                  remat=bool(tpu.get("remat", False)))
+    if cfg.get("retrieval_augmentation", False):
+        from gpt2_image_captioning_tpu_torch.retrieval.rat_pipeline import run_rat_training
+
+        return run_rat_training(cfg, model, train_ds, val_ds, save_dir, device=device,
+                                num_workers=cfg.training.num_workers, **tpu_kw)
     return train(
         train_ds,
         model,
@@ -116,8 +127,7 @@ def run(cfg: Config, save_dir: str | None = None, gpt_params=None,
         learning_rate=cfg.training.learning_rate,
         num_warmup_steps=cfg.training.num_warmup_steps,
         save_every_epoch=cfg.training.save_every_epoch,
-        outputs_dir=save_dir or cfg.paths.checkpoints_path,
-        grad_accum_steps=tpu.get("grad_accum_steps", 1),
+        outputs_dir=save_dir,
         val_dataset=val_ds,
         val_annotations_path=os.path.join(cfg.paths.annotations_path, "captions_val2017.json"),
         eval_every_epoch=cfg.validation.eval_every_epoch,
@@ -125,10 +135,9 @@ def run(cfg: Config, save_dir: str | None = None, gpt_params=None,
         eval_max_length=cfg.max_caption_length,
         eval_temperature=cfg.validation.temperature,
         eval_top_p=cfg.validation.top_p,
-        eval_decode_precision=cfg.validation.get("decode_precision", None),
         seed=cfg.get("seed", 42),
-        remat=bool(tpu.get("remat", False)),
         device=device,
+        **tpu_kw,
     )
 
 

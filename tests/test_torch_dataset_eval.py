@@ -22,6 +22,7 @@ JAX tests' own fixtures (``helpers.tiny_tokenizer``, ``make_synthetic_coco``):
 The port runs its plain twins on the CPU.
 """
 
+import copy
 import json
 import os
 
@@ -366,13 +367,76 @@ def test_generate_test_caption_predictions_writes_results(coco, models, tmp_path
     assert len(preds) == N_IMAGES
 
 
-@pytest.mark.parametrize("option", [dict(db_store=object()), dict(top_k=2), dict(top_i=3),
-                                    dict(mesh=object())])
+@pytest.mark.parametrize("option", [dict(mesh=object())])
 def test_unported_options_raise(coco, models, option):
     _, tmodel = models
     _, tds = _datasets(coco, max_length=10)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
         TGen.generate_predictions(tmodel, tds, device="cpu", **option)
+
+
+def _rat_wrapped(models, coco, aggregation):
+    """Both façades wrapped as RAT models (the JAX package's way: the same
+    trees, an aggregator added; ``attention``'s carried across) and a
+    device store over the images' own embeddings with 0-4 random caption
+    vectors an image."""
+    from gpt2_image_captioning_tpu.models import rat as JR
+    from gpt2_image_captioning_tpu.retrieval import exact as JEx
+    from gpt2_image_captioning_tpu_torch.data.embeddings_io import load_embeddings
+    from gpt2_image_captioning_tpu_torch.models import rat as TR
+    from gpt2_image_captioning_tpu_torch.retrieval import exact as TEx
+
+    jmodel, tmodel = models
+    jr = JR.RetrievalAugmentedTransformer.__new__(JR.RetrievalAugmentedTransformer)
+    jr.__dict__.update(jmodel.__dict__, trainable=dict(jmodel.trainable))
+    jr.rcfg = JR.RATConfig(embed_dim=16, aggregation_type=aggregation, top_k=4, top_i=2)
+    agg = JR.init_aggregator(jax.random.PRNGKey(1), jr.rcfg)
+    if agg:
+        jr.trainable["aggregator"] = agg
+    base = copy.copy(tmodel)  # the fixture's façade keeps its own trees
+    base.trainable = dict(tmodel.trainable)
+    tr = TR.RetrievalAugmentedTransformer.wrap(
+        base, TR.RATConfig(embed_dim=16, aggregation_type=aggregation, top_k=4, top_i=2), 1)
+    tr.trainable = porting.from_jax_numpy(jax.tree.map(np.asarray, jr.trainable), tmodel.frozen,
+                                          tmodel.cfg, device="cpu")[0]
+    names, img = load_embeddings(coco[0]["npz"][0])
+    rng = np.random.default_rng(3)
+    entries = [{"filenames": f, "embeddings": [
+        {"caption_id": 10 * i + c, "embedding": torch.from_numpy(rng.normal(size=16)
+                                                                  .astype(np.float32))}
+        for c in range(i % 5)]} for i, f in enumerate(names)]
+    return (jr, tr, JEx.DeviceVectorStore.build(names, img, entries),
+            TEx.DeviceVectorStore.build(names, img, entries, device="cpu"))
+
+
+@pytest.mark.parametrize("option", ["db_store", "top_k", "top_i"])
+def test_rat_options_run_and_match_jax(coco, models, option):
+    """``db_store``: each batch augmented through the store before the
+    decode (the attention aggregator), the captions equal to the JAX
+    package's and not the plain ones; with ``decode_precision="bf16"`` the
+    augmentation stays at the model's float32 and only the decode is bf16;
+    ``top_k`` / ``top_i`` without a store are ignored, as there."""
+    jds, tds = _datasets(coco, max_length=10)
+    kw = dict(batch_size=EVAL_BATCH, max_length=MAX_LEN, temperature=0.0, verbose=False)
+    plain = TGen.generate_predictions(models[1], tds, device="cpu", **kw)
+    if option != "db_store":
+        got = TGen.generate_predictions(models[1], tds, device="cpu", **{option: 2}, **kw)
+        assert got == plain == JGen.generate_predictions(models[0], jds, **{option: 2}, **kw)
+        return
+    jr, tr, jstore, tstore = _rat_wrapped(models, coco, "attention")
+    want = JGen.generate_predictions(jr, jds, db_store=jstore, top_k=3, top_i=2, **kw)
+    got = TGen.generate_predictions(tr, tds, db_store=tstore, top_k=3, top_i=2, device="cpu",
+                                    **kw)
+    assert got == want and got != plain
+    # bf16: the float32 augmentation, then the façade's bf16 decode of it
+    got = TGen.generate_predictions(tr, tds, db_store=tstore, top_k=3, top_i=2,
+                                    decode_precision="bf16", device="cpu", **kw)
+    batch = next(tds.unique_image_batches(EVAL_BATCH))
+    aug = tr.augment(batch["image_embedding"], tstore, top_k=3, top_i=2)
+    assert aug.dtype == torch.float32
+    ids = tr.generate(aug, max_length=MAX_LEN, temperature=0.0, decode_precision="bf16")
+    assert [p["caption"] for p in got[:EVAL_BATCH]] == \
+        tr.tokenizer.batch_decode(ids.numpy(), skip_special_tokens=True)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,9 @@ gradient whose float32 noise Adam amplifies, see ``test_torch_train.py``):
   round — equal the straight run (the optimizer state crosses); resuming a
   finished run does nothing;
 - ``profile_dir`` writes a ``torch.profiler`` trace, ``remat`` leaves the
-  losses as they are, and the unported options raise.
+  losses as they are, and the unported options raise;
+- RAT (``rat_cfg`` with a device or a flat store): the JAX package's losses
+  and trained leaves.
 """
 
 import dataclasses
@@ -284,12 +286,51 @@ def test_profile_dir_writes_a_trace_and_remat_keeps_the_losses(setup):
 
 
 @pytest.mark.parametrize("option, error", [
-    (dict(mesh=object()), NotImplementedError), (dict(rat_cfg=object()), NotImplementedError),
-    (dict(db_store=object()), NotImplementedError), (dict(val_dataset=object()), ValueError)])
+    (dict(mesh=object()), NotImplementedError), (dict(val_dataset=object()), ValueError)])
 def test_unported_options_raise(setup, option, error):
     with pytest.raises(error):
         TL.train(setup["ttrain"], port_model(setup), num_epochs=1, device="cpu",
                  outputs_dir=str(setup["root"] / "refused"), **option, **TRAIN)
+
+
+@pytest.mark.parametrize("backend", ["device", "flat"])
+def test_rat_options_train_and_match_jax(setup, backend):
+    """``train(rat_cfg=, db_store=)`` — the fused device store or the flat
+    host store, the mean aggregator, a store of 1-4 caption vectors an
+    image over the train images — gives the JAX package's epoch losses and
+    trained leaves; either option alone raises."""
+    from gpt2_image_captioning_tpu.models import rat as JR
+    from gpt2_image_captioning_tpu.retrieval import exact as JEx
+    from gpt2_image_captioning_tpu.retrieval import store as JS
+    from gpt2_image_captioning_tpu_torch.models import rat as TR
+    from gpt2_image_captioning_tpu_torch.retrieval import exact as TEx
+    from gpt2_image_captioning_tpu_torch.retrieval import store as TS
+
+    names, img = setup["ttrain"].image_filenames, setup["ttrain"].image_embeddings
+    rng = np.random.default_rng(8)
+    entries = [{"filenames": f, "embeddings": [
+        {"caption_id": 10 * i + c, "embedding": torch.from_numpy(rng.normal(size=16)
+                                                                  .astype(np.float32))}
+        for c in range(1 + i % 4)]} for i, f in enumerate(names)]
+    if backend == "device":
+        jstore = JEx.DeviceVectorStore.build(names, img, entries)
+        tstore = TEx.DeviceVectorStore.build(names, img, entries, device="cpu")
+    else:
+        jstore = JS.create_store(names, img, entries, backend="flat")
+        tstore = TS.create_store(names, img, entries, backend="flat")
+    jm, tm = jax_model(setup), port_model(setup)
+    jrcfg, trcfg = JR.RATConfig(embed_dim=16, top_k=5, top_i=3), TR.RATConfig(16, top_k=5, top_i=3)
+    _, jh, _ = jax_train(setup, f"jax_rat_{backend}", jm, num_epochs=2, rat_cfg=jrcfg,
+                         db_store=jstore)
+    _, th, _ = port_train(setup, f"port_rat_{backend}", tm, num_epochs=2, rat_cfg=trcfg,
+                          db_store=tstore)
+    np.testing.assert_allclose(th["epoch_losses"], jh["epoch_losses"], rtol=1e-5)
+    assert_leaves_close(tm.trainable, jm.trainable, 1e-5)
+    _, plain, _ = port_train(setup, f"port_plain_{backend}", num_epochs=1)
+    assert plain["epoch_losses"][0] != th["epoch_losses"][0]
+    for option in (dict(rat_cfg=trcfg), dict(db_store=tstore)):
+        with pytest.raises(ValueError, match="together"):
+            port_train(setup, "refused", num_epochs=1, **option)
 
 
 def test_num_workers_is_accepted(setup):

@@ -2,7 +2,8 @@
 interpret mode): the plain twin's forward and ``FlashAttention``'s gradients,
 in float32, over causal and bidirectional attention, ragged lengths with a
 key mask, a static q_offset (with Tq < Tk), several blocks (T 200), head
-dims 8 and 24 and the paths' 64 and 96 at their ragged lengths; then
+dims 8 and 24, the paths' 64 and 96 at their ragged lengths and the wide
+mapper's 128, 160 and 200 (the last served zero-padded to 208); then
 ``mha`` on the CPU against the JAX package's ``mha``, and the CUDA
 kernel's launch plan.
 
@@ -34,6 +35,10 @@ CASES = {
     "ragged_t197_hd64": (1, 2, 197, 197, 64, False, True, 0),
     "mapper_t25_hd96": (2, 2, 25, 25, 96, False, False, 0),
     "causal_q_offset_tq_lt_tk_hd64": (2, 2, 15, 65, 64, True, True, 50),
+    # the mapper's heads at GPT-2 medium, large and XL (1024, 1280, 1600 / 8)
+    "mapper_t25_hd128": (2, 2, 25, 25, 128, False, False, 0),
+    "mapper_t25_hd160": (2, 2, 25, 25, 160, False, False, 0),
+    "mapper_t25_hd200": (2, 2, 25, 25, 200, False, False, 0),
 }
 
 
@@ -128,7 +133,30 @@ def test_flash_attention_cuda_refuses_what_it_does_not_take():
         TA.flash_attention_cuda(x, x, x)
     with pytest.raises(ValueError, match="CUDA tensors"):
         TA.flash_attention(x, x, x, use_kernel=True)
-    assert TA.HEAD_DIMS == (64, 96)
+    assert TA.HEAD_DIMS == (64, 96, 128, 160, 208)
+    assert TA.PADDED_HEAD_DIMS == {200: 208}
+
+
+@pytest.mark.parametrize("hd", [64, 96, 128, 160, 200])
+def test_padded_head_dim_keeps_the_true_scale(hd):
+    """What the kernel is given at a head dim: 200 (GPT-2 XL's mapper) is
+    zero-padded to the 208 build with the scale of 200, the others pass as
+    they are.  The twin on the padded rows at that scale, cut back to hd,
+    equals the JAX kernel (interpret mode) at hd; at the padded dim's own
+    scale it would not."""
+    q, k, v, w, mask = _inputs(2, 8, 25, 25, hd, True, seed=4)
+    want, _ = _jax(q, k, v, w, mask, False, 0)
+    tq, tk, tv, tm = (torch.from_numpy(a) for a in (q, k, v, mask))
+    pq, pk, pv, scale_hd = TA.pad_heads(tq, tk, tv)
+    built = TA.PADDED_HEAD_DIMS.get(hd, hd)
+    assert scale_hd == hd and pq.shape[-1] == built and built in TA.HEAD_DIMS
+    assert all(torch.equal(p[..., :hd], t) for p, t in ((pq, tq), (pk, tk), (pv, tv)))
+    assert all(not p[..., hd:].any() for p in (pq, pk, pv))
+    got = TA._flash_attention_plain(pq, pk, pv, tm, scale_hd=scale_hd)[..., :hd]
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    if built != hd:
+        wrong = TA._flash_attention_plain(pq, pk, pv, tm)[..., :hd]
+        assert np.abs(wrong.numpy() - want).max() > 1e-3
 
 
 # (Tq, Tk, hd) the kernel runs at: the paths' FLASH_SHAPES in chip_smoke.py

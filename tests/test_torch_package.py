@@ -41,6 +41,10 @@ def test_import_leaves_jax_out():
         "from gpt2_image_captioning_tpu_torch import __main__ as cli\n"
         "from gpt2_image_captioning_tpu_torch.viz import __main__ as viz_cli, server\n"
         "from gpt2_image_captioning_tpu_torch.serving import serve_http, serve_http_continuous\n"
+        "from gpt2_image_captioning_tpu_torch.retrieval import exact, hnsw, indexing\n"
+        "from gpt2_image_captioning_tpu_torch.retrieval import rat_pipeline, store\n"
+        "from gpt2_image_captioning_tpu_torch.models import rat\n"
+        "from gpt2_image_captioning_tpu_torch.embeddings import word_embeddings\n"
         "assert 'PIL' not in sys.modules, 'PIL is imported where an image is decoded'\n"
         "jax_pkg = 'gpt2_image_captioning_tpu'\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"

@@ -1,8 +1,10 @@
 """Config-driven training and the sweep in the port against the JAX package:
 ``training_pipeline.build_model`` (both mappers, a task prompt, unfrozen
 GPT-2) on JAX GPT-2 weights carried across, one epoch of ``run``, a sweep
-``run_one`` with its test pass, ``select_test_checkpoint``, and the
-refusals of what is not ported (RAT, meshes of more than one device)."""
+``run_one`` with its test pass, ``select_test_checkpoint``, RAT configs
+(``run`` on every store backend and a RAT ``run_one``, on the JAX
+package's weights) and the refusal of what is not ported (meshes of more
+than one device)."""
 
 import json
 import os
@@ -73,6 +75,13 @@ def data(tmp_path_factory):
                                       fmt="pt")
         os.rename(e, root / "embeddings" / f"{split}_clip_embeddings.pt")
         os.rename(a, root / "annotations" / ann)
+    # the train split's caption embeddings, the RAT store's: 1-3 vectors an image
+    names = torch.load(root / "embeddings" / "train_clip_embeddings.pt")["filenames"]
+    rng = np.random.default_rng(9)
+    torch.save([{"filenames": f, "embeddings": [
+        {"caption_id": 10 * i + c, "embedding": torch.from_numpy(
+            rng.normal(size=16).astype(np.float32))} for c in range(1 + i % 3)]}
+        for i, f in enumerate(names)], root / "embeddings" / "train_clip_caption_embeddings.pt")
     return root
 
 
@@ -89,6 +98,25 @@ def tiny_pipelines(monkeypatch):
                 build(cfg, tokenizer, gpt_config=gcfg, **kw))
         monkeypatch.setattr(mod, "build_model", tiny)
         monkeypatch.setattr(sweep, "build_model", tiny)
+
+
+@pytest.fixture
+def same_weights(monkeypatch, tiny_pipelines):
+    """The port's ``build_model`` (in the pipeline and the sweep) carrying
+    over the weights the JAX package's tiny ``build_model`` draws for the
+    same config, so that runs can be compared value for value."""
+    jbuild, tbuild = jtp.build_model, ttp.build_model
+
+    def build(cfg, tokenizer, **kw):
+        model = tbuild(cfg, tokenizer, **kw)
+        j = jbuild(JConfig(cfg.to_dict()), JTOK)
+        model.trainable, model.frozen = porting.from_jax_numpy(
+            *jax.tree.map(np.asarray, (j.trainable, j.frozen)), model.cfg,
+            device=kw.get("device", "cuda"))
+        return model
+
+    monkeypatch.setattr(ttp, "build_model", build)
+    monkeypatch.setattr(tsweep, "build_model", build)
 
 
 def _listing(root) -> list[str]:
@@ -222,8 +250,69 @@ def test_select_test_checkpoint_matches_jax(files):
     assert tsweep.select_test_checkpoint(files) == jsweep.select_test_checkpoint(files)
 
 
+RAT = {"retrieval_augmentation": True,
+       "retrieval": {"top_k": 4, "top_i": 2, "aggregation_type": "mean", "embed_dim": 16}}
+
+
+def _rat_run(data, tmp_path, monkeypatch, name, mod, cfg, **kw):
+    (tmp_path / name).mkdir()
+    monkeypatch.chdir(tmp_path / name)
+    hist = mod.run(cfg, save_dir=str(tmp_path / name / "ckpt"), **kw)
+    return hist, _listing(tmp_path / name)
+
+
+@pytest.mark.parametrize("backend", ["device", "flat", "hnsw", "persistent"])
+def test_rat_run_matches_jax(backend, data, tmp_path, monkeypatch, same_weights):
+    """``run`` with ``retrieval_augmentation: true`` on each store backend:
+    the device and flat stores give the JAX package's losses, validation
+    metrics and files (the ``_rat`` evaluation artifacts); the HNSW and
+    persistent stores, exact at this size, give the flat store's losses."""
+    from gpt2_image_captioning_tpu_torch.core.config import update_cfg
+
+    cfg = update_cfg(Config(base_config(data)), {**RAT, "retrieval": {
+        **RAT["retrieval"], "backend": backend}})
+    th, tfiles = _rat_run(data, tmp_path, monkeypatch, "port", ttp, cfg, device="cpu")
+    assert "ckpt/eval_results/epoch_1_val_predictions_rat.json" in tfiles
+    assert len(th["epoch_losses"]) == 1 and np.isfinite(th["epoch_losses"][0])
+    if backend in ("device", "flat"):
+        jh, jfiles = _rat_run(data, tmp_path, monkeypatch, "jax", jtp, JConfig(cfg.to_dict()))
+        np.testing.assert_allclose(th["epoch_losses"], jh["epoch_losses"], rtol=1e-5)
+        assert len(th["val_metrics"]) == len(jh["val_metrics"]) == 1
+        assert th["val_metrics"][0] == pytest.approx(jh["val_metrics"][0], rel=1e-5)
+        assert tfiles == jfiles
+        preds = "ckpt/eval_results/epoch_1_val_predictions_rat.json"
+        assert json.loads((tmp_path / "port" / preds).read_text()) == \
+            json.loads((tmp_path / "jax" / preds).read_text())
+    else:
+        flat = update_cfg(cfg, {"retrieval": {"backend": "flat"}})
+        fh, _ = _rat_run(data, tmp_path, monkeypatch, "flat", ttp, flat, device="cpu")
+        np.testing.assert_allclose(th["epoch_losses"], fh["epoch_losses"], rtol=1e-6)
+    if backend == "persistent":
+        assert os.path.exists(os.path.join(cfg.paths.vector_db_path, "persistent_meta.json"))
+
+
+def test_sweep_run_one_rat_matches_jax(data, tmp_path, monkeypatch, same_weights):
+    """``run_one`` of a RAT id (18's overrides at a CPU size): the JAX
+    package's files, and its test predictions through the rebuilt store."""
+    from gpt2_image_captioning_tpu_torch.core.config import update_cfg
+
+    cfg = update_cfg(Config(base_config(data)), {**RAT, "mapping": {"type": "transformer"}})
+    runs = {}
+    for name, mod, c in (("jax", jsweep, JConfig(cfg.to_dict())), ("port", tsweep, cfg)):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        kw = {"device": "cpu"} if name == "port" else {}
+        mod.run_one(c, "18", str(tmp_path / name / "sweep"), "tiny RAT run", **kw)
+        runs[name] = tmp_path / name / "sweep" / "checkpoint_18"
+    assert _listing(runs["port"]) == _listing(runs["jax"])
+    assert json.loads((runs["port"] / "test_predictions_18.json").read_text()) == \
+        json.loads((runs["jax"] / "test_predictions_18.json").read_text())
+    info = (runs["port"] / "training_info_18.txt").read_text()
+    assert info.split("training duration")[0] == \
+        (runs["jax"] / "training_info_18.txt").read_text().split("training duration")[0]
+
+
 REFUSED = {
-    "rat": ({"retrieval_augmentation": True}, "RAT"),
     "dp2": ({"tpu": {"mesh": {"dp": 2, "tp": 1}}}, "parallelism"),
     "dp8": ({"tpu": {"mesh": {"dp": 8}}}, "parallelism"),
     "tp2": ({"tpu": {"mesh": {"dp": 1, "tp": 2}}}, "parallelism"),
@@ -232,9 +321,9 @@ REFUSED = {
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_configs_refused_before_any_read(case, tmp_path):
-    """RAT and meshes of more than one device raise ``NotImplementedError``
-    naming their ROADMAP item before any data is read (the paths hold
-    nothing) or any directory is made."""
+    """Meshes of more than one device raise ``NotImplementedError`` naming
+    their ROADMAP item before any data is read (the paths hold nothing) or
+    any directory is made."""
     from gpt2_image_captioning_tpu_torch.core.config import update_cfg
 
     updates, item = REFUSED[case]
@@ -256,15 +345,23 @@ def test_one_device_meshes_accepted(dp, tmp_path):
     ttp.refuse_unported(Config(raw))
 
 
-def test_sweep_refuses_rat_ids_up_front(capsys):
-    """The repo's automation_config.yml: ids 18 and 19 are RAT runs, refused
-    together before the first run; ``--only 1 2`` plans the other two."""
+def test_sweep_plans_rat_ids(capsys, tmp_path):
+    """The repo's automation_config.yml: ids 18 and 19 (RAT) plan with the
+    rest — top_k 20, top_i 6, mean; 19 with GPT-2 unfrozen — and a mesh
+    id is still refused up front, by ``main`` too."""
     base = load_config(os.path.join(REPO, "config.yml"))
     auto = load_config(os.path.join(REPO, "automation_config.yml"))
-    with pytest.raises(NotImplementedError, match=r"\['18', '19'\].*RAT"):
-        tsweep.plan_runs(base, auto)
+    plans = {i: c for i, c, _ in tsweep.plan_runs(base, auto)}
+    assert sorted(plans, key=int) == ["1", "2", "18", "19"]
+    for i in ("18", "19"):
+        assert plans[i].retrieval_augmentation is True
+        assert (plans[i].retrieval.top_k, plans[i].retrieval.top_i,
+                plans[i].retrieval.aggregation_type) == (20, 6, "mean")
+        assert plans[i].image_captioning.freeze_gpt_weights == (i == "18")
     assert [i for i, _, _ in tsweep.plan_runs(base, auto, ["1", "2"])] == ["1", "2"]
+    (tmp_path / "auto.yml").write_text(yaml.safe_dump(
+        {"model": {"5": {"tpu": {"mesh": {"dp": 2}}}, "18": {"retrieval_augmentation": True}}}))
     with pytest.raises(SystemExit) as e:
         tsweep.main(["--config", os.path.join(REPO, "config.yml"),
-                     "--automation", os.path.join(REPO, "automation_config.yml")])
-    assert e.value.code == 2 and "'18', '19'" in capsys.readouterr().err
+                     "--automation", str(tmp_path / "auto.yml")])
+    assert e.value.code == 2 and "['5']" in capsys.readouterr().err
