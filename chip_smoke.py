@@ -13,8 +13,8 @@ and float32, with their contract sweeps; ``--only prefill`` for the prefill
 kernel (bf16 and float32, its device time by part); ``--only quant`` for
 the int8 row quantizer and the int8 products whose rows carry no LayerNorm,
 which quantize them inside the product.  ``--only http``, ``--only
-pipeline``, ``--only sizes`` and ``--only rat`` run one of the last four
-phases below alone, with its launch counts by path.)
+pipeline``, ``--only sizes``, ``--only rat`` and ``--only parallel`` run one
+of the last five phases below alone, with its launch counts by path.)
 
 It builds the port's CUDA kernels from ``gpt2_image_captioning_tpu_torch/csrc``
 (one ``nvcc`` per source, in parallel) and holds each against its plain
@@ -148,7 +148,26 @@ before and read just after:
   beam-4; ``train_rat`` with the flat and the HNSW store over 8,192
   clustered images (the flat store's ids equal the device store's, HNSW
   recall@4 >= 0.95), the host retrieval's ms a batch and the prefetched
-  loop's device idle share; tiny float32 RAT tokens exact.
+  loop's device idle share; tiny float32 RAT tokens exact;
+- data parallelism (``--only parallel``): ranks started as subprocesses of
+  this script (``--parallel-rank``) over a ``file://`` rendezvous, after the
+  kernel library is built, so the ranks only load it — two gloo ranks
+  sharing the card and one nccl rank (a world of one).  Every rank, tiny
+  and float32: greedy, W8A8 and beam-4 ``generate`` of 5 rows and
+  continuous greedy serving, tokens equal to this process's one-process
+  run; three train steps, the losses and the first step's gradients within
+  1e-5 of it (the parameters' distance reported), the ranks' parameters
+  bit-equal.  The two gloo ranks at full width (GPT-2 124M,
+  config.yml's mapper, bf16): greedy ``generate`` of 128 images, 64 rows a
+  rank, teacher-forced against the plain path; continuous greedy serving
+  over 2 x 256 slots (1,024 requests) held as continuous serving is; one
+  train step at b 128 against one process's (the train bounds); CLIP
+  extraction at b 256, the file order and features within 1e-2 of one
+  process's.  Each rank prints its launch counts by kernel and part, which
+  must show the step kernels, decode attention, the prefill, flash
+  attention and the patch embedding inside it.  A rank that fails or
+  outlives its limit is killed and fails the run.  The phase's seconds are
+  those of two ranks sharing one card, not a dp speed.
 
 Every request and admission prefills through the prefill kernel (an int8
 decode through ``forward_cached``, as the reference), and the launch checks
@@ -167,6 +186,7 @@ import dataclasses
 import functools
 import gzip
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -5132,8 +5152,380 @@ def rat_phase() -> tuple[list[dict], dict]:
     return records, counts
 
 
+# ---------------------------------------------------------------------------
+# Phase: data parallelism (``--only parallel``)
+# ---------------------------------------------------------------------------
+
+PARALLEL_RUN = Path(__file__).resolve().parent / "chip_parallel"  # removed at the end
+PARALLEL_RANK_TIMEOUT = 480  # seconds: a rank still running after it is killed
+PAR_TINY_B = 5  # rows of the tiny decodes: dp 2 does not divide them
+PAR_TINY_TOL = 1e-5  # tiny float32 train steps against one process: losses, step-1 gradients
+# the tiny steps' AdamW updates against one process's, each leaf by its norm:
+# a wrong sum over the ranks or a rank-local mean is off by far more
+PAR_TINY_UPDATE_TOL = 1e-3
+PAR_CONTINUOUS = dict(slots=2 * 256, segment=4, bursts=8, admit=32, max_length=50)
+PAR_CONTINUOUS_REQUESTS = 1024
+PAR_EXTRACT = ((256, 256), (256, 100))  # CLIP extraction: (batch, real rows) a batch
+PAR_EXTRACT_TOL = 1e-2  # features of the two ranks against one process's, bf16
+# the kernel families the full-width part must launch inside every rank
+PAR_FAMILIES = ("fused_linear", "logits_argmax", "decode_attention", "prefill",
+                "flash_attention", "patch_embed")
+
+
+def parallel_tiny(mesh) -> dict:
+    """Tiny float32 runs of every dp path, on ``mesh`` (None: one process, the
+    reference): greedy, W8A8 and beam-4 ``generate`` of 5 rows, continuous
+    greedy serving (4 slots: 2 a rank at dp 2), and three train steps on
+    global batches of 8, each rank on its ``Batcher`` shard.  The steps
+    train an MLP mapper: the transformer mapper's attention key bias has an
+    exactly-zero gradient, whose float32 noise Adam scales up to the size of
+    an update (as ``tests/test_torch_epoch.py`` notes)."""
+    from gpt2_image_captioning_tpu_torch import F32, ImageCaptioningModel
+    from gpt2_image_captioning_tpu_torch.core.tree import flatten_with_paths
+    from gpt2_image_captioning_tpu_torch.data.dataset import Batcher
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models.mapping import MLPMappingConfig
+    from gpt2_image_captioning_tpu_torch.serving import ContinuousCaptionService
+    from gpt2_image_captioning_tpu_torch.train import loop, optim
+
+    cfg = tiny_config()
+    tr, fz = C.init_params(torch.Generator().manual_seed(7), cfg, device="cuda")
+    rng = np.random.default_rng(5)
+    emb = torch.from_numpy(rng.normal(size=(PAR_TINY_B, 16)).astype(np.float32)).cuda()
+    out = {"greedy": C.generate(tr, fz, cfg, emb, max_length=12, temperature=0.0, mesh=mesh),
+           "int8": C.generate(tr, fz, cfg, emb, max_length=12, temperature=0.0,
+                              decode_quant=True, mesh=mesh),
+           "beam": C.beam_generate(tr, fz, cfg, emb, max_length=12, beam_size=BEAM_K,
+                                   mesh=mesh)}
+    out = {k: v.cpu().numpy() for k, v in out.items()}
+    model = ImageCaptioningModel(cfg, tokenizer=synthetic_tokenizer(cfg.gpt2.vocab_size),
+                                 policy=F32, device="cuda")
+    model.trainable, model.frozen = tr, fz
+    svc = ContinuousCaptionService(model, slots=4, segment=2, bursts=2, admit=2, max_length=12,
+                                   mesh=mesh)
+    embs = rng.normal(size=(9, 16)).astype(np.float32)
+    out["continuous"] = served_ids(svc, embs, rng.integers(2, 13, size=9))
+
+    cfg = dataclasses.replace(cfg, mapping=MLPMappingConfig(prefix_length=4, embed_dim=16,
+                                                            gpt_dim=cfg.gpt2.n_embd))
+    tr, fz = C.init_params(torch.Generator().manual_seed(3), cfg, device="cuda")
+    ds = Captions(3 * 8 - 3, 24, cfg.eos_token_id, 16, seed=4)  # the last batch padded
+    coords = {} if mesh is None else dict(process_index=mesh.rank, process_count=mesh.dp)
+    opt_cfg = optim.AdamWConfig(learning_rate=1e-3, num_training_steps=3)
+    optimizer, scheduler = optim.make_optimizer(tr, opt_cfg)
+    step = loop.make_train_step(cfg, opt_cfg, F32, device="cuda", mesh=mesh)
+    def leaves(grad=False):
+        return {k: (v.grad if grad else v).detach().cpu().clone()
+                for k, v in flatten_with_paths(tr).items()}
+
+    out["train_before"], out["train_losses"] = leaves(), []
+    for i, b in enumerate(Batcher(ds, 8, seed=0, **coords).epoch(0)):
+        out["train_losses"].append(float(step(tr, optimizer, scheduler, fz, b)[0]))
+        if i == 0:  # the first step's gradient, summed over the ranks and clipped
+            out["train_grads"] = leaves(grad=True)
+    out["train_params"] = leaves()
+    return out
+
+
+def parallel_train_step(mesh) -> dict:
+    """One bf16 train step of :func:`train_path`'s model at b 128, on
+    ``mesh`` (each rank its 64 rows) or in one process: the step's loss and
+    the trainable leaves after it (on the host)."""
+    from gpt2_image_captioning_tpu_torch import BF16
+    from gpt2_image_captioning_tpu_torch.core.tree import flatten_with_paths
+    from gpt2_image_captioning_tpu_torch.data.dataset import Batcher
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config
+    from gpt2_image_captioning_tpu_torch.models.mapping import TransformerMappingConfig
+    from gpt2_image_captioning_tpu_torch.train import loop, optim
+
+    cfg = C.CaptionerConfig(gpt2=GPT2Config.gpt2_124m(),
+                            mapping=TransformerMappingConfig(512, 768, 15, 10))
+    tr, fz = C.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    coords = {} if mesh is None else dict(process_index=mesh.rank, process_count=mesh.dp)
+    batch = next(Batcher(Captions(B, 50, cfg.eos_token_id, 512, seed=1), B, seed=0,
+                         **coords).epoch(0))
+    opt_cfg = optim.AdamWConfig(learning_rate=1e-4, num_training_steps=100)
+    optimizer, scheduler = optim.make_optimizer(tr, opt_cfg)
+    step = loop.make_train_step(cfg, opt_cfg, BF16, device="cuda", mesh=mesh)
+    before = {k: v.detach().cpu().clone() for k, v in flatten_with_paths(tr).items()}
+    loss, norm = step(tr, optimizer, scheduler, fz, batch)
+    return {"loss": float(loss), "grad_norm": float(norm), "before": before,
+            "after": {k: v.detach().cpu() for k, v in flatten_with_paths(tr).items()}}
+
+
+def parallel_extract(mesh, path: Path) -> tuple[list[str], np.ndarray]:
+    """CLIP B/32 extraction (bf16, seeded weights) of PAR_EXTRACT's batches
+    from an in-memory loader, on ``mesh`` or in one process, written to
+    ``path``."""
+    from gpt2_image_captioning_tpu_torch import BF16
+    from gpt2_image_captioning_tpu_torch.embeddings.extract import _run_extraction
+    from gpt2_image_captioning_tpu_torch.embeddings.preprocess import SPECS
+
+    mod, cfg, params = tower_params("clip")
+    rng = np.random.default_rng(9)
+    loader = []
+    for i, (bs, n) in enumerate(PAR_EXTRACT):
+        batch = rng.integers(0, 256, size=(bs, 224, 224, 3), dtype=np.uint8)
+        batch[n:] = batch[n - 1]
+        loader.append(([f"img_{i}_{j:04d}.jpg" for j in range(n)], batch, np.arange(bs) < n))
+    return _run_extraction(loader, str(path), lambda u8: mod.encode_image_u8(
+        params, cfg, u8, SPECS["clip"], policy=BF16), "CLIP", mesh=mesh, device="cuda")
+
+
+def parallel_full(mesh) -> dict:
+    """The full-width part of a gloo rank, launch counts by part: greedy
+    ``generate`` of a 128-image request (64 rows a rank), continuous greedy
+    serving over 2 x 256 slots, one bf16 train step at b 128, CLIP extraction
+    at b 256; rank 0 holds the served tokens to the plain path."""
+    from gpt2_image_captioning_tpu_torch.serving import ContinuousCaptionService
+
+    out, counts, seconds = {}, {}, {}
+    model, reqs = serving_model()
+    model.tokenizer = synthetic_tokenizer(V)
+    eos = model.cfg.eos_token_id
+    emb = torch.from_numpy(reqs[0]).cuda()
+    model.generate(emb, max_length=50, temperature=0.0, decode_precision="bf16")  # warm-up
+
+    def part(name, fn):
+        reset_launches()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds[name], counts[name] = time.perf_counter() - t0, read_launches()
+        return result
+
+    tokens = part("greedy", lambda: model.generate(emb, max_length=50, temperature=0.0,
+                                                   decode_precision="bf16", mesh=mesh))
+    check(tuple(tokens.shape) == (B, 50), f"dp greedy: shape {tuple(tokens.shape)}")
+    rng = np.random.default_rng(1)
+    embs = rng.normal(size=(PAR_CONTINUOUS_REQUESTS, 512)).astype(np.float32)
+    caps = rng.integers(8, 51, size=PAR_CONTINUOUS_REQUESTS)
+    svc = ContinuousCaptionService(model, decode_precision="bf16", seed=0, mesh=mesh,
+                                   **PAR_CONTINUOUS)
+    ids = part("continuous", lambda: served_ids(svc, embs, caps))
+    out["continuous_stats"] = {k: svc.stats[k] for k in ("occupancy", "macros", "host_reads")}
+    if mesh.is_main:
+        worst, n, agree = teacher_forced(model, emb, tokens)
+        check(worst <= TF_TOL, f"dp greedy: a token is {worst} below the plain max")
+        out["greedy_teacher_forced"] = {"worst_deficit": worst, "tolerance": TF_TOL,
+                                        "tokens_checked": n, "share_plain_argmax": agree}
+        for r, c in zip(ids, caps):
+            check(len(r) <= c and all(0 <= t < eos for t in r), "a served caption breaks its cap")
+        out["continuous_checked"] = check_served_tokens(model, embs, *served_matrix(ids, caps, eos),
+                                                        sampled=False)
+    del model, svc
+    torch.cuda.empty_cache()
+    out["train"] = part("train", lambda: parallel_train_step(mesh))
+    out["extraction"] = part("extraction", lambda: parallel_extract(
+        mesh, PARALLEL_RUN / "extract_dp.pt"))
+    out["seconds"], out["launches"] = seconds, counts
+    return out
+
+
+def parallel_rank(argv: list[str]) -> int:
+    """A rank of the parallel phase (``--parallel-rank SPEC RANK``): joins the
+    group over the spec's ``file://`` rendezvous on this process's card, runs
+    the spec's parts on the dp mesh, prints its launch counts by kernel and
+    part, and saves what it computed for the parent."""
+    from gpt2_image_captioning_tpu_torch.core.mesh import create_mesh, init_distributed
+
+    spec = json.loads(Path(argv[0]).read_text())
+    rank = int(argv[1])
+    init_distributed(spec["init_method"], rank=rank, world_size=spec["world"], device="cuda")
+    mesh = create_mesh(device="cuda")
+    out = {"backend": mesh.backend, "device": str(mesh.device), "dp": mesh.dp,
+           "tiny": parallel_tiny(mesh)}
+    if spec["full"]:
+        out["full"] = parallel_full(mesh)
+        print(json.dumps({"phase": "parallel_rank", "world": spec["world"], "rank": rank,
+                          "backend": mesh.backend, "launches_by_part": out["full"]["launches"],
+                          "seconds_by_part": out["full"]["seconds"]}), flush=True)
+    torch.save(out, Path(spec["dir"]) / f"{spec['name']}_rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+    check("jax" not in sys.modules, "a rank imported jax")
+    return 0
+
+
+def launch_ranks(groups: dict[str, tuple[int, bool]]) -> tuple[dict, dict]:
+    """Start every group's ranks of this script at once on the parent's card
+    (a group ``name: (world, full)``: gloo when its ranks share the card,
+    nccl for a world of one), wait for all, and return each group's outputs
+    and its seconds (until its last rank exited).  A rank that fails, or
+    outlives PARALLEL_RANK_TIMEOUT, fails the phase, and every rank still
+    running is killed by its handle."""
+    card = str(torch.cuda.current_device())
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible:
+        card = visible.split(",")[int(card)]
+    procs, logs = {}, []
+    t0 = time.perf_counter()
+    for name, (world, full) in groups.items():
+        spec_path = PARALLEL_RUN / f"{name}.json"
+        spec_path.write_text(json.dumps({
+            "world": world, "full": full, "name": name, "dir": str(PARALLEL_RUN),
+            "init_method": f"file://{PARALLEL_RUN / (name + '.rendezvous')}"}))
+        for rank in range(world):
+            env = dict(os.environ, CUDA_VISIBLE_DEVICES=card, RANK=str(rank),
+                       LOCAL_RANK=str(rank), WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world))
+            log = open(PARALLEL_RUN / f"{name}_rank{rank}.log", "w")
+            logs.append(log)
+            procs[name, rank] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--parallel-rank",
+                 str(spec_path), str(rank)], stdout=log, stderr=subprocess.STDOUT, env=env)
+    seconds = {}
+    deadline = time.monotonic() + PARALLEL_RANK_TIMEOUT
+    try:
+        while True:
+            for name in groups:
+                ranks = [p for (n, _), p in procs.items() if n == name]
+                if name not in seconds and all(p.poll() is not None for p in ranks):
+                    seconds[name] = time.perf_counter() - t0
+            failed = any(p.poll() not in (None, 0) for p in procs.values())
+            if len(seconds) == len(groups) or failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    for name, rank in procs:
+        shutil.copy(PARALLEL_RUN / f"{name}_rank{rank}.log",
+                    OUT_DIR / f"parallel_{name}_rank{rank}.log")
+    codes = {f"{name} rank {rank}": p.returncode for (name, rank), p in procs.items()}
+    check(set(codes.values()) == {0}, f"parallel: exit codes {codes} (0 expected; see "
+                                      "chiprun_out/parallel_*_rank*.log)")
+    outs = {name: [torch.load(PARALLEL_RUN / f"{name}_rank{r}.pt", weights_only=False)
+                   for r in range(world)] for name, (world, _) in groups.items()}
+    return outs, seconds
+
+
+def rel_err(got: dict, want: dict) -> tuple[float, str]:
+    """The largest leaf-wise ||got - want|| / ||want|| and its leaf."""
+    return max((float((got[k] - w).norm() / w.norm()), k) for k, w in want.items())
+
+
+def check_tiny(name: str, ranks: list[dict], want: dict) -> dict:
+    """Every rank's tiny tokens equal the one-process run's; the train
+    losses and the first step's gradients (summed over the ranks, each leaf
+    by its norm) within PAR_TINY_TOL, relative; each leaf's update over the
+    three steps within PAR_TINY_UPDATE_TOL of one process's, by its norm;
+    the ranks' parameters bit-equal.  The update's bound is wider than the
+    gradients': AdamW normalises each element, so an element whose gradient
+    is near 0 turns the gradient's summation-order difference (1e-7) into
+    one of up to the learning rate in its update.  The parameters' largest
+    elementwise difference is reported."""
+    loss_err, param_err, worst_leaf, grad_err, update_err = 0.0, 0.0, None, (0.0, ""), (0.0, "")
+    delta = {k: want["train_params"][k] - v for k, v in want["train_before"].items()}
+    for r, got in enumerate(ranks):
+        t = got["tiny"]
+        for k in ("greedy", "int8", "beam"):
+            check(np.array_equal(t[k], want[k]), f"parallel {name} rank {r}: {k} tokens differ")
+        check(t["continuous"] == want["continuous"],
+              f"parallel {name} rank {r}: continuous captions differ")
+        loss_err = max(loss_err, max(abs(a - b) / abs(b) for a, b in
+                                     zip(t["train_losses"], want["train_losses"])))
+        for k, v in want["train_params"].items():
+            err = float((t["train_params"][k] - v).abs().max())
+            if err > param_err:
+                param_err, worst_leaf = err, k
+        grad_err = max(grad_err, rel_err(t["train_grads"], want["train_grads"]))
+        update_err = max(update_err, rel_err(
+            {k: t["train_params"][k] - v for k, v in want["train_before"].items()}, delta))
+        check(all(torch.equal(t["train_params"][k], ranks[0]["tiny"]["train_params"][k])
+                  for k in want["train_params"]), f"parallel {name}: ranks' parameters differ")
+    check(loss_err <= PAR_TINY_TOL and grad_err[0] <= PAR_TINY_TOL,
+          f"parallel {name}: train loss {loss_err}, gradient {grad_err} off one process")
+    check(update_err[0] <= PAR_TINY_UPDATE_TOL,
+          f"parallel {name}: train update {update_err} off one process")
+    return {"tokens_equal": ["greedy", "int8", "beam", "continuous"],
+            "train_loss_rel_err": loss_err, "train_grad_rel_err": list(grad_err),
+            "train_update_rel_err": list(update_err),
+            "train_param_max_abs_err": [param_err, worst_leaf],
+            "tolerance": PAR_TINY_TOL, "update_tolerance": PAR_TINY_UPDATE_TOL,
+            "ranks_bit_equal": True,
+            "backend": [g["backend"] for g in ranks], "devices": [g["device"] for g in ranks]}
+
+
+def parallel_phase() -> tuple[list[dict], dict]:
+    """Data parallelism on the card: two gloo ranks sharing it and one nccl
+    rank (a world of one), subprocesses of this script, held to this
+    process's one-process runs (PAR_* above)."""
+    shutil.rmtree(PARALLEL_RUN, ignore_errors=True)
+    PARALLEL_RUN.mkdir()
+    t0 = time.perf_counter()
+    want = parallel_tiny(None)
+    ref_train = parallel_train_step(None)
+    ref_names, ref_emb = parallel_extract(None, PARALLEL_RUN / "extract_one.pt")
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t0
+    runs, t_ranks = launch_ranks({"gloo2": (2, True), "nccl1": (1, False)})
+    gloo, nccl = runs["gloo2"], runs["nccl1"]
+    tiny = {"gloo2": check_tiny("gloo2", gloo, want), "nccl1": check_tiny("nccl1", nccl, want)}
+    check(tiny["gloo2"]["backend"] == ["gloo", "gloo"] and tiny["nccl1"]["backend"] == ["nccl"],
+          f"backends {tiny['gloo2']['backend']} {tiny['nccl1']['backend']}")
+
+    counts = {}
+    for r, got in enumerate(gloo):
+        full = got["full"]
+        total = {k: sum(c[k] for c in full["launches"].values())
+                 for k in full["launches"]["greedy"]}
+        idle = [k for k in PAR_FAMILIES if total[k] == 0]
+        check(not idle, f"parallel rank {r}: kernel families never launched: {idle}")
+        counts[f"parallel_rank{r}"] = total
+    f0, f1 = gloo[0]["full"], gloo[1]["full"]
+    check(all(torch.equal(f0["train"]["after"][k], f1["train"]["after"][k])
+              for k in f0["train"]["after"]), "parallel: the ranks' trained parameters differ")
+    loss_err = abs(f0["train"]["loss"] - ref_train["loss"])
+    num = sum(float(((f0["train"]["after"][k] - ref_train["after"][k]).float() ** 2).sum())
+              for k in ref_train["after"])
+    den = sum(float(((ref_train["after"][k] - ref_train["before"][k]).float() ** 2).sum())
+              for k in ref_train["after"])
+    update_err = (num / den) ** 0.5
+    check(loss_err <= TRAIN_TOL["loss_bf16"], f"parallel train: loss {f0['train']['loss']} "
+                                              f"against one process's {ref_train['loss']}")
+    check(update_err <= TRAIN_TOL["grad_bf16"], f"parallel train: update error {update_err}")
+    names, emb = f0["extraction"]
+    check(names == ref_names == f1["extraction"][0], "parallel extraction: file order differs")
+    extract_err = float(np.abs(emb - ref_emb).max())
+    check(extract_err <= PAR_EXTRACT_TOL, f"parallel extraction: features {extract_err} off")
+    from gpt2_image_captioning_tpu_torch.data.embeddings_io import load_embeddings
+
+    saved_names, saved = load_embeddings(str(PARALLEL_RUN / "extract_dp.pt"))
+    check(saved_names == names and np.array_equal(saved, emb), "the dp .pt did not read back")
+    record = {
+        "phase": "parallel", "model": MODEL_NAME,
+        "seconds": {"one_process_references": t_ref,
+                    "two_ranks_sharing_one_card": t_ranks["gloo2"],
+                    "one_nccl_rank": t_ranks["nccl1"]},
+        "note": "two gloo ranks share one card, beside the nccl rank started with them: "
+                "the seconds are not a dp speed",
+        "tiny_f32": tiny,
+        "full_width": {
+            "greedy": {"rows_a_rank": B // 2, **f0["greedy_teacher_forced"]},
+            "continuous": {**PAR_CONTINUOUS, "requests": PAR_CONTINUOUS_REQUESTS,
+                           **f0["continuous_checked"], "stats_rank0": f0["continuous_stats"]},
+            "train": {"batch": B, "loss_dp": f0["train"]["loss"], "loss_one_process":
+                      ref_train["loss"], "loss_abs_err": loss_err, "update_rel_err": update_err,
+                      "tolerance": [TRAIN_TOL["loss_bf16"], TRAIN_TOL["grad_bf16"]],
+                      "ranks_bit_equal": True},
+            "extraction": {"batches": [list(b) for b in PAR_EXTRACT], "max_abs_err": extract_err,
+                           "tolerance": PAR_EXTRACT_TOL, "file_order_equal": True},
+            "seconds_by_part_rank0": f0["seconds"],
+        },
+        "launches_by_rank_and_part": [g["full"]["launches"] for g in gloo],
+        "card": nvidia_smi(),
+    }
+    shutil.rmtree(PARALLEL_RUN, ignore_errors=True)
+    return [record], counts
+
+
 # ``--only <phase>``: one of the slice's phases alone, its records and launches
-PHASES = {"http": http_phase, "pipeline": pipeline_phase, "sizes": sizes_phase, "rat": rat_phase}
+PHASES = {"http": http_phase, "pipeline": pipeline_phase, "sizes": sizes_phase, "rat": rat_phase,
+          "parallel": parallel_phase}
 
 
 # ``--only <part>``: (compute dtypes, checks) of one part, its records alone
@@ -5147,7 +5539,8 @@ ONLY = {
 
 def main(argv: list[str]) -> int:
     parts = (*ONLY, *PHASES)
-    if argv not in ([], *(["--only", part] for part in parts)):
+    rank_call = len(argv) == 3 and argv[0] == "--parallel-rank"  # a rank of the parallel phase
+    if not rank_call and argv not in ([], *(["--only", part] for part in parts)):
         print(f"usage: python3 chip_smoke.py [--only {'|'.join(parts)}]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -5157,6 +5550,8 @@ def main(argv: list[str]) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False  # plain twins in full float32
     torch.backends.cudnn.allow_tf32 = False
+    if rank_call:
+        return parallel_rank(argv[1:])
     card = nvidia_smi()
     emit({"phase": "device", "nvidia_smi": card, "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,

@@ -9,8 +9,10 @@ hand-written CUDA kernels for Hopper (``csrc/*.cu``, built by ``nvcc`` at
 first use — see ``ops/_build.py``); on the CPU the same code runs their
 plain PyTorch twins.  The entry points: ``python -m
 gpt2_image_captioning_tpu_torch`` (the environment check),
-``.training_pipeline`` (training from ``config.yml``), ``.sweep`` and
-``.viz`` (the results viewer).
+``.training_pipeline`` (training from ``config.yml``), ``.sweep``,
+``.embeddings.extract`` (image embeddings) and ``.viz`` (the results
+viewer).  Data parallelism runs one process a rank over a
+``torch.distributed`` group (``core/mesh.py``, ``parallel/``; ``torchrun``).
 The package imports torch and never jax; PIL only where an image is decoded.
 """
 

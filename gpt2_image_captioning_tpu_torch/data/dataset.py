@@ -195,19 +195,30 @@ class Batcher:
     """Shuffled fixed-shape training batches with pad-and-mask semantics.
 
     Every epoch covers all captions exactly once; the permutation is a pure
-    function of (seed, epoch), so a resumed run replays the same order.  The
-    final partial batch is padded to ``batch_size`` by repeating its last
-    index, and the padded rows get -100 labels, so they add nothing to the
-    loss.  ``dataset`` is a :class:`CocoDataset`, or anything with
-    ``__len__`` and ``gather_batch(indices) → dict of arrays``.  One
-    process; the JAX package's per-process sharding waits for the
-    parallelism item of ROADMAP.md.
+    function of (seed, epoch), so a resumed run replays the same order and
+    every process agrees on it.  The final partial batch is padded to
+    ``batch_size`` by repeating its last index, and the padded rows get -100
+    labels, so they add nothing to the loss.  ``dataset`` is a
+    :class:`CocoDataset`, or anything with ``__len__`` and
+    ``gather_batch(indices) → dict of arrays``.
+
+    ``batch_size`` is global.  With ``process_index`` / ``process_count``
+    (a data-parallel rank and the number of ranks) each process yields only
+    its contiguous shard of every batch, and the padded rows are labelled
+    -100 on whichever process holds them.
     """
 
-    def __init__(self, dataset: CocoDataset, batch_size: int, seed: int = 0):
+    def __init__(self, dataset: CocoDataset, batch_size: int, seed: int = 0,
+                 process_index: int | None = None, process_count: int | None = None):
         self.ds = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.process_index = process_index or 0
+        self.process_count = process_count or 1
+        if batch_size % self.process_count != 0:
+            raise ValueError(
+                f"global batch {batch_size} not divisible by process_count {self.process_count}"
+            )
         self._next_epoch = 0
 
     @property
@@ -220,13 +231,16 @@ class Batcher:
             self._next_epoch += 1
         perm = np.random.default_rng([self.seed, epoch_idx]).permutation(len(self.ds))
         bs = self.batch_size
+        shard = bs // self.process_count
+        lo = self.process_index * shard
         for start in range(0, len(perm), bs):
             idx = perm[start : start + bs]
             n_real = len(idx)
             if n_real < bs:
                 idx = np.concatenate([idx, np.repeat(idx[-1:], bs - n_real)])
-            batch = self.ds.gather_batch(idx)
-            if n_real < bs:
+            batch = self.ds.gather_batch(idx[lo : lo + shard])
+            pad_start = max(0, n_real - lo)
+            if pad_start < shard:
                 batch["labels"] = batch["labels"].copy()
-                batch["labels"][n_real:] = IGNORE_INDEX
+                batch["labels"][pad_start:] = IGNORE_INDEX
             yield batch

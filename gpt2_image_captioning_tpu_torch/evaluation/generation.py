@@ -22,8 +22,11 @@ Where the port differs from the JAX package:
 - ``rng=`` becomes ``seed=``: sampled batch i draws from a ``torch.Generator``
   on the model's device seeded from (seed, i) — the counterpart of
   ``jax.random.fold_in(rng, i)``; the draws differ from ``jax.random``'s.
-- A ``mesh`` is not ported yet and raises ``NotImplementedError``
-  (ROADMAP.md, queue 1: parallelism).
+- ``mesh`` (a dp :class:`core.mesh.Mesh`, the same call on every rank): each
+  batch is decoded on each rank's rows and gathered (``generate``'s dp
+  path), so every rank holds the predictions in global order, without the
+  padding rows, and computes the same metrics from them; rank 0 alone
+  writes the evaluation files.  A mesh with ``tp > 1`` raises.
 
 With ``db_store`` (a RAT model, :class:`models.rat.RetrievalAugmentedTransformer`)
 each batch's embeddings are retrieval-augmented first — the store's
@@ -43,20 +46,13 @@ import numpy as np
 import torch
 
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from gpt2_image_captioning_tpu_torch.core.mesh import barrier, refuse_tp
 from gpt2_image_captioning_tpu_torch.evaluation.evaluate import (
     EvalMetrics,
     evaluate_captions,
     save_epoch_artifacts,
 )
 from gpt2_image_captioning_tpu_torch.models import captioner as C
-
-
-def refuse_unported(mesh=None) -> None:
-    """Raise ``NotImplementedError`` for a device mesh, whose slice is still
-    to come."""
-    if mesh is not None:
-        raise NotImplementedError("a device mesh is not ported yet (ROADMAP.md, queue 1: "
-                                  "parallelism); the port runs on one device")
 
 
 def check_model_device(model, device) -> torch.device:
@@ -110,8 +106,11 @@ def generate_predictions(
     "int8" (the W8A8 pack of that copy).  ``db_store``: a store to augment
     each batch's embeddings from (the model must be a RAT model), at
     ``top_k`` / ``top_i``.  ``device`` must be where the model lives: the
-    card unless the caller asks for the CPU."""
-    refuse_unported(mesh)
+    card unless the caller asks for the CPU, the mesh's device with a
+    ``mesh`` (module docstring)."""
+    refuse_tp(mesh)
+    if mesh is not None:
+        device = mesh.device
     if decode not in ("sample", "beam"):
         raise ValueError(f"decode must be 'sample' or 'beam', got {decode!r}")
     if db_store is not None and not hasattr(model, "augment"):
@@ -131,13 +130,13 @@ def generate_predictions(
         if decode == "beam":
             return C.beam_generate(tr, fz, model.cfg, emb, max_length=max_length,
                                    beam_size=beam_size, policy=pol, packed=packed,
-                                   decode_quant=quant)
+                                   decode_quant=quant, mesh=mesh)
         generator = None
         if temperature != 0.0:
             generator = torch.Generator(device=device).manual_seed(batch_seed(seed, i))
         return C.generate(tr, fz, model.cfg, emb, max_length=max_length,
                           temperature=temperature, top_p=top_p, generator=generator,
-                          policy=pol, packed=packed, decode_quant=quant)
+                          policy=pol, packed=packed, decode_quant=quant, mesh=mesh)
 
     def consume(batch, ids):
         captions = tokenizer.batch_decode(ids.cpu().numpy(), skip_special_tokens=True)
@@ -233,8 +232,10 @@ def evaluate_epoch(
 ) -> EvalMetrics:
     """Per-epoch evaluation with the reference's artifacts
     (``epoch_{n}_{split}_predictions[_rat].json`` and ``..._metrics...``)
-    under ``output_dir``."""
-    refuse_unported(mesh)
+    under ``output_dir``, written by rank 0 alone under a ``mesh``."""
+    refuse_tp(mesh)
+    if mesh is not None:
+        device = mesh.device
     check_model_device(model, device)
     print(f"\n{'=' * 60}\nEpoch {epoch} | {split_name.upper()} Evaluation\n{'=' * 60}")
     predictions, metrics = generate_and_evaluate(
@@ -251,11 +252,14 @@ def evaluate_epoch(
         db_store=db_store,
         top_k=top_k,
         top_i=top_i,
+        mesh=mesh,
         decode_precision=decode_precision,
         device=device,
     )
     print(f"\nResults: {metrics}")
-    save_epoch_artifacts(predictions, metrics, output_dir, epoch, split_name, rat=rat)
+    if mesh is None or mesh.is_main:
+        save_epoch_artifacts(predictions, metrics, output_dir, epoch, split_name, rat=rat)
+    barrier(mesh)
     return metrics
 
 

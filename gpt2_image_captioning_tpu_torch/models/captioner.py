@@ -22,9 +22,15 @@ and the first token stay at the compute precision, as in the JAX package,
 and the prefill runs ``gpt2.forward_cached`` there (an int8 pack holds no
 float weights), as the JAX package keeps its XLA prefill.
 
-Not ported yet, and refused rather than run another way: meshes (see
-ROADMAP.md), and prefixes longer than the prefill kernel's
-:data:`ops.prefill_step.MAX_PREFIX` tokens (the reference's gate).
+Under a dp mesh (:mod:`core.mesh`) ``generate`` and ``beam_generate`` run
+the single-device path, kernels and all, on each rank's contiguous rows
+(:func:`_dp_rows`) and gather the tokens in rank order, so every rank
+returns the whole batch.
+
+Not ported yet, and refused rather than run another way: meshes with a
+tensor-parallel axis (ROADMAP.md, queue 1: tensor parallelism), and prefixes
+longer than the prefill kernel's :data:`ops.prefill_step.MAX_PREFIX` tokens
+(the reference's gate).
 """
 
 from __future__ import annotations
@@ -36,13 +42,16 @@ from typing import Any
 import torch
 
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
+from gpt2_image_captioning_tpu_torch.core.mesh import refuse_tp
 from gpt2_image_captioning_tpu_torch.core.precision import BF16, F32, Policy, cast_floating
 from gpt2_image_captioning_tpu_torch.core.tree import tree_map
 from gpt2_image_captioning_tpu_torch.models import gpt2 as G
 from gpt2_image_captioning_tpu_torch.models import mapping as M
 from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 from gpt2_image_captioning_tpu_torch.ops import prefill_step as PS
-from gpt2_image_captioning_tpu_torch.ops.sampling import NEG_INF, sample_token, topk_small
+from gpt2_image_captioning_tpu_torch.ops.sampling import (
+    NEG_INF, fold_seed, sample_token, topk_small,
+)
 from gpt2_image_captioning_tpu_torch.ops.xent import IGNORE_INDEX, xent_sum
 
 
@@ -203,11 +212,34 @@ def prefill(gpt_params, cfg: CaptionerConfig, prefix, cache, policy: Policy, pac
                                  use_kernel=use)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded decode is not ported yet (ROADMAP.md, queue 1: parallelism)"
-        )
+def _dp_rows(mesh, decode, image_embeddings: torch.Tensor,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+    """``decode(rows, generator)`` → tokens, run on this rank's contiguous
+    rows of the batch and gathered in rank order (every rank returns all B
+    rows).  A batch that dp does not divide is padded by repeating its last
+    row, and the extra rows are dropped after the gather: rows decode
+    independently, so the tokens are the single-device ones.  A sampled
+    decode's rank draws from a seed with the rank folded in
+    (:func:`ops.sampling.fold_seed`) over a base seed drawn from
+    ``generator``, the same draw on every rank.  Without a mesh, or on a
+    one-rank mesh with no process group, ``decode`` takes the batch as is."""
+    refuse_tp(mesh)
+    if mesh is None or (mesh.dp == 1 and mesh.group is None):
+        return decode(image_embeddings, generator)
+    from gpt2_image_captioning_tpu_torch.parallel.collectives import all_gather_batch
+
+    b, dp = image_embeddings.shape[0], mesh.dp
+    per = -(-b // dp)
+    x = image_embeddings
+    if per * dp != b:
+        x = torch.cat([x, x[-1:].expand(per * dp - b, *x.shape[1:])])
+    local = x[mesh.rank * per:(mesh.rank + 1) * per].to(mesh.device)
+    if generator is not None:
+        base = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                                 device=generator.device))
+        generator = torch.Generator(device=mesh.device).manual_seed(
+            fold_seed(base, mesh.rank) & 0x7FFFFFFFFFFFFFFF)
+    return all_gather_batch(mesh, decode(local, generator))[:b]
 
 
 @torch.no_grad()
@@ -262,8 +294,29 @@ def generate(
     mapper's and the prefill's attention included); True on the CPU raises.
     ``packed``: weights from :func:`prepare_decode_weights` (int8 exactly
     when ``decode_quant``), reused across calls.
+
+    ``mesh``: a dp :class:`core.mesh.Mesh`, the same call on every rank;
+    each rank decodes its rows on its device and every rank returns the
+    (B, max_length) tokens (:func:`_dp_rows`).  ``tp > 1`` raises.
     """
-    _refuse_mesh(mesh)
+    def decode(rows, gen):
+        return _generate(trainable, frozen, cfg, rows, max_length=max_length,
+                         temperature=temperature, top_p=top_p, generator=gen, policy=policy,
+                         use_kernels=use_kernels, packed=packed,
+                         sample_in_kernel=sample_in_kernel, sample_k=sample_k,
+                         decode_quant=decode_quant, decode_quant_cache=decode_quant_cache)
+
+    if temperature == 0.0:
+        generator = None  # greedy draws nothing
+    elif generator is None:
+        generator = torch.Generator(device=image_embeddings.device).manual_seed(0)
+    return _dp_rows(mesh, decode, image_embeddings, generator)
+
+
+def _generate(trainable, frozen, cfg, image_embeddings, *, max_length, temperature, top_p,
+              generator, policy, use_kernels, packed, sample_in_kernel, sample_k,
+              decode_quant, decode_quant_cache) -> torch.Tensor:
+    """The single-device decode of :func:`generate`."""
     gpt_params = _gpt(trainable, frozen)
     eos = cfg.eos_token_id
     cdt = policy.compute_dtype
@@ -271,8 +324,6 @@ def generate(
     use = DS.fused_greedy_enabled(use_kernels, device)
     packed = _decode_pack(packed, gpt_params, policy, decode_quant)
     greedy = temperature == 0.0
-    if not greedy and generator is None:
-        generator = torch.Generator(device=device).manual_seed(0)
     in_kernel = sample_in_kernel and not greedy
     if in_kernel and (top_p < 0.5 or decode_quant_cache):
         why = (f"needs top_p >= 0.5 (got {top_p}): smaller nuclei reject most speculative "
@@ -449,12 +500,16 @@ def beam_generate(
     to and including EOS.  Any batch and ``beam_size`` <= 16 run on the
     kernels.  ``use_kernels``, ``packed`` and ``decode_quant`` (W8A8 steps;
     the prefill stays at the compute precision) as in :func:`generate`.
+    ``mesh``: each rank searches its images' beam groups and every rank
+    returns the (B, max_length) tokens, as in :func:`generate`.
     """
-    _refuse_mesh(mesh)
-    beams = _beam_search(trainable, frozen, cfg, image_embeddings, max_length=max_length,
-                         beam_size=beam_size, policy=policy, use_kernels=use_kernels,
-                         packed=packed, decode_quant=decode_quant)
-    return _best_beam(*beams, length_penalty=length_penalty)[0]
+    def decode(rows, _):
+        beams = _beam_search(trainable, frozen, cfg, rows, max_length=max_length,
+                             beam_size=beam_size, policy=policy, use_kernels=use_kernels,
+                             packed=packed, decode_quant=decode_quant)
+        return _best_beam(*beams, length_penalty=length_penalty)[0]
+
+    return _dp_rows(mesh, decode, image_embeddings)
 
 
 def _best_beam(tokens, scores, lengths, *, length_penalty: float):

@@ -24,6 +24,10 @@ are not carried over: on the GPU an indexed write into the cache window is
 cheap.  Sampling noise is keyed off the monotone step counter ``t`` (decode
 steps ``2t``, the burst's admission point ``2t + 1``), never off the
 rebased ``idx``, so compaction cannot replay or shift it.
+
+Under a dp mesh the pool splits into ``dp`` sub-pools, one a rank
+(:func:`init_state_dp`, :func:`macro_step_dp`); each runs this engine on its
+own rows and only the packed output is gathered.
 """
 
 from __future__ import annotations
@@ -262,13 +266,57 @@ def macro_step(
     return state, out
 
 
-def init_state_dp(*args, **kwargs):
-    raise NotImplementedError(
-        "the dp-sharded engine is not ported yet (ROADMAP.md, queue 1: parallelism)"
-    )
+def init_state_dp(cfg: CaptionerConfig, mesh, slots: int, t_max: int, prefix_len: int,
+                  policy: Policy = F32) -> dict:
+    """This rank's sub-pool of a dp-sharded engine: rank r of ``mesh`` holds
+    rows ``[r · slots/dp, (r+1) · slots/dp)`` of the ``slots``-row pool, as
+    :func:`init_state` of ``slots // dp`` rows on the mesh's device, with
+    its own ``idx`` and ``t`` (each sub-pool compacts and counts on its
+    own), as the JAX package's per-pool ``(dp,)`` vectors have."""
+    if slots % mesh.dp != 0:
+        raise ValueError(f"slots {slots} must divide over dp={mesh.dp}")
+    return init_state(cfg, slots // mesh.dp, t_max, prefix_len, policy, mesh.device)
 
 
-def macro_step_dp(*args, **kwargs):
-    raise NotImplementedError(
-        "the dp-sharded engine is not ported yet (ROADMAP.md, queue 1: parallelism)"
-    )
+def macro_step_dp(
+    mesh,
+    packed: dict,
+    trainable: dict,
+    frozen: dict,
+    state: dict,
+    emb_q: torch.Tensor,
+    cap_q: torch.Tensor,
+    uid_q: torch.Tensor,
+    n_q,
+    seed: int | None = None,
+    temp_q: torch.Tensor | None = None,
+    topp_q: torch.Tensor | None = None,
+    **kw,
+) -> tuple[dict, torch.Tensor]:
+    """Data-parallel continuous serving: every rank, called with the same
+    arguments, runs :func:`macro_step` on its own sub-pool
+    (:func:`init_state_dp`) — no collective inside the decode loop.
+
+    The staged block is ``dp`` contiguous per-pool blocks: ``emb_q`` (Q, E),
+    ``cap_q`` / ``uid_q`` / ``temp_q`` / ``topp_q`` (Q,) are split on the
+    queue axis and rank r admits from block r; ``n_q`` holds one count of
+    valid staged entries a pool (host ints).  Sampled noise folds the pool's
+    index into ``seed`` (:func:`ops.sampling.fold_seed`, as the JAX engine
+    folds ``axis_index("dp")`` into its key).  Returns ``(state', out)``
+    with ``out`` (bursts · seg, 4, S) gathered over the pools on the slot
+    axis, so the host's harvest is that of one pool of S rows and the uids
+    stay global.  ``kw``: :func:`macro_step`'s keywords."""
+    from gpt2_image_captioning_tpu_torch.parallel.collectives import all_gather_batch
+
+    dp, r = mesh.dp, mesh.rank
+    q_per = emb_q.shape[0] // dp
+
+    def block(x):
+        return None if x is None else x[r * q_per:(r + 1) * q_per].to(mesh.device)
+
+    state, out = macro_step(packed, trainable, frozen, state, block(emb_q), block(cap_q),
+                            block(uid_q), int(n_q[r]),
+                            None if seed is None else fold_seed(seed, r), block(temp_q),
+                            block(topp_q), **kw)
+    out = all_gather_batch(mesh, out.permute(2, 0, 1).contiguous()).permute(1, 2, 0)
+    return state, out.contiguous()

@@ -18,6 +18,7 @@ import os
 import torch
 
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE
+from gpt2_image_captioning_tpu_torch.core.mesh import barrier
 from gpt2_image_captioning_tpu_torch.data.embeddings_io import load_embeddings
 from gpt2_image_captioning_tpu_torch.models.rat import RATConfig
 
@@ -33,13 +34,20 @@ def caption_embeddings_file(cfg) -> str:
                         f"train_{cfg.vision_encoder}_caption_embeddings.pt")
 
 
-def build_store(cfg, backend: str | None = None, device=DEFAULT_DEVICE):
+def build_store(cfg, backend: str | None = None, device=DEFAULT_DEVICE, mesh=None):
     """``config.yml``'s paths → a store of ``backend`` (default
     ``retrieval.backend``, else ``device``); the device store lives on
-    ``device``."""
+    ``device``.  Under a dp ``mesh`` every rank builds its own in-memory
+    store, and the ``persistent`` directory is written by rank 0 alone: the
+    other ranks wait for it and open it."""
     from gpt2_image_captioning_tpu_torch.training_pipeline import embeddings_file
 
     backend = backend or cfg.retrieval.get("backend", "device")
+    if backend == "persistent" and mesh is not None and not mesh.is_main:
+        from gpt2_image_captioning_tpu_torch.retrieval.store import PersistentVectorStore
+
+        barrier(mesh)
+        return PersistentVectorStore(cfg.paths.vector_db_path)
     filenames, image_emb = load_embeddings(embeddings_file(cfg, "train"))
     caption_entries = load_caption_entries(caption_embeddings_file(cfg))
     if backend == "device":
@@ -53,8 +61,10 @@ def build_store(cfg, backend: str | None = None, device=DEFAULT_DEVICE):
     if backend == "persistent":
         from gpt2_image_captioning_tpu_torch.retrieval.store import create_persistent_store
 
-        return create_persistent_store(cfg.paths.vector_db_path, filenames, image_emb,
-                                       caption_entries)
+        store = create_persistent_store(cfg.paths.vector_db_path, filenames, image_emb,
+                                        caption_entries)
+        barrier(mesh)
+        return store
     raise ValueError(f"Unknown retrieval backend: {backend!r}")
 
 
@@ -79,7 +89,8 @@ def wrap_model(cfg, model):
 def run_rat_training(cfg, model, train_ds, val_ds, save_dir: str, device=DEFAULT_DEVICE,
                      **train_kw) -> dict:
     """Called by ``training_pipeline.run`` for ``retrieval_augmentation``
-    configs; ``train_kw`` passes the ``tpu`` block's options to ``train()``."""
+    configs; ``train_kw`` passes the ``tpu`` block's options to ``train()``,
+    its ``mesh`` also to :func:`build_store`."""
     from gpt2_image_captioning_tpu_torch.train.loop import train_rat
 
     rat_model = wrap_model(cfg, model)
@@ -87,7 +98,7 @@ def run_rat_training(cfg, model, train_ds, val_ds, save_dir: str, device=DEFAULT
     return train_rat(
         train_ds,
         rat_model,
-        build_store(cfg, device=device),
+        build_store(cfg, device=device, mesh=train_kw.get("mesh")),
         top_k=rcfg.top_k,
         top_i=rcfg.top_i,
         batch_size=cfg.training.batch_size,

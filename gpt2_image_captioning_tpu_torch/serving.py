@@ -43,8 +43,16 @@ stream of the service's device — so the kernels' launches keep stream order
 (the sampler's counters rely on it: one zeroed buffer a device).  While a
 server runs, nothing else may call its service.
 
-Not ported here, and refused: ``mesh`` needs parallelism (ROADMAP.md, queue
-1: parallelism).
+Both services take a dp ``mesh`` (:mod:`core.mesh`), every rank called with
+the same requests and returning every caption.  ``CaptionService`` encodes
+each rank's shard of a device batch, gathers the embeddings and decodes
+through ``generate``'s dp path.  ``ContinuousCaptionService`` splits its
+pool into ``dp`` sub-pools of ``slots // dp`` rows, one a rank
+(:func:`models.continuous.macro_step_dp`), and routes the queue's entries
+round-robin over them.  Not ported, and refused: meshes with ``tp > 1``
+(ROADMAP.md, queue 1: tensor parallelism), and the HTTP endpoints over a
+service whose mesh has more than one rank (ROADMAP.md, queue 1: serve_http
+over a dp service): in a multi-process world one rank listens.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from gpt2_image_captioning_tpu_torch.core.mesh import refuse_tp, shard_bounds
 from gpt2_image_captioning_tpu_torch.core.precision import BF16
 from gpt2_image_captioning_tpu_torch.embeddings.preprocess import (
     SPECS, normalize_on_device, resize_and_crop,
@@ -69,6 +78,7 @@ from gpt2_image_captioning_tpu_torch.embeddings.preprocess import (
 from gpt2_image_captioning_tpu_torch.models import captioner as C
 from gpt2_image_captioning_tpu_torch.models import continuous as CE
 from gpt2_image_captioning_tpu_torch.ops.sampling import fold_seed
+from gpt2_image_captioning_tpu_torch.parallel.collectives import all_gather_batch
 
 
 def _make_frontend(vision_cfg, encoder: str, encode_fn, spec, policy,
@@ -130,7 +140,9 @@ class CaptionService:
     ``temperature=0`` decodes greedily; otherwise top-p sampling at
     ``top_p``, each device batch drawing from a fresh generator seeded by
     :func:`ops.sampling.fold_seed` of ``seed`` and the batch's counter.
-    ``use_kernels`` as in :func:`models.captioner.generate`.
+    ``use_kernels`` as in :func:`models.captioner.generate`.  ``mesh``: a dp
+    mesh on whose device the model lives; ``batch_size`` must divide over
+    its ``dp`` ranks (module docstring).
     """
 
     def __init__(self, model, vision_params, vision_cfg, *, encoder: str = "clip",
@@ -138,7 +150,10 @@ class CaptionService:
                  temperature: float = 0.0, top_p: float = 0.9,
                  decode_precision: str | None = None, policy=None, spec=None, seed: int = 0,
                  mesh=None, use_kernels: bool | None = None):
-        C._refuse_mesh(mesh)
+        refuse_tp(mesh)
+        if mesh is not None and batch_size % mesh.dp != 0:
+            raise ValueError(f"batch_size {batch_size} must divide over dp={mesh.dp}")
+        self._mesh = mesh
         self.model = model
         self.spec, self._encode = _make_frontend(vision_cfg, encoder, encode_fn, spec,
                                                  policy or BF16, use_kernels)
@@ -160,13 +175,21 @@ class CaptionService:
             fold_seed(self.seed, self._draws) & 0x7FFFFFFFFFFFFFFF)
 
     def _caption_batch(self, batch_u8: np.ndarray) -> list[str]:
+        """Captions of one device batch; under a mesh each rank encodes its
+        contiguous shard and the embeddings are gathered."""
+        mesh = self._mesh
+        if mesh is not None:
+            lo, hi = shard_bounds(mesh, len(batch_u8))
+            batch_u8 = batch_u8[lo:hi]
         u8 = torch.from_numpy(np.ascontiguousarray(batch_u8, np.uint8)).to(self.model.device)
         with torch.no_grad():
             emb = self._encode(self._vparams, u8)
+        if mesh is not None:
+            emb = all_gather_batch(mesh, emb)
         return self.model.generate_captions(
             emb, max_length=self.max_length, temperature=self.temperature, top_p=self.top_p,
             generator=self._next_generator(), decode_precision=self.decode_precision,
-            use_kernels=self._use_kernels)
+            use_kernels=self._use_kernels, mesh=mesh)
 
     def _to_square_u8(self, rgb: np.ndarray) -> np.ndarray:
         return resize_and_crop(np.asarray(rgb, np.uint8), self.spec)
@@ -245,6 +268,14 @@ class ContinuousCaptionService:
     points per macro, up to ``admit`` admissions at each; ``max_length`` is
     the longest caption a request may ask for.  ``pipeline_depth`` macros
     may be in flight.  ``use_kernels`` as in :func:`models.captioner.generate`.
+
+    ``mesh``: a dp mesh on whose device the model lives; ``slots`` must
+    divide over its ``dp`` ranks, each of which serves a sub-pool of ``slots
+    // dp`` rows and admits up to ``admit`` (at most ``slots // dp``) at each
+    admission point.  The staging block is ``dp`` per-pool blocks of
+    ``q_cap // dp`` rows; entry i of the queue lands in row ``(i % dp) ·
+    q_per + i // dp``, so the queue spreads round-robin over the pools.
+    Each rank encodes the staged images of its own block.
     """
 
     def __init__(
@@ -273,9 +304,11 @@ class ContinuousCaptionService:
         admit_affinity: bool = False,
         use_kernels: bool | None = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a dp mesh of sub-pools is not ported yet (ROADMAP.md, queue 1: parallelism)")
+        refuse_tp(mesh)
+        self._mesh = mesh
+        self._dp = 1 if mesh is None else mesh.dp
+        if slots % self._dp != 0:
+            raise ValueError(f"slots {slots} must divide over dp={self._dp}")
         if pipeline_depth < 1:
             raise ValueError(f"pipeline_depth must be >= 1, got {pipeline_depth}")
         self.model = model
@@ -292,7 +325,8 @@ class ContinuousCaptionService:
         self.slots = slots
         self.segment = segment
         self.bursts = bursts
-        self.admit = min(admit if admit is not None else 32, slots)
+        sp = slots // self._dp  # rows of one sub-pool
+        self.admit = min(admit if admit is not None else 32, sp)
         self.max_length = max_length
         self.admit_affinity = bool(admit_affinity)
         self.temperature, self.top_p = float(temperature), float(top_p)
@@ -310,10 +344,14 @@ class ContinuousCaptionService:
         # (<= P + max_length - 1), then idx grows by bursts * segment
         t_max = max(t_max or 0, p + max_length + bursts * segment)
         self.t_max = -(-t_max // 8) * 8
-        # staging block: everything one macro could admit
-        self.q_cap = max(slots, min(bursts * self.admit, 4 * slots))
+        # staging block: everything one macro could admit, a block a sub-pool
+        self._q_per = max(sp, min(bursts * self.admit, 4 * sp))
+        self.q_cap = self._dp * self._q_per
         self.pipeline_depth = pipeline_depth
-        self._state = CE.init_state(cfg, slots, self.t_max, p, self._pol, self.device)
+        if self._dp == 1:
+            self._state = CE.init_state(cfg, slots, self.t_max, p, self._pol, self.device)
+        else:
+            self._state = CE.init_state_dp(cfg, mesh, slots, self.t_max, p, self._pol)
         # (request id, payload, is_embedding): an embedding (numpy, or a device
         # row once encoded) or a prepped uint8 image
         self._queue: list[tuple[int, object, bool]] = []
@@ -438,11 +476,15 @@ class ContinuousCaptionService:
 
     def _dispatch(self) -> None:
         """Stage a request block, run one macro step, and start the copy of
-        its packed output to pinned host memory."""
+        its packed output to pinned host memory.  Under a dp mesh entry i
+        goes to sub-pool ``i % dp`` (staging row ``(i % dp) · q_per + i //
+        dp``), and this rank encodes the images of its own pool's block."""
         td = time.perf_counter()
+        dp, q_per = self._dp, self._q_per
+        mine = 0 if self._mesh is None else self._mesh.rank
         entries = self._queue[: self.q_cap]
         del self._queue[: len(entries)]
-        n = len(entries)
+        pos = [(i % dp) * q_per + i // dp for i in range(len(entries))]
         emb = np.zeros((self.q_cap, self._emb_dim), np.float32)
         ints = np.full((2, self.q_cap), -1, np.int32)  # cap, uid
         floats = np.empty((2, self.q_cap), np.float32)  # temperature, top_p
@@ -450,38 +492,45 @@ class ContinuousCaptionService:
         floats[0], floats[1] = self.temperature, self.top_p
         images, encoded = [], []
         for i, (rid, payload, is_emb) in enumerate(entries):
+            ints[:, pos[i]] = self._req_max.get(rid, self.max_length), rid
+            floats[:, pos[i]] = self._req_temp.get(rid, self.temperature), self._req_topp.get(
+                rid, self.top_p)
+            if i % dp != mine:  # another rank's sub-pool embeds this entry
+                continue
             if not is_emb:
                 images.append(i)
             elif isinstance(payload, torch.Tensor):  # an image encoded by an earlier macro
                 encoded.append(i)
             else:
-                emb[i] = payload
-            ints[:, i] = self._req_max.get(rid, self.max_length), rid
-            floats[:, i] = self._req_temp.get(rid, self.temperature), self._req_topp.get(
-                rid, self.top_p)
+                emb[pos[i]] = payload
         dev = self.device
         emb_d = torch.from_numpy(emb).to(dev)
         if encoded:
-            emb_d[encoded] = torch.stack([entries[i][1] for i in encoded])
+            emb_d[[pos[i] for i in encoded]] = torch.stack([entries[i][1] for i in encoded])
         if images:
             u8 = torch.from_numpy(np.stack([entries[i][1] for i in images])).to(dev)
             with torch.no_grad():
                 enc = self._encode(self._vparams, u8).float()
-            emb_d[images] = enc
+            emb_d[[pos[i] for i in images]] = enc
             # entries the macro does not reach go back to the queue as
             # embeddings, so each image is encoded once
             for j, i in enumerate(images):
                 entries[i] = (entries[i][0], enc[j], True)
         ints_d, floats_d = torch.from_numpy(ints).to(dev), torch.from_numpy(floats).to(dev)
-        self._state, out = CE.macro_step(
-            self._packed, self._tr, self._fz, self._state, emb_d,
-            ints_d[0], ints_d[1], n, self.seed if self.sampled else None, floats_d[0],
-            floats_d[1],
-            cfg=self.cfg, policy=self._pol, seg=self.segment, bursts=self.bursts,
-            admit=self.admit, temperature=self.temperature, top_p=self.top_p,
-            sampled=self.sampled, sample_in_kernel=self.sample_in_kernel,
-            admit_affinity=self.admit_affinity, use_kernels=self._use_kernels,
-        )
+        kw = dict(cfg=self.cfg, policy=self._pol, seg=self.segment, bursts=self.bursts,
+                  admit=self.admit, temperature=self.temperature, top_p=self.top_p,
+                  sampled=self.sampled, sample_in_kernel=self.sample_in_kernel,
+                  admit_affinity=self.admit_affinity, use_kernels=self._use_kernels)
+        seed = self.seed if self.sampled else None
+        if dp == 1:
+            self._state, out = CE.macro_step(
+                self._packed, self._tr, self._fz, self._state, emb_d, ints_d[0], ints_d[1],
+                len(entries), seed, floats_d[0], floats_d[1], **kw)
+        else:
+            n_q = [len(range(s, len(entries), dp)) for s in range(dp)]
+            self._state, out = CE.macro_step_dp(
+                self._mesh, self._packed, self._tr, self._fz, self._state, emb_d, ints_d[0],
+                ints_d[1], n_q, seed, floats_d[0], floats_d[1], **kw)
         event = None
         if out.is_cuda:
             host = (self._host_bufs.pop() if self._host_bufs
@@ -547,9 +596,15 @@ class ContinuousCaptionService:
                 stream.extend(take.tolist())
                 if len(stream) >= cap or (take.size and take[-1] == eos):
                     self._complete(u)
-        # the entries the macro did not reach go back to the queue front, in order
-        consumed = int((adm_uid >= 0).sum())
-        self._queue[:0] = entries[consumed:]
+        # the entries the macro did not reach go back to the queue front, in
+        # submission order: sub-pool s admits its staged entries (s, s + dp,
+        # ...) in order, as many as its column block shows admissions
+        dp, sp = self._dp, self.slots // self._dp
+        left = []
+        for s in range(dp):
+            consumed = int((adm_uid[:, s * sp:(s + 1) * sp] >= 0).sum())
+            left += list(range(s, len(entries), dp))[consumed:]
+        self._queue[:0] = [entries[i] for i in sorted(left)]
         self._stats["host_s"] += time.perf_counter() - th
 
     def step(self) -> dict[int, str]:
@@ -637,6 +692,14 @@ class _Pending:
         self.max_length = max_length
         self.temperature = temperature
         self.top_p = top_p
+
+
+def _refuse_ranks(service) -> None:
+    mesh = service._mesh
+    if mesh is not None and mesh.world_size > 1:
+        raise NotImplementedError(
+            "an HTTP endpoint over a service of several ranks is not ported yet (ROADMAP.md, "
+            "queue 1: serve_http over a dp service): one rank would listen for all of them")
 
 
 def _service_thread(device: torch.device, body, name: str):
@@ -748,8 +811,10 @@ def serve_http(service: CaptionService, host: str = "127.0.0.1", port: int = 515
 
     Returns the ``ThreadingHTTPServer`` (call ``serve_forever()`` from a
     thread); its ``shutdown()`` also stops and joins the dispatcher
-    (``server.dispatcher_thread``).
+    (``server.dispatcher_thread``).  A service whose mesh has more than
+    one rank refuses (module docstring).
     """
+    _refuse_ranks(service)
     pending: queue.Queue = queue.Queue()
     stop = object()  # sentinel
 
@@ -827,8 +892,10 @@ def serve_http_continuous(service: ContinuousCaptionService, host: str = "127.0.
 
     Returns the ``ThreadingHTTPServer`` (run ``serve_forever()`` from a
     thread); its ``shutdown()`` also stops and joins the pump
-    (``server.pump_thread``).
+    (``server.pump_thread``).  A service whose mesh has more than one rank
+    refuses (module docstring).
     """
+    _refuse_ranks(service)
     intake: queue.Queue = queue.Queue()
     stop = object()
 

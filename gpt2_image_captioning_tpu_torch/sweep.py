@@ -18,8 +18,11 @@ the freshly built model with an aggregator seeded by ``seed + 1`` and
 rebuilds the training store, as the JAX package does.
 
 Every selected id is merged and checked before the first run: ids whose
-config needs a slice not ported yet (a mesh of more than one device) are
-refused together, up front.
+config this process cannot run (``tp > 1``, a slice not ported yet, or a
+``dp`` that the process group's world size does not match) are refused
+together, up front.  Under ``torchrun --nproc-per-node N`` each id trains
+over a dp mesh of N ranks (:func:`training_pipeline.run`); rank 0 alone
+writes the run's config and ``training_info`` and makes the test pass.
 """
 
 from __future__ import annotations
@@ -31,8 +34,11 @@ import os
 import re
 import time
 
+import torch
+
 from gpt2_image_captioning_tpu_torch.core.config import Config, load_config, update_cfg
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE
+from gpt2_image_captioning_tpu_torch.core.mesh import init_distributed, launched
 from gpt2_image_captioning_tpu_torch.data.dataset import CocoDataset
 from gpt2_image_captioning_tpu_torch.data.tokenizer import load_gpt2_tokenizer
 from gpt2_image_captioning_tpu_torch.evaluation.evaluate import evaluate_captions
@@ -66,15 +72,20 @@ def select_test_checkpoint(filenames) -> str | None:
 def run_one(cfg: Config, run_id: str, base_dir: str, description: str = "",
             device=DEFAULT_DEVICE) -> dict:
     """One sweep run into ``base_dir/checkpoint_<run_id>`` on ``device``;
-    returns the training history."""
+    returns the training history.  In a process group rank 0 alone writes
+    the files outside the training run and makes the test pass."""
     refuse_unported(cfg)
+    main = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
     save_dir = os.path.join(base_dir, f"checkpoint_{run_id}")
     os.makedirs(save_dir, exist_ok=True)
-    cfg.save(os.path.join(save_dir, f"config_{run_id}.yml"))
+    if main:
+        cfg.save(os.path.join(save_dir, f"config_{run_id}.yml"))
 
     t0 = time.perf_counter()
     history = run(cfg, save_dir=save_dir, device=device)
     duration = time.perf_counter() - t0
+    if not main:
+        return history
 
     # parameter counts on a freshly built model of the same config, which
     # then takes the trained weights for the test pass
@@ -139,7 +150,8 @@ def run_one(cfg: Config, run_id: str, base_dir: str, description: str = "",
 def plan_runs(base: Config, updates: Config, only=None) -> list[tuple[str, Config, str]]:
     """Every selected id merged onto ``base`` → ``[(id, config, description)]``,
     ids without overrides skipped with a warning; raises
-    ``NotImplementedError`` listing every id whose config is refused."""
+    ``NotImplementedError`` listing every id whose config is refused
+    (:func:`training_pipeline.refuse_unported`)."""
     model_updates = updates.get("model", None) or Config({})
     plans = []
     for run_id in [str(i) for i in (only or model_updates.keys())]:
@@ -157,7 +169,7 @@ def plan_runs(base: Config, updates: Config, only=None) -> list[tuple[str, Confi
     for run_id, cfg, _ in plans:
         try:
             refuse_unported(cfg)
-        except NotImplementedError as e:
+        except (NotImplementedError, ValueError) as e:
             refused[run_id] = str(e)
     if refused:
         raise NotImplementedError(
@@ -174,6 +186,8 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--output-dir", default="checkpoints")
     parser.add_argument("--only", nargs="*", help="subset of model ids to run")
     args = parser.parse_args(argv)
+    if launched():
+        init_distributed()
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     try:
         plans = plan_runs(load_config(args.config), load_config(args.automation), args.only)
@@ -182,6 +196,8 @@ def main(argv: list[str] | None = None) -> None:
     for run_id, cfg, description in plans:
         log.info("=== Sweep run %s: %s ===", run_id, description)
         run_one(cfg, run_id, args.output_dir, description)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -11,13 +11,23 @@ divides both by ``accum``, as the JAX package does.  It returns the loss and
 the gradient norm as device tensors, so the host does not wait for the
 device.
 
+Data parallelism (``mesh``, :mod:`core.mesh`): each rank steps on its
+contiguous shard of the global batch.  The JAX step's loss is Σ nll / Σ
+count over the *global* (micro-)batch, so each micro-batch first sums its
+real-token count over the ranks (data, outside autograd), then
+differentiates its local nll over that global count; the gradients (and the
+loss) are summed over the ranks before the global-norm clip.  Every rank
+then takes the same AdamW step on the same summed gradients, so the
+parameters stay bit-identical across ranks.
+
 :func:`train` is the epoch loop around it, with the JAX function's
 signature, history dict and artifacts: ``model_epoch_{n}.{npz|pt}`` and
 ``optimizer_epoch_{n}.npz`` (the JAX package's ``AdamWState`` layout, so a
 run resumes across the two packages), ``best_model_epoch_{n}`` by
 validation CIDEr, the per-epoch evaluation JSONs, ``val_metrics_summary.json``,
-the curves and ``logs/metrics.jsonl``.  Meshes are not ported yet
-(ROADMAP.md, queue 1) and raise.
+the curves and ``logs/metrics.jsonl``.  Under a dp mesh each rank's
+``Batcher`` yields its shard, and rank 0 alone writes the files, followed by
+a barrier.
 
 Retrieval-augmented training (:func:`train_rat`, or ``train(rat_cfg=,
 db_store=)``): with a :class:`retrieval.exact.DeviceVectorStore` the step
@@ -41,6 +51,7 @@ import torch
 
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from gpt2_image_captioning_tpu_torch.core.logging import MetricsLogger, StepTimer, profile_trace
+from gpt2_image_captioning_tpu_torch.core.mesh import barrier, refuse_tp
 from gpt2_image_captioning_tpu_torch.core.precision import Policy
 from gpt2_image_captioning_tpu_torch.core.tree import tree_leaves
 from gpt2_image_captioning_tpu_torch.data.dataset import Batcher, CocoDataset
@@ -49,10 +60,10 @@ from gpt2_image_captioning_tpu_torch.evaluation.generation import (
     _indexed,
     check_model_device,
     evaluate_epoch,
-    refuse_unported,
 )
 from gpt2_image_captioning_tpu_torch.models import captioner as C
 from gpt2_image_captioning_tpu_torch.ops.xent import IGNORE_INDEX
+from gpt2_image_captioning_tpu_torch.parallel.collectives import psum_scalar, psum_tensors
 from gpt2_image_captioning_tpu_torch.train import checkpoint, optim
 from gpt2_image_captioning_tpu_torch.utils import (
     plotting_available,
@@ -69,6 +80,7 @@ def make_train_step(
     device=DEFAULT_DEVICE,
     rat_cfg=None,
     fused_retrieval: bool = False,
+    mesh=None,
 ):
     """Build ``step(trainable, optimizer, scheduler, frozen, batch, extra=None)
     → (loss, grad_norm)``.  ``optimizer``/``scheduler`` come from
@@ -80,18 +92,27 @@ def make_train_step(
     With ``rat_cfg`` (:class:`models.rat.RATConfig`) the step is RAT's: with
     ``fused_retrieval`` it retrieves from ``extra``, a device store's
     ``arrays()`` (:func:`models.rat.loss_fn_fused`); without, the batch
-    carries ``retrieved_embeddings`` (:func:`models.rat.loss_fn`)."""
+    carries ``retrieved_embeddings`` (:func:`models.rat.loss_fn`).
+
+    ``mesh``: a dp :class:`core.mesh.Mesh` whose rank this is; ``batch`` is
+    then the rank's shard of the global batch (the ``Batcher``'s with the
+    rank's coordinates), the loss divides by the global token count and the
+    step sums the gradients over the ranks (module docstring).  ``extra``
+    is replicated: each rank passes its own store's arrays."""
     device = resolve_device(device)
+    refuse_tp(mesh)
     if rat_cfg is not None:
         from gpt2_image_captioning_tpu_torch.models import rat as R
 
     def micro_loss(trainable, frozen, batch, extra):
         if rat_cfg is None:
-            return C.mean_loss(trainable, frozen, cfg, batch, policy)
-        if fused_retrieval:
+            s, c = C.loss_fn(trainable, frozen, cfg, batch, policy)
+        elif fused_retrieval:
             s, c = R.loss_fn_fused(trainable, frozen, cfg, rat_cfg, batch, extra, policy)
         else:
             s, c = R.loss_fn(trainable, frozen, cfg, rat_cfg, batch, policy)
+        if mesh is not None:  # the global batch's count: data, outside autograd
+            c = psum_scalar(mesh, c.detach())
         return s / torch.clamp(c, min=1)
 
     def step(trainable, optimizer, scheduler, frozen, batch, extra=None):
@@ -113,6 +134,10 @@ def make_train_step(
             for p in params:
                 if p.grad is not None:
                     p.grad /= grad_accum_steps
+        if mesh is not None:  # sum the rank-local terms of the global mean
+            loss = loss.reshape(1)
+            psum_tensors(mesh, [p.grad for p in params if p.grad is not None] + [loss])
+            loss = loss[0]
         grad_norm = optim.clip_grad_norm(params, opt_cfg.max_grad_norm)
         optimizer.step()
         scheduler.step()
@@ -230,12 +255,22 @@ def train(
     card unless the caller asks for the CPU.  ``rat_cfg`` and ``db_store``
     (both or neither; ``model`` a RAT model) train retrieval-augmented, and
     each evaluation retrieves from ``db_store`` at ``rat_cfg``'s depths.
-    ``mesh`` is not ported yet and raises.
+
+    ``mesh``: a dp :class:`core.mesh.Mesh`, the same call made on every rank
+    (``device`` is the mesh's).  Each rank's ``Batcher`` yields its shard of
+    every global batch of ``batch_size``, the steps sum over the ranks, and
+    the evaluation decodes each rank's rows and gathers them; rank 0 alone
+    writes the checkpoints, ``metrics.jsonl``, TensorBoard, the evaluation
+    files and the curves, and a barrier follows each write.  ``resume``
+    loads the same files on every rank.  ``tp > 1`` raises.
     """
-    refuse_unported(mesh)
+    refuse_tp(mesh)
     if (rat_cfg is None) != (db_store is None):
         raise ValueError("rat_cfg and db_store go together: pass both for RAT, or neither")
+    if mesh is not None:
+        device = mesh.device
     device = check_model_device(model, device)
+    main = mesh is None or mesh.is_main
     if val_dataset is not None and val_annotations_path is None:
         raise ValueError("val_annotations_path is required when val_dataset is provided")
     os.makedirs(outputs_dir, exist_ok=True)
@@ -244,7 +279,11 @@ def train(
     eval_batch_size = eval_batch_size or batch_size
     cfg = dataclasses.replace(model.cfg, remat=True) if remat else model.cfg
 
-    batcher = Batcher(train_dataset, batch_size, seed=seed)
+    if mesh is None:
+        batcher = Batcher(train_dataset, batch_size, seed=seed)
+    else:
+        batcher = Batcher(train_dataset, batch_size, seed=seed, process_index=mesh.rank,
+                          process_count=mesh.dp)
     steps_per_epoch = batcher.steps_per_epoch  # micro-batches per epoch
     opt_cfg = optim.AdamWConfig(
         learning_rate=learning_rate,
@@ -269,7 +308,7 @@ def train(
         return dict(batch, retrieved_embeddings=np.asarray(retrieved, np.float32))
 
     step_fn = make_train_step(cfg, opt_cfg, model.policy, grad_accum_steps, device=device,
-                              rat_cfg=rat_cfg, fused_retrieval=fused_retrieval)
+                              rat_cfg=rat_cfg, fused_retrieval=fused_retrieval, mesh=mesh)
 
     start_epoch = 0
     opt_state = None
@@ -286,7 +325,7 @@ def train(
     if opt_state is not None:
         optim.restore_adamw_state(optimizer, scheduler, trainable, opt_state)
 
-    logger = MetricsLogger(log_dir)
+    logger = MetricsLogger(log_dir) if main else None
     timer = StepTimer()
     epoch_loss_values: list[float] = []
     val_metrics_history: list[dict[str, Any]] = []
@@ -323,8 +362,8 @@ def train(
                     group = _group_microbatches(pending, grad_accum_steps)
                     pending = []
                 # exactly one post-warm-up optimizer step of the first epoch
-                with profile_trace(profile_dir if epoch == start_epoch and len(losses) == 1
-                                   else None):
+                with profile_trace(profile_dir if main and epoch == start_epoch
+                                   and len(losses) == 1 else None):
                     losses.append(run_group(group))
                 group_real_micro.append(grad_accum_steps)
             if pending:  # trailing partial accumulation group
@@ -333,8 +372,9 @@ def train(
             global_step += len(losses)
 
             losses_np = torch.stack(losses).cpu().tolist()  # the epoch's one host read
-            for i, lf in enumerate(losses_np):
-                logger.add_scalar("loss/train_step", lf, global_step - len(losses_np) + i + 1)
+            if main:
+                for i, lf in enumerate(losses_np):
+                    logger.add_scalar("loss/train_step", lf, global_step - len(losses_np) + i + 1)
             # each group's loss is sum(real micro losses) / accum and the padded
             # tail adds 0: undo the 1/accum and divide by the real micro-batches
             avg_loss = sum(losses_np) * grad_accum_steps / max(sum(group_real_micro), 1)
@@ -342,7 +382,8 @@ def train(
             dt = time.perf_counter() - t_epoch
             print(f"Epoch {epoch + 1} completed. Average Loss: {avg_loss:.4f} "
                   f"({len(losses_np)} steps, {dt:.1f}s)")
-            logger.add_scalar("loss/train_epoch", avg_loss, epoch + 1)
+            if main:
+                logger.add_scalar("loss/train_epoch", avg_loss, epoch + 1)
             # the steps changed the live tensors in place: the decode copies are stale
             model.drop_decode_caches()
 
@@ -350,13 +391,15 @@ def train(
                 epoch + 1
             ) == num_epochs:
                 path = os.path.join(outputs_dir, f"model_epoch_{epoch + 1}.{ckpt_ext}")
-                checkpoint.save_captioner(path, trainable, model.cfg)
-                print(f"Model checkpoint saved at {path}")
-                if save_optimizer_state:
-                    checkpoint.save_pytree(
-                        os.path.join(outputs_dir, f"optimizer_epoch_{epoch + 1}.npz"),
-                        optim.adamw_state(optimizer, trainable),
-                    )
+                if main:
+                    checkpoint.save_captioner(path, trainable, model.cfg)
+                    print(f"Model checkpoint saved at {path}")
+                    if save_optimizer_state:
+                        checkpoint.save_pytree(
+                            os.path.join(outputs_dir, f"optimizer_epoch_{epoch + 1}.npz"),
+                            optim.adamw_state(optimizer, trainable),
+                        )
+                barrier(mesh)
 
             evaluate = eval_every_epoch > 0 and (epoch + 1) % eval_every_epoch == 0
             if evaluate and val_dataset is not None:
@@ -376,44 +419,53 @@ def train(
                     top_k=getattr(rat_cfg, "top_k", None),
                     top_i=getattr(rat_cfg, "top_i", None),
                     decode_precision=eval_decode_precision,
+                    mesh=mesh,
                     device=device,
                 )
                 val_metrics_history.append(
                     {"epoch": epoch + 1, "loss": avg_loss, **metrics.to_dict()})
-                logger.add_scalars(
-                    {
-                        "CIDEr/val": metrics.cider,
-                        "BLEU-1/val": metrics.bleu_1,
-                        "BLEU-4/val": metrics.bleu_4,
-                        "ROUGE-L/val": metrics.rouge_l,
-                    },
-                    epoch + 1,
-                )
+                if main:
+                    logger.add_scalars(
+                        {
+                            "CIDEr/val": metrics.cider,
+                            "BLEU-1/val": metrics.bleu_1,
+                            "BLEU-4/val": metrics.bleu_4,
+                            "ROUGE-L/val": metrics.rouge_l,
+                        },
+                        epoch + 1,
+                    )
+                # every rank scored the same gathered captions: the same best
                 if metrics.cider > best_val_cider:
                     best_val_cider, best_epoch = metrics.cider, epoch + 1
                     best_path = os.path.join(outputs_dir,
                                              f"best_model_epoch_{best_epoch}.{ckpt_ext}")
-                    checkpoint.save_captioner(best_path, trainable, model.cfg)
-                    print(f"New best model! CIDEr: {best_val_cider:.4f} (saved to {best_path})")
+                    if main:
+                        checkpoint.save_captioner(best_path, trainable, model.cfg)
+                        print(f"New best model! CIDEr: {best_val_cider:.4f} "
+                              f"(saved to {best_path})")
+                    barrier(mesh)
 
         plots = plotting_available()
-        if plots:
-            save_loss_curves(epoch_loss_values, os.path.join(outputs_dir, "loss_curve.png"))
-        else:
-            print("matplotlib is not installed: loss_curve.png and val_metrics_curve.png "
-                  "are skipped")
-        if val_metrics_history:
-            save_eval_summary(
-                val_metrics_history, os.path.join(eval_dir, "val_metrics_summary.json")
-            )
+        if main:
             if plots:
-                save_eval_metric_curves(
-                    val_metrics_history,
-                    os.path.join(eval_dir, "val_metrics_curve.png"),
-                    title="Validation Metrics Over Epochs",
+                save_loss_curves(epoch_loss_values, os.path.join(outputs_dir, "loss_curve.png"))
+            else:
+                print("matplotlib is not installed: loss_curve.png and val_metrics_curve.png "
+                      "are skipped")
+            if val_metrics_history:
+                save_eval_summary(
+                    val_metrics_history, os.path.join(eval_dir, "val_metrics_summary.json")
                 )
+                if plots:
+                    save_eval_metric_curves(
+                        val_metrics_history,
+                        os.path.join(eval_dir, "val_metrics_curve.png"),
+                        title="Validation Metrics Over Epochs",
+                    )
+        barrier(mesh)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
     print("\n" + "=" * 60)
     print("Training complete.")

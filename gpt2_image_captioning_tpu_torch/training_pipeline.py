@@ -9,10 +9,14 @@ optional task prompt; pretrained GPT-2 weights through ``gpt_params``) →
 
 From the ``tpu:`` block: ``compute_dtype`` picks the bf16 or float32 policy,
 ``remat`` and ``grad_accum_steps`` pass through to ``train()``, and
-``validation.decode_precision`` to its evaluation.  ``tpu.mesh`` must name
-one device (``dp`` -1 or 1, ``tp`` 1): the port runs on one card, and other
-meshes raise ``NotImplementedError`` (ROADMAP.md, queue 1: parallelism)
-before any data is read.
+``validation.decode_precision`` to its evaluation.  ``tpu.mesh`` ``{dp: -1
+| N, tp: 1}`` builds the dp mesh (:mod:`core.mesh`) over the ranks of the
+process group: under ``torchrun --nproc-per-node N -m
+gpt2_image_captioning_tpu_torch.training_pipeline`` it trains with dp = N,
+each rank on its own card; with no launcher it is one rank.  A ``dp`` the
+world size does not match raises :meth:`core.mesh.MeshSpec.resolve`'s
+error, and ``tp > 1`` ``NotImplementedError`` (ROADMAP.md, queue 1: tensor
+parallelism), both before any data is read.
 
 ``retrieval_augmentation: true`` runs retrieval-augmented training
 (:func:`retrieval.rat_pipeline.run_rat_training`): the store of
@@ -31,6 +35,9 @@ import torch
 
 from gpt2_image_captioning_tpu_torch.core.config import Config, load_config
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE
+from gpt2_image_captioning_tpu_torch.core.mesh import (
+    MeshSpec, TP_REFUSAL, create_mesh, init_distributed, launched,
+)
 from gpt2_image_captioning_tpu_torch.core.precision import BF16, F32
 from gpt2_image_captioning_tpu_torch.data.dataset import CocoDataset
 from gpt2_image_captioning_tpu_torch.data.tokenizer import load_gpt2_tokenizer
@@ -43,15 +50,22 @@ def _tpu(cfg: Config) -> Config:
     return cfg.get("tpu", None) or Config({})
 
 
-def refuse_unported(cfg: Config) -> None:
-    """Raise ``NotImplementedError`` for a config whose run needs a slice
-    still to come: a mesh of more than one device."""
+def mesh_spec(cfg: Config) -> MeshSpec:
+    """``tpu.mesh`` → :class:`MeshSpec` (``dp`` -1 and ``tp`` 1 by default)."""
     mesh = _tpu(cfg).get("mesh", None) or {}
-    dp, tp = mesh.get("dp", -1), mesh.get("tp", 1)
-    if dp not in (-1, 1) or tp != 1:
-        raise NotImplementedError(
-            f"tpu.mesh {{dp: {dp}, tp: {tp}}} needs parallelism, which is not ported yet "
-            "(ROADMAP.md, queue 1: parallelism); the port runs on one card: dp -1 or 1, tp 1")
+    return MeshSpec(dp=mesh.get("dp", -1), tp=mesh.get("tp", 1))
+
+
+def refuse_unported(cfg: Config) -> None:
+    """Raise for a config this process cannot run, before anything is read:
+    ``NotImplementedError`` for ``tp > 1`` (a slice still to come), and
+    :meth:`MeshSpec.resolve`'s ``ValueError`` for a ``dp`` the process
+    group's world size (1 without one) does not match."""
+    spec = mesh_spec(cfg)
+    if spec.tp > 1:
+        raise NotImplementedError(f"tpu.mesh {{dp: {spec.dp}, tp: {spec.tp}}}: {TP_REFUSAL}")
+    world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
+    spec.resolve(world)
 
 
 def build_model(cfg: Config, tokenizer, gpt_params=None, gpt_config=None,
@@ -101,10 +115,13 @@ def build_datasets(cfg: Config, tokenizer) -> tuple[CocoDataset, CocoDataset]:
 def run(cfg: Config, save_dir: str | None = None, gpt_params=None,
         device=DEFAULT_DEVICE) -> dict:
     """Train from ``cfg`` into ``save_dir`` (default ``paths.checkpoints_path``)
-    and return ``train()``'s history."""
+    and return ``train()``'s history.  ``device``: the rank's device of the
+    ``tpu.mesh`` mesh (``cuda`` is this rank's card)."""
     from gpt2_image_captioning_tpu_torch.train.loop import train
 
     refuse_unported(cfg)
+    mesh = create_mesh(mesh_spec(cfg), device=device)
+    device = mesh.device
     tpu = _tpu(cfg)
     tokenizer = load_gpt2_tokenizer()
     train_ds, val_ds = build_datasets(cfg, tokenizer)
@@ -112,7 +129,7 @@ def run(cfg: Config, save_dir: str | None = None, gpt_params=None,
     save_dir = save_dir or cfg.paths.checkpoints_path
     tpu_kw = dict(grad_accum_steps=tpu.get("grad_accum_steps", 1),
                   eval_decode_precision=cfg.validation.get("decode_precision", None),
-                  remat=bool(tpu.get("remat", False)))
+                  remat=bool(tpu.get("remat", False)), mesh=mesh)
     if cfg.get("retrieval_augmentation", False):
         from gpt2_image_captioning_tpu_torch.retrieval.rat_pipeline import run_rat_training
 
@@ -146,7 +163,11 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--config", default="config.yml")
     parser.add_argument("--save-dir", default=None)
     args = parser.parse_args(argv)
+    if launched():
+        init_distributed()
     run(load_config(args.config), save_dir=args.save_dir)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

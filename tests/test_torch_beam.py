@@ -18,12 +18,18 @@ from jax.experimental.pallas import tpu as pltpu
 from gpt2_image_captioning_tpu.models import captioner as JC
 from gpt2_image_captioning_tpu.models import gpt2 as JG
 from gpt2_image_captioning_tpu.models import mapping as JM
+from gpt2_image_captioning_tpu_torch.core.mesh import Mesh, create_mesh
 from gpt2_image_captioning_tpu_torch.models import captioner as TC
 from gpt2_image_captioning_tpu_torch.models import gpt2 as TG
 from gpt2_image_captioning_tpu_torch.models import mapping as TM
 from gpt2_image_captioning_tpu_torch.models import porting
 
 MAX_LEN, EOS = 8, 208
+
+
+# a mesh with a tensor-parallel axis, which the port refuses
+TP2 = Mesh(dp=1, tp=2, rank=0, world_size=1, group=None, backend=None,
+           device=torch.device("cpu"))
 
 
 def _models():
@@ -97,8 +103,12 @@ def test_beam_output_is_fixed_width_and_eos_padded():
 def test_beam_refusals():
     _, tcfg, _, _, ttr, tfz, emb = _models()
     x = torch.from_numpy(emb)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        TC.beam_generate(ttr, tfz, tcfg, x, mesh=object())
+    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+        TC.beam_generate(ttr, tfz, tcfg, x, mesh=TP2)
+    # a one-rank mesh decodes as no mesh does, bit for bit
+    assert torch.equal(TC.beam_generate(ttr, tfz, tcfg, x, max_length=MAX_LEN),
+                       TC.beam_generate(ttr, tfz, tcfg, x, max_length=MAX_LEN,
+                                        mesh=create_mesh(device="cpu")))
     int8 = TC.beam_generate(ttr, tfz, tcfg, x, max_length=MAX_LEN, decode_quant=True)
     packed = TC.prepare_decode_weights(ttr, tfz, tcfg, quant=True)
     assert torch.equal(int8, TC.beam_generate(ttr, tfz, tcfg, x, max_length=MAX_LEN,

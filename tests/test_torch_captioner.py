@@ -17,6 +17,7 @@ from gpt2_image_captioning_tpu.models import captioner as JC
 from gpt2_image_captioning_tpu.models import gpt2 as JG
 from gpt2_image_captioning_tpu.models import mapping as JM
 from gpt2_image_captioning_tpu.ops import sampling as JS
+from gpt2_image_captioning_tpu_torch.core.mesh import Mesh, create_mesh
 from gpt2_image_captioning_tpu_torch.models import captioner as TC
 from gpt2_image_captioning_tpu_torch.models import gpt2 as TG
 from gpt2_image_captioning_tpu_torch.models import mapping as TM
@@ -29,6 +30,11 @@ MAX_LEN = 12
 # the rows share a sequence after step 1: EOS 68 stops three rows at step 1;
 # EOS 7 stops every row at step 4, so the loop exits early.
 CASES = {"one_row_stops": (1.0, 97), "three_rows_stop": (60.0, 68), "early_exit": (60.0, 7)}
+
+
+# a mesh with a tensor-parallel axis, which the port refuses
+TP2 = Mesh(dp=1, tp=2, rank=0, world_size=1, group=None, backend=None,
+           device=torch.device("cpu"))
 
 
 def _models(case):
@@ -143,8 +149,13 @@ def test_model_facade_bf16_and_refusals():
     ids8 = model.generate(emb, max_length=6, temperature=0.0, decode_precision="int8")
     assert torch.equal(ids8, TC.generate(tr, fz, cfg, torch.from_numpy(emb), max_length=6,
                                          temperature=0.0, policy=pol, decode_quant=True))
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        model.generate(emb, temperature=0.0, mesh=object())
+    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+        model.generate(emb, temperature=0.0, mesh=TP2)
+    # a one-rank mesh decodes as no mesh does, bit for bit, greedy and sampled
+    one = create_mesh(device="cpu")
+    for t in (0.0, 1.0):
+        assert torch.equal(model.generate(emb, max_length=6, temperature=t),
+                           model.generate(emb, max_length=6, temperature=t, mesh=one))
     beams = TC.beam_generate(tr, fz, cfg, torch.from_numpy(emb), max_length=6, beam_size=4,
                              policy=pol)
     assert beams.shape == (3, 6) and beams.dtype == torch.int32

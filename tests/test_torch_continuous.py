@@ -22,6 +22,7 @@ from gpt2_image_captioning_tpu.models import gpt2 as JG
 from gpt2_image_captioning_tpu.models import mapping as JM
 from gpt2_image_captioning_tpu.ops import decode_step as JDS
 from gpt2_image_captioning_tpu.serving import ContinuousCaptionService as JService
+from gpt2_image_captioning_tpu_torch.core.mesh import Mesh, create_mesh
 from gpt2_image_captioning_tpu_torch.core.precision import F32
 from gpt2_image_captioning_tpu_torch.data import tokenizer as TT
 from gpt2_image_captioning_tpu_torch.models import captioner as TC
@@ -36,6 +37,10 @@ from gpt2_image_captioning_tpu_torch.serving import ContinuousCaptionService
 from helpers import tiny_tokenizer
 
 GCFG = dict(vocab_size=293, n_positions=128, n_embd=32, n_layer=2, n_head=2)
+
+# a mesh with a tensor-parallel axis, which the port refuses
+TP2 = Mesh(dp=1, tp=2, rank=0, world_size=1, group=None, backend=None,
+           device=torch.device("cpu"))
 
 
 def _t(a):
@@ -364,8 +369,14 @@ def test_service_sampling_modes_and_refusals():
                     (svc.caption_arrays, [np.zeros((8, 8, 3), np.uint8)])):
         with pytest.raises(ValueError, match="no vision tower"):
             fn(arg)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        ContinuousCaptionService(tmodel, mesh=object())
+    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+        ContinuousCaptionService(tmodel, mesh=TP2)
+    # a one-rank mesh serves as no mesh does
+    one = ContinuousCaptionService(tmodel, slots=3, max_length=6, mesh=create_mesh(device="cpu"))
+    rids = [one.submit_embedding(e) for e in embs[:4]]
+    one.drain()
+    assert [one.pop_result(r) for r in rids] == tmodel.generate_captions(
+        embs[:4], max_length=6, temperature=0.0)
     svc8 = ContinuousCaptionService(tmodel, slots=3, max_length=6, decode_precision="int8")
     assert "qkvs" in svc8._packed and svc8._pol.compute_dtype == torch.bfloat16
     rid = svc8.submit_embedding(embs[0])
@@ -377,9 +388,27 @@ def test_service_sampling_modes_and_refusals():
     svc = ContinuousCaptionService(tmodel, temperature=1.0, sample_in_kernel=True)
     with pytest.raises(ValueError, match="top_p >= 0.5"):
         svc.submit_embedding(embs[0], top_p=0.3)
-    for fn in (TCE.init_state_dp, TCE.macro_step_dp):
-        with pytest.raises(NotImplementedError, match="parallelism"):
-            fn()
+    # the dp engine on a one-rank mesh: init_state's pool, macro_step's output
+    tr, fz, pol = tmodel.decode_params(None)
+    cfg, p = tmodel.cfg, tmodel.cfg.total_prefix_length
+    one = create_mesh(device="cpu")
+    a = TCE.init_state(cfg, 3, 16, p, pol, device="cpu")
+    b = TCE.init_state_dp(cfg, one, 3, 16, p, pol)
+    assert sorted(a) == sorted(b) and all(
+        torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor) else a[k] == b[k] for k in a)
+    packed = TC.prepare_decode_weights(tr, fz, cfg, pol)
+    q = [torch.from_numpy(embs[:3]), torch.full((3,), 6, dtype=torch.int32),
+         torch.arange(3, dtype=torch.int32)]
+    kw = dict(cfg=cfg, policy=pol, seg=2, bursts=2, admit=2)
+    a, out_a = TCE.macro_step(packed, tr, fz, a, *q, 3, **kw)
+    b, out_b = TCE.macro_step_dp(one, packed, tr, fz, b, *q, [3], **kw)
+    assert torch.equal(out_a, out_b) and a["idx"] == b["idx"]
+    two = Mesh(dp=2, tp=1, rank=0, world_size=2, group=None, backend=None,
+               device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="slots 3 must divide over dp=2"):
+        TCE.init_state_dp(cfg, two, 3, 16, p, pol)
+    with pytest.raises(ValueError, match="slots 3 must divide over dp=2"):
+        ContinuousCaptionService(tmodel, slots=3, mesh=two)
 
 
 # ---------------------------------------------------------------------------

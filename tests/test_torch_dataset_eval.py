@@ -38,6 +38,7 @@ from gpt2_image_captioning_tpu.evaluation import metrics as JMet
 from gpt2_image_captioning_tpu.models import captioner as JC
 from gpt2_image_captioning_tpu.models import gpt2 as JG
 from gpt2_image_captioning_tpu.models import mapping as JM
+from gpt2_image_captioning_tpu_torch.core.mesh import Mesh, create_mesh
 from gpt2_image_captioning_tpu_torch.core.tree import flatten_with_paths
 from gpt2_image_captioning_tpu_torch.data import dataset as TD
 from gpt2_image_captioning_tpu_torch.data import native_bpe
@@ -284,6 +285,9 @@ def models(coco):
 
 GEN_MODES = {"greedy": dict(decode="sample", temperature=0.0),
              "beam4": dict(decode="beam", beam_size=4)}
+# a mesh with a tensor-parallel axis, which the port refuses
+TP2 = Mesh(dp=1, tp=2, rank=0, world_size=1, group=None, backend=None,
+           device=torch.device("cpu"))
 
 
 @pytest.mark.parametrize("mode", list(GEN_MODES))
@@ -367,13 +371,34 @@ def test_generate_test_caption_predictions_writes_results(coco, models, tmp_path
     assert len(preds) == N_IMAGES
 
 
-@pytest.mark.parametrize("option", [dict(mesh=object())])
+@pytest.mark.parametrize("option", [dict(mesh=TP2)])
 def test_unported_options_raise(coco, models, option):
     _, tmodel = models
     _, tds = _datasets(coco, max_length=10)
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1"):
         TGen.generate_predictions(tmodel, tds, device="cpu", **option)
 
+
+
+@pytest.mark.parametrize("mode", list(GEN_MODES))
+def test_one_rank_mesh_predicts_as_no_mesh(coco, models, mode, tmp_path):
+    """``generate_predictions`` and ``evaluate_epoch`` on a one-rank mesh:
+    the predictions without a mesh, bit for bit, and the same metrics and
+    files."""
+    _, tmodel = models
+    _, tds = _datasets(coco, max_length=10)
+    kw = dict(batch_size=EVAL_BATCH, max_length=MAX_LEN, verbose=False, device="cpu",
+              **GEN_MODES[mode])
+    one = create_mesh(device="cpu")
+    assert TGen.generate_predictions(tmodel, tds, mesh=one, **kw) == \
+        TGen.generate_predictions(tmodel, tds, **kw)
+    ann = coco[0]["npz"][1]
+    ekw = dict(epoch=2, split_name="val", **{k: v for k, v in kw.items() if k != "verbose"})
+    got = TGen.evaluate_epoch(tmodel, tds, ann, output_dir=str(tmp_path / "mesh"), mesh=one,
+                              **ekw)
+    want = TGen.evaluate_epoch(tmodel, tds, ann, output_dir=str(tmp_path / "none"), **ekw)
+    assert got.to_dict() == want.to_dict()
+    assert _tree_files(tmp_path / "mesh") == _tree_files(tmp_path / "none")
 
 def _rat_wrapped(models, coco, aggregation):
     """Both façades wrapped as RAT models (the JAX package's way: the same

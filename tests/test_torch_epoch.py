@@ -36,6 +36,8 @@ from gpt2_image_captioning_tpu.models import gpt2 as JG
 from gpt2_image_captioning_tpu.models import mapping as JM
 from gpt2_image_captioning_tpu.train import loop as JL
 from gpt2_image_captioning_tpu.train import optim as JO
+from gpt2_image_captioning_tpu_torch.core.mesh import Mesh
+from gpt2_image_captioning_tpu_torch.core.mesh import create_mesh as create_port_mesh
 from gpt2_image_captioning_tpu_torch.core.tree import flatten_with_paths
 from gpt2_image_captioning_tpu_torch.data.dataset import CocoDataset as TCoco
 from gpt2_image_captioning_tpu_torch.data.tokenizer import GPT2BPETokenizer
@@ -49,6 +51,9 @@ from helpers import make_synthetic_coco, tiny_tokenizer
 
 TRAIN = dict(batch_size=8, learning_rate=1e-3, save_every_epoch=1)  # 24 captions: 3 steps
 EVAL = dict(eval_batch_size=4, eval_max_length=8)  # 5 val images: the last batch padded
+# a mesh with a tensor-parallel axis, which the port refuses
+TP2 = Mesh(dp=1, tp=2, rank=0, world_size=1, group=None, backend=None,
+           device=torch.device("cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -286,11 +291,26 @@ def test_profile_dir_writes_a_trace_and_remat_keeps_the_losses(setup):
 
 
 @pytest.mark.parametrize("option, error", [
-    (dict(mesh=object()), NotImplementedError), (dict(val_dataset=object()), ValueError)])
+    (dict(mesh=TP2), NotImplementedError), (dict(val_dataset=object()), ValueError)])
 def test_unported_options_raise(setup, option, error):
     with pytest.raises(error):
         TL.train(setup["ttrain"], port_model(setup), num_epochs=1, device="cpu",
                  outputs_dir=str(setup["root"] / "refused"), **option, **TRAIN)
+
+
+def test_one_rank_mesh_trains_as_no_mesh(setup):
+    """``train()`` on a one-rank mesh (two epochs with evaluation): the
+    epoch losses, metrics and trained leaves of the run without a mesh, bit
+    for bit, and the same files."""
+    kw = dict(num_epochs=2, val_dataset=setup["tval"], val_annotations_path=setup["val_ann"],
+              **EVAL)
+    plain, hist, out = port_train(setup, "no_mesh", **kw)
+    meshed, mhist, mout = port_train(setup, "one_rank_mesh", mesh=create_port_mesh(device="cpu"), **kw)
+    assert mhist["epoch_losses"] == hist["epoch_losses"]
+    assert mhist["val_metrics"] == hist["val_metrics"]
+    for k, v in flatten_with_paths(plain.trainable).items():
+        assert torch.equal(flatten_with_paths(meshed.trainable)[k], v), k
+    assert sorted(os.listdir(mout)) == sorted(os.listdir(out))
 
 
 @pytest.mark.parametrize("backend", ["device", "flat"])

@@ -28,6 +28,7 @@ from gpt2_image_captioning_tpu.models import mapping as JM
 from gpt2_image_captioning_tpu.models import vit as JVT
 from gpt2_image_captioning_tpu.serving import CaptionService as JCaptionService
 from gpt2_image_captioning_tpu.serving import ContinuousCaptionService as JContinuous
+from gpt2_image_captioning_tpu_torch.core.mesh import Mesh, create_mesh
 from gpt2_image_captioning_tpu_torch.core.precision import F32
 from gpt2_image_captioning_tpu_torch.data import embeddings_io as tio
 from gpt2_image_captioning_tpu_torch.data import images as timages
@@ -45,6 +46,10 @@ from gpt2_image_captioning_tpu_torch.models import vit as TVT
 from gpt2_image_captioning_tpu_torch.serving import CaptionService, ContinuousCaptionService
 
 from helpers import tiny_tokenizer
+
+# a mesh with a tensor-parallel axis, which the port refuses
+TP2 = Mesh(dp=1, tp=2, rank=0, world_size=1, group=None, backend=None,
+           device=torch.device("cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -123,8 +128,14 @@ def test_caption_service_sampling_and_refusals(models):
     imgs = _imgs(5, seed=9)
     assert svc_a.caption_arrays(imgs) == svc_b.caption_arrays(imgs)
     assert svc_a._draws == 2
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        CaptionService(tmodel, tv, tvcfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+        CaptionService(tmodel, tv, tvcfg, mesh=TP2)
+    # a one-rank mesh serves as no mesh does, greedy and sampled
+    for t in (0.0, 0.9):
+        svcs = [CaptionService(tmodel, tv, tvcfg, batch_size=4, max_length=6, temperature=t,
+                               policy=F32, seed=7, mesh=m)
+                for m in (None, create_mesh(device="cpu"))]
+        assert svcs[1].caption_arrays(imgs) == svcs[0].caption_arrays(imgs)
     with pytest.raises(ValueError, match="unknown encoder"):
         CaptionService(tmodel, tv, tvcfg, encoder="resnet")
 
@@ -209,8 +220,13 @@ def test_extraction_matches_jax(name, jcfg, tcfg, png_dir, tmp_path):
         names, emb = reader(path)
         assert names == tnames and emb.dtype == np.float32
         np.testing.assert_array_equal(emb, temb if path == tout else jemb)
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        tfn(png_dir, None, tparams, tcfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+        tfn(png_dir, None, tparams, tcfg, mesh=TP2)
+    # a one-rank mesh extracts as no mesh does, bit for bit
+    names, emb = tfn(png_dir, None, tparams, tcfg, batch_size=2, num_workers=2, policy=F32,
+                     mesh=create_mesh(device="cpu"))
+    assert names == tnames
+    np.testing.assert_array_equal(emb, temb)
 
 
 def test_embeddings_io_npz_and_tensors(tmp_path):

@@ -3,8 +3,8 @@
 GPT-2) on JAX GPT-2 weights carried across, one epoch of ``run``, a sweep
 ``run_one`` with its test pass, ``select_test_checkpoint``, RAT configs
 (``run`` on every store backend and a RAT ``run_one``, on the JAX
-package's weights) and the refusal of what is not ported (meshes of more
-than one device)."""
+package's weights) and the refusal of meshes this process cannot run (a dp
+the world size does not match, tensor parallelism)."""
 
 import json
 import os
@@ -313,24 +313,25 @@ def test_sweep_run_one_rat_matches_jax(data, tmp_path, monkeypatch, same_weights
 
 
 REFUSED = {
-    "dp2": ({"tpu": {"mesh": {"dp": 2, "tp": 1}}}, "parallelism"),
-    "dp8": ({"tpu": {"mesh": {"dp": 8}}}, "parallelism"),
-    "tp2": ({"tpu": {"mesh": {"dp": 1, "tp": 2}}}, "parallelism"),
+    "dp2": ({"tpu": {"mesh": {"dp": 2, "tp": 1}}}, ValueError, r"mesh 2x1 != 1 devices"),
+    "dp8": ({"tpu": {"mesh": {"dp": 8}}}, ValueError, r"mesh 8x1 != 1 devices"),
+    "tp2": ({"tpu": {"mesh": {"dp": 1, "tp": 2}}}, NotImplementedError,
+            "queue 1: tensor parallelism"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_configs_refused_before_any_read(case, tmp_path):
-    """Meshes of more than one device raise ``NotImplementedError`` naming
-    their ROADMAP item before any data is read (the paths hold nothing) or
-    any directory is made."""
+    """Without a process group a dp above 1 raises ``MeshSpec.resolve``'s
+    error, and tp 2 ``NotImplementedError`` naming its ROADMAP item, before
+    any data is read (the paths hold nothing) or any directory is made."""
     from gpt2_image_captioning_tpu_torch.core.config import update_cfg
 
-    updates, item = REFUSED[case]
+    updates, error, item = REFUSED[case]
     cfg = update_cfg(Config(base_config(tmp_path / "absent")), updates)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         ttp.run(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=item):
         tsweep.run_one(cfg, "1", str(tmp_path / "out"), device="cpu")
     assert not (tmp_path / "out").exists()
 
