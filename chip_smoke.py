@@ -167,7 +167,21 @@ before and read just after:
   must show the step kernels, decode attention, the prefill, flash
   attention and the patch embedding inside it.  A rank that fails or
   outlives its limit is killed and fails the run.  The phase's seconds are
-  those of two ranks sharing one card, not a dp speed.
+  those of two ranks sharing one card, not a dp speed.  Tensor and
+  pipeline parallelism: two more pairs of gloo ranks on the card, started
+  with the dp ranks: at
+  tp 2, tiny float32 greedy and beam-4 tokens equal to one process's
+  (kernels on both sides), and at full width greedy ``generate`` of 128
+  images (teacher-forced as above), ``CaptionService`` from 128 images'
+  pixels and the bf16 train step at b 128; at pp 2 the bf16 train step at
+  b 128 in 4 microbatches; each train step's loss within 2e-3 of one
+  process's, its gradients within 5e-2, its update no farther from one
+  process's than one process's own step on the flash kernel's plain twin
+  (MP_TRAIN_TOL).  The tp ranks must launch decode
+  attention, flash attention and the patch embedding and none of the step
+  kernels (the JAX package's layerwise tp branch); the pp ranks flash
+  attention.  Decode attention and flash attention are also held to their
+  twins at tp's local heads (6 and 3 heads of 64).
 
 Every request and admission prefills through the prefill kernel (an int8
 decode through ``forward_cached``, as the reference), and the launch checks
@@ -376,6 +390,14 @@ FLASH_SHAPES = (
 # bf16, which can differ by one ulp (2^-8 relative): 1e-2 / 1e-2.  float32:
 # summation order and online against plain softmax only, so 1e-5 / 1e-5.
 FLASH_TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 1e-5)}
+# the same kernels at tensor parallelism's local heads: a tp-2 rank's 6 of
+# GPT-2 124M's 12 heads in the train step and the prefill (flash), and the
+# (B, D / tp) cache of a tp-2 and a tp-4 rank (decode attention)
+FLASH_TP_SHAPES = (
+    ("gpt2_train_tp2", B, 6, 65, 64, True, True),
+    ("gpt2_prefill_tp2", B, 6, 15, 64, True, False),
+)
+ATTN_TP_SHAPES = ((B, 384, 6), (B, 192, 3))
 # The shape a dtype's kernel row reports: bf16 the training step's, which
 # launches it most; float32 the mapper's, which the float32 greedy path runs.
 FLASH_MAIN = {torch.bfloat16: "gpt2_train", torch.float32: "mapper"}
@@ -662,12 +684,42 @@ def check_attention(dtype, g) -> dict:
     # cache rows read, q / k_new / v_new read, the output and the appended rows written
     nbytes = el * B * D * (2 * idx + 3 + 1 + 2)
     bound_ms, bound_by = bound(nbytes, 4 * B * D * (idx + 1), dtype)
-    return {"kernel": "decode_attention", "max_abs_err": worst, "ms": ms, "device_ms": dev,
-            "plain_ms": plain_ms,
+    local = attention_local_heads(dtype, g)
+    return {"kernel": "decode_attention", "max_abs_err": max(worst, local["max_abs_err"]),
+            "ms": ms, "device_ms": dev, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "library_ms": library_ms, "library_device_ms": library_dev,
             "library": "scaled_dot_product_attention over the cache",
-            "at": f"B {B}, D {D}, H {H}, T {T}, idx {idx}", "contract": contract}
+            "at": f"B {B}, D {D}, H {H}, T {T}, idx {idx}", "contract": contract,
+            "tp_local_heads": local}
+
+
+def attention_local_heads(dtype, g) -> dict:
+    """Decode attention against its twin at a tp rank's cache widths
+    (ATTN_TP_SHAPES) at every ATTN_IDX: the outputs within TOL, the caches
+    equal after the append; ms of one call at idx 64 beside its twin's."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_attention as DA
+
+    worst, timed = 0.0, {}
+    for b, d, h in ATTN_TP_SHAPES:
+        for idx in ATTN_IDX:
+            q, kn, vn = (torch.randn(b, d, generator=g, device="cuda").to(dtype)
+                         for _ in range(3))
+            kc, vc = (torch.randn(T, b, d, generator=g, device="cuda").to(dtype)
+                      for _ in range(2))
+            kc[idx:], vc[idx:] = 1e4, -1e4  # rows >= idx must never be attended
+            kp, vp = kc.clone(), vc.clone()
+            want = DA._decode_attention_plain(q, kn, vn, kp, vp, idx, h)
+            got = DA.decode_attention_cuda(q, kn, vn, kc, vc, idx, h)
+            torch.cuda.synchronize()
+            worst = max(worst, close(got, want, TOL[dtype]["out"]))
+            check(torch.equal(kc, kp) and torch.equal(vc, vp),
+                  f"cache rows differ at B {b}, D {d}, idx {idx}")
+        timed[f"D {d}, H {h}"] = {
+            "ms": time_ms(lambda: DA.decode_attention_cuda(q, kn, vn, kc, vc, idx, h)),
+            "plain_ms": time_ms(lambda: DA._decode_attention_plain(q, kn, vn, kp, vp, idx, h))}
+    return {"shapes": [list(s) for s in ATTN_TP_SHAPES], "idx": list(ATTN_IDX),
+            "max_abs_err": worst, "tolerance": TOL[dtype]["out"], "at_idx_64": timed}
 
 
 def beam_origin(tpad: int, rows: int, g) -> torch.Tensor:
@@ -1972,7 +2024,7 @@ def check_flash(dtype, g) -> dict:
     from gpt2_image_captioning_tpu_torch.ops import attention as A
 
     shapes = {}
-    for name, b, h, t, hd, causal, masked in FLASH_SHAPES:
+    for name, b, h, t, hd, causal, masked in FLASH_SHAPES + FLASH_TP_SHAPES:
         q, k, v, mask = flash_inputs(b, h, t, hd, masked, dtype, g)
         want = A._flash_attention_plain(q, k, v, mask, causal)
         got = A.flash_attention_cuda(q, k, v, mask, causal)
@@ -5170,6 +5222,23 @@ PAR_EXTRACT_TOL = 1e-2  # features of the two ranks against one process's, bf16
 # the kernel families the full-width part must launch inside every rank
 PAR_FAMILIES = ("fused_linear", "logits_argmax", "decode_attention", "prefill",
                 "flash_attention", "patch_embed")
+# tp and pp ranks: the families they must launch, and at tp the step
+# kernels, which the layerwise tp branch never runs
+TP_FAMILIES = ("decode_attention", "flash_attention", "patch_embed")
+TP_IDLE = ("fused_linear", "prefill", "logits_argmax", "logits", "logits_topk", "logits_sample",
+           "rowquant")
+PP_FAMILIES = ("flash_attention",)
+PP_MICRO = 4  # microbatches of the pp train step: 32 rows each at b 128
+TP_IMAGE_TOKENS = 20  # the tp CaptionService's captions (the greedy request's run to 50)
+# a tp or pp bf16 train step against one process's: the loss, absolute;
+# the clipped gradients by grad_agreement within TRAIN_TOL["grad_bf16"] (two
+# computations of one bf16 gradient); the update of the trainable leaves, by
+# norm, no farther from one process's than one process's own step on the
+# flash kernel's plain twin (measured in the same run: AdamW's first step
+# divides each element by its own gradient, so the bf16 noise of the
+# near-zero gradients, the mapper's key bias exactly zero, becomes steps of
+# the learning rate's size; a 2 % bound sits below that floor)
+MP_TRAIN_TOL = {"loss": 2e-3}
 
 
 def parallel_tiny(mesh) -> dict:
@@ -5210,7 +5279,7 @@ def parallel_tiny(mesh) -> dict:
                                                             gpt_dim=cfg.gpt2.n_embd))
     tr, fz = C.init_params(torch.Generator().manual_seed(3), cfg, device="cuda")
     ds = Captions(3 * 8 - 3, 24, cfg.eos_token_id, 16, seed=4)  # the last batch padded
-    coords = {} if mesh is None else dict(process_index=mesh.rank, process_count=mesh.dp)
+    coords = {} if mesh is None else dict(process_index=mesh.dp_rank, process_count=mesh.dp)
     opt_cfg = optim.AdamWConfig(learning_rate=1e-3, num_training_steps=3)
     optimizer, scheduler = optim.make_optimizer(tr, opt_cfg)
     step = loop.make_train_step(cfg, opt_cfg, F32, device="cuda", mesh=mesh)
@@ -5227,31 +5296,135 @@ def parallel_tiny(mesh) -> dict:
     return out
 
 
-def parallel_train_step(mesh) -> dict:
-    """One bf16 train step of :func:`train_path`'s model at b 128, on
-    ``mesh`` (each rank its 64 rows) or in one process: the step's loss and
-    the trainable leaves after it (on the host)."""
+def parallel_train_step(mesh, use_kernels: bool | None = None) -> dict:
+    """One bf16 train step of :func:`train_path`'s model at b 128 in one
+    process (``mesh`` None) or on ``mesh``: dp (each rank its 64 rows), tp
+    (GPT-2's slices, every rank the 128 rows) or a pipeline (its stage's
+    layers, PP_MICRO microbatches).  The step's loss, the trainable leaves
+    before and after it and their clipped gradients (on the host; GPT-2 is
+    frozen, so the trainable tree is the replicated mapper, updated in
+    place).  ``use_kernels=False``: one process on the flash kernel's plain
+    twin."""
     from gpt2_image_captioning_tpu_torch import BF16
     from gpt2_image_captioning_tpu_torch.core.tree import flatten_with_paths
     from gpt2_image_captioning_tpu_torch.data.dataset import Batcher
     from gpt2_image_captioning_tpu_torch.models import captioner as C
     from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config
     from gpt2_image_captioning_tpu_torch.models.mapping import TransformerMappingConfig
+    from gpt2_image_captioning_tpu_torch.parallel import pipeline as PP
     from gpt2_image_captioning_tpu_torch.train import loop, optim
 
     cfg = C.CaptionerConfig(gpt2=GPT2Config.gpt2_124m(),
                             mapping=TransformerMappingConfig(512, 768, 15, 10))
     tr, fz = C.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
-    coords = {} if mesh is None else dict(process_index=mesh.rank, process_count=mesh.dp)
+    coords = ({} if mesh is None or mesh.dp == 1
+              else dict(process_index=mesh.dp_rank, process_count=mesh.dp))
     batch = next(Batcher(Captions(B, 50, cfg.eos_token_id, 512, seed=1), B, seed=0,
                          **coords).epoch(0))
     opt_cfg = optim.AdamWConfig(learning_rate=1e-4, num_training_steps=100)
-    optimizer, scheduler = optim.make_optimizer(tr, opt_cfg)
-    step = loop.make_train_step(cfg, opt_cfg, BF16, device="cuda", mesh=mesh)
+    if isinstance(mesh, PP.PipelineMesh):
+        tr_local, fz_local = PP.shard_stage_params(tr, fz, cfg, mesh)
+        step = PP.make_pipeline_train_step(cfg, opt_cfg, mesh, BF16, num_microbatches=PP_MICRO)
+    else:
+        tr_local, fz_local = C.shard_params(tr, fz, cfg, mesh)
+        step = loop.make_train_step(cfg, opt_cfg, BF16, device="cuda", mesh=mesh,
+                                    use_kernels=use_kernels)
+    optimizer, scheduler = optim.make_optimizer(tr_local, opt_cfg)
     before = {k: v.detach().cpu().clone() for k, v in flatten_with_paths(tr).items()}
-    loss, norm = step(tr, optimizer, scheduler, fz, batch)
+    loss, norm = step(tr_local, optimizer, scheduler, fz_local, batch)
+    flat = flatten_with_paths(tr)
     return {"loss": float(loss), "grad_norm": float(norm), "before": before,
-            "after": {k: v.detach().cpu() for k, v in flatten_with_paths(tr).items()}}
+            "after": {k: v.detach().cpu() for k, v in flat.items()},
+            "grads": {k: v.grad.detach().float().cpu() for k, v in flat.items()}}
+
+
+def tiny_tp_config():
+    """:func:`tiny_config` at head counts tp 2 divides: GPT-2 2 x 256 = 4
+    heads of 64 (2 a rank), its vocabulary of 293 padded to 294 rows at tp
+    2; the transformer mapper's 2 heads of 128."""
+    from gpt2_image_captioning_tpu_torch.models.mapping import TransformerMappingConfig
+
+    cfg = tiny_config()
+    return dataclasses.replace(
+        cfg, gpt2=dataclasses.replace(cfg.gpt2, n_embd=256, n_head=4),
+        mapping=TransformerMappingConfig(16, 256, prefix_length=4, hidden_length=3,
+                                         num_layers=2, num_heads=2))
+
+
+def parallel_tiny_tp(mesh) -> dict:
+    """Tiny float32 greedy and beam-4 ``generate`` of 5 rows at
+    :func:`tiny_tp_config`, kernels on: on a tp ``mesh`` (the rank's
+    slices, the layerwise decode) or in one process (None: the step
+    kernels)."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    cfg = tiny_tp_config()
+    tr, fz = C.init_params(torch.Generator().manual_seed(7), cfg, device="cuda")
+    tr, fz = C.shard_params(tr, fz, cfg, mesh)
+    rng = np.random.default_rng(5)
+    emb = torch.from_numpy(rng.normal(size=(PAR_TINY_B, 16)).astype(np.float32)).cuda()
+    out = {"greedy": C.generate(tr, fz, cfg, emb, max_length=12, temperature=0.0, mesh=mesh),
+           "beam": C.beam_generate(tr, fz, cfg, emb, max_length=12, beam_size=BEAM_K,
+                                   mesh=mesh)}
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def timed_part(name, fn, seconds: dict, counts: dict):
+    """``fn()`` with every launch counter set to 0 just before and read just
+    after, into ``counts[name]``, its seconds (to a synchronize) into
+    ``seconds[name]``."""
+    reset_launches()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    seconds[name], counts[name] = time.perf_counter() - t0, read_launches()
+    return result
+
+
+def parallel_full_tp(mesh) -> dict:
+    """The full-width part of a tp rank, launch counts by part: greedy
+    ``generate`` of a 128-image request (bf16, every rank all rows),
+    ``CaptionService`` from 128 images' pixels (CLIP B/32, captions of up to
+    TP_IMAGE_TOKENS), one bf16 train step at b 128; rank 0 holds the greedy
+    tokens to the plain path."""
+    from gpt2_image_captioning_tpu_torch.serving import CaptionService
+
+    out, counts, seconds = {}, {}, {}
+    model, reqs = serving_model()
+    model.tokenizer = synthetic_tokenizer(V)
+    emb = torch.from_numpy(reqs[0]).cuda()
+    model.generate(emb[:8], max_length=8, temperature=0.0, decode_precision="bf16",
+                   mesh=mesh)  # warm-up
+    tokens = timed_part("greedy", lambda: model.generate(
+        emb, max_length=50, temperature=0.0, decode_precision="bf16", mesh=mesh),
+        seconds, counts)
+    check(tuple(tokens.shape) == (B, 50), f"tp greedy: shape {tuple(tokens.shape)}")
+    out["greedy_tokens"] = tokens.cpu().numpy()
+    if mesh.is_main:
+        worst, n, agree = teacher_forced(model, emb, tokens)
+        check(worst <= TF_TOL, f"tp greedy: a token is {worst} below the plain max")
+        out["greedy_teacher_forced"] = {"worst_deficit": worst, "tolerance": TF_TOL,
+                                        "tokens_checked": n, "share_plain_argmax": agree}
+    _, clip_cfg, clip_params = tower_params("clip")
+    svc = CaptionService(model, clip_params, clip_cfg, batch_size=B,
+                         max_length=TP_IMAGE_TOKENS, decode_precision="bf16", mesh=mesh)
+    pixels = np.random.default_rng(4).integers(0, 256, size=(B, 224, 224, 3), dtype=np.uint8)
+    out["image_captions"] = timed_part("images", lambda: svc.caption_prepped(pixels),
+                                       seconds, counts)
+    del model, svc, clip_params
+    torch.cuda.empty_cache()
+    out["train"] = timed_part("train", lambda: parallel_train_step(mesh), seconds, counts)
+    out["seconds"], out["launches"] = seconds, counts
+    return out
+
+
+def parallel_full_pp(mesh) -> dict:
+    """The full-width part of a pp rank: one bf16 train step at b 128 in
+    PP_MICRO microbatches, its launch counts and seconds."""
+    out, counts, seconds = {}, {}, {}
+    out["train"] = timed_part("train", lambda: parallel_train_step(mesh), seconds, counts)
+    out["seconds"], out["launches"] = seconds, counts
+    return out
 
 
 def parallel_extract(mesh, path: Path) -> tuple[list[str], np.ndarray]:
@@ -5288,12 +5461,7 @@ def parallel_full(mesh) -> dict:
     model.generate(emb, max_length=50, temperature=0.0, decode_precision="bf16")  # warm-up
 
     def part(name, fn):
-        reset_launches()
-        t0 = time.perf_counter()
-        result = fn()
-        torch.cuda.synchronize()
-        seconds[name], counts[name] = time.perf_counter() - t0, read_launches()
-        return result
+        return timed_part(name, fn, seconds, counts)
 
     tokens = part("greedy", lambda: model.generate(emb, max_length=50, temperature=0.0,
                                                    decode_precision="bf16", mesh=mesh))
@@ -5326,20 +5494,35 @@ def parallel_full(mesh) -> dict:
 def parallel_rank(argv: list[str]) -> int:
     """A rank of the parallel phase (``--parallel-rank SPEC RANK``): joins the
     group over the spec's ``file://`` rendezvous on this process's card, runs
-    the spec's parts on the dp mesh, prints its launch counts by kernel and
-    part, and saves what it computed for the parent."""
-    from gpt2_image_captioning_tpu_torch.core.mesh import create_mesh, init_distributed
+    the spec's parts on its mesh (``kind``: ``dp`` tiny and full width,
+    ``dp_tiny``, ``tp`` on a tp mesh of the world, ``pp`` on a pipeline of
+    the world), prints its launch counts by kernel and part, and saves what
+    it computed for the parent."""
+    from gpt2_image_captioning_tpu_torch.core.mesh import MeshSpec, create_mesh, init_distributed
+    from gpt2_image_captioning_tpu_torch.parallel.pipeline import create_pipeline_mesh
 
     spec = json.loads(Path(argv[0]).read_text())
-    rank = int(argv[1])
+    rank, kind = int(argv[1]), spec["kind"]
     init_distributed(spec["init_method"], rank=rank, world_size=spec["world"], device="cuda")
-    mesh = create_mesh(device="cuda")
-    out = {"backend": mesh.backend, "device": str(mesh.device), "dp": mesh.dp,
-           "tiny": parallel_tiny(mesh)}
-    if spec["full"]:
-        out["full"] = parallel_full(mesh)
-        print(json.dumps({"phase": "parallel_rank", "world": spec["world"], "rank": rank,
-                          "backend": mesh.backend, "launches_by_part": out["full"]["launches"],
+    if kind == "pp":
+        mesh = create_pipeline_mesh(1, spec["world"], device="cuda")
+    else:
+        mesh = create_mesh(MeshSpec(dp=-1, tp=spec["world"] if kind == "tp" else 1),
+                           device="cuda")
+    out = {"backend": mesh.backend, "device": str(mesh.device), "shape": mesh.shape}
+    if kind == "tp":
+        out["tiny"] = parallel_tiny_tp(mesh)
+        out["full"] = parallel_full_tp(mesh)
+    elif kind == "pp":
+        out["full"] = parallel_full_pp(mesh)
+    else:
+        out["tiny"] = parallel_tiny(mesh)
+        if kind == "dp":
+            out["full"] = parallel_full(mesh)
+    if "full" in out:
+        print(json.dumps({"phase": "parallel_rank", "kind": kind, "world": spec["world"],
+                          "rank": rank, "backend": mesh.backend,
+                          "launches_by_part": out["full"]["launches"],
                           "seconds_by_part": out["full"]["seconds"]}), flush=True)
     torch.save(out, Path(spec["dir"]) / f"{spec['name']}_rank{rank}.pt")
     torch.distributed.destroy_process_group()
@@ -5347,10 +5530,11 @@ def parallel_rank(argv: list[str]) -> int:
     return 0
 
 
-def launch_ranks(groups: dict[str, tuple[int, bool]]) -> tuple[dict, dict]:
+def launch_ranks(groups: dict[str, tuple[int, str]]) -> tuple[dict, dict]:
     """Start every group's ranks of this script at once on the parent's card
-    (a group ``name: (world, full)``: gloo when its ranks share the card,
-    nccl for a world of one), wait for all, and return each group's outputs
+    (a group ``name: (world, kind)``, the kind as :func:`parallel_rank`
+    takes it: gloo when its ranks share the card, nccl for a world of one),
+    wait for all, and return each group's outputs
     and its seconds (until its last rank exited).  A rank that fails, or
     outlives PARALLEL_RANK_TIMEOUT, fails the phase, and every rank still
     running is killed by its handle."""
@@ -5360,10 +5544,10 @@ def launch_ranks(groups: dict[str, tuple[int, bool]]) -> tuple[dict, dict]:
         card = visible.split(",")[int(card)]
     procs, logs = {}, []
     t0 = time.perf_counter()
-    for name, (world, full) in groups.items():
+    for name, (world, kind) in groups.items():
         spec_path = PARALLEL_RUN / f"{name}.json"
         spec_path.write_text(json.dumps({
-            "world": world, "full": full, "name": name, "dir": str(PARALLEL_RUN),
+            "world": world, "kind": kind, "name": name, "dir": str(PARALLEL_RUN),
             "init_method": f"file://{PARALLEL_RUN / (name + '.rendezvous')}"}))
         for rank in range(world):
             env = dict(os.environ, CUDA_VISIBLE_DEVICES=card, RANK=str(rank),
@@ -5451,18 +5635,21 @@ def check_tiny(name: str, ranks: list[dict], want: dict) -> dict:
 
 
 def parallel_phase() -> tuple[list[dict], dict]:
-    """Data parallelism on the card: two gloo ranks sharing it and one nccl
-    rank (a world of one), subprocesses of this script, held to this
-    process's one-process runs (PAR_* above)."""
+    """Data, tensor and pipeline parallelism on the card: two gloo ranks
+    sharing it and one nccl rank (a world of one) at dp, a tp-2 and a pp-2
+    pair of gloo ranks, all subprocesses of this script started together,
+    held to this process's one-process runs (PAR_* and MP_* above)."""
     shutil.rmtree(PARALLEL_RUN, ignore_errors=True)
     PARALLEL_RUN.mkdir()
     t0 = time.perf_counter()
     want = parallel_tiny(None)
     ref_train = parallel_train_step(None)
     ref_names, ref_emb = parallel_extract(None, PARALLEL_RUN / "extract_one.pt")
+    mp_refs = model_parallel_references(ref_train)
     torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t0
-    runs, t_ranks = launch_ranks({"gloo2": (2, True), "nccl1": (1, False)})
+    runs, t_ranks = launch_ranks({"gloo2": (2, "dp"), "nccl1": (1, "dp_tiny"),
+                                  "tp2": (2, "tp"), "pp2": (2, "pp")})
     gloo, nccl = runs["gloo2"], runs["nccl1"]
     tiny = {"gloo2": check_tiny("gloo2", gloo, want), "nccl1": check_tiny("nccl1", nccl, want)}
     check(tiny["gloo2"]["backend"] == ["gloo", "gloo"] and tiny["nccl1"]["backend"] == ["nccl"],
@@ -5479,12 +5666,7 @@ def parallel_phase() -> tuple[list[dict], dict]:
     f0, f1 = gloo[0]["full"], gloo[1]["full"]
     check(all(torch.equal(f0["train"]["after"][k], f1["train"]["after"][k])
               for k in f0["train"]["after"]), "parallel: the ranks' trained parameters differ")
-    loss_err = abs(f0["train"]["loss"] - ref_train["loss"])
-    num = sum(float(((f0["train"]["after"][k] - ref_train["after"][k]).float() ** 2).sum())
-              for k in ref_train["after"])
-    den = sum(float(((ref_train["after"][k] - ref_train["before"][k]).float() ** 2).sum())
-              for k in ref_train["after"])
-    update_err = (num / den) ** 0.5
+    loss_err, update_err = train_agreement(f0["train"], ref_train)
     check(loss_err <= TRAIN_TOL["loss_bf16"], f"parallel train: loss {f0['train']['loss']} "
                                               f"against one process's {ref_train['loss']}")
     check(update_err <= TRAIN_TOL["grad_bf16"], f"parallel train: update error {update_err}")
@@ -5496,13 +5678,18 @@ def parallel_phase() -> tuple[list[dict], dict]:
 
     saved_names, saved = load_embeddings(str(PARALLEL_RUN / "extract_dp.pt"))
     check(saved_names == names and np.array_equal(saved, emb), "the dp .pt did not read back")
+    model_parallel, mp_counts = model_parallel_checks(runs["tp2"], runs["pp2"], ref_train,
+                                                     mp_refs)
+    counts.update(mp_counts)
     record = {
         "phase": "parallel", "model": MODEL_NAME,
         "seconds": {"one_process_references": t_ref,
                     "two_ranks_sharing_one_card": t_ranks["gloo2"],
-                    "one_nccl_rank": t_ranks["nccl1"]},
-        "note": "two gloo ranks share one card, beside the nccl rank started with them: "
-                "the seconds are not a dp speed",
+                    "one_nccl_rank": t_ranks["nccl1"],
+                    "tp2_ranks_sharing_one_card": t_ranks["tp2"],
+                    "pp2_ranks_sharing_one_card": t_ranks["pp2"]},
+        "note": "the dp, tp and pp groups' seven ranks share one card, started together: "
+                "the seconds are not a parallel speed",
         "tiny_f32": tiny,
         "full_width": {
             "greedy": {"rows_a_rank": B // 2, **f0["greedy_teacher_forced"]},
@@ -5517,10 +5704,121 @@ def parallel_phase() -> tuple[list[dict], dict]:
             "seconds_by_part_rank0": f0["seconds"],
         },
         "launches_by_rank_and_part": [g["full"]["launches"] for g in gloo],
+        "model_parallel": model_parallel,
         "card": nvidia_smi(),
     }
     shutil.rmtree(PARALLEL_RUN, ignore_errors=True)
     return [record], counts
+
+
+def train_agreement(got: dict, ref: dict) -> tuple[float, float]:
+    """A train step's loss error against one process's (absolute) and its
+    update's error by norm: ||after - ref after|| / ||ref after - before||."""
+    num = sum(float(((got["after"][k] - ref["after"][k]).float() ** 2).sum()) for k in ref["after"])
+    den = sum(float(((ref["after"][k] - ref["before"][k]).float() ** 2).sum())
+              for k in ref["after"])
+    return abs(got["loss"] - ref["loss"]), (num / den) ** 0.5
+
+
+def grad_agreement(got: dict, ref: dict) -> tuple[float, str]:
+    """The step's clipped gradients against one process's: the largest
+    leaf-wise max |got - ref| / max |ref| (``train_path``'s measure of two
+    computations of one gradient) and its leaf."""
+    return max((float((got["grads"][k] - g).abs().max() / g.abs().max()), k)
+               for k, g in ref["grads"].items())
+
+
+def local_head_kernels(g) -> dict:
+    """Decode attention and flash attention against their twins at tp's
+    local heads (ATTN_TP_SHAPES, FLASH_TP_SHAPES), bf16 and float32."""
+    from gpt2_image_captioning_tpu_torch.ops import attention as A
+
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        flash = {}
+        for name, b, h, t, hd, causal, masked in FLASH_TP_SHAPES:
+            q, k, v, mask = flash_inputs(b, h, t, hd, masked, dtype, g)
+            want = A._flash_attention_plain(q, k, v, mask, causal)
+            got = A.flash_attention_cuda(q, k, v, mask, causal)
+            torch.cuda.synchronize()
+            flash[name] = {"at": [b, h, t, hd], "max_abs_err": close(got, want, FLASH_TOL[dtype])}
+        out[dtype_tag(dtype)] = {"decode_attention": attention_local_heads(dtype, g),
+                                 "flash_attention": flash}
+    return out
+
+
+def model_parallel_references(ref_train: dict) -> dict:
+    """What the tp and pp ranks are held to, in this process: the kernels at
+    tp's local heads against their twins, the tiny tp tokens of one process,
+    and the update's floor — one process's step on the flash kernel's plain
+    twin against ``ref_train``."""
+    floor = parallel_train_step(None, use_kernels=False)
+    return {"kernels": local_head_kernels(torch.Generator(device="cuda").manual_seed(17)),
+            "tiny": parallel_tiny_tp(None),
+            "floor": dict(zip(("loss_abs_err", "update_rel_err"),
+                              train_agreement(floor, ref_train)),
+                          grad_rel_err=list(grad_agreement(floor, ref_train)))}
+
+
+def model_parallel_checks(tp: list[dict], pp: list[dict], ref_train: dict,
+                          refs: dict) -> tuple[dict, dict]:
+    """The tp-2 and pp-2 ranks held to this process's runs
+    (:func:`model_parallel_references`): tiny float32 tokens exactly, the
+    full-width greedy request by teacher forcing (inside rank 0), the bf16
+    train step against ``ref_train`` by MP_TRAIN_TOL and its comments; the
+    launches each rank's parts must and must not show.  Returns (the
+    record, launch counts by rank)."""
+    want, floor = refs["tiny"], refs["floor"]
+    check([r["backend"] for r in tp + pp] == ["gloo"] * 4,
+          f"tp / pp backends {[r['backend'] for r in tp + pp]}")
+    counts, train = {}, {}
+    for r, got in enumerate(tp):
+        for k in ("greedy", "beam"):
+            check(np.array_equal(got["tiny"][k], want[k]), f"tp rank {r}: tiny {k} tokens differ")
+        check(np.array_equal(got["full"]["greedy_tokens"], tp[0]["full"]["greedy_tokens"])
+              and got["full"]["image_captions"] == tp[0]["full"]["image_captions"],
+              "tp ranks returned different captions")
+    for name, ranks, must, idle in (("tp", tp, TP_FAMILIES, TP_IDLE), ("pp", pp, PP_FAMILIES, ())):
+        for r, got in enumerate(ranks):
+            launches = got["full"]["launches"]
+            total = {k: sum(c[k] for c in launches.values()) for k in launches["train"]}
+            never = [k for k in must if total[k] == 0]
+            check(not never, f"{name} rank {r}: kernel families never launched: {never}")
+            ran = [k for k in idle if total[k] != 0]
+            check(not ran, f"{name} rank {r}: step kernels launched at tp: {ran}")
+            counts[f"parallel_{name}_rank{r}"] = total
+        f0 = ranks[0]["full"]["train"]
+        check(all(torch.equal(g["full"]["train"]["after"][k], f0["after"][k])
+                  for g in ranks for k in f0["after"]), f"{name}: the ranks' parameters differ")
+        loss_err, update_err = train_agreement(f0, ref_train)
+        worst_leaf = rel_err({k: f0["after"][k] - v for k, v in ref_train["before"].items()},
+                             {k: ref_train["after"][k] - v for k, v in ref_train["before"].items()})
+        grad_err = grad_agreement(f0, ref_train)
+        check(loss_err <= MP_TRAIN_TOL["loss"] and grad_err[0] <= TRAIN_TOL["grad_bf16"]
+              and update_err <= floor["update_rel_err"],
+              f"{name} train: loss {f0['loss']} against {ref_train['loss']}, gradients "
+              f"{grad_err}, update {update_err} (worst leaf {worst_leaf}; one process on the "
+              f"plain twin: {floor['update_rel_err']})")
+        train[name] = {"batch": B, "loss": f0["loss"], "loss_one_process": ref_train["loss"],
+                       "loss_abs_err": loss_err, "update_rel_err": update_err,
+                       "update_rel_err_worst_leaf": list(worst_leaf),
+                       "grad_rel_err": list(grad_err),
+                       "tolerance": {**MP_TRAIN_TOL, "grad": TRAIN_TOL["grad_bf16"],
+                                     "update": floor["update_rel_err"]},
+                       "ranks_bit_equal": True,
+                       "seconds_by_part": [g["full"]["seconds"] for g in ranks],
+                       "launches_by_rank_and_part": [g["full"]["launches"] for g in ranks]}
+    train["pp"]["microbatches"] = PP_MICRO
+    record = {
+        "local_head_kernels": refs["kernels"],
+        "train_floor_one_process_plain_twin": floor,
+        "tiny_f32_tp2": {"tokens_equal": ["greedy", "beam"], "rows": PAR_TINY_B,
+                         "config": "GPT-2 2 x 256 (4 heads of 64), vocab 293; mapper 2 x 128"},
+        "tp2_greedy": {"rows": B, **tp[0]["full"]["greedy_teacher_forced"]},
+        "tp2_images": {"images": B, "ranks_equal": True},
+        "train": train,
+    }
+    return record, counts
 
 
 # ``--only <phase>``: one of the slice's phases alone, its records and launches

@@ -4,14 +4,24 @@ of ``gpt2_image_captioning_tpu/core/mesh.py``.
 The JAX package's mesh is one controller over a ``(dp, tp)`` grid of
 devices.  The port's is PyTorch's form of a multi-process mesh: one process
 a rank, every rank running the same host program on the same inputs (SPMD),
-each working on its contiguous shard of the batch on its own device, and
-the only communication explicit collectives (``parallel/collectives.py``)
-over the mesh's process group.
+each working on its shard of the batch and of the weights on its own
+device, and the only communication explicit collectives
+(``parallel/collectives.py``) over the mesh's process groups.
 
-- axis ``"dp"`` — data parallel: the batch is split over the ranks in rank
-  order; gradients and counts are summed over the group.
-- axis ``"tp"`` — tensor parallel: not ported yet (ROADMAP.md, queue 1:
-  tensor parallelism); a mesh with ``tp > 1`` refuses.
+Ranks lie on the ``(dp, tp)`` grid as ``rank = d · tp + t``, tp contiguous
+(the JAX ``reshape(dp, tp)`` of the device list):
+
+- axis ``"dp"`` — data parallel: the batch is split over the dp index in
+  order; gradients and counts are summed over ``dp_group`` (the ranks of one
+  tp index).
+- axis ``"tp"`` — tensor parallel (Megatron): the ranks of one dp index
+  (``tp_group``) hold slices of GPT-2's heads, MLP columns and vocabulary
+  rows (``models/gpt2.py::partition_specs``) and run the same rows; the
+  conjugate collectives of ``parallel/collectives.py`` join them.
+
+Every rank creates every subgroup (``dist.new_group`` is collective), in the
+same order, and keeps its own.  An axis of size 1 has no group: its
+collectives are the identity, and a one-rank mesh has no group at all.
 
 :func:`init_distributed` joins the default group from torchrun's
 environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` /
@@ -41,7 +51,6 @@ from gpt2_image_captioning_tpu_torch.core.tree import tree_map
 
 DATA_AXIS = "dp"
 MODEL_AXIS = "tp"
-TP_REFUSAL = "tensor parallelism is not ported yet (ROADMAP.md, queue 1: tensor parallelism)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +73,12 @@ class MeshSpec:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """This rank's view of the ``(dp, tp)`` mesh: the shape, its index
-    ``rank`` among ``world_size`` ranks, the process ``group`` (None for a
-    one-rank mesh without one: its collectives are the identity), the
-    group's ``backend`` and the rank's ``device``."""
+    ``rank`` among ``world_size`` ranks, the world's process ``group`` (None
+    for a one-rank mesh without one), the group's ``backend``, the rank's
+    ``device``, its coordinates ``dp_rank`` / ``tp_rank``
+    (``rank = dp_rank · tp + tp_rank``) and the subgroups of its axes:
+    ``dp_group`` (the ranks of its tp index) and ``tp_group`` (those of its
+    dp index), each None where its axis has size 1."""
 
     dp: int
     tp: int
@@ -75,6 +87,10 @@ class Mesh:
     group: object
     backend: str | None
     device: torch.device
+    dp_rank: int = 0
+    tp_rank: int = 0
+    dp_group: object = None
+    tp_group: object = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -86,10 +102,17 @@ class Mesh:
         return self.rank == 0
 
 
-def refuse_tp(mesh) -> None:
-    """Raise ``NotImplementedError`` for a mesh with a tensor-parallel axis."""
-    if mesh is not None and mesh.tp > 1:
-        raise NotImplementedError(TP_REFUSAL)
+def tp_active(mesh) -> bool:
+    """Whether ``mesh`` splits the model over a tp axis of more than one rank
+    (False without a mesh).  A tp axis without its process group (a mesh
+    built by hand rather than by :func:`create_mesh`) raises, rather than
+    running one rank's slice of the model as if it were the whole."""
+    if mesh is None or mesh.tp == 1:
+        return False
+    if mesh.tp_group is None:
+        raise ValueError(f"mesh {mesh.dp}x{mesh.tp} has no tp group: build it with create_mesh "
+                         "over an initialised process group")
+    return True
 
 
 def rank_device(device=DEFAULT_DEVICE) -> torch.device:
@@ -159,28 +182,50 @@ def create_mesh(spec: MeshSpec | None = None, device=None) -> Mesh:
     """The ``(dp, tp)`` mesh of this rank, resolved against the world size of
     the initialised default group, or against 1 without one: ``MeshSpec(dp=-1)``
     alone is a one-rank mesh, and ``dp=2`` without a group raises
-    :meth:`MeshSpec.resolve`'s error.  ``tp > 1`` raises
-    ``NotImplementedError``.  ``device``: the rank's device
-    (:func:`rank_device`, the card by default)."""
+    :meth:`MeshSpec.resolve`'s error, as does ``tp=2``.  Every rank of the
+    group must make the call (the subgroups are created collectively).
+    ``device``: the rank's device (:func:`rank_device`, the card by
+    default)."""
     spec = spec or MeshSpec()
-    if spec.tp > 1:
-        raise NotImplementedError(TP_REFUSAL)
     grouped = dist.is_initialized()
     n = dist.get_world_size() if grouped else 1
     dp, tp = spec.resolve(n)
-    return Mesh(dp=dp, tp=tp, rank=dist.get_rank() if grouped else 0, world_size=n,
+    rank = dist.get_rank() if grouped else 0
+    dp_rank, tp_rank = divmod(rank, tp)
+    return Mesh(dp=dp, tp=tp, rank=rank, world_size=n,
                 group=dist.group.WORLD if grouped else None,
                 backend=dist.get_backend() if grouped else None,
-                device=rank_device(DEFAULT_DEVICE if device is None else device))
+                device=rank_device(DEFAULT_DEVICE if device is None else device),
+                dp_rank=dp_rank, tp_rank=tp_rank,
+                dp_group=axis_groups([[d * tp + t for d in range(dp)] for t in range(tp)], rank),
+                tp_group=axis_groups([[d * tp + t for t in range(tp)] for d in range(dp)], rank))
+
+
+def axis_groups(members: list[list[int]], rank: int):
+    """The process group of the list in ``members`` that holds ``rank``, after
+    creating one group per list in order on every rank (``dist.new_group``
+    is collective); the world's group when one list holds every rank, None
+    for lists of one rank (an axis of size 1)."""
+    if len(members[0]) == 1:
+        return None
+    if len(members) == 1:
+        return dist.group.WORLD
+    mine = None
+    for ranks in members:
+        group = dist.new_group(ranks)
+        if rank in ranks:
+            mine = group
+    return mine
 
 
 def shard_bounds(mesh: Mesh, n: int) -> tuple[int, int]:
     """[lo, hi) of this rank's contiguous rows of a batch of ``n``, which
-    ``dp`` must divide."""
+    ``dp`` must divide (the rows of its dp index: the ranks of one tp group
+    hold the same)."""
     if n % mesh.dp != 0:
         raise ValueError(f"batch {n} must divide over dp={mesh.dp}")
     per = n // mesh.dp
-    return mesh.rank * per, (mesh.rank + 1) * per
+    return mesh.dp_rank * per, (mesh.dp_rank + 1) * per
 
 
 def shard_batch(mesh: Mesh, batch):

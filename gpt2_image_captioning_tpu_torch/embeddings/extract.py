@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
-from gpt2_image_captioning_tpu_torch.core.mesh import barrier, refuse_tp
+from gpt2_image_captioning_tpu_torch.core.mesh import barrier
 from gpt2_image_captioning_tpu_torch.core.precision import BF16, Policy
 from gpt2_image_captioning_tpu_torch.core.tree import tree_leaves
 from gpt2_image_captioning_tpu_torch.data.embeddings_io import save_embeddings
@@ -66,8 +66,9 @@ def _run_extraction(loader, output_path: str | None, encode_u8: Callable, desc: 
     ``output_path`` when given.  Padding rows of the last batch are dropped.
     Under a ``mesh`` (on its device) each rank encodes its rows of every
     batch, padded by repeating the last image to a multiple of dp
-    (module docstring)."""
-    refuse_tp(mesh)
+    (module docstring); its meshes must be dp-only, as the JAX package's."""
+    if mesh is not None and mesh.tp != 1:
+        raise ValueError("extraction meshes must be dp-only (tp=1)")
     device = resolve_device(device) if mesh is None else mesh.device
     names: list[str] = []
     outs: list[torch.Tensor] = []

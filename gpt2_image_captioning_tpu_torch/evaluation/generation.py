@@ -22,11 +22,13 @@ Where the port differs from the JAX package:
 - ``rng=`` becomes ``seed=``: sampled batch i draws from a ``torch.Generator``
   on the model's device seeded from (seed, i) — the counterpart of
   ``jax.random.fold_in(rng, i)``; the draws differ from ``jax.random``'s.
-- ``mesh`` (a dp :class:`core.mesh.Mesh`, the same call on every rank): each
-  batch is decoded on each rank's rows and gathered (``generate``'s dp
-  path), so every rank holds the predictions in global order, without the
-  padding rows, and computes the same metrics from them; rank 0 alone
-  writes the evaluation files.  A mesh with ``tp > 1`` raises.
+- ``mesh`` (a :class:`core.mesh.Mesh`, the same call on every rank): each
+  batch is decoded on each dp index's rows and gathered (``generate``'s dp
+  path; with ``tp`` > 1 each tp group decodes its rows on the rank's slices
+  of the façade's trees, ``ImageCaptioningModel.decode_pack``), so every
+  rank holds the predictions in global order, without the padding rows, and
+  computes the same metrics from them; rank 0 alone writes the evaluation
+  files.
 
 With ``db_store`` (a RAT model, :class:`models.rat.RetrievalAugmentedTransformer`)
 each batch's embeddings are retrieval-augmented first — the store's
@@ -46,7 +48,7 @@ import numpy as np
 import torch
 
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
-from gpt2_image_captioning_tpu_torch.core.mesh import barrier, refuse_tp
+from gpt2_image_captioning_tpu_torch.core.mesh import barrier, tp_active
 from gpt2_image_captioning_tpu_torch.evaluation.evaluate import (
     EvalMetrics,
     evaluate_captions,
@@ -108,7 +110,7 @@ def generate_predictions(
     ``top_k`` / ``top_i``.  ``device`` must be where the model lives: the
     card unless the caller asks for the CPU, the mesh's device with a
     ``mesh`` (module docstring)."""
-    refuse_tp(mesh)
+    tp_active(mesh)  # a tp axis must come with its group
     if mesh is not None:
         device = mesh.device
     if decode not in ("sample", "beam"):
@@ -118,7 +120,7 @@ def generate_predictions(
                         "(models.rat.RetrievalAugmentedTransformer)")
     device = check_model_device(model, device)
     tokenizer = dataset.tokenizer
-    tr, fz, pol, packed, quant = model.decode_pack(decode_precision)
+    tr, fz, pol, packed, quant = model.decode_pack(decode_precision, mesh)
     predictions: list[dict[str, Any]] = []
     n_batches = 0
     t0 = time.perf_counter()
@@ -233,7 +235,7 @@ def evaluate_epoch(
     """Per-epoch evaluation with the reference's artifacts
     (``epoch_{n}_{split}_predictions[_rat].json`` and ``..._metrics...``)
     under ``output_dir``, written by rank 0 alone under a ``mesh``."""
-    refuse_tp(mesh)
+    tp_active(mesh)  # a tp axis must come with its group
     if mesh is not None:
         device = mesh.device
     check_model_device(model, device)

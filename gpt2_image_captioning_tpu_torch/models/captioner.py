@@ -24,13 +24,27 @@ float weights), as the JAX package keeps its XLA prefill.
 
 Under a dp mesh (:mod:`core.mesh`) ``generate`` and ``beam_generate`` run
 the single-device path, kernels and all, on each rank's contiguous rows
-(:func:`_dp_rows`) and gather the tokens in rank order, so every rank
+(:func:`_dp_rows`) and gather the tokens in dp order, so every rank
 returns the whole batch.
 
-Not ported yet, and refused rather than run another way: meshes with a
-tensor-parallel axis (ROADMAP.md, queue 1: tensor parallelism), and prefixes
-longer than the prefill kernel's :data:`ops.prefill_step.MAX_PREFIX` tokens
-(the reference's gate).
+Under a tp mesh the trees are each rank's slices (:func:`shard_params`):
+``loss_fn`` runs Megatron's GPT-2 (``models/gpt2.py``), and ``generate`` /
+``beam_generate`` take the JAX package's layerwise branch
+(``captioner.py:318-324``, ``:802-815``): the mapper, then
+``gpt2.forward_cached`` prefills and steps on the rank's heads, each step's
+attention the decode attention kernel over the rank's own (L, T, B, D/tp)
+cache and its products plain ``torch.matmul``, as the JAX products there
+are plain XLA; the step kernels and the prefill kernel, which walk whole
+weight matrices, do not run.  Each step's logits are gathered whole on
+every rank before the selection, so every rank picks the same tokens.  As
+in the JAX branch, ``decode_quant`` / ``decode_quant_cache`` / a ``packed``
+pack do not apply there (the steps run at the trees' precision, with a
+warning for the quantized options) and ``sample_in_kernel`` warns and
+samples from the logits.  Under dp × tp each tp group decodes its dp rows.
+
+Not ported, and refused rather than run another way: prefixes longer than
+the prefill kernel's :data:`ops.prefill_step.MAX_PREFIX` tokens (the
+reference's gate).
 """
 
 from __future__ import annotations
@@ -42,7 +56,7 @@ from typing import Any
 import torch
 
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
-from gpt2_image_captioning_tpu_torch.core.mesh import refuse_tp
+from gpt2_image_captioning_tpu_torch.core.mesh import tp_active
 from gpt2_image_captioning_tpu_torch.core.precision import BF16, F32, Policy, cast_floating
 from gpt2_image_captioning_tpu_torch.core.tree import tree_map
 from gpt2_image_captioning_tpu_torch.models import gpt2 as G
@@ -52,7 +66,7 @@ from gpt2_image_captioning_tpu_torch.ops import prefill_step as PS
 from gpt2_image_captioning_tpu_torch.ops.sampling import (
     NEG_INF, fold_seed, sample_token, topk_small,
 )
-from gpt2_image_captioning_tpu_torch.ops.xent import IGNORE_INDEX, xent_sum
+from gpt2_image_captioning_tpu_torch.ops.xent import IGNORE_INDEX, xent_sum, xent_sum_tp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +138,43 @@ def _gpt(trainable: dict, frozen: dict) -> dict:
     return frozen["gpt"] if "gpt" in frozen else trainable["gpt"]
 
 
+def partition_specs(cfg: CaptionerConfig) -> tuple[dict, dict]:
+    """(trainable, frozen) trees of how each leaf is cut over tp (the JAX
+    ``partition_specs``): GPT-2's by :func:`models.gpt2.partition_specs`
+    wherever it lives; the mapper and the task prefix replicated (None),
+    as ``mapping.py:188-211`` and ``captioner.py:103-119`` keep them."""
+    trainable: dict[str, Any] = {"mapping": M.mapping_partition_specs(cfg.mapping)}
+    if cfg.task_prompt_ids:
+        trainable["task_prefix"] = None
+    frozen: dict[str, Any] = {}
+    (frozen if cfg.freeze_gpt_weights else trainable)["gpt"] = G.partition_specs(cfg.gpt2)
+    return trainable, frozen
+
+
+def shard_params(trainable: dict, frozen: dict, cfg: CaptionerConfig, mesh
+                 ) -> tuple[dict, dict]:
+    """This tp rank's (trainable, frozen) slices of full trees: GPT-2 cut by
+    :func:`models.gpt2.shard_params`, every other leaf the tree's own tensor
+    (so a train step's in-place update of the replicated leaves reaches the
+    full trees).  The trees themselves without a tp axis."""
+    def cut(tree):
+        if "gpt" not in tree:
+            return dict(tree)
+        return {**tree, "gpt": G.shard_params(tree["gpt"], cfg.gpt2, mesh)}
+
+    return cut(trainable), cut(frozen)
+
+
+def gather_params(tree: dict, cfg: CaptionerConfig, mesh) -> dict:
+    """A tree shaped like the trainable or frozen one with GPT-2's tp slices
+    joined back whole (:func:`models.gpt2.gather_params`; every rank of the
+    tp group must call) — the trainable tree, or AdamW moments over it, in
+    the single-device layout."""
+    if "gpt" not in tree:
+        return tree
+    return {**tree, "gpt": G.gather_params(tree["gpt"], cfg.gpt2, mesh)}
+
+
 def build_prefix(trainable: dict, cfg: CaptionerConfig, image_embeddings: torch.Tensor,
                  policy: Policy = F32, use_kernels: bool | None = None) -> torch.Tensor:
     """Image embeddings → (B, total_prefix_length, gpt_dim) prefix tokens
@@ -144,6 +195,7 @@ def loss_fn(
     batch: dict,
     policy: Policy = F32,
     use_kernels: bool | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced caption loss → (nll_sum, token_count).
 
@@ -153,30 +205,57 @@ def loss_fn(
     tokens, so ``hidden[:, p_len-1:-1]`` is sliced statically before the
     vocab-chunked :func:`ops.xent.xent_sum` (ignored rows add nothing to the
     loss or the gradients).  ``use_kernels=False`` switches the flash kernel
-    off in the mapper and GPT-2.
+    off in the mapper and GPT-2.  ``mesh``: a tp mesh whose rank's slices
+    the trees are (:func:`shard_params`); the vocab-parallel
+    :func:`ops.xent.xent_sum_tp` then gives the same sum on every tp rank.
     """
     gpt_params = _gpt(trainable, frozen)
-    caption_embeds = G.embed_tokens(gpt_params, batch["token_ids"].long())
-    prefix = build_prefix(trainable, cfg, batch["image_embedding"], policy, use_kernels)
-    b, p_len = prefix.shape[:2]
-    inputs = torch.cat([prefix.to(caption_embeds.dtype), caption_embeds], dim=1)
-    labels = torch.cat([
-        torch.full((b, p_len), IGNORE_INDEX, dtype=batch["labels"].dtype, device=prefix.device),
-        batch["labels"],
-    ], dim=1)
-    mask = batch["attention_mask"]
-    mask = torch.cat([torch.ones((b, p_len), dtype=mask.dtype, device=mask.device), mask], dim=1)
+    inputs = teacher_inputs(trainable, frozen, cfg, batch, policy, use_kernels, mesh)
+    mask = key_mask(batch["attention_mask"], cfg.total_prefix_length)
     hidden = G.forward_hidden(gpt_params, cfg.gpt2, inputs, mask, policy, remat=cfg.remat,
-                              use_kernels=use_kernels)
+                              use_kernels=use_kernels, mesh=mesh)
+    return caption_nll(gpt_params, cfg, hidden, batch["labels"], policy, mesh)
+
+
+def teacher_inputs(trainable: dict, frozen: dict, cfg: CaptionerConfig, batch: dict,
+                   policy: Policy = F32, use_kernels: bool | None = None, mesh=None
+                   ) -> torch.Tensor:
+    """The teacher-forced forward's input embeddings (B, P + L, D): the
+    prefix ⧺ the caption's token embeddings (positions not yet added)."""
+    caption_embeds = G.embed_tokens(_gpt(trainable, frozen), batch["token_ids"].long(), mesh)
+    prefix = build_prefix(trainable, cfg, batch["image_embedding"], policy, use_kernels)
+    return torch.cat([prefix.to(caption_embeds.dtype), caption_embeds], dim=1)
+
+
+def key_mask(attention_mask: torch.Tensor, p_len: int) -> torch.Tensor:
+    """The caption's (B, L) key padding mask behind ``p_len`` prefix keys
+    of 1."""
+    ones = torch.ones((attention_mask.shape[0], p_len), dtype=attention_mask.dtype,
+                      device=attention_mask.device)
+    return torch.cat([ones, attention_mask], dim=1)
+
+
+def caption_nll(gpt_params: dict, cfg: CaptionerConfig, hidden: torch.Tensor,
+                labels: torch.Tensor, policy: Policy = F32, mesh=None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Σ NLL, token count) of the caption ``labels`` (B, L) from the final
+    LayerNorm's hidden states (B, P + L, D): positions P - 1 … P + L - 2
+    predict them (the prefix's -100 labels never enter)."""
+    p_len = hidden.shape[1] - labels.shape[1]
     h2 = policy.cast(hidden[:, p_len - 1 : -1, :]).reshape(-1, hidden.shape[-1])
-    lab2 = labels[:, p_len:].reshape(-1)
-    nll = xent_sum(h2, gpt_params["wte"].to(policy.compute_dtype), lab2)
+    lab2 = labels.reshape(-1)
+    wte = gpt_params["wte"].to(policy.compute_dtype)
+    if tp_active(mesh):
+        nll = xent_sum_tp(h2, wte, lab2, mesh, cfg.gpt2.vocab_size)
+    else:
+        nll = xent_sum(h2, wte, lab2)
     return nll, (lab2 != IGNORE_INDEX).sum()
 
 
 def mean_loss(trainable: dict, frozen: dict, cfg: CaptionerConfig, batch: dict,
-              policy: Policy = F32, use_kernels: bool | None = None) -> torch.Tensor:
-    s, c = loss_fn(trainable, frozen, cfg, batch, policy, use_kernels)
+              policy: Policy = F32, use_kernels: bool | None = None, mesh=None
+              ) -> torch.Tensor:
+    s, c = loss_fn(trainable, frozen, cfg, batch, policy, use_kernels, mesh)
     return s / torch.clamp(c, min=1)
 
 
@@ -215,16 +294,16 @@ def prefill(gpt_params, cfg: CaptionerConfig, prefix, cache, policy: Policy, pac
 def _dp_rows(mesh, decode, image_embeddings: torch.Tensor,
              generator: torch.Generator | None = None) -> torch.Tensor:
     """``decode(rows, generator)`` → tokens, run on this rank's contiguous
-    rows of the batch and gathered in rank order (every rank returns all B
-    rows).  A batch that dp does not divide is padded by repeating its last
-    row, and the extra rows are dropped after the gather: rows decode
-    independently, so the tokens are the single-device ones.  A sampled
-    decode's rank draws from a seed with the rank folded in
+    rows of the batch (those of its dp index: a tp group decodes the same
+    rows together) and gathered in dp order (every rank returns all B rows).
+    A batch that dp does not divide is padded by repeating its last row, and
+    the extra rows are dropped after the gather: rows decode independently,
+    so the tokens are the single-device ones.  A sampled decode's dp index
+    draws from a seed with that index folded in
     (:func:`ops.sampling.fold_seed`) over a base seed drawn from
     ``generator``, the same draw on every rank.  Without a mesh, or on a
-    one-rank mesh with no process group, ``decode`` takes the batch as is."""
-    refuse_tp(mesh)
-    if mesh is None or (mesh.dp == 1 and mesh.group is None):
+    mesh whose dp is 1, ``decode`` takes the batch as is."""
+    if mesh is None or mesh.dp == 1:
         return decode(image_embeddings, generator)
     from gpt2_image_captioning_tpu_torch.parallel.collectives import all_gather_batch
 
@@ -233,13 +312,28 @@ def _dp_rows(mesh, decode, image_embeddings: torch.Tensor,
     x = image_embeddings
     if per * dp != b:
         x = torch.cat([x, x[-1:].expand(per * dp - b, *x.shape[1:])])
-    local = x[mesh.rank * per:(mesh.rank + 1) * per].to(mesh.device)
+    local = x[mesh.dp_rank * per:(mesh.dp_rank + 1) * per].to(mesh.device)
     if generator is not None:
         base = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
                                  device=generator.device))
         generator = torch.Generator(device=mesh.device).manual_seed(
-            fold_seed(base, mesh.rank) & 0x7FFFFFFFFFFFFFFF)
+            fold_seed(base, mesh.dp_rank) & 0x7FFFFFFFFFFFFFFF)
     return all_gather_batch(mesh, decode(local, generator))[:b]
+
+
+def _tp_options(mesh, decode_quant: bool, decode_quant_cache: bool = False,
+                sample_in_kernel: bool = False) -> bool:
+    """Whether ``mesh`` is tp; warns then for the options the layerwise
+    branch does not take (module docstring), as the JAX package does."""
+    if not tp_active(mesh):
+        return False
+    if decode_quant or decode_quant_cache:
+        warnings.warn("decode_quant / decode_quant_cache do not apply to the tensor-parallel "
+                      "decode: it runs at the trees' precision", RuntimeWarning, stacklevel=3)
+    if sample_in_kernel:
+        warnings.warn("sample_in_kernel does not apply to the tensor-parallel decode; sampling "
+                      "from the gathered logits instead", stacklevel=3)
+    return True
 
 
 @torch.no_grad()
@@ -295,11 +389,19 @@ def generate(
     ``packed``: weights from :func:`prepare_decode_weights` (int8 exactly
     when ``decode_quant``), reused across calls.
 
-    ``mesh``: a dp :class:`core.mesh.Mesh`, the same call on every rank;
-    each rank decodes its rows on its device and every rank returns the
-    (B, max_length) tokens (:func:`_dp_rows`).  ``tp > 1`` raises.
+    ``mesh``: a :class:`core.mesh.Mesh`, the same call on every rank; each
+    dp index decodes its rows on its device and every rank returns the
+    (B, max_length) tokens (:func:`_dp_rows`).  With ``tp`` > 1 the trees
+    are the rank's slices (:func:`shard_params`) and the decode is the
+    layerwise one (module docstring).
     """
+    tp = _tp_options(mesh, decode_quant, decode_quant_cache, sample_in_kernel and temperature != 0)
+
     def decode(rows, gen):
+        if tp:
+            return _generate_tp(trainable, frozen, cfg, rows, max_length=max_length,
+                                temperature=temperature, top_p=top_p, generator=gen,
+                                policy=policy, use_kernels=use_kernels, mesh=mesh)
         return _generate(trainable, frozen, cfg, rows, max_length=max_length,
                          temperature=temperature, top_p=top_p, generator=gen, policy=policy,
                          use_kernels=use_kernels, packed=packed,
@@ -373,6 +475,36 @@ def _generate(trainable, frozen, cfg, image_embeddings, *, max_length, temperatu
         tokens[:, step] = nxt
         step += 1
         index += 1
+    return tokens
+
+
+def _generate_tp(trainable, frozen, cfg, image_embeddings, *, max_length, temperature, top_p,
+                 generator, policy, use_kernels, mesh) -> torch.Tensor:
+    """The tensor-parallel decode of :func:`generate` (the JAX layerwise
+    branch): the prefill and each step through ``gpt2.forward_cached`` on
+    the rank's heads and cache; the gathered logits select the tokens."""
+    gpt_params = _gpt(trainable, frozen)
+    G.check_params(gpt_params, cfg.gpt2, mesh)
+    eos, cdt = cfg.eos_token_id, policy.compute_dtype
+    prefix = build_prefix(trainable, cfg, image_embeddings, policy, use_kernels)
+    b, p_len, _ = prefix.shape
+    cache = G.init_cache(cfg.gpt2, b, p_len + max_length, dtype=cdt, device=prefix.device,
+                         mesh=mesh)
+    logits, cache = G.forward_cached(gpt_params, cfg.gpt2, prefix, cache, policy, use_kernels,
+                                     mesh=mesh)
+    tokens = torch.full((b, max_length), eos, dtype=torch.int32, device=prefix.device)
+    finished = torch.zeros((b,), dtype=torch.bool, device=prefix.device)
+    for step in range(max_length):
+        nxt = sample_token(logits, temperature=temperature, top_p=top_p, generator=generator)
+        finished = finished | (nxt == eos)
+        nxt = torch.where(finished, eos, nxt).to(torch.int32)
+        tokens[:, step] = nxt
+        # every rank holds the same gathered logits, so the same exit
+        if step == max_length - 1 or bool(finished.all()):
+            break
+        x = G.embed_tokens(gpt_params, nxt[:, None].long(), mesh).to(cdt)
+        logits, cache = G.forward_cached(gpt_params, cfg.gpt2, x, cache, policy, use_kernels,
+                                         mesh=mesh)
     return tokens
 
 
@@ -500,13 +632,19 @@ def beam_generate(
     to and including EOS.  Any batch and ``beam_size`` <= 16 run on the
     kernels.  ``use_kernels``, ``packed`` and ``decode_quant`` (W8A8 steps;
     the prefill stays at the compute precision) as in :func:`generate`.
-    ``mesh``: each rank searches its images' beam groups and every rank
-    returns the (B, max_length) tokens, as in :func:`generate`.
+    ``mesh``: each dp index searches its images' beam groups and every rank
+    returns the (B, max_length) tokens, as in :func:`generate`; with ``tp``
+    > 1 the trees are the rank's slices and the search steps
+    ``gpt2.forward_cached`` on the rank's heads (the JAX layerwise branch;
+    ``decode_quant`` warns and does not apply, as there).
     """
+    tp = _tp_options(mesh, decode_quant)
+
     def decode(rows, _):
         beams = _beam_search(trainable, frozen, cfg, rows, max_length=max_length,
                              beam_size=beam_size, policy=policy, use_kernels=use_kernels,
-                             packed=packed, decode_quant=decode_quant)
+                             packed=packed, decode_quant=decode_quant,
+                             mesh=mesh if tp else None)
         return _best_beam(*beams, length_penalty=length_penalty)[0]
 
     return _dp_rows(mesh, decode, image_embeddings)
@@ -525,27 +663,36 @@ def _best_beam(tokens, scores, lengths, *, length_penalty: float):
 @torch.no_grad()
 def _beam_search(trainable, frozen, cfg, image_embeddings, *, max_length: int, beam_size: int,
                  policy: Policy, use_kernels: bool | None, packed: dict | None,
-                 decode_quant: bool = False):
+                 decode_quant: bool = False, mesh=None):
     """The search of :func:`beam_generate`: every beam's tokens (B, K, L)
     int32, summed log-probs (B, K) float32 and lengths (B, K) int32 (tokens
-    up to and including EOS; ``max_length`` for a beam that never ended)."""
+    up to and including EOS; ``max_length`` for a beam that never ended).
+    ``mesh``: a tp mesh, whose steps run ``gpt2.forward_cached`` on the
+    rank's slices instead of the step kernels."""
     gpt_params = _gpt(trainable, frozen)
     eos, k = cfg.eos_token_id, beam_size
     cdt = policy.compute_dtype
     use = DS.fused_greedy_enabled(use_kernels, image_embeddings.device)
-    packed = _decode_pack(packed, gpt_params, policy, decode_quant)
+    if mesh is None:
+        packed = _decode_pack(packed, gpt_params, policy, decode_quant)
+    else:
+        G.check_params(gpt_params, cfg.gpt2, mesh)
 
     prefix = build_prefix(trainable, cfg, image_embeddings, policy, use)
     b, p_len, _ = prefix.shape
     dev = prefix.device
-    cache = G.init_cache(cfg.gpt2, b * k, p_len + max_length, dtype=cdt, device=dev)
+    cache = G.init_cache(cfg.gpt2, b * k, p_len + max_length, dtype=cdt, device=dev, mesh=mesh)
     # every beam of an image is the image's prefix before the first token: the
     # B images are prefilled once and repeated K times, as the reference's
     # fused branch; its int8 branch prefills every beam's row
-    rep = k if "qkvs" in packed else 1
-    cache_p = G.init_cache(cfg.gpt2, b * rep, p_len, dtype=cdt, device=dev)
-    logits, cache_p = prefill(gpt_params, cfg, prefix.repeat_interleave(rep, dim=0), cache_p,
-                              policy, packed, use)
+    rep = k if mesh is None and "qkvs" in packed else 1
+    cache_p = G.init_cache(cfg.gpt2, b * rep, p_len, dtype=cdt, device=dev, mesh=mesh)
+    if mesh is None:
+        logits, cache_p = prefill(gpt_params, cfg, prefix.repeat_interleave(rep, dim=0),
+                                  cache_p, policy, packed, use)
+    else:
+        logits, cache_p = G.forward_cached(gpt_params, cfg.gpt2, prefix, cache_p, policy, use,
+                                           mesh=mesh)
     for name in ("k", "v"):
         cache[name][:, :p_len] = cache_p[name][:, :p_len].repeat_interleave(k // rep, dim=2)
     cache["index"] = p_len
@@ -578,6 +725,14 @@ def _beam_search(trainable, frozen, cfg, image_embeddings, *, max_length: int, b
         idx = p_len + step
         origin = origin[:, (group * k + parent).reshape(-1)]
         origin[idx] = rows
+        if mesh is not None:
+            x = G.embed_tokens(gpt_params, tok.reshape(-1, 1).long(), mesh).to(cdt)
+            cache["index"] = idx
+            lf, cache = G.forward_cached(gpt_params, cfg.gpt2, x, cache, policy, use, mesh=mesh,
+                                         origin=origin, gather_start=p_len)
+            vals, tok_k = topk_small(lf, k)
+            lse = torch.logsumexp(lf, dim=-1, keepdim=True)
+            continue
         x0 = (wte[tok.reshape(-1).long()] + wpe[idx]).to(cdt)
         vals, tok_k, lse, _, _ = DS.fused_decode_step(
             packed, x0, cache["k"], cache["v"], idx, n_head=cfg.gpt2.n_head,
@@ -664,7 +819,7 @@ class ImageCaptioningModel:
         activations, half the bytes again); None/"f32" keeps the float32
         parameters.  The packs are cached per precision, so bf16 and int8
         requests on one model both stay warm."""
-        tr, fz, pol, packed, quant = self.decode_pack(decode_precision)
+        tr, fz, pol, packed, quant = self.decode_pack(decode_precision, mesh)
         emb = torch.as_tensor(image_embeddings, dtype=torch.float32, device=self.device)
         return generate(
             tr, fz, self.cfg, emb, max_length=max_length, temperature=temperature, top_p=top_p,
@@ -672,14 +827,22 @@ class ImageCaptioningModel:
             mesh=mesh, decode_quant=quant,
         )
 
-    def decode_pack(self, decode_precision: str | None = None):
+    def decode_pack(self, decode_precision: str | None = None, mesh=None):
         """(trainable, frozen, policy, packed, quant) for a decode at
         ``decode_precision``: :meth:`decode_params`' trees ("int8" decodes
         from the bfloat16 copy) and the step kernels' pack of them
         (:func:`prepare_decode_weights`, W8A8 when ``quant``), cached per
-        precision and renewed when the trees are."""
+        precision and renewed when the trees are.  Under a tp ``mesh``: the
+        rank's slices of those trees (:func:`shard_params`, cached likewise)
+        and no pack, which the tensor-parallel decode does not read."""
         quant = decode_precision == "int8"
         tr, fz, pol = self.decode_params("bf16" if quant else decode_precision)
+        if tp_active(mesh):
+            cache = getattr(self, "_shard_cache", None)
+            if cache is None or any(a is not b for a, b in zip(cache, (tr, fz, mesh))):
+                cache = (tr, fz, mesh, shard_params(tr, fz, self.cfg, mesh))
+                self._shard_cache = cache
+            return (*cache[3], pol, None, quant)
         cache = getattr(self, "_packed_cache", None)
         if cache is None or cache[0] is not tr or cache[1] is not fz or cache[2] is not pol:
             cache = (tr, fz, pol, {})
@@ -689,10 +852,11 @@ class ImageCaptioningModel:
         return tr, fz, pol, cache[3][quant], quant
 
     def drop_decode_caches(self) -> None:
-        """Forget the bfloat16 copy and the packs: the next decode rebuilds
-        them from the live trees."""
+        """Forget the bfloat16 copy, the packs and the tp slices: the next
+        decode rebuilds them from the live trees."""
         self._bf16_cache = None
         self._packed_cache = None
+        self._shard_cache = None
 
     def decode_params(self, decode_precision: str | None = None):
         """(trainable, frozen, policy) for inference at the given precision.

@@ -153,6 +153,14 @@ def init_mapping(generator: torch.Generator, cfg: MappingConfig) -> dict:
     return init_transformer(generator, cfg)
 
 
+def mapping_partition_specs(cfg: MappingConfig) -> None:
+    """The mapper's cut over tp: none — its parameters are small (at most
+    about 30M) and replicated on every rank, as the JAX
+    ``mapping_partition_specs`` keeps them (None replicates a whole subtree
+    in :func:`parallel.collectives.shard_tree`)."""
+    return None
+
+
 def apply_mapping(params: dict, cfg: MappingConfig, x: torch.Tensor,
                   policy: Policy = F32, use_kernels: bool | None = None) -> torch.Tensor:
     if isinstance(cfg, MLPMappingConfig):

@@ -76,19 +76,20 @@ def _augmented(trainable, rcfg, image_embeddings, retrieved, policy):
 
 def loss_fn(trainable: dict, frozen: dict, ccfg: C.CaptionerConfig, rcfg: RATConfig,
             batch: dict, policy: Policy = F32,
-            use_kernels: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+            use_kernels: bool | None = None, mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Host-store path: ``batch["retrieved_embeddings"]`` (B, K, D) given →
     (nll_sum, token_count) of :func:`models.captioner.loss_fn` on the
-    augmented embeddings."""
+    augmented embeddings (``mesh`` as there)."""
     aug = _augmented(trainable, rcfg, batch["image_embedding"], batch["retrieved_embeddings"],
                      policy)
     return C.loss_fn(trainable, frozen, ccfg, dict(batch, image_embedding=aug), policy,
-                     use_kernels)
+                     use_kernels, mesh)
 
 
 def loss_fn_fused(trainable: dict, frozen: dict, ccfg: C.CaptionerConfig, rcfg: RATConfig,
                   batch: dict, store_arrays: dict, policy: Policy = F32,
-                  use_kernels: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                  use_kernels: bool | None = None, mesh=None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused path: the exact retrieval inside the step.  ``store_arrays``:
     ``DeviceVectorStore.arrays()`` (image embeddings, caption embeddings,
     caption table), on the batch's device."""
@@ -100,7 +101,17 @@ def loss_fn_fused(trainable: dict, frozen: dict, ccfg: C.CaptionerConfig, rcfg: 
         top_i=rcfg.top_i, top_k=rcfg.top_k)
     aug = _augmented(trainable, rcfg, batch["image_embedding"], retrieved, policy)
     return C.loss_fn(trainable, frozen, ccfg, dict(batch, image_embedding=aug), policy,
-                     use_kernels)
+                     use_kernels, mesh)
+
+
+def partition_specs(ccfg: C.CaptionerConfig, rcfg: RATConfig) -> tuple[dict, dict]:
+    """:func:`models.captioner.partition_specs` with the attention
+    aggregator's projection, which stays replicated over tp (the JAX
+    ``rat.py:96-101``)."""
+    trainable, frozen = C.partition_specs(ccfg)
+    if rcfg.aggregation_type == "attention":
+        trainable["aggregator"] = None
+    return trainable, frozen
 
 
 def retrieve(rcfg: RATConfig, db_store, image_embeddings) -> np.ndarray | torch.Tensor:

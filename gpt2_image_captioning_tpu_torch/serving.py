@@ -43,16 +43,19 @@ stream of the service's device — so the kernels' launches keep stream order
 (the sampler's counters rely on it: one zeroed buffer a device).  While a
 server runs, nothing else may call its service.
 
-Both services take a dp ``mesh`` (:mod:`core.mesh`), every rank called with
+Both services take a ``mesh`` (:mod:`core.mesh`), every rank called with
 the same requests and returning every caption.  ``CaptionService`` encodes
-each rank's shard of a device batch, gathers the embeddings and decodes
-through ``generate``'s dp path.  ``ContinuousCaptionService`` splits its
-pool into ``dp`` sub-pools of ``slots // dp`` rows, one a rank
-(:func:`models.continuous.macro_step_dp`), and routes the queue's entries
-round-robin over them.  Not ported, and refused: meshes with ``tp > 1``
-(ROADMAP.md, queue 1: tensor parallelism), and the HTTP endpoints over a
-service whose mesh has more than one rank (ROADMAP.md, queue 1: serve_http
-over a dp service): in a multi-process world one rank listens.
+each dp index's shard of a device batch (the vision tower is replicated
+within a tp group), gathers the embeddings over dp and decodes through
+``generate``'s mesh path: dp rows, and at ``tp`` > 1 the tensor-parallel
+decode on the rank's slices (the JAX ``serving.py:124-135``).
+``ContinuousCaptionService`` splits its pool into ``dp`` sub-pools of
+``slots // dp`` rows, one a rank (:func:`models.continuous.macro_step_dp`),
+and routes the queue's entries round-robin over them; its meshes must be
+dp-only, as the JAX service's (``serving.py:359-360``).  Not ported, and
+refused: the HTTP endpoints over a service whose mesh has more than one
+rank (ROADMAP.md, queue 1: serve_http over a dp service): in a
+multi-process world one rank listens.
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from gpt2_image_captioning_tpu_torch.core.mesh import refuse_tp, shard_bounds
+from gpt2_image_captioning_tpu_torch.core.mesh import shard_bounds, tp_active
 from gpt2_image_captioning_tpu_torch.core.precision import BF16
 from gpt2_image_captioning_tpu_torch.embeddings.preprocess import (
     SPECS, normalize_on_device, resize_and_crop,
@@ -140,7 +143,7 @@ class CaptionService:
     ``temperature=0`` decodes greedily; otherwise top-p sampling at
     ``top_p``, each device batch drawing from a fresh generator seeded by
     :func:`ops.sampling.fold_seed` of ``seed`` and the batch's counter.
-    ``use_kernels`` as in :func:`models.captioner.generate`.  ``mesh``: a dp
+    ``use_kernels`` as in :func:`models.captioner.generate`.  ``mesh``: a
     mesh on whose device the model lives; ``batch_size`` must divide over
     its ``dp`` ranks (module docstring).
     """
@@ -150,7 +153,7 @@ class CaptionService:
                  temperature: float = 0.0, top_p: float = 0.9,
                  decode_precision: str | None = None, policy=None, spec=None, seed: int = 0,
                  mesh=None, use_kernels: bool | None = None):
-        refuse_tp(mesh)
+        tp_active(mesh)  # a tp axis must come with its group
         if mesh is not None and batch_size % mesh.dp != 0:
             raise ValueError(f"batch_size {batch_size} must divide over dp={mesh.dp}")
         self._mesh = mesh
@@ -175,8 +178,8 @@ class CaptionService:
             fold_seed(self.seed, self._draws) & 0x7FFFFFFFFFFFFFFF)
 
     def _caption_batch(self, batch_u8: np.ndarray) -> list[str]:
-        """Captions of one device batch; under a mesh each rank encodes its
-        contiguous shard and the embeddings are gathered."""
+        """Captions of one device batch; under a mesh each dp index encodes
+        its contiguous shard and the embeddings are gathered over dp."""
         mesh = self._mesh
         if mesh is not None:
             lo, hi = shard_bounds(mesh, len(batch_u8))
@@ -304,7 +307,8 @@ class ContinuousCaptionService:
         admit_affinity: bool = False,
         use_kernels: bool | None = None,
     ):
-        refuse_tp(mesh)
+        if mesh is not None and mesh.tp != 1:
+            raise ValueError("ContinuousCaptionService meshes must be dp-only")
         self._mesh = mesh
         self._dp = 1 if mesh is None else mesh.dp
         if slots % self._dp != 0:

@@ -18,11 +18,11 @@ the freshly built model with an aggregator seeded by ``seed + 1`` and
 rebuilds the training store, as the JAX package does.
 
 Every selected id is merged and checked before the first run: ids whose
-config this process cannot run (``tp > 1``, a slice not ported yet, or a
-``dp`` that the process group's world size does not match) are refused
-together, up front.  Under ``torchrun --nproc-per-node N`` each id trains
-over a dp mesh of N ranks (:func:`training_pipeline.run`); rank 0 alone
-writes the run's config and ``training_info`` and makes the test pass.
+config this process cannot run (a ``tpu.mesh`` that the process group's
+world size does not match) are refused together, up front.  Under
+``torchrun --nproc-per-node N`` each id trains over its ``(dp, tp)`` mesh of
+N ranks (:func:`training_pipeline.run`); rank 0 alone writes the run's
+config and ``training_info`` and makes the test pass.
 """
 
 from __future__ import annotations

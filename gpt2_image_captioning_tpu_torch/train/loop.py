@@ -14,20 +14,30 @@ device.
 Data parallelism (``mesh``, :mod:`core.mesh`): each rank steps on its
 contiguous shard of the global batch.  The JAX step's loss is Σ nll / Σ
 count over the *global* (micro-)batch, so each micro-batch first sums its
-real-token count over the ranks (data, outside autograd), then
+real-token count over the dp ranks (data, outside autograd), then
 differentiates its local nll over that global count; the gradients (and the
-loss) are summed over the ranks before the global-norm clip.  Every rank
+loss) are summed over the dp ranks before the global-norm clip.  Every rank
 then takes the same AdamW step on the same summed gradients, so the
 parameters stay bit-identical across ranks.
+
+Tensor parallelism (a mesh with ``tp`` > 1): the step's trees are the
+rank's slices (:func:`models.captioner.shard_params`).  The gradients of
+GPT-2's sliced leaves stay on their rank; those of the replicated leaves
+come out equal on the tp ranks through the conjugate collectives
+(``parallel/collectives.py``) and are not summed over tp again; the clip's
+norm sums the slices' squares over tp and counts each replicated leaf once.
+AdamW's state lives on each rank's slices.
 
 :func:`train` is the epoch loop around it, with the JAX function's
 signature, history dict and artifacts: ``model_epoch_{n}.{npz|pt}`` and
 ``optimizer_epoch_{n}.npz`` (the JAX package's ``AdamWState`` layout, so a
 run resumes across the two packages), ``best_model_epoch_{n}`` by
 validation CIDEr, the per-epoch evaluation JSONs, ``val_metrics_summary.json``,
-the curves and ``logs/metrics.jsonl``.  Under a dp mesh each rank's
-``Batcher`` yields its shard, and rank 0 alone writes the files, followed by
-a barrier.
+the curves and ``logs/metrics.jsonl``.  Under a mesh each rank's
+``Batcher`` yields its dp index's shard, and rank 0 alone writes the files,
+followed by a barrier; under tp the files hold the full trees, gathered
+from the slices (:func:`models.captioner.gather_params`), so a tp run's
+checkpoint is a single-device one.
 
 Retrieval-augmented training (:func:`train_rat`, or ``train(rat_cfg=,
 db_store=)``): with a :class:`retrieval.exact.DeviceVectorStore` the step
@@ -51,9 +61,9 @@ import torch
 
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE, resolve_device
 from gpt2_image_captioning_tpu_torch.core.logging import MetricsLogger, StepTimer, profile_trace
-from gpt2_image_captioning_tpu_torch.core.mesh import barrier, refuse_tp
+from gpt2_image_captioning_tpu_torch.core.mesh import barrier, tp_active
 from gpt2_image_captioning_tpu_torch.core.precision import Policy
-from gpt2_image_captioning_tpu_torch.core.tree import tree_leaves
+from gpt2_image_captioning_tpu_torch.core.tree import tree_leaves, tree_map
 from gpt2_image_captioning_tpu_torch.data.dataset import Batcher, CocoDataset
 from gpt2_image_captioning_tpu_torch.evaluation.evaluate import save_eval_summary
 from gpt2_image_captioning_tpu_torch.evaluation.generation import (
@@ -63,7 +73,9 @@ from gpt2_image_captioning_tpu_torch.evaluation.generation import (
 )
 from gpt2_image_captioning_tpu_torch.models import captioner as C
 from gpt2_image_captioning_tpu_torch.ops.xent import IGNORE_INDEX
-from gpt2_image_captioning_tpu_torch.parallel.collectives import psum_scalar, psum_tensors
+from gpt2_image_captioning_tpu_torch.parallel.collectives import (
+    leaf_specs, psum_scalar, psum_tensors, psum_tp,
+)
 from gpt2_image_captioning_tpu_torch.train import checkpoint, optim
 from gpt2_image_captioning_tpu_torch.utils import (
     plotting_available,
@@ -81,6 +93,7 @@ def make_train_step(
     rat_cfg=None,
     fused_retrieval: bool = False,
     mesh=None,
+    use_kernels: bool | None = None,
 ):
     """Build ``step(trainable, optimizer, scheduler, frozen, batch, extra=None)
     → (loss, grad_norm)``.  ``optimizer``/``scheduler`` come from
@@ -94,23 +107,30 @@ def make_train_step(
     ``arrays()`` (:func:`models.rat.loss_fn_fused`); without, the batch
     carries ``retrieved_embeddings`` (:func:`models.rat.loss_fn`).
 
-    ``mesh``: a dp :class:`core.mesh.Mesh` whose rank this is; ``batch`` is
-    then the rank's shard of the global batch (the ``Batcher``'s with the
-    rank's coordinates), the loss divides by the global token count and the
-    step sums the gradients over the ranks (module docstring).  ``extra``
-    is replicated: each rank passes its own store's arrays."""
+    ``mesh``: a :class:`core.mesh.Mesh` whose rank this is; ``batch`` is
+    then the shard of the global batch of the rank's dp index (the
+    ``Batcher``'s with those coordinates), the loss divides by the global
+    token count and the step sums the gradients over the dp ranks (module
+    docstring).  With ``tp`` > 1, ``trainable`` and ``frozen`` are the
+    rank's slices (:func:`models.captioner.shard_params`).  ``extra`` is
+    replicated: each rank passes its own store's arrays.  ``use_kernels``
+    as in :func:`models.captioner.loss_fn` (False: the flash kernel's plain
+    twin)."""
     device = resolve_device(device)
-    refuse_tp(mesh)
+    tp = tp_active(mesh)
+    loss_mesh = mesh if tp else None
     if rat_cfg is not None:
         from gpt2_image_captioning_tpu_torch.models import rat as R
 
     def micro_loss(trainable, frozen, batch, extra):
         if rat_cfg is None:
-            s, c = C.loss_fn(trainable, frozen, cfg, batch, policy)
+            s, c = C.loss_fn(trainable, frozen, cfg, batch, policy, use_kernels, loss_mesh)
         elif fused_retrieval:
-            s, c = R.loss_fn_fused(trainable, frozen, cfg, rat_cfg, batch, extra, policy)
+            s, c = R.loss_fn_fused(trainable, frozen, cfg, rat_cfg, batch, extra, policy,
+                                   use_kernels, loss_mesh)
         else:
-            s, c = R.loss_fn(trainable, frozen, cfg, rat_cfg, batch, policy)
+            s, c = R.loss_fn(trainable, frozen, cfg, rat_cfg, batch, policy, use_kernels,
+                             loss_mesh)
         if mesh is not None:  # the global batch's count: data, outside autograd
             c = psum_scalar(mesh, c.detach())
         return s / torch.clamp(c, min=1)
@@ -138,7 +158,14 @@ def make_train_step(
             loss = loss.reshape(1)
             psum_tensors(mesh, [p.grad for p in params if p.grad is not None] + [loss])
             loss = loss[0]
-        grad_norm = optim.clip_grad_norm(params, opt_cfg.max_grad_norm)
+        if tp:
+            specs = (C.partition_specs(cfg) if rat_cfg is None
+                     else R.partition_specs(cfg, rat_cfg))[0]
+            sharded = [s is not None for s in leaf_specs(trainable, specs)]
+            grad_norm = optim.clip_grad_norm(params, opt_cfg.max_grad_norm, sharded,
+                                             lambda x: psum_tp(mesh, x))
+        else:
+            grad_norm = optim.clip_grad_norm(params, opt_cfg.max_grad_norm)
         optimizer.step()
         scheduler.step()
         return loss, grad_norm
@@ -256,15 +283,19 @@ def train(
     (both or neither; ``model`` a RAT model) train retrieval-augmented, and
     each evaluation retrieves from ``db_store`` at ``rat_cfg``'s depths.
 
-    ``mesh``: a dp :class:`core.mesh.Mesh`, the same call made on every rank
-    (``device`` is the mesh's).  Each rank's ``Batcher`` yields its shard of
-    every global batch of ``batch_size``, the steps sum over the ranks, and
-    the evaluation decodes each rank's rows and gathers them; rank 0 alone
-    writes the checkpoints, ``metrics.jsonl``, TensorBoard, the evaluation
-    files and the curves, and a barrier follows each write.  ``resume``
-    loads the same files on every rank.  ``tp > 1`` raises.
+    ``mesh``: a :class:`core.mesh.Mesh`, the same call made on every rank
+    (``device`` is the mesh's).  Each rank's ``Batcher`` yields its dp
+    index's shard of every global batch of ``batch_size``, the steps sum
+    over the dp ranks, and the evaluation decodes each dp index's rows and
+    gathers them; rank 0 alone writes the checkpoints, ``metrics.jsonl``,
+    TensorBoard, the evaluation files and the curves, and a barrier follows
+    each write.  ``resume`` loads the same files on every rank.  With ``tp``
+    > 1 the steps run on the rank's slices of the model's trees, cut after
+    any resume; the model keeps its full trees, the replicated leaves
+    trained in place and GPT-2's, when unfrozen, gathered back at the end
+    of each epoch, before its checkpoint and its evaluation.
     """
-    refuse_tp(mesh)
+    tp = tp_active(mesh)
     if (rat_cfg is None) != (db_store is None):
         raise ValueError("rat_cfg and db_store go together: pass both for RAT, or neither")
     if mesh is not None:
@@ -282,7 +313,7 @@ def train(
     if mesh is None:
         batcher = Batcher(train_dataset, batch_size, seed=seed)
     else:
-        batcher = Batcher(train_dataset, batch_size, seed=seed, process_index=mesh.rank,
+        batcher = Batcher(train_dataset, batch_size, seed=seed, process_index=mesh.dp_rank,
                           process_count=mesh.dp)
     steps_per_epoch = batcher.steps_per_epoch  # micro-batches per epoch
     opt_cfg = optim.AdamWConfig(
@@ -321,9 +352,29 @@ def train(
             opt_state = checkpoint.load_pytree(opt_file)
         print(f"Resumed from epoch {start_epoch} ({ckpt_file})")
     trainable, frozen = model.trainable, model.frozen
+    if tp:  # the rank's slices; the replicated leaves are the model's own tensors
+        trainable, frozen = C.shard_params(trainable, frozen, cfg, mesh)
+        if opt_state is not None:
+            opt_state = {**opt_state, **{k: C.shard_params(opt_state[k], {}, cfg, mesh)[0]
+                                         for k in ("mu", "nu")}}
     optimizer, scheduler = optim.make_optimizer(trainable, opt_cfg)
     if opt_state is not None:
         optim.restore_adamw_state(optimizer, scheduler, trainable, opt_state)
+
+    def sync_model() -> None:
+        """Write the trained GPT-2 slices back into the model's full tree."""
+        if tp and "gpt" in trainable:
+            full = C.gather_params(trainable, cfg, mesh)["gpt"]
+            for dst, src in zip(tree_leaves(model.trainable["gpt"]), tree_leaves(full)):
+                dst.data.copy_(src)
+
+    def optimizer_state() -> dict:
+        """AdamW's state over the full trainable tree (gathered under tp)."""
+        state = optim.adamw_state(optimizer, trainable)
+        if tp:
+            for k in ("mu", "nu"):
+                state[k] = C.gather_params(tree_map(lambda t: t.to(device), state[k]), cfg, mesh)
+        return state
 
     logger = MetricsLogger(log_dir) if main else None
     timer = StepTimer()
@@ -385,19 +436,21 @@ def train(
             if main:
                 logger.add_scalar("loss/train_epoch", avg_loss, epoch + 1)
             # the steps changed the live tensors in place: the decode copies are stale
+            sync_model()
             model.drop_decode_caches()
 
             if (save_every_epoch > 0 and (epoch + 1) % save_every_epoch == 0) or (
                 epoch + 1
             ) == num_epochs:
                 path = os.path.join(outputs_dir, f"model_epoch_{epoch + 1}.{ckpt_ext}")
+                opt_tree = optimizer_state() if save_optimizer_state else None
                 if main:
-                    checkpoint.save_captioner(path, trainable, model.cfg)
+                    checkpoint.save_captioner(path, model.trainable, model.cfg)
                     print(f"Model checkpoint saved at {path}")
                     if save_optimizer_state:
                         checkpoint.save_pytree(
                             os.path.join(outputs_dir, f"optimizer_epoch_{epoch + 1}.npz"),
-                            optim.adamw_state(optimizer, trainable),
+                            opt_tree,
                         )
                 barrier(mesh)
 
@@ -440,7 +493,7 @@ def train(
                     best_path = os.path.join(outputs_dir,
                                              f"best_model_epoch_{best_epoch}.{ckpt_ext}")
                     if main:
-                        checkpoint.save_captioner(best_path, trainable, model.cfg)
+                        checkpoint.save_captioner(best_path, model.trainable, model.cfg)
                         print(f"New best model! CIDEr: {best_val_cider:.4f} "
                               f"(saved to {best_path})")
                     barrier(mesh)

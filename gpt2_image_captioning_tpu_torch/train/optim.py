@@ -65,12 +65,33 @@ def make_optimizer(trainable, cfg: AdamWConfig):
     return optimizer, scheduler
 
 
-def clip_grad_norm(params: list[torch.Tensor], max_norm: float | None) -> torch.Tensor:
+def clip_grad_norm(params: list[torch.Tensor], max_norm: float | None,
+                   sharded: list[bool] | None = None, shard_sum=None) -> torch.Tensor:
     """The global gradient norm before clipping; scales the gradients by
-    ``min(1, max_norm / (norm + 1e-6))`` unless ``max_norm`` is None."""
-    if max_norm is None:
-        return torch.nn.utils.get_total_norm([p.grad for p in params if p.grad is not None])
-    return torch.nn.utils.clip_grad_norm_(params, max_norm)
+    ``min(1, max_norm / (norm + 1e-6))`` unless ``max_norm`` is None.
+
+    Under model parallelism (tp slices, pipeline stages) ``sharded`` marks
+    the params that are one rank's slice of a leaf and ``shard_sum`` sums a
+    0-d tensor over that axis: the norm then counts the slices' squares
+    summed over the axis and each replicated leaf once, the JAX
+    ``clip_by_global_norm`` over the whole tree (``optim.py:63-74``), the
+    same on every rank of the axis."""
+    if sharded is None:
+        if max_norm is None:
+            return torch.nn.utils.get_total_norm([p.grad for p in params if p.grad is not None])
+        return torch.nn.utils.clip_grad_norm_(params, max_norm)
+    sq = {True: torch.zeros((), device=params[0].device),
+          False: torch.zeros((), device=params[0].device)}
+    for p, cut in zip(params, sharded):
+        if p.grad is not None:
+            sq[cut] = sq[cut] + torch.square(p.grad.float()).sum()
+    norm = torch.sqrt(sq[False] + shard_sum(sq[True]))
+    if max_norm is not None:
+        scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+        for p in params:
+            if p.grad is not None:
+                p.grad.mul_(scale.to(p.grad.dtype))
+    return norm
 
 
 def adamw_state(optimizer: torch.optim.Optimizer, trainable) -> dict:

@@ -10,13 +10,14 @@ optional task prompt; pretrained GPT-2 weights through ``gpt_params``) →
 From the ``tpu:`` block: ``compute_dtype`` picks the bf16 or float32 policy,
 ``remat`` and ``grad_accum_steps`` pass through to ``train()``, and
 ``validation.decode_precision`` to its evaluation.  ``tpu.mesh`` ``{dp: -1
-| N, tp: 1}`` builds the dp mesh (:mod:`core.mesh`) over the ranks of the
-process group: under ``torchrun --nproc-per-node N -m
-gpt2_image_captioning_tpu_torch.training_pipeline`` it trains with dp = N,
-each rank on its own card; with no launcher it is one rank.  A ``dp`` the
-world size does not match raises :meth:`core.mesh.MeshSpec.resolve`'s
-error, and ``tp > 1`` ``NotImplementedError`` (ROADMAP.md, queue 1: tensor
-parallelism), both before any data is read.
+| N, tp: M}`` builds the 2-D ``(dp, tp)`` mesh (:mod:`core.mesh`, the JAX
+``training_pipeline.py:87``) over the ranks of the process group: under
+``torchrun --nproc-per-node N -m
+gpt2_image_captioning_tpu_torch.training_pipeline`` it trains with dp × tp
+= N, each rank on its own card, GPT-2 split over tp (Megatron,
+``models/gpt2.py``); with no launcher it is one rank.  A mesh the world
+size does not match raises :meth:`core.mesh.MeshSpec.resolve`'s error
+before any data is read.
 
 ``retrieval_augmentation: true`` runs retrieval-augmented training
 (:func:`retrieval.rat_pipeline.run_rat_training`): the store of
@@ -36,7 +37,7 @@ import torch
 from gpt2_image_captioning_tpu_torch.core.config import Config, load_config
 from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE
 from gpt2_image_captioning_tpu_torch.core.mesh import (
-    MeshSpec, TP_REFUSAL, create_mesh, init_distributed, launched,
+    MeshSpec, create_mesh, init_distributed, launched,
 )
 from gpt2_image_captioning_tpu_torch.core.precision import BF16, F32
 from gpt2_image_captioning_tpu_torch.data.dataset import CocoDataset
@@ -58,12 +59,9 @@ def mesh_spec(cfg: Config) -> MeshSpec:
 
 def refuse_unported(cfg: Config) -> None:
     """Raise for a config this process cannot run, before anything is read:
-    ``NotImplementedError`` for ``tp > 1`` (a slice still to come), and
-    :meth:`MeshSpec.resolve`'s ``ValueError`` for a ``dp`` the process
+    :meth:`MeshSpec.resolve`'s ``ValueError`` for a ``tpu.mesh`` the process
     group's world size (1 without one) does not match."""
     spec = mesh_spec(cfg)
-    if spec.tp > 1:
-        raise NotImplementedError(f"tpu.mesh {{dp: {spec.dp}, tp: {spec.tp}}}: {TP_REFUSAL}")
     world = torch.distributed.get_world_size() if torch.distributed.is_initialized() else 1
     spec.resolve(world)
 

@@ -27,7 +27,7 @@ from gpt2_image_captioning_tpu_torch.models import porting
 MAX_LEN, EOS = 8, 208
 
 
-# a mesh with a tensor-parallel axis, which the port refuses
+# a tp mesh built by hand, without its process groups, which the port refuses
 TP2 = Mesh(dp=1, tp=2, rank=0, world_size=1, group=None, backend=None,
            device=torch.device("cpu"))
 
@@ -103,7 +103,7 @@ def test_beam_output_is_fixed_width_and_eos_padded():
 def test_beam_refusals():
     _, tcfg, _, _, ttr, tfz, emb = _models()
     x = torch.from_numpy(emb)
-    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+    with pytest.raises(ValueError, match="has no tp group"):
         TC.beam_generate(ttr, tfz, tcfg, x, mesh=TP2)
     # a one-rank mesh decodes as no mesh does, bit for bit
     assert torch.equal(TC.beam_generate(ttr, tfz, tcfg, x, max_length=MAX_LEN),

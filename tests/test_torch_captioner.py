@@ -32,7 +32,7 @@ MAX_LEN = 12
 CASES = {"one_row_stops": (1.0, 97), "three_rows_stop": (60.0, 68), "early_exit": (60.0, 7)}
 
 
-# a mesh with a tensor-parallel axis, which the port refuses
+# a tp mesh built by hand, without its process groups, which the port refuses
 TP2 = Mesh(dp=1, tp=2, rank=0, world_size=1, group=None, backend=None,
            device=torch.device("cpu"))
 
@@ -149,7 +149,7 @@ def test_model_facade_bf16_and_refusals():
     ids8 = model.generate(emb, max_length=6, temperature=0.0, decode_precision="int8")
     assert torch.equal(ids8, TC.generate(tr, fz, cfg, torch.from_numpy(emb), max_length=6,
                                          temperature=0.0, policy=pol, decode_quant=True))
-    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+    with pytest.raises(ValueError, match="has no tp group"):
         model.generate(emb, temperature=0.0, mesh=TP2)
     # a one-rank mesh decodes as no mesh does, bit for bit, greedy and sampled
     one = create_mesh(device="cpu")

@@ -38,7 +38,7 @@ from helpers import tiny_tokenizer
 
 GCFG = dict(vocab_size=293, n_positions=128, n_embd=32, n_layer=2, n_head=2)
 
-# a mesh with a tensor-parallel axis, which the port refuses
+# a tp mesh built by hand, without its process groups, which the port refuses
 TP2 = Mesh(dp=1, tp=2, rank=0, world_size=1, group=None, backend=None,
            device=torch.device("cpu"))
 
@@ -369,7 +369,7 @@ def test_service_sampling_modes_and_refusals():
                     (svc.caption_arrays, [np.zeros((8, 8, 3), np.uint8)])):
         with pytest.raises(ValueError, match="no vision tower"):
             fn(arg)
-    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+    with pytest.raises(ValueError, match="ContinuousCaptionService meshes must be dp-only"):
         ContinuousCaptionService(tmodel, mesh=TP2)
     # a one-rank mesh serves as no mesh does
     one = ContinuousCaptionService(tmodel, slots=3, max_length=6, mesh=create_mesh(device="cpu"))

@@ -47,7 +47,7 @@ from gpt2_image_captioning_tpu_torch.serving import CaptionService, ContinuousCa
 
 from helpers import tiny_tokenizer
 
-# a mesh with a tensor-parallel axis, which the port refuses
+# a tp mesh built by hand, without its process groups, which the port refuses
 TP2 = Mesh(dp=1, tp=2, rank=0, world_size=1, group=None, backend=None,
            device=torch.device("cpu"))
 
@@ -128,7 +128,7 @@ def test_caption_service_sampling_and_refusals(models):
     imgs = _imgs(5, seed=9)
     assert svc_a.caption_arrays(imgs) == svc_b.caption_arrays(imgs)
     assert svc_a._draws == 2
-    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+    with pytest.raises(ValueError, match="has no tp group"):
         CaptionService(tmodel, tv, tvcfg, mesh=TP2)
     # a one-rank mesh serves as no mesh does, greedy and sampled
     for t in (0.0, 0.9):
@@ -220,7 +220,7 @@ def test_extraction_matches_jax(name, jcfg, tcfg, png_dir, tmp_path):
         names, emb = reader(path)
         assert names == tnames and emb.dtype == np.float32
         np.testing.assert_array_equal(emb, temb if path == tout else jemb)
-    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+    with pytest.raises(ValueError, match=r"extraction meshes must be dp-only \(tp=1\)"):
         tfn(png_dir, None, tparams, tcfg, mesh=TP2)
     # a one-rank mesh extracts as no mesh does, bit for bit
     names, emb = tfn(png_dir, None, tparams, tcfg, batch_size=2, num_workers=2, policy=F32,

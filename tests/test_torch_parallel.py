@@ -44,8 +44,8 @@ def test_mesh_spec_resolve_matches_jax(dp, tp, n):
 
 def test_create_mesh_without_a_group():
     """With no process group: dp -1 (and 1) is a one-rank mesh on the asked
-    device with no group, dp 2 raises ``resolve``'s error, tp 2 refuses
-    naming its ROADMAP item; its collectives are the identity."""
+    device with no group, dp 2 and tp 2 raise ``resolve``'s errors; its
+    collectives are the identity."""
     assert not torch.distributed.is_initialized()
     mesh = TMesh.create_mesh(device="cpu")
     assert (mesh.dp, mesh.tp, mesh.rank, mesh.world_size, mesh.group, mesh.backend) == (
@@ -55,7 +55,7 @@ def test_create_mesh_without_a_group():
     assert TMesh.create_mesh(TMesh.MeshSpec(dp=1), device="cpu") == mesh
     with pytest.raises(ValueError, match=r"mesh 2x1 != 1 devices"):
         TMesh.create_mesh(TMesh.MeshSpec(dp=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1: tensor parallelism"):
+    with pytest.raises(ValueError, match=r"tp=2 does not divide device count 1"):
         TMesh.create_mesh(TMesh.MeshSpec(dp=1, tp=2), device="cpu")
     x = torch.arange(6.0)
     assert float(TP.psum_scalar(mesh, x)) == 15.0 and float(TP.pmean_scalar(mesh, x)) == 2.5

@@ -315,15 +315,15 @@ def test_sweep_run_one_rat_matches_jax(data, tmp_path, monkeypatch, same_weights
 REFUSED = {
     "dp2": ({"tpu": {"mesh": {"dp": 2, "tp": 1}}}, ValueError, r"mesh 2x1 != 1 devices"),
     "dp8": ({"tpu": {"mesh": {"dp": 8}}}, ValueError, r"mesh 8x1 != 1 devices"),
-    "tp2": ({"tpu": {"mesh": {"dp": 1, "tp": 2}}}, NotImplementedError,
-            "queue 1: tensor parallelism"),
+    "tp2": ({"tpu": {"mesh": {"dp": 1, "tp": 2}}}, ValueError,
+            r"tp=2 does not divide device count 1"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(REFUSED))
 def test_unported_configs_refused_before_any_read(case, tmp_path):
     """Without a process group a dp above 1 raises ``MeshSpec.resolve``'s
-    error, and tp 2 ``NotImplementedError`` naming its ROADMAP item, before
+    error, as does tp 2, before
     any data is read (the paths hold nothing) or any directory is made."""
     from gpt2_image_captioning_tpu_torch.core.config import update_cfg
 

@@ -1,4 +1,4 @@
-"""One rank of the port's data-parallel CPU tests.
+"""One rank of the port's data-, tensor- and pipeline-parallel CPU tests.
 
     python tests/torch_dist_worker.py TASK DIR RANK WORLD
 
@@ -27,7 +27,7 @@ from gpt2_image_captioning_tpu_torch.core.mesh import (  # noqa: E402
 )
 from gpt2_image_captioning_tpu_torch.core.precision import F32  # noqa: E402
 from gpt2_image_captioning_tpu_torch.core.tree import (  # noqa: E402
-    flatten_with_paths, unflatten_from_paths,
+    flatten_with_paths, tree_leaves, unflatten_from_paths,
 )
 
 
@@ -237,7 +237,204 @@ def task_dp(mesh, spec: dict, root: str) -> dict:
     return out
 
 
-TASKS = {"collectives": task_collectives, "dp": task_dp}
+def tiny_model(spec: dict, root: str, name: str):
+    """The port's façade of the test's config ``spec["configs"][name]`` (GPT-2,
+    MLP mapper, freeze, eos) over the weights in ``DIR/{name}.npz``."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models import gpt2 as G
+    from gpt2_image_captioning_tpu_torch.models import mapping as M
+    from gpt2_image_captioning_tpu_torch.models import porting
+
+    c = spec["configs"][name]
+    cfg = C.CaptionerConfig(gpt2=G.GPT2Config(**c["gpt2"]),
+                            mapping=M.MLPMappingConfig(**c["mapping"]),
+                            eos_token_id=c["eos"], freeze_gpt_weights=c["freeze"])
+    model = C.ImageCaptioningModel(cfg, device="cpu")
+    weights = os.path.join(root, f"{name}.npz")
+    model.trainable, model.frozen = porting.from_jax_numpy(
+        load_tree(weights, "trainable"), load_tree(weights, "frozen"), cfg, device="cpu")
+    return model
+
+
+def tp_train_step(model, mesh, batch: dict) -> dict:
+    """One AdamW step (lr 1e-3, 4 scheduled steps) of the test's batch on a
+    tp ``mesh``, each dp index on its rows: the loss, the gradient norm and
+    the trainable tree gathered whole."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.train import loop as L
+    from gpt2_image_captioning_tpu_torch.train import optim as O
+
+    tr, fz = C.shard_params(model.trainable, model.frozen, model.cfg, mesh)
+    ocfg = O.AdamWConfig(learning_rate=1e-3, num_training_steps=4)
+    optimizer, scheduler = O.make_optimizer(tr, ocfg)
+    step = L.make_train_step(model.cfg, ocfg, F32, device="cpu", mesh=mesh)
+    local = {k: v.numpy() for k, v in shard_batch(mesh, batch).items()}
+    loss, norm = step(tr, optimizer, scheduler, fz, local)
+    return {"loss": float(loss), "norm": float(norm),
+            "trainable": flat_numpy(C.gather_params(tr, model.cfg, mesh))}
+
+
+def tp_pipeline_run(spec: dict, root: str) -> dict:
+    """``training_pipeline.run`` of the test's config (``tpu.mesh`` tp 2 over
+    the group's ranks, GPT-2 unfrozen) on the weights the test wrote; then
+    the trained model's loss on the test's batch, in one process and at tp."""
+    from gpt2_image_captioning_tpu_torch import training_pipeline as TP
+    from gpt2_image_captioning_tpu_torch.core.config import Config
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models import gpt2 as G
+    from gpt2_image_captioning_tpu_torch.models import porting
+
+    run = spec["run"]
+    weights = os.path.join(root, "run_weights.npz")
+    build, built = TP.build_model, []
+
+    def model_of(cfg, tok, **kw):
+        model = build(cfg, tok, gpt_config=G.GPT2Config(**run["gpt2"]), **kw)
+        model.trainable, model.frozen = porting.from_jax_numpy(
+            load_tree(weights, "trainable"), load_tree(weights, "frozen"), model.cfg,
+            device="cpu")
+        built.append(model)
+        return model
+
+    TP.load_gpt2_tokenizer = lambda *a, **k: tokenizer(spec)
+    TP.build_model = model_of
+    cwd = os.getcwd()
+    os.chdir(run["dir"])  # train() logs under ./logs
+    try:
+        hist = TP.run(Config(run["config"]), device="cpu")
+    finally:
+        os.chdir(cwd)
+    model = built[0]
+    mesh = create_mesh(MeshSpec(dp=-1, tp=2), device="cpu")
+    with np.load(os.path.join(root, "inputs.npz")) as z:
+        batch = {k[len("batch_"):]: torch.from_numpy(z[k]) for k in z.files
+                 if k.startswith("batch_")}
+    tr, fz = C.shard_params(model.trainable, model.frozen, model.cfg, mesh)
+    return {"epoch_losses": hist["epoch_losses"], "val_metrics": hist["val_metrics"],
+            "loss_one_process": float(C.mean_loss(model.trainable, model.frozen, model.cfg,
+                                                  batch)),
+            "loss_tp": float(C.mean_loss(tr, fz, model.cfg, batch, mesh=mesh))}
+
+
+def conjugate_pair(mesh) -> dict:
+    """The tp collectives' values and gradients on a rank whose input is
+    ``(tp_rank + 1) · arange(6)`` (2, 3) and whose output is weighted by
+    ``arange`` (or ``tp_rank + 1``): what the test holds to their sums."""
+    from gpt2_image_captioning_tpu_torch.parallel import collectives as P
+
+    scale = float(mesh.tp_rank + 1)
+    out = {}
+    for name, fn in (("reduce", P.reduce_from_tp), ("copy", P.copy_to_tp),
+                     ("gather", P.gather_last_tp)):
+        x = (scale * torch.arange(6.0).reshape(2, 3)).requires_grad_(True)
+        y = fn(mesh, x)
+        weight = scale if name == "copy" else torch.arange(float(y.numel())).reshape(y.shape)
+        (y * weight).sum().backward()
+        out[name] = (y.detach().numpy(), x.grad.numpy())
+    return out
+
+
+def task_tp(mesh, spec: dict, root: str) -> dict:
+    """The tp paths of the test's world (see tests/test_torch_tp.py): per
+    mesh shape, the train step, greedy and beam tokens, the decode_quant
+    pin, the slices' round trip; in the world of 4 the pipeline run and the
+    dp-only refusals."""
+    import warnings
+
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.serving import ContinuousCaptionService
+    from gpt2_image_captioning_tpu_torch.embeddings.extract import _run_extraction
+
+    inputs = dict(np.load(os.path.join(root, "inputs.npz")))
+    batch = {k[len("batch_"):]: v for k, v in inputs.items() if k.startswith("batch_")}
+    emb = torch.from_numpy(inputs["batch_image_embedding"])
+    out: dict = {}
+    for dp, tp, parts in spec["meshes"]:
+        tmesh = create_mesh(MeshSpec(dp=dp, tp=tp), device="cpu")
+        model = tiny_model(spec, root, "sharding")
+        got = {"coords": (tmesh.dp_rank, tmesh.tp_rank), "pair": conjugate_pair(tmesh)}
+        tr, fz = C.shard_params(model.trainable, model.frozen, model.cfg, tmesh)
+        full = C.gather_params(tr, model.cfg, tmesh)
+        got["round_trip"] = all(torch.equal(a, b) for a, b in zip(
+            flatten_with_paths(full).values(), flatten_with_paths(model.trainable).values()))
+        got["slices"] = {k: v for k, v in flat_numpy(tr).items() if k.startswith("gpt.")}
+        kw = dict(max_length=spec["max_length"], mesh=tmesh)
+        got["greedy"] = C.generate(tr, fz, model.cfg, emb, temperature=0.0, **kw).numpy()
+        if "beam" in parts:
+            got["beam"] = C.beam_generate(tr, fz, model.cfg, emb, max_length=5, beam_size=2,
+                                          mesh=tmesh).numpy()
+        if "quant" in parts:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got["quant"] = C.generate(tr, fz, model.cfg, emb, temperature=0.0,
+                                          decode_quant=True, decode_quant_cache=True,
+                                          **kw).numpy()
+            got["quant_warnings"] = [str(w.message) for w in caught]
+            got["sampled_shape"] = tuple(C.generate(tr, fz, model.cfg, emb, temperature=1.0,
+                                                    **kw).shape)
+        if "step" in parts:
+            got["step"] = tp_train_step(model, tmesh, batch)
+        out[f"{dp}x{tp}"] = got
+    if "run" in spec:
+        model = tiny_model(spec, root, "sharding")
+        refusals = []
+        for build in (lambda: ContinuousCaptionService(model, mesh=tmesh),
+                      lambda: _run_extraction([], None, None, "CLIP", mesh=tmesh)):
+            try:
+                build()
+                refusals.append(None)
+            except ValueError as e:
+                refusals.append(str(e))
+        out["refusals"] = refusals
+        out["run"] = tp_pipeline_run(spec, root)
+    return out
+
+
+def task_pp(mesh, spec: dict, root: str) -> dict:
+    """The pipeline cases of the test's world (see tests/test_torch_pp.py):
+    loss and gradients, gathered whole, per (case, microbatches); and two
+    AdamW steps of the pipeline train step."""
+    from gpt2_image_captioning_tpu_torch.parallel import pipeline as PP
+    from gpt2_image_captioning_tpu_torch.train import optim as O
+
+    inputs = dict(np.load(os.path.join(root, "inputs.npz")))
+    out: dict = {}
+    for case in spec["cases"]:
+        pmesh = PP.create_pipeline_mesh(case["dp"], case["pp"], device="cpu")
+        model = tiny_model(spec, root, case["config"])
+        tr, fz = PP.shard_stage_params(model.trainable, model.frozen, model.cfg, pmesh)
+        per = 8 // case["dp"]
+        rows = slice(pmesh.dp_rank * per, (pmesh.dp_rank + 1) * per)
+        got = {"coords": (pmesh.dp_rank, pmesh.stage)}
+        if case["kind"] == "grads":
+            for n_micro in case["micro"]:
+                fn = PP.make_pipeline_loss_and_grad(model.cfg, pmesh, F32, num_microbatches=n_micro)
+                batch = {k: v[rows] for k, v in _case_batch(inputs, case["batches"][0]).items()}
+                loss, grads = fn(tr, fz, batch)
+                got[n_micro] = {"loss": float(loss),
+                                "grads": flat_numpy(PP.gather_stage_params(grads, model.cfg,
+                                                                           pmesh))}
+        else:
+            ocfg = O.AdamWConfig(learning_rate=1e-3, num_training_steps=10)
+            optimizer, scheduler = O.make_optimizer(tr, ocfg)
+            step = PP.make_pipeline_train_step(model.cfg, ocfg, pmesh, F32,
+                                               num_microbatches=case["micro"][0])
+            losses = []
+            for name in case["batches"]:
+                batch = {k: v[rows] for k, v in _case_batch(inputs, name).items()}
+                losses.append(float(step(tr, optimizer, scheduler, fz, batch)[0]))
+            got["losses"] = losses
+            got["trainable"] = flat_numpy(PP.gather_stage_params(tr, model.cfg, pmesh))
+            got["steps"] = int(optimizer.state[tree_leaves(tr)[0]]["step"])
+        out[case["name"]] = got
+    return out
+
+
+def _case_batch(inputs: dict, name: str) -> dict:
+    return {k[len(name) + 1:]: v for k, v in inputs.items() if k.startswith(name + "_")}
+
+
+TASKS = {"collectives": task_collectives, "dp": task_dp, "tp": task_tp, "pp": task_pp}
 
 
 def launch(task: str, root: str, world: int = 2, timeout: float = 120.0) -> list[dict]:
