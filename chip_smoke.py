@@ -181,14 +181,25 @@ before and read just after:
   attention, flash attention and the patch embedding and none of the step
   kernels (the JAX package's layerwise tp branch); the pp ranks flash
   attention.  Decode attention and flash attention are also held to their
-  twins at tp's local heads (6 and 3 heads of 64).
+  twins at tp's local heads (6 and 3 heads of 64).  Sequence parallelism:
+  an sp-2 pair of gloo ranks, started with the others, in the all-gather
+  and the ring form: tiny float32 losses and gradients, GPT-2 frozen and
+  unfrozen, within 1e-5 of one process's ``mean_loss``; at full width (the
+  train step's model and b 128 batch, 66 rows) the loss within 2e-3 and
+  the gradients within 5e-2; the all-gather form must launch flash
+  attention once a layer more than the ring form (its blocks at the sp
+  shape, which ``check_flash`` also holds to the twin: FLASH_SP_SHAPES).
+  The dp pair also serves both HTTP endpoints over its tiny float32
+  services (rank 0 listens, rank 1 follows): 128 JPEG POSTs each, whose
+  captions must equal one process's services' on the same pixels.
 
 Every request and admission prefills through the prefill kernel (an int8
 decode through ``forward_cached``, as the reference), and the launch checks
 count it.  Each phase prints one JSON line (an ``environment`` record lists
 which of PIL, transformers, triton and numpy import); the last three lines
 are the kernel table,
-the card's name and power limit, and ``{"ok": true, ...}``.  Any failed
+the card's name and power limit, and ``{"ok": true, ...}``; the record
+before them gives the script's seconds.  Any failed
 check raises, so the script exits non-zero without the ``ok`` line.
 Without a CUDA device it exits non-zero at once.  Longer output (nvcc's
 log, every phase's record) goes to ``chiprun_out/``.
@@ -196,6 +207,7 @@ log, every phase's record) goes to ``chiprun_out/``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gzip
@@ -398,16 +410,27 @@ FLASH_TP_SHAPES = (
     ("gpt2_prefill_tp2", B, 6, 15, 64, True, False),
 )
 ATTN_TP_SHAPES = ((B, 384, 6), (B, 192, 3))
+# and at sequence parallelism's (``parallel/sequence.py``, all-gather form):
+# an sp-2 rank's 33 queries of the train step's 66 rows (65 padded to a
+# multiple of 2) against the gathered 66 keys, causal, with the key mask, at
+# its q_offset: rank 0 at 0 (the keys past its last query all in its
+# future), rank 1 at 33 — (name, B, H, Tq, Tk, hd, q_offset)
+FLASH_SP_SHAPES = (
+    ("gpt2_train_sp2_rank0", B, 12, 33, 66, 64, 0),
+    ("gpt2_train_sp2_rank1", B, 12, 33, 66, 64, 33),
+)
 # The shape a dtype's kernel row reports: bf16 the training step's, which
 # launches it most; float32 the mapper's, which the float32 greedy path runs.
 FLASH_MAIN = {torch.bfloat16: "gpt2_train", torch.float32: "mapper"}
 # The flash kernel's contract beyond the paths' shapes, held to its twin
 # under FLASH_TOL, correctness only: (name, B, H, Tq, Tk, hd, causal, key
 # mask, q_offset) — a causal tail of 15 queries after 50 positions (Tq < Tk),
-# T 1,024 (16 key tiles through the ring, 8 query tiles a head)
-# bidirectional with a key mask and causal, and hd 96 at T 197.
+# the head of such a sequence (q_offset 0, Tk > Tq: every key past the last
+# query in its future), T 1,024 (16 key tiles through the ring, 8 query
+# tiles a head) bidirectional with a key mask and causal, and hd 96 at T 197.
 FLASH_CONTRACT = (
     ("causal_q_offset", 32, 12, 15, 65, 64, True, False, 50),
+    ("causal_head_tk_gt_tq", 32, 12, 15, 65, 64, True, True, 0),
     ("long_masked", 4, 12, 1024, 1024, 64, False, True, 0),
     ("long_causal", 4, 12, 1024, 1024, 64, True, False, 0),
     ("hd96_t197", 32, 8, 197, 197, 96, False, False, 0),
@@ -2020,6 +2043,50 @@ def flash_contract_inputs(b, h, tq, tk, hd, masked, dtype, g):
     return q, k, v, mask
 
 
+def flash_sp_inputs(b, h, tq, tk, hd, dtype, g):
+    """q as an sp rank has it — a permuted view of its (B, Tq, 3 H hd)
+    projection — and k, v as views of the gathered (B, Tk, H hd) keys and
+    values, with the train step's padding mask over the Tk keys."""
+    from gpt2_image_captioning_tpu_torch.ops import nn
+
+    x = torch.randn(b, tq, 3 * h * hd, generator=g, device="cuda").to(dtype)
+    q = nn.split_heads(x[..., : h * hd], h)
+    k, v = (nn.split_heads(torch.randn(b, tk, h * hd, generator=g, device="cuda").to(dtype), h)
+            for _ in range(2))
+    lens = 15 + torch.randint(9, 22, (b,), generator=g, device="cuda")
+    return q, k, v, (torch.arange(tk, device="cuda")[None] < lens[:, None]).to(torch.int32)
+
+
+def check_flash_sp(dtype, g) -> dict:
+    """The flash kernel at FLASH_SP_SHAPES against its twin, timed beside its
+    bound and SDPA on the same boolean mask."""
+    from gpt2_image_captioning_tpu_torch.ops import attention as A
+
+    shapes = {}
+    for name, b, h, tq, tk, hd, q_offset in FLASH_SP_SHAPES:
+        q, k, v, mask = flash_sp_inputs(b, h, tq, tk, hd, dtype, g)
+        want = A._flash_attention_plain(q, k, v, mask, True, q_offset)
+        got = A.flash_attention_cuda(q, k, v, mask, True, q_offset)
+        torch.cuda.synchronize()
+        err = close(got, want, FLASH_TOL[dtype])
+        valid = A._valid(q, k, mask, True, q_offset)
+        # q, the output, k and v and the mask once; 4 hd operations per
+        # (query, key) pair causality leaves: query i sees q_offset + i + 1 keys
+        pairs = sum(min(q_offset + i + 1, tk) for i in range(tq))
+        nbytes = 2 * b * h * (tq + tk) * hd * q.element_size() + 4 * b * tk
+        bound_ms, bound_by = bound(nbytes, 4 * hd * pairs * b * h, split_type(dtype))
+        shapes[name] = {
+            "at": [b, h, tq, tk, hd], "causal": True, "key_mask": True, "q_offset": q_offset,
+            "max_abs_err": err,
+            "ms": time_ms(lambda: A.flash_attention_cuda(q, k, v, mask, True, q_offset)),
+            "plain_ms": time_ms(lambda: A._flash_attention_plain(q, k, v, mask, True, q_offset)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                         attn_mask=valid)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "plan": A.flash_plan(tq)._asdict()}
+    return shapes
+
+
 def check_flash(dtype, g) -> dict:
     from gpt2_image_captioning_tpu_torch.ops import attention as A
 
@@ -2055,6 +2122,7 @@ def check_flash(dtype, g) -> dict:
         shapes[name] = {"at": [b, h, tq, tk, hd], "causal": causal, "q_offset": q_offset,
                         "key_mask": masked, "max_abs_err": close(got, want, FLASH_TOL[dtype]),
                         "plan": A.flash_plan(tq)._asdict()}
+    shapes.update(check_flash_sp(dtype, g))
     shapes["fully_masked_row"] = check_flash_masked_row(dtype, g)
     main = shapes[FLASH_MAIN[dtype]]
     return {"kernel": "flash_attention", "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
@@ -2464,15 +2532,12 @@ def images_path(model, clip_cfg, clip_params, mode: str) -> tuple[dict, dict]:
     return record, launches
 
 
-def tiny_pixels() -> dict:
-    """Tiny float32 from pixels: a CLIP tower with the flash kernel's head dim
-    (128 = 2 x 64, 64-pixel images of 16 patches) feeding the tiny captioner;
-    ``CaptionService`` and the continuous service's ``submit_prepped`` give
-    the same captions with the kernels as without them."""
-    from gpt2_image_captioning_tpu_torch import F32
+def tiny_pixel_model():
+    """(model, tower params, tower config): a CLIP tower with the flash
+    kernel's head dim (128 = 2 x 64, 64-pixel images of 16 patches) feeding
+    the tiny captioner, float32, from seeds."""
     from gpt2_image_captioning_tpu_torch.models import captioner as C
     from gpt2_image_captioning_tpu_torch.models.clip import CLIPVisionConfig, init_vision
-    from gpt2_image_captioning_tpu_torch.serving import CaptionService, ContinuousCaptionService
 
     cfg = tiny_config()
     vcfg = CLIPVisionConfig(hidden_size=128, intermediate_size=256, num_hidden_layers=2,
@@ -2481,6 +2546,17 @@ def tiny_pixels() -> dict:
     vparams = init_vision(torch.Generator().manual_seed(8), vcfg, device="cuda")
     model = C.ImageCaptioningModel(cfg, tokenizer=synthetic_tokenizer(cfg.gpt2.vocab_size),
                                    generator=torch.Generator().manual_seed(7), device="cuda")
+    return model, vparams, vcfg
+
+
+def tiny_pixels() -> dict:
+    """Tiny float32 from pixels (:func:`tiny_pixel_model`): ``CaptionService``
+    and the continuous service's ``submit_prepped`` give the same captions
+    with the kernels as without them."""
+    from gpt2_image_captioning_tpu_torch import F32
+    from gpt2_image_captioning_tpu_torch.serving import CaptionService, ContinuousCaptionService
+
+    model, vparams, vcfg = tiny_pixel_model()
     prepped = np.random.default_rng(9).integers(0, 256, size=(10, 64, 64, 3), dtype=np.uint8)
     out, counts = {}, {}
     for use in (None, False):
@@ -4137,16 +4213,25 @@ def http_bodies(n: int, seed: int) -> list[bytes]:
     return out
 
 
-def http_post_all(port: int, bodies: list[bytes], paths: list[str]):
+def http_post_all(port: int, bodies: list[bytes], paths: list[str], pool=None):
     """POST every body from HTTP_CLIENTS threads of a client process of
     their own (so that the clients do not take the server's interpreter
-    lock), each thread with all of its requests in flight at once, its
-    answers read as their sockets turn readable: ([(status, JSON)],
-    [seconds from send to answer], wall seconds)."""
+    lock; ``pool``: a one-process pool of :func:`http_client_pool` to reuse,
+    else one is started), each thread with all of its requests in flight at
+    once, its answers read as their sockets turn readable: ([(status,
+    JSON)], [seconds from send to answer], wall seconds)."""
+    if pool is not None:
+        return pool.apply(http_clients, (port, bodies, paths))
+    with http_client_pool() as pool:
+        return pool.apply(http_clients, (port, bodies, paths))
+
+
+def http_client_pool():
+    """A pool of one spawned client process (which imports this script, so
+    it takes seconds to start)."""
     import multiprocessing
 
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
-        return pool.apply(http_clients, (port, bodies, paths))
+    return multiprocessing.get_context("spawn").Pool(1)
 
 
 def http_clients(port: int, bodies: list[bytes], paths: list[str]):
@@ -5239,6 +5324,32 @@ TP_IMAGE_TOKENS = 20  # the tp CaptionService's captions (the greedy request's r
 # near-zero gradients, the mapper's key bias exactly zero, becomes steps of
 # the learning rate's size; a 2 % bound sits below that floor)
 MP_TRAIN_TOL = {"loss": 2e-3}
+# sequence parallelism: an sp-2 pair in both forms.  Tiny float32 at
+# tiny_config's GPT-2 with an MLP mapper (4 prefix rows + captions of 11 =
+# 15, padded to 16), GPT-2 frozen and unfrozen, held to one process's
+# mean_loss by PAR_TINY_TOL (loss relative, each gradient leaf by its norm);
+# full width as parallel_train_step's model and batch (65 rows, padded to
+# 66), held by MP_TRAIN_TOL["loss"] and, on the gradients, by SP_GRAD_TOL
+# (the largest leaf-wise max |got - ref| / max |ref|: two computations of
+# one bf16 gradient, as grad_agreement measures the tp and pp steps)
+SP_FORMS = ("allgather", "ring")
+SP_TINY_L = 11
+SP_GRAD_TOL = 5e-2
+# the HTTP endpoints over the dp pair's services, PAR_HTTP_REQUESTS JPEG
+# POSTs (224 px after the crop) to each endpoint from a client process: at
+# full width (CLIP B/32 + the serving model, bf16 decode), every served
+# token teacher-forced on the plain path from the embedding its rank
+# encoded, the captions not all one; and on tiny_pixel_model (float32, so
+# that the captions can equal one process's exactly)
+PAR_HTTP_REQUESTS = 128
+PAR_HTTP_SETTINGS = {
+    "full": {"fixed": dict(batch_size=B, max_length=50, decode_precision="bf16"),
+             "continuous": dict(slots=2 * 64, segment=4, bursts=8, admit=32, max_length=50,
+                                decode_precision="bf16")},
+    "tiny": {"fixed": dict(batch_size=8, max_length=12),
+             "continuous": dict(slots=16, segment=2, bursts=2, admit=4, max_length=12)}}
+PAR_HTTP_FAMILIES = ("patch_embed", "flash_attention", "prefill", "fused_linear",
+                     "decode_attention", "logits_argmax")
 
 
 def parallel_tiny(mesh) -> dict:
@@ -5449,8 +5560,10 @@ def parallel_extract(mesh, path: Path) -> tuple[list[str], np.ndarray]:
 def parallel_full(mesh) -> dict:
     """The full-width part of a gloo rank, launch counts by part: greedy
     ``generate`` of a 128-image request (64 rows a rank), continuous greedy
-    serving over 2 x 256 slots, one bf16 train step at b 128, CLIP extraction
-    at b 256; rank 0 holds the served tokens to the plain path."""
+    serving over 2 x 256 slots, both HTTP endpoints over dp services, tiny
+    and on this model from pixels (:func:`http_dp`, one client process for
+    all their POSTs), one bf16 train step at b 128, CLIP extraction at b 256;
+    rank 0 holds the served tokens to the plain path."""
     from gpt2_image_captioning_tpu_torch.serving import ContinuousCaptionService
 
     out, counts, seconds = {}, {}, {}
@@ -5473,6 +5586,10 @@ def parallel_full(mesh) -> dict:
                                    **PAR_CONTINUOUS)
     ids = part("continuous", lambda: served_ids(svc, embs, caps))
     out["continuous_stats"] = {k: svc.stats[k] for k in ("occupancy", "macros", "host_reads")}
+    bodies = http_bodies(PAR_HTTP_REQUESTS, seed=21)
+    with http_client_pool() if mesh.is_main else contextlib.nullcontext() as pool:
+        out["http_tiny"] = part("http_tiny", lambda: http_dp(mesh, "tiny", bodies, pool))
+        out["http"] = part("http", lambda: http_dp(mesh, "full", bodies, pool, model))
     if mesh.is_main:
         worst, n, agree = teacher_forced(model, emb, tokens)
         check(worst <= TF_TOL, f"dp greedy: a token is {worst} below the plain max")
@@ -5491,21 +5608,315 @@ def parallel_full(mesh) -> dict:
     return out
 
 
+def sp_tiny_batch() -> dict:
+    rng = np.random.default_rng(6)
+    am = np.ones((8, SP_TINY_L), np.int32)
+    am[:, -2:] = 0
+    labels = rng.integers(0, 292, (8, SP_TINY_L)).astype(np.int32)
+    labels[am == 0] = -100
+    return {"token_ids": rng.integers(0, 292, (8, SP_TINY_L)).astype(np.int32),
+            "labels": labels, "attention_mask": am,
+            "image_embedding": rng.normal(size=(8, 16)).astype(np.float32)}
+
+
+def one_process_loss(tr, fz, cfg, batch, policy) -> dict:
+    """``mean_loss`` and its gradients in this process, kernels on, on the
+    host; leaves no gradient behind."""
+    from gpt2_image_captioning_tpu_torch.core.tree import flatten_with_paths
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    params = flatten_with_paths(tr)
+    for p in params.values():
+        p.requires_grad_(True)
+    batch = {k: torch.as_tensor(batch[k], device="cuda")
+             for k in ("token_ids", "labels", "attention_mask", "image_embedding")}
+    loss = C.mean_loss(tr, fz, cfg, batch, policy)
+    loss.backward()
+    out = {"loss": float(loss.detach()), "grads": {k: p.grad.float().cpu()
+                                                   for k, p in params.items()}}
+    for p in params.values():
+        p.grad = None
+    return out
+
+
+def sp_loss(fn, tr, fz, batch) -> dict:
+    from gpt2_image_captioning_tpu_torch.core.tree import flatten_with_paths
+
+    loss, grads = fn(tr, fz, batch)
+    return {"loss": float(loss), "grads": {k: v.float().cpu()
+                                           for k, v in flatten_with_paths(grads).items()}}
+
+
+def sp_tiny(mesh) -> dict:
+    """Tiny float32 loss and gradients (SP_* above), GPT-2 unfrozen and
+    frozen, kernels on: on an sp ``mesh`` in both forms (keys
+    ``f{freeze}_{form}``), or in one process (None: ``mean_loss``, keys
+    ``f{freeze}``)."""
+    from gpt2_image_captioning_tpu_torch import F32
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models.mapping import MLPMappingConfig
+    from gpt2_image_captioning_tpu_torch.parallel import sequence as S
+
+    out, batch = {}, sp_tiny_batch()
+    for freeze in (False, True):
+        cfg = dataclasses.replace(tiny_config(), freeze_gpt_weights=freeze, mapping=MLPMappingConfig(
+            prefix_length=4, embed_dim=16, gpt_dim=tiny_config().gpt2.n_embd))
+        tr, fz = C.init_params(torch.Generator().manual_seed(3), cfg, device="cuda")
+        if mesh is None:
+            out[f"f{int(freeze)}"] = one_process_loss(tr, fz, cfg, batch, F32)
+            continue
+        for form in SP_FORMS:
+            out[f"f{int(freeze)}_{form}"] = sp_loss(
+                S.make_sp_loss_and_grad(cfg, mesh, F32, ring=form == "ring"), tr, fz, batch)
+    return out
+
+
+def sp_full(mesh) -> dict:
+    """Full width, bf16, kernels on: :func:`parallel_train_step`'s model
+    (GPT-2 124M frozen, config.yml's mapper) and b 128 batch (captions
+    padded to 50: 65 rows); on an sp ``mesh`` each form's loss and
+    gradients with its launch counts and seconds, or one process's
+    ``mean_loss`` (None)."""
+    from gpt2_image_captioning_tpu_torch import BF16
+    from gpt2_image_captioning_tpu_torch.data.dataset import Batcher
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+    from gpt2_image_captioning_tpu_torch.models.gpt2 import GPT2Config
+    from gpt2_image_captioning_tpu_torch.models.mapping import TransformerMappingConfig
+    from gpt2_image_captioning_tpu_torch.parallel import sequence as S
+
+    cfg = C.CaptionerConfig(gpt2=GPT2Config.gpt2_124m(),
+                            mapping=TransformerMappingConfig(512, 768, 15, 10))
+    tr, fz = C.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    batch = next(Batcher(Captions(B, 50, cfg.eos_token_id, 512, seed=1), B, seed=0).epoch(0))
+    if mesh is None:
+        return one_process_loss(tr, fz, cfg, batch, BF16)
+    out, counts, seconds = {"n_layer": cfg.gpt2.n_layer}, {}, {}
+    for form in SP_FORMS:
+        fn = S.make_sp_loss_and_grad(cfg, mesh, BF16, ring=form == "ring")
+        out[form] = timed_part(form, lambda: sp_loss(fn, tr, fz, batch), seconds, counts)
+    out["seconds"], out["launches"] = seconds, counts
+    return out
+
+
+def sp_checks(ranks: list[dict], refs: dict) -> tuple[dict, dict]:
+    """The sp pair held to this process's runs (:func:`sp_tiny`,
+    :func:`sp_full`): the ranks' losses and gradients equal to each other,
+    within PAR_TINY_TOL / MP_TRAIN_TOL and SP_GRAD_TOL of one process's; the
+    all-gather form launching the flash kernel once a layer more than the
+    ring form (its blocks' attention; both run the mapper's).  Returns (the
+    record, launch counts by rank)."""
+    check([r["backend"] for r in ranks] == ["gloo"] * 2,
+          f"sp backends {[r['backend'] for r in ranks]}")
+    tiny = {}
+    for key, got in ranks[0]["tiny"].items():
+        want = refs["tiny"][key.split("_")[0]]
+        check(all(r["tiny"][key]["loss"] == got["loss"] and all(
+            torch.equal(r["tiny"][key]["grads"][k], v) for k, v in got["grads"].items())
+            for r in ranks), f"sp tiny {key}: the ranks differ")
+        loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        grad_err = rel_err(got["grads"], want["grads"])
+        check(loss_err <= PAR_TINY_TOL and grad_err[0] <= PAR_TINY_TOL,
+              f"sp tiny {key}: loss {loss_err}, gradient {grad_err} off one process")
+        tiny[key] = {"loss_rel_err": loss_err, "grad_rel_err": list(grad_err)}
+    full, counts = {}, {}
+    ref = refs["full"]
+    for form in SP_FORMS:
+        got = ranks[0]["full"][form]
+        check(all(r["full"][form]["loss"] == got["loss"] for r in ranks),
+              f"sp {form}: the ranks' losses differ")
+        loss_err, grad_err = abs(got["loss"] - ref["loss"]), grad_agreement(got, ref)
+        check(loss_err <= MP_TRAIN_TOL["loss"] and grad_err[0] <= SP_GRAD_TOL,
+              f"sp {form}: loss {got['loss']} against {ref['loss']}, gradients {grad_err}")
+        full[form] = {"loss": got["loss"], "loss_abs_err": loss_err,
+                      "grad_rel_err": list(grad_err)}
+    n_layer = ranks[0]["full"]["n_layer"]
+    for r, got in enumerate(ranks):
+        launches = got["full"]["launches"]
+        flash = {form: launches[form]["flash_attention"] for form in SP_FORMS}
+        check(flash["allgather"] - flash["ring"] == n_layer and flash["ring"] > 0,
+              f"sp rank {r}: flash launches by form {flash} (the all-gather form's blocks: "
+              f"{n_layer} more)")
+        counts[f"parallel_sp_rank{r}"] = {k: sum(c[k] for c in launches.values())
+                                          for k in launches["ring"]}
+    record = {
+        "mesh": "(dp, sp) = (1, 2), two gloo ranks sharing the card",
+        "tiny_f32": {"cases": tiny, "tolerance": PAR_TINY_TOL, "ranks_equal": True,
+                     "config": "GPT-2 2 x 192 (3 heads of 64), vocab 293; MLP mapper, prefix 4; "
+                               f"b 8, captions of {SP_TINY_L}: 15 rows padded to 16"},
+        "full_width": {"batch": B, "rows": "65 padded to 66", "loss_one_process": ref["loss"],
+                       **full, "tolerance": {**MP_TRAIN_TOL, "grad": SP_GRAD_TOL},
+                       "seconds_by_form": [g["full"]["seconds"] for g in ranks],
+                       "launches_by_rank_and_form": [g["full"]["launches"] for g in ranks]},
+    }
+    return record, counts
+
+
+def http_dp_services(mesh, size: str, model=None) -> dict:
+    """``CaptionService`` and ``ContinuousCaptionService`` by kind on
+    ``mesh`` (None: one process), PAR_HTTP_SETTINGS[size]: ``full`` CLIP
+    B/32 + ``model``, :func:`serving_model`'s captioner with the synthetic
+    tokenizer; ``tiny`` :func:`tiny_pixel_model` in float32."""
+    from gpt2_image_captioning_tpu_torch import F32
+    from gpt2_image_captioning_tpu_torch.serving import CaptionService, ContinuousCaptionService
+
+    if size == "full":
+        _, vcfg, vparams = tower_params("clip")
+        policy = {}
+    else:
+        model, vparams, vcfg = tiny_pixel_model()
+        policy = {"policy": F32}
+    kw = PAR_HTTP_SETTINGS[size]
+    return {"fixed": CaptionService(model, vparams, vcfg, mesh=mesh, **policy, **kw["fixed"]),
+            "continuous": ContinuousCaptionService(model, vparams, vcfg, mesh=mesh,
+                                                   **kw["continuous"])}
+
+
+def http_dp_prepped(bodies: list[bytes], spec) -> np.ndarray:
+    """The bodies' pixels, decoded, resized and cropped as the handlers
+    do."""
+    import io
+
+    from PIL import Image
+
+    from gpt2_image_captioning_tpu_torch.embeddings.preprocess import resize_and_crop
+
+    return np.stack([resize_and_crop(np.asarray(Image.open(io.BytesIO(b)).convert("RGB"),
+                                                np.uint8), spec)
+                     for b in bodies])
+
+
+def http_dp_reference() -> dict:
+    """One process's tiny float32 captions of the bodies' pixels from both
+    services."""
+    services = http_dp_services(None, "tiny")
+    prepped = http_dp_prepped(http_bodies(PAR_HTTP_REQUESTS, seed=21), services["fixed"].spec)
+    cont = services["continuous"]
+    rids = [cont.submit_prepped(p) for p in prepped]
+    cont.drain()
+    return {"fixed": services["fixed"].caption_prepped(prepped),
+            "continuous": [cont.pop_result(r) for r in rids]}
+
+
+def http_dp(mesh, size: str, bodies: list[bytes], pool, model=None) -> dict:
+    """Both endpoints over dp services of several ranks (PAR_HTTP_SETTINGS
+    [size], ``model`` the full size's captioner): the main rank serves each
+    on port 0 and takes the JPEG ``bodies`` as POSTs from ``pool``'s client
+    process, then shuts it down; every other rank runs its follower's
+    ``serve_forever()`` until then.  Full width, each rank also keeps the
+    embedding of every body's image it encoded (``embeddings``, NaN rows
+    for the others), for the parent's teacher-forced check."""
+    import threading
+
+    from gpt2_image_captioning_tpu_torch.serving import serve_http, serve_http_continuous
+
+    out = {}
+    services = http_dp_services(mesh, size, model)
+    index = {p.tobytes(): i for i, p in enumerate(http_dp_prepped(bodies,
+                                                                  services["fixed"].spec))}
+    for kind, svc in services.items():
+        embs = np.full((PAR_HTTP_REQUESTS, svc.model.cfg.mapping.embed_dim), np.nan, np.float32)
+        encode = svc._encode
+
+        def recorded(params, u8, encode=encode, embs=embs):
+            e = encode(params, u8)
+            for px, row in zip(u8.cpu().numpy(), e.float().cpu().numpy()):
+                embs[index[px.tobytes()]] = row
+            return e
+
+        if size == "full":
+            svc._encode = recorded
+        server = (serve_http if kind == "fixed" else serve_http_continuous)(svc, port=0)
+        if not mesh.is_main:
+            server.serve_forever()
+            out[kind] = {"server": type(server).__name__, "images": svc.stats["images"],
+                         "embeddings": embs}
+            continue
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        answers, latency, seconds = http_post_all(port, bodies, ["/caption"] * len(bodies), pool)
+        health = http_raw(port, "GET", "/healthz")
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+        check(all(status == 200 for status, _ in answers) and health[0] == 200,
+              f"HTTP over dp, {size} {kind}: statuses {sorted({a[0] for a in answers})}, "
+              f"healthz {health}")
+        out[kind] = {"server": type(server).__name__, "images": health[1]["images"],
+                     "captions": [a[1]["caption"] for a in answers], "embeddings": embs,
+                     **serving_stats(answers, latency, seconds)}
+    return out
+
+
+def http_dp_checks(ranks: list[dict], want_tiny: dict) -> dict:
+    """Each endpoint over the dp pair, on the main rank's answers, the
+    follower's service having captioned as many images: tiny float32, the
+    captions equal to one process's of the same pixels; full width, every
+    rank having launched PAR_HTTP_FAMILIES, the captions not all one, every
+    image encoded by one rank or the other, and every served token
+    teacher-forced on the plain path from its image's embedding (within
+    TF_TOL of the plain max)."""
+    model = None
+    record = {}
+    for size in ("tiny", "full"):
+        part = "http" if size == "full" else "http_tiny"
+        for kind in ("fixed", "continuous"):
+            main, follower = ranks[0]["full"][part][kind], ranks[1]["full"][part][kind]
+            name = f"HTTP over dp, {size} {kind}"
+            check(follower["server"] == "_Follower" and follower["images"] == main["images"],
+                  f"{name}: follower {follower['server']} {follower['images']} images against "
+                  f"main {main['images']}")
+            rec = {k: main[k] for k in ("requests", "seconds", "requests_per_s",
+                                        "latency_p50_s", "latency_p95_s", "images")}
+            rec["distinct_captions"] = len(set(main["captions"]))
+            if size == "tiny":
+                check(main["captions"] == want_tiny[kind],
+                      f"{name}: captions differ from one process's")
+                rec["captions_equal_one_process"] = True
+            else:
+                check(rec["distinct_captions"] > 1, f"{name}: every image got one caption")
+                embs = np.where(np.isnan(main["embeddings"]), follower["embeddings"],
+                                main["embeddings"])
+                check(not np.isnan(embs).any(), f"{name}: an image no rank encoded")
+                if model is None:
+                    model, _ = serving_model()
+                eos = model.cfg.eos_token_id
+                ids = [caption_ids(c) for c in main["captions"]]
+                caps = [PAR_HTTP_SETTINGS["full"][kind]["max_length"]] * len(ids)
+                rec["checked"] = check_served_tokens(model, embs, *served_matrix(ids, caps, eos),
+                                                     sampled=False)
+            record[f"{size}_{kind}"] = rec
+    for r, got in enumerate(ranks):
+        launches = got["full"]["launches"]["http"]
+        idle = [k for k in PAR_HTTP_FAMILIES if launches[k] == 0]
+        check(not idle, f"HTTP over dp, full: rank {r} never launched {idle}")
+    del model
+    torch.cuda.empty_cache()
+    return {**record, "models": {"full": f"CLIP ViT-B/32 + {MODEL_NAME}, bf16 decode",
+                                 "tiny": "tiny float32 (tiny_pixel_model)"},
+            "settings": PAR_HTTP_SETTINGS,
+            "launches_full_by_rank": [g["full"]["launches"]["http"] for g in ranks],
+            "note": "two ranks sharing one card: requests/s is not a dp speed"}
+
+
 def parallel_rank(argv: list[str]) -> int:
     """A rank of the parallel phase (``--parallel-rank SPEC RANK``): joins the
     group over the spec's ``file://`` rendezvous on this process's card, runs
     the spec's parts on its mesh (``kind``: ``dp`` tiny and full width,
     ``dp_tiny``, ``tp`` on a tp mesh of the world, ``pp`` on a pipeline of
-    the world), prints its launch counts by kernel and part, and saves what
+    the world, ``sp`` on a (1, world) sequence-parallel mesh), prints its launch counts by kernel and part, and saves what
     it computed for the parent."""
     from gpt2_image_captioning_tpu_torch.core.mesh import MeshSpec, create_mesh, init_distributed
     from gpt2_image_captioning_tpu_torch.parallel.pipeline import create_pipeline_mesh
+    from gpt2_image_captioning_tpu_torch.parallel.sequence import create_sp_mesh
 
     spec = json.loads(Path(argv[0]).read_text())
     rank, kind = int(argv[1]), spec["kind"]
     init_distributed(spec["init_method"], rank=rank, world_size=spec["world"], device="cuda")
     if kind == "pp":
         mesh = create_pipeline_mesh(1, spec["world"], device="cuda")
+    elif kind == "sp":
+        mesh = create_sp_mesh(1, spec["world"], device="cuda")
     else:
         mesh = create_mesh(MeshSpec(dp=-1, tp=spec["world"] if kind == "tp" else 1),
                            device="cuda")
@@ -5515,6 +5926,9 @@ def parallel_rank(argv: list[str]) -> int:
         out["full"] = parallel_full_tp(mesh)
     elif kind == "pp":
         out["full"] = parallel_full_pp(mesh)
+    elif kind == "sp":
+        out["tiny"] = sp_tiny(mesh)
+        out["full"] = sp_full(mesh)
     else:
         out["tiny"] = parallel_tiny(mesh)
         if kind == "dp":
@@ -5635,10 +6049,11 @@ def check_tiny(name: str, ranks: list[dict], want: dict) -> dict:
 
 
 def parallel_phase() -> tuple[list[dict], dict]:
-    """Data, tensor and pipeline parallelism on the card: two gloo ranks
-    sharing it and one nccl rank (a world of one) at dp, a tp-2 and a pp-2
-    pair of gloo ranks, all subprocesses of this script started together,
-    held to this process's one-process runs (PAR_* and MP_* above)."""
+    """Data, tensor, pipeline and sequence parallelism on the card: two gloo
+    ranks sharing it and one nccl rank (a world of one) at dp, the dp pair
+    also serving both HTTP endpoints, a tp-2, a pp-2 and an sp-2 pair of
+    gloo ranks, all subprocesses of this script started together, held to
+    this process's one-process runs (PAR_*, MP_* and SP_* above)."""
     shutil.rmtree(PARALLEL_RUN, ignore_errors=True)
     PARALLEL_RUN.mkdir()
     t0 = time.perf_counter()
@@ -5646,10 +6061,12 @@ def parallel_phase() -> tuple[list[dict], dict]:
     ref_train = parallel_train_step(None)
     ref_names, ref_emb = parallel_extract(None, PARALLEL_RUN / "extract_one.pt")
     mp_refs = model_parallel_references(ref_train)
+    sp_refs = {"tiny": sp_tiny(None), "full": sp_full(None)}
+    http_ref = http_dp_reference()
     torch.cuda.empty_cache()
     t_ref = time.perf_counter() - t0
     runs, t_ranks = launch_ranks({"gloo2": (2, "dp"), "nccl1": (1, "dp_tiny"),
-                                  "tp2": (2, "tp"), "pp2": (2, "pp")})
+                                  "tp2": (2, "tp"), "pp2": (2, "pp"), "sp2": (2, "sp")})
     gloo, nccl = runs["gloo2"], runs["nccl1"]
     tiny = {"gloo2": check_tiny("gloo2", gloo, want), "nccl1": check_tiny("nccl1", nccl, want)}
     check(tiny["gloo2"]["backend"] == ["gloo", "gloo"] and tiny["nccl1"]["backend"] == ["nccl"],
@@ -5681,14 +6098,18 @@ def parallel_phase() -> tuple[list[dict], dict]:
     model_parallel, mp_counts = model_parallel_checks(runs["tp2"], runs["pp2"], ref_train,
                                                      mp_refs)
     counts.update(mp_counts)
+    sequence_parallel, sp_counts = sp_checks(runs["sp2"], sp_refs)
+    counts.update(sp_counts)
+    http_over_dp = http_dp_checks(gloo, http_ref)
     record = {
         "phase": "parallel", "model": MODEL_NAME,
         "seconds": {"one_process_references": t_ref,
                     "two_ranks_sharing_one_card": t_ranks["gloo2"],
                     "one_nccl_rank": t_ranks["nccl1"],
                     "tp2_ranks_sharing_one_card": t_ranks["tp2"],
-                    "pp2_ranks_sharing_one_card": t_ranks["pp2"]},
-        "note": "the dp, tp and pp groups' seven ranks share one card, started together: "
+                    "pp2_ranks_sharing_one_card": t_ranks["pp2"],
+                    "sp2_ranks_sharing_one_card": t_ranks["sp2"]},
+        "note": "the dp, tp, pp and sp groups' nine ranks share one card, started together: "
                 "the seconds are not a parallel speed",
         "tiny_f32": tiny,
         "full_width": {
@@ -5705,6 +6126,8 @@ def parallel_phase() -> tuple[list[dict], dict]:
         },
         "launches_by_rank_and_part": [g["full"]["launches"] for g in gloo],
         "model_parallel": model_parallel,
+        "sequence_parallel": sequence_parallel,
+        "http_over_dp": http_over_dp,
         "card": nvidia_smi(),
     }
     shutil.rmtree(PARALLEL_RUN, ignore_errors=True)
@@ -5723,8 +6146,11 @@ def train_agreement(got: dict, ref: dict) -> tuple[float, float]:
 def grad_agreement(got: dict, ref: dict) -> tuple[float, str]:
     """The step's clipped gradients against one process's: the largest
     leaf-wise max |got - ref| / max |ref| (``train_path``'s measure of two
-    computations of one gradient) and its leaf."""
-    return max((float((got["grads"][k] - g).abs().max() / g.abs().max()), k)
+    computations of one gradient) and its leaf.  A leaf whose reference is
+    all zero (the mapper's key bias: softmax is shift-invariant) counts by
+    its max |got| over the largest max |ref| of the tree."""
+    scale = max(float(g.abs().max()) for g in ref["grads"].values())
+    return max((float((got["grads"][k] - g).abs().max()) / (float(g.abs().max()) or scale), k)
                for k, g in ref["grads"].items())
 
 
@@ -6075,6 +6501,7 @@ def main(argv: list[str]) -> int:
         "replaces": f"{step_kernel}:371", "launches": launches["beam"]["decode_attention"],
         "per": "call (1 CUDA launch), idx 40, B 512, gather_start 15",
         **{k: origin[k] for k in keys + redesigned}}
+    emit({"phase": "script", "seconds": time.perf_counter() - T0, "card": card})
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(RESULTS + [table], indent=1))
     print(json.dumps(table), flush=True)
     print(nvidia_smi(), flush=True)

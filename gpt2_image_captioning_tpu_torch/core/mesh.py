@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+from typing import ClassVar
 
 import torch
 import torch.distributed as dist
@@ -70,36 +71,71 @@ class MeshSpec:
         return dp, tp
 
 
-@dataclasses.dataclass(frozen=True)
-class Mesh:
-    """This rank's view of the ``(dp, tp)`` mesh: the shape, its index
-    ``rank`` among ``world_size`` ranks, the world's process ``group`` (None
-    for a one-rank mesh without one), the group's ``backend``, the rank's
-    ``device``, its coordinates ``dp_rank`` / ``tp_rank``
-    (``rank = dp_rank · tp + tp_rank``) and the subgroups of its axes:
-    ``dp_group`` (the ranks of its tp index) and ``tp_group`` (those of its
-    dp index), each None where its axis has size 1."""
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class GridMesh:
+    """This rank's view of a ``(dp, X)`` grid of ranks, ``rank = dp_rank · X +
+    x`` with X contiguous (the JAX ``reshape(dp, X)``): its ``rank`` among
+    ``world_size`` ranks, the world's process ``group`` (None for a one-rank
+    mesh without one), the group's ``backend``, the rank's ``device``, its
+    ``dp_rank`` and ``dp_group`` (the ranks of its X index; None where dp is
+    1).  A subclass names the second axis by ``AXIS`` = (the field of its
+    size, the field of this rank's index on it); the axis's group is the
+    field ``{size}_group`` (the ranks of this dp index)."""
 
+    AXIS: ClassVar[tuple[str, str]]
     dp: int
-    tp: int
     rank: int
     world_size: int
     group: object
     backend: str | None
     device: torch.device
     dp_rank: int = 0
-    tp_rank: int = 0
     dp_group: object = None
-    tp_group: object = None
 
     @property
     def shape(self) -> dict[str, int]:
-        return {DATA_AXIS: self.dp, MODEL_AXIS: self.tp}
+        return {DATA_AXIS: self.dp, self.AXIS[0]: getattr(self, self.AXIS[0])}
 
     @property
     def is_main(self) -> bool:
         """Whether this rank writes the run's files (rank 0)."""
         return self.rank == 0
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class Mesh(GridMesh):
+    """The ``(dp, tp)`` mesh: ``tp_rank`` on the tp axis and ``tp_group``
+    (the ranks of its dp index)."""
+
+    AXIS = (MODEL_AXIS, "tp_rank")
+    tp: int
+    tp_rank: int = 0
+    tp_group: object = None
+
+
+def grid_mesh(cls: type[GridMesh], dp: int, inner: int, device=None,
+              unit: str = "ranks") -> GridMesh:
+    """This rank's ``cls`` mesh on the ``(dp, inner)`` grid over the
+    initialised process group (one rank without one), whose world size must
+    be ``dp · inner`` (else "mesh {dp}x{inner} needs {dp · inner} {unit},
+    have {n}"); every rank must call (the subgroups are created
+    collectively).  ``device``: the rank's device (:func:`rank_device`, the
+    card by default)."""
+    grouped = dist.is_initialized()
+    n = dist.get_world_size() if grouped else 1
+    if n != dp * inner:
+        raise ValueError(f"mesh {dp}x{inner} needs {dp * inner} {unit}, have {n}")
+    rank = dist.get_rank() if grouped else 0
+    dp_rank, index = divmod(rank, inner)
+    size, index_field = cls.AXIS
+    inner_group = axis_groups([[d * inner + i for i in range(inner)] for d in range(dp)], rank)
+    return cls(dp=dp, rank=rank, world_size=n, group=dist.group.WORLD if grouped else None,
+               backend=dist.get_backend() if grouped else None,
+               device=rank_device(DEFAULT_DEVICE if device is None else device),
+               dp_rank=dp_rank,
+               dp_group=axis_groups([[d * inner + i for d in range(dp)] for i in range(inner)],
+                                    rank),
+               **{size: inner, index_field: index, f"{size}_group": inner_group})
 
 
 def tp_active(mesh) -> bool:
@@ -186,19 +222,9 @@ def create_mesh(spec: MeshSpec | None = None, device=None) -> Mesh:
     group must make the call (the subgroups are created collectively).
     ``device``: the rank's device (:func:`rank_device`, the card by
     default)."""
-    spec = spec or MeshSpec()
     grouped = dist.is_initialized()
-    n = dist.get_world_size() if grouped else 1
-    dp, tp = spec.resolve(n)
-    rank = dist.get_rank() if grouped else 0
-    dp_rank, tp_rank = divmod(rank, tp)
-    return Mesh(dp=dp, tp=tp, rank=rank, world_size=n,
-                group=dist.group.WORLD if grouped else None,
-                backend=dist.get_backend() if grouped else None,
-                device=rank_device(DEFAULT_DEVICE if device is None else device),
-                dp_rank=dp_rank, tp_rank=tp_rank,
-                dp_group=axis_groups([[d * tp + t for d in range(dp)] for t in range(tp)], rank),
-                tp_group=axis_groups([[d * tp + t for t in range(tp)] for d in range(dp)], rank))
+    dp, tp = (spec or MeshSpec()).resolve(dist.get_world_size() if grouped else 1)
+    return grid_mesh(Mesh, dp, tp, device)
 
 
 def axis_groups(members: list[list[int]], rank: int):

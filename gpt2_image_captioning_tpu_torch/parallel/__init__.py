@@ -1,11 +1,10 @@
 """Explicit collectives and model parallelism over the port's meshes — the
 counterpart of ``gpt2_image_captioning_tpu/parallel/``: the ``(dp, tp)``
-mesh's collectives (``collectives.py``) and the GPipe pipeline over a
-``(dp, pp)`` mesh (``pipeline.py``, whose names load on first use: it
-imports the models, which import the collectives).  The JAX package's
-sequence-parallel names (``SEQ_AXIS``, ``create_sp_mesh``,
-``make_sp_loss_and_grad``, ``pad_batch_for_sp``) come with the next slice
-(ROADMAP.md, queue 1)."""
+mesh's collectives (``collectives.py``), the GPipe pipeline over a
+``(dp, pp)`` mesh (``pipeline.py``) and sequence parallelism over a
+``(dp, sp)`` mesh with its ring attention (``sequence.py``, ``ring.py``).
+The pipeline's and the sequence-parallel names load on first use: those
+modules import the models, which import the collectives."""
 
 from gpt2_image_captioning_tpu_torch.core.mesh import (  # noqa: F401
     DATA_AXIS,
@@ -22,13 +21,17 @@ from gpt2_image_captioning_tpu_torch.parallel.collectives import (  # noqa: F401
     psum_tensors,
 )
 
-_PIPELINE_NAMES = ("PIPE_AXIS", "create_pipeline_mesh", "make_pipeline_loss_and_grad",
-                   "make_pipeline_train_step", "pipeline_param_specs")
+_LAZY = {
+    **dict.fromkeys(("PIPE_AXIS", "create_pipeline_mesh", "make_pipeline_loss_and_grad",
+                     "make_pipeline_train_step", "pipeline_param_specs"), "pipeline"),
+    **dict.fromkeys(("SEQ_AXIS", "create_sp_mesh", "make_sp_loss_and_grad", "pad_batch_for_sp"),
+                    "sequence"),
+}
 
 
 def __getattr__(name):
-    if name in _PIPELINE_NAMES:
-        from gpt2_image_captioning_tpu_torch.parallel import pipeline
+    if name in _LAZY:
+        import importlib
 
-        return getattr(pipeline, name)
+        return getattr(importlib.import_module(f"{__name__}.{_LAZY[name]}"), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -25,6 +25,16 @@ and its all-gather's backward needs global rank 0 in the group):
 - :func:`gather_last_tp` — the tp slices concatenated on the last dim, whose
   backward takes the rank's slice (the decode step's logits).
 
+Over the sp axis of a ``(dp, sp)`` mesh (``parallel/sequence.py``, whose
+mesh has ``sp_group`` and ``sp_rank``), the sequence-parallel pair:
+
+- :func:`gather_seq_sp` — the ranks' (B, T/sp, ...) chunks concatenated on
+  dim 1 in sp order, whose backward reduce-scatters the gradient over sp
+  in float32 onto the rank's chunk (the JAX ``all_gather``'s transpose);
+- :func:`ring_permute` — the tensor of sp index ``s - 1`` (round the ring),
+  whose backward sends the gradient the other way (``ppermute``'s
+  transpose).
+
 :class:`Split`, :func:`shard_tree` and :func:`gather_tree` cut a tree of full
 tensors into a rank's slices and join the slices again.
 
@@ -266,3 +276,67 @@ def gather_tree(tree, specs, backend: str | None, groups: dict[str, object],
         return join(blocks, split, size).to(x.device)
 
     return _map_specs(leaf, tree, specs)
+
+
+# ---------------------------------------------------------------------------
+# The sp axis
+# ---------------------------------------------------------------------------
+
+class _GatherSeqSP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        src = _staged(mesh.backend, x).contiguous()
+        parts = [torch.empty_like(src) for _ in range(mesh.sp)]
+        dist.all_gather(parts, src, group=mesh.sp_group)
+        return torch.cat(parts, dim=1).to(x.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        parts = [_staged(mesh.backend, c.float()).contiguous()
+                 for c in g.chunk(mesh.sp, dim=1)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=mesh.sp_group)
+        return out.to(device=g.device, dtype=g.dtype), None
+
+
+def _exchange(mesh, x: torch.Tensor, dst: int, src: int) -> torch.Tensor:
+    """Send ``x`` to global rank ``dst`` and return what global rank ``src``
+    sends, as one posted pair (a blocking send on every rank at once can
+    deadlock under gloo)."""
+    out = _staged(mesh.backend, x.detach()).contiguous()
+    buf = torch.empty_like(out)
+    ops = [dist.P2POp(dist.isend, out, dst), dist.P2POp(dist.irecv, buf, src)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return buf.to(x.device)
+
+
+def _sp_peer(mesh, step: int) -> int:
+    """The global rank ``step`` places ahead of this one round its sp ring
+    (the ranks ``dp_rank · sp + s``)."""
+    return mesh.dp_rank * mesh.sp + (mesh.sp_rank + step) % mesh.sp
+
+
+class _RingPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _exchange(mesh, x, _sp_peer(mesh, 1), _sp_peer(mesh, -1))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(ctx.mesh, g, _sp_peer(ctx.mesh, -1), _sp_peer(ctx.mesh, 1)), None
+
+
+def gather_seq_sp(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Every sp rank's ``x`` (B, T/sp, ...) concatenated on dim 1 in sp
+    order; the gradient of the whole sums over sp onto each rank's chunk."""
+    return _GatherSeqSP.apply(x, mesh) if mesh.sp > 1 else x
+
+
+def ring_permute(mesh, x: torch.Tensor) -> torch.Tensor:
+    """The ``x`` of the previous rank round the sp ring (each rank sends its
+    own to the next); the gradient goes back to the sender."""
+    return _RingPermute.apply(x, mesh) if mesh.sp > 1 else x

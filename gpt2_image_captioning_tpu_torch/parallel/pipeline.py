@@ -41,8 +41,7 @@ import dataclasses
 import torch
 import torch.distributed as dist
 
-from gpt2_image_captioning_tpu_torch.core.device import DEFAULT_DEVICE
-from gpt2_image_captioning_tpu_torch.core.mesh import DATA_AXIS, axis_groups, rank_device
+from gpt2_image_captioning_tpu_torch.core.mesh import DATA_AXIS, GridMesh, grid_mesh
 from gpt2_image_captioning_tpu_torch.core.precision import F32, Policy
 from gpt2_image_captioning_tpu_torch.core.tree import tree_leaves, tree_map
 from gpt2_image_captioning_tpu_torch.models import captioner as C
@@ -57,54 +56,21 @@ from gpt2_image_captioning_tpu_torch.train import optim
 PIPE_AXIS = "pp"
 
 
-@dataclasses.dataclass(frozen=True)
-class PipelineMesh:
-    """This rank's view of the ``(dp, pp)`` mesh: the shape, its ``rank``
-    among ``world_size`` ranks (``rank = dp_rank · pp + stage``), the
-    world's ``group`` and ``backend``, the rank's ``device``, and the
-    subgroups of its axes (``dp_group``: the ranks of its stage;
-    ``pp_group``: the stages of its dp index), None where an axis has size
-    1."""
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class PipelineMesh(GridMesh):
+    """The ``(dp, pp)`` mesh (``rank = dp_rank · pp + stage``): ``stage`` on
+    the pp axis and ``pp_group`` (the stages of its dp index)."""
 
-    dp: int
+    AXIS = (PIPE_AXIS, "stage")
     pp: int
-    rank: int
-    world_size: int
-    group: object
-    backend: str | None
-    device: torch.device
-    dp_rank: int
     stage: int
-    dp_group: object
     pp_group: object
-
-    @property
-    def shape(self) -> dict[str, int]:
-        return {DATA_AXIS: self.dp, PIPE_AXIS: self.pp}
-
-    @property
-    def is_main(self) -> bool:
-        return self.rank == 0
 
 
 def create_pipeline_mesh(dp: int, pp: int, device=None) -> PipelineMesh:
-    """The ``(dp, pp)`` mesh of this rank over the initialised process group
-    (one rank without one), whose world size must be ``dp · pp``; every rank
-    must call (the subgroups are created collectively).  ``device``: the
-    rank's device (:func:`core.mesh.rank_device`, the card by default)."""
-    grouped = dist.is_initialized()
-    n = dist.get_world_size() if grouped else 1
-    if n != dp * pp:
-        raise ValueError(f"mesh {dp}x{pp} needs {dp * pp} devices, have {n}")
-    rank = dist.get_rank() if grouped else 0
-    dp_rank, stage = divmod(rank, pp)
-    return PipelineMesh(
-        dp=dp, pp=pp, rank=rank, world_size=n, group=dist.group.WORLD if grouped else None,
-        backend=dist.get_backend() if grouped else None,
-        device=rank_device(DEFAULT_DEVICE if device is None else device),
-        dp_rank=dp_rank, stage=stage,
-        dp_group=axis_groups([[d * pp + s for d in range(dp)] for s in range(pp)], rank),
-        pp_group=axis_groups([[d * pp + s for s in range(pp)] for d in range(dp)], rank))
+    """The ``(dp, pp)`` mesh of this rank (:func:`core.mesh.grid_mesh`),
+    with the JAX error's wording."""
+    return grid_mesh(PipelineMesh, dp, pp, device, unit="devices")
 
 
 # ---------------------------------------------------------------------------

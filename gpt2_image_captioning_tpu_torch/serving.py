@@ -52,10 +52,22 @@ decode on the rank's slices (the JAX ``serving.py:124-135``).
 ``ContinuousCaptionService`` splits its pool into ``dp`` sub-pools of
 ``slots // dp`` rows, one a rank (:func:`models.continuous.macro_step_dp`),
 and routes the queue's entries round-robin over them; its meshes must be
-dp-only, as the JAX service's (``serving.py:359-360``).  Not ported, and
-refused: the HTTP endpoints over a service whose mesh has more than one
-rank (ROADMAP.md, queue 1: serve_http over a dp service): in a
-multi-process world one rank listens.
+dp-only, as the JAX service's (``serving.py:359-360``).
+
+The HTTP endpoints take a service of several ranks, each rank calling them
+with its own service over the mesh (the same script under ``torchrun``).
+The main rank (``mesh.is_main``) listens and answers; before each call into
+its service it broadcasts the call's inputs over the mesh's group — a
+coalesced batch's pixels, or a pump turn's accepted requests and whether it
+steps — and every other rank gets a :class:`_Follower`, whose
+``serve_forever()`` makes the same calls in the same order, so the
+service's collectives meet.  A request the main rank's service refuses is
+never broadcast.  The main rank's ``shutdown()`` broadcasts stop, which
+ends the followers' ``serve_forever()``; while idle it broadcasts a beat
+every ``_IDLE_BEAT_S`` seconds, so no follower's wait outlives the process
+group's timeout.  A broadcast that fails (a follower died, or the group
+timed out) answers 500 to every request waiting or queued and to every
+later one, and stops the server.
 """
 
 from __future__ import annotations
@@ -72,6 +84,7 @@ from typing import Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gpt2_image_captioning_tpu_torch.core.mesh import shard_bounds, tp_active
 from gpt2_image_captioning_tpu_torch.core.precision import BF16
@@ -698,18 +711,90 @@ class _Pending:
         self.top_p = top_p
 
 
-def _refuse_ranks(service) -> None:
+_IDLE_BEAT_S = 60.0  # an idle main rank's beat to its followers (module docstring)
+
+
+class _Relay:
+    """The main rank's service calls, broadcast from it over the mesh's
+    group (every rank: the dp ranks and, at tp, the slices): a header of two
+    int64 (a count, or -1 for stop; a flag), then arrays whose shapes the
+    header and the service fix.  Under gloo the tensors go through the
+    host, under nccl through the rank's card."""
+
+    def __init__(self, mesh):
+        self.group = mesh.group
+        self.is_main = mesh.is_main
+        self.device = torch.device("cpu") if mesh.backend == "gloo" else mesh.device
+        self.lost: str | None = None  # the error once a broadcast has failed
+
+    def send(self, n: int, flag: int = 0, *arrays: np.ndarray) -> None:
+        self.header(n, flag)
+        for a in arrays:
+            dist.broadcast(torch.from_numpy(np.ascontiguousarray(a)).to(self.device), src=0,
+                           group=self.group)
+
+    def header(self, n: int = 0, flag: int = 0) -> tuple[int, int]:
+        """The main rank's (n, flag), which the other ranks' arguments do
+        not change."""
+        h = torch.tensor([n, flag], dtype=torch.int64, device=self.device)
+        dist.broadcast(h, src=0, group=self.group)
+        return int(h[0]), int(h[1])
+
+    def array(self, shape, dtype) -> np.ndarray:
+        buf = torch.empty(shape, dtype=dtype, device=self.device)
+        dist.broadcast(buf, src=0, group=self.group)
+        return buf.cpu().numpy()
+
+
+def _relay(service) -> _Relay | None:
+    """The relay of a service whose mesh has several ranks, else None."""
     mesh = service._mesh
-    if mesh is not None and mesh.world_size > 1:
-        raise NotImplementedError(
-            "an HTTP endpoint over a service of several ranks is not ported yet (ROADMAP.md, "
-            "queue 1: serve_http over a dp service): one rank would listen for all of them")
+    return _Relay(mesh) if mesh is not None and mesh.world_size > 1 else None
 
 
-def _service_thread(device: torch.device, body, name: str):
-    """A daemon thread that runs ``body`` with grad mode off on ``device``'s
-    default stream: grad mode, the current device and the current stream are
-    a thread's own, so none is taken from the thread that built the server."""
+def _relayed(relay: _Relay | None, server, waiting, queued: queue.Queue, *args) -> bool:
+    """``relay.send(*args)``; True without a relay.  A failed broadcast (a
+    follower died, or the group timed out) leaves the ranks unable to meet
+    again: every request in ``waiting`` and in ``queued`` gets 500 with the
+    error, later requests get it at once (:func:`_fail_if_lost`), ``server``
+    (None: none) stops listening, and False tells the service thread to
+    return."""
+    if relay is None:
+        return True
+    try:
+        relay.send(*args)
+        return True
+    except Exception as e:
+        _log.exception("broadcast to the follower ranks failed")
+        relay.lost = f"the service's other ranks are lost: {e}"
+        failed = list(waiting)
+        while True:
+            try:
+                failed.append(queued.get_nowait())
+            except queue.Empty:
+                break
+        for p in failed:
+            if isinstance(p, _Pending):
+                p.error = relay.lost
+                p.event.set()
+        if server is not None:
+            threading.Thread(target=server.shutdown, daemon=True).start()
+        return False
+
+
+def _fail_if_lost(relay: _Relay | None, p: _Pending) -> None:
+    """Answer ``p``, just queued, with the relay's error if a broadcast has
+    failed: one queued before the failure was drained by :func:`_relayed`,
+    one queued after it is caught here."""
+    if relay is not None and relay.lost is not None:
+        p.error = relay.lost
+        p.event.set()
+
+
+def _on_device(device: torch.device, body):
+    """``body`` wrapped to run with grad mode off on ``device``'s default
+    stream: grad mode, the current device and the current stream are a
+    thread's own, so none is taken from the thread that built the server."""
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
 
@@ -719,7 +804,31 @@ def _service_thread(device: torch.device, body, name: str):
         with torch.no_grad():
             body()
 
-    return threading.Thread(target=run, daemon=True, name=name)
+    return run
+
+
+def _service_thread(device: torch.device, body, name: str):
+    """A daemon thread that runs ``body`` as :func:`_on_device` wraps it."""
+    return threading.Thread(target=_on_device(device, body), daemon=True, name=name)
+
+
+class _Follower:
+    """What an HTTP endpoint gives a rank other than the main one:
+    ``serve_forever()`` replays the main rank's service calls on this
+    rank's service until the main rank shuts down; ``shutdown()`` and
+    ``server_close()`` do nothing."""
+
+    def __init__(self, device: torch.device, replay):
+        self._run = _on_device(device, replay)
+
+    def serve_forever(self, poll_interval: float = 0.5) -> None:
+        self._run()
+
+    def shutdown(self) -> None:
+        pass
+
+    def server_close(self) -> None:
+        pass
 
 
 def _decode_body(handler, max_body_bytes: int, prep) -> np.ndarray | None:
@@ -815,17 +924,39 @@ def serve_http(service: CaptionService, host: str = "127.0.0.1", port: int = 515
 
     Returns the ``ThreadingHTTPServer`` (call ``serve_forever()`` from a
     thread); its ``shutdown()`` also stops and joins the dispatcher
-    (``server.dispatcher_thread``).  A service whose mesh has more than
-    one rank refuses (module docstring).
+    (``server.dispatcher_thread``).  Over a service of several ranks the
+    main rank gets the server and broadcasts each batch's pixels before its
+    ``caption_prepped`` call; the other ranks get a :class:`_Follower`
+    (module docstring).
     """
-    _refuse_ranks(service)
+    relay = _relay(service)
+    if relay is not None and not relay.is_main:
+        side = service.spec.size
+
+        def replay():
+            while (n := relay.header()[0]) >= 0:
+                if n == 0:  # the main rank's idle beat
+                    continue
+                pixels = relay.array((n, side, side, 3), torch.uint8)
+                try:
+                    service.caption_prepped(pixels)
+                except Exception:  # the main rank answers its clients for it
+                    _log.exception("caption batch of %d failed", n)
+
+        return _Follower(service.model.device, replay)
     pending: queue.Queue = queue.Queue()
     stop = object()  # sentinel
 
     def dispatcher():
         while True:
-            item = pending.get()
+            try:
+                item = pending.get(timeout=_IDLE_BEAT_S if relay else None)
+            except queue.Empty:
+                if not _relayed(relay, server, [], pending, 0):
+                    return
+                continue
             if item is stop:
+                _relayed(relay, None, [], pending, -1)
                 return
             batch = [item]
             deadline = time.monotonic() + window_ms / 1000.0
@@ -841,8 +972,11 @@ def serve_http(service: CaptionService, host: str = "127.0.0.1", port: int = 515
                     pending.put(stop)  # for the outer loop, after this batch
                     break
                 batch.append(nxt)
+            pixels = np.stack([p.array for p in batch])
+            if not _relayed(relay, server, batch, pending, len(batch), 0, pixels):
+                return
             try:
-                captions = service.caption_prepped(np.stack([p.array for p in batch]))
+                captions = service.caption_prepped(pixels)
                 for p, cap in zip(batch, captions):
                     p.caption = cap
             except Exception as e:  # a device failure is the server's, not the client's
@@ -861,6 +995,7 @@ def serve_http(service: CaptionService, host: str = "127.0.0.1", port: int = 515
             return
         p = _Pending(arr)
         pending.put(p)
+        _fail_if_lost(relay, p)
         _answer(handler, p, request_timeout_s, "caption batch timed out")
 
     thread = _service_thread(service.model.device, dispatcher, "caption-dispatcher")
@@ -896,10 +1031,35 @@ def serve_http_continuous(service: ContinuousCaptionService, host: str = "127.0.
 
     Returns the ``ThreadingHTTPServer`` (run ``serve_forever()`` from a
     thread); its ``shutdown()`` also stops and joins the pump
-    (``server.pump_thread``).  A service whose mesh has more than one rank
-    refuses (module docstring).
+    (``server.pump_thread``).  Over a service of several ranks the main
+    rank gets the server: each turn its pump submits the new requests, then
+    broadcasts those its service accepted (pixels, and max_length,
+    temperature and top_p with NaN for none) and whether it steps, and
+    steps; the other ranks get a :class:`_Follower`, which submits the same
+    requests in the same order and steps with it (module docstring).
     """
-    _refuse_ranks(service)
+    relay = _relay(service)
+    side = service.spec.size
+    if relay is not None and not relay.is_main:
+        def replay():
+            while (head := relay.header())[0] >= 0:
+                n, stepping = head
+                if n:
+                    pixels = relay.array((n, side, side, 3), torch.uint8)
+                    params = relay.array((n, 3), torch.float64)
+                    for arr, (max_length, temperature, top_p) in zip(pixels, params):
+                        service.submit_prepped(
+                            arr, None if np.isnan(max_length) else int(max_length),
+                            None if np.isnan(temperature) else float(temperature),
+                            None if np.isnan(top_p) else float(top_p))
+                if stepping:
+                    try:
+                        for rid in service.step():
+                            service.pop_result(rid)
+                    except Exception:  # the main rank answers its clients for it
+                        _log.exception("serving step failed")
+
+        return _Follower(service.device, replay)
     intake: queue.Queue = queue.Queue()
     stop = object()
 
@@ -909,12 +1069,16 @@ def serve_http_continuous(service: ContinuousCaptionService, host: str = "127.0.
     def pump():
         rid_map: dict[int, _Pending] = {}
         while True:
+            idle = not (rid_map or busy())
             try:  # block only when there is nothing to serve
-                item = intake.get_nowait() if rid_map or busy() else intake.get()
+                item = intake.get(timeout=_IDLE_BEAT_S if relay else None) if idle \
+                    else intake.get_nowait()
             except queue.Empty:
                 item = None
+            accepted = []
             while item is not None:  # drain the burst
                 if item is stop:
+                    _relayed(relay, None, [], intake, -1)
                     for p in rid_map.values():
                         p.error = "server shut down"
                         p.event.set()
@@ -922,6 +1086,7 @@ def serve_http_continuous(service: ContinuousCaptionService, host: str = "127.0.
                 try:
                     rid_map[service.submit_prepped(item.array, item.max_length,
                                                    item.temperature, item.top_p)] = item
+                    accepted.append(item)
                 except Exception as e:  # bad geometry etc.
                     item.error = str(e)
                     item.event.set()
@@ -929,7 +1094,16 @@ def serve_http_continuous(service: ContinuousCaptionService, host: str = "127.0.
                     item = intake.get_nowait()
                 except queue.Empty:
                     item = None
-            if not busy():
+            stepping = busy()
+            if relay and (accepted or stepping or idle):  # before the step; idle: a beat
+                arrays = [np.stack([p.array for p in accepted]),
+                          np.array([[np.nan if v is None else v
+                                     for v in (p.max_length, p.temperature, p.top_p)]
+                                    for p in accepted], np.float64)] if accepted else []
+                if not _relayed(relay, server, rid_map.values(), intake, len(accepted),
+                                int(stepping), *arrays):
+                    return
+            if not stepping:
                 continue
             try:
                 done = service.step()
@@ -987,6 +1161,7 @@ def serve_http_continuous(service: ContinuousCaptionService, host: str = "127.0.
             return
         p = _Pending(arr, *params)
         intake.put(p)
+        _fail_if_lost(relay, p)
         _answer(handler, p, request_timeout_s, "caption timed out")
 
     thread = _service_thread(service.device, pump, "caption-pump")

@@ -1,4 +1,5 @@
-"""One rank of the port's data-, tensor- and pipeline-parallel CPU tests.
+"""One rank of the port's data-, tensor-, pipeline- and sequence-parallel
+CPU tests, and of its HTTP endpoints over several ranks.
 
     python tests/torch_dist_worker.py TASK DIR RANK WORLD
 
@@ -434,7 +435,204 @@ def _case_batch(inputs: dict, name: str) -> dict:
     return {k[len(name) + 1:]: v for k, v in inputs.items() if k.startswith(name + "_")}
 
 
-TASKS = {"collectives": task_collectives, "dp": task_dp, "tp": task_tp, "pp": task_pp}
+class CollectiveProbe:
+    """Counts, while active, the calls this rank makes to
+    ``torch.distributed``'s all_gather, all_reduce, reduce_scatter and
+    batch_isend_irecv
+    (with each posted pair's (op, peer)), by patching the functions, and the
+    (rows, features) of every ``ops.nn.dense`` input inside
+    ``parallel.sequence._sp_block``."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        from gpt2_image_captioning_tpu_torch.ops import nn
+        from gpt2_image_captioning_tpu_torch.parallel import sequence as S
+
+        self.calls: dict = {"all_gather": 0, "all_reduce": 0, "reduce_scatter": 0,
+                            "batch_isend_irecv": []}
+        self.block_rows: list = []
+        self._patches = []
+        in_block = [False]
+
+        def counted(mod, name, record):
+            orig = getattr(mod, name)
+
+            def wrapper(*a, **k):
+                record(*a, **k)
+                return orig(*a, **k)
+
+            self._patches.append((mod, name, orig, wrapper))
+
+        def bump(name):
+            def record(*a, **k):
+                self.calls[name] += 1
+            return record
+
+        def pairs(ops, *a, **k):
+            self.calls["batch_isend_irecv"].append(
+                [("send" if op.op is dist.isend else "recv", op.peer) for op in ops])
+
+        def dense_rows(params, x, *a, **k):
+            if in_block[0]:
+                self.block_rows.append(tuple(x.shape[:-1]))
+
+        counted(dist, "all_gather", bump("all_gather"))
+        counted(dist, "all_reduce", bump("all_reduce"))
+        counted(dist, "reduce_scatter", bump("reduce_scatter"))
+        counted(dist, "batch_isend_irecv", pairs)
+        counted(nn, "dense", dense_rows)
+        block = S._sp_block
+
+        def in_sp_block(*a, **k):
+            in_block[0] = True
+            try:
+                return block(*a, **k)
+            finally:
+                in_block[0] = False
+
+        self._patches.append((S, "_sp_block", block, in_sp_block))
+
+    def snapshot(self) -> dict:
+        return {**self.calls, "batch_isend_irecv": list(self.calls["batch_isend_irecv"]),
+                "block_rows": list(self.block_rows)}
+
+    def __enter__(self):
+        for mod, name, _, wrapper in self._patches:
+            setattr(mod, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig, _ in self._patches:
+            setattr(mod, name, orig)
+
+
+def task_sp(mesh, spec: dict, root: str) -> dict:
+    """The sequence-parallel cases of the test (tests/test_torch_sp.py) on a
+    (dp, sp) mesh of the world: each case's loss and gradients on this
+    rank's dp rows; ring attention on this rank's chunk, forward and
+    q/k/v gradients; the collectives and block rows of one loss's forward
+    and backward in each form."""
+    from gpt2_image_captioning_tpu_torch.parallel import sequence as S
+    from gpt2_image_captioning_tpu_torch.parallel.ring import ring_attention
+
+    dp, sp = spec["mesh"]
+    smesh = S.create_sp_mesh(dp, sp, device="cpu")
+    inputs = dict(np.load(os.path.join(root, "inputs.npz")))
+    out: dict = {"coords": (smesh.dp_rank, smesh.sp_rank)}
+
+    def local_rows(batch):
+        per = len(batch["labels"]) // dp
+        return {k: v[smesh.dp_rank * per:(smesh.dp_rank + 1) * per] for k, v in batch.items()}
+
+    for case in spec["cases"]:
+        model = tiny_model(spec, root, case["config"])
+        fn = S.make_sp_loss_and_grad(model.cfg, smesh, F32, ring=case["ring"])
+        loss, grads = fn(model.trainable, model.frozen,
+                         local_rows(_case_batch(inputs, case["batch"])))
+        out[case["name"]] = {"loss": float(loss), "grads": flat_numpy(grads)}
+
+    for name, causal, masked in spec["ring_cases"]:
+        q, k, v, w = (torch.from_numpy(inputs[f"{name}_{t}"]) for t in "qkvw")
+        tc = q.shape[2] // sp
+        rows = slice(smesh.sp_rank * tc, (smesh.sp_rank + 1) * tc)
+        q, k, v = (t[:, :, rows].clone().requires_grad_(True) for t in (q, k, v))
+        km = torch.from_numpy(inputs[f"{name}_mask"]) if masked else None
+        o = ring_attention(q, k, v, mesh=smesh, q_offset=smesh.sp_rank * tc, key_mask=km,
+                           causal=causal, policy=F32)
+        (o * w[:, :, rows]).sum().backward()
+        out[name] = {"out": o.detach().numpy(), "grads": [t.grad.numpy() for t in (q, k, v)]}
+
+    model = tiny_model(spec, root, spec["probe"])
+    batch = {k: torch.from_numpy(v) for k, v in local_rows(_case_batch(inputs, "probe")).items()}
+    for ring in (False, True):
+        tr = {k: v for k, v in model.trainable.items()}
+        for p in tree_leaves(tr):
+            p.requires_grad_(True)
+            p.grad = None
+        with CollectiveProbe() as probe:
+            nll, count = S._shard_loss(model.cfg, smesh, F32, ring, tr, model.frozen, batch)
+            forward = probe.snapshot()
+            (nll / count).backward()
+            total = probe.snapshot()
+        out[f"probe_ring{int(ring)}"] = {"forward": forward, "total": total}
+    return out
+
+
+def task_http_dp(mesh, spec: dict, root: str) -> dict:
+    """Both HTTP endpoints over dp-2 services of the test's tiny captioner
+    and CLIP tower: rank 0 serves on port 0 and posts the test's bodies to
+    itself (concurrently, one with a query, then an undecodable one, then
+    the first again), reads /healthz and shuts down; rank 1 runs its
+    follower's ``serve_forever()`` until then."""
+    import threading
+    import http.client
+
+    from gpt2_image_captioning_tpu_torch.models import clip, porting
+    from gpt2_image_captioning_tpu_torch.serving import (
+        CaptionService, ContinuousCaptionService, serve_http, serve_http_continuous,
+    )
+
+    model = captioner(spec, root)
+    vparams = porting.vision_from_jax_numpy(load_tree(os.path.join(root, "weights.npz"),
+                                                      "vision"), device="cpu")
+    vcfg = clip.CLIPVisionConfig.tiny()
+    with np.load(os.path.join(root, "inputs.npz")) as z:
+        bodies = [z[f"body_{i}"].tobytes() for i in range(spec["n_bodies"])]
+    settings = spec["http"]
+
+    def post(port, body, path="/caption", headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request("POST" if body is not None else "GET", path, body=body,
+                         headers=headers or {})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+        finally:
+            conn.close()
+
+    out: dict = {}
+    for kind, build, serve in (
+            ("fixed", lambda: CaptionService(model, vparams, vcfg, policy=F32, mesh=mesh,
+                                              **settings["fixed"]), serve_http),
+            ("continuous", lambda: ContinuousCaptionService(model, vparams, vcfg, mesh=mesh,
+                                                            **settings["continuous"]),
+             serve_http_continuous)):
+        svc = build()
+        server = serve(svc, port=0)
+        if not mesh.is_main:
+            server.serve_forever()  # returns when rank 0 shuts down
+            server.shutdown()
+            server.server_close()
+            out[kind] = {"server": type(server).__name__, "stats": svc.stats}
+            continue
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        answers: dict = {}
+        threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+            i, post(port, bodies[i]))) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        got = {"plain": [answers[i] for i in range(len(bodies))]}
+        if kind == "continuous":
+            got["query"] = post(port, bodies[0], "/caption" + settings["query"])
+        got["bad"] = post(port, b"not an image")
+        got["after_bad"] = post(port, bodies[1])
+        got["health"] = post(port, None, "/healthz")
+        server.shutdown()
+        server.server_close()
+        thread.join(30)
+        got["server"] = type(server).__name__
+        got["serving_thread_alive"] = thread.is_alive()
+        out[kind] = got
+    return out
+
+
+TASKS = {"collectives": task_collectives, "dp": task_dp, "tp": task_tp, "pp": task_pp,
+         "sp": task_sp, "http_dp": task_http_dp}
 
 
 def launch(task: str, root: str, world: int = 2, timeout: float = 120.0) -> list[dict]:
