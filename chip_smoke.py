@@ -9,7 +9,8 @@ bf16 and int8, and prints their records without the summary lines: the
 way to read an earlier tree's ``fused_linear`` on the same card.
 ``--only vocab`` does the same for the four vocabulary kernels — the
 greedy argmax, the stored logits, the top-k and the sampler — in bf16, int8
-and float32, with their contract sweeps; ``--only prefill`` for the prefill
+and float32, with their contract sweeps and the float32 walk kernels'
+registers and local bytes; ``--only prefill`` for the prefill
 kernel (bf16 and float32, its device time by part); ``--only quant`` for
 the int8 row quantizer and the int8 products whose rows carry no LayerNorm,
 which quantize them inside the product.  ``--only http``, ``--only
@@ -66,7 +67,8 @@ before and read just after:
   at full width the score the kernels' search gave each chosen caption
   must be within 0.05 of the plain path's score of it, the kernels'
   captions must score no worse than the plain path's on average, and in
-  float32 the captions must be the plain path's;
+  float32 the captions must be the plain path's; then float32 beam-4 on the
+  three requests, one traced for the device time a step;
 - int8 serving, each beside its bf16 figure from the same run: greedy W8A8
   through ``ImageCaptioningModel.generate(decode_precision="int8")``, the
   same with the int8 KV cache through ``generate(decode_quant=True,
@@ -449,9 +451,11 @@ F32_ROWS = {
     "logits": ("logits.cu", f"{STEP_KERNEL}:617", "sampled_f32",
                "call (2 CUDA launches: LN_f split to TF32 pairs, the TF32 walk), B 128"),
     "logits_topk": ("logits_topk.cu", f"{STEP_KERNEL}:569", "beam_f32",
-                    "call (3 CUDA launches), B 512, k 4"),
+                    "call (3 CUDA launches: LN_f split to TF32 pairs, the TF32 walk, the "
+                    "merge), B 512, k 4"),
     "logits_sample": ("logits_sample.cu", f"{STEP_KERNEL}:641", "in_kernel_f32",
-                      "call (2 + 6 CUDA launches), B 512, temperature 1.0, top_p 0.9"),
+                      "call (2 + 2 x 6 CUDA launches: LN_f split to TF32 pairs, the TF32 walk, "
+                      "per round a verification and a draw), B 512, temperature 1.0, top_p 0.9"),
     "prefill": ("prefill.cu", "gpt2_image_captioning_tpu/ops/prefill_step.py:87", "greedy_f32",
                 "call (84 CUDA launches: 7 a layer), GPT-2 124M, B 128 x 15 tokens"),
 }
@@ -996,7 +1000,7 @@ def check_sampler(dtype, g) -> dict:
                                                          SAMPLE_ROUNDS))}
     return {"kernel": "logits_sample", "max_abs_err": lse_err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "work": work, "library_ms": None,
-            **devices,
+            "library_device_ms": None, **devices,
             "eager_tail_ms": eager_ms, "eager_tail": "layer_norm + mm + ops.sampling.sample_rows",
             "at": f"B {B_SERVE}, D {D}, V {V}, k {SAMPLE_K}, rounds {SAMPLE_ROUNDS}, "
                   f"temperature 1.0, top_p {TOP_P}",
@@ -1119,6 +1123,41 @@ def check_vocab_ring() -> dict:
                       f"{c} != {DS.vocab_ring(rows, el, store)}")
                 rings[f"{rows}x{el}{'_store' if store else ''}"] = list(c)
     return {"phase": "vocab_ring", "rings": rings}
+
+
+# The float32 walk kernels' instantiations: (C entry, its variants' names).
+# The top-k's and the sampler's trade registers from their service
+# warpgroups to their consumers (csrc/vocab_walk.cuh), so their numRegs is
+# the count on entry, 128, and the consumers run on 200.
+WALK_F32_KERNELS = {
+    "argmax_walk_kernel<float>": ("gic_logits_argmax_f32_attrs", ("",)),
+    "store_walk_kernel<float>": ("gic_logits_f32_attrs", ("",)),
+    "topk_walk_kernel<float, KS>": ("gic_logits_topk_f32_attrs", ("KS 4", "KS 8", "KS 16")),
+    "sample_walk_kernel<float, Mode>": ("gic_logits_sample_f32_attrs",
+                                        ("kInit", "kVerify", "kDraw")),
+}
+
+
+def walk_registers() -> dict:
+    """Each float32 walk kernel's registers and local (spill) bytes a thread,
+    as ``cudaFuncGetAttributes`` gives them: reported, not a gate.  A tree
+    whose library lacks an entry (an earlier commit's, run with this
+    script) reports it missing."""
+    import ctypes
+
+    from gpt2_image_captioning_tpu_torch.ops import _build
+
+    lib, out = _build.library(), {}
+    for kernel, (entry, variants) in WALK_F32_KERNELS.items():
+        fn = getattr(lib, entry, None)
+        if fn is None:
+            out[kernel] = "not in this tree"
+            continue
+        for i, variant in enumerate(variants):
+            res = (ctypes.c_int * 2)()
+            _build.check(fn(i, ctypes.addressof(res)), entry)
+            out[f"{kernel} {variant}".strip()] = {"num_regs": res[0], "local_bytes": res[1]}
+    return {"phase": "walk_registers", "kernels": out}
 
 
 def check_logits_topk(dtype, g) -> dict:
@@ -2924,7 +2963,7 @@ LAYER_KERNELS = ("fused_linear_kernel", "linear_wgmma_kernel", "ln_stats_kernel"
                  "decode_attention_kernel", "ln_rows_kernel", "rowquant_kernel")
 VOCAB_KERNELS = {"greedy": ("argmax_walk_kernel", "argmax_reduce_kernel"),
                  "sampled": ("store_walk_kernel",),
-                 "beam": ("topk_walk_kernel", "topk_tile_kernel", "topk_merge_kernel")}
+                 "beam": ("topk_walk_kernel", "topk_merge_kernel")}
 # continuous serving also runs the admission's mapper (flash attention) and
 # prefill (csrc/prefill.cu: its LayerNorms and bf16 products are the
 # layers' ln_rows_kernel and linear_wgmma_kernel, float32's products
@@ -2938,7 +2977,7 @@ VOCAB_KERNELS.update({
 VOCAB_KERNELS.update({f"{path}_int8": names for path, names in VOCAB_KERNELS.items()})
 VOCAB_KERNELS.update(greedy_int8_kv=VOCAB_KERNELS["greedy"], in_kernel_int8=("sample_walk_kernel",),
                      greedy_f32=VOCAB_KERNELS["greedy"], sampled_f32=VOCAB_KERNELS["sampled"],
-                     in_kernel_f32=("sample_tile_kernel",))
+                     in_kernel_f32=("sample_walk_kernel",), beam_f32=VOCAB_KERNELS["beam"])
 
 
 def traced(fn, trace_name: str) -> tuple[float, list[dict], int]:
@@ -3376,6 +3415,43 @@ def beam_f32(model, emb: torch.Tensor, length_penalty: float) -> dict:
     check(n - same <= BEAM_F32_PARTED, f"float32 beams: {same} of {n} captions equal the plain path's")
     return {"images": n, "captions_identical": same, "parted_allowed": BEAM_F32_PARTED,
             "launches": launches}
+
+
+def beam_f32_path(model, reqs, length_penalty: float = 1.0) -> tuple[dict, dict, dict]:
+    """Beam search in float32, the façade's default precision: 4 beams on
+    each request's 128 images (512 decode rows), 50 tokens, through
+    ``beam_generate`` with the kernels; launches checked, img/s, and one
+    traced request for the device time a step (``beam_f32`` holds the
+    captions to the plain path's)."""
+    from gpt2_image_captioning_tpu_torch.models import captioner as C
+
+    cfg = model.cfg
+    tr, fz, pol = model.decode_params("f32")
+    packed = C.prepare_decode_weights(tr, fz, cfg, pol)
+    embs = [torch.from_numpy(r).cuda() for r in reqs]
+
+    def run(emb):
+        return C.beam_generate(tr, fz, cfg, emb, max_length=50, beam_size=BEAM_K,
+                               length_penalty=length_penalty, policy=pol, packed=packed)
+
+    run(embs[0])  # warm-up
+    torch.cuda.synchronize()
+    outs, seconds, launches = run_counted(run, embs)
+    steps = 49 * len(reqs)  # a fixed 50 selections; the last one's forward is skipped
+    check_decode_launches(launches, "logits_topk", steps, len(reqs), cfg)
+    for o in outs:
+        check(tuple(o.shape) == (B, 50) and o.dtype == torch.int32, f"bad output {o.shape}")
+        check_padding(o, cfg.eos_token_id, cfg.gpt2.vocab_size)
+    record = {"phase": "beam_f32_path", "model": MODEL_NAME,
+              "dtype": "float32 (the façade's default)", "beam_size": BEAM_K,
+              "length_penalty": length_penalty, "requests": len(reqs), "images": B,
+              "decode_rows": B_BEAM, "max_length": 50, "decode_steps": steps,
+              "launches": launches, "img_per_s_kernels": len(reqs) * B / seconds,
+              "seconds_kernels": seconds, "card": nvidia_smi()}
+    profiled = profile_path(lambda: run(embs[0]), "beam_f32", 49, seconds / len(reqs))
+    if "device_busy_s" in profiled:
+        profiled["device_ms_per_step"] = 1e3 * profiled["device_busy_s"] / 49
+    return record, launches, profiled
 
 
 def beam_path(model, reqs, length_penalty: float = 1.0,
@@ -6299,6 +6375,8 @@ def main(argv: list[str]) -> int:
         print(nvidia_smi(), flush=True)
         return 0
     if argv:  # one part's records alone, e.g. of an earlier tree's kernels on the same card
+        if argv[1] == "vocab":
+            emit(walk_registers())
         dtypes, fns = ONLY[argv[1]]
         for dtype in dtypes:
             for fn in fns:
@@ -6309,6 +6387,7 @@ def main(argv: list[str]) -> int:
         return 0
     emit(check_dot_f32(g))
     emit(check_vocab_ring())
+    emit(walk_registers())
     kernel_rows = {}
     checks = (check_attention, check_attention_origin, check_attention_start, check_linear,
               check_logits_argmax, check_logits, check_logits_topk, check_sampler, check_flash,
@@ -6348,12 +6427,12 @@ def main(argv: list[str]) -> int:
         bf16[path] = record
         emit(record)
         emit(profiled)
-    launches["beam_f32"] = bf16["beam"]["float32"]["launches"]
     # the façade's default precision, float32, at full width: greedy, sampled
-    # (the façade's defaults) and the draw in the kernel
+    # (the façade's defaults), the draw in the kernel and beam-4
     for path, fn in (("greedy_f32", lambda: greedy_path(model, reqs, "f32")),
                      ("sampled_f32", lambda: sampled_path(model, reqs, "f32")),
-                     ("in_kernel_f32", lambda: sampled_path(model, reqs, "f32", in_kernel=True))):
+                     ("in_kernel_f32", lambda: sampled_path(model, reqs, "f32", in_kernel=True)),
+                     ("beam_f32", lambda: beam_f32_path(model, reqs))):
         record, launches[path], profiled = fn()
         emit(record)
         emit(profiled)

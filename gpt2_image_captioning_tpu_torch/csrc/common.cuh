@@ -3,8 +3,7 @@
 // descriptors and products, cluster barriers and distributed shared memory)
 // that fused_linear.cu, patch_embed.cu and vocab_walk.cuh run on, the
 // LayerNorm pre-pass, and the tiled row-block x weight-tile product that
-// the float32 route of fused_linear.cu, the vocabulary kernels (the top-k
-// and the sampler in float32 only) and the prefill run.
+// the float32 routes of fused_linear.cu and the prefill run.
 //
 // Element type codes match ops/_build.py::DTYPE_CODE: 0 = float, 1 = bf16.
 // Inputs are read in the element type, products accumulate in float32, and
@@ -16,23 +15,20 @@
 // Which design runs where: the decode step's bf16 and int8 projections
 // (fused_linear.cu) stream their operands by TMA into a ring and multiply
 // on wgmma, split over K across a thread-block cluster (its header gives the
-// design and the bound); the top-k's and the sampler's bf16 and int8
-// routes and logits_argmax.cu and logits.cu in every operand type (float32
-// on wgmma TF32) walk wte on vocab_walk.cuh; the prefill's bf16 products
-// run on fused_linear.cu's route.  The tile below serves the float32
-// projections, the float32 routes of the top-k and the sampler, and the
-// float32 prefill's products (prefill.cu,
-// gpt2_image_captioning_tpu/ops/prefill_step.py::_prefill_kernel).  Its
-// bound on the H100: at a decode batch of 128 the weights' bytes (a
-// float32 GPT-2 layer: 28 MB, 8.5 us at 3.35 TB/s); the prefill's 1,920
-// rows are bound by operations (float32: three TF32 products at 495
-// TFLOP/s).
+// design and the bound); the four vocabulary kernels walk wte on
+// vocab_walk.cuh in every operand type (float32 on wgmma TF32); the
+// prefill's bf16 products run on fused_linear.cu's route.  The tile below
+// serves the float32 projections and the float32 prefill's products
+// (prefill.cu, gpt2_image_captioning_tpu/ops/prefill_step.py::
+// _prefill_kernel).  Its bound on the H100: at a decode batch of 128 the
+// weights' bytes (a float32 GPT-2 layer: 28 MB, 8.5 us at 3.35 TB/s); the
+// prefill's 1,920 rows are bound by operations (float32: three TF32
+// products at 495 TFLOP/s).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the CUDA driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
 #include <functional>
@@ -548,6 +544,20 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
+// Hopper's register reallocation (sm_90a): every thread of the calling
+// warpgroup lowers (dec) or raises (inc) its register count to N, a
+// multiple of 8 in [24, 256]; inc waits until other warpgroups of the block
+// have released enough.  The kernel needs a register count fixed at its
+// launch (__launch_bounds__), which ptxas takes as the count on entry.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ---------------------------------------------------------------------------
 // Tiled product: one block computes a BM x BN tile of
 //   Y = prologue(X) @ W^T,   X (M, K) row-major,  W (N, K) row-major,
@@ -555,10 +565,9 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 // ((N, K): each output column's weights are contiguous in K), which is the
 // natural layout of the tied embedding (V, D) and what pack_decode_weights
 // gives the four GPT-2 projections.  Its users: the float32 route of
-// fused_linear.cu, the float32 routes of logits_topk.cu and
-// logits_sample.cu, and the float32 prefill's products.  (The decode step's bf16
-// and int8 projections run on fused_linear.cu's TMA ring, wgmma and
-// cluster split instead: at B 128 this tile's 48-192 blocks, one stage in
+// fused_linear.cu and the float32 prefill's products.  (The decode step's
+// bf16 and int8 projections run on fused_linear.cu's TMA ring, wgmma and
+// cluster split instead: at B 128 a tile of 48-192 blocks, one stage in
 // flight each, read every weight once a 64-row block and normalised every
 // row once a column block, 19x the layer's bound in bf16.)
 //
@@ -566,9 +575,8 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 // each float32 row of the residual stream, cast to the element type, from
 // per-row statistics (mean, rstd) that a pre-pass computed once.
 //
-// bf16 runs on the tensor cores through WMMA 16x16x16 fragments (float
-// accumulators).  float runs on the tensor cores too, as a three-term TF32
-// split (mma.sync m16n8k8 .tf32, split_tf32 and mma_tf32x3 below): each
+// It runs on the tensor cores as a three-term TF32 split (mma.sync
+// m16n8k8 .tf32, split_tf32 and mma_tf32x3 above): each
 // operand x is hi = tf32(x) plus lo = tf32(x - hi), 22 significant bits
 // together, and a product is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with float32
 // accumulators; the dropped a_lo*b_lo term and the split's rounding leave
@@ -580,33 +588,18 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 // loads, lane (g, t) at row g and column t, hit 32 distinct banks.  On an
 // H100 a float32 GPT-2 layer at b 128 takes 0.19 ms against its 0.011 ms
 // bound: its grids of 48-192 blocks keep one stage in flight each, and
-// each block re-reads its rows from L2.  The top-k's and the sampler's
-// float32 walks at 1,571 column blocks fill the card; their bound is the
-// split's products.
-// int8 (W8A8: X quantized per row by rowquant.cu, W per output column by
-// ops/quant.py::colquant) runs WMMA signed-char 16x16x16 fragments with
-// int32 accumulators, exact at any K; the tile is dequantized on its way
-// to sm.cs as (float)acc * sx[row] * sw[col] (decode_step.py:286, :562),
-// so every epilogue reads float tiles whatever the operand type.
+// each block re-reads its rows from L2.
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 64;       // rows of X (batch rows) per block
 constexpr int BN = 32;       // output columns per block
 constexpr int BK = 64;       // depth of one shared-memory stage
 constexpr int THREADS = 128; // 4 warps
-constexpr int LDS = BK + 8;  // shared pitch of the bf16 X/W stages (WMMA wants a multiple of 8)
 constexpr int LDC = BN + 4;  // shared pitch of the float result tile
 
-template <typename T>
-struct __align__(32) TileSmem {
-  __align__(32) T xs[BM][LDS];
-  __align__(32) T ws[BN][LDS];
-  __align__(32) float cs[BM][LDC];
-  float mean[BM];
-  float rstd[BM];
-};
+template <typename T> struct TileSmem;
 
-// float: the pitch BK + 4 (= 4 mod 32 banks) makes the TF32 fragment loads
+// The pitch BK + 4 (= 4 mod 32 banks) makes the TF32 fragment loads
 // conflict-free (TileMma<float>) and keeps every row 16-byte aligned.
 constexpr int LDSF = BK + 4;
 template <>
@@ -618,33 +611,11 @@ struct __align__(32) TileSmem<float> {
   float rstd[BM];
 };
 
-// int8: each 16-deep k-slice of the stage is stored apart ([slice][row][16]),
-// so every WMMA fragment starts on a 32-byte boundary (an int8 fragment
-// 16 bytes into a padded row would not); sx/sw hold the tile's row and
-// column scales.
-constexpr int KS = BK / 16;  // k-slices of one stage
-template <>
-struct __align__(32) TileSmem<int8_t> {
-  __align__(32) int8_t xs[KS][BM][16];
-  __align__(32) int8_t ws[KS][BN][16];
-  __align__(32) float cs[BM][LDC];
-  float sx[BM];
-  float sw[BN];
-};
-
 // Where a stage's 16-byte vector of row r, columns c.., is stored.
 template <typename T>
 __device__ __forceinline__ T* x_slot(TileSmem<T>& sm, int r, int c) { return &sm.xs[r][c]; }
 template <typename T>
 __device__ __forceinline__ T* w_slot(TileSmem<T>& sm, int r, int c) { return &sm.ws[r][c]; }
-template <>
-__device__ __forceinline__ int8_t* x_slot(TileSmem<int8_t>& sm, int r, int c) {
-  return &sm.xs[c / 16][r][0];
-}
-template <>
-__device__ __forceinline__ int8_t* w_slot(TileSmem<int8_t>& sm, int r, int c) {
-  return &sm.ws[c / 16][r][0];
-}
 
 // LayerNorm statistics of one float32 row, two-pass (mean, then the mean of
 // squared deviations), by one warp; every lane gets the result.  The sums
@@ -905,40 +876,7 @@ struct StageRegs {
 
 template <typename T> struct TileMma;
 
-// bf16: warp w owns rows 16w .. 16w+15 of the tile and all BN columns.
-template <> struct TileMma<__nv_bfloat16> {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> acc[BN / 16];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) nvcuda::wmma::fill_fragment(acc[j], 0.f);
-  }
-  __device__ void step(TileSmem<__nv_bfloat16>& sm) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, &sm.xs[warp * 16][kk], LDS);
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j) {
-        // B = W^T: element (k, n) sits at ws[n][k], i.e. column-major with pitch LDS
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(b, &sm.ws[j * 16][kk], LDS);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-  __device__ void store(TileSmem<__nv_bfloat16>& sm) {
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j)
-      nvcuda::wmma::store_matrix_sync(&sm.cs[warp * 16][j * 16], acc[j], LDC,
-                                      nvcuda::wmma::mem_row_major);
-  }
-};
-
-// float: warp w owns rows 16w .. 16w+15 and all BN columns, as bf16 does, as
+// float: warp w owns rows 16w .. 16w+15 and all BN columns, as
 // BN / 8 TF32 m16n8k8 accumulators; each stage's products go to a fresh
 // tile (part) that is added to acc once, in float32.
 template <> struct TileMma<float> {
@@ -993,70 +931,17 @@ template <> struct TileMma<float> {
   }
 };
 
-// int8: warp w owns rows 16w .. 16w+15 and all BN columns, as bf16 does;
-// its int32 tile goes to sm.cs as ints and is dequantized in place.
-template <> struct TileMma<int8_t> {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, int> acc[BN / 16];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) nvcuda::wmma::fill_fragment(acc[j], 0);
-  }
-  __device__ void step(TileSmem<int8_t>& sm) {
-    using namespace nvcuda;
-    const int warp = threadIdx.x / 32;
-#pragma unroll
-    for (int s = 0; s < KS; ++s) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
-      wmma::load_matrix_sync(a, &sm.xs[s][warp * 16][0], 16);
-#pragma unroll
-      for (int j = 0; j < BN / 16; ++j) {
-        // B = W^T: element (k, n) sits at ws[s][n][k % 16], column-major with pitch 16
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b;
-        wmma::load_matrix_sync(b, &sm.ws[s][j * 16][0], 16);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-  }
-  __device__ void store(TileSmem<int8_t>& sm) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j)
-      nvcuda::wmma::store_matrix_sync(reinterpret_cast<int*>(&sm.cs[warp * 16][j * 16]), acc[j],
-                                      LDC, nvcuda::wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 16 * BN; i += 32) {  // this warp's own rows
-      const int r = warp * 16 + i / BN, c = i % BN;
-      float& cell = sm.cs[r][c];
-      cell = (float)__float_as_int(cell) * sm.sx[r] * sm.sw[c];
-    }
-  }
-};
-
-// Copy the row scales of rows m0.. and the column scales of columns n0..
-// into shared memory (0 past M and N, whose products are padding anyway).
-__device__ __forceinline__ void load_scales(TileSmem<int8_t>& sm, const float* sx,
-                                            const float* sw, int M, int N, int m0, int n0) {
-  for (int r = threadIdx.x; r < BM; r += THREADS) sm.sx[r] = m0 + r < M ? sx[m0 + r] : 0.f;
-  for (int c = threadIdx.x; c < BN; c += THREADS) sm.sw[c] = n0 + c < N ? sw[n0 + c] : 0.f;
-}
-
 // Computes this block's tile (rows m0.., columns n0..) into sm.cs; rows >= M
 // and columns >= N hold zeros.  Ends with a barrier, so sm.cs is readable.
 // With LN, ``stats`` holds each row's (mean, rstd) and ln_s/ln_b the scale and
-// bias; without, all three are unused.  For int8 operands (never with LN),
-// ``sx`` (M,) and ``sw`` (N,) are the row and column dequantization scales.
+// bias; without, all three are unused.
 template <typename T, bool LN>
 __device__ void tile_product(TileSmem<T>& sm, const void* x, const float* stats,
                              const float* ln_s, const float* ln_b, const T* w, int M, int K, int N,
-                             int m0, int n0, const float* sx = nullptr,
-                             const float* sw = nullptr) {
-  static_assert(!(LN && std::is_same<T, int8_t>::value), "int8 rows are quantized after LN");
+                             int m0, int n0) {
   StageRegs<T, LN> regs;
   regs.load(x, w, M, K, N, m0, n0, 0);
   if constexpr (LN) load_row_stats(sm, stats, M, m0);
-  // read only by mma.store, after the loop's barriers
-  if constexpr (std::is_same<T, int8_t>::value) load_scales(sm, sx, sw, M, N, m0, n0);
   TileMma<T> mma;
   mma.zero();
   for (int k0 = 0; k0 < K; k0 += BK) {

@@ -170,6 +170,14 @@ extern "C" int gic_logits(int dtype, const void* x32, const void* ln_s, const vo
   return err;
 }
 
+// The float32 walk kernel's registers and local (spill) bytes a thread into
+// out[0], out[1] (vocab_walk.cuh::vw_attrs; variant 0, the only one).
+// Returns 0 or a cudaError_t.
+extern "C" int gic_logits_f32_attrs(int variant, int* out) {
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  return gic::vw_attrs(gic::store_walk_kernel<float>, out);
+}
+
 // The walk's ring for a block of bm rows and operands of el bytes (1, 2 or
 // 4): its stages, and its dynamic shared memory in bytes with (store 1) or
 // without the store's staging, the values that ops/decode_step.py::

@@ -109,12 +109,11 @@ argmax_walk_kernel(const __grid_constant__ CUtensorMap amap,
                    const __grid_constant__ CUtensorMap wmap, int M, int K, int V,
                    float* part_val, int* part_idx, const float* sx, const float* sw) {
   const int tiles = (V + VW_BN - 1) / VW_BN, ranges = gridDim.y, range = blockIdx.y;
-  const int ncons = vw_consumers<E>();
-  const int row0 = blockIdx.x * (ncons / 2) + vw_row0();
+  const int row0 = blockIdx.x * (vw_consumers<E>() / 2) + vw_row0();
   ArgmaxSel<E> sel;
   sel.init(sx, sw, M, V, row0);
   vocab_walk<E>(&amap, &wmap, M, K, tiles * range / ranges, tiles * (range + 1) / ranges, sel);
-  if (threadIdx.x < ncons) sel.finish(M, row0, ranges, range, part_val, part_idx);
+  sel.finish(M, row0, ranges, range, part_val, part_idx);
 }
 
 __global__ void argmax_reduce_kernel(const float* part_val, const int* part_idx, int M, int nblk,
@@ -187,4 +186,12 @@ extern "C" int gic_logits_argmax(int dtype, const void* x32, const void* ln_s, c
   argmax_reduce_kernel<<<(M + rows_per_block - 1) / rows_per_block, 32 * rows_per_block, 0, s>>>(
       pv, pi, M, ranges, static_cast<int*>(tok));
   return (int)cudaGetLastError();
+}
+
+// The float32 walk kernel's registers and local (spill) bytes a thread into
+// out[0], out[1] (vocab_walk.cuh::vw_attrs; variant 0, the only one).
+// Returns 0 or a cudaError_t.
+extern "C" int gic_logits_argmax_f32_attrs(int variant, int* out) {
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  return gic::vw_attrs(gic::argmax_walk_kernel<float>, out);
 }

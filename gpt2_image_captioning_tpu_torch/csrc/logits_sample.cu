@@ -36,27 +36,28 @@
 // r + 1 with probability <= (1 - top_p)^k (each candidate is an independent
 // draw from the full softmax, inside the nucleus with probability >= top_p),
 // 1e-3 at top_p 0.9, k 3: round 2 and on are rare, and their blocks exit
-// at once where no row is unresolved (the float32 route reads a
-// device-side count of them, the walk its row tile's flags); the host
-// never reads either.  Neither route keeps the logits, so round 1 walks wte
+// at once where their row tile's flags name no unresolved row; the host
+// never reads them.  The kernel keeps no logits, so round 1 walks wte
 // again for the masses (a second 39.5 GFLOP product): a cost of the
 // design, which storing the logits (2 x 103 MB, ~60 us) would trade for.
+// float32: the split's three TF32 products, 118.6 GFLOP a walk, 240 us at
+// 495 TFLOP/s.
 //
-// Both routes: pass 0 normalises each row once (vocab.cuh; for an int8 wte
-// it quantizes the rows too).  Each later launch is one pass over wte whose
-// blocks write one partial per (row, block); the last block of a row tile
-// to arrive (a ticket counter; __threadfence before the ticket) merges its
+// Pass 0 normalises each row once (vocab.cuh, vw_prepass: for an int8 wte
+// it quantizes the rows too, for float32 it writes their TF32 hi and lo
+// parts).  Each later launch is one pass of the vocabulary walk of
+// vocab_walk.cuh (TMA ring, wgmma — float32 on wgmma TF32 with the
+// three-term split —, a block per (row tile, column range)) whose blocks
+// write one partial per (row, block); the last block of a row tile to
+// arrive (a ticket counter; __threadfence before the ticket) merges its
 // rows' partials in block order and resolves them, so a pass's result does
 // not depend on which block finished first and two runs give the same
 // bits.  Every comparison is the (value, index) order of vocab.cuh.  The
-// tickets are reset by the pass's last block and the count of unresolved
-// rows returns to 0 by the last round, so the counters a call leaves are
-// the zeros the next call needs.
+// tickets are reset by the pass's last block, so the counters a call
+// leaves are the zeros the next call needs.
 //
-// bf16 and int8: the vocabulary walk of vocab_walk.cuh (TMA ring, wgmma, a
-// block per (row tile, column range)).  Each thread folds its two rows'
-// logits, in registers, into per-row state: the (max, sum) (rescaled once
-// a tile), the argmax, and for each candidate the best perturbed value,
+// In the walk each thread folds its two rows' logits, in registers, into
+// per-row state: the (max, sum) (rescaled once a tile), the argmax, and for each candidate the best perturbed value,
 // its column and its scaled logit, from one Philox call per (row, column)
 // (PhiloxRows: what depends on the row and the round alone computed once)
 // and k Gumbel draws from its words; temperature-0 rows draw nothing.  A
@@ -71,45 +72,28 @@
 // the verification pass, where every unresolved row would draw though
 // ~1e-3 of them need it); after round 1's verification these passes spread
 // each row tile over as many blocks as a full pass has (rare_ranges).
-// 2 + 2 R launches.
-//
-// float32: the common.cuh tile (three-term TF32 split), unchanged: a
-// block owns 64 rows x kTilesPerBlock 32-column tiles (256 columns); per
-// tile one warp per row (a lane per column) reduces the tile and folds it
-// into the row's running partials in shared memory, and each round's
-// launch both verifies and draws.  2 + R launches.
+// 2 + 2 R launches.  In float32 the selection holds more registers than
+// the walk's 16-warp block leaves a thread; the walk trades them from its
+// service warpgroups to its consumers (vocab_walk.cuh, "Registers of the
+// float32 selections"), which alone run a pass's epilogue.
 #include "vocab_walk.cuh"
 
 #include <cstdint>
 
 namespace gic {
 
-constexpr int kMaxCand = 4;         // candidates per row: the four words of one Philox call
-constexpr int kTilesPerBlock = 8;   // 32-column tiles per block (256 columns)
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 key) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    if (i > 0) {
-      key.x += 0x9E3779B9u;
-      key.y += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ key.x, lo1, hi0 ^ c.w ^ key.y, lo0);
-  }
-  return c;
-}
+constexpr int kMaxCand = 4;      // candidates per row: the four words of one Philox call
+constexpr int kBarEpilogue = 2;  // named barrier of a pass's consumer threads after the walk
 
 __device__ __forceinline__ float gumbel(uint32_t bits) {
   const float u = (float)(bits & 0x7FFFFFu) * 1.1920928955078125e-07f + 5.9604644775390625e-08f;
   return -logf(-logf(u));
 }
 
-// Philox4x32-10 of the counters (row, n, round, 0) of one (row, round) as n
-// varies, the words philox4x32_10 gives: what depends on the row and the
-// round alone is computed once (init): the first round's two products, the
-// second round's product of word z, and the round keys.  An element then
+// Philox4x32-10 (Random123) of the counters (row, n, round, 0) of one (row,
+// round) as n varies: what depends on the row and the round alone is
+// computed once (init): the first round's two products, the second round's
+// product of word z, and the round keys.  An element then
 // costs one product in round 2 and two in each of rounds 3-10.
 struct PhiloxRows {
   static constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
@@ -154,21 +138,6 @@ __device__ __forceinline__ uint32_t word(const uint4& w, int c) {
   return c == 0 ? w.x : c == 1 ? w.y : c == 2 ? w.z : w.w;
 }
 
-// The best (value, index) pair of the warp with a payload that travels with it.
-__device__ __forceinline__ void warp_argmax_with(float& v, int& i, float& p) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
-    const float op = __shfl_xor_sync(0xffffffffu, p, o);
-    if (better(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-      p = op;
-    }
-  }
-}
-
 struct SampleArgs {
   const float* temp;  // (M,) per-row temperature, <= 0 is greedy
   const float* topp;  // (M,) per-row nucleus mass
@@ -186,237 +155,13 @@ struct SampleArgs {
   int* unres;   // (M,) 1 while the row is unresolved
   int* cc;      // (M, k) the candidates the next round tests
   float* cl;    // (M, k) their scaled logits
-  int* count;   // [0] unresolved rows; [1 + row block] arrival tickets
+  int* count;   // (row tiles,) arrival tickets
   // W8A8 only: the rows' (M,) and wte's (V,) dequantization scales
   const float* sx;
   const float* sw;
 };
 
-struct RowPartial {
-  float m, s, av;
-  int ai;
-  float cv[kMaxCand], cl[kMaxCand], mass[kMaxCand];
-  int cc[kMaxCand];
-};
-
 __device__ __forceinline__ float scale_of(float temp) { return temp > 0.f ? 1.f / temp : 1.f; }
-
-// One pass over wte: kRound false is the initial walk, true verification
-// round ``round`` (1-based).
-template <typename T, bool kRound>
-__global__ void __launch_bounds__(THREADS)
-sample_tile_kernel(const T* xf, const T* wte, SampleArgs a, int round) {
-  __shared__ TileSmem<T> sm;
-  __shared__ RowPartial part[BM];
-  __shared__ int s_flag;
-  const int cb = blockIdx.x, rb = blockIdx.y, m0 = rb * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int k = a.k;
-
-  if (kRound) {
-    // nothing to do once every row resolved; else only row blocks with an
-    // unresolved row re-stream wte (the flags change only in this row
-    // block's merge, after all of its blocks have arrived)
-    if (__ldcg(a.count) == 0) return;
-    if (threadIdx.x == 0) s_flag = 0;
-    __syncthreads();
-    if (threadIdx.x < BM && m0 + threadIdx.x < a.M && __ldcg(a.unres + m0 + threadIdx.x))
-      s_flag = 1;
-    __syncthreads();
-    if (!s_flag) return;
-  }
-  for (int r = threadIdx.x; r < BM; r += THREADS) {
-    RowPartial& p = part[r];
-    p.m = -CUDART_INF_F;
-    p.s = 0.f;
-    p.av = -CUDART_INF_F;
-    p.ai = INT_MAX;
-    for (int c = 0; c < kMaxCand; ++c) {
-      p.cv[c] = -CUDART_INF_F;
-      p.cc[c] = INT_MAX;
-      p.cl[c] = -CUDART_INF_F;
-      p.mass[c] = 0.f;
-    }
-  }
-  // the first tile_product's barriers order these stores before any use
-
-  const int ntiles = (a.V + BN - 1) / BN;
-  const int t_end = min(ntiles, (cb + 1) * kTilesPerBlock);
-  for (int t = cb * kTilesPerBlock; t < t_end; ++t) {
-    const int n0 = t * BN;
-    tile_product<T, false>(sm, xf, nullptr, nullptr, nullptr, wte, a.M, a.K, a.V, m0, n0, a.sx,
-                           a.sw);
-    const int n = n0 + lane;
-    const bool valid = n < a.V;  // every tile holds column n0 < V
-    for (int r = warp; r < BM; r += THREADS / 32) {
-      const int m = m0 + r;
-      if (m >= a.M) break;  // warp-uniform; rows only grow
-      if (kRound && !a.unres[m]) continue;
-      RowPartial& p = part[r];
-      const float lq = valid ? sm.cs[r][lane] * scale_of(a.temp[m]) : -CUDART_INF_F;
-      if (!kRound) {
-        const float mx = warp_max(lq);
-        const float s = warp_sum(valid ? expf(lq - mx) : 0.f);
-        float bv = lq;
-        int bi = valid ? n : INT_MAX;
-        warp_argmax(bv, bi);
-        if (lane == 0) {
-          const float m_new = fmaxf(p.m, mx);
-          p.s = p.s * expf(p.m - m_new) + s * expf(mx - m_new);
-          p.m = m_new;
-          if (better(bv, bi, p.av, p.ai)) {
-            p.av = bv;
-            p.ai = bi;
-          }
-        }
-      } else {
-        const float lse = a.lse[m];
-        const float e = valid ? expf(lq - lse) : 0.f;
-        for (int c = 0; c < k; ++c) {
-          const float above = warp_sum(lq > a.cl[(size_t)m * k + c] ? e : 0.f);
-          if (lane == 0) p.mass[c] += above;
-        }
-      }
-      const uint4 w = philox4x32_10(make_uint4((uint32_t)m, (uint32_t)n, (uint32_t)round, 0u),
-                                    a.key);
-      for (int c = 0; c < k; ++c) {
-        float pv = valid ? lq + gumbel(word(w, c)) : -CUDART_INF_F;
-        int ci = valid ? n : INT_MAX;
-        float pl = lq;
-        warp_argmax_with(pv, ci, pl);
-        if (lane == 0 && better(pv, ci, p.cv[c], p.cc[c])) {
-          p.cv[c] = pv;
-          p.cc[c] = ci;
-          p.cl[c] = pl;
-        }
-      }
-    }
-  }
-
-  // this block's partials (written by each row's warp, read here by thread r)
-  __syncthreads();
-  const int ncb = a.ncb;
-  for (int r = threadIdx.x; r < BM; r += THREADS) {
-    const int m = m0 + r;
-    if (m >= a.M || (kRound && !a.unres[m])) continue;
-    const RowPartial& p = part[r];
-    const size_t slot = (size_t)m * ncb + cb;
-    if (!kRound) {
-      a.p_m[slot] = p.m;
-      a.p_s[slot] = p.s;
-      a.p_av[slot] = p.av;
-      a.p_ai[slot] = p.ai;
-    }
-    for (int c = 0; c < k; ++c) {
-      a.p_cv[slot * k + c] = p.cv[c];
-      a.p_cc[slot * k + c] = p.cc[c];
-      a.p_cl[slot * k + c] = p.cl[c];
-      if (kRound) a.p_mass[slot * k + c] = p.mass[c];
-    }
-  }
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_flag = atomicAdd(a.count + 1 + rb, 1) == ncb - 1;
-  __syncthreads();
-  if (!s_flag) return;
-  __threadfence();
-
-  // the last block of this row block: merge every column block's partials
-  // of its rows, in column order, and resolve them
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int m = m0 + r;
-    if (m >= a.M) break;
-    if (kRound && !a.unres[m]) continue;
-    const size_t row = (size_t)m * ncb;
-    float cv[kMaxCand], cl[kMaxCand];
-    int cc[kMaxCand];
-    for (int c = 0; c < k; ++c) {
-      cv[c] = -CUDART_INF_F;
-      cc[c] = INT_MAX;
-      cl[c] = -CUDART_INF_F;
-      for (int j = lane; j < ncb; j += 32) {
-        const float v = __ldcg(a.p_cv + (row + j) * k + c);
-        const int i = __ldcg(a.p_cc + (row + j) * k + c);
-        if (better(v, i, cv[c], cc[c])) {
-          cv[c] = v;
-          cc[c] = i;
-          cl[c] = __ldcg(a.p_cl + (row + j) * k + c);
-        }
-      }
-      warp_argmax_with(cv[c], cc[c], cl[c]);
-    }
-    if (!kRound) {
-      float mx = -CUDART_INF_F;
-      for (int j = lane; j < ncb; j += 32) mx = fmaxf(mx, __ldcg(a.p_m + row + j));
-      mx = warp_max(mx);
-      float s = 0.f, av = -CUDART_INF_F;
-      int ai = INT_MAX;
-      for (int j = lane; j < ncb; j += 32) {
-        s += __ldcg(a.p_s + row + j) * expf(__ldcg(a.p_m + row + j) - mx);
-        const float v = __ldcg(a.p_av + row + j);
-        const int i = __ldcg(a.p_ai + row + j);
-        if (better(v, i, av, ai)) {
-          av = v;
-          ai = i;
-        }
-      }
-      s = warp_sum(s);
-      warp_argmax(av, ai);
-      if (lane == 0) {
-        a.lse[m] = mx + logf(s);
-        int tok = ai, rnd = 0, unres = a.temp[m] > 0.f;
-        if (unres && a.rounds == 0) {  // no round to test in: the forced fallback
-          tok = cc[0];
-          rnd = 1;
-          unres = 0;
-        }
-        a.tok[m] = tok;
-        a.rnd[m] = rnd;
-        a.unres[m] = unres;
-        for (int c = 0; c < k; ++c) {
-          a.cc[(size_t)m * k + c] = cc[c];
-          a.cl[(size_t)m * k + c] = cl[c];
-        }
-        if (unres) atomicAdd(a.count, 1);
-      }
-    } else {
-      float mass[kMaxCand];
-      for (int c = 0; c < k; ++c) {
-        float s = 0.f;
-        for (int j = lane; j < ncb; j += 32) s += __ldcg(a.p_mass + (row + j) * k + c);
-        mass[c] = warp_sum(s);
-      }
-      if (lane == 0) {
-        bool done = false;
-        for (int c = 0; c < k && !done; ++c) {
-          if (mass[c] <= a.topp[m]) {
-            a.tok[m] = a.cc[(size_t)m * k + c];
-            a.rnd[m] = round;
-            done = true;
-          }
-        }
-        if (!done && round == a.rounds) {  // out of rounds: round R's first fresh candidate
-          a.tok[m] = cc[0];
-          a.rnd[m] = round + 1;
-          done = true;
-        }
-        for (int c = 0; c < k; ++c) {
-          a.cc[(size_t)m * k + c] = cc[c];
-          a.cl[(size_t)m * k + c] = cl[c];
-        }
-        if (done) {
-          a.unres[m] = 0;
-          atomicSub(a.count, 1);
-        }
-      }
-    }
-  }
-  if (threadIdx.x == 0) a.count[1 + rb] = 0;  // the next pass's tickets
-}
-
-// ---------------------------------------------------------------------------
-// bf16 and int8: the vocabulary walk (vocab_walk.cuh)
-// ---------------------------------------------------------------------------
 
 // The walk's passes: the initial walk (statistics, argmax, round-0 draws),
 // and for each round r the verification of the candidates drawn before it
@@ -652,12 +397,14 @@ __device__ void sample_merge_row(const SampleArgs& a, int m, bool valid, int rou
       mass[c] += __shfl_xor_sync(0xffffffffu, mass[c], 2);
     }
     if (valid && t == 0) {
-      for (int c = 0; c < k; ++c) {
-        if (mass[c] <= a.topp[m]) {
+      bool done = false;  // the first accepted candidate wins
+#pragma unroll
+      for (int c = 0; c < kMaxCand; ++c) {  // unrolled: mass stays in registers
+        if (!done && c < k && mass[c] <= a.topp[m]) {
           a.tok[m] = a.cc[(size_t)m * k + c];
           a.rnd[m] = round;
           a.unres[m] = 0;
-          break;
+          done = true;
         }
       }
     }
@@ -714,9 +461,12 @@ __device__ void sample_merge_row(const SampleArgs& a, int m, bool valid, int rou
     rnd = round + 1;
     unres = 0;
   }
-  for (int c = 0; c < k; ++c) {
-    a.cc[(size_t)m * k + c] = cc[c];
-    a.cl[(size_t)m * k + c] = cl[c];
+#pragma unroll
+  for (int c = 0; c < kMaxCand; ++c) {  // unrolled: cc and cl stay in registers
+    if (c < k) {
+      a.cc[(size_t)m * k + c] = cc[c];
+      a.cl[(size_t)m * k + c] = cl[c];
+    }
   }
   if (Mode == kInit || !unres) {
     a.tok[m] = tok;
@@ -726,14 +476,15 @@ __device__ void sample_merge_row(const SampleArgs& a, int m, bool valid, int rou
 }
 
 // One pass over the walk: grid (row tiles, ranges = a.ncb).  The last block
-// of a row tile to arrive (its ticket, count[1 + row tile]) merges its
-// rows; count[0], the float32 route's count of unresolved rows, stays 0.
+// of a row tile to arrive (its ticket, count[row tile]) merges its rows.
+// After the walk only the consumer threads go on (vocab_walk), synchronised
+// by a named barrier.
 template <typename E, int Mode>
 __global__ void __launch_bounds__(vw_max_threads<E>(), 1)
 sample_walk_kernel(const __grid_constant__ CUtensorMap amap,
                    const __grid_constant__ CUtensorMap wmap, SampleArgs a, int round) {
   __shared__ int s_flag;
-  const int bm = (blockDim.x - 32) / 2, rb = blockIdx.x, m0 = rb * bm;
+  const int ncons = vw_consumers<E>(), bm = ncons / 2, rb = blockIdx.x, m0 = rb * bm;
   const int range = blockIdx.y;
   if (Mode != kInit) {
     // only row tiles with an unresolved row walk (the flags change only in
@@ -751,28 +502,28 @@ sample_walk_kernel(const __grid_constant__ CUtensorMap amap,
   SampleSel<E, Mode> sel;
   sel.init(a, row0, round);
   vocab_walk<E>(&amap, &wmap, a.M, a.K, tiles * range / a.ncb, tiles * (range + 1) / a.ncb, sel);
-  if (threadIdx.x < blockDim.x - 32) sel.finish(a, range);
+  sel.finish(a, range);
 
   __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_flag = atomicAdd(a.count + 1 + rb, 1) == a.ncb - 1;
-  __syncthreads();
+  bar_sync(kBarEpilogue, ncons);
+  if (threadIdx.x == 0) s_flag = atomicAdd(a.count + rb, 1) == a.ncb - 1;
+  bar_sync(kBarEpilogue, ncons);
   if (!s_flag) return;
   __threadfence();
   const int end = min(a.M, m0 + bm);
-  for (int base = m0; base < end; base += blockDim.x / 4) {  // every thread, every pass
+  for (int base = m0; base < end; base += ncons / 4) {  // every consumer thread, every pass
     const int m = base + (int)threadIdx.x / 4;
     const bool valid = m < end && (Mode == kInit || __ldcg(a.unres + m));
     sample_merge_row<Mode>(a, m, valid, round);
   }
-  if (threadIdx.x == 0) a.count[1 + rb] = 0;  // the next pass's tickets
+  if (threadIdx.x == 0) a.count[rb] = 0;  // the next pass's tickets
 }
 
 template <typename E, int Mode>
 static int launch_sample_walk(cudaStream_t s, const void* xf, const void* wte, const SampleArgs& a,
                               int round) {
   const auto kernel = sample_walk_kernel<E, Mode>;
-  static const cudaError_t attr = vw_set_smem<E>(kernel);
+  static const cudaError_t attr = vw_set_smem_heavy<E>(kernel);
   if (attr != cudaSuccess) return (int)attr;
   return vw_launch<E>(kernel, s, xf, wte, a.M, a.K, a.V, a.ncb, 0, a, round);
 }
@@ -784,37 +535,33 @@ static int rare_ranges(int M, int V, int ranges) {
   return tiles < row_tiles * ranges ? tiles : row_tiles * ranges;
 }
 
-// Every pass of a call: pass 0 (vocab.cuh), then the float32 tile's passes
-// or the walk's.  Returns 0 or the first launch error.
+// Every pass of a call: pass 0 (vw_prepass), then the walk's.  Returns 0 or
+// the first launch error.
 template <typename T, typename E>
 static int launch_all(cudaStream_t s, const float* x, const float* lns, const float* lnb,
                       float eps, const void* wte, void* xf, const SampleArgs& a) {
-  launch_prepass<T, E>(s, x, lns, lnb, eps, a.M, a.K, xf, const_cast<float*>(a.sx));
-  if constexpr (std::is_same<E, float>::value) {
-    if (a.ncb != ((a.V + BN - 1) / BN + kTilesPerBlock - 1) / kTilesPerBlock)
-      return (int)cudaErrorInvalidValue;
-    const dim3 grid(a.ncb, (a.M + BM - 1) / BM);
-    const E* xt = static_cast<const E*>(xf);
-    const E* wt = static_cast<const E*>(wte);
-    sample_tile_kernel<E, false><<<grid, THREADS, 0, s>>>(xt, wt, a, 0);
-    for (int r = 1; r <= a.rounds; ++r)
-      sample_tile_kernel<E, true><<<grid, THREADS, 0, s>>>(xt, wt, a, r);
-    return (int)cudaGetLastError();
-  } else {
-    if (a.ncb < 1 || a.ncb > (a.V + VW_BN - 1) / VW_BN) return (int)cudaErrorInvalidValue;
-    // the passes after round 1's verification walk for the few rows it
-    // leaves unresolved, so their row tiles' work spreads over as many
-    // blocks as a full pass has
-    SampleArgs rare = a;
-    rare.ncb = rare_ranges(a.M, a.V, a.ncb);
-    int err = (int)cudaGetLastError();
-    if (!err) err = launch_sample_walk<E, kInit>(s, xf, wte, a, 0);
-    for (int r = 1; r <= a.rounds && !err; ++r) {
-      err = launch_sample_walk<E, kVerify>(s, xf, wte, r == 1 ? a : rare, r);
-      if (!err) err = launch_sample_walk<E, kDraw>(s, xf, wte, rare, r);
-    }
-    return err;
+  vw_prepass<T, E>(s, x, lns, lnb, eps, a.M, a.K, xf, const_cast<float*>(a.sx));
+  // the passes after round 1's verification walk for the few rows it
+  // leaves unresolved, so their row tiles' work spreads over as many
+  // blocks as a full pass has
+  SampleArgs rare = a;
+  rare.ncb = rare_ranges(a.M, a.V, a.ncb);
+  int err = (int)cudaGetLastError();
+  if (!err) err = launch_sample_walk<E, kInit>(s, xf, wte, a, 0);
+  for (int r = 1; r <= a.rounds && !err; ++r) {
+    err = launch_sample_walk<E, kVerify>(s, xf, wte, r == 1 ? a : rare, r);
+    if (!err) err = launch_sample_walk<E, kDraw>(s, xf, wte, rare, r);
   }
+  return err;
+}
+
+// The float32 walk kernels' registers and local bytes a thread (vw_attrs):
+// variant 0, 1, 2 for the initial walk, a verification, a draw.
+static int sample_f32_attrs(int variant, int* out) {
+  if (variant == kInit) return vw_attrs(sample_walk_kernel<float, kInit>, out);
+  if (variant == kVerify) return vw_attrs(sample_walk_kernel<float, kVerify>, out);
+  if (variant == kDraw) return vw_attrs(sample_walk_kernel<float, kDraw>, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace gic
@@ -823,18 +570,16 @@ static int launch_all(cudaStream_t s, const float* x, const float* lns, const fl
 // element type, or int8 when wte_scale ((V,) float32) is given, the rows'
 // scales then in sx, (M,) float32 scratch; temp/topp (M,) float32;
 // key0/key1 the Philox key; 1 <= k <= 4 candidates, rounds >= 0.  ncb: the
-// blocks of a row (float32: ceil(ceil(V / 32) / 8); bf16 and int8: the
-// walk's ranges, 1 .. ceil(V / 128), ops/decode_step.py::vocab_plan).
-// Scratch: xf (M, K) element type; with P the partials a row
-// (ops/decode_step.py::vocab_partials: ncb, or for the walk its rare
+// blocks of a row, the walk's ranges, 1 .. ceil(V / 128)
+// (ops/decode_step.py::vocab_plan).  Scratch: xf (M, K) element type
+// ((2, M, K) float32 for float32: the rows' TF32 hi and lo parts); with P
+// the partials a row (ops/decode_step.py::vocab_partials: the rare
 // passes' ranges), part_f float32 of M * P * (3 + 3k) and part_i int32 of
-// M * P * (1 + k); state_i int32 of M * (1 + k);
-// state_f float32 of M * k; counters int32 of 1 + ceil(M / 64), zero on
-// entry and left zero by a call that completes (each pass's last block
-// resets its ticket; every row that counts itself unresolved resolves by
-// the last round).  Outputs tok, rnd (M,) int32 and lse (M,) float32.
-// Launches 2 + rounds kernels (float32) or 2 + 2 rounds (bf16, int8);
-// returns the first launch error.
+// M * P * (1 + k); state_i int32 of M * (1 + k); state_f float32 of M * k;
+// counters int32 of ceil(M / 64), zero on entry and left zero by a call
+// that completes (each pass's last block resets its ticket).  Outputs
+// tok, rnd (M,) int32 and lse (M,) float32.  Launches 2 + 2 rounds
+// kernels; returns the first launch error.
 extern "C" int gic_logits_sample(int dtype, const void* x32, const void* ln_s, const void* ln_b,
                                  float eps, const void* wte, const void* wte_scale, int M, int K,
                                  int V, const void* temp, const void* topp, unsigned int key0,
@@ -843,7 +588,8 @@ extern "C" int gic_logits_sample(int dtype, const void* x32, const void* ln_s, c
                                  void* state_f, void* counters, void* tok, void* rnd, void* lse,
                                  void* stream) {
   using namespace gic;
-  if (M <= 0 || K <= 0 || V <= 0 || k < 1 || k > kMaxCand || rounds < 0 || ncb < 1)
+  if (M <= 0 || K <= 0 || V <= 0 || k < 1 || k > kMaxCand || rounds < 0 || ncb < 1 ||
+      ncb > (V + VW_BN - 1) / VW_BN)
     return (int)cudaErrorInvalidValue;
   SampleArgs a;
   a.temp = static_cast<const float*>(temp);
@@ -855,8 +601,7 @@ extern "C" int gic_logits_sample(int dtype, const void* x32, const void* ln_s, c
   a.k = k;
   a.rounds = rounds;
   a.ncb = ncb;
-  const bool walk = dtype != kF32 || wte_scale != nullptr;
-  const size_t np = (size_t)M * (walk ? rare_ranges(M, V, ncb) : ncb);  // a pass's slots
+  const size_t np = (size_t)M * rare_ranges(M, V, ncb);  // the most slots a pass writes
   float* pf = static_cast<float*>(part_f);
   a.p_m = pf;
   a.p_s = pf + np;
@@ -888,4 +633,12 @@ extern "C" int gic_logits_sample(int dtype, const void* x32, const void* ln_s, c
       }))
     return (int)cudaErrorInvalidValue;
   return err;
+}
+
+// The float32 walk kernel's registers and local (spill) bytes a thread for
+// the pass ``variant`` (0 the initial walk, 1 a verification, 2 a draw)
+// into out[0], out[1].  Returns 0 or a cudaError_t (cudaErrorInvalidValue
+// past the variants).
+extern "C" int gic_logits_sample_f32_attrs(int variant, int* out) {
+  return gic::sample_f32_attrs(variant, out);
 }

@@ -12,10 +12,14 @@
 // bf16 the product is 2 x 512 x 768 x 50257 = 39.5 GFLOP, ~40 us at
 // 989 TFLOP/s; the bytes (wte, 77.2 MB) take ~23 us.  With an int8 wte
 // (W8A8): 39.5 G int8 operations, ~20 us at 1,979 TOPS, and 38.6 MB of wte.
+// float32: the split's three TF32 products, 118.6 GFLOP, 240 us at 495
+// TFLOP/s.
 //
-// bf16 and int8: the vocabulary walk of vocab_walk.cuh (TMA ring, wgmma,
-// a block per (row tile, column range)).  Pass 0 normalises each row once
-// (and, for an int8 wte, quantizes it: vocab.cuh).  In the walk each
+// Every operand type runs the vocabulary walk of vocab_walk.cuh (TMA ring,
+// wgmma — float32 on wgmma TF32 with the three-term split —, a block per
+// (row tile, column range)).  Pass 0 normalises each row once (for an int8
+// wte it quantizes it, for float32 it writes its TF32 hi and lo parts:
+// vocab.cuh, vw_prepass).  In the walk each
 // thread keeps, for each of its two rows, the running (max, sum of exp(logit
 // - max)) and a sorted top-k of the logits it holds, in registers (KS
 // slots, 4, 8 or 16, the fewest that hold k).  A tile's logits first give
@@ -28,64 +32,21 @@
 // then k rounds of the quad's (value, index) argmax over the lanes' heads,
 // the winner popping its head.  So the partials are one per (row, block),
 // k entries and a (max, sum) pair: 33 a row at B 512, not the 1,571 of a
-// 32-column tile.  The merge launch (below, unchanged) gives each row one
+// 32-column tile of the first port.  The merge launch gives each row one
 // warp: the lanes fold the (max, sum) pairs into the logsumexp in block
 // order and keep sorted top-k lists of the partials, then k rounds of the
 // warp argmax pick the row's top-k.  The global top-k lies in the union of
 // the blocks' top-k, every comparison is the (value, index) order, and
 // every sum runs in a fixed order, so the result does not depend on which
-// block finished first and two runs give the same bits.
-//
-// float32: the common.cuh tile (three-term TF32 split), unchanged.
-// Pass 1 reduces each row of a 64 x 32 tile with one warp (a lane per
-// column) to a partial (max, sum) and a partial top-k: k rounds of the
-// warp's argmax, the winning lane dropping out as (-inf, INT_MAX).  The
-// partials, one per (row, 32-column tile), go to the same merge.
+// block finished first and two runs give the same bits.  In float32 the
+// selection holds more registers than the walk's 16-warp block leaves a
+// thread; the walk trades them from its service warpgroups to its
+// consumers (vocab_walk.cuh, "Registers of the float32 selections").
 #include "vocab_walk.cuh"
 
 namespace gic {
 
 constexpr int kMaxK = 16;  // the merge keeps a lane's top-k in registers
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-topk_tile_kernel(const T* xf, const T* wte, int M, int K, int V, int k, float* part_val,
-                 int* part_idx, float* part_m, float* part_s, const float* sx, const float* sw) {
-  __shared__ TileSmem<T> sm;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int nblk = gridDim.x;
-  tile_product<T, false>(sm, xf, nullptr, nullptr, nullptr, wte, M, K, V, m0, n0, sx, sw);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n = n0 + lane;
-  const bool valid = n < V;  // every tile holds column n0 < V
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int m = m0 + r;
-    if (m >= M) break;  // warp-uniform; rows only grow
-    const float v = valid ? sm.cs[r][lane] : -CUDART_INF_F;
-    const size_t slot = (size_t)m * nblk + blockIdx.x;
-    const float mx = warp_max(v);
-    const float s = warp_sum(valid ? expf(v - mx) : 0.f);
-    if (lane == 0) {
-      part_m[slot] = mx;
-      part_s[slot] = s;
-    }
-    float cv = valid ? v : -CUDART_INF_F;
-    int ci = valid ? n : INT_MAX;
-    for (int j = 0; j < k; ++j) {
-      float bv = cv;
-      int bi = ci;
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        part_val[slot * k + j] = bv;
-        part_idx[slot * k + j] = bi;
-      }
-      if (ci == bi) {  // taken: out of the later rounds
-        cv = -CUDART_INF_F;
-        ci = INT_MAX;
-      }
-    }
-  }
-}
 
 __global__ void topk_merge_kernel(const float* part_val, const int* part_idx,
                                   const float* part_m, const float* part_s, int M, int nblk,
@@ -150,10 +111,6 @@ __global__ void topk_merge_kernel(const float* part_val, const int* part_idx,
     }
   }
 }
-
-// ---------------------------------------------------------------------------
-// bf16 and int8: the vocabulary walk
-// ---------------------------------------------------------------------------
 
 // Per thread, for each of its two rows: the running (max, sum) and a sorted
 // top-KS of its logits, best first.
@@ -287,13 +244,11 @@ topk_walk_kernel(const __grid_constant__ CUtensorMap amap,
                  float* part_val, int* part_idx, float* part_m, float* part_s, const float* sx,
                  const float* sw) {
   const int tiles = (V + VW_BN - 1) / VW_BN, ranges = gridDim.y, range = blockIdx.y;
-  const int bm = (blockDim.x - 32) / 2;
-  const int row0 = blockIdx.x * bm + vw_row0();
+  const int row0 = blockIdx.x * (vw_consumers<E>() / 2) + vw_row0();
   TopkSel<E, KS> sel;
   sel.init(sx, sw, M, V, row0);
   vocab_walk<E>(&amap, &wmap, M, K, tiles * range / ranges, tiles * (range + 1) / ranges, sel);
-  if (threadIdx.x < blockDim.x - 32)
-    sel.finish(M, row0, k, ranges, range, part_val, part_idx, part_m, part_s);
+  sel.finish(M, row0, k, ranges, range, part_val, part_idx, part_m, part_s);
 }
 
 template <typename E, int KS>
@@ -301,46 +256,46 @@ static int launch_topk_walk(cudaStream_t s, const void* xf, const void* wte, int
                             int k, int ranges, float* pv, int* pi, float* pm, float* ps,
                             const float* sx, const float* sw) {
   const auto kernel = topk_walk_kernel<E, KS>;
-  static const cudaError_t attr = vw_set_smem<E>(kernel);
+  static const cudaError_t attr = vw_set_smem_heavy<E>(kernel);
   if (attr != cudaSuccess) return (int)attr;
   return vw_launch<E>(kernel, s, xf, wte, M, K, V, ranges, 0, M, K, V, k, pv, pi, pm, ps, sx, sw);
 }
 
-// Pass 0 and pass 1 of either route; nblk partials a row (float32: one a
-// 32-column tile; bf16 and int8: one a range).  Returns 0 or a cudaError_t.
+// Pass 0 (vw_prepass) and pass 1 (the walk), ranges partials a row.
+// Returns 0 or a cudaError_t.
 template <typename T, typename E>
-static int launch_tiles(cudaStream_t s, const float* x, const float* lns, const float* lnb,
-                        float eps, const void* wte, const float* wte_scale, int M, int K, int V,
-                        int k, int nblk, void* xf, float* sx, float* pv, int* pi, float* pm,
-                        float* ps) {
-  launch_prepass<T, E>(s, x, lns, lnb, eps, M, K, xf, sx);
-  if constexpr (std::is_same<E, float>::value) {
-    if (nblk != (V + BN - 1) / BN) return (int)cudaErrorInvalidValue;
-    const dim3 grid(nblk, (M + BM - 1) / BM);
-    topk_tile_kernel<E><<<grid, THREADS, 0, s>>>(static_cast<const E*>(xf),
-                                                 static_cast<const E*>(wte), M, K, V, k, pv, pi,
-                                                 pm, ps, sx, wte_scale);
-    return (int)cudaGetLastError();
-  } else {
-    if (nblk < 1 || nblk > (V + VW_BN - 1) / VW_BN) return (int)cudaErrorInvalidValue;
-    const cudaError_t pre = cudaGetLastError();
-    if (pre != cudaSuccess) return (int)pre;
-    if (k <= 4)
-      return launch_topk_walk<E, 4>(s, xf, wte, M, K, V, k, nblk, pv, pi, pm, ps, sx, wte_scale);
-    if (k <= 8)
-      return launch_topk_walk<E, 8>(s, xf, wte, M, K, V, k, nblk, pv, pi, pm, ps, sx, wte_scale);
-    return launch_topk_walk<E, 16>(s, xf, wte, M, K, V, k, nblk, pv, pi, pm, ps, sx, wte_scale);
-  }
+static int launch_walk(cudaStream_t s, const float* x, const float* lns, const float* lnb,
+                       float eps, const void* wte, const float* wte_scale, int M, int K, int V,
+                       int k, int ranges, void* xf, float* sx, float* pv, int* pi, float* pm,
+                       float* ps) {
+  vw_prepass<T, E>(s, x, lns, lnb, eps, M, K, xf, sx);
+  const cudaError_t pre = cudaGetLastError();
+  if (pre != cudaSuccess) return (int)pre;
+  if (k <= 4)
+    return launch_topk_walk<E, 4>(s, xf, wte, M, K, V, k, ranges, pv, pi, pm, ps, sx, wte_scale);
+  if (k <= 8)
+    return launch_topk_walk<E, 8>(s, xf, wte, M, K, V, k, ranges, pv, pi, pm, ps, sx, wte_scale);
+  return launch_topk_walk<E, 16>(s, xf, wte, M, K, V, k, ranges, pv, pi, pm, ps, sx, wte_scale);
+}
+
+// The float32 walk kernels' registers and local bytes a thread (vw_attrs),
+// for k's three list sizes in turn: variant 0, 1, 2 for 4, 8, 16 slots.
+static int topk_f32_attrs(int variant, int* out) {
+  if (variant == 0) return vw_attrs(topk_walk_kernel<float, 4>, out);
+  if (variant == 1) return vw_attrs(topk_walk_kernel<float, 8>, out);
+  if (variant == 2) return vw_attrs(topk_walk_kernel<float, 16>, out);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace gic
 
 // x32: (M, K) float32 residual stream; wte: (V, K) element type, or int8
 // when wte_scale ((V,) float32) is given; xf: (M, K) element-type scratch
-// (int8 rows with an int8 wte, their scales in sx, (M,) float32 scratch);
-// nblk: the partials a row (ops/decode_step.py::vocab_partials: float32
-// ceil(V / 32), bf16 and int8 the walk's ranges, 1 .. ceil(V / 128));
-// part_val/part_idx: (M, nblk, k) and part_m/part_s: (M, nblk)
+// (int8 rows with an int8 wte, their scales in sx, (M,) float32 scratch;
+// (2, M, K) float32 for float32, the rows' TF32 hi and lo parts); nblk:
+// the walk's ranges, the partials a row (ops/decode_step.py::
+// vocab_partials, 1 .. ceil(V / 128)); part_val/part_idx: (M, nblk, k)
+// and part_m/part_s: (M, nblk)
 // float32/int32 scratch; vals (M, k) float32, ids (M, k) int32, lse (M,)
 // float32.  1 <= k <= min(16, V); K a multiple of the 16-byte vector width.
 // Returns the first launch error (cudaGetLastError() after the three
@@ -351,7 +306,8 @@ extern "C" int gic_logits_topk(int dtype, const void* x32, const void* ln_s, con
                                void* part_idx, void* part_m, void* part_s, void* vals, void* ids,
                                void* lse, void* stream) {
   using namespace gic;
-  if (M <= 0 || K <= 0 || V <= 0 || k < 1 || k > kMaxK || k > V)
+  if (M <= 0 || K <= 0 || V <= 0 || k < 1 || k > kMaxK || k > V || nblk < 1 ||
+      nblk > (V + VW_BN - 1) / VW_BN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* x = static_cast<const float*>(x32);
@@ -366,8 +322,8 @@ extern "C" int gic_logits_topk(int dtype, const void* x32, const void* ln_s, con
   int err = 0;
   if (!with_types(dtype, ws != nullptr, [&](auto t) {
         using Ty = decltype(t);
-        err = launch_tiles<typename Ty::T, typename Ty::E>(s, x, lns, lnb, eps, wte, ws, M, K, V,
-                                                           k, nblk, xf, sq, pv, pi, pm, ps);
+        err = launch_walk<typename Ty::T, typename Ty::E>(s, x, lns, lnb, eps, wte, ws, M, K, V,
+                                                          k, nblk, xf, sq, pv, pi, pm, ps);
       }))
     return (int)cudaErrorInvalidValue;
   if (err) return err;
@@ -376,4 +332,11 @@ extern "C" int gic_logits_topk(int dtype, const void* x32, const void* ln_s, con
       pv, pi, pm, ps, M, nblk, k, static_cast<float*>(vals), static_cast<int*>(ids),
       static_cast<float*>(lse));
   return (int)cudaGetLastError();
+}
+
+// The float32 walk kernel's registers and local (spill) bytes a thread for
+// k's list size ``variant`` (0, 1, 2: 4, 8, 16 slots) into out[0], out[1].
+// Returns 0 or a cudaError_t (cudaErrorInvalidValue past the variants).
+extern "C" int gic_logits_topk_f32_attrs(int variant, int* out) {
+  return gic::topk_f32_attrs(variant, out);
 }

@@ -6,12 +6,10 @@
 // decode_step.py::_step_kernel (:112; greedy :552-568, emit_logits
 // :617-640, topk :569-616, sample :641): LN_f of the float32 residual
 // stream, then logits = LN_f(x) @ wte^T over the (V, D) tied embedding, on
-// the walk of vocab_walk.cuh (TMA ring, wgmma: the argmax and the store in
-// every operand type, the top-k and the sampler in bf16 and int8), or, for
-// the top-k's and the sampler's float32 routes, in the 64 x 32 tiles of
-// common.cuh.  They differ only in what each tile's logits become: a (max,
-// argmax) pair, a float32 store, a partial top-k with a partial logsumexp,
-// or a draw.  Bound on the H100: wte's bytes (bf16 77.2 MB, 23 us at 3.35
+// the walk of vocab_walk.cuh (TMA ring, wgmma; float32 on wgmma TF32) in
+// every operand type.  They differ only in what each tile's logits become:
+// a (max, argmax) pair, a float32 store, a partial top-k with a partial
+// logsumexp, or a draw.  Bound on the H100: wte's bytes (bf16 77.2 MB, 23 us at 3.35
 // TB/s; int8 38.6 MB) at the greedy and sampled paths' B 128, the products
 // at B 512 and in float32 (the kernels' headers).  With an int8 wte and its
 // (V,) float32 scales (W8A8, :555-563) the pre-pass is rowquant.cu's LN
@@ -26,8 +24,6 @@
 #include <math_constants.h>
 
 namespace gic {
-
-static_assert(BN == 32, "the top-k's and the sampler's float32 tiles give a warp lane a column");
 
 // (v, i) beats (bv, bi): larger value, or equal value and smaller index
 // (jnp.argmax / torch.argmax / lax.top_k order)

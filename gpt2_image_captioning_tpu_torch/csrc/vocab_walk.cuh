@@ -10,9 +10,8 @@
 // :569-616, emit_logits :617-640, sample :641, the int8 tile :555-563),
 // whose first port was the 64 x 32 tile of common.cuh (one stage in
 // flight, four warps, a warp a row per 32-column tile) walking the whole of
-// wte once per 64 rows.  The argmax and the store run on this walk in
-// every operand type (bf16, int8, float32); the top-k and the sampler in
-// bf16 and int8, their float32 routes still on that tile (their headers).
+// wte once per 64 rows.  All four run on this walk in every operand type
+// (bf16, int8, float32).
 //
 // Bound on the H100, at the greedy path's B 128: wte's bytes in bf16 (77.2
 // MB, 23 us at 3.35 TB/s) and int8 (38.6 MB, 12 us; the products 5 us at
@@ -54,7 +53,8 @@
 //   pre-pass (common.cuh::ln_rows_kernel with xl): the (2M, K) operand holds
 //   the xh rows, then the xl rows, streamed as two boxes a stage.  wte is
 //   split in shared memory as each box lands, by seven converter warps
-//   beside the producer (512 threads a block at 128 rows; tf32_rna_bits):
+//   beside the producer (512 threads a block at 128 rows, 16 warps, so a
+//   128-register cap a thread; tf32_rna_bits):
 //   hi in place, lo into a second slot of the stage, then fence.proxy.async
 //   and an mbarrier (ready) that the consumers wait on beside the TMA's.  A
 //   stage is (2 bm + 2 VW_BN) x 128 bytes, 64 KB at bm 128: three stages.
@@ -85,6 +85,16 @@
 //   allows, and measured slower, spilling.)  At the end of its range
 //   a thread merges with its quad once and writes one partial per (row,
 //   block) (finish()); a fixed-order merge follows.
+// - Registers of the float32 selections.  A heavy selection's thread holds
+//   a tile's 64 logits beside its running state (the top-k's lists, the
+//   sampler's candidates and Philox keys): 162-168 registers, past the
+//   128 that the float32 block's 16 warps leave a thread.  So for them
+//   (Sel::kSteps > 0) the block trades registers between its warpgroups
+//   once the barriers are set (Hopper's setmaxnreg): the service warpgroups
+//   (the producer and the converters, warps 8-15 at 128 rows, 4-11 at 64)
+//   drop to VW_SERVICE_REGS, which their loops fit, and the consumer
+//   warpgroups rise to VW_CONSUMER_REGS; 2 x 128 x (56 + 200) is the SM's
+//   65,536.  The argmax and the store fit 128 and keep it.
 #pragma once
 
 #include "vocab.cuh"
@@ -98,6 +108,13 @@ constexpr int VW_MAX_STAGES = 8;
 constexpr int VW_RING_BUDGET = 192 * 1024;  // the ring: one block an SM
 constexpr int VW_BAR_PHASE = 1;             // named barrier: warpgroup 1 starts behind 0
 constexpr int VW_CONVERTERS = 224;          // float32: the converter warps' threads
+// float32 heavy selections: registers a thread after the reallocation
+// (design note above); the launch's 128 a thread must be what ptxas gives.
+constexpr int VW_SERVICE_REGS = 56;
+constexpr int VW_CONSUMER_REGS = 200;
+constexpr int VW_ENTRY_REGS = 65536 / (2 * 128 + 32 + VW_CONVERTERS);
+static_assert(2 * 128 * (VW_SERVICE_REGS + VW_CONSUMER_REGS) <= 65536, "the SM's registers");
+static_assert(VW_SERVICE_REGS <= VW_ENTRY_REGS && VW_ENTRY_REGS <= VW_CONSUMER_REGS, "a trade");
 
 // The threads beside the consumer warpgroups: the producer warp, and for a
 // float32 operand (E = float) the seven converter warps with it.  (The
@@ -177,16 +194,20 @@ __device__ __forceinline__ unsigned char* vw_after_ring() {
 // first column), which turns its accumulators into the logits lg, and then
 // sel.step(lg, j) for j = 0 .. Sel::kSteps - 1 in a rolled loop, each taking
 // lg[0 .. 3] (columns 8 j + {0, 1} past the thread's first, rows h = 0, 1:
-// lg[2 h + e]) and shifting lg down by four (vw_shift).  The service threads
-// return once they have issued (the producer) or split (the converters)
-// every box.  Starts with a __syncthreads (the barriers' initialisation);
-// the caller's next block-wide barrier waits for all threads.
+// lg[2 h + e]) and shifting lg down by four (vw_shift).  Starts with a
+// __syncthreads (the barriers' initialisation).  The service threads end
+// (exit) once they have issued (the producer) or split (the converters)
+// every box, so only the consumer threads return: what follows the walk is
+// theirs alone, and a barrier there counts vw_consumers threads.  (A
+// float32 heavy selection's two roles then run on different register
+// counts, and no code may be shared by both.)
 template <typename E, typename Sel>
 __device__ __forceinline__ void vocab_walk(const CUtensorMap* amap, const CUtensorMap* wmap, int M,
                                            int K, int t0, int t1, Sel& sel) {
   constexpr bool kInt8 = std::is_same<E, int8_t>::value;
   constexpr bool kF32 = std::is_same<E, float>::value;
   constexpr int kParts = kF32 ? 2 : 1;  // boxes an operand: TF32 hi and lo, or the operand
+  constexpr bool kRealloc = kF32 && Sel::kSteps > 0;  // registers traded (design note above)
   using Acc = typename std::conditional<kInt8, int, float>::type;
   constexpr int BK = kTmaBox / (int)sizeof(E);  // K elements a box
   extern __shared__ unsigned char smem_raw[];
@@ -217,6 +238,7 @@ __device__ __forceinline__ void vocab_walk(const CUtensorMap* amap, const CUtens
   __syncthreads();
 
   if (threadIdx.x >= ncons) {
+    if constexpr (kRealloc) setmaxnreg_dec<VW_SERVICE_REGS>();
     const int st = threadIdx.x - ncons;  // the service thread
     if (st == 0) {
       // ---- producer: one lane streams every box of the range ----
@@ -266,10 +288,11 @@ __device__ __forceinline__ void vocab_walk(const CUtensorMap* amap, const CUtens
         }
       }
     }
-    __syncwarp();
-    return;
+    asm volatile("exit;\n");
+    __builtin_unreachable();
   }
   // ---- consumer warpgroup g: rows 64 g .. 64 g + 63 of the row tile ----
+  if constexpr (kRealloc) setmaxnreg_inc<VW_CONSUMER_REGS>();
   // Warpgroup 1 starts half a ring behind warpgroup 0 (a named barrier that
   // 0 passes after its first boxes), so the two stay out of phase and one's
   // selection runs while the other's products hold the tensor cores.  (The
@@ -417,6 +440,35 @@ cudaError_t vw_set_smem(Kernel kernel, size_t extra = 0) {
   const size_t most = vw_smem(64, el) > vw_smem(128, el) ? vw_smem(64, el) : vw_smem(128, el);
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)(most + extra));
+}
+
+// Registers and local (spill) bytes a thread of a walk kernel, as
+// cudaFuncGetAttributes reports them: out[0] numRegs (a float32 heavy
+// selection's count on entry, before the trade), out[1] localSizeBytes.
+// Returns 0 or a cudaError_t.
+template <typename Kernel>
+int vw_attrs(Kernel kernel, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return 0;
+}
+
+// vw_set_smem for a heavy selection's kernel (Sel::kSteps > 0).  A float32
+// one must have VW_ENTRY_REGS registers a thread on entry: with fewer, the
+// consumers' setmaxnreg.inc would wait for registers that the service
+// warpgroups never free, so it is refused (cudaErrorInvalidConfiguration).
+template <typename E, typename Kernel>
+cudaError_t vw_set_smem_heavy(Kernel kernel) {
+  if (std::is_same<E, float>::value) {
+    int r[2];
+    const int err = vw_attrs(kernel, r);
+    if (err) return (cudaError_t)err;
+    if (r[0] != VW_ENTRY_REGS) return cudaErrorInvalidConfiguration;
+  }
+  return vw_set_smem<E>(kernel);
 }
 
 // Internal linkage, as launch_prepass (vocab.cuh).

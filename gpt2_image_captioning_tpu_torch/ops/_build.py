@@ -72,6 +72,11 @@ _SIGNATURES = {
     # rounds, ncb, xf, sx, part_f, part_i, state_i, state_f, counters, tok, rnd, lse, stream
     "gic_logits_sample": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _P, _P, _U, _U, _I, _I, _I, _P,
                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # variant, out (2 int32): a float32 walk kernel's registers and local bytes a thread
+    "gic_logits_argmax_f32_attrs": [_I, _P],
+    "gic_logits_f32_attrs": [_I, _P],
+    "gic_logits_topk_f32_attrs": [_I, _P],
+    "gic_logits_sample_f32_attrs": [_I, _P],
     # dtype, L, B, T, D, H, eps, x32, qkvw, projw, fcw, cprojw, attnb, projb, fcb, cprojb, ln1s,
     # ln1b, ln2s, ln2b, k_cache, v_cache, cache_t, qkvbuf, abuf, hbuf, plans (host, 12 ints),
     # stream

@@ -396,10 +396,10 @@ def logits_argmax_cuda(x32, lnf, wte, eps: float = 1e-5, *, wte_scale=None,
     inside the call); ``compute_dtype`` defaults to wte's.  Returns (B,)
     int32."""
     name = "logits_argmax"
-    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype, walk=True)
+    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
     b, d = x32.shape
     v = wte.shape[0]
-    nblk, _ = vocab_partials("argmax", b, v, cdt == torch.float32 and ws is None)
+    nblk, _ = vocab_partials("argmax", b, v)
     part_val = torch.empty((b, nblk), dtype=torch.float32, device=x32.device)
     part_idx = torch.empty((b, nblk), dtype=torch.int32, device=x32.device)
     tok = torch.empty((b,), dtype=torch.int32, device=x32.device)
@@ -450,26 +450,25 @@ def _vocab_check(name, x32, lnf, wte, wte_scale, compute_dtype) -> torch.dtype:
     return cdt
 
 
-def _vocab_scratch(name, x32, wte_scale, cdt, walk: bool):
+def _vocab_scratch(name, x32, wte_scale, cdt):
     """The device check, then the scratch of the normalised rows — (B, D) in
     the compute dtype, int8 with an int8 wte, (2, B, D) for the float32 walk
-    (``walk``: the rows' TF32 hi and lo parts) — and the (B,) scratch of the
-    rows' scales (None for a float wte)."""
+    (the rows' TF32 hi and lo parts) — and the (B,) scratch of the rows'
+    scales (None for a float wte)."""
     _build.require(x32.is_cuda, name, "x32 must be a CUDA tensor")
     b, d = x32.shape
     if wte_scale is None:
-        shape = (2, b, d) if walk and cdt == torch.float32 else (b, d)
+        shape = (2, b, d) if cdt == torch.float32 else (b, d)
         return torch.empty(shape, dtype=cdt, device=x32.device), None
     return (torch.empty((b, d), dtype=torch.int8, device=x32.device),
             torch.empty((b,), dtype=torch.float32, device=x32.device))
 
 
-def _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype, walk: bool = False):
+def _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype):
     """:func:`_vocab_check` and :func:`_vocab_scratch`: the compute dtype,
-    the two scratch tensors and ``wte_scale``.  ``walk``: the kernel walks
-    wte in every operand type (the argmax, the store)."""
+    the two scratch tensors and ``wte_scale``."""
     cdt = _vocab_check(name, x32, lnf, wte, wte_scale, compute_dtype)
-    return (cdt, *_vocab_scratch(name, x32, wte_scale, cdt, walk), wte_scale)
+    return (cdt, *_vocab_scratch(name, x32, wte_scale, cdt), wte_scale)
 
 
 def _count_vocab(wrapper, name, err, wte_scale) -> None:
@@ -490,7 +489,7 @@ def logits_cuda(x32, lnf, wte, eps: float = 1e-5, *, wte_scale=None,
     """Launch ``csrc/logits.cu``: the (B, V) float32 logits of
     :func:`logits_plain`.  Arguments as :func:`logits_argmax_cuda`."""
     name = "logits"
-    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype, walk=True)
+    cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
     b, d = x32.shape
     v = wte.shape[0]
     out = torch.empty((b, v), dtype=torch.float32, device=x32.device)
@@ -518,12 +517,9 @@ def logits(x32, lnf, wte, eps: float = 1e-5, *, use_kernel: bool | None = None, 
 
 TOPK_MAX = 16  # csrc/logits_topk.cu kMaxK
 
-# The vocabulary walk (csrc/vocab_walk.cuh: the argmax and the store in every
-# operand type, the two selection kernels in bf16 and int8) and the selection
-# kernels' float32 tile (csrc/common.cuh)
+# The vocabulary walk (csrc/vocab_walk.cuh) of the four vocabulary kernels,
+# in every operand type
 VOCAB_BN = 128         # vocab_walk.cuh VW_BN: vocabulary columns a tile
-VOCAB_F32_TILE = 32    # common.cuh BN: the selection kernels' float32 tile
-_SAMPLE_TILES = 8      # logits_sample.cu kTilesPerBlock: float32 tiles a block
 _RING_BUDGET = 192 * 1024  # vocab_walk.cuh VW_RING_BUDGET: bytes of a block's ring
 _RING_STAGES = 8           # vocab_walk.cuh VW_MAX_STAGES
 _TMA_BOX = 128             # common.cuh kTmaBox: bytes of K a box
@@ -573,19 +569,13 @@ def vocab_ring(rows: int, element_size: int, store: bool = False) -> tuple[int, 
     return stages, 1024 + stages * stage + store * _STORE_STAGING
 
 
-def vocab_partials(kernel: str, m: int, v: int, float_route: bool) -> tuple[int, int]:
+def vocab_partials(kernel: str, m: int, v: int) -> tuple[int, int]:
     """(blocks a row, partials a row) of ``kernel`` ("argmax", "topk" or
-    "sample"): the blocks its C entry takes and checks — the walk's ranges;
-    for the selection kernels' float32 route one a 32-column tile (top-k) or
-    a block of ``_SAMPLE_TILES`` of them (sampler), the argmax walks in
-    float32 too — and the partials its scratch holds for a row, the most any
-    of its passes writes (the sampler's rare passes)."""
-    if not float_route or kernel == "argmax":
-        plan = vocab_plan(m, v)
-        return plan.ranges, plan.rare_ranges if kernel == "sample" else plan.ranges
-    tiles = -(-v // VOCAB_F32_TILE)
-    blocks = tiles if kernel == "topk" else -(-tiles // _SAMPLE_TILES)
-    return blocks, blocks
+    "sample") in every operand type: the blocks its C entry takes and
+    checks, the walk's ranges, and the partials its scratch holds for a
+    row, the most any of its passes writes (the sampler's rare passes)."""
+    plan = vocab_plan(m, v)
+    return plan.ranges, plan.rare_ranges if kernel == "sample" else plan.ranges
 
 
 def logits_topk_plain(x32, lnf, wte, k: int, eps: float = 1e-5, **quant):
@@ -607,7 +597,7 @@ def logits_topk_cuda(x32, lnf, wte, k: int, eps: float = 1e-5, *, wte_scale=None
     _build.require(1 <= k <= min(TOPK_MAX, v), name, f"k must be in [1, {min(TOPK_MAX, v)}]")
     cdt, xf, sx, ws = _vocab_args(name, x32, lnf, wte, wte_scale, compute_dtype)
     b, d = x32.shape
-    nblk, _ = vocab_partials("topk", b, v, cdt == torch.float32 and ws is None)
+    nblk, _ = vocab_partials("topk", b, v)
     dev = x32.device
     part_val = torch.empty((b, nblk, k), dtype=torch.float32, device=dev)
     part_idx = torch.empty((b, nblk, k), dtype=torch.int32, device=dev)
@@ -650,9 +640,9 @@ _SAMPLE_COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
 def _sample_counters(b: int, device: torch.device) -> torch.Tensor:
-    """The device's counters, at least 1 + ceil(B / 64) of them; a larger
-    buffer is made (zeroed) the first time a B needs it."""
-    need = 1 + -(-b // 64)
+    """The device's counters, a row tile's ticket each: at least ceil(B / 64)
+    of them; a larger buffer is made (zeroed) the first time a B needs it."""
+    need = -(-b // 64)
     counters = _SAMPLE_COUNTERS.get(device)
     if counters is None or counters.numel() < need:
         counters = torch.zeros((need,), dtype=torch.int32, device=device)
@@ -666,9 +656,8 @@ def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds
     outputs, (token (B,) int32, round (B,) int32, lse (B, 1) float32), the
     (B, V) logits never stored.  Arguments as :func:`logits_argmax_cuda`;
     temp, top_p (B,) float32 on the same device; ``seed`` a 64-bit int keying
-    the kernel's Philox; 1 <= k <= 4; rounds >= 0.  2 + rounds CUDA launches
-    with a float32 wte, 2 + 2 rounds with a bf16 or int8 one, none of which
-    the host waits for."""
+    the kernel's Philox; 1 <= k <= 4; rounds >= 0.  2 + 2 rounds CUDA
+    launches, none of which the host waits for."""
     name = "logits_sample"
     _build.require(1 <= k <= SAMPLE_K_MAX, name, f"k must be in [1, {SAMPLE_K_MAX}]")
     _build.require(rounds >= 0, name, "rounds must be >= 0")
@@ -679,9 +668,9 @@ def logits_sample_cuda(x32, lnf, wte, temp, top_p, seed: int, k: int = 3, rounds
         _build.require(t.shape == (b,) and t.dtype == torch.float32 and t.is_contiguous()
                        and t.device == x32.device, name,
                        "temp and top_p must be contiguous float32 (B,) on x32's device")
-    xf, sx = _vocab_scratch(name, x32, wte_scale, cdt, walk=False)
+    xf, sx = _vocab_scratch(name, x32, wte_scale, cdt)
     ws = wte_scale
-    ncb, parts = vocab_partials("sample", b, v, cdt == torch.float32 and ws is None)
+    ncb, parts = vocab_partials("sample", b, v)
     dev = x32.device
     part_f = torch.empty((b * parts * (3 + 3 * k),), dtype=torch.float32, device=dev)
     part_i = torch.empty((b * parts * (1 + k),), dtype=torch.int32, device=dev)

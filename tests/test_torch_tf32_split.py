@@ -13,7 +13,10 @@ known answers pin that to ``cvt.rna``'s rounding.  Here the rounding is
 done on an int32 view, the products in float64 (a TF32 x TF32 product is
 exact there), and the accumulator is rounded to float32 toward zero (the
 tensor core may truncate) and to nearest, at D 768 with LN-scale rows and
-wte of std 0.02 over V 1,025.
+wte of std 0.02 over V 1,025.  The four vocabulary kernels select from the
+walk's logits in float32 as in every operand type: the emulated walk fed
+to the top-k's and the sampler's selections is held to their float32
+twins and to float64.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ import torch
 
 from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 from gpt2_image_captioning_tpu_torch.ops import nn
+from gpt2_image_captioning_tpu_torch.ops.sampling import topk_small
 
 D, V, B = 768, 1025, 16
 K8 = 8  # wgmma m64n128k8: K a product instruction
@@ -55,6 +59,17 @@ def operands(seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
     x = rng.standard_normal((B, D)) * scale + bias
     w = 0.02 * rng.standard_normal((V, D))
     return torch.tensor(x, dtype=torch.float32), torch.tensor(w, dtype=torch.float32)
+
+
+def step_inputs(seed: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The vocabulary kernels' inputs as the step gives them, from numpy: the
+    float32 residual stream, LN_f's (2, D) scale and bias, wte (V, D)."""
+    rng = np.random.default_rng(seed)
+    x32 = torch.tensor(3.0 * rng.standard_normal((B, D)), dtype=torch.float32)
+    lnf = torch.tensor(np.stack([1 + 0.1 * rng.standard_normal(D), 0.1 * rng.standard_normal(D)]),
+                       dtype=torch.float32)
+    wte = torch.tensor(0.02 * rng.standard_normal((V, D)), dtype=torch.float32)
+    return x32, lnf, wte
 
 
 def round_toward_zero(exact: torch.Tensor) -> torch.Tensor:
@@ -143,13 +158,82 @@ def test_walk_emulation_matches_the_float32_twin():
     """The emulated walk (LN_f's rows as the pre-pass writes them) against
     ``logits_plain`` in float32, the twin the card's kernel is held to, at
     the kernel checks' float32 tolerance."""
-    rng = np.random.default_rng(3)
-    x32 = torch.tensor(3.0 * rng.standard_normal((B, D)), dtype=torch.float32)
-    lnf = torch.tensor(np.stack([1 + 0.1 * rng.standard_normal(D), 0.1 * rng.standard_normal(D)]),
-                       dtype=torch.float32)
-    wte = torch.tensor(0.02 * rng.standard_normal((V, D)), dtype=torch.float32)
+    x32, lnf, wte = step_inputs(3)
     rows = nn.layer_norm_rows(lnf[0], lnf[1], x32, 1e-5)
     got, _ = walk_logits(rows, wte, truncate=True)
     want = DS.logits_plain(x32, lnf, wte)
     assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
     assert torch.equal(torch.argmax(got, -1), torch.argmax(want, -1))
+
+
+def walk_step(seed: int):
+    """The emulated walk of LN_f's rows (as the pre-pass writes them) over
+    wte: (inputs, rows, the walk's float32 logits, the float64 product, and
+    each logit's bound from the header's two terms)."""
+    x32, lnf, wte = step_inputs(seed)
+    rows = nn.layer_norm_rows(lnf[0], lnf[1], x32, 1e-5)
+    got, seen = walk_logits(rows, wte, truncate=True)
+    exact = rows.double() @ wte.double().t()
+    bound = SPLIT_BOUND * (rows.double().abs() @ wte.double().abs().t()) + STEP_BOUND * seen
+    return (x32, lnf, wte), got, exact, bound
+
+
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_walk_fed_to_the_topk_selection_within_tf_tol_of_its_twin(k):
+    """The top-k's selection (k largest, ties to the lowest id, and the
+    logsumexp) of the emulated walk's logits against ``logits_topk_plain``
+    in float32: values and logsumexp within TF_TOL_F32, and the ids equal on
+    every row whose top-(k+1) float64 logits lie further apart than twice
+    the walk's bound and the twin's measured error — most rows here."""
+    (x32, lnf, wte), got, exact, bound = walk_step(4)
+    vals, ids = topk_small(got, k)
+    lse = torch.logsumexp(got, dim=-1, keepdim=True)
+    want_v, want_i, want_l = DS.logits_topk_plain(x32, lnf, wte, k)
+    assert float((vals - want_v).abs().max()) <= TF_TOL_F32
+    assert float((lse - want_l).abs().max()) <= TF_TOL_F32
+    twin_err = (DS.logits_plain(x32, lnf, wte).double() - exact).abs().amax(dim=1)
+    slack = 2 * (bound.amax(dim=1) + twin_err)
+    top, _ = torch.sort(exact, dim=-1, descending=True)
+    clear = ((top[:, :k] - top[:, 1:k + 1]) > slack[:, None]).all(dim=1)
+    assert int(clear.sum()) >= B * 3 // 4
+    assert torch.equal(ids[clear], want_i[clear])
+
+
+def keep_sets(lq: torch.Tensor, top_p: torch.Tensor, delta: torch.Tensor | None = None):
+    """The sampler's acceptance rule on float64 scaled logits (B, V): token i
+    is accepted iff the mass of the tokens whose logit is strictly above its
+    own is <= top_p.  With ``delta`` (B,), also whether each row's rule is
+    stable: for logits anywhere within delta of these, every token's mass
+    above stays on its side of top_p (the tokens more than 2 delta above
+    it, each mass down by e^-2delta, to the tokens within 2 delta of it or
+    above, each up by e^2delta)."""
+    prob = torch.softmax(lq, dim=-1)
+    s, order = torch.sort(lq, dim=-1)
+    tail = torch.cat([prob.gather(-1, order).flip(-1).cumsum(-1).flip(-1),
+                      torch.zeros(lq.shape[0], 1, dtype=lq.dtype)], dim=-1)
+
+    def mass_above(at):  # the mass of the logits strictly above ``at``
+        return tail.gather(-1, torch.searchsorted(s, at.contiguous(), right=True))
+
+    keep = mass_above(lq) <= top_p[:, None]
+    if delta is None:
+        return keep
+    d = 2 * delta[:, None]
+    low = torch.exp(-d) * mass_above(lq + d)
+    high = torch.exp(d) * (mass_above(lq - d) - prob)
+    return keep, ((low <= top_p[:, None]) == (high <= top_p[:, None])).all(dim=1)
+
+
+@pytest.mark.parametrize("temperature, top_p", [(1.0, 0.9), (0.5, 0.5)])
+def test_walk_fed_to_the_sampler_keeps_the_float64_nucleus(temperature, top_p):
+    """The sampler's nucleus (its acceptance rule, from the scaled logits and
+    their logsumexp) on the emulated walk's logits is the nucleus of the
+    float64 logits on every row whose boundary clears the walk's bound —
+    most rows here; the others may part by a token at the boundary."""
+    _, got, exact, bound = walk_step(5)
+    tp = torch.full((B,), top_p, dtype=torch.float64)
+    want, stable = keep_sets(exact / temperature, tp, bound.amax(dim=1) / temperature)
+    keep = keep_sets(got.double() / temperature, tp)
+    assert int(stable.sum()) >= B * 3 // 4
+    assert torch.equal(keep[stable], want[stable])
+    assert bool((want.sum(dim=1) < V).all()) and bool((want.sum(dim=1) > 1).all())

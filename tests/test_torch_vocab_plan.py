@@ -46,33 +46,34 @@ def test_vocab_plan_covers_each_column_once_balanced_to_one_tile(m, v):
     assert plan.ranges <= plan.rare_ranges <= plan.tiles
 
 
+# The card's shared memory a block may take (227 KB) less the walk's static
+# barriers; the ring's budget and its alignment slack must fit under it.
+SMEM_LIMIT = 232448 - 3 * 8 * 8
+SMEM_PER_SM = 228 * 1024  # an H100 SM's shared memory, of which a block may take SMEM_LIMIT
+
+
 @pytest.mark.parametrize("kernel", ["topk", "sample", "argmax"])
-@pytest.mark.parametrize("float_route", [False, True], ids=["walk", "float32"])
+@pytest.mark.parametrize("el", [1, 2, 4], ids=["int8", "bf16", "float32"])
 @pytest.mark.parametrize("v", VOCABS)
 @pytest.mark.parametrize("m", (1, 65, 512))
-def test_vocab_partials_hold_every_row_block(kernel, float_route, m, v):
+def test_vocab_partials_hold_every_row_block(kernel, el, m, v):
     """The wrappers size their partials as M x the partials ``vocab_partials``
-    gives: that holds one slot for every (row, block) any pass writes — the
-    walk's (row, range) (the argmax's in every operand type), and the
-    sampler's rare passes' (row, rare range); the float32 tile's (row,
-    32-column tile) for the top-k and (row, block of 8 tiles) for the
-    sampler — and each slot lands inside."""
-    blocks, parts = DS.vocab_partials(kernel, m, v, float_route)
-    if float_route and kernel != "argmax":
-        tiles = -(-v // DS.VOCAB_F32_TILE)
-        passes = [tiles if kernel == "topk" else -(-tiles // DS._SAMPLE_TILES)]
-    else:
-        plan = DS.vocab_plan(m, v)
-        passes = [plan.ranges] + ([plan.rare_ranges] if kernel == "sample" else [])
+    gives, in every operand type: that holds one slot for every (row, block)
+    any pass writes — the walk's (row, range), and the sampler's rare
+    passes' (row, rare range) — and each slot lands inside.  The plan
+    counts on a block an SM: at every operand size a block's ring takes
+    more than half an SM's shared memory, so a full pass's blocks, no more
+    than the SMs, run in one wave."""
+    blocks, parts = DS.vocab_partials(kernel, m, v)
+    plan = DS.vocab_plan(m, v)
+    passes = [plan.ranges] + ([plan.rare_ranges] if kernel == "sample" else [])
     assert blocks == passes[0]
     for n in passes:  # a pass's slot of (row, block) is row * n + block
         slots = {row * n + blk for row in range(m) for blk in range(n)}
         assert len(slots) == m * n and max(slots) < m * parts
-
-
-# The card's shared memory a block may take (227 KB) less the walk's static
-# barriers; the ring's budget and its alignment slack must fit under it.
-SMEM_LIMIT = 232448 - 3 * 8 * 8
+    _, smem = DS.vocab_ring(plan.rows, el, store=False)
+    assert 2 * smem > SMEM_PER_SM
+    assert plan.row_tiles * plan.ranges <= max(DS.SMS, plan.row_tiles)
 
 
 @pytest.mark.parametrize("el", [1, 2, 4], ids=["int8", "bf16", "float32"])
