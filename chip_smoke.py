@@ -5,13 +5,16 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 (``--only linear`` runs the build and the projections' checks alone,
-bf16 and int8, and prints their records without the summary lines: the
-way to read an earlier tree's ``fused_linear`` on the same card.
+bf16, float32 (wgmma TF32: its header bound against float64, the TF32
+instantiation by name in each trace, its registers and local bytes) and
+int8, and prints their records without the summary lines: the way to read
+an earlier tree's ``fused_linear`` on the same card.
 ``--only vocab`` does the same for the four vocabulary kernels — the
 greedy argmax, the stored logits, the top-k and the sampler — in bf16, int8
 and float32, with their contract sweeps and the float32 walk kernels'
 registers and local bytes; ``--only prefill`` for the prefill
-kernel (bf16 and float32, its device time by part); ``--only quant`` for
+kernel (bf16 and float32, its device time by part: LayerNorm, attention,
+each product, and the products' kernel names); ``--only quant`` for
 the int8 row quantizer and the int8 products whose rows carry no LayerNorm,
 which quantize them inside the product.  ``--only http``, ``--only
 pipeline``, ``--only sizes``, ``--only rat`` and ``--only parallel`` run one
@@ -360,10 +363,10 @@ PHILOX_OPS, DRAW_OPS, LOGIT_OPS, VERIFY_OPS = 100, 7, 5, 2
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense): HBM bytes/s and
 # operations/s by the element type of the products.  float32 products of the
-# product tile (common.cuh) and of flash attention run on the tensor cores as
-# a three-term TF32 split, three TF32 products each: their bound takes the
-# TF32 peak over three ("tf32x3", 165 TFLOP/s), which lies above float32's
-# 67 TFLOP/s outside the tensor cores.
+# projections, the prefill, the vocabulary walk and flash attention run on
+# the tensor cores as a three-term TF32 split, three TF32 products each:
+# their bound takes the TF32 peak over three ("tf32x3", 165 TFLOP/s), which
+# lies above float32's 67 TFLOP/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12,
               "tf32x3": 495e12 / 3}
@@ -1502,6 +1505,17 @@ LINEAR_ROLES = linear_roles(D)
 # 128-row tiles.
 LINEAR_CONTRACT_M = (1, 3, 64, 127, 128, 129, 512)
 LINEAR_CONTRACT_D = (768, 1024, 1280, 1600)
+# The float32 route's header bound (csrc/fused_linear.cu, as the vocabulary
+# walk's): before the epilogue an output lies within TF32_SPLIT_BOUND x
+# sum_k |x_k w_k| of the exact sum (the split) plus TF32_STEP_BOUND of the
+# running sum, itself <= that mass, for each product instruction (3 a k8
+# step) and each K-slice the cluster adds; the epilogue multiplies that by
+# at most gelu_new's largest slope (1.13) and adds its own roundings (the
+# bias, gelu_new, the residual add: 2^-22 of the values, generously).  Held
+# against float64 on the card; tests/test_torch_tf32_split.py emulates it.
+TF32_SPLIT_BOUND, TF32_STEP_BOUND, TF32_ROUNDING = 2.0 ** -20, 2.0 ** -23, 2.0 ** -22
+GELU_MAX_SLOPE = 1.13
+TF32_LINEAR = "linear_wgmma_kernel<float, float"  # the TF32 instantiations, by trace name
 
 
 def linear_inputs(b: int, k: int, n: int, ln: bool, epi: str, dtype, quant: bool, g):
@@ -1525,10 +1539,38 @@ def linear_inputs(b: int, k: int, n: int, ln: bool, epi: str, dtype, quant: bool
     return x, w, bias, res, dict(epilogue=epi, ln=lnp, **kw)
 
 
+def tf32_bound_ratio(x, w, bias, res, kw, got) -> float:
+    """The float32 route's output against float64 on the card, as a share of
+    its header bound (TF32_SPLIT_BOUND and above): fails above 1."""
+    from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
+    from gpt2_image_captioning_tpu_torch.ops import nn
+
+    m, k = x.shape
+    ln, epi = kw["ln"], kw["epilogue"]
+    rows = x if ln is None else nn.layer_norm_rows(ln[0], ln[1], x, 1e-5)  # the pre-pass's rows
+    r64, w64 = rows.double(), w.double()
+    mass = r64.abs() @ w64.abs().t()
+    steps = 3 * -(-k // 8) + DS.linear_plan(m, k, w.shape[0], 4).splits
+    y = r64 @ w64.t() + bias.double()
+    bound = (TF32_SPLIT_BOUND + TF32_STEP_BOUND * steps) * mass
+    if epi == "gelu":
+        c = 0.7978845608028654
+        want = 0.5 * y * (1.0 + torch.tanh(c * (y + 0.044715 * y * y * y)))
+        bound = GELU_MAX_SLOPE * bound
+    else:
+        want = y if epi == "cast" else res.double() + y
+    bound = bound + TF32_ROUNDING * (y.abs() + want.abs())
+    ratio = float(((got.double() - want).abs() / bound).max())
+    check(ratio <= 1.0, f"fused_linear float32 ({epi}, ({m}, {k}) x {w.shape[0]}): "
+                        f"{ratio} of its header bound from float64")
+    return ratio
+
+
 def linear_error(x, w, bias, res, kw, dtype) -> tuple[float, int]:
     """The kernel against its twin on one role's inputs: (max |diff|, int8
-    quantizations one step apart).  bf16 and float32 under TOL; int8 under
-    TOL plus, with a LayerNorm, :func:`flip_allowance`."""
+    quantizations one step apart).  bf16 and float32 under TOL, float32 also
+    within its header bound of float64 (:func:`tf32_bound_ratio`); int8
+    under TOL plus, with a LayerNorm, :func:`flip_allowance`."""
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 
     r_plain, r_kernel = (None, None) if res is None else (res.clone(), res.clone())
@@ -1539,24 +1581,35 @@ def linear_error(x, w, bias, res, kw, dtype) -> tuple[float, int]:
           f"{got.dtype}, the twin {want.shape} {want.dtype}")
     tol = TOL[dtype]["f32" if kw["epilogue"] == "residual" else "out"]
     if "w_scale" not in kw:
+        if dtype == torch.float32:
+            LINEAR_BOUND_RATIOS.append(tf32_bound_ratio(x, w, bias, res, kw, got))
         return close(got, want, tol), 0
     allowance, flips = (flip_allowance(x, kw["ln"], dtype, w, kw["w_scale"], want)
                         if kw["ln"] is not None else (0.0, 0))
     return close_int8(got, want, tol, allowance), flips
 
 
+# the float32 calls' shares of their header bound, as linear_error meets them
+LINEAR_BOUND_RATIOS: list[float] = []
+
+
 def linear_contract(dtype, quant: bool, g) -> dict:
-    """fused_linear's bf16 / int8 route against its twin at
-    LINEAR_CONTRACT_D x LINEAR_CONTRACT_M in every role."""
+    """fused_linear against its twin at LINEAR_CONTRACT_D x
+    LINEAR_CONTRACT_M in every role (float32 also within its header
+    bound)."""
     worst, cases = 0.0, 0
+    LINEAR_BOUND_RATIOS.clear()
     for d in LINEAR_CONTRACT_D:
         for _, k, n, ln, epi in linear_roles(d):
             for m in LINEAR_CONTRACT_M:
                 err, _ = linear_error(*linear_inputs(m, k, n, ln, epi, dtype, quant, g), dtype)
                 worst = max(worst, err)
                 cases += 1
-    return {"cases": cases, "max_abs_err": worst, "D": list(LINEAR_CONTRACT_D),
-            "M": list(LINEAR_CONTRACT_M)}
+    rec = {"cases": cases, "max_abs_err": worst, "D": list(LINEAR_CONTRACT_D),
+           "M": list(LINEAR_CONTRACT_M)}
+    if LINEAR_BOUND_RATIOS:
+        rec["max_share_of_header_bound"] = max(LINEAR_BOUND_RATIOS)
+    return rec
 
 
 def linear_repeat(x, w, bias, res, kw) -> None:
@@ -1571,19 +1624,20 @@ def linear_repeat(x, w, bias, res, kw) -> None:
           f"{kw['epilogue']}, ({x.shape[0]}, {w.shape[1]}) x {w.shape[0]}")
 
 
-def linear_plan_of(m: int, k: int, n: int, quant: bool, row_bytes: int | None = None
+def linear_plan_of(m: int, k: int, n: int, el: int, row_bytes: int | None = None
                    ) -> dict | None:
-    """The kernel's split of a role (None on a tree without one; a tree
-    whose plan takes no ``row_bytes`` plans the quantized rows)."""
+    """The kernel's split of a role with ``el``-byte operands (None on a
+    tree without one; a tree whose plan takes no ``row_bytes`` plans the
+    quantized rows)."""
     from gpt2_image_captioning_tpu_torch.ops import decode_step as DS
 
     plan = getattr(DS, "linear_plan", None)
     if plan is None:
         return None
     try:
-        return plan(m, k, n, 1 if quant else 2, row_bytes)._asdict()
+        return plan(m, k, n, el, row_bytes)._asdict()
     except TypeError:
-        return plan(m, k, n, 1 if quant else 2)._asdict()
+        return plan(m, k, n, el)._asdict()
 
 
 def linear_role(name, b, k, n, ln, epi, dtype, quant: bool, device: bool, g) -> dict:
@@ -1599,8 +1653,7 @@ def linear_role(name, b, k, n, ln, epi, dtype, quant: bool, device: bool, g) -> 
 
     x, w, bias, res, kw = linear_inputs(b, k, n, ln, epi, dtype, quant, g)
     err, flips = linear_error(x, w, bias, res, kw, dtype)
-    if dtype == torch.bfloat16 or quant:
-        linear_repeat(x, w, bias, res, kw)
+    linear_repeat(x, w, bias, res, kw)
     r_kernel, r_plain = (None, None) if res is None else (res.clone(), res.clone())
 
     def kernel():
@@ -1629,8 +1682,8 @@ def linear_role(name, b, k, n, ln, epi, dtype, quant: bool, device: bool, g) -> 
     bound_ms, bound_by = bound(nbytes, 2 * b * k * n, torch.int8 if quant else split_type(dtype))
     rec = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": 2 * b * k * n,
-           "plan": (linear_plan_of(b, k, n, quant, None if ln or not quant else x.element_size())
-                    if quant or dtype == torch.bfloat16 else None)}
+           "plan": linear_plan_of(b, k, n, w.element_size(),
+                                  None if ln or not quant else x.element_size())}
     if quant:
         rec["int8_flips"] = flips
     if device:
@@ -1638,7 +1691,13 @@ def linear_role(name, b, k, n, ln, epi, dtype, quant: bool, device: bool, g) -> 
         # the row quantizer's own launch: the LN roles' (the others quantize
         # inside the product)
         pre = quant and ln
-        dev = device_split(kernel, ("rowquant_kernel",) * pre, f"kernel_linear_{tag}.json")
+        # float32: the product must be the TF32 instantiation, by its trace name
+        # (on a tree that has it: this script can time an earlier tree's kernels)
+        f32 = dtype == torch.float32 and not quant and tf32_route()
+        dev = device_split(kernel, ("rowquant_kernel",) * pre + (TF32_LINEAR,) * f32,
+                           f"kernel_linear_{tag}.json")
+        check(not f32 or not isinstance(dev, str),
+              f"fused_linear float32 {name} b {b}: no {TF32_LINEAR}> launch in its trace")
         rec["device_ms"] = dev if isinstance(dev, str) else dev["total"]
         if quant and not isinstance(dev, str):
             rec["rowquant_device_ms"] = dev["rowquant_kernel"] if pre else 0.0
@@ -1670,21 +1729,51 @@ def linear_layer(dtype, quant: bool, b: int, device: bool, g) -> dict:
 
 def check_linear(dtype, g) -> dict:
     """``csrc/fused_linear.cu`` with float weights in the four roles of a
-    layer: bf16 runs the TMA / wgmma / cluster route (its device time from
-    a trace beside the events time, at B 128 and at the 512 rows of beam-4
-    and continuous serving; each role repeated for equal bits; the contract
-    sweep), float32 the product tile at B 128."""
-    wgmma = dtype == torch.bfloat16
-    main = linear_layer(dtype, False, B, wgmma, g)
+    layer, on the TMA / wgmma / cluster route (float32 on wgmma TF32, the
+    three-term split): its device time from a trace beside the events time,
+    at B 128 and at the 512 rows of beam-4 and continuous serving; each role
+    repeated for equal bits; the contract sweep; float32 also within its
+    header bound of float64 in every call, and by kernel name the TF32
+    instantiation in every trace."""
+    LINEAR_BOUND_RATIOS.clear()
+    main = linear_layer(dtype, False, B, True, g)
     rec = {"kernel": "fused_linear", **{k: v for k, v in main.items() if k != "roles"},
            "library": "addmm x 4 (bare product + bias on rows in the compute dtype)",
            "at": f"B {B}: the four projections of one layer, summed (6 CUDA launches)",
-           "roles": main["roles"]}
-    if wgmma:
-        rec["b512"] = linear_layer(dtype, False, B_BEAM, True, g)
-        rec["contract"] = linear_contract(dtype, False, g)
-        rec["repeat"] = "every role at B 128 and 512: equal bits"
+           "roles": main["roles"], "b512": linear_layer(dtype, False, B_BEAM, True, g)}
+    shares = list(LINEAR_BOUND_RATIOS)
+    rec["contract"] = linear_contract(dtype, False, g)
+    rec["repeat"] = "every role at B 128 and 512: equal bits"
+    if dtype == torch.float32:
+        rec["max_share_of_header_bound"] = max(shares)
+        rec["registers"] = linear_registers()
     return rec
+
+
+def tf32_route() -> bool:
+    """Whether this tree's library has the float32 projections on wgmma TF32."""
+    from gpt2_image_captioning_tpu_torch.ops import _build
+
+    return hasattr(_build.library(), "gic_linear_f32_attrs")
+
+
+def linear_registers() -> dict:
+    """The float32 product kernel's registers and local (spill) bytes a
+    thread at each width, as ``cudaFuncGetAttributes`` gives them: reported,
+    not a gate ("not in this tree" for a tree without the TF32 route)."""
+    import ctypes
+
+    from gpt2_image_captioning_tpu_torch.ops import _build
+
+    if not tf32_route():
+        return {"linear_wgmma_kernel<float, float, BN>": "not in this tree"}
+    fn, out = _build.library().gic_linear_f32_attrs, {}
+    for i, bn in enumerate((32, 64, 128)):
+        res = (ctypes.c_int * 2)()
+        _build.check(fn(i, ctypes.addressof(res)), "gic_linear_f32_attrs")
+        out[f"linear_wgmma_kernel<float, float, {bn}>"] = {"num_regs": res[0],
+                                                           "local_bytes": res[1]}
+    return out
 
 
 def check_linear_int8(dtype, g) -> dict:
@@ -2249,6 +2338,7 @@ def prefill_split(run, name: str, attempts: int = 3) -> dict | str:
                  "attention": ms(e for e in kernels if "prefill_attention_kernel" in e["name"])}
         for i, role in enumerate(PREFILL_ROLES):
             parts[role] = ms(products[i::len(PREFILL_ROLES)])
+        parts["product_kernels"] = sorted({e["name"].split("(")[0] for e in products})
         return parts
     return "not measured"
 
@@ -2329,6 +2419,9 @@ def check_prefill(dtype, g) -> dict:
 
         device = vocab_device(run, f"prefill_{dtype_tag(dtype)}_b{b}")
         parts = prefill_split(run, f"{dtype_tag(dtype)}_b{b}")
+        if dtype == torch.float32 and not isinstance(parts, str):  # the TF32 products, by name
+            check(all(TF32_LINEAR in n for n in parts["product_kernels"]),
+                  f"prefill b {b} float32: products {parts['product_kernels']}")
         # the weights, biases and LN parameters read once; x0 read, the float32
         # stream and every layer's K/V rows written; four products and the
         # causal attention (4 hd per (query, key) pair) a layer
@@ -2959,16 +3052,16 @@ def one_step_drift(model, emb: torch.Tensor, quant: bool = False,
 
 # the decode step's kernels by their CUDA function names (csrc/*.cu): the
 # layers' and, by path, the vocabulary's
-LAYER_KERNELS = ("fused_linear_kernel", "linear_wgmma_kernel", "ln_stats_kernel",
-                 "decode_attention_kernel", "ln_rows_kernel", "rowquant_kernel")
+LAYER_KERNELS = ("linear_wgmma_kernel", TF32_LINEAR, "decode_attention_kernel", "ln_rows_kernel",
+                 "rowquant_kernel")
 VOCAB_KERNELS = {"greedy": ("argmax_walk_kernel", "argmax_reduce_kernel"),
                  "sampled": ("store_walk_kernel",),
                  "beam": ("topk_walk_kernel", "topk_merge_kernel")}
 # continuous serving also runs the admission's mapper (flash attention) and
-# prefill (csrc/prefill.cu: its LayerNorms and bf16 products are the
-# layers' ln_rows_kernel and linear_wgmma_kernel, float32's products
-# prefill_linear_kernel; forward_cached's flash attention in int8)
-ADMISSION_KERNELS = ("flash_attention_kernel", "prefill_linear_kernel", "prefill_attention_kernel")
+# prefill (csrc/prefill.cu: its LayerNorms and products are the layers'
+# ln_rows_kernel and linear_wgmma_kernel; forward_cached's flash attention
+# in int8)
+ADMISSION_KERNELS = ("flash_attention_kernel", "prefill_attention_kernel")
 VOCAB_KERNELS.update({
     "continuous_greedy": VOCAB_KERNELS["greedy"] + ADMISSION_KERNELS,
     "continuous_sampled": VOCAB_KERNELS["sampled"] + ADMISSION_KERNELS,
@@ -3326,6 +3419,10 @@ def greedy_path(model, reqs, precision: str = "bf16",
     profiled = profile_path(lambda: run(reqs[0]), path, steps0, seconds / len(reqs))
     if "device_busy_s" in profiled:
         profiled["device_ms_per_step"] = 1e3 * profiled["device_busy_s"] / steps0
+        if f32:  # the layers' products on the TF32 instantiation, by name in the trace
+            per_step = profiled["launches_by_name"][TF32_LINEAR] / steps0
+            profiled["tf32_product_launches_per_step"] = per_step
+            check(per_step > 0, f"{path}: no {TF32_LINEAR}> launch in the decode window")
         # the standalone quantizer's launches, counted by name in the trace
         per_step = profiled["launches_by_name"]["rowquant_kernel"] / steps0
         profiled["rowquant_launches_per_step"] = per_step
@@ -3387,8 +3484,10 @@ def sampled_path(model, reqs, precision: str = "bf16",
                     "tokens_checked": checked, "share_plain_argmax": top1 / checked},
         "card": nvidia_smi(),
     }
-    profiled = profile_path(lambda: run(reqs[0]), path, decode_steps(outs[0], cfg.eos_token_id),
-                            seconds / len(reqs))
+    steps0 = decode_steps(outs[0], cfg.eos_token_id)
+    profiled = profile_path(lambda: run(reqs[0]), path, steps0, seconds / len(reqs))
+    if "device_busy_s" in profiled:
+        profiled["device_ms_per_step"] = 1e3 * profiled["device_busy_s"] / steps0
     return record, launches, profiled
 
 
@@ -6330,7 +6429,7 @@ PHASES = {"http": http_phase, "pipeline": pipeline_phase, "sizes": sizes_phase, 
 
 # ``--only <part>``: (compute dtypes, checks) of one part, its records alone
 ONLY = {
-    "linear": ((torch.bfloat16,), (check_linear, check_linear_int8)),
+    "linear": ((torch.bfloat16, torch.float32), (check_linear, check_linear_int8)),
     "vocab": ((torch.bfloat16, torch.float32), VOCAB_CHECKS),
     "prefill": ((torch.bfloat16, torch.float32), (check_prefill,)),
     "quant": ((torch.bfloat16, torch.float32), (check_rowquant, check_fold)),
@@ -6548,9 +6647,9 @@ def main(argv: list[str]) -> int:
         "patch_embed": ("patch_embed.cu", "gpt2_image_captioning_tpu/ops/patch_embed.py:36",
                         "images_greedy", "call (1 CUDA launch), CLIP B/32, b 256, 224 px"),
     }
-    # the float32 rows of the two redesigned kernels: flash attention and the
-    # kernels built on the float32 product tile (common.cuh, the three-term
-    # TF32 split), each counted on a float32 path at full width — the
+    # the float32 rows: flash attention, the projections and the prefill (on
+    # wgmma TF32), the vocabulary kernels (the three-term TF32 split
+    # throughout), each counted on a float32 path at full width — the
     # façade's default greedy decode (mapper flash, layers, greedy
     # vocabulary, prefill), its sampled decode, the draw in the kernel and
     # the float32 beams; bound_ms counts their float32 products at the

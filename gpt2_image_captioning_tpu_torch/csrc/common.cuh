@@ -1,9 +1,8 @@
 // Shared pieces of the port's CUDA kernels: element types, warp reductions,
 // the Hopper building blocks (TMA tensor maps and copies, mbarriers, wgmma
 // descriptors and products, cluster barriers and distributed shared memory)
-// that fused_linear.cu, patch_embed.cu and vocab_walk.cuh run on, the
-// LayerNorm pre-pass, and the tiled row-block x weight-tile product that
-// the float32 routes of fused_linear.cu and the prefill run.
+// that fused_linear.cu, patch_embed.cu and vocab_walk.cuh run on, the TF32
+// split of float32 operands, and the LayerNorm pre-pass.
 //
 // Element type codes match ops/_build.py::DTYPE_CODE: 0 = float, 1 = bf16.
 // Inputs are read in the element type, products accumulate in float32, and
@@ -12,18 +11,14 @@
 // mode (the step kernel's quant mode) multiplies int8 rows by int8 weights
 // with int32 accumulators and dequantizes as acc * sx * sw.
 //
-// Which design runs where: the decode step's bf16 and int8 projections
-// (fused_linear.cu) stream their operands by TMA into a ring and multiply
-// on wgmma, split over K across a thread-block cluster (its header gives the
-// design and the bound); the four vocabulary kernels walk wte on
-// vocab_walk.cuh in every operand type (float32 on wgmma TF32); the
-// prefill's bf16 products run on fused_linear.cu's route.  The tile below
-// serves the float32 projections and the float32 prefill's products
-// (prefill.cu, gpt2_image_captioning_tpu/ops/prefill_step.py::
-// _prefill_kernel).  Its bound on the H100: at a decode batch of 128 the
-// weights' bytes (a float32 GPT-2 layer: 28 MB, 8.5 us at 3.35 TB/s); the
-// prefill's 1,920 rows are bound by operations (float32: three TF32
-// products at 495 TFLOP/s).
+// Which design runs where: the decode step's projections (fused_linear.cu)
+// stream their operands by TMA into a ring and multiply on wgmma, split over
+// K across a thread-block cluster, in bf16, int8 and float32 (wgmma TF32, the
+// three-term split; its header gives the design and the bound); the four
+// vocabulary kernels walk wte on vocab_walk.cuh in every operand type
+// (float32 on wgmma TF32 too); the prefill's products (prefill.cu) run on
+// fused_linear.cu's route in bf16 and float32.  Flash attention and the
+// float32 patch embedding multiply on mma.sync (split_tf32, mma_tf32x3).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the CUDA driver at run time
@@ -101,6 +96,19 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
   const float rest = x - __uint_as_float(hi);
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(rest));
+}
+
+// split_tf32 by integer operations, as the float32 converter warps split a
+// landed box (fused_linear.cu, vocab_walk.cuh): half a TF32 ulp added to the
+// magnitude bits and the low 13 dropped is cvt.rna.tf32.f32's rounding (to
+// nearest, ties away from zero) of every finite x, without the conversion
+// unit, whose quarter rate held the converters back.
+__device__ __forceinline__ float tf32_rna_bits(float x) {
+  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
+}
+__device__ __forceinline__ void tf32_split_bits(float x, float& hi, float& lo) {
+  hi = tf32_rna_bits(x);
+  lo = tf32_rna_bits(x - hi);
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -208,6 +216,12 @@ constexpr int kEpiResidual = 2;
 // The prefill's four products run on it.
 int linear_wgmma_bf16(const void* a, const void* w, const float* bias, void* out, int epi, int M,
                       int N, int K, int bn, int splits, int kslice, cudaStream_t s);
+// The same in float32 on wgmma TF32 (the three-term split): a (M, K) float32
+// rows, or with a_split its TF32 pair, (2M, K): tf32(y) in rows 0 .. M - 1
+// and tf32(y - tf32(y)) in rows M .. 2M - 1 (ln_rows_kernel with xl); w (N,
+// K) float32; out (M, N) float32, or the residual stream for kEpiResidual.
+int linear_wgmma_f32(const float* a, int a_split, const float* w, const float* bias, float* out,
+                     int epi, int M, int N, int K, int bn, int splits, int kslice, cudaStream_t s);
 
 // ---------------------------------------------------------------------------
 // Hopper building blocks: TMA, mbarriers, wgmma, clusters
@@ -424,8 +438,11 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
 
 // d (64 x N) += A (64 x one k-step, K-major) x B (one k-step x N, K-major:
 // W's own (N, K) rows), both 128-byte swizzled in shared memory, for N 32,
-// 64 and 128: bf16 (k16, float32 accumulators) and int8 (k32, int32
-// accumulators, exact).  d has N / 2 registers a thread: d[4j + e] holds
+// 64 and 128: bf16 (mma, k16, float32 accumulators), int8 (mma, k32, int32
+// accumulators, exact) and TF32 (tf32, k8, float32 accumulators; K-major is
+// the only layout .tf32 takes; A and B as float32 words whose low 13 bits
+// the caller has zeroed: split_tf32, tf32_split_bits).  A k-step is 32
+// bytes of K in every type.  d has N / 2 registers a thread: d[4j + e] holds
 // row 16 w + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e % 2 of the
 // warpgroup's 64 rows (w its warp in the warpgroup).
 #define GIC_ACC8(C, d, i)                                                                  \
@@ -461,6 +478,13 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
                    : ACC("+r", d)                                                               \
                    : "l"(da), "l"(db), "r"(1));                                                 \
     }                                                                                           \
+    static __device__ __forceinline__ void tf32(float (&d)[R], uint64_t da, uint64_t db) {     \
+      asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"                              \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" OPS              \
+                   GIC_WGMMA_TAIL(A, B, P) ", 1, 1;\n}\n"                                       \
+                   : ACC("+f", d)                                                               \
+                   : "l"(da), "l"(db), "r"(1));                                                 \
+    }                                                                                           \
   };
 template <int N> struct Wgmma;
 GIC_WGMMA(32, 16, GIC_OPS16, GIC_ACC16, 16, 17, 18)
@@ -468,18 +492,6 @@ GIC_WGMMA(64, 32, GIC_OPS32, GIC_ACC32, 32, 33, 34)
 GIC_WGMMA(128, 64, GIC_OPS64, GIC_ACC64, 64, 65, 66)
 #undef GIC_WGMMA
 #undef GIC_WGMMA_TAIL
-
-// d (64 x 128 float32) += A (64 x 8) x B (8 x 128) in TF32, both K-major
-// (the only layout .tf32 takes) and 128-byte swizzled in shared memory, A
-// and B as float32 words whose low 13 bits the caller has zeroed (rounded
-// to TF32 with cvt.rna: split_tf32).  d as Wgmma<128>'s.
-__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-               "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" GIC_OPS64
-               "}, %64, %65, p, 1, 1;\n}\n"
-               : GIC_ACC64("+f", d)
-               : "l"(da), "l"(db), "r"(1));
-}
 
 // Orders this thread's generic-proxy writes to shared memory before later
 // async-proxy reads of it (wgmma, TMA); a barrier then passes them on.
@@ -559,63 +571,8 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // ---------------------------------------------------------------------------
-// Tiled product: one block computes a BM x BN tile of
-//   Y = prologue(X) @ W^T,   X (M, K) row-major,  W (N, K) row-major,
-// walking K in BK steps through shared memory.  W is stored output-major
-// ((N, K): each output column's weights are contiguous in K), which is the
-// natural layout of the tied embedding (V, D) and what pack_decode_weights
-// gives the four GPT-2 projections.  Its users: the float32 route of
-// fused_linear.cu and the float32 prefill's products.  (The decode step's
-// bf16 and int8 projections run on fused_linear.cu's TMA ring, wgmma and
-// cluster split instead: at B 128 a tile of 48-192 blocks, one stage in
-// flight each, read every weight once a 64-row block and normalised every
-// row once a column block, 19x the layer's bound in bf16.)
-//
-// prologue: either a plain load of X in the element type, or the LayerNorm of
-// each float32 row of the residual stream, cast to the element type, from
-// per-row statistics (mean, rstd) that a pre-pass computed once.
-//
-// It runs on the tensor cores as a three-term TF32 split (mma.sync
-// m16n8k8 .tf32, split_tf32 and mma_tf32x3 above): each
-// operand x is hi = tf32(x) plus lo = tf32(x - hi), 22 significant bits
-// together, and a product is a_lo*b_hi + a_hi*b_lo + a_hi*b_hi with float32
-// accumulators; the dropped a_lo*b_lo term and the split's rounding leave
-// about 2^-21 relative error a product, the order of a float32 summation
-// difference.  Each 64-deep stage accumulates into a fresh register tile
-// that is added to the running sum with a float32 add, so the tensor
-// core's truncating accumulation reaches over 24 products at most.  The
-// float stage has its own pitch (BK + 4 floats) so that the fragment
-// loads, lane (g, t) at row g and column t, hit 32 distinct banks.  On an
-// H100 a float32 GPT-2 layer at b 128 takes 0.19 ms against its 0.011 ms
-// bound: its grids of 48-192 blocks keep one stage in flight each, and
-// each block re-reads its rows from L2.
+// The LayerNorm pre-pass and the epilogues' elementwise pieces
 // ---------------------------------------------------------------------------
-
-constexpr int BM = 64;       // rows of X (batch rows) per block
-constexpr int BN = 32;       // output columns per block
-constexpr int BK = 64;       // depth of one shared-memory stage
-constexpr int THREADS = 128; // 4 warps
-constexpr int LDC = BN + 4;  // shared pitch of the float result tile
-
-template <typename T> struct TileSmem;
-
-// The pitch BK + 4 (= 4 mod 32 banks) makes the TF32 fragment loads
-// conflict-free (TileMma<float>) and keeps every row 16-byte aligned.
-constexpr int LDSF = BK + 4;
-template <>
-struct __align__(32) TileSmem<float> {
-  __align__(32) float xs[BM][LDSF];
-  __align__(32) float ws[BN][LDSF];
-  __align__(32) float cs[BM][LDC];
-  float mean[BM];
-  float rstd[BM];
-};
-
-// Where a stage's 16-byte vector of row r, columns c.., is stored.
-template <typename T>
-__device__ __forceinline__ T* x_slot(TileSmem<T>& sm, int r, int c) { return &sm.xs[r][c]; }
-template <typename T>
-__device__ __forceinline__ T* w_slot(TileSmem<T>& sm, int r, int c) { return &sm.ws[r][c]; }
 
 // LayerNorm statistics of one float32 row, two-pass (mean, then the mean of
 // squared deviations), by one warp; every lane gets the result.  The sums
@@ -677,7 +634,8 @@ namespace {
 // block's first warp, once for each statistic and once to write.  With xl
 // (float rows only), each value y is stored as its three-term TF32 pair:
 // hi = tf32(y) in xf and lo = tf32(y - hi) in xl (split_tf32), the operands
-// of the float32 vocabulary walk.  Launch: launch_ln_rows.
+// of the float32 projections (fused_linear.cu) and vocabulary walk.  Launch:
+// launch_ln_rows.
 constexpr int kLnThreads = 128;  // a row's threads: 4 warps
 constexpr int kLnVectors = 4;    // float4 registers a thread: rows of <= 2,048 floats
 
@@ -795,165 +753,6 @@ void launch_ln_rows(cudaStream_t s, const float* x, const float* ln_s, const flo
   ln_rows_kernel<T><<<M, kLnThreads, 0, s>>>(x, ln_s, ln_b, eps, M, K, xf, xl);
 }
 
-
 }  // namespace
-
-// Copy the (mean, rstd) pairs of rows m0 .. m0+BM-1 into shared memory.
-template <typename T>
-__device__ void load_row_stats(TileSmem<T>& sm, const float* stats, int M, int m0) {
-  for (int r = threadIdx.x; r < BM; r += THREADS) {
-    const int m = m0 + r;
-    sm.mean[r] = m < M ? stats[2 * (size_t)m] : 0.f;
-    sm.rstd[r] = m < M ? stats[2 * (size_t)m + 1] : 0.f;
-  }
-}
-
-// One 64-deep stage travels global -> registers -> shared.  Every load of a
-// stage is a 16-byte vector and all of a thread's loads are issued before
-// any of them is stored, so each thread keeps several loads in flight; the
-// caller issues stage k+1's loads before stage k's MMAs (tile_product).
-// Needs K to be a multiple of the vector width (8 bf16 / 4 float / 16 int8)
-// and 16-byte-aligned rows, which the wrappers check.
-template <typename T, bool LN>
-struct StageRegs {
-  using XT = typename std::conditional<LN, float, T>::type;  // element type of X in memory
-  static constexpr int XE = 16 / sizeof(XT);                // X elements per vector
-  static constexpr int WE = 16 / sizeof(T);                 // W elements per vector
-  static constexpr int NX = BM * BK / XE / THREADS;
-  static constexpr int NW = BN * BK / WE / THREADS;
-  static_assert(NX * XE * THREADS == BM * BK && NW * WE * THREADS == BN * BK, "stage split");
-  uint4 x[NX];
-  uint4 w[NW];
-
-  __device__ void load(const void* xp, const T* wp, int M, int K, int N, int m0, int n0, int k0) {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      const int v = threadIdx.x + i * THREADS;
-      const int r = v / (BK / XE), c = (v % (BK / XE)) * XE;
-      const int m = m0 + r, k = k0 + c;
-      x[i] = (m < M && k < K)
-                 ? *reinterpret_cast<const uint4*>(static_cast<const XT*>(xp) + (size_t)m * K + k)
-                 : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int i = 0; i < NW; ++i) {
-      const int v = threadIdx.x + i * THREADS;
-      const int r = v / (BK / WE), c = (v % (BK / WE)) * WE;
-      const int n = n0 + r, k = k0 + c;
-      w[i] = (n < N && k < K) ? *reinterpret_cast<const uint4*>(wp + (size_t)n * K + k)
-                              : make_uint4(0, 0, 0, 0);
-    }
-  }
-
-  // LN prologue applied here, on the way into shared memory
-  __device__ void store(TileSmem<T>& sm, const float* ln_s, const float* ln_b, int K,
-                        int k0) const {
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      const int v = threadIdx.x + i * THREADS;
-      const int r = v / (BK / XE), c = (v % (BK / XE)) * XE;
-      if constexpr (LN) {
-        const float* xv = reinterpret_cast<const float*>(&x[i]);
-#pragma unroll
-        for (int e = 0; e < XE; ++e) {
-          const int k = k0 + c + e;
-          // zero-filled columns past K stay zero (their products are padding)
-          sm.xs[r][c + e] = k < K ? ln_value<T>(xv[e], sm.mean[r], sm.rstd[r], ln_s[k], ln_b[k])
-                                  : from_f32<T>(0.f);
-        }
-      } else {
-        *reinterpret_cast<uint4*>(x_slot(sm, r, c)) = x[i];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NW; ++i) {
-      const int v = threadIdx.x + i * THREADS;
-      const int r = v / (BK / WE), c = (v % (BK / WE)) * WE;
-      *reinterpret_cast<uint4*>(w_slot(sm, r, c)) = w[i];
-    }
-  }
-};
-
-template <typename T> struct TileMma;
-
-// float: warp w owns rows 16w .. 16w+15 and all BN columns, as
-// BN / 8 TF32 m16n8k8 accumulators; each stage's products go to a fresh
-// tile (part) that is added to acc once, in float32.
-template <> struct TileMma<float> {
-  float acc[BN / 8][4];
-
-  __device__ void zero() {
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  }
-  __device__ void step(TileSmem<float>& sm) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-    float part[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
-    const float* x0 = &sm.xs[warp * 16 + g][t];
-    const float* x1 = &sm.xs[warp * 16 + g + 8][t];
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 8) {
-      uint32_t ah[4], al[4];
-      split_tf32(x0[kk], ah[0], al[0]);
-      split_tf32(x1[kk], ah[1], al[1]);
-      split_tf32(x0[kk + 4], ah[2], al[2]);
-      split_tf32(x1[kk + 4], ah[3], al[3]);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        // B = W^T: element (k, n) sits at ws[n][k]
-        const float* w = &sm.ws[j * 8 + g][kk + t];
-        uint32_t bh[2], bl[2];
-        split_tf32(w[0], bh[0], bl[0]);
-        split_tf32(w[4], bh[1], bl[1]);
-        mma_tf32x3(part[j], ah, al, bh, bl);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
-  }
-  __device__ void store(TileSmem<float>& sm) {
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      *reinterpret_cast<float2*>(&sm.cs[warp * 16 + g][j * 8 + 2 * t]) =
-          make_float2(acc[j][0], acc[j][1]);
-      *reinterpret_cast<float2*>(&sm.cs[warp * 16 + g + 8][j * 8 + 2 * t]) =
-          make_float2(acc[j][2], acc[j][3]);
-    }
-  }
-};
-
-// Computes this block's tile (rows m0.., columns n0..) into sm.cs; rows >= M
-// and columns >= N hold zeros.  Ends with a barrier, so sm.cs is readable.
-// With LN, ``stats`` holds each row's (mean, rstd) and ln_s/ln_b the scale and
-// bias; without, all three are unused.
-template <typename T, bool LN>
-__device__ void tile_product(TileSmem<T>& sm, const void* x, const float* stats,
-                             const float* ln_s, const float* ln_b, const T* w, int M, int K, int N,
-                             int m0, int n0) {
-  StageRegs<T, LN> regs;
-  regs.load(x, w, M, K, N, m0, n0, 0);
-  if constexpr (LN) load_row_stats(sm, stats, M, m0);
-  TileMma<T> mma;
-  mma.zero();
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    if (LN && k0 == 0) __syncthreads();  // the first store reads the row statistics
-    regs.store(sm, ln_s, ln_b, K, k0);
-    __syncthreads();
-    if (k0 + BK < K) regs.load(x, w, M, K, N, m0, n0, k0 + BK);  // in flight during the MMAs
-    mma.step(sm);
-    __syncthreads();
-  }
-  mma.store(sm);
-  __syncthreads();
-}
 
 }  // namespace gic

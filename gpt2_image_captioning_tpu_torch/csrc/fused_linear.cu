@@ -17,14 +17,14 @@
 // at 3.35 TB/s; half that in int8.  At 512 rows (beam-4, continuous serving)
 // a call does 1,024 flops a bf16 weight element and sits near the ridge.
 //
-// Routes.  bf16 and int8 (W8A8) weights run the design below; float32 keeps
-// the product tile of common.cuh (ln_stats_kernel, then fused_linear_kernel:
-// a 64 x 32 tile a block, the three-term TF32 split), unchanged.
+// Routes.  bf16, int8 (W8A8) and float32 weights all run the design below;
+// float32 on wgmma TF32, as its own paragraph says.
 //
-// Design for Hopper (bf16, int8).  The LayerNorm roles' prologue runs once
-// a call as its own launch: it normalises their rows into (M, K) bf16
-// (common.cuh::ln_rows_kernel), or in the int8 route normalises, casts and
-// quantizes them into (M, K) int8 and (M,) scales (rowquant.cu).  The int8
+// Design for Hopper.  The LayerNorm roles' prologue runs once a call as its
+// own launch: it normalises their rows into (M, K) bf16
+// (common.cuh::ln_rows_kernel), in float32 into their TF32 pair, or in the
+// int8 route normalises, casts and quantizes them into (M, K) int8 and (M,)
+// scales (rowquant.cu).  The int8
 // roles without a LayerNorm (the attention output -> proj, gelu(h) ->
 // cproj) have no prologue launch: their product quantizes its rows itself
 // (the folded quantization, below).  The product kernel reads both operands
@@ -71,6 +71,35 @@
 // 15), at 512 rows 16 and 30 (10 and 18), where four row tiles times six
 // column tiles each convert their rows.
 //
+// float32 (the facade's default precision).  The same kernel on wgmma
+// m64nBNk8 .tf32, as the three-term split of the vocabulary walk
+// (vocab_walk.cuh): x = xh + xl with xh = tf32(x) and xl = tf32(x - xh), W
+// alike, and each k8 step issues xl wh, xh wl, xh wh into the same float32
+// accumulators, the small terms first; a 128-byte box is 32 floats, four k8
+// steps of 32 bytes, so the descriptors step as bf16's k16 do.  Both sides
+// are rounded explicitly (cvt.rna in the pre-pass, common.cuh::
+// tf32_rna_bits in the converters); nothing relies on the tensor core
+// dropping a raw float's low bits.  The LayerNorm roles' rows come split
+// from the pre-pass (ln_rows_kernel with xl: a (2M, K) operand, the hi rows
+// then the lo rows, two row boxes a stage by TMA).  The attention output
+// and gelu(h) arrive unsplit, and W always does: eight converter warps
+// beside the producer split each landed box in shared memory, hi in place
+// and lo into a second slot of the stage (W's always, the rows' where they
+// came unsplit), then fence.proxy.async and a ready mbarrier that the
+// consumers wait on beside the TMA's.  A stage is (2 rows + 2 BN) x 128
+// bytes, 64 KB at 128 rows and BN 128, so a block takes an SM (544
+// threads, a 120-register cap) and a ring of up to 220 KB: 3 stages at BN
+// 128, 5 at BN 32.  Error: as the walk's, an output lies within 2^-20
+// sum_k |x_k w_k| of the exact sum before the float32 accumulation, which
+// adds at most one float32 rounding of the running sum a product
+// instruction (3 a k8 step) and one a K-slice where the cluster adds the
+// partials (tests/test_torch_tf32_split.py emulates it).  That rounding
+// drifts one way (up to half an ulp an instruction, on an H100), so
+// ops/decode_step.py::linear_plan keeps a float32 K-slice within 25 boxes:
+// 300 instructions into one accumulator.  Bound at B 128:
+// the three TF32 products of a layer, 3 x 2 x 128 x 7.08 M flops, 11 us at
+// 495 TFLOP/s, above its 28 MB of weights (8.5 us at 3.35 TB/s).
+//
 // The split (BN, splits, K-slice) comes from ops/decode_step.py::linear_plan,
 // once per shape, fitted to the splits' times on an H100
 // (scripts/linear_plan_sweep.py): the fewest bytes a block streams, with a
@@ -96,108 +125,96 @@
 
 namespace gic {
 
-// ---------------------------------------------------------------------------
-// float32: the product tile of common.cuh
-// ---------------------------------------------------------------------------
-
-// (mean, rstd) of each float32 row, one warp per row.
-__global__ void ln_stats_kernel(const float* x, int M, int K, float eps, float* stats) {
-  const int m = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  if (m >= M) return;
-  float mean, rstd;
-  row_mean_rstd(x + (size_t)m * K, K, eps, mean, rstd);
-  if (threadIdx.x % 32 == 0) {
-    stats[2 * (size_t)m] = mean;
-    stats[2 * (size_t)m + 1] = rstd;
-  }
-}
-
-template <bool LN, int EPI>
-__global__ void __launch_bounds__(THREADS)
-fused_linear_kernel(const void* x, const float* stats, const float* ln_s, const float* ln_b,
-                    const float* w, const float* bias, float* out, int M, int K, int N) {
-  __shared__ TileSmem<float> sm;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  tile_product<float, LN>(sm, x, stats, ln_s, ln_b, w, M, K, N, m0, n0);
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    const float y = sm.cs[r][c] + bias[n];
-    const size_t o = (size_t)m * N + n;
-    if (EPI == kEpiCast) out[o] = y;
-    else if (EPI == kEpiGelu) out[o] = gelu_new(y);
-    else out[o] += y;  // the float32 residual stream, in place
-  }
-}
-
-static void launch_f32(int ln, int epi, cudaStream_t s, const float* x, float* stats,
-                       const float* ln_s, const float* ln_b, float eps, const float* w,
-                       const float* bias, float* out, int M, int K, int N) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  if (ln) {
-    constexpr int kRowsPerBlock = 4;  // one warp per row
-    ln_stats_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, 32 * kRowsPerBlock, 0, s>>>(
-        x, M, K, eps, stats);
-  }
-#define GIC_LAUNCH(LNV, EPIV)                                                              \
-  fused_linear_kernel<LNV, EPIV><<<grid, THREADS, 0, s>>>(x, stats, ln_s, ln_b, w, bias, out, M, \
-                                                          K, N)
-  if (ln) {
-    if (epi == kEpiCast) GIC_LAUNCH(true, kEpiCast);
-    else if (epi == kEpiGelu) GIC_LAUNCH(true, kEpiGelu);
-    else GIC_LAUNCH(true, kEpiResidual);
-  } else {
-    if (epi == kEpiCast) GIC_LAUNCH(false, kEpiCast);
-    else if (epi == kEpiGelu) GIC_LAUNCH(false, kEpiGelu);
-    else GIC_LAUNCH(false, kEpiResidual);
-  }
-#undef GIC_LAUNCH
-}
-
-// ---------------------------------------------------------------------------
-// bf16 and int8: TMA ring, wgmma, cluster split-K
-// ---------------------------------------------------------------------------
-
 constexpr int LIN_BOX = kTmaBox;          // bytes of K a box: one swizzled row
 constexpr int LIN_MAX_SPLITS = 8;         // K-slices of a column tile: a portable cluster
 constexpr int LIN_MAX_STAGES = 8;
 constexpr int LIN_RING_BUDGET = 110 * 1024;  // a block's ring: two blocks an SM
-// with the quantization folded in and no more blocks than SMs: one block an
-// SM, so that the whole slice fits the ring (the rows' maxima then come from it)
+// a block that has an SM to itself: float32's (its threads' registers take
+// the SM), or one with the quantization folded in whose grid has no more
+// blocks than SMs (so that the whole slice fits the ring: the rows' maxima
+// then come from it)
 constexpr int LIN_RING_BUDGET_ONE = 220 * 1024;
 constexpr int LIN_PAD = 8;                // the partial tile's row pitch is BN + LIN_PAD
 constexpr int LIN_MAX_ROWS = 128;         // rows of a block: two consumer warpgroups
-constexpr int LIN_MAX_THREADS = 2 * 128 + 32;  // two consumer warpgroups and the producer warp
+constexpr int LIN_CONVERTERS = 256;       // float32: the converter warps' threads
 constexpr int LIN_SMEM_MAX = 1024 + LIN_RING_BUDGET_ONE;
 constexpr int LIN_BAR_CONSUMERS = 1;      // named barrier of the consumer warpgroups
 constexpr int LIN_BAR_WARPGROUP = 2;      // 2 + g: warpgroup g's own (the folded quantization)
 
-// Ring stages of a block: every box of its slice, within the budget (so a
-// slice of <= the budget's stages has all its boxes in flight at once).
-// abox: the row boxes of a stage, 1, or with the quantization folded in the
-// rows' element bytes (a stage's 128 int8 K-elements of rows arrive as 2
-// bf16 or 4 float32 boxes); budget: LIN_RING_BUDGET, or LIN_RING_BUDGET_ONE
-// (lin_budget).  ops/decode_step.py::linear_plan mirrors this sizing.
-static int lin_budget(int abox, int blocks) {
+// The threads beside the consumer warpgroups: the producer warp, and in
+// float32 (E = float) the converter warps with it; a block's most threads
+// (two consumer warpgroups); blocks an SM that its registers allow.
+template <typename E>
+__host__ __device__ constexpr int lin_service() {
+  return std::is_same<E, float>::value ? 32 + LIN_CONVERTERS : 32;
+}
+template <typename E>
+__host__ __device__ constexpr int lin_max_threads() {
+  return 2 * 128 + lin_service<E>();
+}
+template <typename E>
+__host__ __device__ constexpr int lin_min_blocks() {
+  return std::is_same<E, float>::value ? 1 : 2;
+}
+
+// A ring stage's bytes: a block's bm rows as abox boxes (1, or with the
+// quantization folded in the rows' element bytes: a stage's 128 int8
+// K-elements of rows arrive as 2 bf16 or 4 float32 boxes) and W's box, each
+// in parts slots (float32: 2, the TF32 hi and lo).  Ring stages of a block:
+// every box of its slice, within the budget (so a slice of <= the budget's
+// stages has all its boxes in flight at once).  ops/decode_step.py::
+// linear_plan_options mirrors this sizing.
+__host__ __device__ inline int lin_stage_bytes(int bm, int bn, int abox, int parts) {
+  return (bm * abox + bn) * parts * LIN_BOX;
+}
+static int lin_budget(bool own_sm, int abox, int blocks) {
   static const int sms = [] {
     int dev = 0, n = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     return n;
   }();
-  return abox > 1 && blocks <= sms ? LIN_RING_BUDGET_ONE : LIN_RING_BUDGET;
+  return own_sm || (abox > 1 && blocks <= sms) ? LIN_RING_BUDGET_ONE : LIN_RING_BUDGET;
 }
-static int lin_stages(int bm, int bn, int boxes, int abox, int budget) {
-  const int fit = budget / ((bm * abox + bn) * LIN_BOX);
+static int lin_stages(int stage_bytes, int boxes, int budget) {
+  const int fit = budget / stage_bytes;
   int stages = boxes < fit ? boxes : fit;
   if (stages > LIN_MAX_STAGES) stages = LIN_MAX_STAGES;
   return stages < 1 ? 1 : stages;
 }
-static size_t lin_smem(int bm, int bn, int stages, int abox) {
-  const size_t ring = (size_t)stages * (bm * abox + bn) * LIN_BOX;
+static size_t lin_smem(int bm, int bn, int stages, int stage_bytes) {
+  const size_t ring = (size_t)stages * stage_bytes;
   const size_t part = (size_t)bm * (bn + LIN_PAD) * 4;
   return 1024 + (ring > part ? ring : part);  // 1024: room to align the ring
+}
+
+// float32: one landed box of ``rows`` 128-byte rows split into TF32 hi (in
+// place) and lo (the next rows x 128 bytes), by converter thread t of
+// LIN_CONVERTERS, four 16-byte loads in flight a thread.  The swizzle
+// moves whole 16-byte chunks, so hi and lo keep the box's layout.
+__device__ __forceinline__ void lin_split_box(unsigned char* box, int rows, int t) {
+  float4* hi = reinterpret_cast<float4*>(box);
+  float4* lo = hi + rows * LIN_BOX / 16;
+  const int n = rows * LIN_BOX / 16;
+  constexpr int U = 4;
+  for (int i0 = t; i0 < n; i0 += U * LIN_CONVERTERS) {
+    float4 w[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i0 + u * LIN_CONVERTERS < n) w[u] = hi[i0 + u * LIN_CONVERTERS];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * LIN_CONVERTERS;
+      if (i >= n) break;
+      float4 h, l;
+      tf32_split_bits(w[u].x, h.x, l.x);
+      tf32_split_bits(w[u].y, h.y, l.y);
+      tf32_split_bits(w[u].z, h.z, l.z);
+      tf32_split_bits(w[u].w, h.w, l.w);
+      hi[i] = h;
+      lo[i] = l;
+    }
+  }
 }
 
 template <typename Acc>
@@ -351,25 +368,30 @@ __device__ __forceinline__ void fold_convert(unsigned char* stage, int bm, const
   bar_sync(LIN_BAR_WARPGROUP + g, 128);  // the int8 tile is whole
 }
 
-// amap: the (M, K) operand rows, box (128 bytes of K, 64 x consumers rows);
-// wmap: W (N, K), box (128 bytes of K, BN rows); both 128-byte swizzled.
-// E: the operands' type in the products (bf16, or int8); A: the rows' type
-// in memory, E, or with int8 weights bf16 / float32, the quantization then
-// folded in (arows: the rows' pointer, read for their maxima).
-// out: (M, N), the compute dtype (float32 where out_f32) or, for the
-// residual epilogue, the float32 stream.  sx (M,) and sw (N,): the int8
-// scales (sx unused with the quantization folded in).  Grid: (column tiles
-// x splits, row tiles); cluster (splits, 1, 1).  Warps 0 .. 4 consumers - 1
-// multiply, the last one produces.
+// amap: the (M, K) operand rows, box (128 bytes of K, 64 x consumers rows),
+// or with a_split (float32) their (2M, K) TF32 pair, the hi rows then the lo
+// rows; wmap: W (N, K), box (128 bytes of K, BN rows); both 128-byte
+// swizzled.  E: the operands' type in the products (bf16, int8, or float32
+// on TF32); A: the rows' type in memory, E, or with int8 weights bf16 /
+// float32, the quantization then folded in (arows: the rows' pointer, read
+// for their maxima).  out: (M, N), the compute dtype (float32 where
+// out_f32) or, for the residual epilogue, the float32 stream.  sx (M,) and
+// sw (N,): the int8 scales (sx unused with the quantization folded in).
+// Grid: (column tiles x splits, row tiles); cluster (splits, 1, 1).  Warps 0
+// .. 4 consumers - 1 multiply, the next one produces, and in float32 the
+// last eight split the landed boxes.  A float32 stage holds the rows' hi
+// and lo boxes, then W's hi and lo.
 template <typename E, typename A, int BN>
-__global__ void __launch_bounds__(LIN_MAX_THREADS, 2)
+__global__ void __launch_bounds__(lin_max_threads<E>(), lin_min_blocks<E>())
 linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
                     const __grid_constant__ CUtensorMap wmap, const void* arows,
                     const float* bias, void* out, int out_f32, int epi, int M, int N, int K,
-                    int kslice, int stages, const float* sx, const float* sw) {
+                    int kslice, int stages, const float* sx, const float* sw, int a_split) {
   constexpr bool kInt8 = std::is_same<E, int8_t>::value;
+  constexpr bool kTf32 = std::is_same<E, float>::value;
   constexpr bool kFold = kInt8 && !std::is_same<A, int8_t>::value;
   constexpr int ABOX = (int)(sizeof(A) / sizeof(E));  // row boxes a stage
+  constexpr int kParts = kTf32 ? 2 : 1;  // slots an operand's box: TF32 hi and lo, or the box
   using Acc = typename std::conditional<kInt8, int, float>::type;
   constexpr int BK = LIN_BOX / (int)sizeof(E);  // K elements a stage
   constexpr int R = BN / 2;                     // accumulators a thread
@@ -377,13 +399,15 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
   constexpr int kFoldRows = kFold ? LIN_MAX_ROWS : 1;
   extern __shared__ unsigned char smem_raw[];
   __shared__ uint64_t full[LIN_MAX_STAGES], empty[LIN_MAX_STAGES];
+  __shared__ uint64_t ready[kTf32 ? LIN_MAX_STAGES : 1];  // float32: a stage's boxes split
   __shared__ float fold_max[kFoldRows], fold_scale[kFoldRows], fold_inv[kFoldRows];
   unsigned char* ring = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
 
-  const int ncons = blockDim.x - 32;  // consumer threads
-  const int bm = ncons / 2;           // 64 rows a consumer warpgroup
-  const int stage_bytes = (bm * ABOX + BN) * LIN_BOX;
+  const int ncons = blockDim.x - lin_service<E>();  // consumer threads
+  const int bm = ncons / 2;                          // 64 rows a consumer warpgroup
+  const int a_bytes = bm * ABOX * kParts * LIN_BOX;  // the rows' slots of a stage; W's follow
+  const int stage_bytes = lin_stage_bytes(bm, BN, ABOX, kParts);
   const int rank = cluster_rank(), splits = gridDim.x / ((N + BN - 1) / BN);
   const int n0 = (blockIdx.x / splits) * BN, m0 = blockIdx.y * bm;
   const int k0 = rank * kslice;
@@ -398,25 +422,44 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     for (int s = 0; s < stages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], ncons);
+      if constexpr (kTf32) mbar_init(&ready[s], LIN_CONVERTERS);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (threadIdx.x >= ncons) {
-    // ---- producer warp: one lane keeps the slice's boxes in flight ----
+    const int st = threadIdx.x - ncons;  // the service thread
     if constexpr (kFold) cluster_arrive();  // the rows' maxima: nothing of the producer's
-    if (threadIdx.x == ncons) {
+    if (st == 0) {
+      // ---- producer: one lane keeps the slice's boxes in flight ----
+      // the bytes TMA brings a stage: float32 leaves the lo slots it does
+      // not load to the converters
+      const int tx = kTf32 ? (bm * (a_split ? 2 : 1) + BN) * LIN_BOX : stage_bytes;
       for (int b = 0; b < nbox; ++b) {
         const int s = b % stages;
         if (b >= stages) mbar_wait(&empty[s], (b / stages - 1) & 1);  // box b - stages released
         unsigned char* a = ring + s * stage_bytes;
-        mbar_expect_tx(&full[s], stage_bytes);
+        mbar_expect_tx(&full[s], tx);
 #pragma unroll
         for (int j = 0; j < ABOX; ++j)
           tma_load_2d(a + j * bm * LIN_BOX, &amap, &full[s],
                       k0 + b * BK + j * (LIN_BOX / (int)sizeof(A)), m0);
-        tma_load_2d(a + ABOX * bm * LIN_BOX, &wmap, &full[s], k0 + b * BK, n0);
+        if (kTf32 && a_split)  // the lo rows
+          tma_load_2d(a + bm * LIN_BOX, &amap, &full[s], k0 + b * BK, M + m0);
+        tma_load_2d(a + a_bytes, &wmap, &full[s], k0 + b * BK, n0);
+      }
+    } else if constexpr (kTf32) {
+      // ---- float32 converters: each landed box of W, and of the rows where
+      // they came unsplit, into TF32 hi (in place) and lo (its second slot) ----
+      for (int b = 0; st >= 32 && b < nbox; ++b) {
+        const int s = b % stages;
+        mbar_wait(&full[s], (b / stages) & 1);
+        unsigned char* stage = ring + s * stage_bytes;
+        lin_split_box(stage + a_bytes, BN, st - 32);
+        if (!a_split) lin_split_box(stage, bm, st - 32);
+        fence_proxy_async();  // the splits, before the consumers' wgmma reads them
+        mbar_arrive(&ready[s]);
       }
     }
     __syncwarp();
@@ -452,14 +495,28 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
     for (int b = 0; b < nbox; ++b) {
       const int s = b % stages;
       mbar_wait(&full[s], (b / stages) & 1);
+      if constexpr (kTf32) mbar_wait(&ready[s], (b / stages) & 1);
       unsigned char* stage = ring + s * stage_bytes;
       if constexpr (kFold) fold_convert<A>(stage, bm, fold_scale, fold_inv);
       const uint32_t a0 = smem_u32(stage) + ((ABOX - 1) * bm + g * 64) * LIN_BOX;
-      const uint32_t w0 = smem_u32(stage) + ABOX * bm * LIN_BOX;
+      const uint32_t w0 = smem_u32(stage) + a_bytes;
       wgmma_fence();
+      if constexpr (kTf32) {
+        const uint32_t al = a0 + bm * LIN_BOX, wl = w0 + BN * LIN_BOX;  // the lo slots
 #pragma unroll
-      for (int kk = 0; kk < LIN_BOX / 32; ++kk)  // 32 bytes of K a step: k16 bf16, k32 int8
-        Wgmma<BN>::mma(d, wgmma_desc(a0 + 32 * kk, 16, 1024), wgmma_desc(w0 + 32 * kk, 16, 1024));
+        for (int kk = 0; kk < LIN_BOX / 32; ++kk) {  // k8 a step: 32 bytes of K
+          const uint64_t ah = wgmma_desc(a0 + 32 * kk, 16, 1024);
+          const uint64_t wh = wgmma_desc(w0 + 32 * kk, 16, 1024);
+          Wgmma<BN>::tf32(d, wgmma_desc(al + 32 * kk, 16, 1024), wh);
+          Wgmma<BN>::tf32(d, ah, wgmma_desc(wl + 32 * kk, 16, 1024));
+          Wgmma<BN>::tf32(d, ah, wh);
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < LIN_BOX / 32; ++kk)  // 32 bytes of K a step: k16 bf16, k32 int8
+          Wgmma<BN>::mma(d, wgmma_desc(a0 + 32 * kk, 16, 1024),
+                         wgmma_desc(w0 + 32 * kk, 16, 1024));
+      }
       wgmma_commit();
       if (stages > 1) {
         wgmma_wait<1>();  // box b - 1's products are done: release its slot
@@ -591,9 +648,10 @@ linear_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
 }
 
 template <typename E, typename A, int BN>
-static int launch_wgmma(const void* a, const void* w, const float* bias, void* out, int out_f32,
-                        int epi, int M, int N, int K, int kslice, int splits, const float* sx,
-                        const float* sw, cudaStream_t s) {
+static int launch_wgmma(const void* a, int a_split, const void* w, const float* bias, void* out,
+                        int out_f32, int epi, int M, int N, int K, int kslice, int splits,
+                        const float* sx, const float* sw, cudaStream_t s) {
+  constexpr bool tf32 = std::is_same<E, float>::value;
   constexpr int BK = LIN_BOX / (int)sizeof(E);
   constexpr int abox = (int)(sizeof(A) / sizeof(E));
   auto kernel = linear_wgmma_kernel<E, A, BN>;
@@ -602,15 +660,16 @@ static int launch_wgmma(const void* a, const void* w, const float* bias, void* o
   if (attr != cudaSuccess) return (int)attr;
   const int consumers = M <= 64 ? 1 : 2, bm = 64 * consumers;
   const int blocks = (N + BN - 1) / BN * splits * ((M + bm - 1) / bm);
-  const int stages = lin_stages(bm, BN, kslice / BK, abox, lin_budget(abox, blocks));
+  const int stage_bytes = lin_stage_bytes(bm, BN, abox, tf32 ? 2 : 1);
+  const int stages = lin_stages(stage_bytes, kslice / BK, lin_budget(tf32, abox, blocks));
   CUtensorMap amap, wmap;
-  int err = tma_operand_map(&amap, a, M, K, bm, (int)sizeof(A));
+  int err = tma_operand_map(&amap, a, tf32 && a_split ? 2 * M : M, K, bm, (int)sizeof(A));
   if (!err) err = tma_operand_map(&wmap, w, N, K, BN, (int)sizeof(E));
   if (err) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((N + BN - 1) / BN * splits), (unsigned)((M + bm - 1) / bm), 1);
-  cfg.blockDim = dim3((unsigned)(128 * consumers + 32), 1, 1);
-  cfg.dynamicSmemBytes = lin_smem(bm, BN, stages, abox);
+  cfg.blockDim = dim3((unsigned)(128 * consumers + lin_service<E>()), 1, 1);
+  cfg.dynamicSmemBytes = lin_smem(bm, BN, stages, stage_bytes);
   cfg.stream = s;
   cudaLaunchAttribute cluster[1];
   cluster[0].id = cudaLaunchAttributeClusterDimension;
@@ -620,27 +679,27 @@ static int launch_wgmma(const void* a, const void* w, const float* bias, void* o
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
   return (int)cudaLaunchKernelEx(&cfg, kernel, amap, wmap, a, bias, out, out_f32, epi, M, N, K,
-                                 kslice, stages, sx, sw);
+                                 kslice, stages, sx, sw, a_split);
 }
 
 template <typename E, typename A>
-static int dispatch_wgmma(int bn, const void* a, const void* w, const float* bias, void* out,
-                          int out_f32, int epi, int M, int N, int K, int kslice, int splits,
-                          const float* sx, const float* sw, cudaStream_t s) {
+static int dispatch_wgmma(int bn, const void* a, int a_split, const void* w, const float* bias,
+                          void* out, int out_f32, int epi, int M, int N, int K, int kslice,
+                          int splits, const float* sx, const float* sw, cudaStream_t s) {
   const int bk = LIN_BOX / (int)sizeof(E);
   if (splits < 1 || splits > LIN_MAX_SPLITS || kslice <= 0 || kslice % bk ||
       (K + kslice - 1) / kslice != splits)
     return (int)cudaErrorInvalidValue;
   switch (bn) {
     case 32:
-      return launch_wgmma<E, A, 32>(a, w, bias, out, out_f32, epi, M, N, K, kslice, splits, sx,
-                                    sw, s);
+      return launch_wgmma<E, A, 32>(a, a_split, w, bias, out, out_f32, epi, M, N, K, kslice,
+                                    splits, sx, sw, s);
     case 64:
-      return launch_wgmma<E, A, 64>(a, w, bias, out, out_f32, epi, M, N, K, kslice, splits, sx,
-                                    sw, s);
+      return launch_wgmma<E, A, 64>(a, a_split, w, bias, out, out_f32, epi, M, N, K, kslice,
+                                    splits, sx, sw, s);
     case 128:
-      return launch_wgmma<E, A, 128>(a, w, bias, out, out_f32, epi, M, N, K, kslice, splits, sx,
-                                     sw, s);
+      return launch_wgmma<E, A, 128>(a, a_split, w, bias, out, out_f32, epi, M, N, K, kslice,
+                                     splits, sx, sw, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -650,8 +709,16 @@ int linear_wgmma_bf16(const void* a, const void* w, const float* bias, void* out
                       int N, int K, int bn, int splits, int kslice, cudaStream_t s) {
   if (M <= 0 || K <= 0 || N <= 0 || epi < kEpiCast || epi > kEpiResidual)
     return (int)cudaErrorInvalidValue;
-  return dispatch_wgmma<__nv_bfloat16, __nv_bfloat16>(bn, a, w, bias, out, 0, epi, M, N, K,
+  return dispatch_wgmma<__nv_bfloat16, __nv_bfloat16>(bn, a, 0, w, bias, out, 0, epi, M, N, K,
                                                       kslice, splits, nullptr, nullptr, s);
+}
+
+int linear_wgmma_f32(const float* a, int a_split, const float* w, const float* bias, float* out,
+                     int epi, int M, int N, int K, int bn, int splits, int kslice, cudaStream_t s) {
+  if (M <= 0 || K <= 0 || N <= 0 || epi < kEpiCast || epi > kEpiResidual)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_wgmma<float, float>(bn, a, a_split, w, bias, out, 1, epi, M, N, K, kslice,
+                                      splits, nullptr, nullptr, s);
 }
 
 }  // namespace gic
@@ -660,20 +727,18 @@ int linear_wgmma_bf16(const void* a, const void* w, const float* bias, void* out
 // dtype; w: (N, K) in the compute dtype, or int8 when w_scale ((N,) float32)
 // is given; bias: (N,) float32; out: (M, N) in the compute dtype, or the
 // float32 residual stream (read and written) when epi is the residual add.
-// Scratch: stats (M, 2) float32 (float32 with ln != 0); xa the operand rows,
-// (M, K) int8 with int8 weights and ln != 0, (M, K) bf16 with bf16 weights
-// and ln != 0; sx (M,) float32 with int8 weights and ln != 0.  int8 weights
+// Scratch, with ln != 0: xa the operand rows, (M, K) int8 with int8
+// weights, (M, K) bf16 with bf16 weights, (2M, K) float32 (the TF32 pair)
+// with float32 weights; sx (M,) float32 with int8 weights.  int8 weights
 // without ln quantize x inside the product (no scratch).  bn, splits,
-// kslice: the bf16 and int8 routes' split (ops/decode_step.py::linear_plan;
-// unused by float32): BN 32, 64 or 128 columns a block, 1-8 K-slices of
-// kslice elements (a multiple of 128 bytes of the weights), every slice
-// non-empty.  Returns the first launch error (cudaGetLastError() after the
-// launches).
+// kslice: the split (ops/decode_step.py::linear_plan): BN 32, 64 or 128
+// columns a block, 1-8 K-slices of kslice elements (a multiple of 128
+// bytes of the weights), every slice non-empty.  Returns the first launch
+// error (cudaGetLastError() after the launches).
 extern "C" int gic_fused_linear(int dtype, int ln, int epi, const void* x, const void* ln_s,
                                 const void* ln_b, float eps, const void* w, const void* w_scale,
-                                const void* bias, void* out, void* stats, void* xa, void* sx,
-                                int M, int K, int N, int bn, int splits, int kslice,
-                                void* stream) {
+                                const void* bias, void* out, void* xa, void* sx, int M, int K,
+                                int N, int bn, int splits, int kslice, void* stream) {
   using namespace gic;
   if (M <= 0 || K <= 0 || N <= 0 || epi < kEpiCast || epi > kEpiResidual)
     return (int)cudaErrorInvalidValue;
@@ -684,18 +749,13 @@ extern "C" int gic_fused_linear(int dtype, int ln, int epi, const void* x, const
   const float* b = static_cast<const float*>(bias);
   const float* ws = static_cast<const float*>(w_scale);
   const bool int8 = w_scale != nullptr;
-  if (dtype == kF32 && !int8) {
-    launch_f32(ln, epi, s, static_cast<const float*>(x), static_cast<float*>(stats), lns, lnb,
-               eps, static_cast<const float*>(w), b, static_cast<float*>(out), M, K, N);
-    return (int)cudaGetLastError();
-  }
   const int out_f32 = dtype == kF32;
   int err;
   if (int8 && !ln) {  // the rows quantized inside the product
     err = dtype == kBF16
-              ? dispatch_wgmma<int8_t, __nv_bfloat16>(bn, x, w, b, out, out_f32, epi, M, N, K,
+              ? dispatch_wgmma<int8_t, __nv_bfloat16>(bn, x, 0, w, b, out, out_f32, epi, M, N, K,
                                                       kslice, splits, nullptr, ws, s)
-              : dispatch_wgmma<int8_t, float>(bn, x, w, b, out, out_f32, epi, M, N, K, kslice,
+              : dispatch_wgmma<int8_t, float>(bn, x, 0, w, b, out, out_f32, epi, M, N, K, kslice,
                                               splits, nullptr, ws, s);
   } else if (int8) {  // LN, the cast and the quantization in one pre-pass (rowquant.cu)
     int8_t* q = static_cast<int8_t*>(xa);
@@ -706,8 +766,19 @@ extern "C" int gic_fused_linear(int dtype, int ln, int epi, const void* x, const
       launch_rowquant<float, true>(s, x, K, lns, lnb, eps, M, K, q, K, sxp);
     const cudaError_t pre = cudaGetLastError();
     if (pre != cudaSuccess) return (int)pre;
-    err = dispatch_wgmma<int8_t, int8_t>(bn, q, w, b, out, out_f32, epi, M, N, K, kslice, splits,
-                                         sxp, ws, s);
+    err = dispatch_wgmma<int8_t, int8_t>(bn, q, 0, w, b, out, out_f32, epi, M, N, K, kslice,
+                                         splits, sxp, ws, s);
+  } else if (dtype == kF32) {  // wgmma TF32; with the LN its pre-pass writes the TF32 pair
+    const float* a = static_cast<const float*>(x);
+    if (ln) {
+      float* rows = static_cast<float*>(xa);
+      launch_ln_rows(s, a, lns, lnb, eps, M, K, rows, rows + (size_t)M * K);
+      const cudaError_t pre = cudaGetLastError();
+      if (pre != cudaSuccess) return (int)pre;
+      a = rows;
+    }
+    err = linear_wgmma_f32(a, ln, static_cast<const float*>(w), b, static_cast<float*>(out), epi,
+                           M, N, K, bn, splits, kslice, s);
   } else {
     const void* a = x;
     if (ln) {
@@ -718,11 +789,28 @@ extern "C" int gic_fused_linear(int dtype, int ln, int epi, const void* x, const
       if (pre != cudaSuccess) return (int)pre;
       a = rows;
     }
-    err = dispatch_wgmma<__nv_bfloat16, __nv_bfloat16>(bn, a, w, b, out, out_f32, epi, M, N, K,
-                                                       kslice, splits, nullptr, nullptr, s);
+    err = dispatch_wgmma<__nv_bfloat16, __nv_bfloat16>(bn, a, 0, w, b, out, out_f32, epi, M, N,
+                                                       K, kslice, splits, nullptr, nullptr, s);
   }
   if (err) return err;
   return (int)cudaGetLastError();
+}
+
+// The float32 product kernel's registers and local (spill) bytes a thread
+// (cudaFuncGetAttributes: numRegs, localSizeBytes) into out[0], out[1], for
+// variant 0, 1, 2: BN 32, 64, 128.  Returns 0 or a cudaError_t.
+extern "C" int gic_linear_f32_attrs(int variant, int* out) {
+  using namespace gic;
+  cudaFuncAttributes a;
+  cudaError_t err;
+  if (variant == 0) err = cudaFuncGetAttributes(&a, linear_wgmma_kernel<float, float, 32>);
+  else if (variant == 1) err = cudaFuncGetAttributes(&a, linear_wgmma_kernel<float, float, 64>);
+  else if (variant == 2) err = cudaFuncGetAttributes(&a, linear_wgmma_kernel<float, float, 128>);
+  else return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return 0;
 }
 
 extern "C" const char* gic_error_string(int err) {

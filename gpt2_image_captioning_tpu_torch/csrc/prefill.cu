@@ -32,17 +32,20 @@
 //   4. the projection added into x32;
 //   5. LN2, 6. the MLP fc with gelu_new (float64, rounded once), 7. its
 //      down-projection added into x32.
-// Seven launches a layer, 84 for GPT-2 124M, from one C call.  In bf16 the
-// four products run on fused_linear.cu's linear_wgmma_kernel (a TMA ring,
-// wgmma m64nBNk16 with float32 accumulators, the cluster split-K), in the
-// split ops/decode_step.py::linear_plan gives at B*T rows, which the
-// wrapper passes in (at 1,920 rows 128-column tiles, one K-slice for QKV
-// and fc, two for the others; at an admission's 120 the decode step's
-// splits); float32 keeps the three-term TF32 tile of common.cuh
-// (prefill_linear_kernel).  The cache rows are written by the attention
-// kernel rather than by a fourth epilogue of the product: the attention
-// reads each image's K and V anyway, and the decode step's product kernel
-// keeps its three epilogues.  The LayerNorm is its own pass, not a prologue
+// Seven launches a layer, 84 for GPT-2 124M, from one C call.  The four
+// products run on fused_linear.cu's linear_wgmma_kernel (a TMA ring, the
+// cluster split-K; bf16 on wgmma m64nBNk16, float32 on wgmma m64nBNk8 .tf32
+// as the three-term split, its header's float32 paragraph), in the split
+// ops/decode_step.py::linear_plan gives at B*T rows, which the wrapper
+// passes in (bf16 at 1,920 rows: 128-column tiles, one K-slice for QKV and
+// fc, two for the others; at an admission's 120 the decode step's splits).
+// In float32 the LayerNorms write their rows as the TF32 pair (abuf is then
+// (2 B*T, D): the hi rows, then the lo rows), which QKV and fc read split;
+// the attention output and gelu(h) reach the products unsplit, and the
+// product's converter warps split them.  The cache rows are written by the
+// attention kernel rather than by a fourth epilogue of the product: the
+// attention reads each image's K and V anyway, and the decode step's
+// product kernel keeps its three epilogues.  The LayerNorm is its own pass, not a prologue
 // of the product: every column tile would normalise the same rows again.
 //
 // Bound on the H100: operations.  At B 128, T 15 (1,920 rows) a layer does
@@ -53,7 +56,9 @@
 // version's 64 x 32 WMMA tile): the products run at 200-300 TFLOP/s, by
 // estimate bound by their operands' traffic from L2 (a 128 x 128 tile
 // reads both operands once a 64-deep step); gelu_new in float64 adds 0.40
-// ms, the attention 0.25.  An admission takes 0.53 ms (1.27 before).
+// ms, the attention 0.25.  An admission takes 0.53 ms (1.27 before).  In
+// float32 the products run three TF32 products each: 0.33 x 3 x 2 = 1.98 ms
+// at 495 TFLOP/s over 12 layers.
 #include "common.cuh"
 
 namespace gic {
@@ -61,27 +66,6 @@ namespace gic {
 constexpr int kPreMaxT = 32;     // keys of one image: one lane each
 constexpr int kPreMaxHd = 96;    // head dim: the three (T, hd + 1) float tiles stay under 48 KB
 constexpr int kAttnWarps = 8;
-
-// float32: y = epilogue(x @ W^T + bias) for rows m0.., columns n0.. on the
-// product tile of common.cuh (the three-term TF32 split).
-template <int EPI>
-__global__ void __launch_bounds__(THREADS)
-prefill_linear_kernel(const float* x, const float* w, const float* bias, float* out, int M, int K,
-                      int N) {
-  __shared__ TileSmem<float> sm;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  tile_product<float, false>(sm, x, nullptr, nullptr, nullptr, w, M, K, N, m0, n0);
-  for (int i = threadIdx.x; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    const float y = sm.cs[r][c] + bias[n];
-    const size_t o = (size_t)m * N + n;
-    if (EPI == kEpiCast) out[o] = y;
-    else if (EPI == kEpiGelu) out[o] = gelu_new(y);
-    else out[o] += y;  // the float32 residual stream
-  }
-}
 
 // Causal attention inside each image: block (g, h); q, k, v from the QKV
 // product's (M, 3D) rows g*T.. (columns [0, D), [D, 2D), [2D, 3D)); the
@@ -161,24 +145,23 @@ prefill_attention_kernel(const T* qkv, T* k_cache, T* v_cache, T* out, int tg, i
   }
 }
 
-// One product of a layer: bf16 on fused_linear.cu's TMA ring and wgmma in
-// the split plan (bn, splits, kslice); float32 on the product tile.
-static int product(cudaStream_t s, const __nv_bfloat16* x, const __nv_bfloat16* w,
+// One product of a layer on fused_linear.cu's TMA ring and wgmma, in the
+// split plan (bn, splits, kslice): bf16, or float32 on TF32, whose rows x
+// come as their TF32 pair where x_split is set (the LayerNorms' rows).
+static int product(cudaStream_t s, const __nv_bfloat16* x, int, const __nv_bfloat16* w,
                    const float* bias, void* out, int epi, int M, int K, int N, const int* plan) {
   return linear_wgmma_bf16(x, w, bias, out, epi, M, N, K, plan[0], plan[1], plan[2], s);
 }
-static int product(cudaStream_t s, const float* x, const float* w, const float* bias, void* out,
-                   int epi, int M, int K, int N, const int*) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  float* o = static_cast<float*>(out);
-  if (epi == kEpiCast)
-    prefill_linear_kernel<kEpiCast><<<grid, THREADS, 0, s>>>(x, w, bias, o, M, K, N);
-  else if (epi == kEpiGelu)
-    prefill_linear_kernel<kEpiGelu><<<grid, THREADS, 0, s>>>(x, w, bias, o, M, K, N);
-  else
-    prefill_linear_kernel<kEpiResidual><<<grid, THREADS, 0, s>>>(x, w, bias, o, M, K, N);
-  return 0;
+static int product(cudaStream_t s, const float* x, int x_split, const float* w, const float* bias,
+                   void* out, int epi, int M, int K, int N, const int* plan) {
+  return linear_wgmma_f32(x, x_split, w, bias, static_cast<float*>(out), epi, M, N, K, plan[0],
+                          plan[1], plan[2], s);
 }
+
+// The LayerNorm's TF32 lo rows: in float32 after the M hi rows of abuf, in
+// bf16 none.
+static float* pair_lo(float* abuf, size_t n) { return abuf + n; }
+static float* pair_lo(__nv_bfloat16*, size_t) { return nullptr; }
 
 template <typename T>
 static int run(cudaStream_t s, int L, int B, int tg, int D, int H, float eps, float* x32,
@@ -189,29 +172,29 @@ static int run(cudaStream_t s, int L, int B, int tg, int D, int H, float eps, fl
   const int M = B * tg, F = 4 * D, hd = D / H;
   const size_t smem = 3 * (size_t)tg * (hd + 1) * sizeof(float);
   const float scale = 1.f / sqrtf((float)hd);
+  float* lo = pair_lo(abuf, (size_t)M * D);
+  const int split = lo != nullptr;
   for (int l = 0; l < L; ++l) {
     T* kl = k_cache + (size_t)l * cache_t * B * D;
     T* vl = v_cache + (size_t)l * cache_t * B * D;
     // abuf holds LN1's rows, then the attention output, then LN2's rows
-    launch_ln_rows(s, x32, ln1s + (size_t)l * D, ln1b + (size_t)l * D, eps, M, D, abuf,
-                   static_cast<float*>(nullptr));
-    int err = product(s, abuf, qkvw + (size_t)l * 3 * D * D, attnb + (size_t)l * 3 * D, qkvbuf,
-                      kEpiCast, M, D, 3 * D, plans);
+    launch_ln_rows(s, x32, ln1s + (size_t)l * D, ln1b + (size_t)l * D, eps, M, D, abuf, lo);
+    int err = product(s, abuf, split, qkvw + (size_t)l * 3 * D * D, attnb + (size_t)l * 3 * D,
+                      qkvbuf, kEpiCast, M, D, 3 * D, plans);
     if (!err) {
       prefill_attention_kernel<T><<<dim3(B, H), 32 * kAttnWarps, smem, s>>>(qkvbuf, kl, vl, abuf,
                                                                            tg, D, hd, B, scale);
-      err = product(s, abuf, projw + (size_t)l * D * D, projb + (size_t)l * D, x32, kEpiResidual,
-                    M, D, D, plans + 3);
+      err = product(s, abuf, 0, projw + (size_t)l * D * D, projb + (size_t)l * D, x32,
+                    kEpiResidual, M, D, D, plans + 3);
     }
     if (!err) {
-      launch_ln_rows(s, x32, ln2s + (size_t)l * D, ln2b + (size_t)l * D, eps, M, D, abuf,
-                     static_cast<float*>(nullptr));
-      err = product(s, abuf, fcw + (size_t)l * F * D, fcb + (size_t)l * F, hbuf, kEpiGelu, M, D, F,
-                    plans + 6);
+      launch_ln_rows(s, x32, ln2s + (size_t)l * D, ln2b + (size_t)l * D, eps, M, D, abuf, lo);
+      err = product(s, abuf, split, fcw + (size_t)l * F * D, fcb + (size_t)l * F, hbuf, kEpiGelu,
+                    M, D, F, plans + 6);
     }
     if (!err)
-      err = product(s, hbuf, cprojw + (size_t)l * D * F, cprojb + (size_t)l * D, x32, kEpiResidual,
-                    M, F, D, plans + 9);
+      err = product(s, hbuf, 0, cprojw + (size_t)l * D * F, cprojb + (size_t)l * D, x32,
+                    kEpiResidual, M, F, D, plans + 9);
     if (err) return err;
     const cudaError_t last = cudaGetLastError();
     if (last != cudaSuccess) return (int)last;
@@ -227,10 +210,11 @@ static int run(cudaStream_t s, int L, int B, int tg, int D, int H, float eps, fl
 // cprojw (L, D, 4D) in the element type, output-major (the decode pack);
 // biases (L, N) and LN scale/bias (L, D) float32; k_cache/v_cache (L,
 // cache_t, B, D) in the element type, rows [0, T) of each layer written;
-// qkvbuf (B*T, 3D), abuf (B*T, D) and hbuf (B*T, 4D) scratch in the element
-// type; plans: host memory, 12 ints, the bf16 products' splits (bn, splits,
-// kslice of QKV, proj, fc, cproj: ops/decode_step.py::linear_plan at B*T
-// rows; unused by float32).  Returns the first error that is not 0.
+// qkvbuf (B*T, 3D), abuf (B*T, D) — (2 B*T, D) in float32, the LayerNorms'
+// TF32 pair — and hbuf (B*T, 4D) scratch in the element type; plans: host
+// memory, 12 ints, the products' splits (bn, splits, kslice of QKV, proj,
+// fc, cproj: ops/decode_step.py::linear_plan at B*T rows).  Returns the
+// first error that is not 0.
 extern "C" int gic_prefill(int dtype, int L, int B, int T, int D, int H, float eps, void* x32,
                            const void* qkvw, const void* projw, const void* fcw,
                            const void* cprojw, const void* attnb, const void* projb,
@@ -240,7 +224,7 @@ extern "C" int gic_prefill(int dtype, int L, int B, int T, int D, int H, float e
                            const int* plans, void* stream) {
   using namespace gic;
   if (L <= 0 || B <= 0 || T <= 0 || T > kPreMaxT || T > cache_t || H <= 0 || D % H ||
-      D / H > kPreMaxHd || (dtype == kBF16 && !plans))
+      D / H > kPreMaxHd || !plans)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };

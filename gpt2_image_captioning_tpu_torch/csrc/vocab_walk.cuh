@@ -8,9 +8,9 @@
 // Replaces the vocabulary walk of gpt2_image_captioning_tpu/ops/
 // decode_step.py::_step_kernel (:112; greedy :552-568 and :805-821, topk
 // :569-616, emit_logits :617-640, sample :641, the int8 tile :555-563),
-// whose first port was the 64 x 32 tile of common.cuh (one stage in
-// flight, four warps, a warp a row per 32-column tile) walking the whole of
-// wte once per 64 rows.  All four run on this walk in every operand type
+// whose first port was a 64 x 32 product tile (one stage in flight, four
+// warps, a warp a row per 32-column tile) walking the whole of wte once per
+// 64 rows.  All four run on this walk in every operand type
 // (bf16, int8, float32).
 //
 // Bound on the H100, at the greedy path's B 128: wte's bytes in bf16 (77.2
@@ -45,7 +45,7 @@
 // - float32 runs the same walk on wgmma m64n128k8 .tf32 (K-major on both
 //   sides, which is the direct product's layout; a 128-byte box is 32
 //   floats, four k8 steps of 32 bytes, so the descriptors step as bf16's
-//   k16 do) as the three-term split of common.cuh's tile: x = xh + xl with
+//   k16 do) as the three-term split (common.cuh::split_tf32): x = xh + xl with
 //   xh = tf32(x) (cvt.rna) and xl = tf32(x - xh), w alike, and d += xl wh +
 //   xh wl + xh wh into the same float32 accumulators, the small terms
 //   first.  Both sides are rounded explicitly; nothing relies on the tensor
@@ -54,7 +54,7 @@
 //   the xh rows, then the xl rows, streamed as two boxes a stage.  wte is
 //   split in shared memory as each box lands, by seven converter warps
 //   beside the producer (512 threads a block at 128 rows, 16 warps, so a
-//   128-register cap a thread; tf32_rna_bits):
+//   128-register cap a thread; common.cuh::tf32_rna_bits):
 //   hi in place, lo into a second slot of the stage, then fence.proxy.async
 //   and an mbarrier (ready) that the consumers wait on beside the TMA's.  A
 //   stage is (2 bm + 2 VW_BN) x 128 bytes, 64 KB at bm 128: three stages.
@@ -154,19 +154,6 @@ __host__ __device__ inline int vw_rows(int M) { return M <= 64 ? 64 : 128; }
 // 64 g + 16 (warp in its warpgroup) + lane / 4.
 __device__ __forceinline__ int vw_row0() {
   return 64 * (threadIdx.x / 128) + 16 * ((threadIdx.x % 128) / 32) + (threadIdx.x % 32) / 4;
-}
-
-// split_tf32 (common.cuh) by integer operations, as the converter warps
-// split wte: half a TF32 ulp added to the magnitude bits and the low 13
-// dropped is cvt.rna.tf32.f32's rounding (to nearest, ties away from zero)
-// of every finite x, without the conversion unit, whose quarter rate held
-// the converters back.
-__device__ __forceinline__ float tf32_rna_bits(float x) {
-  return __uint_as_float((__float_as_uint(x) + 0x1000u) & 0xFFFFE000u);
-}
-__device__ __forceinline__ void tf32_split_bits(float x, float& hi, float& lo) {
-  hi = tf32_rna_bits(x);
-  lo = tf32_rna_bits(x - hi);
 }
 
 // The consumer threads of a walk kernel's block (the service threads follow).
@@ -319,9 +306,9 @@ __device__ __forceinline__ void vocab_walk(const CUtensorMap* amap, const CUtens
         for (int kk = 0; kk < kTmaBox / 32; ++kk) {  // k8 a step: 32 bytes of K
           const uint64_t ah = wgmma_desc(a0 + 32 * kk, 16, 1024);
           const uint64_t wh = wgmma_desc(w0 + 32 * kk, 16, 1024);
-          wgmma_tf32_m64n128k8(d, wgmma_desc(al + 32 * kk, 16, 1024), wh);
-          wgmma_tf32_m64n128k8(d, ah, wgmma_desc(wl + 32 * kk, 16, 1024));
-          wgmma_tf32_m64n128k8(d, ah, wh);
+          Wgmma<VW_BN>::tf32(d, wgmma_desc(al + 32 * kk, 16, 1024), wh);
+          Wgmma<VW_BN>::tf32(d, ah, wgmma_desc(wl + 32 * kk, 16, 1024));
+          Wgmma<VW_BN>::tf32(d, ah, wh);
         }
       } else {
 #pragma unroll

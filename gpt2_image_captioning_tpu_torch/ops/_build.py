@@ -52,10 +52,13 @@ _SIGNATURES = {
                              _P],
     # dtype, ln, x, ln_scale, ln_bias, eps, q, sx, M, K, stream
     "gic_rowquant": [_I, _I, _P, _P, _P, _F, _P, _P, _I, _I, _P],
-    # dtype, ln, epilogue, x, ln_scale, ln_bias, eps, w, w_scale, bias, out, stats, xa, sx, M,
-    # K, N, bn, splits, k_slice, stream
-    "gic_fused_linear": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _P],
+    # dtype, ln, epilogue, x, ln_scale, ln_bias, eps, w, w_scale, bias, out, xa, sx, M, K, N,
+    # bn, splits, k_slice, stream
+    "gic_fused_linear": [_I, _I, _I, _P, _P, _P, _F, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _P],
+    # variant (BN 32, 64, 128), out (2 int32): the float32 product kernel's registers and
+    # local bytes a thread
+    "gic_linear_f32_attrs": [_I, _P],
     # dtype, x32, ln_scale, ln_bias, eps, wte, wte_scale, M, K, V, ranges, xf, sx, part_val,
     # part_idx, tok, stream
     "gic_logits_argmax": [_I, _P, _P, _P, _F, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],

@@ -13,9 +13,9 @@ for the vocabulary:
 - ``csrc/fused_linear.cu`` — ``y = epilogue(prologue(x) @ W + b)``: the QKV
   projection (LN1 prologue), the attention output projection (residual-add
   epilogue), the MLP up-projection (LN2 prologue, gelu_new epilogue) and its
-  down-projection (residual add); in bf16 and int8 a TMA ring, ``wgmma`` and
-  a K split over a thread-block cluster, planned per shape by
-  :func:`linear_plan`;
+  down-projection (residual add); in bf16, int8 and float32 (``wgmma`` TF32,
+  the three-term split) a TMA ring, ``wgmma`` and a K split over a
+  thread-block cluster, planned per shape by :func:`linear_plan`;
 - ``csrc/decode_attention.cu`` (via :mod:`ops.decode_attention`) — the cache
   append and the valid-prefix attention, optionally through the beam
   ancestry map ``origin`` or over per-row windows ``[start_r, idx]``
@@ -72,18 +72,34 @@ from gpt2_image_captioning_tpu_torch.ops.sampling import sample_step_plain, topk
 # epilogue codes of csrc/fused_linear.cu
 EPILOGUES = {"cast": 0, "gelu": 1, "residual": 2}
 
-# csrc/fused_linear.cu's bf16 and int8 route (its LIN_* constants)
+# csrc/fused_linear.cu's route (its LIN_* constants)
 LINEAR_BN = (32, 64, 128)        # the wgmma widths: output columns a block
 LINEAR_SPLITS = (1, 2, 3, 4, 6, 8)  # K-slices of a column tile (<= 8: a portable cluster)
 LINEAR_BOX_BYTES = 128           # K bytes of a TMA box and a ring stage
 LINEAR_RING_BUDGET = 110 * 1024  # a block's ring, so that two blocks share an SM
-LINEAR_RING_BUDGET_ONE = 220 * 1024  # rows quantized in the product, blocks <= SMs: one an SM
+LINEAR_RING_BUDGET_ONE = 220 * 1024  # a block an SM: float32, or rows quantized in the product
+                                     # with blocks <= SMs
 LINEAR_MAX_STAGES = 8
 LINEAR_PAD = 8                   # the partial tile's row pitch is bn + LINEAR_PAD
 SMS = 132                        # the H100's streaming multiprocessors
 # what a K-slice costs a block beyond its bytes (the cluster barriers and the
 # partials' round trip), in bytes streamed: fitted to scripts/linear_plan_sweep.py
 LINEAR_SPLIT_BYTES = 8 * 1024
+# float32: what a wave of blocks costs beside its products (the TMA round
+# trip, the converters' first box, the cluster barriers, the epilogue), in a
+# block's products (rows x columns x K), and the clusters a wave holds: a
+# cluster stays inside a GPC, and the H100's 8 GPCs hold >= 16 SMs each.
+# Fitted to scripts/linear_plan_sweep.py's float32 times on an H100 (any
+# value in 2-3 M picks the fastest split in all 16 of its cases).
+LINEAR_WAVE_PRODUCTS = 2_500_000
+LINEAR_GPCS, LINEAR_GPC_SMS = 8, 16
+# float32: the most boxes a K-slice takes (800 floats: 300 TF32 product
+# instructions into one accumulator, GPT-2 XL's K 6,400 in 8 slices).  The
+# tensor core's float32 accumulation drifts by up to half an ulp of the
+# running sum an instruction: on an H100 a slice of 1,200 instructions (K
+# 6,400 in two) parted from the float32 twin by 1.8e-4, past the checks'
+# 1e-4 + 1e-4 |y|; 144 instructions by 1.7e-5.
+LINEAR_TF32_BOXES = 25
 
 
 class LinearPlan(NamedTuple):
@@ -101,37 +117,38 @@ class LinearPlan(NamedTuple):
         return self.n_tiles * self.splits * self.row_tiles
 
 
-_NO_PLAN = LinearPlan(0, 0, 0, 0, 0, 0, 0, 0)
-
-
 def linear_plan_options(m: int, k: int, n: int, element_size: int,
                         row_bytes: int | None = None) -> list[LinearPlan]:
     """Every split ``csrc/fused_linear.cu`` can run an (M, K) x (K, N)
-    product with ``element_size``-byte operands (2 bf16, 1 int8) in: a
-    block owns ``bn`` output columns, every row up to 128 (more rows take
-    more row tiles) and one K-slice of whole 128-byte boxes; the ``splits``
-    slices of a column tile, none empty, form a cluster that reduces their
-    partial tiles in rank order (clusters of 5 and 7 left out: they measured
-    slower than their neighbours on the card).  ``row_bytes``: the bytes of
-    a row element as the ring carries it, ``element_size`` (the default),
-    or with int8 weights 2 or 4 where the product quantizes its bf16 or
-    float32 rows itself (a stage then holds 2 or 4 row boxes; a grid of no
-    more blocks than SMs then takes one block an SM and a ring twice the
-    size).  ``stages`` and ``smem`` mirror the kernel's own sizing of its
-    ring (``lin_budget``, ``lin_stages``, ``lin_smem``)."""
+    product with ``element_size``-byte operands (2 bf16, 1 int8, 4 float32)
+    in: a block owns ``bn`` output columns, every row up to 128 (more rows
+    take more row tiles) and one K-slice of whole 128-byte boxes; the
+    ``splits`` slices of a column tile, none empty, form a cluster that
+    reduces their partial tiles in rank order (clusters of 5 and 7 left
+    out: they measured slower than their neighbours on the card).
+    ``row_bytes``: the bytes of a row element as the ring carries it,
+    ``element_size`` (the default), or with int8 weights 2 or 4 where the
+    product quantizes its bf16 or float32 rows itself (a stage then holds 2
+    or 4 row boxes; a grid of no more blocks than SMs then takes one block
+    an SM and a ring twice the size).  float32 holds each box twice, its
+    TF32 hi and lo (the row pair and W's second slot), and a block takes an
+    SM (its converter warps' registers) and the larger ring.  ``stages`` and
+    ``smem`` mirror the kernel's own sizing of its ring (``lin_stage_bytes``,
+    ``lin_budget``, ``lin_stages``, ``lin_smem``)."""
     consumers = 1 if m <= 64 else 2
     bm = 64 * consumers
     row_tiles = -(-m // bm)
     boxes = -(-k // (LINEAR_BOX_BYTES // element_size))
     abox = (row_bytes or element_size) // element_size
+    tf32 = element_size == 4
     plans = []
     for bn in LINEAR_BN:
-        stage = (bm * abox + bn) * LINEAR_BOX_BYTES
+        stage = (bm * abox + bn) * (2 if tf32 else 1) * LINEAR_BOX_BYTES
         for splits in LINEAR_SPLITS:
             per = -(-boxes // splits)
             if -(-boxes // per) != splits:  # a slice would be empty
                 continue
-            one = abox > 1 and -(-n // bn) * splits * row_tiles <= SMS
+            one = tf32 or (abox > 1 and -(-n // bn) * splits * row_tiles <= SMS)
             budget = LINEAR_RING_BUDGET_ONE if one else LINEAR_RING_BUDGET
             stages = max(1, min(per, budget // stage, LINEAR_MAX_STAGES))
             smem = 1024 + max(stages * stage, bm * (bn + LINEAR_PAD) * 4)
@@ -157,22 +174,40 @@ def linear_plan(m: int, k: int, n: int, element_size: int,
     converting them sets its time: the fewest values a block converts
     (64 x consumers rows by its K-slice) times the blocks an SM, ties to
     more blocks — on the card the fastest split at 128 and 512 rows of
-    attn_proj and mlp_proj, or within 0.3 us of it."""
+    attn_proj and mlp_proj, or within 0.3 us of it.  float32 (a block an
+    SM, three TF32 products a k8 step) is set by its products: the fewest a
+    block runs (64 x consumers rows x ``bn`` x its K-slice), plus what a
+    wave costs beside them (``LINEAR_WAVE_PRODUCTS``), times its waves of
+    one block an SM in clusters that the GPCs hold (a cluster of 6 leaves
+    4 SMs of a 16-SM GPC idle); then the bytes as above — on an H100 the
+    fastest split at 128, 512, 1,920 and 120 rows of every role — among
+    the splits whose K-slices keep within ``LINEAR_TF32_BOXES``."""
     options = linear_plan_options(m, k, n, element_size, row_bytes)
     abox = (row_bytes or element_size) // element_size
     if abox > 1:
         return min(options, key=lambda p: (-(-p.blocks // SMS) * 64 * p.consumers * p.k_slice,
                                            -p.blocks))
-    wave = min(SMS, max(p.blocks for p in options))
+    tf32 = element_size == 4
 
     def cost(p: LinearPlan):
         bm = 64 * p.consumers
         boxes = p.k_slice * element_size // LINEAR_BOX_BYTES
         streamed = boxes * (bm * abox + p.bn) * LINEAR_BOX_BYTES
         reduced = bm * p.bn * 4 if p.splits > 1 else 0
-        waves = -(-p.blocks // (2 * SMS))
-        return waves * (streamed + reduced + LINEAR_SPLIT_BYTES * p.splits), -p.bn
+        if tf32:  # a block an SM, in as many clusters as the GPCs hold
+            held = SMS if p.splits == 1 else LINEAR_GPCS * (LINEAR_GPC_SMS // p.splits) * p.splits
+            waves = -(-p.blocks // held)
+            work = waves * (bm * p.bn * p.k_slice + LINEAR_WAVE_PRODUCTS)
+        else:
+            waves, work = -(-p.blocks // (2 * SMS)), 0
+        return work, waves * (streamed + reduced + LINEAR_SPLIT_BYTES * p.splits), -p.bn
 
+    if tf32:  # the shortest accumulator chains where no option keeps within LINEAR_TF32_BOXES
+        boxes = -(-k // (LINEAR_BOX_BYTES // element_size))
+        cap = max(LINEAR_TF32_BOXES, -(-boxes // LINEAR_SPLITS[-1]))
+        return min((p for p in options if p.k_slice * element_size // LINEAR_BOX_BYTES <= cap),
+                   key=cost)
+    wave = min(SMS, max(p.blocks for p in options))
     return min((p for p in options if p.blocks >= wave), key=cost)
 
 
@@ -278,7 +313,9 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
     per row, then multiplies in int8; with ``ln`` in one more CUDA launch,
     ``csrc/rowquant.cu``, as the bf16 LayerNorm roles' pre-pass is, without
     it inside the product's own launch); bias: (N,) float32.
-    ``compute_dtype`` defaults to w's, and int8 weights need it.
+    ``compute_dtype`` defaults to w's, and int8 weights need it.  float32
+    weights run the TF32 route (the three-term split on ``wgmma``); with
+    ``ln`` the pre-pass writes the rows' TF32 pair into a (2M, K) scratch.
     ``epilogue`` "cast" or "gelu" returns a new (M, N) tensor in the compute
     dtype; "residual" adds into ``residual`` (M, N) float32 in place and
     returns it.
@@ -303,13 +340,12 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
                    "x must be float32 with the LN prologue, else the compute dtype")
     _build.require(bias.shape == (n,) and bias.dtype == torch.float32 and bias.is_contiguous(),
                    name, "bias must be contiguous float32 (N,)")
-    ln_s = ln_b = stats = xa = sx = w_s = None
+    ln_s = ln_b = xa = sx = w_s = None
     if ln is not None:
         for t in ln:
             _build.require(t.shape == (k,) and t.dtype == torch.float32 and t.is_contiguous(),
                            name, "LN scale/bias must be contiguous float32 (K,)")
         ln_s, ln_b = ln[0].data_ptr(), ln[1].data_ptr()
-    plan = _NO_PLAN  # float32 keeps the product tile
     if quant:
         _build.require(w_scale.shape == (n,) and w_scale.dtype == torch.float32
                        and w_scale.is_contiguous() and w_scale.device == x.device, name,
@@ -322,14 +358,12 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
             plan = linear_plan(m, k, n, 1)
         else:  # the rows quantized inside the product
             plan = linear_plan(m, k, n, 1, x.element_size())
-    elif cdt == torch.bfloat16:
-        if ln is not None:  # the normalised rows, the product's operand
-            xa_buf = torch.empty((m, k), dtype=cdt, device=x.device)
+    else:
+        if ln is not None:  # the normalised rows, the product's operand: float32's TF32 pair
+            pair = 2 if cdt == torch.float32 else 1
+            xa_buf = torch.empty((pair * m, k), dtype=cdt, device=x.device)
             xa = xa_buf.data_ptr()
-        plan = linear_plan(m, k, n, 2)
-    elif ln is not None:
-        stats_buf = torch.empty((m, 2), dtype=torch.float32, device=x.device)  # (mean, rstd)
-        stats = stats_buf.data_ptr()
+        plan = linear_plan(m, k, n, w.element_size())
     if epilogue == "residual":
         _build.require(residual is not None and residual.shape == (m, n)
                        and residual.dtype == torch.float32 and residual.is_contiguous(), name,
@@ -343,7 +377,7 @@ def fused_linear_cuda(x, w, bias, *, epilogue: str, ln=None, eps: float = 1e-5, 
         _build.require(t.device == x.device, name, "all tensors must be on one device")
     err = _build.library().gic_fused_linear(
         _build.DTYPE_CODE[cdt], int(ln is not None), EPILOGUES[epilogue], x.data_ptr(), ln_s, ln_b,
-        eps, w.data_ptr(), w_s, bias.data_ptr(), out.data_ptr(), stats, xa, sx, m, k, n,
+        eps, w.data_ptr(), w_s, bias.data_ptr(), out.data_ptr(), xa, sx, m, k, n,
         plan.bn, plan.splits, plan.k_slice, _build.stream_of(x),
     )
     _build.check(err, name)

@@ -8,10 +8,10 @@ the design and the bound), the port of the JAX package's Pallas
 image-major rows, seven launches a layer — LN1 (``ln_rows_kernel``), the
 QKV product, causal attention inside each image (which also writes K and V
 into the cache's (T, B, D) rows), the projection added into the float32
-residual stream, LN2 and the MLP's two products; in bf16 the four products
-run on ``csrc/fused_linear.cu``'s TMA ring and ``wgmma`` in the splits
-:func:`ops.decode_step.linear_plan` gives at B·T rows — wrapped by
-:func:`prefill_cuda`.
+residual stream, LN2 and the MLP's two products; the four products run on
+``csrc/fused_linear.cu``'s TMA ring and ``wgmma`` (float32 on TF32, the
+three-term split) in the splits :func:`ops.decode_step.linear_plan` gives
+at B·T rows — wrapped by :func:`prefill_cuda`.
 Plain twin: :func:`prefill_plain`, the same recipe in torch ops (the
 decode step's ``fused_linear_plain`` for the four products).  Unlike the
 port's eager ``gpt2.forward_cached``, whose residual stream is in the
@@ -96,15 +96,14 @@ def prefill_plain(packed: dict, x0: torch.Tensor, k_cache: torch.Tensor, v_cache
 
 
 def prefill_plans(m: int, d: int, compute_dtype: torch.dtype):
-    """The splits of the bf16 prefill's four products at ``m`` = B·T rows —
-    QKV, the attention projection, MLP fc and its down-projection, each
-    :func:`ops.decode_step.linear_plan`'s (bn, splits, k_slice) — as the C
-    entry reads them: 12 ints in host memory (zeros for float32, which keeps
-    the product tile)."""
-    vals = [0] * 12
-    if compute_dtype == torch.bfloat16:
-        roles = ((d, 3 * d), (d, d), (d, 4 * d), (4 * d, d))
-        vals = [v for k, n in roles for v in linear_plan(m, k, n, 2)[:3]]
+    """The splits of the prefill's four products at ``m`` = B·T rows — QKV,
+    the attention projection, MLP fc and its down-projection, each
+    :func:`ops.decode_step.linear_plan`'s (bn, splits, k_slice) for the
+    compute dtype's elements — as the C entry reads them: 12 ints in host
+    memory."""
+    el = torch.tensor([], dtype=compute_dtype).element_size()
+    roles = ((d, 3 * d), (d, d), (d, 4 * d), (4 * d, d))
+    vals = [v for k, n in roles for v in linear_plan(m, k, n, el)[:3]]
     return (ctypes.c_int * 12)(*vals)
 
 
@@ -143,7 +142,9 @@ def prefill_cuda(packed: dict, x0: torch.Tensor, k_cache: torch.Tensor, v_cache:
     dev = x0.device
     x32 = x0.reshape(m, d).to(torch.float32, copy=True)
     qkvbuf = torch.empty((m, 3 * d), dtype=cdt, device=dev)
-    abuf = torch.empty((m, d), dtype=cdt, device=dev)
+    # the LayerNorms' rows (float32: their TF32 pair, hi rows then lo rows),
+    # the attention output
+    abuf = torch.empty(((2 if cdt == torch.float32 else 1) * m, d), dtype=cdt, device=dev)
     hbuf = torch.empty((m, 4 * d), dtype=cdt, device=dev)
     plans = prefill_plans(m, d, cdt)
     err = _build.library().gic_prefill(

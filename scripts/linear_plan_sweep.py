@@ -1,10 +1,11 @@
 """Device time of every split of the decode step's projections on the GPU.
 
-``csrc/fused_linear.cu`` runs its bf16 and int8 products in the split that
+``csrc/fused_linear.cu`` runs its products in the split that
 ``ops/decode_step.py::linear_plan`` picks by a model of the bytes a block
-streams.  This script times each split that ``linear_plan_options`` allows
-(column width, K-slices) for the four roles of a GPT-2 124M layer, bf16 and
-int8, at 128 and 512 rows (the decode step's), or at the rows given: the
+streams (float32: of its TF32 products).  This script times each split that
+``linear_plan_options`` allows (column width, K-slices) for the four roles
+of a GPT-2 124M layer, bf16, int8 and float32, at 128 and 512 rows (the
+decode step's), or at the rows given: the
 product kernel's device time and the whole call's (with its LayerNorm or
 quantizer pre-pass; the int8 roles without a LayerNorm quantize their bf16
 rows inside the product) from a ``torch.profiler`` trace of 20 calls each
@@ -13,10 +14,10 @@ microseconds the planned split lies above the fastest one and the fastest
 one with a block on every SM (``planned_over_us``).  Run from the
 repository root on a machine with the card:
 
-    python3 scripts/linear_plan_sweep.py [--rows 128,512] [--types bf16,int8]
+    python3 scripts/linear_plan_sweep.py [--rows 128,512] [--types bf16,int8,float32]
 
-(the prefill's products: ``--rows 1920,120 --types bf16``, a request of 128
-images and an admission of 8, 15 prefix tokens each).
+(the prefill's products: ``--rows 1920,120 --types bf16,float32``, a request
+of 128 images and an admission of 8, 15 prefix tokens each).
 
 It prints one JSON line a role and writes them all to
 ``chiprun_out/linear_plan_sweep_<rows>_<types>.json``.
@@ -37,11 +38,15 @@ import chip_smoke as CS  # noqa: E402
 from gpt2_image_captioning_tpu_torch.ops import decode_step as DS  # noqa: E402
 
 PRODUCT = "linear_wgmma_kernel"
+# --types: (compute dtype, int8 weights)
+TYPES = {"bf16": (torch.bfloat16, False), "int8": (torch.bfloat16, True),
+         "float32": (torch.float32, False)}
 
 
-def sweep_role(name, b, k, n, ln, epi, quant, g) -> dict:
-    x, w, bias, res, kw = CS.linear_inputs(b, k, n, ln, epi, torch.bfloat16, quant, g)
-    el = 1 if quant else 2
+def sweep_role(name, b, k, n, ln, epi, kind, g) -> dict:
+    dtype, quant = TYPES[kind]
+    x, w, bias, res, kw = CS.linear_inputs(b, k, n, ln, epi, dtype, quant, g)
+    el = w.element_size()
     row_bytes = 2 if quant and not ln else None  # rows quantized inside the product
     planned = DS.linear_plan(b, k, n, el, row_bytes)
     chosen = DS.linear_plan
@@ -49,7 +54,7 @@ def sweep_role(name, b, k, n, ln, epi, quant, g) -> dict:
     try:
         for plan in DS.linear_plan_options(b, k, n, el, row_bytes):
             DS.linear_plan = lambda *_, p=plan: p
-            err, _ = CS.linear_error(x, w, bias, res, kw, torch.bfloat16)
+            err, _ = CS.linear_error(x, w, bias, res, kw, dtype)
             r = None if res is None else res.clone()
             dev = CS.device_split(lambda: DS.fused_linear_cuda(x, w, bias, residual=r, **kw),
                                   (PRODUCT,), f"sweep_{name}_b{b}_{el}.json")
@@ -70,7 +75,7 @@ def sweep_role(name, b, k, n, ln, epi, quant, g) -> dict:
     over = {key: (mine["product_device_ms"] - ref["product_device_ms"]) * 1e3
             for key, ref in (("best", best), ("best_full_wave", best_wave))
             if mine is not None and ref is not None}
-    return {"role": name, "rows_b": b, "type": "int8" if quant else "bf16", "K": k, "N": n,
+    return {"role": name, "rows_b": b, "type": kind, "K": k, "N": n,
             "row_bytes": row_bytes or el,
             "planned": planned._asdict(), "best": best, "best_full_wave": best_wave,
             "planned_over_us": over, "splits": rows}
@@ -79,7 +84,7 @@ def sweep_role(name, b, k, n, ln, epi, quant, g) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", default=f"{CS.B},{CS.B_BEAM}", help="row counts, comma-separated")
-    ap.add_argument("--types", default="bf16,int8", help="bf16 and / or int8")
+    ap.add_argument("--types", default="bf16,int8", help="bf16, int8 and / or float32")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("linear_plan_sweep: no CUDA device", file=sys.stderr)
@@ -88,10 +93,10 @@ def main() -> int:
     card = CS.nvidia_smi()
     g = torch.Generator(device="cuda").manual_seed(0)
     out = []
-    for quant in [t == "int8" for t in args.types.split(",")]:
+    for kind in args.types.split(","):
         for b in [int(r) for r in args.rows.split(",")]:
             for name, k, n, ln, epi in CS.LINEAR_ROLES:
-                rec = {**sweep_role(name, b, k, n, ln, epi, quant, g), "card": card}
+                rec = {**sweep_role(name, b, k, n, ln, epi, kind, g), "card": card}
                 out.append(rec)
                 print(json.dumps(rec), flush=True)
     name = f"linear_plan_sweep_{args.rows}_{args.types}.json".replace(",", "-")

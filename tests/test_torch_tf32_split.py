@@ -1,5 +1,6 @@
 """The three-term TF32 split of the float32 vocabulary walk
-(``csrc/vocab_walk.cuh``), emulated in torch on the CPU.
+(``csrc/vocab_walk.cuh``) and of the float32 projections
+(``csrc/fused_linear.cu``), emulated in torch on the CPU.
 
 The walk multiplies float32 operands on ``wgmma`` TF32: each operand x is
 split as xh = tf32(x) (``cvt.rna``: to nearest, ties away from zero) and
@@ -16,7 +17,10 @@ tensor core may truncate) and to nearest, at D 768 with LN-scale rows and
 wte of std 0.02 over V 1,025.  The four vocabulary kernels select from the
 walk's logits in float32 as in every operand type: the emulated walk fed
 to the top-k's and the sampler's selections is held to their float32
-twins and to float64.
+twins and to float64.  The projections run the same products a K-slice of
+``linear_plan``'s float32 split each, the slices' partial sums added in
+rank order by the cluster, then the bias and the epilogue: emulated for
+the four roles of a GPT-2 layer at D 768 and 128 rows.
 """
 
 import numpy as np
@@ -237,3 +241,85 @@ def test_walk_fed_to_the_sampler_keeps_the_float64_nucleus(temperature, top_p):
     assert int(stable.sum()) >= B * 3 // 4
     assert torch.equal(keep[stable], want[stable])
     assert bool((want.sum(dim=1) < V).all()) and bool((want.sum(dim=1) > 1).all())
+
+
+# ---------------------------------------------------------------------------
+# The float32 projections (csrc/fused_linear.cu's TF32 route)
+# ---------------------------------------------------------------------------
+
+M_ROWS = 128  # the decode step's batch
+ROLES = {  # K, N, LayerNorm prologue, epilogue: a GPT-2 layer at D 768
+    "qkv": (D, 3 * D, True, "cast"), "attn_proj": (D, D, False, "residual"),
+    "mlp_fc": (D, 4 * D, True, "gelu"), "mlp_proj": (4 * D, D, False, "residual"),
+}
+
+
+def role_inputs(role: str, seed: int):
+    """One role's inputs as the step gives them, from numpy: x (the float32
+    residual stream with the LN, else LN-scale rows: the attention output,
+    gelu(h) for mlp_proj), W (N, K) of std 0.02, the bias, the LN's scale
+    and bias or None, the residual stream or None."""
+    k, n, ln, epi = ROLES[role]
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32)
+
+    x = t((3.0 if ln else 1.0) * rng.standard_normal((M_ROWS, k)))
+    if role == "mlp_proj":
+        x = DS._gelu_new(x)
+    w, bias = t(0.02 * rng.standard_normal((n, k))), t(0.02 * rng.standard_normal(n))
+    lnp = (t(1 + 0.1 * rng.standard_normal(k)), t(0.1 * rng.standard_normal(k))) if ln else None
+    res = t(rng.standard_normal((M_ROWS, n))) if epi == "residual" else None
+    return x, w, bias, lnp, res
+
+
+def projection_sums(rows: torch.Tensor, w: torch.Tensor, k_slice: int, truncate: bool):
+    """The TF32 route's float32 sums of rows @ w^T before the bias: each
+    K-slice of ``k_slice`` accumulated as the walk's k8 steps (xl wh, xh wl,
+    xh wh, each an exact 8-term sum added with one rounding), the slices'
+    partials added in rank order (float32 adds, to nearest: the cluster's
+    reduction), and the sum over its additions of |running sum| (the
+    accumulation bound's measure)."""
+    (xh, xl), (wh, wl) = split(rows), split(w)
+    total, seen = None, torch.zeros(rows.shape[0], w.shape[0], dtype=torch.float64)
+    for lo in range(0, rows.shape[1], k_slice):
+        acc = torch.zeros(rows.shape[0], w.shape[0], dtype=torch.float32)
+        for k0 in range(lo, min(lo + k_slice, rows.shape[1]), K8):
+            ks = slice(k0, k0 + K8)
+            for a, b in ((xl, wh), (xh, wl), (xh, wh)):
+                exact = acc.double() + a[:, ks].double() @ b[:, ks].double().t()
+                acc = round_toward_zero(exact) if truncate else exact.to(torch.float32)
+                seen += acc.double().abs()
+        total = acc if total is None else total + acc
+        seen += total.double().abs()
+    return total, seen
+
+
+@pytest.mark.parametrize("truncate", [True, False], ids=["toward_zero", "to_nearest"])
+@pytest.mark.parametrize("role", list(ROLES))
+def test_projection_route_within_the_header_bound_and_tf_tol_of_its_twin(role, truncate):
+    """Each role at D 768 and 128 rows in linear_plan's float32 split: the
+    sums within the header bound of float64 (the split's 2^-20 of sum |x w|
+    and 2^-23 of every running sum, the slices' additions among them), and
+    after the bias and the epilogue (cast, gelu_new, the residual add)
+    within TF_TOL_F32 of ``fused_linear_plain`` and the kernel checks'
+    1e-4 + 1e-4 |y|."""
+    k, n, ln, epi = ROLES[role]
+    x, w, bias, lnp, res = role_inputs(role, 6)
+    plan = DS.linear_plan(M_ROWS, k, n, 4)
+    assert plan.splits * plan.k_slice >= k > (plan.splits - 1) * plan.k_slice
+    rows = x if lnp is None else nn.layer_norm_rows(lnp[0], lnp[1], x, 1e-5)  # the pre-pass's
+    sums, seen = projection_sums(rows, w, plan.k_slice, truncate)
+    exact = rows.double() @ w.double().t()
+    mass = rows.double().abs() @ w.double().abs().t()
+    bound = SPLIT_BOUND * mass + STEP_BOUND * seen
+    assert bool(((sums.double() - exact).abs() <= bound).all())
+    assert float(bound.max()) < TF_TOL_F32 / 10
+    y = bias + sums  # the kernel's order: the bias, then each epilogue
+    got = {"cast": lambda: y, "gelu": lambda: DS._gelu_new(y),
+           "residual": lambda: res + y}[epi]()
+    want = DS.fused_linear_plain(x, w, bias, epilogue=epi, ln=lnp,
+                                 residual=None if res is None else res.clone())
+    assert float((got - want).abs().max()) <= TF_TOL_F32
+    assert bool(((got - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
