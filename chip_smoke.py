@@ -16,7 +16,11 @@ registers and local bytes; ``--only prefill`` for the prefill
 kernel (bf16 and float32, its device time by part: LayerNorm, attention,
 each product, and the products' kernel names); ``--only quant`` for
 the int8 row quantizer and the int8 products whose rows carry no LayerNorm,
-which quantize them inside the product.  ``--only http``, ``--only
+which quantize them inside the product; ``--only flash`` for flash
+attention (bf16 and float32 at every path shape and its contract, each
+path shape's time by CUDA events and from a trace beside its bound, the
+twin and SDPA; each instantiation's layout, registers and local bytes; the
+backward).  ``--only http``, ``--only
 pipeline``, ``--only sizes``, ``--only rat`` and ``--only parallel`` run one
 of the last five phases below alone, with its launch counts by path.)
 
@@ -72,6 +76,11 @@ before and read just after:
   captions must score no worse than the plain path's on average, and in
   float32 the captions must be the plain path's; then float32 beam-4 on the
   three requests, one traced for the device time a step;
+- a prefix past the prefill kernel's 32 tokens: one greedy request of 128
+  embeddings to GPT-2 124M behind a mapper with a 40-token prefix, bf16 and
+  float32, kernels and plain in one call; the prefill runs
+  ``gpt2.forward_cached`` (flash attention at T 40, causal, 12 launches a
+  request beside the mapper's 8), every token teacher-forced;
 - int8 serving, each beside its bf16 figure from the same run: greedy W8A8
   through ``ImageCaptioningModel.generate(decode_precision="int8")``, the
   same with the int8 KV cache through ``generate(decode_quant=True,
@@ -386,9 +395,11 @@ ROWQUANT_SCALE_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-6}
 # transformer mapper (10 + 15 tokens, 768 / 8 heads; at GPT-2 medium, large
 # and XL 1024, 1280 and 1600 / 8: hd 128, 160 and 200, the last zero-padded
 # to the 208 build), the GPT-2 prefill of the int8 decode (forward_cached),
-# the CLIP text tower of caption extraction (causal, 77 positions, b 256),
-# and the three vision towers at their batches (CLIP B/32: 49 patches +
-# CLS; ViT-B/16: 196 + CLS; DINOv3 L/16: 196 + CLS + 4 registers).
+# a prefix of 40 tokens, past the prefill kernel's 32, which every decode
+# prefills through forward_cached (causal, Tq = Tk = 40), the CLIP text
+# tower of caption extraction (causal, 77 positions, b 256), and the three
+# vision towers at their batches (CLIP B/32: 49 patches + CLS; ViT-B/16:
+# 196 + CLS; DINOv3 L/16: 196 + CLS + 4 registers).
 FLASH_SHAPES = (
     ("gpt2_train", B, 12, 65, 64, True, True),
     ("mapper", B, 8, 25, 96, False, False),
@@ -396,6 +407,7 @@ FLASH_SHAPES = (
     ("mapper_gpt2_large", B, 8, 25, 160, False, False),
     ("mapper_gpt2_xl", B, 8, 25, 200, False, False),
     ("gpt2_prefill", B, 12, 15, 64, True, False),
+    ("gpt2_long_prefix", B, 12, 40, 64, True, False),
     ("clip_text_tower", 256, 8, 77, 64, True, False),
     ("clip_tower", 256, 12, 50, 64, False, False),
     ("vit_tower", 128, 12, 197, 64, False, False),
@@ -2203,16 +2215,25 @@ def check_flash_sp(dtype, g) -> dict:
         pairs = sum(min(q_offset + i + 1, tk) for i in range(tq))
         nbytes = 2 * b * h * (tq + tk) * hd * q.element_size() + 4 * b * tk
         bound_ms, bound_by = bound(nbytes, 4 * hd * pairs * b * h, split_type(dtype))
+        times = flash_times(lambda: A.flash_attention_cuda(q, k, v, mask, True, q_offset),
+                            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=valid),
+                            dtype, name)
         shapes[name] = {
             "at": [b, h, tq, tk, hd], "causal": True, "key_mask": True, "q_offset": q_offset,
-            "max_abs_err": err,
-            "ms": time_ms(lambda: A.flash_attention_cuda(q, k, v, mask, True, q_offset)),
+            "max_abs_err": err, **times,
             "plain_ms": time_ms(lambda: A._flash_attention_plain(q, k, v, mask, True, q_offset)),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                                         attn_mask=valid)),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
             "plan": A.flash_plan(tq)._asdict()}
     return shapes
+
+
+def flash_times(call, library_call, dtype, name: str) -> dict:
+    """A flash shape's times: the kernel's and SDPA's by CUDA events (ms,
+    library_ms) and from a traced window (device_ms, library_device_ms)."""
+    tag = f"flash_{dtype_tag(dtype)}_{name}"
+    return {"ms": time_ms(call), "library_ms": time_ms(library_call),
+            "device_ms": device_ms(call, "flash_attention_kernel", f"{tag}_trace.json"),
+            "library_device_ms": device_ms(library_call, None, f"{tag}_sdpa_trace.json")}
 
 
 def check_flash(dtype, g) -> dict:
@@ -2225,21 +2246,22 @@ def check_flash(dtype, g) -> dict:
         got = A.flash_attention_cuda(q, k, v, mask, causal)
         torch.cuda.synchronize()
         err = close(got, want, FLASH_TOL[dtype])
-        ms = time_ms(lambda: A.flash_attention_cuda(q, k, v, mask, causal))
         plain_ms = time_ms(lambda: A._flash_attention_plain(q, k, v, mask, causal))
         if masked:
             valid = A._valid(q, k, mask, causal, 0)
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=valid))
+            library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=valid)  # noqa: E731
         else:
-            library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+            library = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
+        times = flash_times(lambda: A.flash_attention_cuda(q, k, v, mask, causal), library,
+                            dtype, name)
         # q, k, v read and the output written once (and the mask); 4 hd
         # operations per (query, key) pair the masks leave to compute
         pairs = t * (t + 1) // 2 if causal else t * t
         nbytes = 4 * b * h * t * hd * q.element_size() + (4 * b * t if masked else 0)
         bound_ms, bound_by = bound(nbytes, 4 * hd * pairs * b * h, split_type(dtype))
         shapes[name] = {"at": [b, h, t, hd], "causal": causal, "padding_mask": masked,
-                        "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                        "max_abs_err": err, **times,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "bytes": nbytes,
                         "plan": A.flash_plan(t)._asdict()}
     for name, b, h, tq, tk, hd, causal, masked, q_offset in FLASH_CONTRACT:
@@ -2254,9 +2276,41 @@ def check_flash(dtype, g) -> dict:
     shapes["fully_masked_row"] = check_flash_masked_row(dtype, g)
     main = shapes[FLASH_MAIN[dtype]]
     return {"kernel": "flash_attention", "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
-            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                    "device_ms", "library_device_ms")},
             "at": FLASH_MAIN[dtype], "library": "scaled_dot_product_attention, same boolean mask",
             "tolerance": FLASH_TOL[dtype], "shapes": shapes}
+
+
+def flash_registers() -> dict:
+    """Each flash instantiation (bf16 and float32 at every built head dim):
+    its layout as the C side has it (``gic_flash_layout``) against the
+    Python mirror (``ops/attention.py::flash_layout``, which must agree), the
+    blocks an SM holds, and its registers and local (spill) bytes a thread,
+    as ``cudaFuncGetAttributes`` gives them; none may spill."""
+    import ctypes
+
+    from gpt2_image_captioning_tpu_torch.ops import _build
+    from gpt2_image_captioning_tpu_torch.ops import attention as A
+
+    lib, out = _build.library(), {}
+    fn = getattr(lib, "gic_flash_layout", None)
+    if fn is None:
+        return {"phase": "flash_registers", "kernels": "not in this tree"}
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in A.HEAD_DIMS:
+            res = (ctypes.c_int * 8)()
+            _build.check(fn(_build.DTYPE_CODE[dtype], hd, ctypes.addressof(res)),
+                         "gic_flash_layout")
+            c_side = {"smem_bytes": res[0], "kv_tile": res[1], "stages": res[2],
+                      "q_buffers": res[3], "threads": res[4]}
+            mirror = A.flash_layout(dtype, hd)._asdict()
+            check(c_side == mirror, f"flash layout {dtype} hd {hd}: C {c_side} != {mirror}")
+            out[f"{dtype_tag(dtype)} hd {hd}"] = {**c_side, "blocks_per_sm": res[5],
+                                                  "num_regs": res[6], "local_bytes": res[7]}
+    spills = {k: v["local_bytes"] for k, v in out.items() if v["local_bytes"]}
+    check(not spills, f"flash instantiations with local (spill) bytes: {spills}")
+    return {"phase": "flash_registers", "kernels": out}
 
 
 def check_flash_masked_row(dtype, g) -> dict:
@@ -3301,20 +3355,23 @@ def rowquant_per_step(n_layer: int, quant: bool) -> int:
 
 
 def check_decode_launches(launches: dict, vocab_kernel: str, steps: int, requests: int, cfg,
-                          quant: bool = False, images: bool = False) -> None:
+                          quant: bool = False, images: bool = False,
+                          long_prefix: bool = False) -> None:
     """Each request ran the mapper's flash attention once a mapper layer and
-    the prefill kernel once — with an int8 pack, ``forward_cached``'s flash
-    attention once a GPT-2 layer instead — and, fed by ``images``, the
+    the prefill kernel once — with an int8 pack, or a prefix longer than the
+    prefill kernel's (``long_prefix``), ``forward_cached``'s flash attention
+    once a GPT-2 layer instead — and, fed by ``images``, the
     patch-embed kernel once and the CLIP tower's flash attention once a
     tower layer; each decode step launched the layers' kernels once a layer
     and this path's vocabulary kernel once, and the row quantizer as its
     int8 modes need; the other vocabulary kernels never ran."""
     n_layer = cfg.gpt2.n_layer
     mapper_layers = getattr(cfg.mapping, "num_layers", 0)  # the MLP mapper runs no attention
-    flash_per_request = (mapper_layers + n_layer * quant
+    eager = quant or long_prefix  # the prefill runs gpt2.forward_cached
+    flash_per_request = (mapper_layers + n_layer * eager
                          + images * CLIP_LAYERS)
     want = {"flash_attention": flash_per_request * requests, "decode_attention": n_layer * steps,
-            "prefill": (not quant) * requests, "patch_embed": images * requests,
+            "prefill": (not eager) * requests, "patch_embed": images * requests,
             "fused_linear": 4 * n_layer * steps, "logits_argmax": 0, "logits": 0,
             "logits_topk": 0, "logits_sample": 0, "decode_attention_start": 0,
             "rowquant": rowquant_per_step(n_layer, quant) * steps}
@@ -3336,6 +3393,60 @@ def serving_model():
 
 
 MODEL_NAME = "GPT-2 124M + transformer mapper (512->768, 15+10)"
+# A prefix past the prefill kernel's MAX_PREFIX (32): every decode prefills
+# it through gpt2.forward_cached, as the JAX package does (flash attention,
+# causal at Tq = Tk = 40, once a GPT-2 layer; the mapper's at T 50)
+LONG_PREFIX = 40
+
+
+def long_prefix_path() -> tuple[dict, dict]:
+    """One greedy request of B embeddings to GPT-2 124M behind a transformer
+    mapper whose prefix is LONG_PREFIX tokens (random weights from a seed),
+    bf16 and float32, each with the kernels and with ``use_kernels=False`` in
+    this call: the launches counted (no prefill kernel; flash attention 8 +
+    12 times), every token teacher-forced against the plain path, and the
+    rows equal to the plain path's counted."""
+    from gpt2_image_captioning_tpu_torch import (
+        CaptionerConfig, GPT2Config, ImageCaptioningModel, TransformerMappingConfig,
+    )
+    cfg = CaptionerConfig(gpt2=GPT2Config.gpt2_124m(),
+                          mapping=TransformerMappingConfig(512, 768, LONG_PREFIX, 10))
+    model = ImageCaptioningModel(cfg, generator=torch.Generator().manual_seed(1), device="cuda")
+    emb = np.random.default_rng(2).normal(size=(B, 512)).astype(np.float32)
+    record = {"phase": "long_prefix_path", "prefix_tokens": LONG_PREFIX, "batch": B,
+              "model": f"GPT-2 124M + transformer mapper (512->768, {LONG_PREFIX}+10)"}
+    counts = {}
+    for precision in ("bf16", "f32"):
+        def run(r, use=None, precision=precision):
+            return model.generate(r, max_length=50, temperature=0.0, decode_precision=precision,
+                                  use_kernels=use)
+        run(emb)
+        run(emb, use=False)
+        torch.cuda.synchronize()
+        outs, seconds, launches = run_counted(run, [emb])
+        steps = decode_steps(outs[0], cfg.eos_token_id)
+        check_decode_launches(launches, "logits_argmax", steps, 1, cfg, long_prefix=True)
+        check_padding(outs[0], cfg.eos_token_id, cfg.gpt2.vocab_size)
+        t0 = time.perf_counter()
+        plain = run(emb, use=False)
+        torch.cuda.synchronize()
+        plain_seconds = time.perf_counter() - t0
+        worst, checked, agree = teacher_forced(model, torch.from_numpy(emb).cuda(), outs[0],
+                                               precision=precision)
+        tol = TF_TOL_F32 if precision == "f32" else TF_TOL
+        check(worst <= tol, f"long prefix ({precision}): a chosen token is {worst} below the "
+                            f"plain max (tolerance {tol})")
+        counts[f"long_prefix_{precision}"] = launches
+        record[precision] = {
+            "seconds_kernels": seconds, "seconds_plain": plain_seconds, "decode_steps": steps,
+            "launches": launches,
+            "rows_identical_to_plain": int((outs[0] == plain).all(dim=1).sum()), "rows": B,
+            "teacher_forced": {"worst_deficit": worst, "tolerance": tol, "tokens_checked": checked,
+                               "share_plain_argmax": agree}}
+    record["card"] = nvidia_smi()
+    del model
+    torch.cuda.empty_cache()
+    return record, counts
 
 
 def module_decoder(model, precision: str, **kw):
@@ -6433,6 +6544,7 @@ ONLY = {
     "vocab": ((torch.bfloat16, torch.float32), VOCAB_CHECKS),
     "prefill": ((torch.bfloat16, torch.float32), (check_prefill,)),
     "quant": ((torch.bfloat16, torch.float32), (check_rowquant, check_fold)),
+    "flash": ((torch.bfloat16, torch.float32), (check_flash,)),
 }
 
 
@@ -6476,17 +6588,22 @@ def main(argv: list[str]) -> int:
     if argv:  # one part's records alone, e.g. of an earlier tree's kernels on the same card
         if argv[1] == "vocab":
             emit(walk_registers())
+        if argv[1] == "flash":
+            emit(flash_registers())
         dtypes, fns = ONLY[argv[1]]
         for dtype in dtypes:
             for fn in fns:
                 recs = fn(dtype, g)
                 for rec in recs if isinstance(recs, list) else [recs]:
                     emit({"phase": "kernel_vs_plain", "dtype": dtype_tag(dtype), **rec})
+        if argv[1] == "flash":
+            emit(check_flash_backward(g))
         print(nvidia_smi(), flush=True)
         return 0
     emit(check_dot_f32(g))
     emit(check_vocab_ring())
     emit(walk_registers())
+    emit(flash_registers())
     kernel_rows = {}
     checks = (check_attention, check_attention_origin, check_attention_start, check_linear,
               check_logits_argmax, check_logits, check_logits_topk, check_sampler, check_flash,
@@ -6535,6 +6652,9 @@ def main(argv: list[str]) -> int:
         record, launches[path], profiled = fn()
         emit(record)
         emit(profiled)
+    record, counts = long_prefix_path()
+    emit(record)
+    launches.update(counts)
     # the int8 paths, each beside the bf16 figure of its path from this run
     int8_paths = (
         ("greedy_int8", "greedy", lambda: greedy_path(model, reqs, "int8")),

@@ -17,8 +17,10 @@
 // three-term split; its header gives the design and the bound); the four
 // vocabulary kernels walk wte on vocab_walk.cuh in every operand type
 // (float32 on wgmma TF32 too); the prefill's products (prefill.cu) run on
-// fused_linear.cu's route in bf16 and float32.  Flash attention and the
-// float32 patch embedding multiply on mma.sync (split_tf32, mma_tf32x3).
+// fused_linear.cu's route in bf16 and float32; flash attention
+// (flash_attention.cuh) loads its heads by TMA through 4-D maps and runs both
+// products on wgmma, P V from registers.  Only the float32 patch embedding
+// still multiplies on mma.sync (split_tf32, mma_tf32x3).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the CUDA driver at run time
@@ -281,6 +283,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(map), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // cuTensorMapEncodeTiled, fetched from the CUDA driver once (no link to libcuda);
 // null where the CUDA driver has none.
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -355,6 +366,65 @@ inline int tma_operand_map(CUtensorMap* map, const void* ptr, int rows, int cols
   return 0;
 }
 
+// The TMA map of a (B, H, T, hd) operand read through its own strides
+// (elements; unit stride on hd, the others 16-byte multiples): dims (hd, T,
+// H, B), box (64 bytes of hd, box_rows, 1, 1), 64-byte swizzled, zero-filled
+// past hd and T; encoded once per (pointer, shape, strides, box) and cached,
+// as tma_operand_map's.  Flash attention reads q, k and v through these.
+// Returns 0 or a cudaError_t.
+struct TmaHeadKey {
+  const void* ptr;
+  long long dims[4], strides[3];
+  int box_rows, el;
+  bool operator==(const TmaHeadKey& o) const {
+    for (int i = 0; i < 4; ++i)
+      if (dims[i] != o.dims[i]) return false;
+    for (int i = 0; i < 3; ++i)
+      if (strides[i] != o.strides[i]) return false;
+    return ptr == o.ptr && box_rows == o.box_rows && el == o.el;
+  }
+};
+struct TmaHeadKeyHash {
+  size_t operator()(const TmaHeadKey& k) const {
+    size_t h = std::hash<const void*>()(k.ptr);
+    for (long long v : k.dims) h = h * 1000003u ^ (size_t)v;
+    for (long long v : k.strides) h = h * 1000003u ^ (size_t)v;
+    return (h * 1000003u ^ (size_t)k.box_rows) * 1000003u ^ (size_t)k.el;
+  }
+};
+
+constexpr int kTmaHeadBox = 64;  // bytes of hd a box: one 64-byte swizzled row
+
+inline int tma_head_map(CUtensorMap* map, const void* ptr, int el, int hd, int T, int H, int B,
+                        long long st_t, long long st_h, long long st_b, int box_rows) {
+  static std::mutex mu;
+  static std::unordered_map<TmaHeadKey, CUtensorMap, TmaHeadKeyHash> cache;
+  if (el != 2 && el != 4) return (int)cudaErrorInvalidValue;
+  const TmaHeadKey key{ptr, {hd, T, H, B}, {st_t, st_h, st_b}, box_rows, el};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return 0;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)T, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)(st_t * el), (cuuint64_t)(st_h * el),
+                                 (cuuint64_t)(st_b * el)};  // bytes
+  const cuuint32_t box[4] = {(cuuint32_t)(kTmaHeadBox / el), (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, el == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                            4, const_cast<void*>(ptr), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return 0;
+}
+
 // A wgmma shared-memory descriptor: 128-byte swizzle, byte offsets lbo
 // (between 64-element blocks along the contiguous dimension; unused where
 // one k-step lies inside a 128-byte row) and sbo (between 8-row groups).
@@ -363,6 +433,16 @@ inline int tma_operand_map(CUtensorMap* map, const void* ptr, int rows, int cols
 __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// The same for a 64-byte swizzled operand (TMA's CU_TENSOR_MAP_SWIZZLE_64B):
+// 64-byte rows, an 8-row group 512 bytes, the tile's base 512-byte aligned.
+// K-major: sbo is the 8-row groups' stride (512 where rows are packed) and a
+// k-step inside the row is the base plus its byte offset.  N-major (the
+// transpose bit): lbo steps between 32-element blocks of N (64 bytes of
+// bf16), sbo between 8-row groups of K.
+__device__ __forceinline__ uint64_t wgmma_desc64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (2ull << 62);
 }
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -492,6 +572,36 @@ GIC_WGMMA(64, 32, GIC_OPS32, GIC_ACC32, 32, 33, 34)
 GIC_WGMMA(128, 64, GIC_OPS64, GIC_ACC64, 64, 65, 66)
 #undef GIC_WGMMA
 #undef GIC_WGMMA_TAIL
+
+// d (64 x 32 float32) += A (64 x one k-step, from registers) x B (one k-step
+// x 32 in shared memory), the register-A form: A is the warpgroup's
+// fragments, four 32-bit registers a thread, which for warp w of the
+// warpgroup and lane = 4 g + t hold rows 16 w + g (a0, a2) and 16 w + g + 8
+// (a1, a3) — bf16 (k16): columns 2t, 2t + 1 in a0 / a1 and 2t + 8, 2t + 9 in
+// a2 / a3, packed low first; TF32 (k8): column t in a0 / a1, t + 4 in a2 /
+// a3.  That is the accumulator layout of d's columns 8j + 2t, 8j + 2t + 1
+// for bf16, so a product's float accumulators are the next one's A after the
+// rounding; for TF32 it is so with the k8 step's columns read in the order
+// 0, 2, 4, 6, 1, 3, 5, 7.  bf16's B is N-major (the transpose bit: V's own
+// (keys, hd) rows), TF32's K-major (the only layout .tf32 takes).
+struct WgmmaRS32 {
+  static __device__ __forceinline__ void bf16_nmajor(float (&d)[16], const uint32_t (&a)[4],
+                                                     uint64_t db) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {" GIC_OPS16
+                 "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+                 : GIC_ACC16("+f", d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+  static __device__ __forceinline__ void tf32(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t db) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" GIC_OPS16
+                 "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+                 : GIC_ACC16("+f", d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
 
 // Orders this thread's generic-proxy writes to shared memory before later
 // async-proxy reads of it (wgmma, TMA); a barrier then passes them on.

@@ -42,9 +42,11 @@ pack do not apply there (the steps run at the trees' precision, with a
 warning for the quantized options) and ``sample_in_kernel`` warns and
 samples from the logits.  Under dp × tp each tp group decodes its dp rows.
 
-Not ported, and refused rather than run another way: prefixes longer than
-the prefill kernel's :data:`ops.prefill_step.MAX_PREFIX` tokens (the
-reference's gate).
+A prefix longer than the prefill kernel's :data:`ops.prefill_step.MAX_PREFIX`
+tokens prefills through ``gpt2.forward_cached`` (the flash kernel, causal
+at Tq = Tk = P), as the JAX package gates its prefill kernel at 32 tokens
+and sends longer prefixes to ``forward_cached`` (``captioner.py:297-316``,
+``:856-900``; its ``admit_prefill`` always does).
 """
 
 from __future__ import annotations
@@ -282,10 +284,10 @@ def prefill(gpt_params, cfg: CaptionerConfig, prefix, cache, policy: Policy, pac
             use: bool):
     """The prefill of a fresh cache → (first-token logits, cache): the
     prefill kernel (:func:`ops.prefill_step.prefill_into_cache`) from the
-    float decode pack, which refuses a prefix longer than
-    :data:`ops.prefill_step.MAX_PREFIX`; ``gpt2.forward_cached`` with an int8
-    pack, where the JAX package keeps its XLA prefill (``captioner.py:291-303``)."""
-    if "qkvs" in packed:
+    float decode pack for a prefix of up to :data:`ops.prefill_step.MAX_PREFIX`
+    tokens; ``gpt2.forward_cached`` for a longer prefix or with an int8 pack,
+    where the JAX package keeps its XLA prefill (``captioner.py:291-316``)."""
+    if "qkvs" in packed or prefix.shape[1] > PS.MAX_PREFIX:
         return G.forward_cached(gpt_params, cfg.gpt2, prefix, cache, policy, use)
     return PS.prefill_into_cache(packed, gpt_params, cfg.gpt2, prefix, cache, policy,
                                  use_kernel=use)

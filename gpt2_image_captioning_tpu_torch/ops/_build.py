@@ -44,8 +44,10 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     # dtype, q, k, v, out, key_mask, B, H, Tq, Tk, hd, scale_hd, strides (12 int64), causal,
-    # q_offset, warps, stream
+    # q_offset, q_tiles, stream
     "gic_flash_attention": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I, _I, _P],
+    # dtype, hd, out (8 int32): the flash kernel's layout, blocks an SM, registers, local bytes
+    "gic_flash_layout": [_I, _I, _P],
     # dtype, q, k_new, v_new, in_stride, k_cache, v_cache, out, B, D, H, idx, origin,
     # gather_start, start, k_scale, v_scale, stream
     "gic_decode_attention": [_I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _P, _P,

@@ -1,9 +1,12 @@
 """Flash attention and the attention dispatcher — the counterpart of
 ``gpt2_image_captioning_tpu/ops/attention.py``.
 
-Kernel: ``csrc/flash_attention.cu`` (hand-written CUDA for sm_90a; its
-header comment gives the design and the bound), the port of the JAX
-package's Pallas ``_flash_kernel``, wrapped by :func:`flash_attention_cuda`.
+Kernel: ``csrc/flash_attention.cuh`` (hand-written CUDA for sm_90a: TMA
+loads, both products on ``wgmma``; its header comment gives the design and
+the bound; ``flash_attention.cu`` holds the C entry), the port of the JAX
+package's Pallas ``_flash_kernel``, wrapped by :func:`flash_attention_cuda`;
+:func:`flash_plan` and :func:`flash_layout` mirror its work split and its
+shared memory.
 Plain twin: :func:`_flash_attention_plain`, which follows the kernel's own
 math (float32 scores and softmax, p·v in float32) rather than
 :func:`ops.nn.attention_xla`'s.  A row with no valid key takes the uniform
@@ -37,26 +40,60 @@ from gpt2_image_captioning_tpu_torch.ops.nn import NEG_INF
 # to which the wrapper zero-pads GPT-2 XL's mapper heads of 200
 HEAD_DIMS = (64, 96, 128, 160, 208)
 PADDED_HEAD_DIMS = {200: 208}  # head dim served by zero-padding → the build it runs
-FLASH_MAX_WARPS = 8  # csrc/flash_attention.cu MAX_WARPS: a block's warps, 16 query rows each
+FLASH_ROWS = 64  # csrc/flash_attention.cuh BM: query rows of a work item (one warpgroup's wgmma M)
+FLASH_ROW_BYTES = 64  # a 64-byte swizzled row of shared memory: 32 bf16 or 16 floats of hd
+FLASH_PV_COLUMNS = 32  # output columns of one P V product
+SMEM_LIMIT = 232_448  # an H100 block's shared memory (227 KB)
 
 
 class FlashPlan(NamedTuple):
-    q_tiles: int  # blocks a (batch row, head)
-    warps: int    # 16 query rows each
-    rows: int     # query rows a block owns
+    q_tiles: int  # work items a (batch row, head)
+    rows: int     # query rows an item owns: one consumer warpgroup
+
+
+class FlashLayout(NamedTuple):
+    kv_tile: int    # keys a K/V tile of the ring
+    stages: int     # ring stages
+    q_buffers: int  # Q buffers (the producer loads the next item's Q into the other)
+    threads: int    # the consumer warpgroup; the converters (float32) or the producer's warpgroup;
+                    # float32's producer warp
+    smem_bytes: int
 
 
 @functools.cache
 def flash_plan(tq: int) -> FlashPlan:
-    """The flash kernel's split of Tq query rows: ``q_tiles`` blocks a
-    (batch row, head), each of ``warps`` warps owning 16 rows, the q-tiles
-    as even as 16-row granularity allows (Tq 197: 2 of 112 rows, where fixed
-    128-row tiles would leave 59 idle rows), so K and V are read ``q_tiles``
-    times a head.  The kernel sizes its K/V ring and shared memory from Tk
-    and hd itself."""
-    q_tiles = -(-tq // (16 * FLASH_MAX_WARPS))
-    warps = -(-(-(-tq // q_tiles)) // 16)
-    return FlashPlan(q_tiles, warps, 16 * warps)
+    """The flash kernel's split of Tq query rows: work items of 64 rows
+    (one consumer warpgroup's wgmma tile), ``q_tiles`` of them a (batch row,
+    head); every item reads its head's K and V through the ring.  The kernel
+    walks the items in persistent blocks, so a head of fewer than 64 rows
+    (the mapper's 25, the prefill's 15) is one item that overlaps the next
+    one's loads."""
+    return FlashPlan(-(-tq // FLASH_ROWS), FLASH_ROWS)
+
+
+@functools.cache
+def flash_layout(dtype: torch.dtype, hd: int) -> FlashLayout:
+    """Mirror of ``csrc/flash_attention.cuh::Cfg``: a block's key tile, ring,
+    Q buffers, threads and shared memory for one (dtype, built head dim).
+    Shared memory holds 64-byte swizzled rows chunk-major (a bf16 head dim
+    rounds up to 32 elements: 208 is read as 224); float32 doubles Q and K
+    into their TF32 hi and lo and holds V^T hi and lo beside them, over the
+    output columns rounded up to 32."""
+    f32 = dtype == torch.float32
+    el = 4 if f32 else 2
+    chunks = -(-hd * el // FLASH_ROW_BYTES)
+    hdv = -(-hd // FLASH_PV_COLUMNS) * FLASH_PV_COLUMNS
+    kv_tile = 32 if f32 and hd > 64 else 64
+    if f32:
+        q_buffers, stages = (2 if hd <= 128 else 1), (2 if hd <= 96 else 1)
+    else:
+        q_buffers = 2 if hd <= 160 else 1
+        stages = {64: 3, 96: 3, 128: 2}.get(hd, 1)
+    q_slab = FLASH_ROWS * chunks * FLASH_ROW_BYTES
+    kv_slab = kv_tile * chunks * FLASH_ROW_BYTES
+    vt_slab = hdv * kv_tile * 4 if f32 else 0
+    smem = 1024 + q_buffers * q_slab * (2 if f32 else 1) + stages * (2 * kv_slab + 2 * vt_slab)
+    return FlashLayout(kv_tile, stages, q_buffers, 288 if f32 else 256, smem)
 
 
 def _valid(q, k, key_mask, causal: bool, q_offset: int) -> torch.Tensor:
@@ -84,7 +121,7 @@ def pad_heads(q, k, v):
 
 def _flash_attention_plain(q, k, v, key_mask=None, causal: bool = False, q_offset: int = 0,
                            scale_hd: int | None = None):
-    """Plain twin of ``csrc/flash_attention.cu``: float32 scores scaled by
+    """Plain twin of ``csrc/flash_attention.cuh``: float32 scores scaled by
     1/sqrt(scale_hd) (default: q's head dim), the masks, a float32 softmax,
     p·v in float32, the output cast to q's dtype; a row with no valid key
     gives the mean of v over the Tk keys (zeros when Tk is 0)."""
@@ -117,7 +154,7 @@ def _flash_backward(q, k, v, key_mask, causal: bool, q_offset: int, g):
 
 
 def flash_attention_cuda(q, k, v, key_mask=None, causal: bool = False, q_offset: int = 0):
-    """Launch ``csrc/flash_attention.cu``.  q: (B, H, Tq, hd), k/v: (B, H, Tk,
+    """Launch ``csrc/flash_attention.cuh``.  q: (B, H, Tq, hd), k/v: (B, H, Tk,
     hd), one dtype (bf16 or float32), any strides with a unit stride on hd
     (the permuted views of ``nn.split_heads`` are read in place); hd one of
     :data:`HEAD_DIMS`, or 200, which is zero-padded to 208 (copies of q, k
@@ -158,7 +195,7 @@ def flash_attention_cuda(q, k, v, key_mask=None, causal: bool = False, q_offset:
     err = _build.library().gic_flash_attention(
         _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         mask_ptr, b, h, tq, tk, hd, scale_hd, strides, int(causal), int(q_offset),
-        flash_plan(tq).warps, _build.stream_of(q),
+        flash_plan(tq).q_tiles, _build.stream_of(q),
     )
     _build.check(err, name)
     flash_attention_cuda.launches += 1

@@ -178,23 +178,87 @@ def test_entry_points_prefill_through_the_kernel_path(monkeypatch):
     assert rows == [4, 4, 2]  # the int8 decode prefilled with forward_cached
 
 
-def test_long_prefix_is_refused_not_handed_over():
-    """A 33-token prefix is beyond the prefill kernel's range: ``generate``,
-    ``beam_generate`` and ``admit_prefill`` raise from the prefill rather
-    than prefilling another way; an int8 decode keeps ``forward_cached``."""
-    _, tcfg, _, _, ttr, tfz = _models(prefix_length=33)
-    emb = torch.from_numpy(np.random.default_rng(6).normal(size=(2, 16)).astype(np.float32))
-    packed = TC.prepare_decode_weights(ttr, tfz, tcfg, F32)
-    shape = (2, 48, 2, 32)
-    calls = (
-        lambda: TC.generate(ttr, tfz, tcfg, emb, max_length=4, temperature=0.0),
-        lambda: TC.beam_generate(ttr, tfz, tcfg, emb, max_length=4, beam_size=2),
-        lambda: TC.admit_prefill(ttr, tfz, tcfg, emb, torch.zeros(shape), torch.zeros(shape),
-                                 40, torch.tensor([0, 1]), torch.tensor([True, True]),
-                                 packed=packed),
-    )
-    for call in calls:
-        with pytest.raises(ValueError, match="1 to 32 tokens"):
-            call()
-    toks = TC.generate(ttr, tfz, tcfg, emb, max_length=4, temperature=0.0, decode_quant=True)
-    assert toks.shape == (2, 4)
+def _long_prefix_service(jcfg, tcfg, tr, fz, ttr, tfz, emb):
+    """The port's ``ContinuousCaptionService`` captions of ``emb`` at caps
+    of 4-6 tokens, and the JAX package's greedy tokens cut at those caps,
+    decoded by the same tokenizer."""
+    from gpt2_image_captioning_tpu_torch.data import tokenizer as TT
+    from gpt2_image_captioning_tpu_torch.serving import ContinuousCaptionService
+
+    from helpers import tiny_tokenizer
+
+    jtok = tiny_tokenizer()
+    tok = TT.GPT2BPETokenizer(dict(jtok.encoder), sorted(jtok.bpe_ranks, key=jtok.bpe_ranks.get))
+    model = TC.ImageCaptioningModel(tcfg, tokenizer=tok, device="cpu")
+    model.trainable, model.frozen = ttr, tfz
+    svc = ContinuousCaptionService(model, slots=3, segment=2, bursts=2, admit=2, max_length=6)
+    caps = [6, 4, 5, 6]
+    rids = [svc.submit_embedding(e, max_length=c) for e, c in zip(emb, caps)]
+    svc.drain()
+    ids = np.asarray(JC.generate(tr, fz, jcfg, jnp.asarray(emb), max_length=6, temperature=0.0,
+                                 use_pallas_decode=False))
+    want = [tok.batch_decode(ids[i : i + 1, :c], skip_special_tokens=True)[0]
+            for i, c in enumerate(caps)]
+    return [svc.pop_result(r) for r in rids], want
+
+
+@pytest.mark.parametrize("entry", ["generate", "beam_generate", "admit_prefill", "service"])
+def test_long_prefix_prefills_through_forward_cached(entry, monkeypatch):
+    """A 33-token prefix, one past the prefill kernel's range, prefills
+    through ``gpt2.forward_cached`` as the JAX package's does (its prefill
+    kernel is gated at 32 tokens): ``generate``, ``beam_generate``,
+    ``admit_prefill`` and the continuous service give the JAX package's
+    tokens exactly (float32, tiny config), and the prefill twin never runs."""
+    from helpers import tiny_tokenizer
+
+    vocab = len(tiny_tokenizer().encoder) if entry == "service" else 293
+    kw = dict(vocab_size=vocab, n_positions=96, n_embd=32, n_layer=2, n_head=2)
+    mapping = dict(prefix_length=33, embed_dim=16, gpt_dim=32)
+    jcfg = JC.CaptionerConfig(gpt2=JG.GPT2Config(**kw), mapping=JM.MLPMappingConfig(**mapping),
+                              eos_token_id=vocab - 1)
+    tcfg = TC.CaptionerConfig(gpt2=TG.GPT2Config(**kw), mapping=TM.MLPMappingConfig(**mapping),
+                              eos_token_id=vocab - 1)
+    tr, fz = JC.init_params(jax.random.PRNGKey(6), jcfg)
+    ttr, tfz = porting.from_jax_numpy(*jax.tree.map(np.asarray, (tr, fz)), tcfg, device="cpu")
+    emb = np.random.default_rng(6).normal(size=(4, 16)).astype(np.float32)
+    prefills, twin = [], []
+    real_fc, real_twin = TG.forward_cached, TPS.prefill_plain
+
+    def counted_fc(params, cfg, x, *a, **k):
+        prefills.append(tuple(x.shape[:2]))
+        return real_fc(params, cfg, x, *a, **k)
+
+    def counted_twin(packed, x0, *a, **k):
+        twin.append(x0.shape[0])
+        return real_twin(packed, x0, *a, **k)
+
+    monkeypatch.setattr(TG, "forward_cached", counted_fc)
+    monkeypatch.setattr(TPS, "prefill_plain", counted_twin)
+    if entry == "generate":
+        want = np.asarray(JC.generate(tr, fz, jcfg, jnp.asarray(emb), max_length=8,
+                                      temperature=0.0, use_pallas_decode=False))
+        got = TC.generate(ttr, tfz, tcfg, torch.from_numpy(emb), max_length=8,
+                          temperature=0.0).numpy()
+    elif entry == "beam_generate":
+        want = np.asarray(JC.beam_generate(tr, fz, jcfg, jnp.asarray(emb), max_length=8,
+                                           beam_size=3, use_pallas_decode=False))
+        got = TC.beam_generate(ttr, tfz, tcfg, torch.from_numpy(emb), max_length=8,
+                               beam_size=3).numpy()
+    elif entry == "admit_prefill":
+        shape = (2, 48, 5, 32)
+        sel = torch.tensor([3, 0, 1], dtype=torch.int32)
+        logits, k, v = TC.admit_prefill(ttr, tfz, tcfg, torch.from_numpy(emb[:3]),
+                                        torch.zeros(shape), torch.zeros(shape), 40, sel,
+                                        torch.tensor([True, True, True]),
+                                        packed=TC.prepare_decode_weights(ttr, tfz, tcfg, F32))
+        first, jk, jv = JC.admit_prefill(tr, fz, jcfg, jnp.asarray(emb[:3]), jnp.zeros(shape),
+                                         jnp.zeros(shape), jnp.int32(40), jnp.asarray(sel),
+                                         jnp.asarray([True, True, True]), policy=JF32)
+        np.testing.assert_allclose(k.numpy(), np.asarray(jk), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(v.numpy(), np.asarray(jv), atol=1e-5, rtol=1e-5)
+        want, got = np.asarray(first), logits.argmax(-1).numpy()
+    else:
+        got, want = _long_prefix_service(jcfg, tcfg, tr, fz, ttr, tfz, emb)
+    same = got == want if entry == "service" else np.array_equal(got, want)
+    assert same, (got, want)
+    assert prefills and all(p == 33 for _, p in prefills) and not twin
