@@ -20,7 +20,10 @@ which quantize them inside the product; ``--only flash`` for flash
 attention (bf16 and float32 at every path shape and its contract, each
 path shape's time by CUDA events and from a trace beside its bound, the
 twin and SDPA; each instantiation's layout, registers and local bytes; the
-backward).  ``--only http``, ``--only
+backward); ``--only patch`` for the patch embedding (bf16 and float32 at
+the three towers' shapes and its contract, events and device ms beside the
+bound, the twin and the library route; each route's layout, registers and
+local bytes).  ``--only http``, ``--only
 pipeline``, ``--only sizes``, ``--only rat`` and ``--only parallel`` run one
 of the last five phases below alone, with its launch counts by path.)
 
@@ -95,7 +98,7 @@ before and read just after:
   [8, 50], every greedy token teacher-forced against the plain path and
   every sampled token inside the plain path's nucleus; then greedy in int8
   (``decode_precision="int8"``) against the int8 plain path;
-- the vision towers at full width, bf16, random seeded weights, on
+- the vision towers at full width, bf16 and float32, random seeded weights, on
   synthetic uint8 pixels already at 224 x 224 (no PIL): CLIP ViT-B/32 at b
   256, ViT-B/16 at b 128, DINOv3 ViT-L/16 at b 64, each through its uint8
   entry point (the patch-embed kernel, the flash kernel at T 50 / 197 /
@@ -473,6 +476,8 @@ F32_ROWS = {
                       "per round a verification and a draw), B 512, temperature 1.0, top_p 0.9"),
     "prefill": ("prefill.cu", "gpt2_image_captioning_tpu/ops/prefill_step.py:87", "greedy_f32",
                 "call (84 CUDA launches: 7 a layer), GPT-2 124M, B 128 x 15 tokens"),
+    "patch_embed": ("patch_embed.cu", "gpt2_image_captioning_tpu/ops/patch_embed.py:36",
+                    "tower_clip_f32", "call (1 CUDA launch), CLIP B/32, b 256, 224 px"),
 }
 # Training, bf16, kernel path against use_kernels=False on the same weights
 # and batch.  The two paths differ only in attention: the kernel rounds
@@ -506,7 +511,8 @@ PREFILL_TOL = {
 }
 # The towers at full width on synthetic uint8 pixels already at 224 x 224:
 # (name, batch, patch, width, bias) — CLIP ViT-B/32 at b 256, ViT-B/16 at
-# b 128, DINOv3 ViT-L/16 at b 64; flash attention at T 50, 197 and 201.
+# b 128, DINOv3 ViT-L/16 at b 64; flash attention at T 50, 197 and 201; in
+# bf16, then in float32 (the tower functions' default policy).
 TOWERS = (("clip", 256, 32, 768, False), ("vit", 128, 16, 768, True),
           ("dino", 64, 16, 1024, True))
 CLIP_LAYERS = 12  # CLIP ViT-B/32's, the tower of image serving
@@ -514,7 +520,8 @@ CLIP_LAYERS = 12  # CLIP ViT-B/32's, the tower of image serving
 # the same normalised values to the operand type (the same float32 steps),
 # so only the product's summation order differs (measured: bf16 1.4e-5,
 # float32 6.2e-6 at outputs of |max| 7; float32 runs as the three-term TF32
-# split).
+# split, its accumulator chains at most ops/patch_embed.py::PE_TF32_CHAIN
+# k8 steps long).
 PATCH_TOL = (1e-4, 1e-4)
 # Its contract beyond the towers' shapes, correctness only: (name, images,
 # side, patch, D, bias) — the tiny towers' patch 8 at 32 px (24-byte patch
@@ -2510,10 +2517,61 @@ def check_prefill(dtype, g) -> dict:
             "refuses_prefix": PS.MAX_PREFIX + 1}
 
 
+def patch_embed_bound(b: int, side: int, p: int, d: int, dtype) -> dict:
+    """The least work of a patch embedding of ``b`` uint8 images of ``side``
+    px at patch ``p`` into width ``d``: bytes (the pixels, W in the operand
+    type, mean / inv_std, the bias, the float32 output: each once) and
+    operations (2 M K D, at the peak of the products' type: float32 runs as
+    the three-term TF32 split), and the larger of the two times."""
+    m, k = b * (side // p) ** 2, 3 * p * p
+    el = torch.tensor([], dtype=dtype).element_size()
+    nbytes = b * side * side * 3 + k * d * el + 4 * m * d + 8 * k + 4 * d
+    ops = 2 * m * k * d
+    ms, by = bound(nbytes, ops, split_type(dtype))
+    return {"bytes": nbytes, "operations": ops, "bound_ms": ms, "bound_by": by}
+
+
+def patch_registers() -> dict:
+    """Each patch-embed route (bf16 and float32, 16-byte and byte loads): its
+    layout as the C side has it (``gic_patch_layout``) against the Python
+    mirror (``ops/patch_embed.py::patch_layout``, which must agree), its
+    shared memory within the block's 227 KB, and its registers and local
+    (spill) bytes a thread, as ``cudaFuncGetAttributes`` gives them; the
+    float32 routes may not spill."""
+    import ctypes
+
+    from gpt2_image_captioning_tpu_torch.ops import _build
+    from gpt2_image_captioning_tpu_torch.ops import attention as A
+    from gpt2_image_captioning_tpu_torch.ops import patch_embed as PE
+
+    lib, out = _build.library(), {}
+    fn = getattr(lib, "gic_patch_layout", None)
+    if fn is None:
+        return {"phase": "patch_registers", "kernels": "not in this tree"}
+    for dtype in (torch.bfloat16, torch.float32):
+        for aligned in (1, 0):
+            res = (ctypes.c_int * 10)()
+            _build.check(fn(_build.DTYPE_CODE[dtype], aligned, ctypes.addressof(res)),
+                         "gic_patch_layout")
+            c_side = {"rows": res[1], "cols": res[2], "k_stage": res[3], "stages": res[4],
+                      "threads": res[5], "chain": res[6], "smem_bytes": res[0]}
+            mirror = PE.patch_layout(dtype)._asdict()
+            name = f"{dtype_tag(dtype)} {'16-byte' if aligned else 'byte'} loads"
+            check(c_side == mirror, f"patch layout {name}: C {c_side} != {mirror}")
+            check(res[0] + res[7] <= A.SMEM_LIMIT, f"patch layout {name}: shared memory "
+                  f"{res[0]} + {res[7]} > {A.SMEM_LIMIT}")
+            out[name] = {**c_side, "static_smem_bytes": res[7], "num_regs": res[8],
+                         "local_bytes": res[9]}
+    spills = {k: v["local_bytes"] for k, v in out.items()
+              if k.startswith("float32") and v["local_bytes"]}
+    check(not spills, f"float32 patch-embed routes with local (spill) bytes: {spills}")
+    return {"phase": "patch_registers", "kernels": out}
+
+
 def check_patch_embed(dtype, g) -> dict:
     """The patch-embed kernel against its twin at the three towers' shapes,
-    with its time beside the bound and the library route (unfold, normalise,
-    ``torch.mm``)."""
+    with its time beside the bound (:func:`patch_embed_bound`) and the
+    library route (unfold, normalise, ``torch.mm``)."""
     from gpt2_image_captioning_tpu_torch.embeddings.preprocess import SPECS
     from gpt2_image_captioning_tpu_torch.ops import patch_embed as PE
 
@@ -2552,14 +2610,11 @@ def check_patch_embed(dtype, g) -> dict:
         dev = device_ms(lambda: PE.patch_embed_cuda(*args), "patch_embed_kernel",
                         f"kernel_patch_embed_{name}_{tag}.json")
         library_dev = device_ms(library, None, f"library_patch_embed_{name}_{tag}.json")
-        m, k = b * (224 // p) ** 2, 3 * p * p
-        nbytes = b * 224 * 224 * 3 + k * d * w.element_size() + 4 * m * d + 8 * k + 4 * d
-        bound_ms, bound_by = bound(nbytes, 2 * m * k * d, dtype)
-        shapes[name] = {"images": b, "patch": p, "M": m, "K": k, "D": d, "bias": with_bias,
-                        "max_abs_err": err, "ms": ms, "device_ms": dev,
-                        "plain_ms": plain_ms, "library_ms": library_ms,
-                        "library_device_ms": library_dev, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "bytes": nbytes}
+        work = patch_embed_bound(b, 224, p, d, dtype)
+        shapes[name] = {"images": b, "patch": p, "M": b * (224 // p) ** 2, "K": 3 * p * p,
+                        "D": d, "bias": with_bias, "max_abs_err": err, "ms": ms,
+                        "device_ms": dev, "plain_ms": plain_ms, "library_ms": library_ms,
+                        "library_device_ms": library_dev, **work}
     main = shapes["clip"]
     return {"kernel": "patch_embed", "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             **{k: main[k] for k in ("ms", "device_ms", "plain_ms",
@@ -2587,9 +2642,9 @@ def trace_summary(events: list[dict]) -> dict:
             "top_kernels_s": sorted(by_name.items(), key=lambda kv: -kv[1])[:10]}
 
 
-def tower_params(name: str):
-    """A tower at full width from a seed, bf16 on the card: (module, config,
-    params)."""
+def tower_params(name: str, dtype=torch.bfloat16):
+    """A tower at full width from a seed, in ``dtype`` on the card: (module,
+    config, params)."""
     from gpt2_image_captioning_tpu_torch.core.precision import cast_floating
     from gpt2_image_captioning_tpu_torch.models import clip as CL
     from gpt2_image_captioning_tpu_torch.models import dino as DN
@@ -2598,29 +2653,31 @@ def tower_params(name: str):
     mod, cfg, init = {"clip": (CL, CL.CLIPVisionConfig.vit_b32(), CL.init_vision),
                       "vit": (VT, VT.ViTConfig.base_patch16_224(), VT.init),
                       "dino": (DN, DN.DINOv3Config.vitl16(), DN.init)}[name]
-    params = cast_floating(init(torch.Generator().manual_seed(0), cfg, device="cuda"),
-                           torch.bfloat16)
+    params = cast_floating(init(torch.Generator().manual_seed(0), cfg, device="cuda"), dtype)
     return mod, cfg, params
 
 
 def towers_path() -> tuple[list[dict], dict]:
-    """Each tower at full width, bf16, from synthetic uint8 pixels through its
-    uint8 entry point (the patch-embed kernel, then the tower with the flash
-    kernel): img/s over three batches, launches, features against
-    ``use_kernels=False``, and one traced encode's idle share."""
-    from gpt2_image_captioning_tpu_torch import BF16
+    """Each tower at full width, bf16 then float32, from synthetic uint8
+    pixels through its uint8 entry point (the patch-embed kernel, then the
+    tower with the flash kernel): img/s over three batches, launches,
+    features against ``use_kernels=False``, and one traced encode's idle
+    share."""
+    from gpt2_image_captioning_tpu_torch import BF16, F32
     from gpt2_image_captioning_tpu_torch.embeddings.preprocess import SPECS
 
     records, launches = [], {}
-    for name, b, _, _, _ in TOWERS:
-        mod, cfg, params = tower_params(name)
+    for (name, b, _, _, _), policy in [(t, BF16) for t in TOWERS] + [(t, F32) for t in TOWERS]:
+        f32 = policy is F32
+        tag = f"{name}_f32" if f32 else name
+        mod, cfg, params = tower_params(name, torch.float32 if f32 else torch.bfloat16)
         g = torch.Generator(device="cuda").manual_seed(3)
         px = torch.randint(0, 256, (b, 224, 224, 3), generator=g, device="cuda",
                            dtype=torch.int32).to(torch.uint8)
 
         def run(_=None, use=None):
             with torch.no_grad():
-                return mod.encode_image_u8(params, cfg, px, SPECS[name], policy=BF16,
+                return mod.encode_image_u8(params, cfg, px, SPECS[name], policy=policy,
                                            use_kernels=use)
 
         run()  # warm-up
@@ -2628,26 +2685,27 @@ def towers_path() -> tuple[list[dict], dict]:
         outs, seconds, counts = run_counted(run, range(3))
         want = {k: 0 for k in counts}
         want.update(patch_embed=3, flash_attention=3 * cfg.num_hidden_layers)
-        check(counts == want, f"{name} tower launches {counts} != {want}")
+        check(counts == want, f"{tag} tower launches {counts} != {want}")
         feats, plain = outs[0].float(), run(use=False).float()
         check(tuple(feats.shape) == (b, plain.shape[1]) and bool(feats.isfinite().all()),
-              f"{name}: bad features {tuple(feats.shape)}")
+              f"{tag}: bad features {tuple(feats.shape)}")
         diff = float((feats - plain).abs().max())
         cos = float((feats * plain).sum(-1).min())
         norm_err = float((feats.norm(dim=-1) - 1.0).abs().max())
         check(diff <= TOWER_TOL and cos >= TOWER_COS and norm_err <= 1e-3,
-              f"{name} features: max diff {diff} (<= {TOWER_TOL}), min cosine {cos} "
+              f"{tag} features: max diff {diff} (<= {TOWER_TOL}), min cosine {cos} "
               f"(>= {TOWER_COS}), norm error {norm_err}")
-        _, events, _ = traced(run, f"{name}_encode_trace.json")
+        _, events, _ = traced(run, f"{tag}_encode_trace.json")
         seq = {"clip": 50, "vit": 197, "dino": 201}[name]
         records.append({
-            "phase": f"tower_{name}", "config": type(cfg).__name__, "dtype": "bf16",
+            "phase": f"tower_{tag}", "config": type(cfg).__name__,
+            "dtype": "float32" if f32 else "bf16",
             "images": b, "batches": 3, "seconds": seconds, "img_per_s": 3 * b / seconds,
             "launches": counts, "flash_seq_len": seq, "features_vs_plain_max_abs": diff,
             "features_vs_plain_min_cos": cos, "tolerance": [TOWER_TOL, TOWER_COS],
-            "traced_encode": {**trace_summary(events), "trace": f"{name}_encode_trace.json.gz"},
+            "traced_encode": {**trace_summary(events), "trace": f"{tag}_encode_trace.json.gz"},
             "card": nvidia_smi()})
-        launches[f"tower_{name}"] = counts
+        launches[f"tower_{tag}"] = counts
         del params, px, outs
         torch.cuda.empty_cache()
     return records, launches
@@ -6545,6 +6603,7 @@ ONLY = {
     "prefill": ((torch.bfloat16, torch.float32), (check_prefill,)),
     "quant": ((torch.bfloat16, torch.float32), (check_rowquant, check_fold)),
     "flash": ((torch.bfloat16, torch.float32), (check_flash,)),
+    "patch": ((torch.bfloat16, torch.float32), (check_patch_embed,)),
 }
 
 
@@ -6590,6 +6649,8 @@ def main(argv: list[str]) -> int:
             emit(walk_registers())
         if argv[1] == "flash":
             emit(flash_registers())
+        if argv[1] == "patch":
+            emit(patch_registers())
         dtypes, fns = ONLY[argv[1]]
         for dtype in dtypes:
             for fn in fns:
@@ -6604,6 +6665,7 @@ def main(argv: list[str]) -> int:
     emit(check_vocab_ring())
     emit(walk_registers())
     emit(flash_registers())
+    emit(patch_registers())
     kernel_rows = {}
     checks = (check_attention, check_attention_origin, check_attention_start, check_linear,
               check_logits_argmax, check_logits, check_logits_topk, check_sampler, check_flash,
@@ -6772,8 +6834,9 @@ def main(argv: list[str]) -> int:
     # throughout), each counted on a float32 path at full width — the
     # façade's default greedy decode (mapper flash, layers, greedy
     # vocabulary, prefill), its sampled decode, the draw in the kernel and
-    # the float32 beams; bound_ms counts their float32 products at the
-    # split's 165 TFLOP/s
+    # the float32 beams — and the patch embedding (wgmma TF32), counted on
+    # the float32 CLIP tower's encodes; bound_ms counts their float32
+    # products at the split's 165 TFLOP/s
     for name, (src, replaces, home, per) in F32_ROWS.items():
         rows[f"{name}_f32"] = (src, replaces, home, per)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

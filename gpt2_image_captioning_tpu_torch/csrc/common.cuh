@@ -19,8 +19,10 @@
 // (float32 on wgmma TF32 too); the prefill's products (prefill.cu) run on
 // fused_linear.cu's route in bf16 and float32; flash attention
 // (flash_attention.cuh) loads its heads by TMA through 4-D maps and runs both
-// products on wgmma, P V from registers.  Only the float32 patch embedding
-// still multiplies on mma.sync (split_tf32, mma_tf32x3).
+// products on wgmma, P V from registers; the patch embedding (patch_embed.cu)
+// loads W by TMA and multiplies on wgmma, float32 on TF32.  Every product
+// of the port's kernels runs on wgmma, and every asynchronous copy into
+// shared memory is a TMA (bulk tensor) copy.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the CUDA driver at run time
@@ -66,30 +68,9 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Asynchronous 16- and 4-byte copies global -> shared (cp.async), zero-filled
-// where ``valid`` is false (src is then not read), and their groups.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // ---------------------------------------------------------------------------
-// float32 products on the tensor cores: the three-term TF32 split.
-// mma.sync m16n8k8 .tf32 fragments, lane = 4 g + t (g = lane / 4, t = lane % 4):
-//   A (16 x 8, row-major): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
-//   B (8 x 8, k x n):      b0 (k t, n g), b1 (k t + 4, n g)
-//   C (16 x 8):            c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// float32 products on the tensor cores: the three-term TF32 split, the
+// operands of wgmma .tf32 (A and B as float32 words whose low 13 bits are 0)
 // ---------------------------------------------------------------------------
 
 // x = hi + lo with hi = tf32(x) rounded to nearest (ties away) and lo =
@@ -111,24 +92,6 @@ __device__ __forceinline__ float tf32_rna_bits(float x) {
 __device__ __forceinline__ void tf32_split_bits(float x, float& hi, float& lo) {
   hi = tf32_rna_bits(x);
   lo = tf32_rna_bits(x - hi);
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a * b in about float32 precision: the two small cross terms first.
-__device__ __forceinline__ void mma_tf32x3(float (&c)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
 }
 
 // The int8 row scale, as the TPU kernel's float32 math has it: max(max|v| *
@@ -257,6 +220,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+// mbar_wait that turns a lost arrival into a fault rather than a hang: past
+// about ten seconds of polling (2^34 SM clocks) the block traps, and the
+// launch's stream reports an error.
+__device__ __forceinline__ void wait_or_trap(uint64_t* bar, int parity) {
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (!done && clock64() - start > (1ll << 34)) __trap();
+  }
 }
 
 // A TMA tile copy global -> shared that signals ``bar`` with its bytes;
@@ -599,6 +576,19 @@ struct WgmmaRS32 {
                  "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {" GIC_OPS16
                  "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
                  : GIC_ACC16("+f", d)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+// The TF32 register-A form at N 128: d (64 x 128) += A (64 x k8, the
+// warpgroup's fragments as WgmmaRS32's) x B (k8 x 128, K-major in shared
+// memory).  The patch embedding's float32 route runs on it with W^T as A.
+struct WgmmaRS128 {
+  static __device__ __forceinline__ void tf32(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+                 "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {" GIC_OPS64
+                 "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+                 : GIC_ACC64("+f", d)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
 };

@@ -181,21 +181,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// mbar_wait that turns a lost arrival into a fault rather than a hang: past
-// about ten seconds of polling (2^34 SM clocks) the block traps, and the
-// launch's stream reports an error.
-__device__ __forceinline__ void wait_or_trap(uint64_t* bar, int parity) {
-  const long long start = clock64();
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    if (!done && clock64() - start > (1ll << 34)) __trap();
-  }
-}
-
 // Two neighbouring output elements (an even column), one 4- or 8-byte store.
 __device__ __forceinline__ void store2(float* p, float y0, float y1) {
   *reinterpret_cast<float2*>(p) = make_float2(y0, y1);

@@ -89,6 +89,9 @@ _SIGNATURES = {
                     _P, _P, _I, _P, _P, _P, _P, _P],
     # dtype, pixels, w, mean, inv_std, bias, out, B, S, patch, D, stream
     "gic_patch_embed": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # dtype, aligned, out (10 int32): a patch-embed route's layout, static shared memory,
+    # registers and local bytes
+    "gic_patch_layout": [_I, _I, _P],
 }
 
 

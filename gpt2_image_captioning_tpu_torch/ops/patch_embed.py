@@ -16,18 +16,58 @@ to its kernel.
 
 Operands are in ``compute_dtype``: bf16 on the tensor cores (wgmma), as
 the towers round their patches to the compute dtype before the product;
-float32 on the tensor cores as a three-term TF32 split, within float32
-summation order of the float32 product.
+float32 on the tensor cores (wgmma TF32) as a three-term TF32 split, within
+float32 summation order of the float32 product: each accumulator chain of
+the split's products is at most :data:`PE_TF32_CHAIN` k8 steps long, then
+added into a float32 running tile.  :func:`patch_layout` mirrors each
+route's tile, ring and shared memory.
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
 from gpt2_image_captioning_tpu_torch.embeddings.preprocess import PreprocessSpec
 from gpt2_image_captioning_tpu_torch.ops import _build, nn
+
+
+# k8 steps of TF32 products (three wgmma instructions each) that the float32
+# route folds into one fresh accumulator before adding it into the float32
+# running tile; csrc/patch_embed.cu mirrors it (PE_TF32_CHAIN).  The tensor
+# core's float32 accumulation drifts one way on the card, so a chain over the
+# whole of CLIP's K 3,072 (384 steps) would take, in the CPU emulation
+# (tests/test_torch_patch_tf32.py), about two thirds of PATCH_TOL; 12 steps
+# (a pixel group's three channels) take a fiftieth.
+PE_TF32_CHAIN = 12
+
+
+class PatchLayout(NamedTuple):
+    rows: int        # output rows (patches) of a block: two consumer warpgroups of 64
+    cols: int        # output columns of a block: the wgmma N
+    k_stage: int     # K of a ring stage
+    stages: int      # ring stages
+    threads: int     # two consumer warpgroups and one producer (service) warpgroup
+    chain: int       # k8 steps of an accumulator chain (0: the whole of K)
+    smem_bytes: int  # dynamic shared memory
+
+
+@functools.cache
+def patch_layout(dtype: torch.dtype) -> PatchLayout:
+    """Mirror of ``csrc/patch_embed.cu``'s two routes (its
+    ``gic_patch_layout``).  bf16: 128 x 256 tiles, stages of 48 K (16 pixels
+    of 3 channels) in a ring of 4, each slot an A tile of 128-byte rows, W's
+    48 x 256 bf16 and the stage's mean / inv_std, padded to 1 KB.  float32:
+    128 patches x 128 columns, stages of 32 K (32 pixels of one channel) in
+    a ring of 4, each slot the pixels' TF32 pair (128 rows of 128 bytes each)
+    and W's four 32 x 32 boxes as landed.  384 threads in both."""
+    if dtype == torch.float32:
+        stage = 2 * 128 * 128 + 4 * 32 * 32 * 4
+        return PatchLayout(128, 128, 32, 4, 384, PE_TF32_CHAIN, 1024 + 4 * stage)
+    stage = -(-(128 * 128 + 48 * 256 * 2 + 2 * 48 * 4) // 1024) * 1024
+    return PatchLayout(128, 256, 48, 4, 384, 0, 1024 + 4 * stage)
 
 
 def extract_patches(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
